@@ -1,0 +1,77 @@
+"""Typed accessors for the ``TPUDL_*`` environment knobs the port reads.
+
+The port's counterpart of tpudl.analysis.registry, cut to the accessors
+(``env_str`` / ``env_int`` / ``env_flag``) and the knobs this package
+reads. Knob names are the JAX package's, so one environment configures
+either package. Semantics match it: an UNSET or EMPTY-STRING variable
+reads as the default, malformed numerics raise ``ValueError`` naming the
+variable, flags accept ``1/true/yes/on`` (case-insensitive), and reading
+a name that is not declared below raises ``UnknownKnobError``.
+
+Stdlib-only: tpudl_torch.obs imports this module.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional
+
+_FLAG_TRUTHY = ("1", "true", "yes", "on")
+
+#: name -> one-line doc. The JAX package's table (tpudl.analysis.registry)
+#: documents each knob in full.
+KNOBS: Dict[str, str] = {
+    "TPUDL_OBS_DIR": "Span/counter JSONL output directory; set = recording on.",
+    "TPUDL_OBS_HIST_WINDOW": "Histogram rolling-window size.",
+    "TPUDL_PROCESS_ID": "Process index tag on span records.",
+    "TPUDL_SERVE_SLOTS": "Default slot count for ServeSession.from_model.",
+    "TPUDL_SERVE_QUEUE_DEPTH": "Admission queue capacity.",
+    # Read only to refuse them: the paged/radix caches, speculation
+    # and weight quantization are not ported yet (ROADMAP queue A).
+    "TPUDL_SERVE_PAGED": "Paged KV cache (not ported: refused when set).",
+    "TPUDL_SERVE_PREFIX_SHARE": "Radix prefix sharing (not ported).",
+    "TPUDL_SERVE_SPEC_K": "Speculative decoding window (not ported).",
+    "TPUDL_SERVE_WEIGHT_DTYPE": "Serving weight quantization (not ported).",
+}
+
+
+class UnknownKnobError(KeyError):
+    """A knob read that is not declared in ``KNOBS``."""
+
+
+def env_raw(name: str) -> Optional[str]:
+    """The raw string value, or None when unset OR empty."""
+    if name not in KNOBS:
+        raise UnknownKnobError(
+            f"{name!r} is not a declared knob — add it to "
+            f"tpudl_torch.analysis.registry.KNOBS"
+        )
+    raw = os.environ.get(name)
+    return raw if raw else None
+
+
+def env_str(name: str, default: Optional[str] = None) -> Optional[str]:
+    raw = env_raw(name)
+    return raw if raw is not None else default
+
+
+def env_int(
+    name: str,
+    default: Optional[int] = None,
+    min_value: Optional[int] = None,
+) -> Optional[int]:
+    raw = env_raw(name)
+    if raw is None:
+        return default
+    try:
+        value = int(raw)
+    except ValueError:
+        raise ValueError(f"{name} must be an integer, got {raw!r}") from None
+    if min_value is not None and value < min_value:
+        raise ValueError(f"{name} must be >= {min_value}, got {value}")
+    return value
+
+
+def env_flag(name: str) -> bool:
+    raw = env_raw(name)
+    return raw is not None and raw.strip().lower() in _FLAG_TRUTHY

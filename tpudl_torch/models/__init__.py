@@ -1,0 +1,12 @@
+"""Model families of the port: the Llama decoder's serving path."""
+
+from tpudl_torch.models.generate import generate  # noqa: F401
+from tpudl_torch.models.llama import (  # noqa: F401
+    LLAMA3_1B,
+    LLAMA3_8B,
+    LLAMA_TINY,
+    LlamaConfig,
+    LlamaForCausalLM,
+    init_params,
+    params_from_tpudl,
+)
