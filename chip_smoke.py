@@ -28,13 +28,44 @@ Phases, in order (any failure exits non-zero and prints no result):
              plain one only at a near-tie (teacher-forced logit margin
              under an f32 oracle within the bf16 error band), and its
              logits must be as close to the oracle's as the plain path's.
+   The 8B model is freed before the training phases.
+7. train kernels — the four training kernels (LayerNorm forward, the norm
+             backward, bias+GeLU forward and backward) against their plain
+             versions at the BERT-base step's shapes ([32768, 768] and
+             [32768, 3072]), bf16 and f32, and one unaligned shape, timed
+             like phase 3 (library call: F.layer_norm and
+             aten.native_layer_norm_backward where they compute the same
+             function; none computes bias+GeLU);
+8. tiny_train — one train step of a BERT_TINY-shaped model in f32, dropout
+             off, with the kernels on the card against the same step on
+             the CPU plain path (the path the CPU tests hold against
+             tpudl): loss, every gradient and the updated parameters;
+9. train   — BERT-base (random weights from a seeded generator), batch 256,
+             seq 128, dropout 0.1, fused_ops=True, the sst2_bert_base AdamW
+             stack at a constant learning rate, through build_model ->
+             create_train_state -> make_classification_train_step -> fit
+             over synthetic_token_batches: step time, samples/s, MFU, peak
+             memory, a profiled window (device busy share, top costs), and
+             exactly 25 LayerNorm forward, 25 norm backward, 12 bias+GeLU
+             forward and 12 backward launches per step (no RMSNorm or
+             SwiGLU), every loss finite;
+10. train_parity — from the same fresh weights, over 4 batches each with
+             its own dropout seed, one step's losses and gradients on the
+             kernel path, the plain bf16 path (fused_ops=False) and an f32
+             oracle: the kernel path's relative L2 error of the
+             per-example losses, of the whole gradient and of every
+             gradient tensor (but two that cannot be judged, see UNGATED)
+             may not exceed KERNEL_ERR_RATIO times the plain path's.
 
-The last three lines are the ``{"kernels": [...]}`` record, the card's
+The last three lines are the ``{"kernels": [...]}`` record (``launches``
+is each kernel's count over its main-path run, ``launches_per_step`` per
+decode or train step), the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 before printing any result.
 """
 
+import gc
 import json
 import os
 import statistics
@@ -67,6 +98,35 @@ ATOL_BANDS = 2 * KERNEL_ERR_RATIO
 PROMPT_LEN = 128
 NUM_SLOTS = 4
 MAX_SEQ_LEN = 512
+
+#: The BERT-base fine-tune step of bench.py:_bench_bert.
+BERT_BATCH = 256
+BERT_SEQ = 128
+TRAIN_WARMUP_STEPS = 3
+TRAIN_STEPS = 20
+PROFILE_STEPS = 3
+PARITY_BATCHES = 4
+
+
+def launches_per_step(num_layers):
+    """Kernel launches per BERT train step: the embeddings' LayerNorm and
+    two per layer, forward and backward; one bias+GeLU per layer each
+    way."""
+    return {"layer_norm_fwd": 1 + 2 * num_layers,
+            "norm_bwd": 1 + 2 * num_layers,
+            "bias_gelu_fwd": num_layers, "bias_gelu_bwd": num_layers}
+
+
+#: BERT-base: 25, 25, 12, 12.
+TRAIN_LAUNCHES = launches_per_step(12)
+#: Kernel vs plain tolerance for the bias+GeLU forward (rtol, atol): bf16
+#: is tpudl's band (tests/test_fused_mlp.py:98-108; the kernel adds the
+#: bias in f32, the plain version in bf16).
+BG_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (0.05, 0.02)}
+#: The backward kernels' dx (rtol = atol): f32 1e-4
+#: (tests/test_fused_norms.py:35-139), bf16 one bf16 step. Their f32 sums
+#: over rows (dscale, dbias, db) are held by sum_errors.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 0.05}
 
 
 def fail(msg: str) -> None:
@@ -132,11 +192,11 @@ def eager_ms(fn, calls: int = 200, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def library_ms(fn):
+def library_ms(fn, **kw):
     """``graph_ms`` of one PyTorch call, or None where that call does not
     take these inputs (printed, not fatal: it is a yardstick only)."""
     try:
-        return graph_ms(fn)
+        return graph_ms(fn, **kw)
     except (RuntimeError, TypeError) as e:
         print(f"library call not timed: {type(e).__name__}: {e}")
         return None
@@ -148,13 +208,15 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def errors(out, ref, tol):
-    """(max abs error, max relative error, within tolerance)."""
+def errors(out, ref, tol, atol=None):
+    """(max abs error, max relative error, within tolerance): |out - ref|
+    <= atol + tol * |ref|, atol defaulting to tol."""
     import torch
 
+    atol = tol if atol is None else atol
     d = (out.float() - ref.float()).abs()
     r = ref.float().abs()
-    ok = bool(torch.all(d <= tol + tol * r))
+    ok = bool(torch.all(d <= atol + tol * r))
     rel = float((d / r.clamp_min(1e-30)).max())
     return float(d.max()), rel, ok
 
@@ -220,24 +282,33 @@ def kernel_phase(torch, F):
                 "library_ms": None,
                 "bound": bound(3 * elems * e, 6 * elems),
             })
+    report_cases(cases)
+    return cases
+
+
+def report_cases(cases):
+    """Print one line per kernel case; fail if any is outside tolerance."""
     bad = []
     for name, rows in cases.items():
         for c in rows:
+            eager = (f"eager: kernel {c['eager_ms']:.5f} plain "
+                     f"{c['plain_eager_ms']:.5f} " if "eager_ms" in c else "")
+            lib = c["library_ms"]
             print(
                 f"kernel {name} {c['variant']} {c['shape']} {c['dtype']}: "
                 f"max_abs_err={c['max_abs_err']:.3e} "
                 f"max_rel_err={c['max_rel_err']:.3e} tol={c['tol']} "
                 f"{'ok' if c['ok'] else 'OUTSIDE TOLERANCE'} "
                 f"kernel_ms={c['ms']:.5f} plain_ms={c['plain_ms']:.5f} "
-                f"eager: kernel {c['eager_ms']:.5f} plain {c['plain_eager_ms']:.5f} "
-                f"library_ms={c['library_ms'] if c['library_ms'] is None else round(c['library_ms'], 5)} "
+                f"{eager}"
+                f"library_ms={lib if lib is None else round(lib, 5)}"
+                f"{' (' + c['library'] + ')' if c.get('library') else ''} "
                 f"bound_us={c['bound'][0] * 1e3:.3f} ({c['bound'][1]})"
             )
             if not c["ok"]:
                 bad.append(f"{name} {c['variant']} {c['shape']} {c['dtype']}")
     if bad:
         fail(f"kernel outside tolerance: {bad}")
-    return cases
 
 
 def requests_for(Request, vocab):
@@ -411,8 +482,7 @@ def profile_decode(torch, model, params, Request):
     window of decode steps (4 slots busy): the window's wall time is
     taken without the profiler (which slows the host), the device time
     from a second, profiled window of as many steps. Returns the busy
-    share. Diagnostic: a profiler failure prints 'not measured', returns
-    None and does not fail the run."""
+    share, or None where the profiler saw no device time."""
     from tpudl_torch.serve import ServeSession
 
     session = ServeSession.from_model(model, params, prompt_len=PROMPT_LEN,
@@ -430,34 +500,78 @@ def profile_decode(torch, model, params, Request):
         eng.step()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
+
+    def run():
+        for _ in range(steps):
+            eng.step()
+
+    busy = profile_steps(torch, run, steps, "decode", wall_us)
+    session.collect()
+    return busy
+
+
+#: Device kernel kinds, by a substring of the kernel's name (first match).
+KERNEL_KINDS = (
+    ("this repo's kernels", ("norm_fwd_kernel", "norm_bwd_kernel",
+                             "column_sum_kernel", "bias_gelu_", "swiglu_")),
+    ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "cutlass", "splitKreduce")),
+    ("softmax", ("softmax",)),
+    ("random bits", ("distribution", "philox")),
+    ("reductions", ("reduce_kernel", "Reduce")),
+    ("casts and copies", ("copy_kernel", "direct_copy")),
+    ("other elementwise", ("elementwise", "Functor", "where")),
+)
+
+
+def device_kind(name):
+    for kind, keys in KERNEL_KINDS:
+        if any(key in name for key in keys):
+            return kind
+    return "other"
+
+
+def profile_steps(torch, run, steps, what, wall_us):
+    """Profile ``run()`` (``steps`` steps of ``what``) with torch.profiler
+    and print the device busy time per step against ``wall_us``, the
+    same window's wall time taken without the profiler, and the top
+    device kernels and host ops. Returns the busy share. Diagnostic: a
+    profiler failure prints 'not measured', returns None and does not
+    fail the run."""
     try:
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(steps):
-                eng.step()
+            run()
             torch.cuda.synchronize()
             prof_wall_us = (time.perf_counter() - t0) * 1e6
+        averages = prof.key_averages()
         kernels = [
-            k for k in prof.key_averages()
+            k for k in averages
             if getattr(k, "device_type", None) == torch.autograd.DeviceType.CUDA
         ]
         busy_us = sum(k.self_device_time_total for k in kernels)
         if busy_us <= 0:
             raise RuntimeError("no device time in the trace")
-        print(f"profile: {steps} decode steps, wall {wall_us / steps:.1f} "
+        print(f"profile: {steps} {what} steps, wall {wall_us / steps:.1f} "
               f"us/step ({prof_wall_us / steps:.1f} under the profiler), "
               f"device busy {busy_us / steps:.1f} us/step "
               f"({100 * busy_us / wall_us:.1f}% of the unprofiled step, "
               f"idle {100 * (1 - busy_us / wall_us):.1f}%), "
               f"{sum(k.count for k in kernels) / steps:.0f} kernels/step")
-        for k in sorted(kernels, key=lambda k: -k.self_device_time_total)[:10]:
+        by_kind = {}
+        for k in kernels:
+            kind = device_kind(k.key)
+            by_kind[kind] = by_kind.get(kind, 0.0) + k.self_device_time_total
+        print("profile: device us/step by kind: " + ", ".join(
+            f"{kind} {t / steps:.1f} ({100 * t / busy_us:.1f}%)"
+            for kind, t in sorted(by_kind.items(), key=lambda kv: -kv[1])))
+        for k in sorted(kernels, key=lambda k: -k.self_device_time_total)[:12]:
             print(f"profile:   device {k.self_device_time_total / steps:9.1f} "
                   f"us/step {k.count / steps:6.1f}x  {k.key[:90]}")
         host = [
-            k for k in prof.key_averages()
+            k for k in averages
             if getattr(k, "device_type", None) == torch.autograd.DeviceType.CPU
         ]
         for k in sorted(host, key=lambda k: -k.self_cpu_time_total)[:12]:
@@ -465,9 +579,8 @@ def profile_decode(torch, model, params, Request):
                   f"us/step {k.count / steps:6.1f}x  {k.key[:90]}")
     except Exception as e:  # diagnostic only
         print(f"profile: not measured ({type(e).__name__}: {e})")
-        busy_us = None
-    session.collect()
-    return None if busy_us is None else busy_us / wall_us
+        return None
+    return busy_us / wall_us
 
 
 def all_logits(torch, model, params, ids):
@@ -562,6 +675,479 @@ def parity_phase(torch, model, params, requests, fused_results):
     torch.cuda.empty_cache()
 
 
+def merged(*errs):
+    """Combine ``errors`` results of several outputs of one call."""
+    return (max(e[0] for e in errs), max(e[1] for e in errs),
+            all(e[2] for e in errs))
+
+
+def sum_errors(out, ref, tol=1e-4):
+    """``errors`` of an f32 sum over rows (dscale, dbias, db): tol relative
+    to each element and to the largest one (the kernel and the plain
+    version add the same f32 terms in another order)."""
+    return errors(out, ref, tol, tol * float(ref.abs().max()))
+
+
+def train_kernel_phase(torch, F):
+    """The training kernels against their plain versions at the BERT-base
+    step's shapes (N = 256 x 128 rows; hidden 768, MLP 3072), bf16 and f32,
+    plus one unaligned shape (the scalar path), and the norm backward's
+    RMS kind at a Llama training shape. Times as phase 3 (CUDA-graph
+    replay), fewer calls per graph at these sizes."""
+    from tpudl_torch.ops.mlp_fused import (
+        bias_gelu,
+        bias_gelu_bwd,
+        bias_gelu_bwd_ref,
+        bias_gelu_ref,
+    )
+    from tpudl_torch.ops.norms import (
+        _norm_fwd_cuda,
+        layer_norm_ref,
+        norm_bwd,
+        norm_bwd_ref,
+        norm_stats_ref,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(4321)
+    n, eps = BERT_BATCH * BERT_SEQ, 1e-12
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {k: [] for k in TRAIN_LAUNCHES}
+
+    def rand(shape, dtype, scale=1.0, shift=0.0):
+        t = torch.randn(shape, generator=g, device="cuda")
+        return (scale * t + shift).to(dtype)
+
+    def timed(row, kernel, plain, library=None, library_name=None):
+        row["ms"] = graph_ms(kernel, calls=20, reps=5)
+        row["plain_ms"] = graph_ms(plain, calls=20, reps=5)
+        row["library_ms"] = (None if library is None
+                             else library_ms(library, calls=20, reps=5))
+        row["library"] = library_name or "none computes this function"
+        return row
+
+    def row(shape, dtype, variant, err, tol, nbytes, ops):
+        return {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                "variant": variant, "max_abs_err": err[0],
+                "max_rel_err": err[1], "tol": tol, "ok": err[2],
+                "bound": bound(nbytes, ops)}
+
+    # LayerNorm forward, with the statistics autograd saves.
+    for shape, dtype, residual, variant in (
+        ((n, 768), bf16, True, "residual, stats (the encoder's 24 calls)"),
+        ((n, 768), f32, False, "plain, stats (the embeddings' call)"),
+        ((n, 768), bf16, False, "plain, stats"),
+        ((4099, 766), bf16, True, "residual, stats, unaligned"),
+    ):
+        h, e = shape[1], torch.finfo(dtype).bits // 8
+        tol = KERNEL_TOL[str(dtype).split(".")[-1]]
+        x = rand(shape, dtype, 2.0, 0.5)
+        r = rand(shape, dtype) if residual else None
+        scale = rand((h,), f32, 0.1, 1.0)
+        bias = rand((h,), f32, 0.1)
+        y, _, mean, rstd = _norm_fwd_cuda("layer", x, scale, bias, r, eps,
+                                          False, stats=True)
+        want = layer_norm_ref(x, scale, bias, r, eps=eps)
+        mref, rref = norm_stats_ref(x, r, kind="layer", eps=eps)
+        err = merged(errors(y, want[0] if residual else want, tol),
+                     errors(mean, mref, 1e-5), errors(rstd, rref, 1e-5))
+        c = row(shape, dtype, variant, err, tol,
+                shape[0] * h * e * (3 if residual else 2) + 2 * h * 4
+                + shape[0] * 8,
+                shape[0] * h * (9 if residual else 8))
+        # F.layer_norm takes no f32 weight with a bf16 input: its weights
+        # are cast to the input's dtype outside the timed call.
+        ls, lb = scale.to(dtype), bias.to(dtype)
+        cases["layer_norm_fwd"].append(timed(
+            c,
+            lambda: _norm_fwd_cuda("layer", x, scale, bias, r, eps, False,
+                                   stats=True),
+            lambda: layer_norm_ref(x, scale, bias, r, eps=eps),
+            None if residual else (
+                lambda: F.layer_norm(x, (h,), ls, lb, eps)),
+            None if residual else f"F.layer_norm, {c['dtype']} weights",
+        ))
+
+    # The norm backward (dx, dscale, dbias).
+    for kind, shape, dtype, residual, with_gs, variant in (
+        ("layer", (n, 768), bf16, True, False,
+         "LayerNorm, residual (the encoder's 24 calls)"),
+        ("layer", (n, 768), f32, False, False,
+         "LayerNorm, plain (the embeddings' call)"),
+        ("layer", (n, 768), bf16, False, False, "LayerNorm, plain"),
+        ("rms", (2048, 4096), bf16, True, True,
+         "RMSNorm, residual and sum gradient (a Llama training shape)"),
+        ("layer", (4099, 766), bf16, True, False,
+         "LayerNorm, residual, unaligned"),
+    ):
+        h, e = shape[1], torch.finfo(dtype).bits // 8
+        tol = BWD_TOL[str(dtype).split(".")[-1]]
+        x = rand(shape, dtype, 2.0, 0.5)
+        r = rand(shape, dtype) if residual else None
+        scale = rand((h,), f32, 0.1, 1.0)
+        bias = rand((h,), f32, 0.1)
+        gy = rand(shape, dtype)
+        gs = rand(shape, dtype) if with_gs else None
+        mean, rstd = norm_stats_ref(x, r, kind=kind, eps=eps)
+        dx, dscale, dbias = norm_bwd(x, scale, r, mean, rstd, gy, gs,
+                                     kind=kind, impl="fused")
+        want = norm_bwd_ref(x, scale, r, mean, rstd, gy, gs, kind=kind)
+        errs = [errors(dx, want[0], tol), sum_errors(dscale, want[1])]
+        if kind == "layer":
+            errs.append(sum_errors(dbias, want[2]))
+        streams = 3 + int(residual) + int(with_gs)
+        stats = 2 if kind == "layer" else 1
+        c = row(shape, dtype, variant, merged(*errs), tol,
+                shape[0] * h * e * streams + h * 4 * (1 + stats)
+                + shape[0] * 4 * stats,
+                shape[0] * h * 14)
+        library = None
+        if kind == "layer" and not residual:
+            m2, r2 = mean.view(-1, 1), rstd.view(-1, 1)
+            ls, lb = scale.to(dtype), bias.to(dtype)
+            library = (lambda: torch.ops.aten.native_layer_norm_backward(
+                gy, x, [h], m2, r2, ls, lb, [True, True, True]))
+        cases["norm_bwd"].append(timed(
+            c,
+            lambda: norm_bwd(x, scale, r, mean, rstd, gy, gs, kind=kind,
+                             impl="fused"),
+            lambda: norm_bwd_ref(x, scale, r, mean, rstd, gy, gs, kind=kind),
+            library,
+            f"aten.native_layer_norm_backward, {c['dtype']} weights"
+            if library else None,
+        ))
+
+    # bias + GeLU, forward and backward.
+    for shape, dtype, variant in (
+        ((n, 3072), bf16, "the encoder's 12 calls"),
+        ((n, 3072), f32, "f32"),
+        ((4099, 3071), bf16, "unaligned"),
+    ):
+        f, e = shape[1], torch.finfo(dtype).bits // 8
+        dname = str(dtype).split(".")[-1]
+        x = rand(shape, dtype, 2.0)
+        b = rand((f,), f32, 0.5)
+        gy = rand(shape, dtype)
+        rtol, atol = BG_TOL[dname]
+        err = errors(bias_gelu(x, b, impl="fused"), bias_gelu_ref(x, b), rtol,
+                     atol)
+        c = row(shape, dtype, variant, err, [rtol, atol],
+                2 * shape[0] * f * e + f * 4, shape[0] * f * 25)
+        cases["bias_gelu_fwd"].append(timed(
+            c, lambda: bias_gelu(x, b, impl="fused"),
+            lambda: bias_gelu_ref(x, b)))
+        dx, db = bias_gelu_bwd(x, b, gy, impl="fused")
+        rdx, rdb = bias_gelu_bwd_ref(x, b, gy)
+        tol = BWD_TOL[dname]
+        c = row(shape, dtype, variant,
+                merged(errors(dx, rdx, tol), sum_errors(db, rdb)), tol,
+                3 * shape[0] * f * e + 2 * f * 4, shape[0] * f * 40)
+        cases["bias_gelu_bwd"].append(timed(
+            c, lambda: bias_gelu_bwd(x, b, gy, impl="fused"),
+            lambda: bias_gelu_bwd_ref(x, b, gy)))
+    torch.cuda.empty_cache()
+    report_cases(cases)
+    return cases
+
+
+def sst2_optimizer():
+    """The sst2_bert_base optimizer stack at a constant learning rate, as
+    bench.py:_bench_bert runs it (steady-state steps are alike)."""
+    import dataclasses
+
+    from tpudl_torch.config import get_config
+    from tpudl_torch.train import make_optimizer
+
+    return make_optimizer(dataclasses.replace(
+        get_config("sst2_bert_base").optim, schedule="constant",
+        warmup_steps=0))
+
+
+def train_counts():
+    from tpudl_torch.ops.mlp_fused import bias_gelu, bias_gelu_bwd, swiglu
+    from tpudl_torch.ops.norms import layer_norm, norm_bwd, rms_norm
+
+    return {"layer_norm_fwd": layer_norm.launches,
+            "norm_bwd": norm_bwd.launches,
+            "bias_gelu_fwd": bias_gelu.launches,
+            "bias_gelu_bwd": bias_gelu_bwd.launches,
+            "rms_norm_fwd": rms_norm.launches,
+            "swiglu_fwd": swiglu.launches}
+
+
+def reset_counts():
+    from tpudl_torch.ops.mlp_fused import bias_gelu, bias_gelu_bwd, swiglu
+    from tpudl_torch.ops.norms import layer_norm, norm_bwd, rms_norm
+
+    for fn in (layer_norm, norm_bwd, bias_gelu, bias_gelu_bwd, rms_norm,
+               swiglu):
+        fn.launches = 0
+
+
+def tiny_train_phase(torch):
+    """One train step of a BERT_TINY-shaped model (hidden 128, 2 layers) in
+    f32 with dropout off: the kernels on the card against the CPU plain
+    path, same weights and batch (two rows padded). tpudl's bands
+    (tests/test_fused_ops_integration.py:75-91): loss rtol 1e-4 / atol
+    1e-5, every gradient 1e-4, the parameters after the update rtol
+    2e-3 / atol 2e-5."""
+    from tpudl_torch.data.synthetic import synthetic_token_batches
+    from tpudl_torch.models.bert import BERT_TINY, BertForSequenceClassification
+    from tpudl_torch.rng import fold_in
+    from tpudl_torch.train import create_train_state, make_classification_train_step
+
+    cfg = BERT_TINY(dtype=torch.float32, hidden_dropout=0.0,
+                    attention_dropout=0.0, fused_ops=True)
+    ref = BertForSequenceClassification(cfg, device="cpu")
+    ref.init_weights(torch.Generator().manual_seed(0))
+    params = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+    batch = next(synthetic_token_batches(8, 32, cfg.vocab_size, seed=5))
+    batch["attention_mask"][1, 20:] = 0
+    batch["attention_mask"][5, 9:] = 0
+    step = make_classification_train_step(
+        input_keys=("input_ids", "attention_mask"), label_key="label")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = create_train_state(
+            0, BertForSequenceClassification(cfg, device="meta"),
+            sst2_optimizer(),
+            params={k: v.to(dev) for k, v in params.items()}, device=dev)
+        before = train_counts()
+        grads, metrics = step.grads_and_metrics(state, batch, fold_in(1, 0, dev))
+        state, _ = step(state, batch, 1)
+        after = train_counts()
+        launched = {k: after[k] - before[k] for k in TRAIN_LAUNCHES}
+        # Two forward and backward passes: grads_and_metrics, then the step.
+        want = {k: 2 * v if dev == "cuda" else 0
+                for k, v in launches_per_step(cfg.num_layers).items()}
+        if launched != want:
+            fail(f"tiny_train: kernel launches {launched} on {dev}, "
+                 f"expected {want}")
+        out[dev] = (float(metrics["loss"]),
+                    {k: g.cpu() for k, g in grads.items()},
+                    {k: v.detach().cpu() for k, v in state.model.state_dict().items()})
+    (lg, gg, pg), (lc, gc, pc) = out["cuda"], out["cpu"]
+    if not abs(lg - lc) <= 1e-5 + 1e-4 * abs(lc):
+        fail(f"tiny_train: loss {lg} on the card vs {lc} on the CPU")
+    worst_g = max(float((gg[k] - gc[k]).abs().max()) for k in gc)
+    bad = [k for k in gc if not torch.allclose(gg[k], gc[k], rtol=1e-4,
+                                                atol=1e-4)]
+    bad += [k for k in pc if not torch.allclose(pg[k], pc[k], rtol=2e-3,
+                                                 atol=2e-5)]
+    if bad:
+        fail(f"tiny_train: card vs CPU disagree in {bad[:5]}")
+    worst_p = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+    print(f"tiny_train: f32 BERT_TINY train step, kernels on the card vs plain "
+          f"on the CPU: loss {lg:.6f} vs {lc:.6f}, max |grad diff| "
+          f"{worst_g:.3e} (tol 1e-4), max |param diff| after the update "
+          f"{worst_p:.3e} (rtol 2e-3, atol 2e-5)")
+
+
+def train_phase(torch, card):
+    """BERT-base through the user's entry points: W warm-up steps, then T
+    timed steps (counts reset just before), then a profiled window."""
+    from tpudl_torch.data.synthetic import synthetic_token_batches
+    from tpudl_torch.models.registry import build_model
+    from tpudl_torch.rng import fold_in
+    from tpudl_torch.train import create_train_state, fit, make_classification_train_step
+    from tpudl_torch.train.metrics import (
+        Throughput,
+        device_peak_flops,
+        mfu,
+        transformer_train_flops,
+    )
+
+    t0 = time.perf_counter()
+    model = build_model("bert-base", 2, fused_ops=True)
+    state = create_train_state(0, model, sst2_optimizer())
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_classification_train_step(
+        input_keys=("input_ids", "attention_mask"), label_key="label")
+    steps = TRAIN_WARMUP_STEPS + TRAIN_STEPS + PROFILE_STEPS
+    batches = list(synthetic_token_batches(BERT_BATCH, BERT_SEQ,
+                                           model.cfg.vocab_size,
+                                           num_batches=steps))
+    losses = []
+    w = TRAIN_WARMUP_STEPS
+    # The window opens once the last warm-up step has finished on the card.
+    meter = Throughput(BERT_BATCH, warmup=w)
+
+    def recorded(state, batch, rng):
+        state, metrics = step(state, batch, rng)
+        losses.append(metrics["loss"])
+        meter.step(metrics["loss"])
+        return state, metrics
+
+    torch.cuda.synchronize()
+    print(f"train: BERT-base, {n_params / 1e6:.2f} M parameters, batch "
+          f"{BERT_BATCH} x seq {BERT_SEQ}, set-up {time.perf_counter() - t0:.1f} s")
+    state, _, _ = fit(recorded, state, batches[:w], 1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state, last, _ = fit(recorded, state, batches[w:w + TRAIN_STEPS], 1)
+    timed = meter.result(losses[-1])
+    launches = train_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: v * TRAIN_STEPS for k, v in TRAIN_LAUNCHES.items()}
+    want.update(rms_norm_fwd=0, swiglu_fwd=0)
+    print(f"train: {TRAIN_STEPS} steps, launches {launches}")
+    if launches != want:
+        fail(f"train: kernel launches {launches} != expected {want} "
+             f"({TRAIN_LAUNCHES} per step, no RMSNorm or SwiGLU)")
+    loss_t = torch.stack(losses)
+    if not bool(torch.isfinite(loss_t).all()):
+        fail(f"train: non-finite loss in {loss_t.tolist()}")
+    if timed["steps_measured"] != TRAIN_STEPS:
+        fail(f"train: the meter timed {timed['steps_measured']} steps, not "
+             f"{TRAIN_STEPS}")
+    step_s = timed["step_ms"] / 1e3
+    flops = transformer_train_flops(n_params, BERT_BATCH * BERT_SEQ)
+    peak_flops = device_peak_flops()
+    util = mfu(flops, step_s, peak_per_chip=peak_flops)
+    print(f"train metrics ({card}): step {step_s * 1e3:.2f} ms, "
+          f"{BERT_BATCH / step_s:.1f} samples/s, MFU {100 * util:.2f}% "
+          f"(6ND = {flops:.3e} FLOP over {peak_flops / 1e12:.0f} TFLOP/s dense "
+          f"bf16), peak memory {peak:.2f} GiB, losses "
+          f"{loss_t[0].item():.4f} -> {last['loss']:.4f}")
+    rest = batches[w + TRAIN_STEPS:]
+    busy = profile_steps(
+        torch, lambda: fit(step, state, rest, 1), PROFILE_STEPS, "train",
+        step_s * 1e6 * PROFILE_STEPS)
+    # The same batches without the optimizer update: forward and backward.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b, batch in enumerate(rest):
+        step.grads_and_metrics(state, batch, fold_in(1, b, "cuda"))
+    torch.cuda.synchronize()
+    fwd_bwd_ms = (time.perf_counter() - t0) / len(rest) * 1e3
+    print(f"train: forward and backward alone {fwd_bwd_ms:.2f} ms per step; "
+          f"the optimizer update (clip, AdamW) and the rest "
+          f"{step_s * 1e3 - fwd_bwd_ms:.2f} ms")
+    return state, launches, {
+        "step_ms": step_s * 1e3, "samples_per_s": BERT_BATCH / step_s,
+        "mfu": util, "peak_memory_gib": peak, "device_busy_share": busy,
+        "forward_backward_ms": fwd_bwd_ms, "num_params": n_params,
+        "steps": TRAIN_STEPS,
+    }
+
+
+#: Gradients the parity gate cannot judge (see train_parity_phase).
+UNGATED = {
+    "attention.key.bias": "zero in exact arithmetic (softmax is invariant "
+                          "to a per-row shift), so the oracle's value is "
+                          "f32 roundoff",
+    "classifier.bias": "the batch mean of softmax - onehot: one free number "
+                       "per batch, held instead by the per-example losses",
+}
+
+
+def train_parity_phase(torch):
+    """The kernel path, the plain bf16 path (fused_ops=False) and an f32
+    oracle (plain, TF32 off), from the same fresh BERT-base weights, over
+    PARITY_BATCHES batches, each with its own dropout seed shared by the
+    three paths (the kernels draw no bits, so the masks are the same).
+    Per path the errors against the oracle accumulate over the batches:
+    relative L2 error of the per-example losses, of every gradient tensor
+    and of all gradients together. The kernel path's may not exceed
+    KERNEL_ERR_RATIO x the plain path's for the losses, the whole
+    gradient and each tensor but those UNGATED names (printed, not
+    judged). A batch-mean loss is one number per batch; its ratio is
+    printed too."""
+    import torch.nn.functional as F
+
+    from tpudl_torch.data.synthetic import synthetic_token_batches
+    from tpudl_torch.models.bert import BERT_BASE, BertForSequenceClassification
+    from tpudl_torch.rng import fold_in
+    from tpudl_torch.train import create_train_state, make_classification_train_step
+
+    init = BertForSequenceClassification(BERT_BASE(), device="cuda")
+    init.init_weights(torch.Generator(device="cuda").manual_seed(11))
+    params = {k: v.detach() for k, v in init.state_dict().items()}
+    keys = ("input_ids", "attention_mask")
+    step = make_classification_train_step(input_keys=keys, label_key="label")
+    states = {
+        name: create_train_state(
+            0, BertForSequenceClassification(
+                BERT_BASE(dtype=dtype, fused_ops=fused), device="meta"),
+            sst2_optimizer(), params=params)
+        for name, dtype, fused in (("kernel", torch.bfloat16, True),
+                                   ("plain", torch.bfloat16, False),
+                                   ("oracle", torch.float32, False))
+    }
+    del init, params
+    sq = {name: {} for name in ("kernel", "plain", "oracle")}
+
+    def acc(name, key, value):
+        sq[name][key] = sq[name].get(key, 0.0) + value
+
+    for b, batch in enumerate(synthetic_token_batches(
+            BERT_BATCH, BERT_SEQ, 30522, seed=9, num_batches=PARITY_BATCHES)):
+        out = {}
+        for name, st in states.items():
+            before = train_counts()
+            grads, metrics = step.grads_and_metrics(st, batch,
+                                                    fold_in(7, b, "cuda"))
+            with torch.no_grad():
+                t = {k: torch.as_tensor(batch[k], device="cuda") for k in batch}
+                logits = st.model(t["input_ids"], t["attention_mask"],
+                                  train=True, generator=fold_in(7, b, "cuda"))
+                losses = F.cross_entropy(logits.float(), t["label"].long(),
+                                         reduction="none")
+            launched = sum(train_counts()[k] - before[k] for k in TRAIN_LAUNCHES)
+            if (launched > 0) != (name == "kernel"):
+                fail(f"train_parity: the {name} path launched {launched} "
+                     f"kernels")
+            out[name] = (losses.double(), metrics["loss"].double(),
+                         {k: g.double() for k, g in grads.items()})
+        lo, mo, go = out["oracle"]
+        acc("oracle", "losses", float((lo * lo).sum()))
+        acc("oracle", "mean_loss", float(mo * mo))
+        for k, g in go.items():
+            acc("oracle", k, float((g * g).sum()))
+        for name in ("kernel", "plain"):
+            losses, mean, grads = out[name]
+            acc(name, "losses", float(((losses - lo) ** 2).sum()))
+            acc(name, "mean_loss", float((mean - mo) ** 2))
+            for k, g in grads.items():
+                acc(name, k, float(((g - go[k]) ** 2).sum()))
+        del out
+    tensors = [k for k in sq["oracle"] if k not in ("losses", "mean_loss")]
+    gated = [k for k in tensors if not any(k.endswith(u) for u in UNGATED)]
+    for name in ("kernel", "plain", "oracle"):
+        sq[name]["all gated gradients"] = sum(sq[name][k] for k in gated)
+    err = {name: {k: (sq[name][k] / sq["oracle"][k]) ** 0.5
+                  if sq["oracle"][k] > 0 else sq[name][k] ** 0.5
+                  for k in sq["oracle"]}
+           for name in ("kernel", "plain")}
+    ratio = {k: err["kernel"][k] / max(err["plain"][k], 1e-300)
+             for k in sq["oracle"]}
+    judged = ["losses", "all gated gradients"] + gated
+    worst = sorted(judged, key=lambda k: -ratio[k])[:5]
+    shown = ", ".join(f"{k} {ratio[k]:.3f} ({err['kernel'][k]:.3e} vs "
+                      f"{err['plain'][k]:.3e})" for k in worst)
+    free = ", ".join(f"{k} {ratio[k]:.3f}" for k in tensors if k not in gated)
+    print(f"train_parity: {PARITY_BATCHES} batches, rel L2 err vs the f32 "
+          f"oracle, kernel vs plain path: per-example losses "
+          f"{err['kernel']['losses']:.3e} vs {err['plain']['losses']:.3e}; "
+          f"batch-mean loss {err['kernel']['mean_loss']:.3e} vs "
+          f"{err['plain']['mean_loss']:.3e} (not judged); all gated "
+          f"gradients ({len(gated)} tensors) "
+          f"{err['kernel']['all gated gradients']:.4e} vs "
+          f"{err['plain']['all gated gradients']:.4e}; worst judged ratios: "
+          f"{shown}; ungated: {free}")
+    bad = [k for k in judged if ratio[k] > KERNEL_ERR_RATIO]
+    if bad:
+        fail(f"train_parity: the kernel path's error exceeds "
+             f"{KERNEL_ERR_RATIO} x the plain path's in {bad}")
+    del states
+    torch.cuda.empty_cache()
+    return {"batches": PARITY_BATCHES,
+            "losses_rel_err": {n: err[n]["losses"] for n in err},
+            "mean_loss_rel_err": {n: err[n]["mean_loss"] for n in err},
+            "gradients_rel_err": {n: err[n]["all gated gradients"]
+                                  for n in err},
+            "worst_ratio": [worst[0], ratio[worst[0]]]}
+
+
 def main() -> int:
     import torch
 
@@ -598,20 +1184,58 @@ def main() -> int:
     model, params, requests, results, launches, metrics = slice_phase(
         torch, card)
     parity_phase(torch, model, params, requests, results)
+    serve_steps = metrics["prefills"] + metrics["decode_steps"]
+    # Free the 8B model before the training phases.
+    del model, params, requests, results
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    sources = {"rms_norm_fwd": ("tpudl_torch/ops/csrc/norms.cu",
-                                "tpudl/ops/norms.py:199"),
-               "swiglu_fwd": ("tpudl_torch/ops/csrc/mlp_fused.cu",
-                              "tpudl/ops/mlp_fused.py:197")}
+    train_cases = train_kernel_phase(torch, F)
+    tiny_train_phase(torch)
+    state, train_launches, train_metrics = train_phase(torch, card)
+    del state
+    torch.cuda.empty_cache()
+    train_metrics["parity"] = train_parity_phase(torch)
+
+    norms_cu = "tpudl_torch/ops/csrc/norms.cu"
+    mlp_cu = "tpudl_torch/ops/csrc/mlp_fused.cu"
+    # name -> (source, replaces, main-path launches, per step, headline case)
+    table = {
+        # Serving: the decode shape in bf16 (the path's dtype), without a
+        # residual (the variant the library call computes).
+        "rms_norm_fwd": (norms_cu, "tpudl/ops/norms.py:199",
+                         launches["rms_norm_fwd"], 65, cases),
+        "swiglu_fwd": (mlp_cu, "tpudl/ops/mlp_fused.py:197",
+                       launches["swiglu_fwd"], 32, cases),
+        # Training: the first case, the BERT-base step's own call in bf16.
+        "layer_norm_fwd": (norms_cu, "tpudl/ops/norms.py:199",
+                           train_launches["layer_norm_fwd"],
+                           TRAIN_LAUNCHES["layer_norm_fwd"], train_cases),
+        "norm_bwd": (norms_cu, "tpudl/ops/norms.py:335",
+                     train_launches["norm_bwd"], TRAIN_LAUNCHES["norm_bwd"],
+                     train_cases),
+        "bias_gelu_fwd": (mlp_cu, "tpudl/ops/mlp_fused.py:94",
+                          train_launches["bias_gelu_fwd"],
+                          TRAIN_LAUNCHES["bias_gelu_fwd"], train_cases),
+        "bias_gelu_bwd": (mlp_cu, "tpudl/ops/mlp_fused.py:108",
+                          train_launches["bias_gelu_bwd"],
+                          TRAIN_LAUNCHES["bias_gelu_bwd"], train_cases),
+    }
     kernels = []
-    for name, rows in cases.items():
-        # The headline case: the decode shape in bf16 (the path's dtype),
-        # without a residual (the variant the library call computes).
-        head = next(c for c in rows if c["shape"][0] == NUM_SLOTS
-                    and c["dtype"] == "bfloat16" and c["variant"] == "plain")
+    for name, (source, replaces, count, per_step, where) in table.items():
+        rows = where[name]
+        if where is cases:
+            head = next(c for c in rows if c["shape"][0] == NUM_SLOTS
+                        and c["dtype"] == "bfloat16"
+                        and c["variant"] == "plain")
+            if count != per_step * serve_steps:
+                fail(f"{name}: {count} launches over {serve_steps} steps")
+        else:
+            head = rows[0]
         kernels.append({
-            "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": count,
+            "launches_per_step": per_step,
             "max_abs_err": max(c["max_abs_err"] for c in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound"][0], "bound_by": head["bound"][1],
@@ -621,7 +1245,8 @@ def main() -> int:
                       | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
                       for c in rows],
         })
-    print(json.dumps({"slice": metrics, "card": card}))
+    print(json.dumps({"slice": metrics, "train": train_metrics,
+                      "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

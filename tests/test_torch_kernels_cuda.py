@@ -13,8 +13,23 @@ import numpy as np
 import pytest
 import torch
 
-from tpudl_torch.ops.mlp_fused import swiglu, swiglu_ref
-from tpudl_torch.ops.norms import rms_norm, rms_norm_ref
+from tpudl_torch.ops.mlp_fused import (
+    bias_gelu,
+    bias_gelu_bwd,
+    bias_gelu_bwd_ref,
+    bias_gelu_ref,
+    swiglu,
+    swiglu_ref,
+)
+from tpudl_torch.ops.norms import (
+    layer_norm,
+    layer_norm_ref,
+    norm_bwd,
+    norm_bwd_ref,
+    norm_stats_ref,
+    rms_norm,
+    rms_norm_ref,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -150,3 +165,320 @@ def test_tiny_llama_kernel_path_matches_plain_path(dev, dtype, tol):
                 for m, c in zip(models, (ck, cp))]
         token, position = outs[1][0].argmax(-1), position + 1
     torch.testing.assert_close(outs[0][0], outs[1][0], rtol=tol, atol=tol)
+
+
+# bias+GeLU: the kernel adds the bias in f32 and rounds once, the plain
+# version adds it in bf16 (tpudl's band, tests/test_fused_mlp.py:98-108).
+BG_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (0.05, 0.02)}
+# Backward: f32 1e-4 (tests/test_fused_norms.py:35-139); dscale, dbias and
+# db are f32 sums of the same f32 terms in another order.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.05}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [96, 100, 768, 4104])
+@pytest.mark.parametrize("mode", ["plain", "residual", "residual_nosum"])
+def test_layer_norm_kernel_matches_plain(dev, dtype, h, mode):
+    rng = np.random.default_rng(h)
+    x = _t(rng, (3, 7, h), dtype, dev) * 2 + 0.5
+    r = _t(rng, (3, 7, h), dtype, dev) if mode != "plain" else None
+    scale = _t(rng, (h,), torch.float32, dev)
+    bias = _t(rng, (h,), torch.float32, dev)
+    before = layer_norm.launches
+    out = layer_norm(x, scale, bias, r, eps=1e-12,
+                     return_sum=mode != "residual_nosum", impl="fused")
+    torch.cuda.synchronize()
+    assert layer_norm.launches == before + 1
+    ref = layer_norm_ref(x, scale, bias, r, eps=1e-12)
+    if mode == "residual":
+        (y, s), (yr, sr) = out, ref
+        torch.testing.assert_close(s.float(), sr.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+    else:
+        y, yr = out, ref if mode == "plain" else ref[0]
+    assert y.dtype == dtype and y.shape == x.shape
+    torch.testing.assert_close(y.float(), yr.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("kind", ["layer", "rms"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_forward_saves_the_plain_statistics(dev, kind, dtype):
+    """Under autograd the forward kernel also writes mean and rstd; they
+    match the plain statistics of the f32 sum."""
+    from tpudl_torch.ops.norms import _norm_fwd_cuda
+
+    rng = np.random.default_rng(3)
+    x = _t(rng, (300, 768), dtype, dev)
+    r = _t(rng, (300, 768), dtype, dev)
+    scale = _t(rng, (768,), torch.float32, dev)
+    bias = _t(rng, (768,), torch.float32, dev) if kind == "layer" else None
+    _, _, mean, rstd = _norm_fwd_cuda(kind, x, scale, bias, r, 1e-6, False,
+                                      stats=True)
+    mean_ref, rstd_ref = norm_stats_ref(x, r, kind=kind, eps=1e-6)
+    torch.testing.assert_close(rstd, rstd_ref, rtol=1e-5, atol=1e-5)
+    if kind == "layer":
+        torch.testing.assert_close(mean, mean_ref, rtol=1e-5, atol=1e-5)
+    else:
+        assert mean is None
+
+
+def _bwd_case(dev, kind, dtype, n, h, residual, with_gs, seed=0):
+    rng = np.random.default_rng(seed)
+    x = _t(rng, (n, h), dtype, dev)
+    r = _t(rng, (n, h), dtype, dev) if residual else None
+    scale = _t(rng, (h,), torch.float32, dev)
+    g = _t(rng, (n, h), dtype, dev)
+    gs = _t(rng, (n, h), dtype, dev) if with_gs else None
+    mean, rstd = norm_stats_ref(x, r, kind=kind, eps=1e-6)
+    return x, r, scale, g, gs, mean, rstd
+
+
+@pytest.mark.parametrize("kind", ["layer", "rms"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h", [(37, 100), (2000, 768), (64, 4096)])
+@pytest.mark.parametrize("residual,with_gs", [(False, False), (True, False),
+                                              (True, True)])
+def test_norm_bwd_kernel_matches_plain(dev, kind, dtype, n, h, residual,
+                                       with_gs):
+    x, r, scale, g, gs, mean, rstd = _bwd_case(dev, kind, dtype, n, h,
+                                               residual, with_gs, seed=h)
+    before = norm_bwd.launches
+    dx, dscale, dbias = norm_bwd(x, scale, r, mean, rstd, g, gs, kind=kind,
+                                 impl="fused")
+    torch.cuda.synchronize()
+    assert norm_bwd.launches == before + 1
+    rdx, rdscale, rdbias = norm_bwd_ref(x, scale, r, mean, rstd, g, gs,
+                                        kind=kind)
+    assert dx.dtype == dtype and dx.shape == x.shape
+    tol = BWD_TOL[dtype]
+    torch.testing.assert_close(dx.float(), rdx.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(dscale, rdscale, rtol=1e-4, atol=1e-4)
+    if kind == "layer":
+        torch.testing.assert_close(dbias, rdbias, rtol=1e-4, atol=1e-4)
+    else:
+        assert dbias is None
+
+
+def test_norm_bwd_kernel_unaligned_and_strided_gradient(dev):
+    """Rows off a 16-byte boundary take the scalar path; a transposed
+    (non-contiguous) gradient is copied to rows first."""
+    rng = np.random.default_rng(5)
+    base = _t(rng, (50, 130), torch.float32, dev)
+    x = base[:, 1:129]
+    scale = _t(rng, (128,), torch.float32, dev)
+    g = _t(rng, (128, 50), torch.float32, dev).t()
+    mean, rstd = norm_stats_ref(x, kind="layer", eps=1e-6)
+    got = norm_bwd(x, scale, None, mean, rstd, g, kind="layer", impl="fused")
+    want = norm_bwd_ref(x, scale, None, mean, rstd, g, kind="layer")
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["layer", "rms"])
+def test_norm_bwd_kernel_is_bitwise_repeatable(dev, kind):
+    x, r, scale, g, gs, mean, rstd = _bwd_case(dev, kind, torch.bfloat16,
+                                               8192, 768, True, False)
+    a = norm_bwd(x, scale, r, mean, rstd, g, kind=kind, impl="fused")
+    b = norm_bwd(x, scale, r, mean, rstd, g, kind=kind, impl="fused")
+    for u, v in zip(a, b):
+        if u is not None:
+            assert torch.equal(u, v)
+
+
+def test_norm_kernels_refuse_what_they_cannot_take(dev):
+    s = torch.ones(64, device=dev)
+    x = torch.zeros(4, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        layer_norm(x, s, s)
+    with pytest.raises(ValueError, match="bias is on cpu"):
+        layer_norm(torch.zeros(4, 64, device=dev), s, torch.ones(64))
+    with pytest.raises(ValueError, match="residual shape"):
+        layer_norm(torch.zeros(4, 64, device=dev), s, s,
+                   torch.zeros(2, 64, device=dev))
+    x = torch.zeros(4, 64, device=dev)
+    mean, rstd = norm_stats_ref(x, kind="layer", eps=1e-6)
+    with pytest.raises(ValueError, match="g shape"):
+        norm_bwd(x, s, None, mean, rstd, torch.zeros(4, 32, device=dev),
+                 kind="layer")
+    with pytest.raises(ValueError, match="g has dtype"):
+        norm_bwd(x, s, None, mean, rstd,
+                 torch.zeros(4, 64, device=dev, dtype=torch.bfloat16),
+                 kind="layer")
+    with pytest.raises(ValueError, match="saved mean"):
+        norm_bwd(x, s, None, None, rstd, x, kind="layer")
+    with pytest.raises(ValueError, match="rstd must be"):
+        norm_bwd(x, s, None, mean, rstd[:2], x, kind="layer")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 3072), (3, 77), (1, 5), (2, 3, 512)])
+def test_bias_gelu_kernels_match_plain(dev, dtype, shape):
+    rng = np.random.default_rng(shape[-1])
+    x = _t(rng, shape, dtype, dev) * 2
+    b = _t(rng, shape[-1:], torch.float32, dev)
+    g = _t(rng, shape, dtype, dev)
+    before = (bias_gelu.launches, bias_gelu_bwd.launches)
+    y = bias_gelu(x, b, impl="fused")
+    dx, db = bias_gelu_bwd(x, b, g, impl="fused")
+    torch.cuda.synchronize()
+    assert (bias_gelu.launches, bias_gelu_bwd.launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    rtol, atol = BG_TOL[dtype]
+    assert y.dtype == dtype and y.shape == x.shape
+    torch.testing.assert_close(y.float(), bias_gelu_ref(x, b).float(),
+                               rtol=rtol, atol=atol)
+    rdx, rdb = bias_gelu_bwd_ref(x, b, g)
+    assert dx.dtype == dtype and db.dtype == torch.float32
+    tol = BWD_TOL[dtype]
+    torch.testing.assert_close(dx.float(), rdx.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(db, rdb, rtol=1e-4, atol=1e-4)
+
+
+def test_bias_gelu_kernels_unaligned_pointer_and_refusals(dev):
+    rng = np.random.default_rng(7)
+    flat = _t(rng, (1 + 40 * 64,), torch.float32, dev)
+    x = flat[1:].view(40, 64)  # contiguous, 4 bytes off a 16-byte boundary
+    b = _t(rng, (64,), torch.float32, dev)
+    g = _t(rng, (40, 64), torch.float32, dev)
+    torch.testing.assert_close(bias_gelu(x, b), bias_gelu_ref(x, b),
+                               rtol=1e-5, atol=1e-5)
+    for a, r in zip(bias_gelu_bwd(x, b, g), bias_gelu_bwd_ref(x, b, g)):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bias_gelu(x.half(), b)
+    with pytest.raises(ValueError, match="bias is on cpu"):
+        bias_gelu(x, b.cpu())
+    with pytest.raises(ValueError, match="bias shape"):
+        bias_gelu(x, b[:32])
+    with pytest.raises(ValueError, match="contiguous"):
+        bias_gelu(torch.zeros(64, 40, device=dev).t(), torch.zeros(64, device=dev))
+    with pytest.raises(ValueError, match="g shape"):
+        bias_gelu_bwd(x, b, g[:3])
+
+
+def test_bias_gelu_bwd_kernel_is_bitwise_repeatable(dev):
+    rng = np.random.default_rng(11)
+    x = _t(rng, (4096, 3072), torch.bfloat16, dev)
+    b = _t(rng, (3072,), torch.float32, dev)
+    g = _t(rng, (4096, 3072), torch.bfloat16, dev)
+    (dx1, db1), (dx2, db2) = (bias_gelu_bwd(x, b, g, impl="fused")
+                              for _ in range(2))
+    assert torch.equal(dx1, dx2) and torch.equal(db1, db2)
+
+
+def _leaf(t):
+    return t.detach().clone().requires_grad_(True)
+
+
+@pytest.mark.parametrize("form", ["layer", "layer_residual", "layer_sum",
+                                  "rms", "rms_residual", "rms_sum"])
+def test_norm_autograd_matches_autograd_through_plain(dev, form):
+    """In f32 the autograd Function (forward kernel with statistics,
+    backward kernel) gives the gradients autograd finds through the
+    plain version."""
+    rng = np.random.default_rng(13)
+    kind = form.split("_")[0]
+    use_res = form != kind
+    sums = form.endswith("_sum")
+    x0 = _t(rng, (6, 9, 256), torch.float32, dev)
+    r0 = _t(rng, (6, 9, 256), torch.float32, dev)
+    s0 = _t(rng, (256,), torch.float32, dev)
+    b0 = _t(rng, (256,), torch.float32, dev)
+    gy = _t(rng, (6, 9, 256), torch.float32, dev)
+    gsum = _t(rng, (6, 9, 256), torch.float32, dev)
+    grads = []
+    for impl in ("fused", "reference"):
+        x, r, s, b = (_leaf(t) for t in (x0, r0, s0, b0))
+        res = r if use_res else None
+        if kind == "layer":
+            out = layer_norm(x, s, b, res, eps=1e-6, return_sum=sums, impl=impl)
+        else:
+            out = rms_norm(x, s, res, eps=1e-6, return_sum=sums, impl=impl)
+        if sums:
+            loss = (out[0] * gy).sum() + (out[1] * gsum).sum()
+        else:
+            loss = (out * gy).sum()
+        loss.backward()
+        grads.append([t.grad for t in (x, r, s, b)])
+    for got, want in zip(*grads):
+        if want is None:
+            assert got is None
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_bias_gelu_autograd_matches_autograd_through_plain(dev):
+    rng = np.random.default_rng(17)
+    x0 = _t(rng, (5, 33, 384), torch.float32, dev) * 2
+    b0 = _t(rng, (384,), torch.float32, dev)
+    g = _t(rng, (5, 33, 384), torch.float32, dev)
+    grads = []
+    for impl in ("fused", "reference"):
+        x, b = _leaf(x0), _leaf(b0)
+        (bias_gelu(x, b, impl=impl) * g).sum().backward()
+        grads.append((x.grad, b.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_no_grad_forward_skips_the_statistics(dev):
+    """Serving runs without autograd: one forward launch, no Function."""
+    x = torch.randn(4, 4096, device=dev, dtype=torch.bfloat16)
+    s = torch.ones(4096, device=dev, requires_grad=True)
+    before = rms_norm.launches
+    with torch.no_grad():
+        y = rms_norm(x, s, x)
+    assert rms_norm.launches == before + 1
+    assert y[0].grad_fn is None
+
+
+def test_tiny_bert_train_step_kernel_path_matches_plain_path(dev):
+    """One train step of a small f32 BERT on the card, dropout on, with
+    the kernels (fused_ops=True) and with the plain versions
+    (fused_ops=False), same weights, batch and dropout seed: tpudl's bands
+    for the loss (rtol 1e-4, atol 1e-5), the gradients (1e-4) and the
+    parameters after the update (rtol 2e-3, atol 2e-5)."""
+    from tpudl_torch.config import OptimConfig
+    from tpudl_torch.data.synthetic import synthetic_token_batches
+    from tpudl_torch.models.bert import BertConfig, BertForSequenceClassification
+    from tpudl_torch.rng import fold_in
+    from tpudl_torch.train import (
+        create_train_state,
+        make_classification_train_step,
+        make_optimizer,
+    )
+
+    kw = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=2,
+              intermediate_size=512, max_position_embeddings=64,
+              dtype=torch.float32)
+    ref = BertForSequenceClassification(BertConfig(**kw), device=dev)
+    ref.init_weights(torch.Generator(dev).manual_seed(0))
+    params = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+    batch = next(synthetic_token_batches(8, 32, 512, seed=2))
+    batch["attention_mask"][3, 17:] = 0
+    step = make_classification_train_step(
+        input_keys=("input_ids", "attention_mask"))
+    tx = OptimConfig(learning_rate=1e-3, warmup_steps=0, schedule="constant",
+                     weight_decay=0.01, mu_dtype="bfloat16")
+    out = []
+    for fused in (True, False):
+        state = create_train_state(
+            0, BertForSequenceClassification(BertConfig(fused_ops=fused, **kw),
+                                             device="meta"),
+            make_optimizer(tx), params=params, device=dev)
+        before = (layer_norm.launches, norm_bwd.launches, bias_gelu.launches,
+                  bias_gelu_bwd.launches)
+        grads, metrics = step.grads_and_metrics(state, batch, fold_in(3, 0, dev))
+        state, _ = step(state, batch, 3)
+        after = (layer_norm.launches, norm_bwd.launches, bias_gelu.launches,
+                 bias_gelu_bwd.launches)
+        launched = tuple(a - b for a, b in zip(after, before))
+        assert launched == ((10, 10, 4, 4) if fused else (0, 0, 0, 0))
+        out.append((metrics["loss"], grads, state.model.state_dict()))
+    (lk, gk, pk), (lp, gp, pp) = out
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-5)
+    for k in gp:
+        torch.testing.assert_close(gk[k], gp[k], rtol=1e-4, atol=1e-4)
+    for k in pp:
+        torch.testing.assert_close(pk[k], pp[k], rtol=2e-3, atol=2e-5)

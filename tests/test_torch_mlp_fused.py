@@ -48,3 +48,67 @@ def test_swiglu_dispatch_rules():
         mlp_fused.swiglu(g, g, impl="fused")
     with pytest.raises(ValueError, match="impl must be"):
         mlp_fused.swiglu(g, g, impl="triton")
+
+
+BG_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (0.05, 0.02)}
+
+
+@pytest.mark.parametrize("reference", ["composite", "pallas_interpret"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(16, 3072), (2, 3, 128), (5, 77)])
+def test_bias_gelu_matches_tpudl(reference, dtype, shape):
+    rng = np.random.default_rng(shape[-1])
+    x = (2 * rng.normal(size=shape)).astype(np.float32)
+    b = rng.normal(size=shape[-1:]).astype(np.float32)
+    jx = jnp.asarray(x, JAX_DTYPE[dtype])
+    tx = torch.from_numpy(x).to(TORCH_DTYPE[dtype])
+    if reference == "composite":
+        want = jmlp.bias_gelu_ref(jx, jnp.asarray(b))
+    else:
+        want = jmlp.bias_gelu(jx, jnp.asarray(b), impl="fused", interpret=True)
+    got = mlp_fused.bias_gelu(tx, torch.from_numpy(b))
+    assert got.dtype == TORCH_DTYPE[dtype] and tuple(got.shape) == shape
+    rtol, atol = BG_TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bias_gelu_bwd_ref_matches_vjp_of_tpudl_kernel(dtype):
+    """The plain backward against jax.vjp of tpudl's Pallas bias_gelu in
+    interpret mode (whose backward is _bg_bwd_kernel): f32 1e-4; bf16
+    dx in tpudl's band, db (an f32 sum in both) 1e-4 relative."""
+    import jax
+
+    rng = np.random.default_rng(3)
+    x = (2 * rng.normal(size=(24, 256))).astype(np.float32)
+    b = rng.normal(size=(256,)).astype(np.float32)
+    g = rng.normal(size=(24, 256)).astype(np.float32)
+    jx = jnp.asarray(x, JAX_DTYPE[dtype])
+    _, vjp = jax.vjp(
+        lambda x_, b_: jmlp.bias_gelu(x_, b_, impl="fused", interpret=True),
+        jx, jnp.asarray(b))
+    jdx, jdb = vjp(jnp.asarray(g, JAX_DTYPE[dtype]))
+    dx, db = mlp_fused.bias_gelu_bwd_ref(
+        torch.from_numpy(x).to(TORCH_DTYPE[dtype]), torch.from_numpy(b),
+        torch.from_numpy(g).to(TORCH_DTYPE[dtype]))
+    assert dx.dtype == TORCH_DTYPE[dtype] and db.dtype == torch.float32
+    tol = (1e-4, 1e-4) if dtype == "float32" else BG_TOL[dtype]
+    np.testing.assert_allclose(dx.float().numpy(), np.asarray(jdx, np.float32),
+                               rtol=tol[0], atol=tol[1])
+    np.testing.assert_allclose(db.numpy(), np.asarray(jdb, np.float32),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_bias_gelu_dispatch_rules():
+    x = torch.ones(3, 8, requires_grad=True)
+    b = torch.zeros(8, requires_grad=True)
+    before = (mlp_fused.bias_gelu.launches, mlp_fused.bias_gelu_bwd.launches)
+    mlp_fused.bias_gelu(x, b).sum().backward()
+    mlp_fused.bias_gelu_bwd(x.detach(), b.detach(), torch.ones(3, 8))
+    assert (mlp_fused.bias_gelu.launches,
+            mlp_fused.bias_gelu_bwd.launches) == before
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        mlp_fused.bias_gelu(x, b, impl="fused")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        mlp_fused.bias_gelu_bwd(x, b, x, impl="fused")

@@ -1,0 +1,289 @@
+"""The port's training stack against tpudl's on the CPU: the optimizer
+(against optax through tpudl.train.optim), dropout (by distribution —
+the bits are the port's own), the synthetic data, and ``fit`` on a tiny
+BERT."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpudl.config import OptimConfig as JOptimConfig
+from tpudl.data import synthetic as jsynthetic
+from tpudl.ops import dropout as jdropout
+from tpudl.train import optim as joptim
+from tpudl_torch.config import OptimConfig, get_config
+from tpudl_torch.data import synthetic
+from tpudl_torch.ops import dropout
+from tpudl_torch.train import optim
+from tpudl_torch.train.loop import (
+    create_train_state,
+    cross_entropy_loss,
+    fit,
+    make_classification_train_step,
+)
+
+_SHAPES = {"w": (7, 5), "b": (5,), "e": (3, 4, 2)}
+
+
+def _grads(step, scale, seed=0):
+    rng = np.random.default_rng(seed * 1000 + step)
+    return {k: (scale * rng.normal(size=s)).astype(np.float32)
+            for k, s in _SHAPES.items()}
+
+
+def _find(state, attr):
+    """The first optax sub-state holding ``attr`` (e.g. ScaleByAdamState.mu)."""
+    if hasattr(state, attr):
+        return getattr(state, attr)
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _find(s, attr)
+            if found is not None:
+                return found
+    return None
+
+
+@pytest.mark.parametrize("name,mu_dtype", [("adamw", "float32"),
+                                           ("adamw", "bfloat16"),
+                                           ("sgd", "float32")])
+@pytest.mark.parametrize("schedule", ["constant", "linear", "cosine"])
+@pytest.mark.parametrize("clip_hit", [False, True])
+def test_optimizer_matches_optax_over_ten_steps(name, mu_dtype, schedule,
+                                                clip_hit):
+    """Ten updates from fixed gradients, warmup included: with an f32
+    first moment the parameters agree to 1e-6 relative; with a bf16 one
+    the stored moment agrees to one bf16 step and the parameters to the
+    same 1e-6 (the update uses the unrounded f32 moment in both)."""
+    kw = dict(name=name, learning_rate=0.1, warmup_steps=3, total_steps=10,
+              weight_decay=0.01, mu_dtype=mu_dtype, grad_clip_norm=1.0,
+              schedule=schedule)
+    jtx = joptim.make_optimizer(JOptimConfig(**kw))
+    ttx = optim.make_optimizer(OptimConfig(**kw))
+    rng = np.random.default_rng(42)
+    p0 = {k: rng.normal(size=s).astype(np.float32) for k, s in _SHAPES.items()}
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    tp = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    jstate, tstate = jtx.init(jp), ttx.init(tp)
+    # Compiled, as tpudl's train step runs it (eager JAX rounds b1 * mu to
+    # bf16 where the compiled program keeps it in f32).
+    jupdate = jax.jit(jtx.update)
+    # Global norm ~0.2 (clipping not hit) or ~20 (hit).
+    scale = 4.0 if clip_hit else 0.04
+    for step in range(10):
+        g = _grads(step, scale)
+        updates, jstate = jupdate({k: jnp.asarray(v) for k, v in g.items()},
+                                  jstate, jp)
+        jp = jax.tree.map(lambda p, u: p + u, jp, updates)
+        tstate = ttx.apply_(tp, {k: torch.from_numpy(v) for k, v in g.items()},
+                            tstate)
+        for k in _SHAPES:
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                       rtol=1e-6, atol=1e-7,
+                                       err_msg=f"step {step} param {k}")
+    assert tstate["count"] == 10
+    if name == "adamw":
+        jmu = _find(jstate, "mu")
+        for k in _SHAPES:
+            got = tstate["mu"][k]
+            assert got.dtype == {"float32": torch.float32,
+                                 "bfloat16": torch.bfloat16}[mu_dtype]
+            want = np.asarray(jmu[k], np.float32)
+            # One step of the stored dtype (2^-8 relative for bf16).
+            rtol = 2.0 ** -8 if mu_dtype == "bfloat16" else 1e-6
+            np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol,
+                                       atol=1e-7)
+
+
+@pytest.mark.parametrize("schedule", ["constant", "linear", "cosine"])
+def test_schedules_match_optax(schedule):
+    cfg = dict(learning_rate=0.3, warmup_steps=4, total_steps=20,
+               schedule=schedule)
+    jsched = joptim.make_schedule(JOptimConfig(**cfg))
+    tsched = optim.make_schedule(OptimConfig(**cfg))
+    for count in range(25):
+        np.testing.assert_allclose(tsched(count), float(jsched(count)),
+                                   rtol=1e-6, atol=1e-8)
+
+
+def test_sst2_config_matches_tpudl():
+    from tpudl.config import get_config as jget
+
+    want, got = jget("sst2_bert_base"), get_config("sst2_bert_base")
+    assert dataclasses.asdict(got.optim) == dataclasses.asdict(want.optim)
+    for field in ("model", "dataset", "global_batch_size", "seq_len",
+                  "num_classes", "num_steps", "seed"):
+        assert getattr(got, field) == getattr(want, field)
+
+
+def test_synthetic_batches_match_tpudl():
+    got = list(synthetic.synthetic_token_batches(4, 16, 100, num_batches=3))
+    want = list(jsynthetic.synthetic_token_batches(4, 16, 100, num_batches=3))
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in g:
+            np.testing.assert_array_equal(g[k], w[k])
+    img = next(synthetic.synthetic_classification_batches(2, (8, 8, 3), 4))
+    jimg = next(jsynthetic.synthetic_classification_batches(2, (8, 8, 3), 4))
+    np.testing.assert_array_equal(img["image"], jimg["image"])
+    on = synthetic.to_device(got[0], "cpu")
+    assert on["input_ids"].dtype == torch.int32
+    assert torch.equal(on["label"], torch.from_numpy(got[0]["label"]))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.001, 0.1, 0.5, 0.999, 1.0])
+def test_quantized_rate_matches_tpudl(rate):
+    for exact in (False, True):
+        assert dropout.quantized_rate(rate, exact) == jdropout.quantized_rate(
+            rate, exact)
+
+
+@pytest.mark.parametrize("rate,exact", [(0.1, False), (0.3, False),
+                                        (0.1, True)])
+def test_dropout_statistics(rate, exact):
+    """Over 1 M draws the keep share lies within 4 sigma of 1 - the
+    effective rate, and the output's mean within 4 sigma of the input."""
+    n = 1_000_000
+    g = torch.Generator().manual_seed(123)
+    eff = dropout.quantized_rate(rate, exact)
+    keep = dropout.dropout_keep_mask(g, (n,), rate, exact=exact, device="cpu")
+    share = keep.float().mean().item()
+    sigma = np.sqrt(eff * (1 - eff) / n)
+    assert abs(share - (1 - eff)) < 4 * sigma
+    x = torch.ones(n)
+    out = dropout.dropout(g, x, rate, exact)
+    assert set(torch.unique(out).tolist()) <= {
+        0.0, float(np.float32(1.0) / np.float32(1.0 - eff))}
+    out_sigma = np.sqrt(eff / (1 - eff) / n)
+    assert abs(out.mean().item() - 1.0) < 4 * out_sigma
+
+
+def test_dropout_edge_rates_and_module():
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1000)
+    assert dropout.dropout(g, x, 0.0) is x
+    assert torch.equal(dropout.dropout(g, x, 1.0), torch.zeros_like(x))
+    # round(0.001 * 256) == 0: nothing is dropped and nothing rescaled.
+    assert torch.equal(dropout.dropout(g, x, 0.001), x)
+    # 0.999 quantizes to 255/256: rare keeps, rescaled by 256.
+    out = dropout.dropout(g, torch.ones(100_000), 0.999)
+    assert set(torch.unique(out).tolist()) <= {0.0, 256.0}
+    m = dropout.Dropout(0.1)
+    assert m(x, deterministic=True) is x
+    with pytest.raises(ValueError, match="Generator"):
+        m(x, deterministic=False)
+    bf = dropout.dropout(g, x.bfloat16(), 0.1)
+    assert bf.dtype == torch.bfloat16
+    # Same generator seed, same mask, whatever the dtype.
+    a = dropout.dropout(torch.Generator().manual_seed(5), x, 0.1)
+    b = dropout.dropout(torch.Generator().manual_seed(5), x.double(), 0.1)
+    assert torch.equal(a == 0, b == 0)
+
+
+def test_cross_entropy_matches_optax():
+    import optax
+
+    rng = np.random.default_rng(0)
+    logits = rng.normal(size=(6, 5)).astype(np.float32)
+    labels = rng.integers(0, 5, size=(6,))
+    tl, tlab = torch.from_numpy(logits), torch.from_numpy(labels)
+    want = optax.softmax_cross_entropy_with_integer_labels(
+        jnp.asarray(logits), jnp.asarray(labels)).mean()
+    np.testing.assert_allclose(float(cross_entropy_loss(tl, tlab)), float(want),
+                               rtol=1e-6)
+    smooth = optax.softmax_cross_entropy(
+        jnp.asarray(logits),
+        optax.smooth_labels(jax.nn.one_hot(labels, 5), 0.1)).mean()
+    np.testing.assert_allclose(float(cross_entropy_loss(tl, tlab, 0.1)),
+                               float(smooth), rtol=1e-6)
+    with pytest.raises(NotImplementedError, match="queue B item 2"):
+        cross_entropy_loss(tl, tlab, impl="fused")
+
+
+def test_train_metrics_match_tpudl():
+    from tpudl.train import metrics as jmetrics
+    from tpudl_torch.train import metrics
+
+    flops = metrics.transformer_train_flops(109_483_778, 256 * 128)
+    assert flops == jmetrics.transformer_train_flops(109_483_778, 256 * 128)
+    assert metrics.mfu(flops, 0.12, peak_per_chip=989e12) == jmetrics.mfu(
+        flops, 0.12, peak_per_chip=989e12)
+    # The meter skips the warm-up steps and times the rest.
+    for warmup, steps, measured in ((2, 5, 3), (0, 4, 4), (3, 2, 0)):
+        ours, theirs = (m.Throughput(32, warmup=warmup)
+                        for m in (metrics, jmetrics))
+        for _ in range(steps):
+            ours.step(torch.zeros(()))
+            theirs.step()
+        got, want = ours.result(torch.zeros(())), theirs.result()
+        assert got["steps_measured"] == want["steps_measured"] == measured
+        assert got.keys() == want.keys()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            metrics.device_peak_flops()
+
+
+def _tiny_bert_state(device="cpu"):
+    """tests/test_bert.py:156-190's config: the task a tiny BERT learns."""
+    from tpudl_torch.models.bert import BertConfig, BertForSequenceClassification
+
+    cfg = BertConfig(vocab_size=256, hidden_size=64, num_layers=2, num_heads=2,
+                     intermediate_size=128, max_position_embeddings=64,
+                     hidden_dropout=0.0, attention_dropout=0.0,
+                     dtype=torch.float32, fused_ops=True)
+    # optax.adamw(1e-3), as that test uses: no clipping, no schedule.
+    tx = optim.make_optimizer(OptimConfig(
+        learning_rate=1e-3, warmup_steps=0, schedule="constant",
+        grad_clip_norm=None))
+    return create_train_state(0, BertForSequenceClassification(cfg, "meta"),
+                              tx, device=device)
+
+
+@pytest.fixture
+def one_thread():
+    """Run torch's CPU ops on one thread: the tiny model's ops are too
+    small to gain from more, and more threads contend with the other test
+    processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_fit_trains_a_tiny_bert(one_thread):
+    state = _tiny_bert_state()
+    step = make_classification_train_step(
+        input_keys=("input_ids", "attention_mask"), label_key="label")
+    batches = synthetic.synthetic_token_batches(16, seq_len=32, vocab_size=256,
+                                                num_batches=40)
+    seen = []
+    state, last, info = fit(step, state, batches, 1, log_every=1,
+                            logger=lambda n, m: seen.append(m["loss"]))
+    assert info["steps"] == 40 and state.step == 40 and len(seen) == 40
+    assert last["loss"] == seen[-1]
+    assert seen[-1] < 0.7 * seen[0], f"loss did not decrease: {seen}"
+
+
+def test_fit_and_step_refuse_what_is_not_ported():
+    state = _tiny_bert_state()
+    step = make_classification_train_step(input_keys=("input_ids",))
+    batches = synthetic.synthetic_token_batches(2, 8, 256, num_batches=4)
+    state, _, info = fit(step, state, batches, 0, num_steps=2,
+                         steps_per_dispatch=1, async_metrics=False)
+    assert info["steps"] == 2
+    for kw, item in ((dict(checkpoint_manager=object()), "item 6"),
+                     (dict(checkpoint_every=5), "item 6"),
+                     (dict(profile_dir="/nonexistent"), "item 10"),
+                     (dict(steps_per_dispatch=8), "item 10"),
+                     (dict(async_metrics=True), "item 10")):
+        with pytest.raises(NotImplementedError, match=item):
+            fit(step, state, batches, 0, **kw)
+    for kw, item in ((dict(accum_steps=4), "queue A item 12"),
+                     (dict(loss_impl="auto"), "queue B item 2"),
+                     (dict(precision="bf16"), "queue A item 8"),
+                     (dict(moe_aux_weight=0.01), "queue A item 4")):
+        with pytest.raises(NotImplementedError, match=item):
+            make_classification_train_step(**kw)

@@ -1,0 +1,74 @@
+"""Workload configurations: the port's counterpart of tpudl.config.
+
+A copy of what the ported training path needs: ``OptimConfig``,
+``TrainConfig`` and the ``sst2_bert_base`` entry (BASELINE.json
+``configs[1]``). tpudl's ``mesh`` and ``strategy`` fields wait for the
+launcher and sharding port (ROADMAP queue A item 7), and its other
+entries for their model families.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    name: str = "adamw"  # adamw | sgd
+    learning_rate: float = 1e-3
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 1e-4
+    momentum: float = 0.9  # sgd only
+    b1: float = 0.9
+    b2: float = 0.999
+    #: AdamW first-moment dtype; the second moment stays f32 for
+    #: numerical range.
+    mu_dtype: str = "float32"  # float32 | bfloat16
+    grad_clip_norm: Optional[float] = 1.0
+    schedule: str = "cosine"  # cosine | constant | linear
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    name: str
+    model: str  # bert-base | bert-large (ported); tpudl's others not yet
+    dataset: str  # sst2
+    global_batch_size: int = 128
+    image_size: int = 32
+    seq_len: int = 128
+    num_classes: int = 10
+    precision: str = "bf16"  # bf16 | f32
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    num_steps: int = 200
+    log_every: int = 20
+    accum_steps: int = 1
+    label_smoothing: float = 0.0
+    data_dir: Optional[str] = None  # parquet dir; None -> synthetic
+    checkpoint_dir: Optional[str] = None
+    seed: int = 0
+
+
+CONFIGS = {
+    # configs[1]: BERT-base SST-2 fine-tune, single-process.
+    "sst2_bert_base": TrainConfig(
+        name="sst2_bert_base",
+        model="bert-base",
+        dataset="sst2",
+        global_batch_size=32,
+        seq_len=128,
+        num_classes=2,
+        optim=OptimConfig(name="adamw", learning_rate=2e-5, warmup_steps=100,
+                          total_steps=2000, weight_decay=0.01,
+                          mu_dtype="bfloat16"),
+        num_steps=2000,
+    ),
+}
+
+
+def get_config(name: str, **overrides) -> TrainConfig:
+    cfg = CONFIGS[name]
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg

@@ -1,5 +1,13 @@
-"""Model families of the port: the Llama decoder's serving path."""
+"""Model families of the port: the Llama decoder's serving path and BERT
+for sequence classification (the fine-tune path)."""
 
+from tpudl_torch.models.bert import (  # noqa: F401
+    BERT_BASE,
+    BERT_LARGE,
+    BERT_TINY,
+    BertConfig,
+    BertForSequenceClassification,
+)
 from tpudl_torch.models.generate import generate  # noqa: F401
 from tpudl_torch.models.llama import (  # noqa: F401
     LLAMA3_1B,

@@ -52,8 +52,67 @@ __device__ __forceinline__ void store_vec(T* __restrict__ base, int64_t i,
   reinterpret_cast<uint4*>(base)[i] = raw;
 }
 
+// Chunks of W elements: W == VecWidth<T> is one 16-byte vector access
+// (the base must be 16-byte aligned), W == 1 one scalar access. Chunk i
+// covers elements [i * W, i * W + W).
+template <typename T, int W>
+__device__ __forceinline__ void load_chunk(const T* __restrict__ base, int64_t i,
+                                           float (&out)[W]) {
+  if constexpr (W == 1) {
+    out[0] = to_f32(base[i]);
+  } else {
+    static_assert(W == VecWidth<T>::value, "a chunk is one element or one 16-byte vector");
+    load_vec(base, i, out);
+  }
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void store_chunk(T* __restrict__ base, int64_t i,
+                                            const float (&in)[W]) {
+  if constexpr (W == 1) {
+    base[i] = from_f32<T>(in[0]);
+  } else {
+    static_assert(W == VecWidth<T>::value, "a chunk is one element or one 16-byte vector");
+    store_vec(base, i, in);
+  }
+}
+
 __host__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// Second pass of the cross-row reductions (dscale, dbias, db): the first
+// pass leaves one f32 partial row per block in `in` ([gridDim.y][rows][cols]);
+// this sums the `rows` partials of each column in a fixed order, so a
+// backward is bitwise repeatable (no float atomics). blockDim is (32, 8):
+// 32 neighbouring columns, each summed by 8 threads over every 8th row,
+// then the 8 sums added in order. gridDim.x covers the columns; gridDim.y
+// selects one of several stacked partial arrays and its output row.
+__global__ void column_sum_kernel(const float* __restrict__ in, float* __restrict__ out,
+                                  int64_t rows, int cols) {
+  __shared__ float part[8][33];
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  const float* src = in + static_cast<int64_t>(blockIdx.y) * rows * cols;
+  float acc = 0.0f;
+  if (c < cols) {
+    for (int64_t b = threadIdx.y; b < rows; b += 8) acc += src[b * cols + c];
+  }
+  part[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < cols) {
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += part[j][threadIdx.x];
+    out[static_cast<int64_t>(blockIdx.y) * cols + c] = s;
+  }
+}
+
+__host__ inline int launch_column_sum(const float* in, float* out, int64_t rows, int cols,
+                                      int arrays, cudaStream_t stream) {
+  const dim3 block(32, 8);
+  const dim3 grid(static_cast<unsigned>((cols + 31) / 32), static_cast<unsigned>(arrays));
+  column_sum_kernel<<<grid, block, 0, stream>>>(in, out, rows, cols);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tpudl

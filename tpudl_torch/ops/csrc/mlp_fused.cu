@@ -1,33 +1,51 @@
-// SwiGLU forward, y = silu(gate) * up, for Hopper (sm_90a).
+// Fused MLP epilogues for Hopper (sm_90a): SwiGLU forward, and bias+GeLU
+// forward and backward.
 //
-// Replaces tpudl/ops/mlp_fused.py::_sw_fwd_kernel, launched by
-// tpudl/ops/mlp_fused.py::_sw_call via pl.pallas_call.
+// Replaces, in tpudl/ops/mlp_fused.py:
+//   _sw_fwd_kernel, launched by _sw_call via pl.pallas_call;
+//   _bg_fwd_kernel and _bg_bwd_kernel, launched by _bg_call via pl.pallas_call.
 //
-// Computes elementwise, in f32: y = (g * (1 / (1 + exp(-g)))) * u, then
-// rounds to the inputs' dtype.
+// Computes, in f32, rounding once to the inputs' dtype:
+//   SwiGLU:          y = (g * (1 / (1 + exp(-g)))) * u
+//   bias+GeLU:       y = gelu(x + b), gelu(u) = u * 0.5 * (1 + erf(u / sqrt(2)))
+//   its backward:    du = g * (Phi(u) + u * phi(u)) with u = x + b (no forward
+//                    recompute beyond u), and db = sum over rows of du (f32).
 //
-// What bounds it on the H100: memory traffic. Per element it reads two
-// values and writes one (6 bytes in bf16) for a handful of f32
-// operations and one exp, well under the ~20 operations per byte where
-// the f32 units would become the limit. On the Llama-3-8B path it runs
-// on [N, 14336]: 344 KB at decode (N = 4 slots), 11 MB at a 128-token
-// prefill.
+// What bounds them on the H100: memory traffic. Per element they read two
+// values and write one (6 bytes in bf16; the backward also one partial per
+// column per block) for a handful of f32 operations and one exp or erf,
+// well under the ~20 operations per byte where the f32 units would become
+// the limit. On the Llama-3-8B path SwiGLU runs on [N, 14336]: 344 KB at
+// decode (N = 4 slots), 11 MB at a 128-token prefill. On the BERT-base
+// train step bias+GeLU runs on [32768, 3072] bf16: ~403 MB forward
+// (~120 us at 3.35 TB/s) and ~604 MB backward (~180 us).
 //
-// What the design does about that: a grid-stride loop in which every
-// thread moves 16-byte vectors (8 bf16 or 4 f32 values) of gate, up and
-// y, so each warp issues fully coalesced 512-byte accesses; the grid is
-// capped at a few waves of the 132 SMs and each thread walks the rest.
+// What the design does about that:
+// - SwiGLU: a grid-stride loop in which every thread moves 16-byte vectors
+//   (8 bf16 or 4 f32 values) of gate, up and y, so each warp issues fully
+//   coalesced 512-byte accesses; the grid is capped at a few waves of the
+//   132 SMs and each thread walks the rest.
+// - bias+GeLU: a 2-D grid, x over column chunks (one 16-byte vector each)
+//   and y over runs of rows, so a thread loads its bias chunk once and
+//   walks down its column chunk; no per-element index division.
+// - The backward's db: the Pallas kernel sums it across its sequential
+//   grid in VMEM scratch. Here each block keeps its column partials in
+//   registers over a contiguous run of rows and writes one f32 partial row
+//   to a workspace; a second kernel sums each column's partials in a fixed
+//   order. No float atomics, so the backward is bitwise repeatable.
 // Elements past the last whole vector (or all of them, when a pointer is
-// not 16-byte aligned) take a scalar path. The exponential is the
-// accurate expf: this first version keeps the numerics of the f32
-// composite before it is made fast.
+// not 16-byte aligned or a row is not a whole number of vectors) take the
+// scalar path. exp and erf are the accurate expf / erff: this first
+// version keeps the numerics of the f32 composite before it is made fast.
 #include "common.cuh"
 
 namespace {
 
 using tpudl::VecWidth;
 using tpudl::from_f32;
+using tpudl::load_chunk;
 using tpudl::load_vec;
+using tpudl::store_chunk;
 using tpudl::store_vec;
 using tpudl::to_f32;
 
@@ -81,6 +99,135 @@ int launch(const void* gate, const void* up, void* y, int64_t n, cudaStream_t st
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr float kInvSqrt2 = 0.70710678118654752440f;
+constexpr float kInvSqrt2Pi = 0.39894228040143267794f;
+
+__device__ __forceinline__ float gelu_f32(float u) {
+  return u * 0.5f * (1.0f + erff(u * kInvSqrt2));
+}
+
+// d/du gelu(u) = Phi(u) + u * phi(u).
+__device__ __forceinline__ float gelu_grad_f32(float u) {
+  const float phi = expf(-0.5f * u * u) * kInvSqrt2Pi;
+  return 0.5f * (1.0f + erff(u * kInvSqrt2)) + u * phi;
+}
+
+// Thread (blockIdx.x * blockDim.x + threadIdx.x) owns column chunk c (W
+// columns); block row blockIdx.y walks rows blockIdx.y, + gridDim.y, ...
+template <typename T, int W>
+__global__ void bias_gelu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ b,
+                                     T* __restrict__ y, int64_t n, int f) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= f / W) return;
+  float bc[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) bc[j] = __ldg(b + c * W + j);
+  const int64_t chunks = f / W;
+#pragma unroll 4
+  for (int64_t row = blockIdx.y; row < n; row += gridDim.y) {
+    float v[W];
+    load_chunk<T, W>(x, row * chunks + c, v);
+#pragma unroll
+    for (int j = 0; j < W; ++j) v[j] = gelu_f32(v[j] + bc[j]);
+    store_chunk<T, W>(y, row * chunks + c, v);
+  }
+}
+
+// Same ownership; block row blockIdx.y takes rows [blockIdx.y *
+// rows_per_block, + rows_per_block) and leaves its db partial in
+// ws[blockIdx.y][:].
+template <typename T, int W>
+__global__ void bias_gelu_bwd_kernel(const T* __restrict__ x, const float* __restrict__ b,
+                                     const T* __restrict__ g, T* __restrict__ dx,
+                                     float* __restrict__ ws, int64_t n, int f,
+                                     int rows_per_block) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= f / W) return;
+  float bc[W], acc[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    bc[j] = __ldg(b + c * W + j);
+    acc[j] = 0.0f;
+  }
+  const int64_t chunks = f / W;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * rows_per_block;
+  int64_t row1 = row0 + rows_per_block;
+  if (row1 > n) row1 = n;
+#pragma unroll 4
+  for (int64_t row = row0; row < row1; ++row) {
+    float v[W], gv[W];
+    load_chunk<T, W>(x, row * chunks + c, v);
+    load_chunk<T, W>(g, row * chunks + c, gv);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      v[j] = gv[j] * gelu_grad_f32(v[j] + bc[j]);
+      acc[j] += v[j];
+    }
+    store_chunk<T, W>(dx, row * chunks + c, v);
+  }
+  float* out = ws + static_cast<int64_t>(blockIdx.y) * f + c * W;
+#pragma unroll
+  for (int j = 0; j < W; ++j) out[j] = acc[j];
+}
+
+constexpr int kBgThreads = 128;
+
+template <typename T>
+bool bg_vec(const void* x, const void* y, const void* g, int f) {
+  return tpudl::aligned16(x) && tpudl::aligned16(y) && (g == nullptr || tpudl::aligned16(g)) &&
+         (f * sizeof(T)) % 16 == 0;
+}
+
+template <typename T>
+int launch_bg_fwd(const void* x, const void* b, void* y, int64_t n, int f,
+                  cudaStream_t stream) {
+  constexpr int V = VecWidth<T>::value;
+  const bool vec = bg_vec<T>(x, y, nullptr, f);
+  const int chunks = vec ? f / V : f;
+  const unsigned gx = static_cast<unsigned>((chunks + kBgThreads - 1) / kBgThreads);
+  // Enough row runs for several waves of 132 SMs; each block walks the rest.
+  int64_t gy = (132 * 16 + gx - 1) / gx;
+  if (gy > n) gy = n;
+  if (gy > 65535) gy = 65535;
+  const dim3 grid(gx, static_cast<unsigned>(gy));
+  const T* xp = static_cast<const T*>(x);
+  const float* bp = static_cast<const float*>(b);
+  T* yp = static_cast<T*>(y);
+  if (vec) {
+    bias_gelu_fwd_kernel<T, V><<<grid, kBgThreads, 0, stream>>>(xp, bp, yp, n, f);
+  } else {
+    bias_gelu_fwd_kernel<T, 1><<<grid, kBgThreads, 0, stream>>>(xp, bp, yp, n, f);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bg_bwd(const void* x, const void* b, const void* g, void* dx, void* db, void* ws,
+                  int64_t n, int f, int rows_per_block, cudaStream_t stream) {
+  constexpr int V = VecWidth<T>::value;
+  const bool vec = bg_vec<T>(x, dx, g, f);
+  const int chunks = vec ? f / V : f;
+  const unsigned gx = static_cast<unsigned>((chunks + kBgThreads - 1) / kBgThreads);
+  const int64_t nblocks = (n + rows_per_block - 1) / rows_per_block;
+  if (nblocks > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(gx, static_cast<unsigned>(nblocks));
+  const T* xp = static_cast<const T*>(x);
+  const float* bp = static_cast<const float*>(b);
+  const T* gp = static_cast<const T*>(g);
+  T* dxp = static_cast<T*>(dx);
+  float* wsp = static_cast<float*>(ws);
+  if (vec) {
+    bias_gelu_bwd_kernel<T, V><<<grid, kBgThreads, 0, stream>>>(xp, bp, gp, dxp, wsp, n, f,
+                                                                rows_per_block);
+  } else {
+    bias_gelu_bwd_kernel<T, 1><<<grid, kBgThreads, 0, stream>>>(xp, bp, gp, dxp, wsp, n, f,
+                                                                rows_per_block);
+  }
+  const int code = static_cast<int>(cudaGetLastError());
+  if (code != 0) return code;
+  return tpudl::launch_column_sum(wsp, static_cast<float*>(db), nblocks, f, 1, stream);
+}
+
 }  // namespace
 
 // gate, up, y: n contiguous elements of tpudl::DType `dtype`.
@@ -93,6 +240,39 @@ extern "C" int tpudl_swiglu_fwd(const void* gate, const void* up, void* y, int64
       return launch<float>(gate, up, y, n, st);
     case tpudl::kBFloat16:
       return launch<__nv_bfloat16>(gate, up, y, n, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// x, y: [n, f] contiguous of tpudl::DType `dtype`; b: [f] f32.
+extern "C" int tpudl_bias_gelu_fwd(const void* x, const void* b, void* y, int64_t n, int f,
+                                   int dtype, void* stream) {
+  if (n <= 0 || f <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case tpudl::kFloat32:
+      return launch_bg_fwd<float>(x, b, y, n, f, st);
+    case tpudl::kBFloat16:
+      return launch_bg_fwd<__nv_bfloat16>(x, b, y, n, f, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// x, g, dx: [n, f] contiguous of tpudl::DType `dtype`; b, db: [f] f32. ws:
+// f32 workspace of ceil(n / rows_per_block) * f values (at most 65535 row
+// runs).
+extern "C" int tpudl_bias_gelu_bwd(const void* x, const void* b, const void* g, void* dx,
+                                   void* db, void* ws, int64_t n, int f, int rows_per_block,
+                                   int dtype, void* stream) {
+  if (n <= 0 || f <= 0 || rows_per_block <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case tpudl::kFloat32:
+      return launch_bg_bwd<float>(x, b, g, dx, db, ws, n, f, rows_per_block, st);
+    case tpudl::kBFloat16:
+      return launch_bg_bwd<__nv_bfloat16>(x, b, g, dx, db, ws, n, f, rows_per_block, st);
     default:
       return cudaErrorInvalidValue;
   }

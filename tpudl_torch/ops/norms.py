@@ -1,10 +1,12 @@
-"""Fused RMSNorm (+residual add): the Hopper kernel and its plain version.
+"""Fused LayerNorm / RMSNorm (+residual add): the Hopper kernels, their
+plain versions, and the autograd wrappers.
 
-The port's counterpart of tpudl.ops.norms, forward only (LayerNorm and
-the backward kernel wait for the training slice). ``rms_norm`` keeps
-the JAX package's signature and ``impl`` seam; the kernel is
-``csrc/norms.cu`` (it replaces ``_norm_fwd_kernel``), ``rms_norm_ref``
-is the plain PyTorch version beside it.
+The port's counterpart of tpudl.ops.norms. ``layer_norm`` and
+``rms_norm`` keep the JAX package's signatures and ``impl`` seam; the
+kernels are ``csrc/norms.cu`` (``tpudl_norm_fwd`` replaces
+``_norm_fwd_kernel``, ``tpudl_norm_bwd`` replaces ``_norm_bwd_kernel``),
+``layer_norm_ref``, ``rms_norm_ref`` and ``norm_bwd_ref`` are the plain
+PyTorch versions beside them.
 
 Dispatch is by the tensor's device:
 
@@ -14,8 +16,17 @@ Dispatch is by the tensor's device:
 - ``"auto"`` on a CPU tensor — the plain version (the CPU test path);
   ``"fused"`` on a CPU tensor raises.
 
-``rms_norm.launches`` counts kernel launches (a plain int; reset it to 0
-before a run to see which path the run took).
+Under autograd (grad mode on and an operand that requires grad) the
+kernel path runs through ``_FusedNorm``, a ``torch.autograd.Function``
+whose forward also writes the per-row f32 statistics (mean and rstd, as
+tpudl's ``_ln_fwd`` / ``_rms_fwd`` save them) and whose backward is the
+``norm_bwd`` kernel; the residual's gradient is dx itself. Without
+autograd (serving runs under ``torch.no_grad``) the forward skips the
+statistics.
+
+``layer_norm.launches``, ``rms_norm.launches`` and ``norm_bwd.launches``
+count kernel launches (plain ints; reset them to 0 before a run to see
+which path the run took).
 """
 
 from __future__ import annotations
@@ -29,6 +40,10 @@ from tpudl_torch.ops import _build
 
 #: The kernels' element-type codes (csrc/common.cuh ``tpudl::DType``).
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: csrc/norms.cu ``Kind``.
+_KINDS = {"rms": 0, "layer": 1}
+#: Row runs of the backward's first pass: one wave of 8 blocks per SM.
+_BWD_BLOCKS = 132 * 8
 
 
 def resolve_impl(impl: str, device: torch.device) -> bool:
@@ -80,6 +95,33 @@ def check_cuda_operand(t: torch.Tensor, name: str, device: torch.device,
         )
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd will record an op on these operands."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    )
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def layer_norm_ref(x, scale, bias, residual=None, *, eps=1e-12):
+    """Plain LayerNorm(+residual): tpudl.ops.norms.layer_norm_ref verbatim
+    — native-dtype residual add, f32 one-pass statistics with the
+    variance clamped at 0, scale folded into the rsqrt factor before the
+    ``(x - mean)`` multiply (flax ``nn.LayerNorm`` bitwise), cast back to
+    the input dtype."""
+    s = x if residual is None else x + residual
+    x32 = s.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = ((x32 * x32).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    mul = torch.rsqrt(var + eps) * scale.float()
+    y = ((x32 - mean) * mul + bias.float()).to(x.dtype)
+    return y if residual is None else (y, s)
+
+
 def rms_norm_ref(x, scale, residual=None, *, eps=1e-5):
     """Plain RMSNorm(+residual): tpudl.ops.norms.rms_norm_ref verbatim —
     native-dtype residual add, f32 mean-square, ``(norm * scale)`` in
@@ -91,6 +133,57 @@ def rms_norm_ref(x, scale, residual=None, *, eps=1e-5):
     return y if residual is None else (y, s)
 
 
+def norm_stats_ref(x, residual=None, *, kind: str, eps: float):
+    """The per-row statistics the forward saves for the backward, plain:
+    ``(mean, rstd)`` as f32 ``[N]`` over the rows of ``x`` (+
+    ``residual``) flattened to ``[N, H]``, the sum taken in f32 as the
+    kernels take it; ``mean`` is None for RMSNorm."""
+    s = x.float() if residual is None else x.float() + residual.float()
+    s = s.reshape(-1, s.shape[-1])
+    sumsq = (s * s).mean(-1)
+    if kind == "rms":
+        return None, torch.rsqrt(sumsq + eps)
+    mean = s.mean(-1)
+    return mean, torch.rsqrt((sumsq - mean * mean).clamp_min(0.0) + eps)
+
+
+def norm_bwd_ref(x, scale, residual, mean, rstd, g, gs=None, *, kind: str):
+    """Plain version of the backward kernel (tpudl.ops.norms
+    ``_norm_bwd_kernel``): from the forward's inputs ``x`` (+
+    ``residual``), ``[H]`` ``scale``, the saved f32 statistics ``mean``
+    (LayerNorm; None for RMSNorm) and ``rstd`` (``[N]``, one per row of
+    the inputs flattened to ``[N, H]``), the gradient ``g`` of the
+    normed output and, optionally, ``gs`` of the summed output. Returns
+    ``(dx, dscale, dbias)``: the closed-form dx in ``x``'s dtype (also
+    the residual's gradient), and dscale, dbias (None for RMSNorm)
+    summed over rows in f32."""
+    shape, h = x.shape, x.shape[-1]
+    s = x.float() if residual is None else x.float() + residual.float()
+    s = s.reshape(-1, h)
+    g32 = g.float().reshape(-1, h)
+    rstd = rstd.reshape(-1, 1)
+    if kind == "layer":
+        xhat = (s - mean.reshape(-1, 1)) * rstd
+    else:
+        xhat = s * rstd
+    dxhat = g32 * scale.float()
+    m2 = (dxhat * xhat).sum(-1, keepdim=True) / h
+    if kind == "layer":
+        m1 = dxhat.sum(-1, keepdim=True) / h
+        ds = rstd * (dxhat - m1 - xhat * m2)
+    else:
+        ds = rstd * (dxhat - xhat * m2)
+    if gs is not None:
+        ds = ds + gs.float().reshape(-1, h)
+    dscale = (g32 * xhat).sum(0)
+    dbias = g32.sum(0) if kind == "layer" else None
+    return ds.to(x.dtype).reshape(shape), dscale, dbias
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
 _lib = None
 
 
@@ -98,29 +191,37 @@ def _kernel():
     global _lib
     if _lib is None:
         lib = _build.load("norms")
-        lib.tpudl_rms_norm_fwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.tpudl_norm_fwd.argtypes = [
+            i32, p, p, p, p, p, p, p, p,
+            i64, i32, i64, i64, ctypes.c_float, i32, p,
         ]
-        lib.tpudl_rms_norm_fwd.restype = ctypes.c_int
+        lib.tpudl_norm_fwd.restype = i32
+        lib.tpudl_norm_bwd.argtypes = [
+            i32, p, p, p, p, p, p, p, p, p, p,
+            i64, i32, i64, i64, i32, i32, p,
+        ]
+        lib.tpudl_norm_bwd.restype = i32
         _lib = lib
     return _lib
 
 
-def _rms_norm_cuda(x, scale, residual, eps, return_sum):
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check_rows(x, residual, scale, bias, op):
+    """Check the forward's operands; return ``x``, ``residual`` as
+    ``[N, H]`` views."""
     if x.dtype not in KERNEL_DTYPES:
-        raise ValueError(
-            f"rms_norm kernel takes float32 or bfloat16, got {x.dtype}"
-        )
-    device = x.device
-    h = x.shape[-1]
+        raise ValueError(f"{op} kernel takes float32 or bfloat16, got {x.dtype}")
+    device, h = x.device, x.shape[-1]
     check_cuda_operand(x, "x", device, x.dtype)
-    check_cuda_operand(scale, "scale", device, torch.float32)
-    if scale.shape != (h,):
-        raise ValueError(f"scale shape {tuple(scale.shape)} != ({h},)")
-    x2 = x.view(-1, h)
+    for name, p in (("scale", scale), ("bias", bias)):
+        if p is not None:
+            check_cuda_operand(p, name, device, torch.float32)
+            if p.shape != (h,):
+                raise ValueError(f"{name} shape {tuple(p.shape)} != ({h},)")
     r2 = None
     if residual is not None:
         check_cuda_operand(residual, "residual", device, x.dtype)
@@ -130,28 +231,170 @@ def _rms_norm_cuda(x, scale, residual, eps, return_sum):
                 f"{tuple(x.shape)}"
             )
         r2 = residual.view(-1, h)
-    n = x2.shape[0]
+    return x.view(-1, h), r2
+
+
+def _norm_fwd_cuda(kind, x, scale, bias, residual, eps, emit_sum, stats):
+    """Launch the forward kernel: ``(y, s, mean, rstd)``, with ``s`` None
+    unless a residual is given and ``emit_sum``, and the statistics
+    (``[N]`` f32) None unless ``stats`` (``mean`` always None for
+    RMSNorm)."""
+    op = "layer_norm" if kind == "layer" else "rms_norm"
+    x2, r2 = _check_rows(x, residual, scale, bias, op)
+    device = x.device
+    n, h = x2.shape
     y = torch.empty(x.shape, dtype=x.dtype, device=device)
-    s = (
-        torch.empty(x.shape, dtype=x.dtype, device=device)
-        if residual is not None and return_sum
-        else None
-    )
+    s = (torch.empty(x.shape, dtype=x.dtype, device=device)
+         if residual is not None and emit_sum else None)
+    mean = (torch.empty(n, dtype=torch.float32, device=device)
+            if stats and kind == "layer" else None)
+    rstd = torch.empty(n, dtype=torch.float32, device=device) if stats else None
     if n and h:
         lib = _kernel()
-        code = lib.tpudl_rms_norm_fwd(
-            x2.data_ptr(),
-            r2.data_ptr() if r2 is not None else None,
-            scale.data_ptr(),
-            y.data_ptr(),
-            s.data_ptr() if s is not None else None,
+        code = lib.tpudl_norm_fwd(
+            _KINDS[kind], x2.data_ptr(), _ptr(r2), scale.data_ptr(),
+            _ptr(bias), y.data_ptr(), _ptr(s), _ptr(mean), _ptr(rstd),
             n, h, x2.stride(0), r2.stride(0) if r2 is not None else 0,
             float(eps), KERNEL_DTYPES[x.dtype],
             torch.cuda.current_stream(device).cuda_stream,
         )
-        _build.check(lib, "rms_norm_fwd", code)
-        rms_norm.launches += 1
-    return (y, s) if s is not None else y
+        _build.check(lib, f"{op}_fwd", code)
+        (layer_norm if kind == "layer" else rms_norm).launches += 1
+    return y, s, mean, rstd
+
+
+def _norm_bwd_cuda(kind, x, scale, residual, mean, rstd, g, gs):
+    x2, r2 = _check_rows(x, residual, scale, None, "norm_bwd")
+    device = x.device
+    n, h = x2.shape
+    grads = []
+    for name, t in (("g", g), ("gs", gs)):
+        if t is None:
+            grads.append(None)
+            continue
+        if t.shape != x.shape:
+            raise ValueError(
+                f"{name} shape {tuple(t.shape)} != x shape {tuple(x.shape)}"
+            )
+        # Autograd may hand over a gradient with any strides.
+        t = t.contiguous()
+        check_cuda_operand(t, name, device, x.dtype)
+        grads.append(t.view(-1, h))
+    g2, gs2 = grads
+    for name, st in (("mean", mean), ("rstd", rstd)):
+        if st is None:
+            if name == "rstd" or kind == "layer":
+                raise ValueError(f"norm_bwd ({kind}) needs the saved {name}")
+            continue
+        check_cuda_operand(st, name, device, torch.float32)
+        if st.shape != (n,) or not st.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous [{n}] tensor")
+    dx = torch.empty(x.shape, dtype=x.dtype, device=device)
+    arrays = 2 if kind == "layer" else 1
+    dparams = torch.empty(arrays, h, dtype=torch.float32, device=device)
+    if n and h:
+        rows_per_block = -(-n // min(n, _BWD_BLOCKS))
+        blocks = -(-n // rows_per_block)
+        ws = torch.empty(arrays * blocks * h, dtype=torch.float32,
+                         device=device)
+        lib = _kernel()
+        code = lib.tpudl_norm_bwd(
+            _KINDS[kind], x2.data_ptr(), _ptr(r2), scale.data_ptr(),
+            g2.data_ptr(), _ptr(gs2), _ptr(mean), rstd.data_ptr(),
+            dx.data_ptr(), dparams.data_ptr(), ws.data_ptr(),
+            n, h, x2.stride(0), r2.stride(0) if r2 is not None else 0,
+            rows_per_block, KERNEL_DTYPES[x.dtype],
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+        _build.check(lib, "norm_bwd", code)
+        norm_bwd.launches += 1
+    else:
+        dparams.zero_()
+    return dx, dparams[0], dparams[1] if kind == "layer" else None
+
+
+def norm_bwd(x, scale, residual, mean, rstd, g, gs=None, *, kind: str,
+             impl: str = "auto"):
+    """The backward of ``layer_norm`` / ``rms_norm`` (``kind`` "layer" or
+    "rms") from the forward's inputs and saved statistics — the kernel
+    on CUDA tensors, ``norm_bwd_ref`` on CPU tensors. Arguments and
+    result as ``norm_bwd_ref``; the kernel takes ``g`` and ``gs`` with
+    any strides (it copies them to contiguous rows)."""
+    if kind not in _KINDS:
+        raise ValueError(f"kind must be 'layer' or 'rms', got {kind!r}")
+    if not resolve_impl(impl, x.device):
+        return norm_bwd_ref(x, scale, residual, mean, rstd, g, gs, kind=kind)
+    return _norm_bwd_cuda(kind, x, scale, residual, mean, rstd, g, gs)
+
+
+norm_bwd.launches = 0
+
+
+class _FusedNorm(torch.autograd.Function):
+    """The four forms of tpudl's custom_vjp wrappers (``_ln``,
+    ``_ln_res``, ``_rms``, ``_rms_res``) in one Function: the forward
+    kernel saves the f32 row statistics, the backward kernel recomputes
+    x-hat from the saved inputs. The residual's gradient is dx itself,
+    as in ``_ln_res_bwd``."""
+
+    @staticmethod
+    def forward(ctx, kind, x, scale, bias, residual, eps, emit_sum):
+        y, s, mean, rstd = _norm_fwd_cuda(kind, x, scale, bias, residual,
+                                          eps, emit_sum, stats=True)
+        ctx.kind = kind
+        ctx.has_bias = bias is not None
+        ctx.has_res = residual is not None
+        ctx.save_for_backward(x, scale, residual, mean, rstd)
+        ctx.set_materialize_grads(False)
+        return (y, s) if s is not None else y
+
+    @staticmethod
+    def backward(ctx, gy, gs=None):
+        x, scale, residual, mean, rstd = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros_like(x)
+        dx, dscale, dbias = _norm_bwd_cuda(ctx.kind, x, scale, residual,
+                                           mean, rstd, gy, gs)
+        return (None, dx, dscale, dbias if ctx.has_bias else None,
+                dx if ctx.has_res else None, None, None)
+
+
+def _norm_cuda(kind, x, scale, bias, residual, eps, return_sum):
+    emit_sum = residual is not None and return_sum
+    if needs_grad(x, scale, bias, residual):
+        return _FusedNorm.apply(kind, x, scale, bias, residual, eps, emit_sum)
+    y, s, _, _ = _norm_fwd_cuda(kind, x, scale, bias, residual, eps,
+                                emit_sum, stats=False)
+    return (y, s) if emit_sum else y
+
+
+def layer_norm(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    residual: Optional[torch.Tensor] = None,
+    *,
+    eps: float = 1e-12,
+    return_sum: bool = True,
+    impl: str = "auto",
+):
+    """LayerNorm(+residual add) over the last axis of ``x`` — BERT's norm
+    (25 calls per BERT-base forward: the embeddings' and two per layer).
+
+    Returns the normed tensor (``x``'s dtype), or ``(normed, x +
+    residual)`` when ``residual`` is given; ``return_sum=False`` returns
+    only the normed tensor and skips the sum write (BERT is post-norm
+    and never reads it). ``scale`` and ``bias`` are f32 ``[H]``.
+    ``impl``: see the module docstring."""
+    if not resolve_impl(impl, x.device):
+        out = layer_norm_ref(x, scale, bias, residual, eps=eps)
+        if residual is not None and not return_sum:
+            return out[0]
+        return out
+    return _norm_cuda("layer", x, scale, bias, residual, eps, return_sum)
+
+
+layer_norm.launches = 0
 
 
 def rms_norm(
@@ -175,7 +418,7 @@ def rms_norm(
         if residual is not None and not return_sum:
             return out[0]
         return out
-    return _rms_norm_cuda(x, scale, residual, eps, return_sum)
+    return _norm_cuda("rms", x, scale, None, residual, eps, return_sum)
 
 
 rms_norm.launches = 0

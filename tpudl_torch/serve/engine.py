@@ -47,6 +47,7 @@ import torch
 from tpudl_torch.models.generate import gumbel_argmax
 from tpudl_torch.obs import registry
 from tpudl_torch.obs.spans import active_recorder
+from tpudl_torch.rng import fold_in
 from tpudl_torch.serve.api import Request, Result
 from tpudl_torch.serve.cache import SlotCache
 from tpudl_torch.serve.queue import CAT_SERVE_REQUEST, AdmissionQueue, _Entry
@@ -62,30 +63,17 @@ def _select_greedy(logits: torch.Tensor) -> np.ndarray:
     return torch.argmax(logits.float(), dim=-1).cpu().numpy()
 
 
-_MASK64 = (1 << 64) - 1
-
-
-def _request_generator(seed: int, step: int, device) -> torch.Generator:
-    """The generator for token ``step`` of a request seeded ``seed``:
-    its own seed per (seed, step), so a request's draws do not depend on
-    its neighbours or on how many draws they made. The pair is packed
-    into 64 bits and mixed (splitmix64's finalizer, a bijection) because
-    the CPU generator keeps only the low 32 bits of its seed."""
-    x = (((int(seed) << 32) | int(step)) + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return torch.Generator(device=device).manual_seed(x ^ (x >> 31))
-
-
 def _select_tokens(logits, temps, seeds, steps) -> np.ndarray:
     """Per-slot next-token selection on [B, V] logits: greedy argmax
     where ``temps[i] == 0``, else a categorical draw over
-    temperature-scaled logits from ``_request_generator(seeds[i],
-    steps[i])``. f32 selection math like generate._select_impl."""
+    temperature-scaled logits from ``fold_in(seeds[i], steps[i])``
+    (a generator of its own per request and token, so a request's draws
+    do not depend on its neighbours or on how many draws they made).
+    f32 selection math like generate._select_impl."""
     logits = logits.float()
     out = torch.argmax(logits, dim=-1)
     for i in np.nonzero(temps > 0)[0]:
-        g = _request_generator(seeds[i], steps[i], logits.device)
+        g = fold_in(seeds[i], steps[i], logits.device)
         out[i] = gumbel_argmax(logits[i: i + 1] / float(temps[i]), g)[0]
     return out.cpu().numpy()
 

@@ -1,0 +1,80 @@
+"""Time the serving kernels (RMSNorm with and without its residual,
+SwiGLU) of two checkouts in turns on one card: A, B, B, A.
+
+    python3 -m tpudl_torch.tools.kernel_ab OTHER_CHECKOUT [ROUNDS]
+
+runs from the root of checkout B (this one) against checkout A (for
+example the parent commit, unpacked with ``git archive`` into a
+gitignored directory). Each turn is a fresh process that builds that
+checkout's kernels and times every case by CUDA-graph replay with that
+checkout's ``chip_smoke.graph_ms``. ROUNDS (default 1) repeats the
+A, B, B, A sequence; the report gives each case's median and range over
+each checkout's turns and the ratio of the medians, B / A. Comparing
+within one call keeps the card, its power limit and its neighbours the
+same.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+#: (op, rows, width, residual) at the serving path's shapes, bf16 and f32.
+CASES = [("rms_norm", n, 4096, res) for n in (4, 128) for res in (False, True)]
+CASES += [("swiglu", n, 14336, False) for n in (4, 128)]
+
+_TURN = r"""
+import json, sys, torch
+import chip_smoke
+from tpudl_torch.ops.mlp_fused import swiglu
+from tpudl_torch.ops.norms import rms_norm
+g = torch.Generator(device="cuda").manual_seed(0)
+out = {}
+for op, n, h, res in json.loads(sys.argv[1]):
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(n, h, generator=g, device="cuda").to(dtype)
+        r = torch.randn(n, h, generator=g, device="cuda").to(dtype)
+        s = torch.ones(h, device="cuda")
+        if op == "rms_norm":
+            fn = lambda: rms_norm(x, s, r if res else None, impl="fused")
+        else:
+            fn = lambda: swiglu(x, r, impl="fused")
+        key = f"{op} [{n}, {h}] {str(dtype)[6:]}{' residual' if res else ''}"
+        out[key] = chip_smoke.graph_ms(fn)
+print(json.dumps(out))
+"""
+
+
+def turn(tree: str) -> dict:
+    proc = subprocess.run([sys.executable, "-c", _TURN, json.dumps(CASES)],
+                          cwd=tree, capture_output=True, text=True, check=True)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main(argv) -> int:
+    if len(argv) not in (2, 3):
+        print(__doc__, file=sys.stderr)
+        return 2
+    a, b = os.path.abspath(argv[1]), os.getcwd()
+    rounds = int(argv[2]) if len(argv) == 3 else 1
+    runs = {a: [], b: []}
+    for tree in (a, b, b, a) * rounds:
+        runs[tree].append(turn(tree))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"kernel_ab ({card}): A = {a}, B = {b}; us per call, median "
+          f"[min, max] of each checkout's {2 * rounds} turns")
+    for key in runs[a][0]:
+        ta, tb = ([r[key] * 1e3 for r in runs[t]] for t in (a, b))
+        ma, mb = statistics.median(ta), statistics.median(tb)
+        print(f"  {key:38s} A {ma:7.3f} [{min(ta):.3f}, {max(ta):.3f}]  "
+              f"B {mb:7.3f} [{min(tb):.3f}, {max(tb):.3f}]  B/A {mb / ma:.3f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -1,0 +1,12 @@
+"""Training of the port: the classification train step and loop, the
+optimizer stack and throughput accounting (tpudl.train's single-device
+path)."""
+
+from tpudl_torch.train.loop import (  # noqa: F401
+    TrainState,
+    create_train_state,
+    cross_entropy_loss,
+    fit,
+    make_classification_train_step,
+)
+from tpudl_torch.train.optim import make_optimizer, make_schedule  # noqa: F401

@@ -1,0 +1,234 @@
+"""The classification train step and loop: the port's counterpart of the
+single-device path of tpudl.train.loop.
+
+- ``TrainState`` holds the model (its parameters are the f32 masters),
+  the optimizer, its state and the step count. Unlike JAX, a step
+  updates the parameters and the optimizer state IN PLACE (no copy of
+  the state per step) and returns the same object.
+- ``make_classification_train_step`` builds ``step(state, batch, rng)``:
+  forward with ``train=True``, mean cross-entropy, backward, one
+  optimizer update. ``rng`` is an int seed; the step's dropout masks
+  come from ``fold_in(rng, state.step)``, so every step draws fresh bits
+  (tpudl's ``fold_in(rng, state.step)``). There is no ``compile_step``:
+  the step is a plain callable, run eagerly.
+- ``fit`` drives a step over a batch iterator, one step per dispatch.
+
+Not ported (each raises NotImplementedError naming its ROADMAP item):
+gradient accumulation, the fused cross-entropy, mixed-precision
+policies, the MoE auxiliary loss; and fit's checkpointing, preemption,
+profiling, fused K-step dispatch and asynchronous metrics.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, Iterable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpudl_torch.rng import fold_in
+from tpudl_torch.train.optim import Optimizer
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module
+    tx: Optimizer
+    opt_state: dict
+    step: int = 0
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+    def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> "TrainState":
+        """One optimizer update of the parameters, in place."""
+        self.opt_state = self.tx.apply_(self.params, grads, self.opt_state)
+        self.step += 1
+        return self
+
+
+def create_train_state(
+    rng,
+    model: nn.Module,
+    tx: Optimizer,
+    params: Optional[Dict[str, torch.Tensor]] = None,
+    device="cuda",
+) -> TrainState:
+    """Put ``model`` on ``device`` and give it its starting weights: drawn
+    by ``model.init_weights`` from ``rng`` (an int seed, or a
+    ``torch.Generator`` on ``device``), or copied from ``params`` (a
+    state_dict, e.g. from ``params_from_tpudl``). The optimizer state
+    starts at zero."""
+    device = torch.device(device)
+    if any(p.device != device for p in model.parameters()):
+        model.to_empty(device=device)
+    if params is not None:
+        model.load_state_dict(params, strict=True)
+    else:
+        gen = rng
+        if not isinstance(rng, torch.Generator):
+            gen = torch.Generator(device=device).manual_seed(int(rng))
+        model.init_weights(gen)
+    model.train()
+    state = TrainState(model=model, tx=tx, opt_state={})
+    state.opt_state = tx.init(state.params)
+    return state
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    label_smoothing: float = 0.0,
+    impl: str = "reference",
+) -> torch.Tensor:
+    """Mean softmax cross-entropy over integer labels, in f32 — the optax
+    composite tpudl's ``impl="reference"`` computes (label smoothing as
+    ``optax.smooth_labels``)."""
+    if impl != "reference":
+        raise NotImplementedError(
+            f"loss_impl={impl!r}: the fused cross-entropy kernel is not "
+            f"ported to tpudl_torch yet (ROADMAP queue B item 2)"
+        )
+    logits = logits.float()
+    if label_smoothing > 0.0:
+        n = logits.shape[-1]
+        targets = F.one_hot(labels.long(), n).float()
+        targets = targets * (1.0 - label_smoothing) + label_smoothing / n
+        return -(targets * torch.log_softmax(logits, -1)).sum(-1).mean()
+    return F.cross_entropy(logits, labels.long(), reduction="none").mean()
+
+
+def _refuse(option: str, value, item: str) -> None:
+    raise NotImplementedError(
+        f"{option}={value!r} is not ported to tpudl_torch yet (ROADMAP {item})"
+    )
+
+
+def make_classification_train_step(
+    label_smoothing: float = 0.0,
+    input_keys: "str | tuple" = ("image",),
+    label_key: str = "label",
+    moe_aux_weight: float = 0.0,
+    accum_steps: int = 1,
+    input_transform: Optional[Callable[[dict], dict]] = None,
+    loss_impl: str = "reference",
+    precision=None,
+) -> Callable:
+    """Train step for classification models: ``step(state, batch, rng)
+    -> (state, metrics)`` with ``metrics`` = ``{"loss", "accuracy"}``
+    as 0-d tensors on the device (reading them waits for the step).
+
+    ``input_keys`` name the batch columns passed positionally to the
+    model — ``("input_ids", "attention_mask")`` for BERT. The batch may
+    hold numpy arrays or tensors; they go to the model's device first,
+    then through ``input_transform``. ``step.grads_and_metrics(state,
+    batch, generator)`` is the step without the optimizer update (the
+    gradients as a dict of f32 tensors), for checks."""
+    if isinstance(input_keys, str):
+        input_keys = (input_keys,)
+    if accum_steps != 1:
+        _refuse("accum_steps", accum_steps, "queue A item 12")
+    if loss_impl != "reference":
+        _refuse("loss_impl", loss_impl, "queue B item 2")
+    if precision is not None:
+        _refuse("precision", precision, "queue A item 8")
+    if moe_aux_weight:
+        _refuse("moe_aux_weight", moe_aux_weight, "queue A item 4")
+
+    def grads_and_metrics(state: TrainState, batch: dict,
+                          generator: torch.Generator):
+        device = next(state.model.parameters()).device
+        batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        if input_transform is not None:
+            batch = input_transform(batch)
+        params = state.params
+        for p in params.values():
+            p.grad = None
+        logits = state.model(*(batch[k] for k in input_keys), train=True,
+                             generator=generator)
+        labels = batch[label_key].long()
+        loss = cross_entropy_loss(logits, labels, label_smoothing)
+        loss.backward()
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        metrics = {
+            "loss": loss.detach(),
+            "accuracy": (logits.detach().argmax(-1) == labels).float().mean(),
+        }
+        return grads, metrics
+
+    def step(state: TrainState, batch: dict, rng: int):
+        device = next(state.model.parameters()).device
+        grads, metrics = grads_and_metrics(state, batch,
+                                           fold_in(rng, state.step, device))
+        state.apply_gradients(grads)
+        return state, metrics
+
+    step.grads_and_metrics = grads_and_metrics
+    return step
+
+
+def _to_host(metrics: dict) -> dict:
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def fit(
+    step_fn: Callable,
+    state: TrainState,
+    batches: Iterable[dict],
+    rng: int,
+    num_steps: Optional[int] = None,
+    log_every: int = 0,
+    logger: Optional[Callable[[int, dict], None]] = None,
+    profile_dir: Optional[str] = None,
+    checkpoint_manager=None,
+    checkpoint_every: int = 0,
+    steps_per_dispatch: Optional[int] = None,
+    async_metrics: Optional[bool] = None,
+):
+    """Drive ``step_fn`` over ``batches`` (one step per batch, at most
+    ``num_steps``); returns ``(state, last metrics as floats, info)``.
+    Every ``log_every`` steps the step's metrics are read back (a wait
+    for the card) and handed to ``logger(step, metrics)``, or printed;
+    otherwise nothing is read back until the end, so the host runs ahead
+    of the card. tpudl's checkpointing (and with it the preemption save),
+    profiling, fused K-step dispatch and asynchronous metrics raise."""
+    for name, value, off, item in (
+        ("profile_dir", profile_dir, (None,), "queue A item 10 (profiling)"),
+        ("checkpoint_manager", checkpoint_manager, (None,),
+         "queue A item 6 (checkpointing and preemption)"),
+        ("checkpoint_every", checkpoint_every, (0,),
+         "queue A item 6 (checkpointing and preemption)"),
+        ("steps_per_dispatch", steps_per_dispatch, (None, 1),
+         "queue A item 10 (fused K-step dispatch)"),
+        ("async_metrics", async_metrics, (None, False),
+         "queue A item 10 (asynchronous metrics)"),
+    ):
+        if not any(value is v or value == v for v in off):
+            _refuse(name, value, item)
+    metrics = None
+    start = time.perf_counter()
+    n = 0
+    it = iter(batches)
+    while num_steps is None or n < num_steps:
+        try:
+            batch = next(it)
+        except StopIteration:
+            break
+        state, metrics = step_fn(state, batch, rng)
+        n += 1
+        if log_every and n % log_every == 0:
+            host = _to_host(metrics)
+            if logger:
+                logger(n, host)
+            else:
+                print(f"step {n}: {host}")
+    host_metrics = None if metrics is None else _to_host(metrics)
+    return state, host_metrics, {"steps": n,
+                                 "seconds": time.perf_counter() - start}
