@@ -57,6 +57,30 @@ Phases, in order (any failure exits non-zero and prints no result):
              gradient tensor (but two that cannot be judged, see UNGATED)
              may not exceed KERNEL_ERR_RATIO times the plain path's.
 
+The fused slice (BERT-base with attention_impl="fused" and
+loss_impl="auto", as bench.py's fused variant runs it) adds, in the
+places named:
+
+7b. fused kernels (after phase 7) — the dropout contract (philox.cuh's
+             rounds against cuRAND's curand_Philox4x32_10 and the plain
+             twin; keep masks bitwise equal to the plain
+             version's at a rate within 5 sigma of 0.9; the backward
+             regenerates the mask and is bitwise repeatable), then the
+             softmax_dropout forward and backward at [256, 12, 128, 128]
+             and the cross-entropy forward and backward at [256, 2] and
+             [4096, 30522], against their plain versions, timed like
+             phase 7;
+8b. tiny_train_fused (after phase 8) — phase 8 with the slice's kernels;
+11. train_fused (after phase 10) — phase 9 with the slice: exactly 12
+             softmax_dropout forward and 12 backward, 1 cross-entropy
+             forward and 1 backward, 25/25 norm and 12/12 bias+GeLU
+             launches per step, then one eval batch through
+             make_classification_eval_step (1 cross-entropy forward, no
+             backward);
+12. train_fused_parity — phase 10 with the slice on the kernel path
+             against the plain path (attention_impl and loss_impl
+             "reference"), attention dropout 0 and hidden dropout 0.1.
+
 The last three lines are the ``{"kernels": [...]}`` record (``launches``
 is each kernel's count over its main-path run, ``launches_per_step`` per
 decode or train step), the card's
@@ -108,17 +132,40 @@ PROFILE_STEPS = 3
 PARITY_BATCHES = 4
 
 
-def launches_per_step(num_layers):
+def launches_per_step(num_layers, fused_slice=False):
     """Kernel launches per BERT train step: the embeddings' LayerNorm and
     two per layer, forward and backward; one bias+GeLU per layer each
-    way."""
-    return {"layer_norm_fwd": 1 + 2 * num_layers,
-            "norm_bwd": 1 + 2 * num_layers,
-            "bias_gelu_fwd": num_layers, "bias_gelu_bwd": num_layers}
+    way; on the fused slice (attention_impl="fused", loss_impl="auto")
+    also one softmax_dropout per layer each way and one cross-entropy
+    each way."""
+    out = {"layer_norm_fwd": 1 + 2 * num_layers,
+           "norm_bwd": 1 + 2 * num_layers,
+           "bias_gelu_fwd": num_layers, "bias_gelu_bwd": num_layers}
+    if fused_slice:
+        out.update(softmax_dropout_fwd=num_layers,
+                   softmax_dropout_bwd=num_layers, xent_fwd=1, xent_bwd=1)
+    return out
+
+
+def eval_launches(num_layers):
+    """Kernel launches of one eval batch on the fused slice: the forward
+    kernels only."""
+    return {"layer_norm_fwd": 1 + 2 * num_layers, "norm_bwd": 0,
+            "bias_gelu_fwd": num_layers, "bias_gelu_bwd": 0,
+            "softmax_dropout_fwd": num_layers, "softmax_dropout_bwd": 0,
+            "xent_fwd": 1, "xent_bwd": 0}
 
 
 #: BERT-base: 25, 25, 12, 12.
 TRAIN_LAUNCHES = launches_per_step(12)
+#: The fused slice at BERT-base: those, and 12, 12, 1, 1.
+TRAIN_FUSED_LAUNCHES = launches_per_step(12, fused_slice=True)
+#: softmax_dropout and cross-entropy kernels vs plain (rtol, atol): one
+#: bf16 step (2^-7 relative), or 1e-5 in f32. The keep masks are held
+#: bit for bit.
+FUSED_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0**-7, 1e-6)}
+#: BERT-base attention: 12 heads.
+BERT_HEADS = 12
 #: Kernel vs plain tolerance for the bias+GeLU forward (rtol, atol): bf16
 #: is tpudl's band (tests/test_fused_mlp.py:98-108; the kernel adds the
 #: bias in f32, the plain version in bf16).
@@ -513,7 +560,8 @@ def profile_decode(torch, model, params, Request):
 #: Device kernel kinds, by a substring of the kernel's name (first match).
 KERNEL_KINDS = (
     ("this repo's kernels", ("norm_fwd_kernel", "norm_bwd_kernel",
-                             "column_sum_kernel", "bias_gelu_", "swiglu_")),
+                             "column_sum_kernel", "bias_gelu_", "swiglu_",
+                             "softmax_dropout_", "xent_")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "cutlass", "splitKreduce")),
     ("softmax", ("softmax",)),
     ("random bits", ("distribution", "philox")),
@@ -688,6 +736,27 @@ def sum_errors(out, ref, tol=1e-4):
     return errors(out, ref, tol, tol * float(ref.abs().max()))
 
 
+def timed_case(row, kernel, plain, library=None, library_name=None,
+               plain_calls=20):
+    """Add the kernel's, the plain version's and the library call's
+    times (``graph_ms``, 20 calls per graph, 5 replays) to a case row."""
+    row["ms"] = graph_ms(kernel, calls=20, reps=5)
+    row["plain_ms"] = graph_ms(plain, calls=plain_calls, reps=5)
+    row["library_ms"] = (None if library is None
+                         else library_ms(library, calls=20, reps=5))
+    row["library"] = library_name or "none computes this function"
+    return row
+
+
+def case_row(shape, dtype, variant, err, tol, nbytes, ops):
+    """One kernel case: its shape, dtype, ``errors`` result, tolerance
+    and bound (from the bytes it must move and the operations it does)."""
+    return {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+            "variant": variant, "max_abs_err": err[0],
+            "max_rel_err": err[1], "tol": tol, "ok": err[2],
+            "bound": bound(nbytes, ops)}
+
+
 def train_kernel_phase(torch, F):
     """The training kernels against their plain versions at the BERT-base
     step's shapes (N = 256 x 128 rows; hidden 768, MLP 3072), bf16 and f32,
@@ -717,20 +786,6 @@ def train_kernel_phase(torch, F):
         t = torch.randn(shape, generator=g, device="cuda")
         return (scale * t + shift).to(dtype)
 
-    def timed(row, kernel, plain, library=None, library_name=None):
-        row["ms"] = graph_ms(kernel, calls=20, reps=5)
-        row["plain_ms"] = graph_ms(plain, calls=20, reps=5)
-        row["library_ms"] = (None if library is None
-                             else library_ms(library, calls=20, reps=5))
-        row["library"] = library_name or "none computes this function"
-        return row
-
-    def row(shape, dtype, variant, err, tol, nbytes, ops):
-        return {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                "variant": variant, "max_abs_err": err[0],
-                "max_rel_err": err[1], "tol": tol, "ok": err[2],
-                "bound": bound(nbytes, ops)}
-
     # LayerNorm forward, with the statistics autograd saves.
     for shape, dtype, residual, variant in (
         ((n, 768), bf16, True, "residual, stats (the encoder's 24 calls)"),
@@ -750,14 +805,14 @@ def train_kernel_phase(torch, F):
         mref, rref = norm_stats_ref(x, r, kind="layer", eps=eps)
         err = merged(errors(y, want[0] if residual else want, tol),
                      errors(mean, mref, 1e-5), errors(rstd, rref, 1e-5))
-        c = row(shape, dtype, variant, err, tol,
+        c = case_row(shape, dtype, variant, err, tol,
                 shape[0] * h * e * (3 if residual else 2) + 2 * h * 4
                 + shape[0] * 8,
                 shape[0] * h * (9 if residual else 8))
         # F.layer_norm takes no f32 weight with a bf16 input: its weights
         # are cast to the input's dtype outside the timed call.
         ls, lb = scale.to(dtype), bias.to(dtype)
-        cases["layer_norm_fwd"].append(timed(
+        cases["layer_norm_fwd"].append(timed_case(
             c,
             lambda: _norm_fwd_cuda("layer", x, scale, bias, r, eps, False,
                                    stats=True),
@@ -796,7 +851,7 @@ def train_kernel_phase(torch, F):
             errs.append(sum_errors(dbias, want[2]))
         streams = 3 + int(residual) + int(with_gs)
         stats = 2 if kind == "layer" else 1
-        c = row(shape, dtype, variant, merged(*errs), tol,
+        c = case_row(shape, dtype, variant, merged(*errs), tol,
                 shape[0] * h * e * streams + h * 4 * (1 + stats)
                 + shape[0] * 4 * stats,
                 shape[0] * h * 14)
@@ -806,7 +861,7 @@ def train_kernel_phase(torch, F):
             ls, lb = scale.to(dtype), bias.to(dtype)
             library = (lambda: torch.ops.aten.native_layer_norm_backward(
                 gy, x, [h], m2, r2, ls, lb, [True, True, True]))
-        cases["norm_bwd"].append(timed(
+        cases["norm_bwd"].append(timed_case(
             c,
             lambda: norm_bwd(x, scale, r, mean, rstd, gy, gs, kind=kind,
                              impl="fused"),
@@ -830,21 +885,241 @@ def train_kernel_phase(torch, F):
         rtol, atol = BG_TOL[dname]
         err = errors(bias_gelu(x, b, impl="fused"), bias_gelu_ref(x, b), rtol,
                      atol)
-        c = row(shape, dtype, variant, err, [rtol, atol],
+        c = case_row(shape, dtype, variant, err, [rtol, atol],
                 2 * shape[0] * f * e + f * 4, shape[0] * f * 25)
-        cases["bias_gelu_fwd"].append(timed(
+        cases["bias_gelu_fwd"].append(timed_case(
             c, lambda: bias_gelu(x, b, impl="fused"),
             lambda: bias_gelu_ref(x, b)))
         dx, db = bias_gelu_bwd(x, b, gy, impl="fused")
         rdx, rdb = bias_gelu_bwd_ref(x, b, gy)
         tol = BWD_TOL[dname]
-        c = row(shape, dtype, variant,
+        c = case_row(shape, dtype, variant,
                 merged(errors(dx, rdx, tol), sum_errors(db, rdb)), tol,
                 3 * shape[0] * f * e + 2 * f * 4, shape[0] * f * 40)
-        cases["bias_gelu_bwd"].append(timed(
+        cases["bias_gelu_bwd"].append(timed_case(
             c, lambda: bias_gelu_bwd(x, b, gy, impl="fused"),
             lambda: bias_gelu_bwd_ref(x, b, gy)))
     torch.cuda.empty_cache()
+    report_cases(cases)
+    return cases
+
+
+def dropout_contract_checks(torch):
+    """The Philox contract on the card: philox.cuh's rounds against
+    cuRAND's curand_Philox4x32_10 and the plain twin on Random123's
+    known-answer counters and 4096 random ones; then, with zero logits
+    (p = 1/128) at [256, 12, 128, 128], the forward's kept entries are the
+    plain keep mask bit for bit at a rate within 5 sigma of 0.9, the
+    backward (g = 1) regenerates that mask, and it is bitwise
+    repeatable."""
+    from tpudl_torch.ops import keep_mask
+    from tpudl_torch.ops import softmax_dropout as sd
+
+    shape, rate = (BERT_BATCH, BERT_HEADS, BERT_SEQ, BERT_SEQ), 0.1
+    n = BERT_BATCH * BERT_HEADS * BERT_SEQ * BERT_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    seed = keep_mask.draw_seed(gen)
+    kat = [[0] * 6, [0xFFFFFFFF] * 6,
+           [0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344, 0xA4093822,
+            0x299F31D0]]
+    words = torch.cat([torch.tensor(kat, dtype=torch.int64),
+                       torch.randint(0, 2**32, (4096, 6), dtype=torch.int64,
+                                     generator=torch.Generator().manual_seed(1))])
+    ours, theirs = sd.philox_pair_cuda(words)
+    twin = torch.stack(keep_mask.philox4x32_10(
+        *(words[:, j] for j in range(6))), 1)
+    if not (torch.equal(ours, theirs) and torch.equal(ours, twin)):
+        fail("dropout contract: philox.cuh disagrees with cuRAND's "
+             "curand_Philox4x32_10 or the plain twin")
+    x = torch.zeros(shape, device="cuda")
+    out = sd._sd_fwd_cuda(x, None, seed, False, rate, torch.float32)
+    keep = keep_mask.keep_mask(seed, shape, rate)
+    bitwise = torch.equal(out != 0, keep)
+    share = keep.float().mean().item()
+    sigma = (rate * (1 - rate) / n) ** 0.5
+    g = torch.ones_like(x)
+    dx = sd.softmax_dropout_bwd(x, None, seed, g, False, rate, impl="fused")
+    # dx = p (g' - <g', p>) with p = 1/128, and <g', p> = sum(out) at g = 1.
+    regen = torch.equal(dx * BERT_SEQ + out.sum(-1, keepdim=True)
+                        > 0.5 / (1 - rate), keep)
+    repeat = torch.equal(dx, sd.softmax_dropout_bwd(x, None, seed, g, False,
+                                                    rate, impl="fused"))
+    print(f"dropout contract: {len(words)} Philox blocks equal to cuRAND's "
+          f"curand_Philox4x32_10 and the plain twin's; keep mask of {n} "
+          f"elements bitwise equal to the plain version's: {bitwise}; keep "
+          f"rate {share:.6f} (0.9 +- 5 sigma = {5 * sigma:.2e}); backward "
+          f"regenerates the mask: {regen}; "
+          f"backward bitwise repeatable: {repeat}")
+    if not (bitwise and abs(share - (1 - rate)) < 5 * sigma and regen
+            and repeat):
+        fail("dropout contract: a keep-mask check failed")
+    del x, out, keep, g, dx
+    torch.cuda.empty_cache()
+
+
+def fused_kernel_phase(torch, F):
+    """The fused slice's four kernels against their plain versions:
+    softmax_dropout forward and backward at the BERT-base attention shape
+    [256, 12, 128, 128] (bf16 and f32, dropout 0 and 0.1, padding and
+    causal masks, and Skv 127 for the scalar path), and the cross-entropy
+    forward and backward at the classifier's [256, 2] f32 and at the
+    vocab-sized [4096, 30522] (bf16 and f32, label smoothing 0 and 0.1).
+    Within FUSED_TOL, the dropped entries equal, each backward bitwise
+    repeatable. Times as train kernels (CUDA-graph replay). Library
+    calls: torch.softmax(x, -1, dtype=float32) and
+    aten._softmax_backward_data (no one call computes masked softmax with
+    dropout), F.cross_entropy(reduction="none", label_smoothing=s)
+    forward, and its forward + backward."""
+    from tpudl_torch.ops import keep_mask
+    from tpudl_torch.ops import softmax_dropout as sd
+    from tpudl_torch.ops.cross_entropy import (
+        _xent_fwd_cuda,
+        softmax_cross_entropy_ref,
+        xent_bwd,
+        xent_bwd_ref,
+    )
+
+    dropout_contract_checks(torch)
+    gen = torch.Generator(device="cuda").manual_seed(8642)
+    bf16, f32 = torch.bfloat16, torch.float32
+    names = ("softmax_dropout_fwd", "softmax_dropout_bwd", "xent_fwd",
+             "xent_bwd")
+    cases = {k: [] for k in names}
+
+    def rand(shape, dtype, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+
+    def dname(dtype):
+        return str(dtype).split(".")[-1]
+
+    def timed(row, kernel, plain, library=None, library_name=None):
+        # The plain softmax_dropout takes ~23 ms a call: 10 per graph.
+        return timed_case(row, kernel, plain, library, library_name,
+                          plain_calls=10)
+
+    full = (BERT_BATCH, BERT_HEADS, BERT_SEQ, BERT_SEQ)
+    for shape, dtype, masking, rate, variant in (
+        (full, bf16, "padding", 0.1,
+         "padding mask, dropout 0.1 (the encoder's 12 calls)"),
+        (full, bf16, "causal", 0.0, "causal, no dropout"),
+        (full, f32, "padding", 0.1, "f32, padding mask, dropout 0.1"),
+        (full, f32, "none", 0.0, "f32, no mask, no dropout"),
+        ((64, BERT_HEADS, 127, 127), bf16, "causal", 0.1,
+         "Skv 127 (the scalar path), causal, dropout 0.1"),
+    ):
+        b, skv = shape[0], shape[-1]
+        x = rand(shape, dtype, 3.0)
+        kvmask = None
+        if masking == "padding":
+            lengths = torch.randint(skv // 2, skv + 1, (b,), generator=gen,
+                                    device="cuda")
+            kvmask = (torch.arange(skv, device="cuda")[None, :]
+                      < lengths[:, None]).contiguous()
+        causal = masking == "causal"
+        seed = keep_mask.draw_seed(gen)
+        tol = FUSED_TOL[dname(dtype)]
+        gy = rand(shape, dtype)
+        e = torch.finfo(dtype).bits // 8
+        elems = x.numel()
+        mask_bytes = 0 if kvmask is None else kvmask.numel()
+
+        def fwd():
+            return sd._sd_fwd_cuda(x, kvmask, seed, causal, rate, dtype)
+
+        def fwd_plain():
+            return sd.softmax_dropout_ref(x, kvmask, seed, causal, rate, dtype)
+
+        def bwd():
+            return sd.softmax_dropout_bwd(x, kvmask, seed, gy, causal, rate,
+                                          impl="fused")
+
+        def bwd_plain():
+            return sd.softmax_dropout_bwd_ref(x, kvmask, seed, gy, causal, rate)
+
+        out, want = fwd(), fwd_plain()
+        err = errors(out, want, *tol)
+        if rate and not torch.equal(out == 0, want == 0):
+            err = (err[0], err[1], False)
+            print(f"softmax_dropout_fwd {variant}: dropped entries differ")
+        # Per element: mask, max, exp, sum, divide (~8 f32 operations), and
+        # with dropout a quarter of a Philox block (10 rounds of ~10
+        # integer operations) plus the compare and the scale.
+        ops_fwd = elems * (8 + (28 if rate else 0))
+        c = case_row(shape, dtype, variant, err, tol,
+                elems * 2 * e + mask_bytes + 16, ops_fwd)
+        y32 = torch.softmax(x, -1, dtype=f32)
+        cases["softmax_dropout_fwd"].append(timed(
+            c, fwd, fwd_plain, lambda: torch.softmax(x, -1, dtype=f32),
+            "torch.softmax(x, -1, dtype=float32), no mask or dropout"))
+        dx, want_dx = bwd(), bwd_plain()
+        err = errors(dx, want_dx, tol[0], max(tol[1], 1e-5))
+        if not torch.equal(dx, bwd()):
+            err = (err[0], err[1], False)
+            print(f"softmax_dropout_bwd {variant}: not bitwise repeatable")
+        g32 = gy.float()
+        c = case_row(shape, dtype, variant, err, tol,
+                elems * 3 * e + mask_bytes + 16, ops_fwd + elems * 4)
+        # The f32 softmax's backward: aten takes a bf16 input dtype only
+        # with bf16 gradients.
+        cases["softmax_dropout_bwd"].append(timed(
+            c, bwd, bwd_plain,
+            lambda: torch.ops.aten._softmax_backward_data(g32, y32, -1, f32),
+            "aten._softmax_backward_data of the f32 softmax, no mask or "
+            "dropout"))
+        del x, gy, out, want, dx, want_dx, y32, g32
+        torch.cuda.empty_cache()
+
+    for (rows_, v), dtype, smoothing, variant in (
+        ((BERT_BATCH, 2), f32, 0.0, "the classifier's loss (1 call each way "
+                                    "per step)"),
+        ((BERT_BATCH, 2), f32, 0.1, "label smoothing 0.1"),
+        ((4096, 30522), bf16, 0.0, "vocab-sized head"),
+        ((4096, 30522), bf16, 0.1, "vocab-sized head, label smoothing 0.1"),
+        ((4096, 30522), f32, 0.0, "vocab-sized head, f32"),
+        ((1000, 1003), bf16, 0.1, "V 1003, label smoothing 0.1"),
+    ):
+        z = rand((rows_, v), dtype, 3.0)
+        labels = torch.randint(0, v, (rows_,), generator=gen, device="cuda")
+        g = torch.rand(rows_, generator=gen, device="cuda") * 2
+        e = torch.finfo(dtype).bits // 8
+        loss, lse = _xent_fwd_cuda(z, labels, smoothing)
+        err = merged(
+            errors(loss, softmax_cross_entropy_ref(z, labels, smoothing),
+                   1e-5),
+            errors(lse, torch.logsumexp(z.float(), -1), 1e-5))
+        elems = rows_ * v
+        c = case_row((rows_, v), dtype, variant, err, (1e-5, 1e-5),
+                elems * e + rows_ * (8 + 4 + 4), elems * (6 if smoothing else 5))
+        zl = z.detach().requires_grad_(True)
+        cases["xent_fwd"].append(timed(
+            c, lambda: _xent_fwd_cuda(z, labels, smoothing),
+            lambda: softmax_cross_entropy_ref(z, labels, smoothing),
+            lambda: F.cross_entropy(z, labels, reduction="none",
+                                    label_smoothing=smoothing),
+            "F.cross_entropy(reduction='none', label_smoothing=s), forward"))
+        tol = FUSED_TOL[dname(dtype)]
+        dz = xent_bwd(z, labels, lse, g, smoothing, impl="fused")
+        err = errors(dz, xent_bwd_ref(z, labels, lse, g, smoothing), tol[0],
+                     max(tol[1], 1e-6))
+        if not torch.equal(dz, xent_bwd(z, labels, lse, g, smoothing,
+                                        impl="fused")):
+            err = (err[0], err[1], False)
+            print(f"xent_bwd {variant}: not bitwise repeatable")
+        c = case_row((rows_, v), dtype, variant, err, tol,
+                2 * elems * e + rows_ * (8 + 4 + 4), elems * 6)
+
+        def library_fwd_bwd():
+            out = F.cross_entropy(zl, labels, reduction="none",
+                                  label_smoothing=smoothing)
+            return torch.autograd.grad(out, zl, g)
+
+        cases["xent_bwd"].append(timed(
+            c, lambda: xent_bwd(z, labels, lse, g, smoothing, impl="fused"),
+            lambda: xent_bwd_ref(z, labels, lse, g, smoothing),
+            library_fwd_bwd,
+            "F.cross_entropy forward + backward (torch.autograd.grad)"))
+        del z, zl, dz
+        torch.cuda.empty_cache()
     report_cases(cases)
     return cases
 
@@ -862,41 +1137,57 @@ def sst2_optimizer():
         warmup_steps=0))
 
 
-def train_counts():
+def counted():
+    """Kernel name -> the wrapper whose ``launches`` counts it."""
+    from tpudl_torch.ops import softmax_dropout as sd
+    from tpudl_torch.ops.cross_entropy import softmax_cross_entropy, xent_bwd
     from tpudl_torch.ops.mlp_fused import bias_gelu, bias_gelu_bwd, swiglu
     from tpudl_torch.ops.norms import layer_norm, norm_bwd, rms_norm
 
-    return {"layer_norm_fwd": layer_norm.launches,
-            "norm_bwd": norm_bwd.launches,
-            "bias_gelu_fwd": bias_gelu.launches,
-            "bias_gelu_bwd": bias_gelu_bwd.launches,
-            "rms_norm_fwd": rms_norm.launches,
-            "swiglu_fwd": swiglu.launches}
+    return {"layer_norm_fwd": layer_norm, "norm_bwd": norm_bwd,
+            "bias_gelu_fwd": bias_gelu, "bias_gelu_bwd": bias_gelu_bwd,
+            "rms_norm_fwd": rms_norm, "swiglu_fwd": swiglu,
+            "softmax_dropout_fwd": sd.softmax_dropout,
+            "softmax_dropout_bwd": sd.softmax_dropout_bwd,
+            "xent_fwd": softmax_cross_entropy, "xent_bwd": xent_bwd}
+
+
+def train_counts():
+    return {name: fn.launches for name, fn in counted().items()}
 
 
 def reset_counts():
-    from tpudl_torch.ops.mlp_fused import bias_gelu, bias_gelu_bwd, swiglu
-    from tpudl_torch.ops.norms import layer_norm, norm_bwd, rms_norm
-
-    for fn in (layer_norm, norm_bwd, bias_gelu, bias_gelu_bwd, rms_norm,
-               swiglu):
+    for fn in counted().values():
         fn.launches = 0
 
 
-def tiny_train_phase(torch):
+def bert_variant(fused_slice):
+    """(model config kwargs, loss_impl) of the kernel path: the train
+    phase's step (fused_ops=True), or the fused slice on top of it
+    (attention_impl="fused", loss_impl="auto", as bench.py's fused
+    variant runs it)."""
+    if fused_slice:
+        return {"fused_ops": True, "attention_impl": "fused"}, "auto"
+    return {"fused_ops": True}, "reference"
+
+
+def tiny_train_phase(torch, fused_slice=False):
     """One train step of a BERT_TINY-shaped model (hidden 128, 2 layers) in
     f32 with dropout off: the kernels on the card against the CPU plain
     path, same weights and batch (two rows padded). tpudl's bands
     (tests/test_fused_ops_integration.py:75-91): loss rtol 1e-4 / atol
     1e-5, every gradient 1e-4, the parameters after the update rtol
-    2e-3 / atol 2e-5."""
+    2e-3 / atol 2e-5. With ``fused_slice`` the step runs the slice's
+    attention and loss kernels too."""
     from tpudl_torch.data.synthetic import synthetic_token_batches
     from tpudl_torch.models.bert import BERT_TINY, BertForSequenceClassification
     from tpudl_torch.rng import fold_in
     from tpudl_torch.train import create_train_state, make_classification_train_step
 
+    name = "tiny_train_fused" if fused_slice else "tiny_train"
+    model_kw, loss_impl = bert_variant(fused_slice)
     cfg = BERT_TINY(dtype=torch.float32, hidden_dropout=0.0,
-                    attention_dropout=0.0, fused_ops=True)
+                    attention_dropout=0.0, **model_kw)
     ref = BertForSequenceClassification(cfg, device="cpu")
     ref.init_weights(torch.Generator().manual_seed(0))
     params = {k: v.detach().clone() for k, v in ref.state_dict().items()}
@@ -904,7 +1195,8 @@ def tiny_train_phase(torch):
     batch["attention_mask"][1, 20:] = 0
     batch["attention_mask"][5, 9:] = 0
     step = make_classification_train_step(
-        input_keys=("input_ids", "attention_mask"), label_key="label")
+        input_keys=("input_ids", "attention_mask"), label_key="label",
+        loss_impl=loss_impl)
     out = {}
     for dev in ("cuda", "cpu"):
         state = create_train_state(
@@ -915,40 +1207,50 @@ def tiny_train_phase(torch):
         grads, metrics = step.grads_and_metrics(state, batch, fold_in(1, 0, dev))
         state, _ = step(state, batch, 1)
         after = train_counts()
-        launched = {k: after[k] - before[k] for k in TRAIN_LAUNCHES}
+        per_pass = launches_per_step(cfg.num_layers, fused_slice)
+        launched = {k: after[k] - before[k] for k in per_pass}
         # Two forward and backward passes: grads_and_metrics, then the step.
-        want = {k: 2 * v if dev == "cuda" else 0
-                for k, v in launches_per_step(cfg.num_layers).items()}
+        want = {k: 2 * v if dev == "cuda" else 0 for k, v in per_pass.items()}
         if launched != want:
-            fail(f"tiny_train: kernel launches {launched} on {dev}, "
+            fail(f"{name}: kernel launches {launched} on {dev}, "
                  f"expected {want}")
         out[dev] = (float(metrics["loss"]),
                     {k: g.cpu() for k, g in grads.items()},
                     {k: v.detach().cpu() for k, v in state.model.state_dict().items()})
     (lg, gg, pg), (lc, gc, pc) = out["cuda"], out["cpu"]
     if not abs(lg - lc) <= 1e-5 + 1e-4 * abs(lc):
-        fail(f"tiny_train: loss {lg} on the card vs {lc} on the CPU")
+        fail(f"{name}: loss {lg} on the card vs {lc} on the CPU")
     worst_g = max(float((gg[k] - gc[k]).abs().max()) for k in gc)
     bad = [k for k in gc if not torch.allclose(gg[k], gc[k], rtol=1e-4,
                                                 atol=1e-4)]
     bad += [k for k in pc if not torch.allclose(pg[k], pc[k], rtol=2e-3,
                                                  atol=2e-5)]
     if bad:
-        fail(f"tiny_train: card vs CPU disagree in {bad[:5]}")
+        fail(f"{name}: card vs CPU disagree in {bad[:5]}")
     worst_p = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
-    print(f"tiny_train: f32 BERT_TINY train step, kernels on the card vs plain "
+    print(f"{name}: f32 BERT_TINY train step ({model_kw}, loss_impl="
+          f"{loss_impl!r}), kernels on the card vs plain "
           f"on the CPU: loss {lg:.6f} vs {lc:.6f}, max |grad diff| "
           f"{worst_g:.3e} (tol 1e-4), max |param diff| after the update "
           f"{worst_p:.3e} (rtol 2e-3, atol 2e-5)")
 
 
-def train_phase(torch, card):
+def train_phase(torch, card, fused_slice=False):
     """BERT-base through the user's entry points: W warm-up steps, then T
-    timed steps (counts reset just before), then a profiled window."""
+    timed steps (counts reset just before), then a profiled window. With
+    ``fused_slice`` (the train_fused phase) the model runs
+    attention_impl="fused" and the step loss_impl="auto", and one eval
+    batch through make_classification_eval_step follows (counts reset
+    just before)."""
     from tpudl_torch.data.synthetic import synthetic_token_batches
     from tpudl_torch.models.registry import build_model
     from tpudl_torch.rng import fold_in
-    from tpudl_torch.train import create_train_state, fit, make_classification_train_step
+    from tpudl_torch.train import (
+        create_train_state,
+        fit,
+        make_classification_eval_step,
+        make_classification_train_step,
+    )
     from tpudl_torch.train.metrics import (
         Throughput,
         device_peak_flops,
@@ -956,12 +1258,16 @@ def train_phase(torch, card):
         transformer_train_flops,
     )
 
+    name = "train_fused" if fused_slice else "train"
+    model_kw, loss_impl = bert_variant(fused_slice)
+    per_step = launches_per_step(12, fused_slice)
     t0 = time.perf_counter()
-    model = build_model("bert-base", 2, fused_ops=True)
+    model = build_model("bert-base", 2, **model_kw)
     state = create_train_state(0, model, sst2_optimizer())
     n_params = sum(p.numel() for p in model.parameters())
-    step = make_classification_train_step(
-        input_keys=("input_ids", "attention_mask"), label_key="label")
+    keys = ("input_ids", "attention_mask")
+    step = make_classification_train_step(input_keys=keys, label_key="label",
+                                          loss_impl=loss_impl)
     steps = TRAIN_WARMUP_STEPS + TRAIN_STEPS + PROFILE_STEPS
     batches = list(synthetic_token_batches(BERT_BATCH, BERT_SEQ,
                                            model.cfg.vocab_size,
@@ -978,8 +1284,9 @@ def train_phase(torch, card):
         return state, metrics
 
     torch.cuda.synchronize()
-    print(f"train: BERT-base, {n_params / 1e6:.2f} M parameters, batch "
-          f"{BERT_BATCH} x seq {BERT_SEQ}, set-up {time.perf_counter() - t0:.1f} s")
+    print(f"{name}: BERT-base ({model_kw}, loss_impl={loss_impl!r}), "
+          f"{n_params / 1e6:.2f} M parameters, batch {BERT_BATCH} x seq "
+          f"{BERT_SEQ}, set-up {time.perf_counter() - t0:.1f} s")
     state, _, _ = fit(recorded, state, batches[:w], 1)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -987,30 +1294,29 @@ def train_phase(torch, card):
     timed = meter.result(losses[-1])
     launches = train_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = {k: v * TRAIN_STEPS for k, v in TRAIN_LAUNCHES.items()}
-    want.update(rms_norm_fwd=0, swiglu_fwd=0)
-    print(f"train: {TRAIN_STEPS} steps, launches {launches}")
+    want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in launches}
+    print(f"{name}: {TRAIN_STEPS} steps, launches {launches}")
     if launches != want:
-        fail(f"train: kernel launches {launches} != expected {want} "
-             f"({TRAIN_LAUNCHES} per step, no RMSNorm or SwiGLU)")
+        fail(f"{name}: kernel launches {launches} != expected {want} "
+             f"({per_step} per step, none of the others)")
     loss_t = torch.stack(losses)
     if not bool(torch.isfinite(loss_t).all()):
-        fail(f"train: non-finite loss in {loss_t.tolist()}")
+        fail(f"{name}: non-finite loss in {loss_t.tolist()}")
     if timed["steps_measured"] != TRAIN_STEPS:
-        fail(f"train: the meter timed {timed['steps_measured']} steps, not "
+        fail(f"{name}: the meter timed {timed['steps_measured']} steps, not "
              f"{TRAIN_STEPS}")
     step_s = timed["step_ms"] / 1e3
     flops = transformer_train_flops(n_params, BERT_BATCH * BERT_SEQ)
     peak_flops = device_peak_flops()
     util = mfu(flops, step_s, peak_per_chip=peak_flops)
-    print(f"train metrics ({card}): step {step_s * 1e3:.2f} ms, "
+    print(f"{name} metrics ({card}): step {step_s * 1e3:.2f} ms, "
           f"{BERT_BATCH / step_s:.1f} samples/s, MFU {100 * util:.2f}% "
           f"(6ND = {flops:.3e} FLOP over {peak_flops / 1e12:.0f} TFLOP/s dense "
           f"bf16), peak memory {peak:.2f} GiB, losses "
           f"{loss_t[0].item():.4f} -> {last['loss']:.4f}")
     rest = batches[w + TRAIN_STEPS:]
     busy = profile_steps(
-        torch, lambda: fit(step, state, rest, 1), PROFILE_STEPS, "train",
+        torch, lambda: fit(step, state, rest, 1), PROFILE_STEPS, name,
         step_s * 1e6 * PROFILE_STEPS)
     # The same batches without the optimizer update: forward and backward.
     torch.cuda.synchronize()
@@ -1019,15 +1325,34 @@ def train_phase(torch, card):
         step.grads_and_metrics(state, batch, fold_in(1, b, "cuda"))
     torch.cuda.synchronize()
     fwd_bwd_ms = (time.perf_counter() - t0) / len(rest) * 1e3
-    print(f"train: forward and backward alone {fwd_bwd_ms:.2f} ms per step; "
+    print(f"{name}: forward and backward alone {fwd_bwd_ms:.2f} ms per step; "
           f"the optimizer update (clip, AdamW) and the rest "
           f"{step_s * 1e3 - fwd_bwd_ms:.2f} ms")
-    return state, launches, {
+    metrics = {
         "step_ms": step_s * 1e3, "samples_per_s": BERT_BATCH / step_s,
         "mfu": util, "peak_memory_gib": peak, "device_busy_share": busy,
         "forward_backward_ms": fwd_bwd_ms, "num_params": n_params,
         "steps": TRAIN_STEPS,
     }
+    if fused_slice:
+        evaluate = make_classification_eval_step(input_keys=keys,
+                                                 loss_impl=loss_impl)
+        torch.cuda.synchronize()
+        reset_counts()
+        ev = evaluate(state, batches[0])
+        ev_launches = train_counts()
+        want = {k: eval_launches(12).get(k, 0) for k in ev_launches}
+        if ev_launches != want:
+            fail(f"{name}: the eval batch launched {ev_launches}, expected "
+                 f"{want}")
+        ev = {k: float(v) for k, v in ev.items()}
+        if not all(v == v and abs(v) != float("inf") for v in ev.values()):
+            fail(f"{name}: non-finite eval metrics {ev}")
+        print(f"{name}: one eval batch through make_classification_eval_step"
+              f"(loss_impl={loss_impl!r}): loss {ev['loss']:.4f}, accuracy "
+              f"{ev['accuracy']:.4f}, launches {ev_launches}")
+        metrics["eval"] = ev
+    return state, launches, metrics
 
 
 #: Gradients the parity gate cannot judge (see train_parity_phase).
@@ -1040,11 +1365,16 @@ UNGATED = {
 }
 
 
-def train_parity_phase(torch):
+def train_parity_phase(torch, fused_slice=False):
     """The kernel path, the plain bf16 path (fused_ops=False) and an f32
     oracle (plain, TF32 off), from the same fresh BERT-base weights, over
     PARITY_BATCHES batches, each with its own dropout seed shared by the
     three paths (the kernels draw no bits, so the masks are the same).
+    With ``fused_slice`` (train_fused_parity) the kernel path also runs
+    attention_impl="fused" and loss_impl="auto", against the plain path's
+    "reference" for both; attention dropout is 0 and hidden dropout 0.1,
+    so the fused attention draws no seed words and every path draws the
+    same bits in the same order.
     Per path the errors against the oracle accumulate over the batches:
     relative L2 error of the per-example losses, of every gradient tensor
     and of all gradients together. The kernel path's may not exceed
@@ -1059,20 +1389,25 @@ def train_parity_phase(torch):
     from tpudl_torch.rng import fold_in
     from tpudl_torch.train import create_train_state, make_classification_train_step
 
+    phase = "train_fused_parity" if fused_slice else "train_parity"
     init = BertForSequenceClassification(BERT_BASE(), device="cuda")
     init.init_weights(torch.Generator(device="cuda").manual_seed(11))
     params = {k: v.detach() for k, v in init.state_dict().items()}
     keys = ("input_ids", "attention_mask")
-    step = make_classification_train_step(input_keys=keys, label_key="label")
-    states = {
-        name: create_train_state(
+    kernel_kw, kernel_loss = bert_variant(fused_slice)
+    common = {"attention_dropout": 0.0} if fused_slice else {}
+    paths = {"kernel": (torch.bfloat16, kernel_kw, kernel_loss),
+             "plain": (torch.bfloat16, {"fused_ops": False}, "reference"),
+             "oracle": (torch.float32, {"fused_ops": False}, "reference")}
+    states, steps = {}, {}
+    for name, (dtype, kw, loss_impl) in paths.items():
+        states[name] = create_train_state(
             0, BertForSequenceClassification(
-                BERT_BASE(dtype=dtype, fused_ops=fused), device="meta"),
+                BERT_BASE(dtype=dtype, **common, **kw), device="meta"),
             sst2_optimizer(), params=params)
-        for name, dtype, fused in (("kernel", torch.bfloat16, True),
-                                   ("plain", torch.bfloat16, False),
-                                   ("oracle", torch.float32, False))
-    }
+        steps[name] = make_classification_train_step(
+            input_keys=keys, label_key="label", loss_impl=loss_impl)
+    counted_kernels = launches_per_step(12, fused_slice)
     del init, params
     sq = {name: {} for name in ("kernel", "plain", "oracle")}
 
@@ -1084,18 +1419,20 @@ def train_parity_phase(torch):
         out = {}
         for name, st in states.items():
             before = train_counts()
-            grads, metrics = step.grads_and_metrics(st, batch,
-                                                    fold_in(7, b, "cuda"))
+            grads, metrics = steps[name].grads_and_metrics(
+                st, batch, fold_in(7, b, "cuda"))
             with torch.no_grad():
                 t = {k: torch.as_tensor(batch[k], device="cuda") for k in batch}
                 logits = st.model(t["input_ids"], t["attention_mask"],
                                   train=True, generator=fold_in(7, b, "cuda"))
                 losses = F.cross_entropy(logits.float(), t["label"].long(),
                                          reduction="none")
-            launched = sum(train_counts()[k] - before[k] for k in TRAIN_LAUNCHES)
-            if (launched > 0) != (name == "kernel"):
-                fail(f"train_parity: the {name} path launched {launched} "
-                     f"kernels")
+            after = train_counts()
+            launched = {k: after[k] - before[k] for k in counted_kernels}
+            if name == "kernel" and not all(launched.values()):
+                fail(f"{phase}: the kernel path launched {launched}")
+            if name != "kernel" and any(launched.values()):
+                fail(f"{phase}: the {name} path launched {launched}")
             out[name] = (losses.double(), metrics["loss"].double(),
                          {k: g.double() for k, g in grads.items()})
         lo, mo, go = out["oracle"]
@@ -1125,7 +1462,7 @@ def train_parity_phase(torch):
     shown = ", ".join(f"{k} {ratio[k]:.3f} ({err['kernel'][k]:.3e} vs "
                       f"{err['plain'][k]:.3e})" for k in worst)
     free = ", ".join(f"{k} {ratio[k]:.3f}" for k in tensors if k not in gated)
-    print(f"train_parity: {PARITY_BATCHES} batches, rel L2 err vs the f32 "
+    print(f"{phase}: {PARITY_BATCHES} batches, rel L2 err vs the f32 "
           f"oracle, kernel vs plain path: per-example losses "
           f"{err['kernel']['losses']:.3e} vs {err['plain']['losses']:.3e}; "
           f"batch-mean loss {err['kernel']['mean_loss']:.3e} vs "
@@ -1136,7 +1473,7 @@ def train_parity_phase(torch):
           f"{shown}; ungated: {free}")
     bad = [k for k in judged if ratio[k] > KERNEL_ERR_RATIO]
     if bad:
-        fail(f"train_parity: the kernel path's error exceeds "
+        fail(f"{phase}: the kernel path's error exceeds "
              f"{KERNEL_ERR_RATIO} x the plain path's in {bad}")
     del states
     torch.cuda.empty_cache()
@@ -1191,14 +1528,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     train_cases = train_kernel_phase(torch, F)
+    fused_cases = fused_kernel_phase(torch, F)
     tiny_train_phase(torch)
+    tiny_train_phase(torch, fused_slice=True)
     state, train_launches, train_metrics = train_phase(torch, card)
     del state
     torch.cuda.empty_cache()
     train_metrics["parity"] = train_parity_phase(torch)
+    state, fused_launches, fused_metrics = train_phase(torch, card,
+                                                      fused_slice=True)
+    del state
+    torch.cuda.empty_cache()
+    fused_metrics["parity"] = train_parity_phase(torch, fused_slice=True)
 
     norms_cu = "tpudl_torch/ops/csrc/norms.cu"
     mlp_cu = "tpudl_torch/ops/csrc/mlp_fused.cu"
+    sd_cu = "tpudl_torch/ops/csrc/softmax_dropout.cu"
+    xent_cu = "tpudl_torch/ops/csrc/cross_entropy.cu"
     # name -> (source, replaces, main-path launches, per step, headline case)
     table = {
         # Serving: the decode shape in bf16 (the path's dtype), without a
@@ -1220,6 +1566,23 @@ def main() -> int:
         "bias_gelu_bwd": (mlp_cu, "tpudl/ops/mlp_fused.py:108",
                           train_launches["bias_gelu_bwd"],
                           TRAIN_LAUNCHES["bias_gelu_bwd"], train_cases),
+        # The fused slice: the first case, the train_fused step's own call
+        # (softmax_dropout [256, 12, 128, 128] bf16; cross-entropy [256, 2]
+        # f32); launches from the train_fused run.
+        "softmax_dropout_fwd": (sd_cu, "tpudl/ops/softmax_dropout.py:168",
+                                fused_launches["softmax_dropout_fwd"],
+                                TRAIN_FUSED_LAUNCHES["softmax_dropout_fwd"],
+                                fused_cases),
+        "softmax_dropout_bwd": (sd_cu, "tpudl/ops/softmax_dropout.py:199",
+                                fused_launches["softmax_dropout_bwd"],
+                                TRAIN_FUSED_LAUNCHES["softmax_dropout_bwd"],
+                                fused_cases),
+        "xent_fwd": (xent_cu, "tpudl/ops/cross_entropy.py:173",
+                     fused_launches["xent_fwd"],
+                     TRAIN_FUSED_LAUNCHES["xent_fwd"], fused_cases),
+        "xent_bwd": (xent_cu, "tpudl/ops/cross_entropy.py:209",
+                     fused_launches["xent_bwd"],
+                     TRAIN_FUSED_LAUNCHES["xent_bwd"], fused_cases),
     }
     kernels = []
     for name, (source, replaces, count, per_step, where) in table.items():
@@ -1246,7 +1609,7 @@ def main() -> int:
                       for c in rows],
         })
     print(json.dumps({"slice": metrics, "train": train_metrics,
-                      "card": card}))
+                      "train_fused": fused_metrics, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

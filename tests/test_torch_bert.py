@@ -84,6 +84,34 @@ def test_bridge_layout():
     assert all(t.dtype == torch.float32 for t in params.values())
 
 
+def test_bridge_covers_the_fused_attention_tree():
+    """attention_impl does not change the parameter tree: a tpudl model
+    built with attention_impl="fused" has the reference model's leaves,
+    and params_from_tpudl loads it into the port's fused-attention model,
+    whose logits then match tpudl's (interpreted kernels) at 1e-5."""
+    fused_cfg = dict(_CFG, attention_impl="fused")
+    jmodel = jbert.BertForSequenceClassification(
+        jbert.BertConfig(dtype=jnp.float32, fused_ops="force", **fused_cfg))
+    ids = jnp.zeros((1, 16), jnp.int32)
+    tree = jmodel.init(jax.random.key(1), ids)["params"]
+    assert (jax.tree.structure(tree)
+            == jax.tree.structure(_tpudl_params(1)))
+    params = bert.params_from_tpudl(tree, device="cpu")
+    assert set(params) == bert.param_names(2)
+    model = bert.BertForSequenceClassification(
+        bert.BertConfig(dtype=torch.float32, fused_ops=True, **fused_cfg),
+        device="cpu")
+    model.load_state_dict(params, strict=True)
+    batch = _batch(seed=4)
+    want = jmodel.apply({"params": tree}, jnp.asarray(batch["input_ids"]),
+                        jnp.asarray(batch["attention_mask"]))
+    with torch.no_grad():
+        got = model(torch.from_numpy(batch["input_ids"]),
+                    torch.from_numpy(batch["attention_mask"]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_bridge_refusals():
     tree = _tpudl_params()
     extra = jax.tree.map(lambda x: x, tree)

@@ -13,6 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from tpudl_torch.ops import keep_mask
+from tpudl_torch.ops import softmax_dropout as sd
+from tpudl_torch.ops.cross_entropy import (
+    softmax_cross_entropy,
+    softmax_cross_entropy_ref,
+    xent_bwd,
+    xent_bwd_ref,
+)
 from tpudl_torch.ops.mlp_fused import (
     bias_gelu,
     bias_gelu_bwd,
@@ -482,3 +490,271 @@ def test_tiny_bert_train_step_kernel_path_matches_plain_path(dev):
         torch.testing.assert_close(gk[k], gp[k], rtol=1e-4, atol=1e-4)
     for k in pp:
         torch.testing.assert_close(pk[k], pp[k], rtol=2e-3, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the dropout contract, softmax_dropout and the cross-entropy
+# ---------------------------------------------------------------------------
+
+#: Random123's known-answer vectors for Philox4x32-10 (counter, key).
+PHILOX_KAT = [((0, 0, 0, 0), (0, 0)),
+              ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2),
+              ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+               (0xA4093822, 0x299F31D0))]
+
+
+def test_philox_device_function_matches_curand_and_the_twin(dev):
+    """philox.cuh's rounds against cuRAND's curand_Philox4x32_10 and the
+    plain twin (ops/keep_mask.py), on the known-answer counters and keys
+    and 4096 random ones: bit for bit."""
+    rng = np.random.default_rng(0)
+    rows = [list(c) + list(k) for c, k in PHILOX_KAT]
+    rows += rng.integers(0, 2**32, size=(4096, 6), dtype=np.uint64).tolist()
+    words = torch.tensor(rows, dtype=torch.int64)
+    ours, theirs = sd.philox_pair_cuda(words)
+    assert torch.equal(ours, theirs)
+    twin = torch.stack(keep_mask.philox4x32_10(
+        *(words[:, j] for j in range(6))), 1)
+    assert torch.equal(ours, twin)
+
+
+def _sd_inputs(dev, shape, dtype, seed=0, scale=3.0):
+    rng = np.random.default_rng(seed)
+    x = _t(rng, shape, torch.float32, dev).mul(scale).to(dtype)
+    b, skv = shape[0], shape[-1]
+    lengths = rng.integers(skv // 2, skv + 1, size=b)
+    kvmask = torch.from_numpy(np.arange(skv)[None, :] < lengths[:, None]).to(dev)
+    kvmask[-1] = False  # a fully masked batch entry
+    return x, kvmask
+
+
+def _sd_tol(dtype):
+    # One bf16 step (relative), or 1e-5 in f32.
+    return (2.0**-7, 1e-6) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("skv", [128, 72, 511, 512])
+@pytest.mark.parametrize("masking", ["none", "padding", "causal"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_softmax_dropout_kernels_match_plain(dev, dtype, out_dtype, skv,
+                                             masking, rate):
+    """Forward and backward against their plain versions with the same
+    seed words: the dropped entries are the same, the values within one
+    bf16 step (or 1e-5 in f32)."""
+    x, kvmask = _sd_inputs(dev, (3, 2, skv, skv), dtype, seed=skv)
+    mask = kvmask if masking == "padding" else None
+    causal = masking == "causal"
+    seed = torch.tensor([99, 2**31 + 5], dtype=torch.int64, device=dev)
+    g = _t(np.random.default_rng(1), x.shape, torch.float32, dev).to(out_dtype)
+    before = (sd.softmax_dropout.launches, sd.softmax_dropout_bwd.launches)
+    out = sd._sd_fwd_cuda(x, mask, seed, causal, rate, out_dtype)
+    dx = sd.softmax_dropout_bwd(x, mask, seed, g, causal, rate, impl="fused")
+    torch.cuda.synchronize()
+    assert (sd.softmax_dropout.launches,
+            sd.softmax_dropout_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = sd.softmax_dropout_ref(x, mask, seed, causal, rate, out_dtype)
+    want_dx = sd.softmax_dropout_bwd_ref(x, mask, seed, g, causal, rate)
+    assert out.dtype == out_dtype and dx.dtype == dtype
+    rtol, atol = _sd_tol(out_dtype)
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol, atol=atol)
+    if rate:
+        assert torch.equal(out == 0, want == 0)
+    rtol, atol = _sd_tol(dtype)
+    torch.testing.assert_close(dx.float(), want_dx.float(), rtol=rtol,
+                               atol=max(atol, 1e-5))
+    if mask is not None:
+        assert float(out[-1].float().abs().max()) == 0.0
+        assert float(dx[-1].float().abs().max()) == 0.0
+
+
+def test_softmax_dropout_keep_mask_is_the_plain_mask_and_regenerates(dev):
+    """At the BERT shape, zero logits (p = 1/128): the forward's kept
+    entries are exactly the plain keep mask, bit for bit, at a rate within
+    5 sigma of 0.9; the backward (g = 1) regenerates the same mask (g' /
+    (1 - rate) recovered from dx) and is bitwise repeatable."""
+    shape, rate = (256, 12, 128, 128), 0.1
+    x = torch.zeros(shape, dtype=torch.float32, device=dev)
+    seed = keep_mask.draw_seed(torch.Generator(dev).manual_seed(17))
+    out = sd._sd_fwd_cuda(x, None, seed, False, rate, torch.float32)
+    keep = keep_mask.keep_mask(seed, shape, rate)
+    assert torch.equal(out != 0, keep)
+    n = keep.numel()
+    share = keep.float().mean().item()
+    assert abs(share - 0.9) < 5 * (0.09 / n) ** 0.5
+    g = torch.ones_like(x)
+    dx = sd.softmax_dropout_bwd(x, None, seed, g, False, rate, impl="fused")
+    # dx = p * (g' - sum(g' p)) and sum(g' p) = sum(out) for g = 1.
+    g_prime = dx * 128 + out.sum(-1, keepdim=True)
+    assert torch.equal(g_prime > 0.5 / (1 - rate), keep)
+    again = sd.softmax_dropout_bwd(x, None, seed, g, False, rate, impl="fused")
+    assert torch.equal(dx, again)
+
+
+def test_softmax_dropout_autograd_matches_autograd_through_plain(dev):
+    q, k, v = (_t(np.random.default_rng(i), (2, 64, 4, 32), torch.float32, dev)
+               for i in range(3))
+    am = torch.ones(2, 64, dtype=torch.int32, device=dev)
+    am[1, 40:] = 0
+    grads = []
+    for impl in ("fused", "reference"):
+        leaves = [_leaf(t) for t in (q, k, v)]
+        out = sd.hybrid_attention(*leaves, mask=am, causal=True, impl=impl)
+        (out * out).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_softmax_dropout_refusals(dev):
+    x = torch.zeros(1, 2, 8, 513, device=dev)
+    with pytest.raises(ValueError, match="at most 512"):
+        sd.softmax_dropout(x, impl="fused")
+    with pytest.raises(NotImplementedError, match="dense mask"):
+        sd.softmax_dropout(x[..., :8], impl="fused",
+                           mask=torch.ones(1, 2, 8, 8, dtype=torch.bool,
+                                           device=dev))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        sd.softmax_dropout(x.cpu(), impl="fused")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        sd.softmax_dropout(x[..., :8].half(), impl="fused")
+    with pytest.raises(ValueError, match="seed is on"):
+        sd._sd_fwd_cuda(x[..., :8], None, torch.zeros(2, dtype=torch.int64),
+                        False, 0.0, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,v", [(256, 2), (19, 1000), (7, 1003),
+                                 (64, 30522)])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_cross_entropy_kernels_match_plain(dev, dtype, b, v, smoothing):
+    rng = np.random.default_rng(v)
+    z = _t(rng, (b, v), torch.float32, dev).mul(3).to(dtype)
+    labels = torch.from_numpy(rng.integers(0, v, size=b)).to(dev)
+    g = torch.from_numpy(rng.uniform(0, 2, size=b).astype(np.float32)).to(dev)
+    before = (softmax_cross_entropy.launches, xent_bwd.launches)
+    loss = softmax_cross_entropy(z, labels, smoothing, impl="fused")
+    lse = torch.logsumexp(z.float(), -1)
+    dz = xent_bwd(z, labels, lse, g, smoothing, impl="fused")
+    torch.cuda.synchronize()
+    assert (softmax_cross_entropy.launches, xent_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert loss.dtype == torch.float32 and dz.dtype == dtype
+    torch.testing.assert_close(
+        loss, softmax_cross_entropy_ref(z, labels, smoothing),
+        rtol=1e-5, atol=1e-5)
+    want = xent_bwd_ref(z, labels, lse, g, smoothing)
+    rtol, atol = _sd_tol(dtype)
+    torch.testing.assert_close(dz.float(), want.float(), rtol=rtol,
+                               atol=max(atol, 1e-6))
+    again = xent_bwd(z, labels, lse, g, smoothing, impl="fused")
+    assert torch.equal(dz, again)
+
+
+def test_cross_entropy_autograd_matches_plain_and_leading_dims(dev):
+    rng = np.random.default_rng(3)
+    z0 = _t(rng, (3, 5, 1003), torch.float32, dev)
+    labels = torch.from_numpy(rng.integers(0, 1003, size=(3, 5))).to(dev)
+    w = _t(rng, (3, 5), torch.float32, dev)
+    grads = []
+    for impl in ("fused", "reference"):
+        z = _leaf(z0)
+        out = softmax_cross_entropy(z, labels, 0.1, impl=impl)
+        assert out.shape == (3, 5)
+        (out * w).sum().backward()
+        grads.append(z.grad)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-6)
+
+
+def test_cross_entropy_allocates_no_bv_float_beyond_dz(dev):
+    """Forward and backward at [4096, 30522] bf16: the peak allocation
+    beyond the logits stays below dz plus one more bf16 [B, V] tensor (the
+    bound the property states is one f32 [B, V])."""
+    b, v = 4096, 30522
+    z = torch.randn(b, v, device=dev).to(torch.bfloat16).requires_grad_(True)
+    labels = torch.randint(0, v, (b,), device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    softmax_cross_entropy(z, labels, 0.1, impl="fused").mean().backward()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    dz_bytes = z.grad.numel() * z.grad.element_size()
+    assert extra - dz_bytes < b * v * 2 < b * v * 4
+
+
+def test_cross_entropy_refusals(dev):
+    z = torch.zeros(4, 10, device=dev)
+    labels = torch.zeros(4, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        softmax_cross_entropy(torch.zeros(10, 4, device=dev).t(), labels,
+                              impl="fused")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        softmax_cross_entropy(z.half(), labels, impl="fused")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        softmax_cross_entropy(z.cpu(), labels.cpu(), impl="fused")
+
+
+def test_tiny_bert_fused_slice_step_matches_plain_path(dev):
+    """One train step of a small f32 BERT on the card with the slice's
+    kernels (fused_ops=True, attention_impl="fused", loss_impl="auto")
+    against the plain path (fused_ops=False, attention_impl="reference",
+    loss_impl="reference"), same weights and batch, attention dropout 0
+    and hidden dropout 0.1 (the same masks on both paths), then one eval
+    batch. Bands as the step test above."""
+    from tpudl_torch.config import OptimConfig
+    from tpudl_torch.data.synthetic import synthetic_token_batches
+    from tpudl_torch.models.bert import BertConfig, BertForSequenceClassification
+    from tpudl_torch.rng import fold_in
+    from tpudl_torch.train import (
+        create_train_state,
+        make_classification_eval_step,
+        make_classification_train_step,
+        make_optimizer,
+    )
+
+    kw = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=2,
+              intermediate_size=512, max_position_embeddings=64,
+              attention_dropout=0.0, dtype=torch.float32)
+    ref = BertForSequenceClassification(BertConfig(**kw), device=dev)
+    ref.init_weights(torch.Generator(dev).manual_seed(0))
+    params = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+    batch = next(synthetic_token_batches(8, 32, 512, seed=2))
+    batch["attention_mask"][3, 17:] = 0
+    tx = OptimConfig(learning_rate=1e-3, warmup_steps=0, schedule="constant",
+                     weight_decay=0.01, mu_dtype="bfloat16")
+    keys = ("input_ids", "attention_mask")
+    out = []
+    for fused in (True, False):
+        cfg = BertConfig(fused_ops=fused,
+                         attention_impl="fused" if fused else "reference", **kw)
+        state = create_train_state(
+            0, BertForSequenceClassification(cfg, device="meta"),
+            make_optimizer(tx), params=params, device=dev)
+        loss_impl = "auto" if fused else "reference"
+        step = make_classification_train_step(input_keys=keys,
+                                              loss_impl=loss_impl)
+        counts = lambda: (sd.softmax_dropout.launches,  # noqa: E731
+                          sd.softmax_dropout_bwd.launches,
+                          softmax_cross_entropy.launches, xent_bwd.launches)
+        before = counts()
+        grads, metrics = step.grads_and_metrics(state, batch, fold_in(3, 0, dev))
+        launched = tuple(a - b for a, b in zip(counts(), before))
+        assert launched == ((2, 2, 1, 1) if fused else (0, 0, 0, 0))
+        state, _ = step(state, batch, 3)
+        before = counts()
+        ev = make_classification_eval_step(input_keys=keys,
+                                           loss_impl=loss_impl)(state, batch)
+        launched = tuple(a - b for a, b in zip(counts(), before))
+        assert launched == ((2, 0, 1, 0) if fused else (0, 0, 0, 0))
+        out.append((metrics["loss"], grads, state.model.state_dict(), ev))
+    (lk, gk, pk, ek), (lp, gp, pp, ep) = out
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-5)
+    for k in gp:
+        torch.testing.assert_close(gk[k], gp[k], rtol=1e-4, atol=1e-4)
+    for k in pp:
+        torch.testing.assert_close(pk[k], pp[k], rtol=2e-3, atol=2e-5)
+    torch.testing.assert_close(ek["loss"], ep["loss"], rtol=1e-4, atol=1e-5)
+    assert float(ek["accuracy"]) == float(ep["accuracy"])

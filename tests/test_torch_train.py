@@ -199,8 +199,11 @@ def test_cross_entropy_matches_optax():
         optax.smooth_labels(jax.nn.one_hot(labels, 5), 0.1)).mean()
     np.testing.assert_allclose(float(cross_entropy_loss(tl, tlab, 0.1)),
                                float(smooth), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="queue B item 2"):
+    # The fused kernel takes CUDA tensors; "auto" on the CPU is the composite.
+    with pytest.raises(ValueError, match="CUDA tensors only"):
         cross_entropy_loss(tl, tlab, impl="fused")
+    assert torch.equal(cross_entropy_loss(tl, tlab, impl="auto"),
+                       cross_entropy_loss(tl, tlab))
 
 
 def test_train_metrics_match_tpudl():
@@ -282,8 +285,125 @@ def test_fit_and_step_refuse_what_is_not_ported():
         with pytest.raises(NotImplementedError, match=item):
             fit(step, state, batches, 0, **kw)
     for kw, item in ((dict(accum_steps=4), "queue A item 12"),
-                     (dict(loss_impl="auto"), "queue B item 2"),
                      (dict(precision="bf16"), "queue A item 8"),
                      (dict(moe_aux_weight=0.01), "queue A item 4")):
         with pytest.raises(NotImplementedError, match=item):
             make_classification_train_step(**kw)
+    # The fused loss is ported.
+    make_classification_train_step(loss_impl="auto")
+
+
+# ---------------------------------------------------------------------------
+# the fused slice: attention_impl="fused" and the fused loss
+# ---------------------------------------------------------------------------
+
+_SLICE_CFG = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=2,
+                  intermediate_size=64, hidden_dropout=0.0,
+                  attention_dropout=0.0, max_position_embeddings=32)
+_KEYS = ("input_ids", "attention_mask")
+
+
+def _slice_batch(batch=8, seq=16, seed=0):
+    rng = np.random.default_rng(seed)
+    mask = np.ones((batch, seq), np.int32)
+    for b in range(batch):  # ragged right padding
+        mask[b, rng.integers(seq // 2, seq + 1):] = 0
+    return {
+        "input_ids": rng.integers(0, 128, (batch, seq)).astype(np.int32),
+        "attention_mask": mask,
+        "label": rng.integers(0, 2, (batch,)).astype(np.int32),
+    }
+
+
+def _slice_states():
+    """tpudl's state (fused_ops="force", attention_impl="fused": every
+    Pallas kernel in interpret mode) and the port's (fused_ops=True,
+    attention_impl="fused": the kernels' plain versions on the CPU), f32,
+    same weights, the sst2_bert_base optimizer at a constant rate."""
+    from tpudl.config import get_config as jget
+    from tpudl.models import bert as jbert
+    from tpudl.train import create_train_state as jcreate
+    from tpudl.train.optim import make_optimizer as jopt
+    from tpudl_torch.models import bert
+
+    jmodel = jbert.BertForSequenceClassification(jbert.BertConfig(
+        dtype=jnp.float32, fused_ops="force", attention_impl="fused",
+        **_SLICE_CFG))
+    jocfg = dataclasses.replace(jget("sst2_bert_base").optim,
+                                schedule="constant", warmup_steps=0)
+    jstate = jcreate(jax.random.key(0), jmodel, jnp.zeros((1, 16), jnp.int32),
+                     jopt(jocfg))
+    ocfg = dataclasses.replace(get_config("sst2_bert_base").optim,
+                               schedule="constant", warmup_steps=0)
+    model = bert.BertForSequenceClassification(bert.BertConfig(
+        dtype=torch.float32, fused_ops=True, attention_impl="fused",
+        **_SLICE_CFG), device="meta")
+    state = create_train_state(
+        0, model, optim.make_optimizer(ocfg),
+        params=bert.params_from_tpudl(jstate.params, device="cpu"),
+        device="cpu")
+    return jmodel, jstate, state
+
+
+def test_fused_slice_train_step_matches_tpudl(one_thread):
+    """One step of the slice as a whole, dropout off: the port's
+    fused_ops=True, attention_impl="fused", loss_impl="auto" against
+    tpudl's fused_ops="force", attention_impl="fused", loss_impl="fused".
+    The bands of tests/test_torch_bert.py's train step (from
+    tests/test_fused_ops_integration.py:75-91): the loss rtol 1e-4 /
+    atol 1e-5, the gradients and the parameters after the update rtol
+    2e-3 / atol 2e-5."""
+    from tpudl.train import cross_entropy_loss as jloss
+    from tpudl.train import make_classification_train_step as jstep
+    from tpudl_torch.models import bert
+    from tpudl_torch.rng import fold_in
+
+    jmodel, jstate, state = _slice_states()
+    batch = _slice_batch()
+
+    def loss_fn(params):
+        logits = jmodel.apply({"params": params},
+                              jnp.asarray(batch["input_ids"]),
+                              jnp.asarray(batch["attention_mask"]),
+                              train=True)
+        return jloss(logits, jnp.asarray(batch["label"]), impl="fused")
+
+    jgrads = jax.jit(jax.grad(loss_fn))(jstate.params)
+    jnew, jmetrics = jax.jit(jstep(input_keys=_KEYS, loss_impl="fused"))(
+        jstate, batch, jax.random.key(1))
+
+    step = make_classification_train_step(input_keys=_KEYS, loss_impl="auto")
+    grads, _ = step.grads_and_metrics(state, batch, fold_in(1, 0, "cpu"))
+    state, metrics = step(state, batch, 1)
+    np.testing.assert_allclose(float(metrics["loss"]), float(jmetrics["loss"]),
+                               rtol=1e-4, atol=1e-5)
+    assert float(metrics["accuracy"]) == float(jmetrics["accuracy"])
+    for name, w in bert.params_from_tpudl(jgrads, device="cpu").items():
+        np.testing.assert_allclose(grads[name].numpy(), w.numpy(), rtol=2e-3,
+                                   atol=2e-5, err_msg=f"grad {name}")
+    got = state.model.state_dict()
+    for name, w in bert.params_from_tpudl(jnew.params, device="cpu").items():
+        np.testing.assert_allclose(got[name].numpy(), w.numpy(), rtol=2e-3,
+                                   atol=2e-5, err_msg=f"param {name} diverged")
+
+
+@pytest.mark.parametrize("valid", [False, True])
+def test_fused_slice_eval_step_matches_tpudl(one_thread, valid):
+    """make_classification_eval_step with the fused loss: the mean loss
+    and accuracy, and with a "_valid" column the masked means over the
+    real rows (tpudl.train.loop:467-517)."""
+    from tpudl.train import make_classification_eval_step as jeval
+    from tpudl_torch.train import make_classification_eval_step
+
+    jmodel, jstate, state = _slice_states()
+    batch = _slice_batch(seed=3)
+    if valid:
+        batch["_valid"] = np.array([1, 1, 1, 0, 1, 1, 0, 0], np.float32)
+    want = jax.jit(jeval(input_keys=_KEYS, loss_impl="fused"))(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    step = make_classification_eval_step(input_keys=_KEYS, loss_impl="auto")
+    got = step(state, batch)
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                               rtol=1e-4, atol=1e-5)
+    assert float(got["accuracy"]) == float(want["accuracy"])
+    assert got["loss"].requires_grad is False

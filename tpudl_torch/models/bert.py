@@ -11,7 +11,11 @@ model:
   ``cfg.dtype`` after dropout;
 - the encoder's LayerNorms take f32 statistics and write ``cfg.dtype``;
   attention runs through tpudl_torch.ops.attention.attend (bf16
-  products, f32 softmax);
+  products, f32 softmax): ``cfg.attention_impl="reference"`` is the
+  batched-product composite, "fused" the softmax+dropout kernels around
+  plain products (12 calls each way per BERT-base step at S <= 256),
+  whose attention dropout draws two seed words per call from the
+  generator instead of uint8 bits (tpudl_torch.ops.keep_mask);
 - the classifier computes in f32 (``nn.Dense(dtype=float32)``).
 
 ``cfg.fused_ops`` picks the tier, as in tpudl: False = the composite

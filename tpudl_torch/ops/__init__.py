@@ -1,8 +1,20 @@
 """Ops with hand-written Hopper kernels (``csrc/``) and their plain
 PyTorch versions: LayerNorm and RMSNorm (+residual) forward and backward,
-bias+GeLU forward and backward, SwiGLU; and the plain ops around them
-(attention, dropout)."""
+bias+GeLU forward and backward, SwiGLU, masked softmax + attention
+dropout forward and backward (``softmax_dropout``, with the Philox keep
+mask of ``keep_mask``), softmax cross-entropy forward and backward; and
+the plain ops around them (attention, dropout).
 
+``softmax_dropout`` is reached as the module
+``tpudl_torch.ops.softmax_dropout``; its entry points are not re-exported
+here, so the module name stays importable."""
+
+from tpudl_torch.ops.cross_entropy import (  # noqa: F401
+    softmax_cross_entropy,
+    softmax_cross_entropy_ref,
+    xent_bwd,
+    xent_bwd_ref,
+)
 from tpudl_torch.ops.mlp_fused import (  # noqa: F401
     bias_gelu,
     bias_gelu_bwd,

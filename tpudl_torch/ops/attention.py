@@ -2,8 +2,10 @@
 
 The port's counterpart of tpudl.ops.attention. ``dot_product_attention``
 is the reference implementation (bf16 batched products, f32 softmax) and
-``attend`` dispatches by implementation name; only ``"reference"`` is
-ported, and the Pallas-backed names raise until their kernels land.
+``attend`` dispatches by implementation name: ``"reference"`` and
+``"fused"`` at S <= 256 (tpudl_torch.ops.softmax_dropout's
+``hybrid_attention``) are ported; the other Pallas-backed names, and
+``"fused"`` above 256, raise until their kernels land.
 
 Shapes follow the JAX package:
   q, k, v: [batch, seq, heads, head_dim]   (BSHD)
@@ -24,9 +26,9 @@ from tpudl_torch.ops.dropout import dropout_keep_mask, quantized_rate
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 #: Implementations of tpudl's ``attend`` not ported yet, with the
-#: ROADMAP item that ports each.
+#: ROADMAP item that ports each. ``"fused"`` is ported at S <= 256 only
+#: (see ``attend``).
 _NOT_PORTED = {
-    "fused": "queue B items 1 (softmax_dropout) and 6 (fused_attention)",
     "flash": "queue B item 5 (flash attention)",
     "ring": "queue A item 10 (ring attention)",
     "ulysses": "queue A item 10 (Ulysses attention)",
@@ -75,6 +77,32 @@ def padding_mask(attention_mask: torch.Tensor) -> torch.Tensor:
     return attention_mask[:, None, None, :].bool()
 
 
+def normalize_kv_mask(
+    mask: Optional[torch.Tensor],
+    batch: int,
+    kv_len: int,
+    dtype=torch.int32,
+    impl: str = "attention",
+    device="cuda",
+) -> torch.Tensor:
+    """The kv-validity-mask contract of the kernel-backed
+    implementations: None -> all ones (on ``device``); [B, 1, 1, S]
+    padding masks squeeze to [B, S]; dense [B, H, Sq, Skv] masks raise
+    NotImplementedError (only the reference implementation takes
+    those)."""
+    if mask is None:
+        return torch.ones((batch, kv_len), dtype=dtype, device=device)
+    if mask.dim() == 4:
+        if mask.shape[1] != 1 or mask.shape[2] != 1:
+            raise NotImplementedError(
+                f"{impl} supports [B, S] / [B, 1, 1, S] padding masks and "
+                f"causal=True; got dense mask {tuple(mask.shape)} — use "
+                f"implementation='reference'"
+            )
+        mask = mask[:, 0, 0, :]
+    return torch.broadcast_to(mask, (batch, kv_len)).to(dtype)
+
+
 def combine_kv_causal_mask(
     mask: Optional[torch.Tensor], q_len: int, kv_len: int, causal: bool,
     device="cuda",
@@ -104,25 +132,54 @@ def attend(
     dropout_rng: Optional[torch.Generator] = None,
     dropout_exact: bool = False,
 ) -> torch.Tensor:
-    """Dispatch to an attention implementation: "reference" (this
-    module's batched-product attention) is ported; "fused", "flash",
-    "ring" and "ulysses" raise NotImplementedError naming their ROADMAP
-    item."""
+    """Dispatch to an attention implementation:
+
+    - "reference": this module's batched-product attention;
+    - "fused": at S <= 256, ``hybrid_attention`` (plain batched products
+      around the softmax+dropout kernel on CUDA tensors, its plain
+      version on CPU tensors), as tpudl's "fused" at short sequence;
+      longer sequences raise NotImplementedError naming their ROADMAP
+      item (the whole-attention kernel up to 512, flash beyond);
+    - "flash", "ring", "ulysses" raise NotImplementedError likewise.
+
+    ``dropout_exact`` (bernoulli masks) is the reference path's only."""
     if dropout_rate > 0.0 and dropout_rng is None:
         raise ValueError(
             "dropout_rate > 0 requires a dropout_rng (dropout would "
             "otherwise be silently skipped)"
+        )
+    if dropout_exact and dropout_rate > 0.0 and implementation != "reference":
+        raise ValueError(
+            "dropout_exact (bernoulli masks) is only available on "
+            "implementation='reference'; the fused kernel draws its mask "
+            "from the Philox contract (tpudl_torch.ops.keep_mask)"
+        )
+    if implementation == "reference":
+        mask = combine_kv_causal_mask(mask, q.shape[1], k.shape[1], causal,
+                                      q.device)
+        return dot_product_attention(
+            q, k, v, mask, dropout_rate=dropout_rate,
+            dropout_rng=dropout_rng, dropout_exact=dropout_exact,
+        )
+    if implementation == "fused":
+        seq = q.shape[1]
+        if seq <= 256:
+            from tpudl_torch.ops.softmax_dropout import hybrid_attention
+
+            return hybrid_attention(
+                q, k, v, mask=mask, causal=causal, dropout_rate=dropout_rate,
+                dropout_rng=dropout_rng,
+            )
+        item = ("queue B item 6 (the whole-attention kernel, sites 12-13)"
+                if seq <= 512 else
+                "queue B item 5 (flash attention, sites 9-11)")
+        raise NotImplementedError(
+            f"attention implementation 'fused' at S={seq} > 256 is not "
+            f"ported to tpudl_torch yet: ROADMAP {item}"
         )
     if implementation in _NOT_PORTED:
         raise NotImplementedError(
             f"attention implementation {implementation!r} is not ported to "
             f"tpudl_torch yet: ROADMAP {_NOT_PORTED[implementation]}"
         )
-    if implementation != "reference":
-        raise ValueError(f"unknown attention implementation {implementation!r}")
-    mask = combine_kv_causal_mask(mask, q.shape[1], k.shape[1], causal,
-                                  q.device)
-    return dot_product_attention(
-        q, k, v, mask, dropout_rate=dropout_rate, dropout_rng=dropout_rng,
-        dropout_exact=dropout_exact,
-    )
+    raise ValueError(f"unknown attention implementation {implementation!r}")

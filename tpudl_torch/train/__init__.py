@@ -7,6 +7,7 @@ from tpudl_torch.train.loop import (  # noqa: F401
     create_train_state,
     cross_entropy_loss,
     fit,
+    make_classification_eval_step,
     make_classification_train_step,
 )
 from tpudl_torch.train.optim import make_optimizer, make_schedule  # noqa: F401

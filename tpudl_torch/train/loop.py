@@ -11,12 +11,19 @@ single-device path of tpudl.train.loop.
   come from ``fold_in(rng, state.step)``, so every step draws fresh bits
   (tpudl's ``fold_in(rng, state.step)``). There is no ``compile_step``:
   the step is a plain callable, run eagerly.
+- ``make_classification_eval_step`` builds ``step(state, batch)``: the
+  forward with ``train=False`` and no autograd, the per-example loss and
+  the accuracy as means (masked means over the real rows when the batch
+  has a ``"_valid"`` column).
+- ``loss_impl`` routes the per-example loss through
+  tpudl_torch.ops.cross_entropy: "reference" is the composite the step
+  always used; "auto" / "fused" the vocab-streaming kernels on the card.
 - ``fit`` drives a step over a batch iterator, one step per dispatch.
 
 Not ported (each raises NotImplementedError naming its ROADMAP item):
-gradient accumulation, the fused cross-entropy, mixed-precision
-policies, the MoE auxiliary loss; and fit's checkpointing, preemption,
-profiling, fused K-step dispatch and asynchronous metrics.
+gradient accumulation, mixed-precision policies, the MoE auxiliary loss;
+and fit's checkpointing, preemption, profiling, fused K-step dispatch
+and asynchronous metrics.
 """
 
 from __future__ import annotations
@@ -26,9 +33,9 @@ import time
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from tpudl_torch.ops.cross_entropy import softmax_cross_entropy
 from tpudl_torch.rng import fold_in
 from tpudl_torch.train.optim import Optimizer
 
@@ -85,21 +92,13 @@ def cross_entropy_loss(
     label_smoothing: float = 0.0,
     impl: str = "reference",
 ) -> torch.Tensor:
-    """Mean softmax cross-entropy over integer labels, in f32 — the optax
-    composite tpudl's ``impl="reference"`` computes (label smoothing as
-    ``optax.smooth_labels``)."""
-    if impl != "reference":
-        raise NotImplementedError(
-            f"loss_impl={impl!r}: the fused cross-entropy kernel is not "
-            f"ported to tpudl_torch yet (ROADMAP queue B item 2)"
-        )
-    logits = logits.float()
-    if label_smoothing > 0.0:
-        n = logits.shape[-1]
-        targets = F.one_hot(labels.long(), n).float()
-        targets = targets * (1.0 - label_smoothing) + label_smoothing / n
-        return -(targets * torch.log_softmax(logits, -1)).sum(-1).mean()
-    return F.cross_entropy(logits, labels.long(), reduction="none").mean()
+    """Mean softmax cross-entropy over integer labels, in f32, through the
+    tpudl_torch.ops.cross_entropy seam: ``impl="reference"`` is the optax
+    composite tpudl's reference computes (label smoothing as
+    ``optax.smooth_labels``); "auto" / "fused" stream the vocabulary
+    through the kernels on the card (see ``softmax_cross_entropy``)."""
+    return softmax_cross_entropy(logits, labels, label_smoothing,
+                                 impl=impl).mean()
 
 
 def _refuse(option: str, value, item: str) -> None:
@@ -125,15 +124,14 @@ def make_classification_train_step(
     ``input_keys`` name the batch columns passed positionally to the
     model — ``("input_ids", "attention_mask")`` for BERT. The batch may
     hold numpy arrays or tensors; they go to the model's device first,
-    then through ``input_transform``. ``step.grads_and_metrics(state,
+    then through ``input_transform``. ``loss_impl``: see the module
+    docstring. ``step.grads_and_metrics(state,
     batch, generator)`` is the step without the optimizer update (the
     gradients as a dict of f32 tensors), for checks."""
     if isinstance(input_keys, str):
         input_keys = (input_keys,)
     if accum_steps != 1:
         _refuse("accum_steps", accum_steps, "queue A item 12")
-    if loss_impl != "reference":
-        _refuse("loss_impl", loss_impl, "queue B item 2")
     if precision is not None:
         _refuse("precision", precision, "queue A item 8")
     if moe_aux_weight:
@@ -151,7 +149,8 @@ def make_classification_train_step(
         logits = state.model(*(batch[k] for k in input_keys), train=True,
                              generator=generator)
         labels = batch[label_key].long()
-        loss = cross_entropy_loss(logits, labels, label_smoothing)
+        loss = cross_entropy_loss(logits, labels, label_smoothing,
+                                  impl=loss_impl)
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
@@ -171,6 +170,45 @@ def make_classification_train_step(
         return state, metrics
 
     step.grads_and_metrics = grads_and_metrics
+    return step
+
+
+def make_classification_eval_step(
+    input_keys: "str | tuple" = ("image",),
+    label_key: str = "label",
+    input_transform: Optional[Callable[[dict], dict]] = None,
+    loss_impl: str = "reference",
+) -> Callable:
+    """Eval step: ``step(state, batch) -> {"loss", "accuracy"}``, the mean
+    per-example loss and accuracy over the batch as 0-d tensors on the
+    device, from a forward with ``train=False`` under ``torch.no_grad``
+    (so the fused loss runs its forward kernel only).
+
+    ``loss_impl``: see the module docstring. A ``"_valid"`` batch column
+    ([B] 0/1 row mask) switches both reductions to masked means over the
+    real rows only, so a zero-padded tail batch reports exactly the
+    metrics of its real rows; without it they are plain means."""
+    if isinstance(input_keys, str):
+        input_keys = (input_keys,)
+
+    def step(state: TrainState, batch: dict):
+        device = next(state.model.parameters()).device
+        batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        if input_transform is not None:
+            batch = input_transform(batch)
+        with torch.no_grad():
+            logits = state.model(*(batch[k] for k in input_keys), train=False)
+            labels = batch[label_key].long()
+            per_loss = softmax_cross_entropy(logits, labels, impl=loss_impl)
+            correct = (logits.argmax(-1) == labels).float()
+            valid = batch.get("_valid")
+            if valid is None:
+                return {"loss": per_loss.mean(), "accuracy": correct.mean()}
+            w = valid.float()
+            denom = w.sum().clamp_min(1.0)
+            return {"loss": (per_loss * w).sum() / denom,
+                    "accuracy": (correct * w).sum() / denom}
+
     return step
 
 
