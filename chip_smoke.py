@@ -81,6 +81,31 @@ places named:
              against the plain path (attention_impl and loss_impl
              "reference"), attention dropout 0 and hidden dropout 0.1.
 
+The Llama LoRA slice (Llama-3-8B fine-tuned with rank-16 adapters on the
+7 projections, attention_impl="flash", fused_ops=True, batch 4 x seq
+2048, the llama3_8b_lora optimizer) adds:
+
+7c. llama kernels (after phase 7b) — the SwiGLU backward at [8192, 14336]
+             (bf16, f32, unaligned) and flash forward, dQ and dK/dV at
+             [4, 2048, 32, 128] bf16 causal (all-ones and padding masks,
+             Sq != Skv, ragged 1000 / 1500, D 64 and 32, f32, dropout 0.1
+             at [8, 1024, 12, 64]) against their plain versions, each
+             backward bitwise repeatable; flash's keep mask bitwise the
+             plain one and its dropout-on output hybrid_attention's on the
+             same seed words; timed like phase 7, beside
+             F.scaled_dot_product_attention;
+8c. tiny_llama_train (after phase 8b) — an f32 LLAMA_TINY LoRA step with
+             the kernels on the card against the CPU plain path;
+13. llama_lora_train (after phase 12) — the slice at full width and depth
+             through build_model -> create_train_state(lora_optimizer(...))
+             -> make_classification_train_step -> fit: exactly 32 flash
+             forward, dQ and dK/dV, 32 SwiGLU forward and backward, 65
+             RMSNorm forward and 64 norm backward launches per step,
+             finite losses, the frozen base bit-identical, step time,
+             tokens/s, MFU, peak memory and a profiled window;
+14. llama_train_parity — full width, 2 layers, batch 1 x 2048: phase 10's
+             gate on the kernel path, the plain path and an f32 oracle.
+
 The last three lines are the ``{"kernels": [...]}`` record (``launches``
 is each kernel's count over its main-path run, ``launches_per_step`` per
 decode or train step), the card's
@@ -100,6 +125,7 @@ import time
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 #: Kernel vs plain tolerance (rtol = atol). f32: only the summation order
 #: differs. bf16: the kernel adds the residual in f32 and normalizes the
@@ -249,9 +275,12 @@ def library_ms(fn, **kw):
         return None
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, peak: float = F32_OPS_PER_S):
+    """(least ms, "bytes" or "operations"): the bytes over the memory rate
+    or the operations over ``peak`` (f32 CUDA cores by default; the bf16
+    tensor cores for products of bf16 operands), whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -561,7 +590,8 @@ def profile_decode(torch, model, params, Request):
 KERNEL_KINDS = (
     ("this repo's kernels", ("norm_fwd_kernel", "norm_bwd_kernel",
                              "column_sum_kernel", "bias_gelu_", "swiglu_",
-                             "softmax_dropout_", "xent_")),
+                             "softmax_dropout_", "xent_", "flash_fwd_kernel",
+                             "flash_dq_kernel", "flash_dkv_kernel")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "cutlass", "splitKreduce")),
     ("softmax", ("softmax",)),
     ("random bits", ("distribution", "philox")),
@@ -748,13 +778,15 @@ def timed_case(row, kernel, plain, library=None, library_name=None,
     return row
 
 
-def case_row(shape, dtype, variant, err, tol, nbytes, ops):
+def case_row(shape, dtype, variant, err, tol, nbytes, ops,
+             peak=F32_OPS_PER_S):
     """One kernel case: its shape, dtype, ``errors`` result, tolerance
-    and bound (from the bytes it must move and the operations it does)."""
+    and bound (from the bytes it must move and the operations it does at
+    ``peak``)."""
     return {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
             "variant": variant, "max_abs_err": err[0],
             "max_rel_err": err[1], "tol": tol, "ok": err[2],
-            "bound": bound(nbytes, ops)}
+            "bound": bound(nbytes, ops, peak)}
 
 
 def train_kernel_phase(torch, F):
@@ -1138,27 +1170,39 @@ def sst2_optimizer():
 
 
 def counted():
-    """Kernel name -> the wrapper whose ``launches`` counts it."""
+    """Kernel name -> (the wrapper that counts its launches, the counter's
+    attribute)."""
+    from tpudl_torch.ops import flash_attention as fa
     from tpudl_torch.ops import softmax_dropout as sd
     from tpudl_torch.ops.cross_entropy import softmax_cross_entropy, xent_bwd
-    from tpudl_torch.ops.mlp_fused import bias_gelu, bias_gelu_bwd, swiglu
+    from tpudl_torch.ops.mlp_fused import (
+        bias_gelu,
+        bias_gelu_bwd,
+        swiglu,
+        swiglu_bwd,
+    )
     from tpudl_torch.ops.norms import layer_norm, norm_bwd, rms_norm
 
-    return {"layer_norm_fwd": layer_norm, "norm_bwd": norm_bwd,
-            "bias_gelu_fwd": bias_gelu, "bias_gelu_bwd": bias_gelu_bwd,
-            "rms_norm_fwd": rms_norm, "swiglu_fwd": swiglu,
-            "softmax_dropout_fwd": sd.softmax_dropout,
-            "softmax_dropout_bwd": sd.softmax_dropout_bwd,
-            "xent_fwd": softmax_cross_entropy, "xent_bwd": xent_bwd}
+    out = {"layer_norm_fwd": layer_norm, "norm_bwd": norm_bwd,
+           "bias_gelu_fwd": bias_gelu, "bias_gelu_bwd": bias_gelu_bwd,
+           "rms_norm_fwd": rms_norm, "swiglu_fwd": swiglu,
+           "swiglu_bwd": swiglu_bwd,
+           "softmax_dropout_fwd": sd.softmax_dropout,
+           "softmax_dropout_bwd": sd.softmax_dropout_bwd,
+           "xent_fwd": softmax_cross_entropy, "xent_bwd": xent_bwd}
+    out = {name: (fn, "launches") for name, fn in out.items()}
+    for name in ("fwd", "dq", "dkv"):
+        out[f"flash_{name}"] = (fa.flash_attention, f"launches_{name}")
+    return out
 
 
 def train_counts():
-    return {name: fn.launches for name, fn in counted().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in counted().items()}
 
 
 def reset_counts():
-    for fn in counted().values():
-        fn.launches = 0
+    for fn, attr in counted().values():
+        setattr(fn, attr, 0)
 
 
 def bert_variant(fused_slice):
@@ -1485,6 +1529,628 @@ def train_parity_phase(torch, fused_slice=False):
             "worst_ratio": [worst[0], ratio[worst[0]]]}
 
 
+# ---------------------------------------------------------------------------
+# the Llama LoRA slice
+# ---------------------------------------------------------------------------
+
+#: The Llama-3-8B LoRA fine-tune step (llama3_8b_lora, cut to batch 4).
+LLAMA_BATCH = 4
+LLAMA_SEQ = 2048
+LLAMA_WARMUP_STEPS = 3
+LLAMA_STEPS = 5
+LLAMA_PROFILE_STEPS = 3
+LLAMA_PARITY_BATCHES = 4
+#: Flash kernels vs their plain versions, relative to each element plus
+#: the size of its row (``flash_errors``): bf16 two bf16 steps (the
+#: kernel rounds p and ds relative to its running max and sums in another
+#: order), f32 the summation order only.
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+#: The error planted on one 64-row tile to prove ``flash_errors`` sees it.
+FLASH_PLANTED = 0.05
+
+
+def llama_launches_per_step(num_layers):
+    """Kernel launches per Llama LoRA train step: per layer one flash
+    forward, dQ and dK/dV, one SwiGLU each way and two RMSNorms forward;
+    the final norm. Backward, every norm but the first layer's input norm:
+    its input is the frozen embedding's output, which needs no gradient,
+    so autograd runs no backward there (tpudl's jax.grad differentiates
+    the frozen scales too)."""
+    n = num_layers
+    return {"flash_fwd": n, "flash_dq": n, "flash_dkv": n, "swiglu_fwd": n,
+            "swiglu_bwd": n, "rms_norm_fwd": 2 * n + 1, "norm_bwd": 2 * n}
+
+
+#: Llama-3-8B: 32, 32, 32, 32, 32, 65, 64.
+LLAMA_LAUNCHES = llama_launches_per_step(32)
+
+
+def flash_errors(out, ref, dtype):
+    """(max abs error, worst ratio, within tolerance): the worst of two
+    ratios, each at most FLASH_TOL — a row's L2 error over the row's L2
+    norm (rows over the head dim), and an element's error over its
+    |ref| plus its row's largest |ref|. Both scale with the row, not
+    with the tensor's largest value: a causal row that averages over
+    1000+ keys is ~100x smaller than the first rows, and a tile of such
+    rows wrong by a few percent must fail. Rows below 1e-2 of the
+    tensor's RMS are held to that: dQ's first row of each head is 0 up to
+    f32 rounding (its one key's ds cancels), and that noise differs
+    between any two summation orders."""
+    tol = FLASH_TOL[str(dtype).split(".")[-1]]
+    r = ref.float()
+    d = (out.float() - r).abs()
+    floor = 1e-2 * float(r.square().mean().sqrt())
+    norm = r.square().sum(-1).sqrt().clamp_min(floor * r.shape[-1] ** 0.5)
+    row_max = r.abs().amax(-1, keepdim=True).clamp_min(floor)
+    worst = max(float((d.square().sum(-1).sqrt() / norm).max()),
+                float((d / (r.abs() + row_max)).max()))
+    return float(d.max()), worst, worst <= tol
+
+
+def flash_check_sees(out, ref, dtype, rows):
+    """Whether ``flash_errors`` rejects ``out`` with FLASH_PLANTED planted
+    on the rows ``rows`` of the sequence axis (1) — one 64-row tile."""
+    planted = out.float().clone()  # .float() of an f32 tensor is itself
+    planted[:, rows] *= 1.0 + FLASH_PLANTED
+    return not flash_errors(planted, ref, dtype)[2]
+
+
+def attended_pairs(torch, b, sq, skv, kvmask, causal):
+    """(q, kv) pairs that attend, summed over the batch: the work the
+    kernels do for these inputs (causal tiles that cannot contribute are
+    skipped, masked entries inside a tile still cost)."""
+    keep = kvmask[:, None, :].expand(b, sq, skv)
+    if causal:
+        qi = torch.arange(sq, device="cuda")[:, None] + (skv - sq)
+        keep = keep & (torch.arange(skv, device="cuda")[None, :] <= qi)
+    return int(keep.sum())
+
+
+def llama_kernel_phase(torch, F):
+    """The slice's four kernels against their plain versions. The SwiGLU
+    backward at the Llama step's [8192, 14336] (bf16, f32, and unaligned
+    pointers for the scalar path). Flash forward, dQ and dK/dV at the
+    step's [4, 2048, 32, 128] bf16 causal with the all-ones mask, then
+    with a padding mask, Sq 1024 != Skv 2048, ragged 1000 / 1500, D 64
+    and 32, f32, and dropout 0.1 at [8, 1024, 12, 64]; each backward run
+    twice and compared bit for bit. Then the dropout contract: the keep
+    mask at [8, 1024, 12, 64] bitwise equal to the plain one at a rate
+    within 5 sigma of 0.9, and the dropout-on output equal to
+    hybrid_attention's on the same seed words at S = 128. Times as the
+    training kernels (CUDA-graph replay); the plain dQ and dK/dV rows time
+    the whole plain backward. Library calls:
+    F.scaled_dot_product_attention forward, and forward + backward (for
+    the dQ and dK/dV rows), on [B, H, S, D] copies; none computes the
+    SwiGLU backward."""
+    from tpudl_torch.ops import flash_attention as fa
+    from tpudl_torch.ops import keep_mask
+    from tpudl_torch.ops.mlp_fused import swiglu_bwd, swiglu_bwd_ref
+    from tpudl_torch.ops.softmax_dropout import hybrid_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {k: [] for k in ("swiglu_bwd", "flash_fwd", "flash_dq",
+                             "flash_dkv")}
+
+    def rand(shape, dtype, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+
+    n, f = LLAMA_BATCH * LLAMA_SEQ, 14336
+    for shape, dtype, unaligned, variant in (
+        ((n, f), bf16, False, "the Llama step's 32 calls"),
+        ((n, f), f32, False, "f32"),
+        ((4099, 14335), bf16, True, "unaligned pointers (the scalar path)"),
+    ):
+        elems = shape[0] * shape[1]
+
+        def make(scale):
+            if unaligned:
+                return rand((elems + 1,), dtype, scale)[1:]
+            return rand(shape, dtype, scale)
+
+        gate, up, go = make(3.0), make(1.0), make(1.0)
+        tol = KERNEL_TOL[str(dtype).split(".")[-1]]
+        dg, du = swiglu_bwd(gate, up, go, impl="fused")
+        rdg, rdu = swiglu_bwd_ref(gate, up, go)
+        err = merged(errors(dg, rdg, tol), errors(du, rdu, tol))
+        if not torch.equal(dg, swiglu_bwd(gate, up, go, impl="fused")[0]):
+            err = (err[0], err[1], False)
+            print(f"swiglu_bwd {variant}: not bitwise repeatable")
+        e = torch.finfo(dtype).bits // 8
+        # Three streams in, two out; per element a sigmoid (exp, divide)
+        # and ~12 f32 operations.
+        c = case_row(shape, dtype, variant, err, tol, 5 * elems * e,
+                     elems * 16)
+        cases["swiglu_bwd"].append(timed_case(
+            c, lambda: swiglu_bwd(gate, up, go, impl="fused"),
+            lambda: swiglu_bwd_ref(gate, up, go)))
+        del gate, up, go, dg, du, rdg, rdu
+        torch.cuda.empty_cache()
+
+    for b, sq, skv, h, d, dtype, causal, masking, rate, variant in (
+        (4, 2048, 2048, 32, 128, bf16, True, "ones", 0.0,
+         "causal, all-ones mask (the Llama step's 32 calls)"),
+        (4, 2048, 2048, 32, 128, bf16, True, "padding", 0.0,
+         "causal, padding mask"),
+        (4, 1024, 2048, 32, 128, bf16, True, "ones", 0.0,
+         "causal, Sq 1024 != Skv 2048 (bottom-right aligned)"),
+        (2, 1000, 1500, 16, 128, bf16, True, "padding", 0.0,
+         "ragged Sq 1000 / Skv 1500, causal, padding mask"),
+        (4, 2048, 2048, 32, 64, bf16, True, "ones", 0.0, "D 64, causal"),
+        (4, 2048, 2048, 32, 32, bf16, True, "ones", 0.0, "D 32, causal"),
+        (1, 1024, 1024, 8, 128, f32, True, "ones", 0.0,
+         "f32 (CUDA cores), causal"),
+        (8, 1024, 1024, 12, 64, bf16, False, "padding", 0.1,
+         "dropout 0.1, padding mask (BERT-base heads)"),
+    ):
+        q, k, v = (rand((b, s_, h, d), dtype) for s_ in (sq, skv, skv))
+        do = rand((b, sq, h, d), dtype)
+        kvmask = torch.ones(b, skv, dtype=torch.bool, device="cuda")
+        if masking == "padding":
+            lengths = torch.randint(skv // 2, skv + 1, (b,), generator=gen,
+                                    device="cuda")
+            kvmask = torch.arange(skv, device="cuda")[None, :] < lengths[:, None]
+        seed = (keep_mask.draw_seed(gen) if rate
+                else keep_mask.zero_seed("cuda"))
+        scale = d ** -0.5
+        args = (kvmask, seed, causal, scale, rate)
+        o, lse = fa.flash_attention_fwd(q, k, v, *args, impl="fused")
+        wo, wlse = fa.flash_attention_ref(q, k, v, *args)
+        err_f = merged(flash_errors(o, wo, dtype),
+                       errors(lse, wlse, 1e-5, 1e-4))
+        delta = fa.backward_delta(do, o)
+        ops = fa.bwd_operands(q, k, v, kvmask, seed, do, lse, delta)
+        dq = fa.launch_dq(ops, *args)
+        dk, dv = fa.launch_dkv(ops, *args)
+        wdq, wdk, wdv = fa.flash_attention_bwd_ref(q, k, v, kvmask, seed, do,
+                                                   lse, delta, causal, scale,
+                                                   rate)
+        err_q = flash_errors(dq, wdq, dtype)
+        err_kv = merged(flash_errors(dk, wdk, dtype),
+                        flash_errors(dv, wdv, dtype))
+        # The gate must see a planted error on one tile: the last 64 q
+        # rows (the smallest causal rows), kv rows below Skv / 2 (never
+        # padded, every one attended).
+        qt_rows, kt_rows = slice(sq - 64, sq), slice(skv // 2 - 64, skv // 2)
+        for name, out_, ref_, rows in (("o", o, wo, qt_rows),
+                                       ("dq", dq, wdq, qt_rows),
+                                       ("dk", dk, wdk, kt_rows),
+                                       ("dv", dv, wdv, kt_rows)):
+            if not flash_check_sees(out_, ref_, dtype, rows):
+                fail(f"flash {variant}: the {name} check passes a "
+                     f"{FLASH_PLANTED:.0%} error planted on one tile")
+        if not torch.equal(dq, fa.launch_dq(ops, *args)):
+            err_q = (err_q[0], err_q[1], False)
+            print(f"flash_dq {variant}: not bitwise repeatable")
+        dk2, dv2 = fa.launch_dkv(ops, *args)
+        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            err_kv = (err_kv[0], err_kv[1], False)
+            print(f"flash_dkv {variant}: not bitwise repeatable")
+        del wo, wlse, wdq, wdk, wdv, dk2, dv2
+        pairs = attended_pairs(torch, b, sq, skv, kvmask, causal) * h
+        product = 2.0 * pairs * d
+        e = torch.finfo(dtype).bits // 8
+        peak = BF16_OPS_PER_S if dtype == bf16 else F32_OPS_PER_S
+        qb, kb, rows = b * sq * h * d * e, b * skv * h * d * e, b * h * sq * 4
+        tol = FLASH_TOL[str(dtype).split(".")[-1]]
+        shape = [b, sq, skv, h, d]
+        # The library yardstick on [B, H, S, D] copies; its causal flag is
+        # top-left aligned, so Sq != Skv passes the mask instead.
+        qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+        keep = kvmask[:, None, None, :]
+        if causal:
+            qi = torch.arange(sq, device="cuda")[:, None] + (skv - sq)
+            keep = keep & (torch.arange(skv, device="cuda")[None, :] <= qi)
+        lib_kw = ({"is_causal": True} if masking == "ones" and causal
+                  and sq == skv else {"attn_mask": keep})
+        lib_kw["dropout_p"] = rate
+        ql, kl, vl = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(ql, kl, vl, **lib_kw)
+            return torch.autograd.grad(out, (ql, kl, vl), dot)
+
+        def timed(row, kernel, plain, library, library_name):
+            return timed_case(row, kernel, plain, library, library_name,
+                              plain_calls=2)
+
+        cases["flash_fwd"].append(timed(
+            case_row(shape, dtype, variant, err_f, tol,
+                     2 * qb + 2 * kb + rows + b * skv, 2 * product, peak),
+            lambda: fa.flash_attention_fwd(q, k, v, *args, impl="fused"),
+            lambda: fa.flash_attention_ref(q, k, v, *args),
+            sdpa, "F.scaled_dot_product_attention forward"))
+        bwd_plain = (lambda: fa.flash_attention_bwd_ref(
+            q, k, v, kvmask, seed, do, lse, delta, causal, scale, rate))
+        lib_name = ("F.scaled_dot_product_attention forward + backward "
+                    "(torch.autograd.grad); plain: the whole backward")
+        cases["flash_dq"].append(timed(
+            case_row(shape, dtype, variant, err_q, tol,
+                     3 * qb + 2 * kb + 2 * rows + b * skv, 3 * product, peak),
+            lambda: fa.launch_dq(ops, *args), bwd_plain, sdpa_fwd_bwd,
+            lib_name))
+        cases["flash_dkv"].append(timed(
+            case_row(shape, dtype, variant, err_kv, tol,
+                     2 * qb + 4 * kb + 2 * rows + b * skv, 4 * product, peak),
+            lambda: fa.launch_dkv(ops, *args), bwd_plain, sdpa_fwd_bwd,
+            lib_name))
+        del q, k, v, do, o, lse, delta, ops, dq, dk, dv, qt, kt, vt, dot
+        del ql, kl, vl, keep
+        torch.cuda.empty_cache()
+    flash_dropout_checks(torch, fa, keep_mask, hybrid_attention)
+    report_cases(cases)
+    return cases
+
+
+def flash_dropout_checks(torch, fa, keep_mask, hybrid_attention):
+    """Flash's dropout against the contract at [8, 1024, 12, 64], rate
+    0.1: with q = k = 0 (uniform probabilities), v one-hot over a window
+    of 64 kv columns and the kv mask open on that window only, o is
+    nonzero exactly where the forward kept the entry; over the 16 windows
+    that is the plain keep mask bit for bit. Then the dropout-on output
+    and its gradients against hybrid_attention's on the same seed words
+    (f32, S = 128, 1e-4)."""
+    b, s, h, d, rate = 8, 1024, 12, 64, 0.1
+    seed = keep_mask.draw_seed(torch.Generator(device="cuda").manual_seed(31))
+    q = torch.zeros(b, s, h, d, dtype=torch.bfloat16, device="cuda")
+    eye = torch.eye(d, dtype=torch.bfloat16, device="cuda")
+    v = eye.repeat(s // d, 1)[None, :, None, :].expand(b, s, h, d).contiguous()
+    kept = torch.empty(b, h, s, s, dtype=torch.bool, device="cuda")
+    for w in range(s // d):
+        window = torch.zeros(b, s, dtype=torch.bool, device="cuda")
+        window[:, w * d:(w + 1) * d] = True
+        o, _ = fa.flash_attention_fwd(q, q, v, window, seed, False, None, rate,
+                                      impl="fused")
+        kept[..., w * d:(w + 1) * d] = (o != 0).permute(0, 2, 1, 3)
+    bitwise = torch.equal(kept, keep_mask.keep_mask(seed, kept.shape, rate))
+    share = kept.float().mean().item()
+    sigma = (rate * (1 - rate) / kept.numel()) ** 0.5
+    del q, v, kept, o
+    g = torch.Generator(device="cuda").manual_seed(33)
+    q, k, v = (torch.randn(8, 128, 12, 64, generator=g, device="cuda")
+               for _ in range(3))
+    am = torch.ones(8, 128, dtype=torch.int32, device="cuda")
+    am[1, 90:] = 0
+    outs = []
+    for fn in (fa.flash_attention, hybrid_attention):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, am, causal=True, dropout_rate=rate,
+                 dropout_rng=torch.Generator(device="cuda").manual_seed(35))
+        (out * out).sum().backward()
+        outs.append([out] + [t.grad for t in leaves])
+    diff = max(float((a - b_).abs().max()) for a, b_ in zip(*outs))
+    same = all(torch.allclose(a, b_, rtol=1e-4, atol=1e-4)
+               for a, b_ in zip(*outs))
+    print(f"flash dropout contract: keep mask of {b * h * s * s} elements "
+          f"bitwise equal to the plain version's: {bitwise}; keep rate "
+          f"{share:.6f} (0.9 +- 5 sigma = {5 * sigma:.2e}); f32 output and "
+          f"gradients vs hybrid_attention on the same seed words at S = "
+          f"128: max |diff| {diff:.3e} (tol 1e-4)")
+    if not (bitwise and abs(share - (1 - rate)) < 5 * sigma and same):
+        fail("flash dropout contract: a check failed")
+    torch.cuda.empty_cache()
+
+
+def llama_optimizer(constant=False):
+    """The llama3_8b_lora optimizer (AdamW 1e-4, warmup 100, weight decay
+    0, clip 1.0); ``constant`` drops the warm-up (a nonzero first step)."""
+    import dataclasses
+
+    from tpudl_torch.config import get_config
+    from tpudl_torch.train import make_optimizer
+
+    cfg = get_config("llama3_8b_lora").optim
+    if constant:
+        cfg = dataclasses.replace(cfg, schedule="constant", warmup_steps=0)
+    return make_optimizer(cfg)
+
+
+def draw_lora_b(torch, model, generator, std):
+    """Draw every lora_b nonzero (with tpudl's zero init every lora_a
+    gradient is exactly 0 at the first step)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b"):
+                p.normal_(0.0, std, generator=generator)
+
+
+def tiny_llama_train_phase(torch):
+    """One LoRA train step of an f32 LLAMA_TINY classifier (rank 4,
+    attention_impl="flash", fused_ops=True, lora_b drawn nonzero) with the
+    kernels on the card against the same step on the CPU plain path, same
+    weights and batch (padded rows): tpudl's bands as tiny_train — loss
+    rtol 1e-4 / atol 1e-5, every adapter and classifier gradient 1e-4,
+    the parameters after the update rtol 2e-3 / atol 2e-5 — and the frozen
+    base unchanged."""
+    import numpy as np
+
+    from tpudl_torch.models.llama import (
+        LLAMA_TINY,
+        LlamaForSequenceClassification,
+    )
+    from tpudl_torch.models.lora import lora_optimizer
+    from tpudl_torch.rng import fold_in
+    from tpudl_torch.train import create_train_state, make_classification_train_step
+
+    cfg = LLAMA_TINY(dtype=torch.float32, num_labels=2, lora_rank=4,
+                     attention_impl="flash", fused_ops=True)
+    ref = LlamaForSequenceClassification(cfg, device="cpu")
+    ref.init_weights(torch.Generator().manual_seed(0))
+    draw_lora_b(torch, ref, torch.Generator().manual_seed(1), 0.05)
+    params = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+    rng = np.random.default_rng(5)
+    mask = np.ones((8, 64), np.int32)
+    mask[1, 40:] = 0
+    mask[5, 9:] = 0
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size, (8, 64)),
+             "attention_mask": mask, "label": rng.integers(0, 2, (8,))}
+    step = make_classification_train_step(
+        input_keys=("input_ids", "attention_mask"), label_key="label")
+    per_pass = llama_launches_per_step(cfg.num_layers)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = LlamaForSequenceClassification(cfg, device="meta")
+        tx = lora_optimizer(llama_optimizer(constant=True), model,
+                            ("classifier",))
+        state = create_train_state(0, model, tx, params={
+            k: v.to(dev) for k, v in params.items()}, device=dev)
+        before = train_counts()
+        grads, metrics = step.grads_and_metrics(state, batch, fold_in(1, 0, dev))
+        state, _ = step(state, batch, 1)
+        after = train_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        want = {k: 2 * per_pass.get(k, 0) if dev == "cuda" else 0
+                for k in after}
+        if launched != want:
+            fail(f"tiny_llama_train: kernel launches {launched} on {dev}, "
+                 f"expected {want}")
+        out[dev] = (float(metrics["loss"]),
+                    {k: g.cpu() for k, g in grads.items()},
+                    {k: v.detach().cpu() for k, v in state.model.state_dict().items()})
+    (lg, gg, pg), (lc, gc, pc) = out["cuda"], out["cpu"]
+    if not abs(lg - lc) <= 1e-5 + 1e-4 * abs(lc):
+        fail(f"tiny_llama_train: loss {lg} on the card vs {lc} on the CPU")
+    bad = [k for k in gc if not torch.allclose(gg[k], gc[k], rtol=1e-4,
+                                                atol=1e-4)]
+    bad += [k for k in pc if not torch.allclose(pg[k], pc[k], rtol=2e-3,
+                                                 atol=2e-5)]
+    bad += [k for k in pc if k not in gc and not torch.equal(pg[k], params[k])]
+    if bad or set(gg) != set(gc) or not gc:
+        fail(f"tiny_llama_train: card vs CPU disagree in {bad[:5]}")
+    worst_g = max(float((gg[k] - gc[k]).abs().max()) for k in gc)
+    worst_p = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+    print(f"tiny_llama_train: f32 LLAMA_TINY LoRA classifier step "
+          f"(attention_impl='flash', fused_ops=True), kernels on the card vs "
+          f"plain on the CPU: loss {lg:.6f} vs {lc:.6f}, {len(gc)} trainable "
+          f"tensors, max |grad diff| {worst_g:.3e} (tol 1e-4), max |param "
+          f"diff| after the update {worst_p:.3e} (rtol 2e-3, atol 2e-5), "
+          f"frozen base unchanged")
+
+
+def llama_lora_train_phase(torch, card):
+    """The slice at full size through the user's entry points:
+    build_model("llama3-8b-lora", 2, fused_ops=True,
+    attention_impl="flash") -> create_train_state(0, model,
+    lora_optimizer(make_optimizer(llama3_8b_lora's optim), model,
+    ("classifier",))) -> make_classification_train_step -> fit over
+    synthetic_token_batches(4, 2048, 128256). W warm-up steps, then T
+    timed steps (counts reset just before; exact launches per step),
+    then a profiled window; losses finite, the frozen base bit-identical
+    after the steps (compared on the host)."""
+    from tpudl_torch.config import get_config
+    from tpudl_torch.data.synthetic import synthetic_token_batches
+    from tpudl_torch.models.lora import lora_optimizer, trainable_param_count
+    from tpudl_torch.models.registry import build_model
+    from tpudl_torch.train import create_train_state, fit, make_classification_train_step
+    from tpudl_torch.train.metrics import Throughput
+
+    cfg = get_config("llama3_8b_lora")
+    t0 = time.perf_counter()
+    model = build_model(cfg.model, cfg.num_classes, fused_ops=True,
+                        attention_impl="flash")
+    tx = lora_optimizer(llama_optimizer(), model, ("classifier",))
+    state = create_train_state(0, model, tx)
+    mcfg = model.cfg
+    named = dict(model.named_parameters())
+    trainable, total = trainable_param_count(named, ("classifier",))
+    n_proj = sum(p.numel() for n, p in named.items()
+                 if n.endswith("_proj.weight"))
+    frozen = {n: p.detach().cpu() for n, p in named.items()
+              if not p.requires_grad}
+    torch.cuda.synchronize()
+    print(f"llama_lora_train: Llama-3-8B ({mcfg.num_layers} layers, hidden "
+          f"{mcfg.hidden_size}, heads {mcfg.num_heads}/{mcfg.num_kv_heads}), "
+          f"LoRA rank {mcfg.lora_rank} on the 7 projections, "
+          f"attention_impl='flash', fused_ops=True: {total / 1e9:.3f} B "
+          f"parameters, {trainable / 1e6:.3f} M trainable; batch "
+          f"{LLAMA_BATCH} x seq {LLAMA_SEQ}; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    keys = ("input_ids", "attention_mask")
+    step = make_classification_train_step(input_keys=keys, label_key="label")
+    w, n = LLAMA_WARMUP_STEPS, LLAMA_STEPS
+    batches = list(synthetic_token_batches(
+        LLAMA_BATCH, LLAMA_SEQ, mcfg.vocab_size,
+        num_batches=w + n + LLAMA_PROFILE_STEPS))
+    losses = []
+    tokens = LLAMA_BATCH * LLAMA_SEQ
+    meter = Throughput(tokens, warmup=w)
+
+    def recorded(state, batch, rng):
+        state, metrics = step(state, batch, rng)
+        losses.append(metrics["loss"])
+        meter.step(metrics["loss"])
+        return state, metrics
+
+    state, _, _ = fit(recorded, state, batches[:w], 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state, last, _ = fit(recorded, state, batches[w:w + n], 1)
+    timed = meter.result(losses[-1])
+    launches = train_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = llama_launches_per_step(mcfg.num_layers)
+    want = {k: per_step.get(k, 0) * n for k in launches}
+    print(f"llama_lora_train: {n} steps, launches {launches}")
+    if launches != want:
+        fail(f"llama_lora_train: kernel launches {launches} != expected "
+             f"{want} ({per_step} per step, none of the others)")
+    loss_t = torch.stack(losses)
+    if not bool(torch.isfinite(loss_t).all()):
+        fail(f"llama_lora_train: non-finite loss in {loss_t.tolist()}")
+    if timed["steps_measured"] != n:
+        fail(f"llama_lora_train: the meter timed {timed['steps_measured']} "
+             f"steps, not {n}")
+    step_s = timed["step_ms"] / 1e3
+    attn = 7.0 * LLAMA_BATCH * mcfg.hidden_size * LLAMA_SEQ ** 2 * mcfg.num_layers
+    flops = 4.0 * n_proj * tokens + attn
+    util = flops / step_s / BF16_OPS_PER_S
+    print(f"llama_lora_train metrics ({card}): step {step_s * 1e3:.2f} ms, "
+          f"{tokens / step_s:.1f} tokens/s, MFU {100 * util:.2f}% (model "
+          f"FLOPs per step = 4 * N_proj * T + 7 * B * H * S^2 * D * L = 4 * "
+          f"{n_proj} * {tokens} + 7 * {LLAMA_BATCH} * {mcfg.num_heads} * "
+          f"{LLAMA_SEQ}^2 * {mcfg.head_dim} * {mcfg.num_layers} = "
+          f"{flops:.4e} over {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s dense bf16: "
+          f"the frozen base's forward and input-gradient products, and 2 "
+          f"forward and 5 backward attention products, each causal-halved), "
+          f"peak memory {peak:.2f} GiB, losses "
+          f"{', '.join(f'{x:.4f}' for x in loss_t.tolist())}")
+    rest = batches[w + n:]
+    busy = profile_steps(
+        torch, lambda: fit(step, state, rest, 1), LLAMA_PROFILE_STEPS,
+        "llama_lora_train", step_s * 1e6 * LLAMA_PROFILE_STEPS)
+    changed = [k for k, p in model.named_parameters()
+               if k in frozen and not torch.equal(p.detach().cpu(), frozen[k])]
+    if changed or not frozen:
+        fail(f"llama_lora_train: frozen base weights changed: {changed[:5]}")
+    print(f"llama_lora_train: {len(frozen)} frozen base tensors bit-identical "
+          f"after {w + n + LLAMA_PROFILE_STEPS} steps")
+    metrics = {
+        "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "mfu": util, "model_flops_per_step": flops,
+        "peak_memory_gib": peak, "device_busy_share": busy,
+        "num_params": total, "trainable_params": trainable,
+        "batch": LLAMA_BATCH, "seq": LLAMA_SEQ, "steps": n,
+        "losses": loss_t.tolist(),
+    }
+    del state, model, frozen, named
+    return launches, metrics
+
+
+def llama_train_parity_phase(torch):
+    """The kernel path (bf16, fused_ops=True, attention_impl="flash"), the
+    plain bf16 path (fused_ops=False, attention_impl="reference") and an
+    f32 oracle (plain, TF32 off) from the same weights: Llama-3-8B at
+    full width, cut to 2 layers, LoRA rank 16 with lora_b drawn nonzero,
+    over LLAMA_PARITY_BATCHES batches of 1 x 2048. Errors against the
+    oracle accumulate over the batches as train_parity's: the kernel
+    path's relative L2 error of the per-example losses, of all gated
+    gradients and of every adapter and classifier gradient tensor but the
+    UNGATED classifier.bias may not exceed KERNEL_ERR_RATIO x the plain
+    path's."""
+    from tpudl_torch.data.synthetic import synthetic_token_batches
+    from tpudl_torch.models.llama import LLAMA3_8B, LlamaForSequenceClassification
+    from tpudl_torch.models.lora import lora_optimizer
+    from tpudl_torch.rng import fold_in
+    from tpudl_torch.train import create_train_state, make_classification_train_step
+
+    layers = 2
+    kw = dict(num_layers=layers, lora_rank=16, num_labels=2)
+    init = LlamaForSequenceClassification(LLAMA3_8B(**kw), device="cuda")
+    init.init_weights(torch.Generator(device="cuda").manual_seed(11))
+    draw_lora_b(torch, init, torch.Generator(device="cuda").manual_seed(12),
+                0.02)
+    params = {k: v.detach() for k, v in init.state_dict().items()}
+    paths = {
+        "kernel": (torch.bfloat16, {"fused_ops": True,
+                                    "attention_impl": "flash"}),
+        "plain": (torch.bfloat16, {"fused_ops": False}),
+        "oracle": (torch.float32, {"fused_ops": False}),
+    }
+    states = {}
+    for name, (dtype, extra) in paths.items():
+        model = LlamaForSequenceClassification(
+            LLAMA3_8B(dtype=dtype, **kw, **extra), device="meta")
+        tx = lora_optimizer(llama_optimizer(constant=True), model,
+                            ("classifier",))
+        states[name] = create_train_state(0, model, tx, params=params)
+    del init, params
+    step = make_classification_train_step(
+        input_keys=("input_ids", "attention_mask"), label_key="label")
+    counted_kernels = llama_launches_per_step(layers)
+    sq = {name: {} for name in paths}
+
+    def acc(name, key, value):
+        sq[name][key] = sq[name].get(key, 0.0) + value
+
+    for b, batch in enumerate(synthetic_token_batches(
+            1, LLAMA_SEQ, 128256, seed=9, num_batches=LLAMA_PARITY_BATCHES)):
+        out = {}
+        for name, st in states.items():
+            before = train_counts()
+            grads, metrics = step.grads_and_metrics(st, batch,
+                                                    fold_in(7, b, "cuda"))
+            after = train_counts()
+            launched = {k: after[k] - before[k] for k in counted_kernels}
+            if name == "kernel" and launched != counted_kernels:
+                fail(f"llama_train_parity: the kernel path launched "
+                     f"{launched}, expected {counted_kernels}")
+            if name != "kernel" and any(launched.values()):
+                fail(f"llama_train_parity: the {name} path launched "
+                     f"{launched}")
+            # Batch 1: the step's loss is the example's.
+            out[name] = (metrics["loss"].double().reshape(1),
+                         {k: g.double() for k, g in grads.items()})
+        lo, go = out["oracle"]
+        acc("oracle", "losses", float((lo * lo).sum()))
+        for k, g in go.items():
+            acc("oracle", k, float((g * g).sum()))
+        for name in ("kernel", "plain"):
+            losses, grads = out[name]
+            acc(name, "losses", float(((losses - lo) ** 2).sum()))
+            for k, g in grads.items():
+                acc(name, k, float(((g - go[k]) ** 2).sum()))
+        del out
+    tensors = [k for k in sq["oracle"] if k != "losses"]
+    gated = [k for k in tensors if k != "classifier.bias"]
+    for name in paths:
+        sq[name]["all gated gradients"] = sum(sq[name][k] for k in gated)
+    err = {name: {k: (sq[name][k] / sq["oracle"][k]) ** 0.5
+                  if sq["oracle"][k] > 0 else sq[name][k] ** 0.5
+                  for k in sq["oracle"]}
+           for name in ("kernel", "plain")}
+    ratio = {k: err["kernel"][k] / max(err["plain"][k], 1e-300)
+             for k in sq["oracle"]}
+    judged = ["losses", "all gated gradients"] + gated
+    worst = sorted(judged, key=lambda k: -ratio[k])[:5]
+    shown = ", ".join(f"{k} {ratio[k]:.3f} ({err['kernel'][k]:.3e} vs "
+                      f"{err['plain'][k]:.3e})" for k in worst)
+    print(f"llama_train_parity: Llama-3-8B width, {layers} layers, LoRA "
+          f"rank 16, {LLAMA_PARITY_BATCHES} batches of 1 x {LLAMA_SEQ}, rel "
+          f"L2 err vs the f32 oracle, kernel vs plain path: per-example "
+          f"losses {err['kernel']['losses']:.3e} vs "
+          f"{err['plain']['losses']:.3e}; all gated gradients "
+          f"({len(gated)} tensors) {err['kernel']['all gated gradients']:.4e}"
+          f" vs {err['plain']['all gated gradients']:.4e}; worst judged "
+          f"ratios: {shown}; ungated: classifier.bias "
+          f"{ratio['classifier.bias']:.3f}")
+    bad = [k for k in judged if ratio[k] > KERNEL_ERR_RATIO]
+    if bad:
+        fail(f"llama_train_parity: the kernel path's error exceeds "
+             f"{KERNEL_ERR_RATIO} x the plain path's in {bad}")
+    del states
+    torch.cuda.empty_cache()
+    return {"batches": LLAMA_PARITY_BATCHES, "layers": layers,
+            "losses_rel_err": {n: err[n]["losses"] for n in err},
+            "gradients_rel_err": {n: err[n]["all gated gradients"]
+                                  for n in err},
+            "worst_ratio": [worst[0], ratio[worst[0]]]}
+
+
 def main() -> int:
     import torch
 
@@ -1529,8 +2195,10 @@ def main() -> int:
 
     train_cases = train_kernel_phase(torch, F)
     fused_cases = fused_kernel_phase(torch, F)
+    llama_cases = llama_kernel_phase(torch, F)
     tiny_train_phase(torch)
     tiny_train_phase(torch, fused_slice=True)
+    tiny_llama_train_phase(torch)
     state, train_launches, train_metrics = train_phase(torch, card)
     del state
     torch.cuda.empty_cache()
@@ -1540,11 +2208,18 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     fused_metrics["parity"] = train_parity_phase(torch, fused_slice=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    llama_launches, llama_metrics = llama_lora_train_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    llama_metrics["parity"] = llama_train_parity_phase(torch)
 
     norms_cu = "tpudl_torch/ops/csrc/norms.cu"
     mlp_cu = "tpudl_torch/ops/csrc/mlp_fused.cu"
     sd_cu = "tpudl_torch/ops/csrc/softmax_dropout.cu"
     xent_cu = "tpudl_torch/ops/csrc/cross_entropy.cu"
+    flash_cu = "tpudl_torch/ops/csrc/flash_attention.cu"
     # name -> (source, replaces, main-path launches, per step, headline case)
     table = {
         # Serving: the decode shape in bf16 (the path's dtype), without a
@@ -1583,6 +2258,21 @@ def main() -> int:
         "xent_bwd": (xent_cu, "tpudl/ops/cross_entropy.py:209",
                      fused_launches["xent_bwd"],
                      TRAIN_FUSED_LAUNCHES["xent_bwd"], fused_cases),
+        # The Llama LoRA slice: the first case, the Llama-3-8B step's own
+        # call (SwiGLU backward [8192, 14336] bf16; flash [4, 2048, 32,
+        # 128] bf16 causal); launches from the llama_lora_train run.
+        "swiglu_bwd": (mlp_cu, "tpudl/ops/mlp_fused.py:207",
+                       llama_launches["swiglu_bwd"],
+                       LLAMA_LAUNCHES["swiglu_bwd"], llama_cases),
+        "flash_fwd": (flash_cu, "tpudl/ops/flash_attention.py:224",
+                      llama_launches["flash_fwd"],
+                      LLAMA_LAUNCHES["flash_fwd"], llama_cases),
+        "flash_dq": (flash_cu, "tpudl/ops/flash_attention.py:453",
+                     llama_launches["flash_dq"], LLAMA_LAUNCHES["flash_dq"],
+                     llama_cases),
+        "flash_dkv": (flash_cu, "tpudl/ops/flash_attention.py:477",
+                      llama_launches["flash_dkv"],
+                      LLAMA_LAUNCHES["flash_dkv"], llama_cases),
     }
     kernels = []
     for name, (source, replaces, count, per_step, where) in table.items():
@@ -1609,7 +2299,8 @@ def main() -> int:
                       for c in rows],
         })
     print(json.dumps({"slice": metrics, "train": train_metrics,
-                      "train_fused": fused_metrics, "card": card}))
+                      "train_fused": fused_metrics,
+                      "llama_lora_train": llama_metrics, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

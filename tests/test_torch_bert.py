@@ -230,7 +230,7 @@ def test_registry_and_refusals():
     assert build_model("bert-base", 2, device="meta").cfg.hidden_size == 768
     assert build_model("bert-large", 2, device="meta").cfg.num_layers == 24
     for name, item in (("resnet50", "queue A item 5"),
-                       ("llama3-8b-lora", "queue A item 4")):
+                       ("llama3-8b-lora-moe", "queue A item 4")):
         with pytest.raises(NotImplementedError, match=item):
             build_model(name, 2)
     with pytest.raises(ValueError, match="unknown model"):
@@ -240,11 +240,13 @@ def test_registry_and_refusals():
                      (dict(fp8_train=True), "queue A item 8")):
         with pytest.raises(NotImplementedError, match=item):
             build_model("bert-tiny", 2, device="meta", **kw)
+    # "flash" is ported (tests/test_torch_flash_attention.py); the
+    # sequence-parallel implementations are not.
     m = _port_model(False)
-    m.cfg = dataclasses.replace(m.cfg, attention_impl="flash")
+    m.cfg = dataclasses.replace(m.cfg, attention_impl="ring")
     for layer in (m.bert.encoder.layer_0, m.bert.encoder.layer_1):
         layer.attention.cfg = m.cfg
-    with pytest.raises(NotImplementedError, match="queue B item 5"):
+    with pytest.raises(NotImplementedError, match="queue A item 10"):
         m(torch.zeros(1, 4, dtype=torch.long))
 
 

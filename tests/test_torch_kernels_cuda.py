@@ -416,6 +416,34 @@ def test_norm_autograd_matches_autograd_through_plain(dev, form):
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("kind", ["layer", "rms"])
+def test_norm_backward_with_frozen_scales_skips_their_sums(dev, kind):
+    """Frozen scale and bias (the Llama LoRA path): one backward launch
+    that gives the same dx bit for bit and no parameter gradients."""
+    from tpudl_torch.ops.norms import _norm_bwd_cuda, _norm_fwd_cuda
+
+    rng = np.random.default_rng(19)
+    x0, r0, gy = (_t(rng, (40, 512), torch.bfloat16, dev) for _ in range(3))
+    s0, b0 = (_t(rng, (512,), torch.float32, dev) for _ in range(2))
+    bias = b0 if kind == "layer" else None
+    _, _, mean, rstd = _norm_fwd_cuda(kind, x0, s0, bias, r0, 1e-6, False,
+                                      stats=True)
+    full = _norm_bwd_cuda(kind, x0, s0, r0, mean, rstd, gy, None)
+    dx, ds, db = _norm_bwd_cuda(kind, x0, s0, r0, mean, rstd, gy, None,
+                                params=False)
+    assert ds is None and db is None
+    assert torch.equal(dx, full[0])
+    x, r = _leaf(x0), _leaf(r0)
+    before = norm_bwd.launches
+    if kind == "layer":
+        y = layer_norm(x, s0, b0, r, eps=1e-6, return_sum=False)
+    else:
+        y = rms_norm(x, s0, r, eps=1e-6, return_sum=False)
+    (y * gy).sum().backward()
+    assert norm_bwd.launches == before + 1
+    assert torch.equal(x.grad, full[0]) and torch.equal(r.grad, full[0])
+
+
 def test_bias_gelu_autograd_matches_autograd_through_plain(dev):
     rng = np.random.default_rng(17)
     x0 = _t(rng, (5, 33, 384), torch.float32, dev) * 2
@@ -758,3 +786,213 @@ def test_tiny_bert_fused_slice_step_matches_plain_path(dev):
         torch.testing.assert_close(pk[k], pp[k], rtol=2e-3, atol=2e-5)
     torch.testing.assert_close(ek["loss"], ep["loss"], rtol=1e-4, atol=1e-5)
     assert float(ek["accuracy"]) == float(ep["accuracy"])
+
+
+# ---------------------------------------------------------------------------
+# the Llama LoRA slice: the SwiGLU backward and flash attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 14336), (3, 77), (1, 5)])
+def test_swiglu_bwd_kernel_matches_plain(dev, dtype, shape):
+    from tpudl_torch.ops.mlp_fused import swiglu_bwd, swiglu_bwd_ref
+
+    rng = np.random.default_rng(shape[1] + 7)
+    g, u, go = (_t(rng, shape, dtype, dev) * s for s in (4, 1, 1))
+    before = swiglu_bwd.launches
+    dg, du = swiglu_bwd(g, u, go, impl="fused")
+    torch.cuda.synchronize()
+    assert swiglu_bwd.launches == before + 1
+    want = swiglu_bwd_ref(g, u, go)
+    for got, ref in zip((dg, du), want):
+        assert got.dtype == dtype and got.shape == g.shape
+        torch.testing.assert_close(got.float(), ref.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+    assert torch.equal(dg, swiglu_bwd(g, u, go, impl="fused")[0])
+
+
+def test_swiglu_autograd_runs_the_backward_kernel(dev):
+    from tpudl_torch.ops.mlp_fused import swiglu_bwd
+
+    rng = np.random.default_rng(3)
+    g = _leaf(_t(rng, (2, 3, 96), torch.bfloat16, dev) * 3)
+    u = _leaf(_t(rng, (2, 3, 96), torch.bfloat16, dev))
+    gy = _t(rng, (2, 3, 96), torch.bfloat16, dev)
+    before = (swiglu.launches, swiglu_bwd.launches)
+    (swiglu(g, u) * gy).sum().backward()
+    assert (swiglu.launches, swiglu_bwd.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    g2, u2 = _leaf(g.detach()), _leaf(u.detach())
+    (swiglu_ref(g2.float(), u2.float()) * gy.float()).sum().backward()
+    for a, b in ((g, g2), (u, u2)):
+        torch.testing.assert_close(a.grad.float(), b.grad.float(), rtol=0.05,
+                                   atol=0.05)
+
+
+def _fa_inputs(dev, b, sq, skv, h, d, dtype, masking, seed=0):
+    rng = np.random.default_rng(seed)
+    q = _t(rng, (b, sq, h, d), dtype, dev)
+    k = _t(rng, (b, skv, h, d), dtype, dev)
+    v = _t(rng, (b, skv, h, d), dtype, dev)
+    do = _t(rng, (b, sq, h, d), dtype, dev)
+    kvmask = None
+    if masking == "padding":
+        lengths = rng.integers(skv // 2, skv + 1, size=b)
+        lengths[0] = 0 if b > 1 else lengths[0]  # a row with nothing to attend
+        kvmask = torch.from_numpy(np.arange(skv)[None, :]
+                                  < lengths[:, None]).to(dev)
+    return q, k, v, do, kvmask
+
+
+def _fa_ratio(got, want):
+    """The worse of a row's L2 error over its L2 norm (rows over the head
+    dim) and an element's error over its |want| plus its row's largest
+    |want|; rows below 1e-2 of the tensor's RMS (dQ's first row, 0 up
+    to f32 rounding) are held to that. Scaled by the row, not the
+    tensor's largest value: causal rows that average over many keys are
+    far smaller than the first."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    floor = 1e-2 * float(want.square().mean().sqrt())
+    norm = want.square().sum(-1).sqrt().clamp_min(floor * want.shape[-1] ** 0.5)
+    row_max = want.abs().amax(-1, keepdim=True).clamp_min(floor)
+    return max(float((d.square().sum(-1).sqrt() / norm).max()),
+               float((d / (want.abs() + row_max)).max()))
+
+
+def _fa_close(got, want, dtype):
+    """bf16: two bf16 steps (the kernel rounds p and ds relative to its
+    running max, sums in another order); f32: the summation order only.
+    The same check rejects a 5 % error planted on the 16 rows below the
+    middle of the sequence axis (attended, and never padded here)."""
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    ratio = _fa_ratio(got, want)
+    assert ratio <= tol, f"error {ratio:.3e} of the row scale > {tol}"
+    planted = got.float().clone()  # .float() of an f32 tensor is itself
+    mid = got.shape[1] // 2
+    planted[:, mid - 16:mid] *= 1.05
+    assert _fa_ratio(planted, want) > tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,d", [
+    (2, 128, 128, 2, 128), (1, 100, 150, 2, 64), (2, 150, 100, 1, 32),
+    (1, 1000, 1500, 1, 64), (2, 64, 64, 3, 128)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("masking", ["none", "padding"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_kernels_match_plain(dev, dtype, b, sq, skv, h, d, causal,
+                                   masking, rate):
+    from tpudl_torch.ops import flash_attention as fa
+
+    q, k, v, do, kvmask = _fa_inputs(dev, b, sq, skv, h, d, dtype, masking)
+    seed = torch.tensor([12345, 2**32 - 77], dtype=torch.int64, device=dev)
+    before = (fa.flash_attention.launches_fwd, fa.flash_attention.launches_dq,
+              fa.flash_attention.launches_dkv)
+    o, lse = fa.flash_attention_fwd(q, k, v, kvmask, seed, causal, None, rate,
+                                    impl="fused")
+    wo, wlse = fa.flash_attention_ref(q, k, v, kvmask, seed, causal, None,
+                                      rate)
+    _fa_close(o, wo, dtype)
+    torch.testing.assert_close(lse, wlse, rtol=1e-5, atol=1e-4)
+    delta = fa.backward_delta(do, o)
+    grads = fa.flash_attention_bwd(q, k, v, kvmask, seed, do, lse, delta,
+                                   causal, None, rate, impl="fused")
+    want = fa.flash_attention_bwd_ref(q, k, v, kvmask, seed, do, lse, delta,
+                                      causal, None, rate)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches_fwd, fa.flash_attention.launches_dq,
+            fa.flash_attention.launches_dkv) == tuple(x + 1 for x in before)
+    for got, ref in zip(grads, want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        _fa_close(got, ref, dtype)
+    again = fa.flash_attention_bwd(q, k, v, kvmask, seed, do, lse, delta,
+                                   causal, None, rate, impl="fused")
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+
+
+def test_flash_fully_masked_rows_give_zero_and_mask_value(dev):
+    from tpudl_torch.ops import flash_attention as fa
+    from tpudl_torch.ops.attention import MASK_VALUE
+
+    # Sq > Skv, causal: the first Sq - Skv rows attend to nothing.
+    q, k, v, _, _ = _fa_inputs(dev, 1, 80, 50, 2, 64, torch.bfloat16, "none")
+    o, lse = fa.flash_attention_with_lse(q, k, v, causal=True, impl="fused")
+    assert float(o[:, :30].float().abs().max()) == 0.0
+    assert bool((lse[:, :, :30] == MASK_VALUE).all())
+    assert bool((lse[:, :, 30:] > -1e30).all())
+
+
+def test_flash_dropout_keep_mask_is_the_plain_mask(dev):
+    """Uniform logits (q = 0) and one-hot values: with the kv mask open on
+    one window of 64 columns at a time, o is nonzero exactly where the
+    kernel kept the entry; the union over windows is the plain keep mask
+    bit for bit, and the backward is bitwise repeatable."""
+    from tpudl_torch.ops import flash_attention as fa
+    from tpudl_torch.ops import keep_mask
+
+    b, s, h, d, rate = 2, 256, 3, 64, 0.1
+    seed = keep_mask.draw_seed(torch.Generator(device=dev).manual_seed(5))
+    q = torch.zeros(b, s, h, d, dtype=torch.bfloat16, device=dev)
+    k = torch.zeros_like(q)
+    eye = torch.eye(d, dtype=torch.bfloat16, device=dev)
+    v = eye.repeat(s // d, 1)[None, :, None, :].expand(b, s, h, d).contiguous()
+    kept = torch.empty(b, h, s, s, dtype=torch.bool, device=dev)
+    for w in range(s // d):
+        window = torch.zeros(b, s, dtype=torch.bool, device=dev)
+        window[:, w * d:(w + 1) * d] = True
+        o, _ = fa.flash_attention_fwd(q, k, v, window, seed, False, None, rate,
+                                      impl="fused")
+        kept[..., w * d:(w + 1) * d] = (o != 0).permute(0, 2, 1, 3)
+    want = keep_mask.keep_mask(seed, (b, h, s, s), rate)
+    assert torch.equal(kept, want)
+    share = kept.float().mean().item()
+    assert abs(share - (1 - rate)) < 5 * (rate * (1 - rate) / kept.numel()) ** 0.5
+
+
+def test_flash_dropout_matches_hybrid_attention_on_the_same_seed(dev):
+    from tpudl_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(4)
+    q, k, v = (_t(rng, (2, 128, 4, 64), torch.float32, dev) for _ in range(3))
+    am = torch.ones(2, 128, dtype=torch.int32, device=dev)
+    am[1, 90:] = 0
+    got = fa.flash_attention(q, k, v, am, dropout_rate=0.1,
+                             dropout_rng=torch.Generator(device=dev).manual_seed(9))
+    want = sd.hybrid_attention(q, k, v, mask=am, dropout_rate=0.1,
+                               dropout_rng=torch.Generator(device=dev).manual_seed(9))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_autograd_matches_plain_and_lse_cotangent(dev):
+    from tpudl_torch.ops import flash_attention as fa
+
+    q, k, v, do, kvmask = _fa_inputs(dev, 2, 96, 96, 2, 64, torch.float32,
+                                     "padding", seed=3)
+    gl = torch.randn(2, 2, 96, device=dev)
+    outs = {}
+    for impl in ("fused", "reference"):
+        leaves = [_leaf(t) for t in (q, k, v)]
+        o, lse = fa.flash_attention_with_lse(*leaves, kvmask, causal=True,
+                                             impl=impl)
+        ((o * do).sum() + (torch.where(lse > -1e30, lse, 0.0) * gl).sum()
+         ).backward()
+        outs[impl] = [o, lse] + [t.grad for t in leaves]
+    for got, want in zip(outs["fused"], outs["reference"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_refusals(dev):
+    from tpudl_torch.ops import flash_attention as fa
+
+    x = torch.zeros(1, 8, 2, 48, device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(x, x, x)
+    x = torch.zeros(1, 8, 2, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention(x, x, x)
+    x = torch.zeros(1, 8, 2, 64, device=dev)
+    with pytest.raises(NotImplementedError, match="dense mask"):
+        fa.flash_attention(x, x, x, torch.ones(1, 2, 8, 8, dtype=torch.bool,
+                                               device=dev))

@@ -1,4 +1,4 @@
-"""tpudl_torch.models (Llama decode path) against tpudl.models on the CPU.
+"""tpudl_torch.models (Llama) against tpudl.models on the CPU.
 
 tpudl's ``LlamaForCausalLM(LLAMA_TINY)`` params from ``model.init`` go
 through ``params_from_tpudl`` into the port; the same left-padded
@@ -7,7 +7,9 @@ Logits and the whole KV cache (k, v, valid, index) must agree: f32 at
 rtol 1e-4 / atol 1e-5 (the BERT bridge's band, tests/test_bert.py:81),
 bf16 at 5e-2. ``fused_ops`` True routes the port's norms and SwiGLU
 through the kernel seam (the plain versions, on CPU tensors) and tpudl's
-through its own ("auto": the composite off-TPU).
+through its own ("auto": the composite off-TPU). The non-decode forward
+and the LoRA sequence classifier are held the same way (the training
+step is in tests/test_torch_train.py).
 """
 
 import importlib
@@ -165,7 +167,7 @@ def test_init_params_matches_the_module_and_tpudl_init():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("lora_rank", 4), ("moe_experts", 8), ("weight_dtype", "int8"),
+    ("remat", True), ("moe_experts", 8), ("weight_dtype", "int8"),
     ("fp8_train", True),
 ])
 def test_unported_tiers_raise(field, value):
@@ -175,9 +177,14 @@ def test_unported_tiers_raise(field, value):
 
 
 def test_non_decode_forward_is_not_ported(jax_params):
-    _, tmodel, tparams = _models(jax_params, "float32", True)
-    tllama.bind_params(tmodel, tparams)
-    with pytest.raises(NotImplementedError, match="non-decode"):
+    """The non-decode forward is ported for the reference and flash
+    attention implementations; the sequence-parallel ones are not."""
+    tmodel = tllama.LlamaForCausalLM(tllama.LLAMA_TINY(
+        dtype=torch.float32, max_seq_len=MAX_SEQ, attention_impl="ring"),
+        device="meta")
+    tllama.bind_params(tmodel, tllama.params_from_tpudl(
+        jax_params, dtype=torch.float32, device="cpu"))
+    with pytest.raises(NotImplementedError, match="item 10"):
         tmodel(torch.zeros(1, 4, dtype=torch.long))
 
 
@@ -198,3 +205,184 @@ def test_bind_params_refuses_a_dtype_mismatch(jax_params):
                                    device="cpu")
     with pytest.raises(ValueError, match="dtypes do not match"):
         tllama.bind_params(tmodel, f32)
+
+
+# ---------------------------------------------------------------------------
+# the non-decode forward, LoRA and the sequence classifier
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("attention_impl", ["reference", "flash"])
+def test_non_decode_forward_matches_tpudl(jax_params, attention_impl):
+    """LlamaForCausalLM without decode, on the left-padded prompts: f32
+    logits at the decode test's band (flash in tpudl's interpret mode)."""
+    cfg = dict(dtype=jnp.float32, max_seq_len=MAX_SEQ,
+               attention_impl=attention_impl)
+    jmodel = jllama.LlamaForCausalLM(jllama.LLAMA_TINY(**cfg))
+    cfg["dtype"] = torch.float32
+    tmodel = tllama.LlamaForCausalLM(tllama.LLAMA_TINY(**cfg), device="meta")
+    tllama.bind_params(tmodel, tllama.params_from_tpudl(
+        jax_params, dtype=torch.float32, device="cpu"))
+    ids, mask = _prompts()
+    want = jmodel.apply({"params": jax_params}, jnp.asarray(ids),
+                        jnp.asarray(mask))
+    got, cache = tmodel(torch.from_numpy(ids), torch.from_numpy(mask))
+    assert cache is None
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+
+
+_CLS_CFG = dict(num_labels=3, lora_rank=4, vocab_size=128, max_seq_len=64)
+
+
+@pytest.fixture(scope="module")
+def cls_params():
+    """A tpudl LoRA classifier tree with ``lora_b`` drawn non-zero (with
+    tpudl's zero init the adapters would change nothing)."""
+    model = jllama.LlamaForSequenceClassification(
+        jllama.LLAMA_TINY(dtype=jnp.float32, **_CLS_CFG))
+    params = jax.tree.map(np.asarray, model.init(
+        jax.random.key(1), jnp.zeros((1, S), jnp.int32))["params"])
+    rng = np.random.default_rng(5)
+
+    def fill(node):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                fill(value)
+            elif key == "lora_b":
+                node[key] = (0.05 * rng.normal(size=value.shape)).astype(
+                    np.float32)
+
+    fill(params)
+    return params
+
+
+def test_lora_classifier_bridge_layout(cls_params):
+    params = tllama.params_from_tpudl(cls_params, dtype=torch.bfloat16,
+                                      device="cpu")
+    model = tllama.LlamaForSequenceClassification(
+        tllama.LLAMA_TINY(**_CLS_CFG), device="meta")
+    assert set(params) == set(model.state_dict())
+    a = params["model.layer_1.attention.k_proj.lora_a"]
+    want = cls_params["model"]["layer_1"]["attention"]["k_proj"]["lora_a"]
+    assert a.dtype == torch.float32 and tuple(a.shape) == want.shape
+    np.testing.assert_array_equal(a.numpy(), want)
+    assert params["model.layer_0.up_proj.weight"].dtype == torch.bfloat16
+    w = params["classifier.weight"]
+    assert w.dtype == torch.float32 and tuple(w.shape) == (3, 128)
+    np.testing.assert_array_equal(w.numpy(), cls_params["classifier"]["kernel"].T)
+    assert params["classifier.bias"].dtype == torch.float32
+    # Every leaf is accounted for, both ways.
+    partial = {k: v for k, v in cls_params.items() if k != "classifier"}
+    with pytest.raises(ValueError, match="lacks"):
+        tllama.params_from_tpudl(partial, device="cpu")
+    extra = dict(cls_params, moe={"router": {"kernel": np.zeros((2, 2))}})
+    with pytest.raises(ValueError, match="no counterpart"):
+        tllama.params_from_tpudl(extra, device="cpu")
+
+
+@pytest.mark.parametrize("attention_impl", ["reference", "flash"])
+def test_lora_classifier_forward_matches_tpudl(cls_params, attention_impl):
+    """f32 logits of LlamaForSequenceClassification with adapters, on a
+    right- and a left-padded batch (tpudl pools index sum(mask) - 1 in
+    both; fused_ops="force" runs its Pallas kernels in interpret mode)."""
+    jmodel = jllama.LlamaForSequenceClassification(jllama.LLAMA_TINY(
+        dtype=jnp.float32, attention_impl=attention_impl, fused_ops="force",
+        **_CLS_CFG))
+    tmodel = tllama.LlamaForSequenceClassification(tllama.LLAMA_TINY(
+        dtype=torch.float32, attention_impl=attention_impl, **_CLS_CFG),
+        device="meta")
+    tmodel.load_state_dict(tllama.params_from_tpudl(
+        cls_params, dtype=torch.float32, device="cpu"), assign=True)
+    rng = np.random.default_rng(6)
+    ids = rng.integers(1, 128, size=(3, 16)).astype(np.int32)
+    right = np.ones_like(ids)
+    right[1, 11:] = 0
+    left = right[:, ::-1].copy()
+    for mask in (right, left):
+        want = jmodel.apply({"params": cls_params}, jnp.asarray(ids),
+                            jnp.asarray(mask))
+        with torch.no_grad():
+            got = tmodel(torch.from_numpy(ids), torch.from_numpy(mask))
+        assert got.dtype == torch.float32 and got.shape == (3, 3)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **TOL["float32"])
+
+
+def test_padding_is_invisible_to_the_real_tokens(cls_params):
+    """A sequence padded on the right or on the left gives, at its real
+    tokens, the final hidden states of the sequence alone (positions skip
+    padding, the kv mask hides it), on the flash path; so a right-padded
+    row classifies as the sequence alone."""
+    tmodel = tllama.LlamaForSequenceClassification(tllama.LLAMA_TINY(
+        dtype=torch.float32, attention_impl="flash", **_CLS_CFG),
+        device="meta")
+    tmodel.load_state_dict(tllama.params_from_tpudl(
+        cls_params, dtype=torch.float32, device="cpu"), assign=True)
+    seq = torch.from_numpy(np.random.default_rng(7).integers(
+        1, 128, size=(1, 10)))
+    pad = torch.zeros(1, 6, dtype=seq.dtype)
+    ones, zeros = torch.ones(1, 10, dtype=torch.int64), torch.zeros(1, 6, dtype=torch.int64)
+    with torch.no_grad():
+        alone, _ = tmodel.model(seq, torch.ones_like(seq))
+        r, _ = tmodel.model(torch.cat([seq, pad], 1),
+                            torch.cat([ones, zeros], 1))
+        lft, _ = tmodel.model(torch.cat([pad, seq], 1),
+                              torch.cat([zeros, ones], 1))
+        torch.testing.assert_close(r[:, :10], alone, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(lft[:, 6:], alone, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(
+            tmodel(torch.cat([seq, pad], 1), torch.cat([ones, zeros], 1)),
+            tmodel(seq), rtol=1e-4, atol=1e-5)
+
+
+def test_build_model_parses_llama_names():
+    from tpudl_torch.models.registry import build_model
+
+    m = build_model("llama-tiny-lora", 2, device="meta",
+                    attention_impl="flash")
+    assert isinstance(m, tllama.LlamaForSequenceClassification)
+    assert m.cfg.lora_rank == 16 and m.cfg.attention_impl == "flash"
+    assert m.cfg.num_labels == 2 and m.cfg.dtype == torch.bfloat16
+    assert build_model("llama-tiny", 3, device="meta").cfg.lora_rank == 0
+    assert build_model("llama3-8b-lora", 2, device="meta",
+                       lora_rank=8).cfg.lora_rank == 8
+    with pytest.raises(NotImplementedError, match="item 4"):
+        build_model("llama-tiny-lora-moe", 2, device="meta")
+    with pytest.raises(ValueError, match="unknown llama size"):
+        build_model("llama-huge", 2, device="meta")
+    # Base frozen, adapters and the classifier trainable.
+    frozen = {n for n, p in m.named_parameters() if not p.requires_grad}
+    assert "model.layer_0.attention.q_proj.weight" in frozen
+    assert "model.embed_tokens.weight" in frozen
+    assert not any(n.endswith(("lora_a", "lora_b")) or
+                   n.startswith("classifier") for n in frozen)
+
+
+def test_merge_lora_matches_tpudl(cls_params):
+    """merge_lora folds each adapter into its base weight as tpudl's does
+    (kernel += A B * 16 / r): the merged state_dict is the tpudl merged
+    tree's, and the rank-0 model on it computes the adapted model's
+    logits."""
+    from tpudl.models.lora import merge_lora as jmerge
+    from tpudl_torch.models.lora import merge_lora
+
+    params = tllama.params_from_tpudl(cls_params, dtype=torch.float32,
+                                      device="cpu")
+    merged = merge_lora(params)
+    want = tllama.params_from_tpudl(jax.tree.map(np.asarray,
+                                                 jmerge(cls_params)),
+                                    dtype=torch.float32, device="cpu")
+    assert set(merged) == set(want)
+    for name, w in want.items():
+        np.testing.assert_allclose(merged[name].numpy(), w.numpy(),
+                                   rtol=1e-6, atol=1e-6, err_msg=name)
+    cfg = dict(_CLS_CFG, dtype=torch.float32)
+    lora = tllama.LlamaForSequenceClassification(tllama.LLAMA_TINY(**cfg),
+                                                 device="meta")
+    lora.load_state_dict(params, assign=True)
+    base = tllama.LlamaForSequenceClassification(
+        tllama.LLAMA_TINY(**dict(cfg, lora_rank=0)), device="meta")
+    base.load_state_dict(merged, assign=True)
+    ids = torch.from_numpy(np.random.default_rng(8).integers(1, 128, (2, 12)))
+    with torch.no_grad():
+        torch.testing.assert_close(base(ids), lora(ids), rtol=1e-4, atol=1e-5)

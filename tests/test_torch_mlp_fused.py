@@ -112,3 +112,43 @@ def test_bias_gelu_dispatch_rules():
         mlp_fused.bias_gelu(x, b, impl="fused")
     with pytest.raises(ValueError, match="CUDA tensors only"):
         mlp_fused.bias_gelu_bwd(x, b, x, impl="fused")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(24, 256), (5, 77)])
+def test_swiglu_bwd_ref_matches_vjp_of_tpudl_kernel(dtype, shape):
+    """The SwiGLU backward's plain version against jax.vjp of tpudl's
+    Pallas swiglu in interpret mode (whose backward is _sw_bwd_kernel):
+    f32 1e-5; bf16 0.05 (both compute in f32 and round once; the bf16
+    band covers a one-step rounding difference)."""
+    import jax
+
+    rng = np.random.default_rng(shape[-1] + 1)
+    gate = (3 * rng.normal(size=shape)).astype(np.float32)
+    up = rng.normal(size=shape).astype(np.float32)
+    g = rng.normal(size=shape).astype(np.float32)
+    jg, ju, jgo = (jnp.asarray(a, JAX_DTYPE[dtype]) for a in (gate, up, g))
+    _, vjp = jax.vjp(lambda a, b: jmlp.swiglu(a, b, impl="fused",
+                                              interpret=True), jg, ju)
+    want = vjp(jgo)
+    tg, tu, tgo = (torch.from_numpy(a).to(TORCH_DTYPE[dtype])
+                   for a in (gate, up, g))
+    got = mlp_fused.swiglu_bwd_ref(tg, tu, tgo)
+    for t, w in zip(got, want):
+        assert t.dtype == TORCH_DTYPE[dtype] and tuple(t.shape) == shape
+        np.testing.assert_allclose(t.float().numpy(), np.asarray(w, np.float32),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+    # On CPU tensors swiglu_bwd is its plain version.
+    for a, b in zip(mlp_fused.swiglu_bwd(tg, tu, tgo), got):
+        assert torch.equal(a, b)
+
+
+def test_swiglu_bwd_dispatch_rules():
+    g = torch.ones(3, 8, requires_grad=True)
+    u = torch.ones(3, 8, requires_grad=True)
+    before = (mlp_fused.swiglu.launches, mlp_fused.swiglu_bwd.launches)
+    mlp_fused.swiglu(g, u).sum().backward()
+    mlp_fused.swiglu_bwd(g.detach(), u.detach(), torch.ones(3, 8))
+    assert (mlp_fused.swiglu.launches, mlp_fused.swiglu_bwd.launches) == before
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        mlp_fused.swiglu_bwd(g, u, g, impl="fused")

@@ -407,3 +407,158 @@ def test_fused_slice_eval_step_matches_tpudl(one_thread, valid):
                                rtol=1e-4, atol=1e-5)
     assert float(got["accuracy"]) == float(want["accuracy"])
     assert got["loss"].requires_grad is False
+
+
+# ---------------------------------------------------------------------------
+# the Llama LoRA slice: frozen base, adapters and the classifier train
+# ---------------------------------------------------------------------------
+
+_LORA_CFG = dict(num_labels=2, lora_rank=4, attention_impl="flash",
+                 vocab_size=128, max_seq_len=128)
+
+
+def _lora_batch():
+    rng = np.random.default_rng(31)
+    mask = np.ones((4, 32), np.int32)
+    mask[1, 20:] = 0
+    mask[3, 25:] = 0
+    return {"input_ids": rng.integers(0, 128, (4, 32)).astype(np.int32),
+            "attention_mask": mask,
+            "label": rng.integers(0, 2, (4,)).astype(np.int32)}
+
+
+@pytest.fixture(scope="module")
+def tpudl_lora_step():
+    """tpudl's tiny LoRA classifier (fused_ops="force" and
+    attention_impl="flash": every Pallas kernel in interpret mode), its
+    params with lora_b drawn non-zero (with the zero init every lora_a
+    gradient is exactly 0), the gradients of one step's loss and the
+    params after two steps of lora_optimizer(make_optimizer(...)) with
+    the llama3_8b_lora optimizer at a constant 1e-2."""
+    from tpudl.config import get_config as jget
+    from tpudl.models import llama as jllama
+    from tpudl.models.lora import lora_optimizer as jlora_optimizer
+    from tpudl.models.lora import trainable_param_count as jcount
+    from tpudl.train import cross_entropy_loss as jloss
+    from tpudl.train import make_classification_train_step as jstep
+    from tpudl.train.loop import TrainState as JTrainState
+    from tpudl.train.optim import make_optimizer as jopt
+
+    batch = _lora_batch()
+    # The param tree does not depend on the kernel tier: init the
+    # composite model (no interpret-mode kernels at init).
+    init = jllama.LlamaForSequenceClassification(jllama.LLAMA_TINY(
+        dtype=jnp.float32, **dict(_LORA_CFG, attention_impl="reference")))
+    params = jax.tree.map(np.asarray, init.init(
+        jax.random.key(0), jnp.asarray(batch["input_ids"]))["params"])
+    rng = np.random.default_rng(32)
+
+    def fill(node):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                fill(value)
+            elif key == "lora_b":
+                node[key] = (0.05 * rng.normal(size=value.shape)).astype(
+                    np.float32)
+
+    fill(params)
+    jmodel = jllama.LlamaForSequenceClassification(jllama.LLAMA_TINY(
+        dtype=jnp.float32, fused_ops="force", **_LORA_CFG))
+    ocfg = dataclasses.replace(jget("llama3_8b_lora").optim, warmup_steps=0,
+                               schedule="constant", learning_rate=1e-2)
+    tx = jlora_optimizer(jopt(ocfg), params, ("classifier",))
+    jstate = JTrainState.create(apply_fn=jmodel.apply,
+                                params=jax.tree.map(jnp.asarray, params),
+                                tx=tx)
+
+    def loss_fn(p):
+        logits = jmodel.apply({"params": p}, jnp.asarray(batch["input_ids"]),
+                              jnp.asarray(batch["attention_mask"]),
+                              train=True)
+        return jloss(logits, jnp.asarray(batch["label"]))
+
+    grads = jax.jit(jax.grad(loss_fn))(jstate.params)
+    step = jax.jit(jstep(input_keys=_KEYS))
+    s1, m1 = step(jstate, batch, jax.random.key(1))
+    s2, _ = step(s1, batch, jax.random.key(1))
+    return {"params": params, "grads": jax.tree.map(np.asarray, grads),
+            "loss": float(m1["loss"]), "accuracy": float(m1["accuracy"]),
+            "after": jax.tree.map(np.asarray, s2.params),
+            "count": jcount(params, ("classifier",)), "optim": ocfg}
+
+
+def _torch_lora_state(tpudl_lora_step):
+    from tpudl_torch.models import llama
+    from tpudl_torch.models.lora import lora_optimizer
+
+    model = llama.LlamaForSequenceClassification(
+        llama.LLAMA_TINY(dtype=torch.float32, **_LORA_CFG), device="meta")
+    ocfg = OptimConfig(**dataclasses.asdict(tpudl_lora_step["optim"]))
+    tx = lora_optimizer(optim.make_optimizer(ocfg), model, ("classifier",))
+    params = llama.params_from_tpudl(tpudl_lora_step["params"],
+                                     dtype=torch.float32, device="cpu")
+    return create_train_state(0, model, tx, params=params, device="cpu")
+
+
+def test_llama_lora_train_step_matches_tpudl(tpudl_lora_step, one_thread):
+    """The slice's step on the tiny model, the port's plain versions
+    against tpudl's interpret-mode kernels: the loss rtol 1e-4 / atol
+    1e-5, every adapter and classifier gradient and every parameter after
+    two updates rtol 2e-3 / atol 2e-5 (the BERT step's bands), the frozen
+    base bit-identical, and the trainable count tpudl's."""
+    from tpudl_torch.models import llama
+    from tpudl_torch.models.lora import trainable_param_count
+    from tpudl_torch.rng import fold_in
+
+    state = _torch_lora_state(tpudl_lora_step)
+    batch = _lora_batch()
+    step = make_classification_train_step(input_keys=_KEYS)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    assert trainable_param_count(before, ("classifier",)) == \
+        tpudl_lora_step["count"]
+    grads, metrics = step.grads_and_metrics(state, batch, fold_in(1, 0, "cpu"))
+    np.testing.assert_allclose(float(metrics["loss"]), tpudl_lora_step["loss"],
+                               rtol=1e-4, atol=1e-5)
+    assert float(metrics["accuracy"]) == tpudl_lora_step["accuracy"]
+    want = llama.params_from_tpudl(tpudl_lora_step["grads"],
+                                   dtype=torch.float32, device="cpu")
+    assert set(grads) == set(state.params)
+    assert all(k.endswith(("lora_a", "lora_b")) or k.startswith("classifier")
+               for k in grads)
+    for name, g in grads.items():
+        assert float(g.abs().max()) > 0, name
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), rtol=2e-3,
+                                   atol=2e-5, err_msg=f"grad {name}")
+    for _ in range(2):
+        state, _ = step(state, batch, 1)
+    after = llama.params_from_tpudl(tpudl_lora_step["after"],
+                                    dtype=torch.float32, device="cpu")
+    for name, p in state.model.state_dict().items():
+        np.testing.assert_allclose(p.numpy(), after[name].numpy(), rtol=2e-3,
+                                   atol=2e-5, err_msg=f"param {name}")
+        if name not in grads:
+            assert torch.equal(p, before[name]), f"frozen {name} changed"
+
+
+def test_optimizer_state_covers_the_trainable_parameters_only(
+        tpudl_lora_step):
+    """No moments, and no zero gradients, for the frozen base; BERT's
+    step trains every parameter as before."""
+    state = _torch_lora_state(tpudl_lora_step)
+    trainable = {n for n, p in state.model.named_parameters()
+                 if p.requires_grad}
+    assert set(state.params) == trainable
+    assert set(state.opt_state["mu"]) == set(state.opt_state["nu"]) == trainable
+    assert len(trainable) == 2 * 7 * 2 + 2
+    bert = _tiny_bert_state()
+    assert set(bert.params) == set(dict(bert.model.named_parameters()))
+
+
+def test_llama3_8b_lora_config_matches_tpudl():
+    from tpudl.config import get_config as jget
+
+    want, got = jget("llama3_8b_lora"), get_config("llama3_8b_lora")
+    assert dataclasses.asdict(got.optim) == dataclasses.asdict(want.optim)
+    for field in ("model", "dataset", "global_batch_size", "seq_len",
+                  "num_classes", "num_steps", "seed", "accum_steps"):
+        assert getattr(got, field) == getattr(want, field)

@@ -1,8 +1,8 @@
 """Workload configurations: the port's counterpart of tpudl.config.
 
-A copy of what the ported training path needs: ``OptimConfig``,
-``TrainConfig`` and the ``sst2_bert_base`` entry (BASELINE.json
-``configs[1]``). tpudl's ``mesh`` and ``strategy`` fields wait for the
+A copy of what the ported training paths need: ``OptimConfig``,
+``TrainConfig``, the ``sst2_bert_base`` entry (BASELINE.json
+``configs[1]``) and the ``llama3_8b_lora`` entry (``configs[4]``). tpudl's ``mesh`` and ``strategy`` fields wait for the
 launcher and sharding port (ROADMAP queue A item 7), and its other
 entries for their model families.
 """
@@ -33,7 +33,7 @@ class OptimConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     name: str
-    model: str  # bert-base | bert-large (ported); tpudl's others not yet
+    model: str  # bert-* | llama*[-lora] (ported); resnet* not yet
     dataset: str  # sst2
     global_batch_size: int = 128
     image_size: int = 32
@@ -63,6 +63,19 @@ CONFIGS = {
                           total_steps=2000, weight_decay=0.01,
                           mu_dtype="bfloat16"),
         num_steps=2000,
+    ),
+    # configs[4]: Llama-3-8B LoRA fine-tune (tpudl's mesh (dp, fsdp 8,
+    # tp 2) and strategy "lora" wait for the launcher port).
+    "llama3_8b_lora": TrainConfig(
+        name="llama3_8b_lora",
+        model="llama3-8b-lora",
+        dataset="sst2",
+        global_batch_size=64,
+        seq_len=2048,
+        num_classes=2,
+        optim=OptimConfig(name="adamw", learning_rate=1e-4, warmup_steps=100,
+                          total_steps=1000, weight_decay=0.0),
+        num_steps=1000,
     ),
 }
 

@@ -1,19 +1,31 @@
 """Llama-family decoder (RoPE + RMSNorm + SwiGLU + GQA) in PyTorch: the
-dense decode path.
+dense decode path, the non-decode forward and the LoRA classifier.
 
-The port's counterpart of tpudl.models.llama, cut to what serving runs:
-tpudl's prefill and decode both apply the model with ``decode=True``
-(tpudl.models.generate.prefill_fn), so this module ports the dense
-KV-cache branch of ``LlamaAttention``, the dense-MLP ``LlamaBlock``,
-``LlamaModel`` and ``LlamaForCausalLM``. The non-decode forward (flash
-attention), MoE, LoRA, quantized weights and fp8 training wait for
-later slices and raise ``NotImplementedError``.
+The port's counterpart of tpudl.models.llama. Serving applies the model
+with ``decode=True`` for prefill and decode alike (the dense KV-cache
+branch of ``LlamaAttention``); training applies it with ``decode=False``
+(GQA heads expanded with ``repeat_interleave``, as ``jnp.repeat``, then
+``attend`` with the causal flag and ``cfg.attention_impl``: "flash" runs
+the flash-attention kernels). ``LlamaForSequenceClassification`` pools
+the last non-pad token into an f32 classifier with a bias.
+``cfg.lora_rank > 0`` makes every projection a
+tpudl_torch.models.lora.LoRALinear. MoE, quantized weights, fp8 training
+and rematerialization wait for later slices and raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Numerics follow the JAX model: projections and the embedding compute in
 ``cfg.dtype``, RMSNorm statistics in f32, RoPE angles in f32, attention
-logits and softmax in f32, and the ``lm_head`` in full f32 (TF32 off).
-With ``cfg.fused_ops`` (default True here) the norms and the SwiGLU go
-through the Hopper kernels of tpudl_torch.ops on CUDA tensors.
+logits and softmax in f32, and the ``lm_head`` and classifier in full
+f32 (TF32 off). With ``cfg.fused_ops`` (default True here) the norms and
+the SwiGLU go through the Hopper kernels of tpudl_torch.ops on CUDA
+tensors (forward and backward).
+
+The base weights (projections, embedding, norm scales) are frozen:
+they hold the compute dtype, which gives the numbers of tpudl's f32
+masters cast at use (``nn.Dense(dtype=bf16)`` casts its kernel, and
+``nn.Embed``'s lookup is rounded after), at half the bytes. Training
+updates the adapters and the classifier only (``lora_optimizer``);
+full-parameter Llama training with f32 masters is not ported.
 
 Parameters mirror tpudl's tree: ``model.layer_{i}.attention.q_proj.weight``
 holds tpudl's ``model/layer_{i}/attention/q_proj/kernel`` transposed
@@ -40,7 +52,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpudl_torch.ops.attention import MASK_VALUE
+from tpudl_torch.models.lora import LoRALinear, is_lora_param
+from tpudl_torch.ops.attention import MASK_VALUE, attend
 from tpudl_torch.ops.mlp_fused import swiglu
 from tpudl_torch.ops.norms import fused_ops_impl, rms_norm
 
@@ -56,14 +69,20 @@ class LlamaConfig:
     max_seq_len: int = 8192
     rope_theta: float = 500_000.0
     rms_norm_eps: float = 1e-5
+    num_labels: int = 2
     dtype: torch.dtype = torch.bfloat16
+    #: The non-decode forward's ``attend`` implementation ("reference",
+    #: "flash"; "fused" is flash past S = 512).
+    attention_impl: str = "reference"
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
     # Kernel tier: False = plain PyTorch norms/SwiGLU everywhere; True
     # (the default here) = the Hopper kernels on CUDA tensors, the plain
     # versions on CPU tensors; "force" = the kernels or an error.
     fused_ops: Any = True
     # Tiers of the JAX model that are not ported yet; any other value
     # raises NotImplementedError when the model is built.
-    lora_rank: int = 0
+    remat: bool = False
     weight_dtype: Optional[str] = None
     fp8_train: Any = False
     moe_experts: int = 0
@@ -102,19 +121,22 @@ LLAMA_SIZES = {
 }
 
 _NOT_PORTED = (
-    ("lora_rank", 0, "LoRA adapters"),
-    ("moe_experts", 0, "the MoE MLP"),
-    ("weight_dtype", None, "quantized serving weights"),
-    ("fp8_train", False, "fp8 training matmuls"),
+    ("remat", False, "rematerialization", "queue A item 12"),
+    ("moe_experts", 0, "the MoE MLP", "queue A item 4"),
+    ("weight_dtype", None, "quantized serving weights", "queue A item 4"),
+    ("fp8_train", False, "fp8 training matmuls", "queue A item 8"),
 )
 
 
 def _check_ported(cfg: LlamaConfig) -> None:
-    for field, off, what in _NOT_PORTED:
+    if cfg.lora_rank < 0:
+        raise ValueError(f"lora_rank must be >= 0 (0 = adapters off), got "
+                         f"{cfg.lora_rank}")
+    for field, off, what, item in _NOT_PORTED:
         if getattr(cfg, field) != off:
             raise NotImplementedError(
-                f"{field}={getattr(cfg, field)!r}: {what} are not ported to "
-                f"tpudl_torch yet (ROADMAP queue A)"
+                f"{field}={getattr(cfg, field)!r}: {what} is not ported to "
+                f"tpudl_torch yet (ROADMAP {item})"
             )
 
 
@@ -180,6 +202,11 @@ def _gqa_decode_attention(q, k, v, mask):
 
 
 def _linear(cfg, d_in, d_out, device):
+    """A projection: bias-free Linear, or LoRALinear with adapters on
+    (tpudl's ``_proj``)."""
+    if cfg.lora_rank > 0:
+        return LoRALinear(d_in, d_out, cfg.lora_rank, cfg.lora_alpha,
+                          cfg.dtype, device)
     return nn.Linear(d_in, d_out, bias=False, device=device, dtype=cfg.dtype)
 
 
@@ -212,10 +239,13 @@ class LlamaAttention(nn.Module):
         self.o_proj = _linear(cfg, cfg.num_heads * hd, cfg.hidden_size, device)
 
     def forward(self, hidden, rope_cs, causal, kv_mask, cache):
-        """Dense decode branch: write this chunk's k/v/validity at the
-        cache's write index, attend to slots that are causally prior in
-        WRITE order and valid. ``causal`` is the [1, 1, S, T] slot-order
-        triangle for this chunk; ``cache`` is this layer's dict."""
+        """With a ``cache`` (this layer's dict), the dense decode branch:
+        write this chunk's k/v/validity at the cache's write index, attend
+        to slots that are causally prior in WRITE order and valid;
+        ``causal`` is the [1, 1, S, T] slot-order triangle for this chunk.
+        Without one (``cache=None``), the non-decode branch: kv heads
+        expanded to the query heads, then ``attend`` with the [B, S]
+        validity row and the causal flag; returns ``(out, None)``."""
         cfg = self.cfg
         b, s, _ = hidden.shape
         hd = cfg.head_dim
@@ -224,6 +254,14 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(hidden).view(b, s, cfg.num_kv_heads, hd)
         q = apply_rope(q, *rope_cs)
         k = apply_rope(k, *rope_cs)
+        if cache is None:
+            if cfg.num_kv_heads != cfg.num_heads:
+                reps = cfg.num_heads // cfg.num_kv_heads
+                k = k.repeat_interleave(reps, dim=2)
+                v = v.repeat_interleave(reps, dim=2)
+            ctx = attend(q, k, v, mask=kv_mask, causal=True,
+                         implementation=cfg.attention_impl)
+            return self.o_proj(ctx.reshape(b, s, cfg.num_heads * hd)), None
 
         ck, cv, cvalid = cache["k"], cache["v"], cache["valid"]
         start = cache["index"]
@@ -259,13 +297,14 @@ class LlamaBlock(nn.Module):
     def forward(self, hidden, rope_cs, causal, kv_mask, cache):
         attn, attn_cache = self.attention(
             self.input_norm(hidden), rope_cs, causal, kv_mask,
-            cache["attention"],
+            None if cache is None else cache["attention"],
         )
         # The attention residual add rides inside the post-attention norm
         # kernel; the summed value comes back as the carried residual.
         x, hidden = self.post_attention_norm(attn, residual=hidden)
         act = swiglu(self.gate_proj(x), self.up_proj(x), impl=self.impl)
-        return hidden + self.down_proj(act), {"attention": attn_cache}
+        out = hidden + self.down_proj(act)
+        return out, None if cache is None else {"attention": attn_cache}
 
 
 class LlamaModel(nn.Module):
@@ -286,18 +325,22 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, attention_mask=None, decode=False,
                 positions=None, cache=None):
+        """``(hidden [B, S, hidden], cache)``: with ``decode``, the cache
+        advanced by this chunk (a new zeroed one when ``cache`` is None);
+        without, the non-decode forward and None."""
         cfg = self.cfg
-        if not decode:
-            raise NotImplementedError(
-                "the non-decode forward (training / classification, with "
-                "flash attention) is not ported yet; serving runs "
-                "decode=True for prefill and decode alike"
-            )
         kv_mask = attention_mask
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         if positions is None:
             positions = (attention_mask.cumsum(-1) - 1).clamp_min(0)
+        if not decode:
+            x = self.embed_tokens(input_ids.long()).to(cfg.dtype)
+            rope_cs = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+            for i in range(cfg.num_layers):
+                x, _ = getattr(self, f"layer_{i}")(x, rope_cs, None, kv_mask,
+                                                   None)
+            return self.final_norm(x), None
         if cache is None:
             cache = init_cache(cfg, input_ids.shape[0],
                                self.embed_tokens.weight.device)["model"]
@@ -325,8 +368,9 @@ class LlamaModel(nn.Module):
 class LlamaForCausalLM(nn.Module):
     """Decoder + f32 ``lm_head``. ``forward(..., decode=True, cache=None)``
     returns ``(logits [B, S, V] f32, cache)``; a ``cache`` of None starts
-    from a zeroed one (the flax decode idiom). ``device="meta"`` builds a
-    weight-free skeleton whose parameters come from ``bind_params``."""
+    from a zeroed one (the flax decode idiom); with ``decode=False`` it
+    returns ``(logits, None)``. ``device="meta"`` builds a weight-free
+    skeleton whose parameters come from ``bind_params``."""
 
     def __init__(self, cfg: LlamaConfig, device="cuda"):
         super().__init__()
@@ -347,7 +391,7 @@ class LlamaForCausalLM(nn.Module):
             None if cache is None else cache["model"],
         )
         logits = F.linear(x.float(), self.lm_head.weight)
-        return logits, {"model": model_cache}
+        return logits, None if model_cache is None else {"model": model_cache}
 
 
 def bind_params(model: nn.Module, params: Dict[str, torch.Tensor]) -> None:
@@ -373,37 +417,120 @@ def params_device(params: Dict[str, torch.Tensor]) -> torch.device:
     return params["model.embed_tokens.weight"].device
 
 
+def _init_(name: str, t: torch.Tensor, generator, lora_rank: int) -> None:
+    """Draw one parameter in place as tpudl's ``model.init`` does:
+    normal(0.02) kernels and embedding, unit norm scales, zero biases,
+    ``lora_a`` normal(1/r) and ``lora_b`` zeros."""
+    if name.endswith(".scale"):
+        t.fill_(1.0)
+    elif name.endswith((".bias", ".lora_b")):
+        t.zero_()
+    elif name.endswith(".lora_a"):
+        t.normal_(0.0, 1.0 / lora_rank, generator=generator)
+    else:
+        t.normal_(0.0, 0.02, generator=generator)
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device="cuda") -> Dict[str, torch.Tensor]:
-    """A fresh parameter state_dict drawn like tpudl's ``model.init``:
-    normal(0.02) projections, embedding and lm_head; ones for the norm
-    scales. Each tensor is made on ``device`` in its compute dtype
-    (``generator`` must live on the same device)."""
+    """A fresh parameter state_dict of ``LlamaForCausalLM(cfg)`` drawn
+    like tpudl's ``model.init`` (see ``_init_``). Each tensor is made on
+    ``device`` in its stored dtype (``generator`` must live on the same
+    device)."""
     skeleton = LlamaForCausalLM(cfg, device="meta")
     params = {}
     for name, p in skeleton.state_dict().items():
         t = torch.empty(p.shape, dtype=p.dtype, device=device)
-        if name.endswith(".scale"):
-            t.fill_(1.0)
-        else:
-            t.normal_(0.0, 0.02, generator=generator)
+        _init_(name, t, generator, cfg.lora_rank)
         params[name] = t
     return params
 
 
+class LlamaForSequenceClassification(nn.Module):
+    """The ``configs[4]`` fine-tune model: classify from the last non-pad
+    token's final hidden state (causal-LM pooling) with an f32
+    ``classifier`` (weight and bias). ``forward(input_ids,
+    attention_mask=None, train=False, generator=None)`` returns f32
+    logits ``[B, num_labels]`` (Llama has no dropout, so ``train`` and
+    ``generator`` change nothing). The base is built frozen; adapters
+    and the classifier train. Built on ``device`` with weights drawn
+    from torch's default generator; ``init_weights`` (which
+    ``create_train_state`` calls) redraws them from a seeded one."""
+
+    def __init__(self, cfg: LlamaConfig, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        self.model = LlamaModel(cfg, device)
+        self.classifier = nn.Linear(cfg.hidden_size, cfg.num_labels,
+                                    device=device, dtype=torch.float32)
+        for name, p in self.named_parameters():
+            p.requires_grad_(is_lora_param(name)
+                             or name.startswith("classifier."))
+        # The f32 classifier product stays f32 on the card (flax
+        # Dense(dtype=float32) is a full-precision dot).
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if torch.device(device).type != "meta":
+            self.init_weights(None)
+
+    def init_weights(self, generator: Optional[torch.Generator]) -> None:
+        """Redraw every parameter in place (see ``_init_``); ``generator``
+        lives on the model's device (None: torch's default)."""
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                _init_(name, p, generator, self.cfg.lora_rank)
+
+    def forward(self, input_ids, attention_mask=None, train=False,
+                generator=None):
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        x, _ = self.model(input_ids, attention_mask)
+        last = (attention_mask.sum(-1) - 1).clamp_min(0).long()
+        pooled = x[torch.arange(x.shape[0], device=x.device), last]
+        return F.linear(pooled.float(), self.classifier.weight,
+                        self.classifier.bias)
+
+
+_PROJECTIONS = ("attention.q_proj", "attention.k_proj", "attention.v_proj",
+                "attention.o_proj", "gate_proj", "up_proj", "down_proj")
+
+
+def param_names(num_layers: int, lora: bool, head: str):
+    """The state_dict keys of a Llama model with ``num_layers`` layers,
+    adapters or not, and ``head`` "lm_head" (LlamaForCausalLM) or
+    "classifier" (LlamaForSequenceClassification)."""
+    names = {"model.embed_tokens.weight", "model.final_norm.scale"}
+    names |= ({"lm_head.weight"} if head == "lm_head"
+              else {"classifier.weight", "classifier.bias"})
+    leaves = ["weight"] + (["lora_a", "lora_b"] if lora else [])
+    for i in range(num_layers):
+        layer = f"model.layer_{i}"
+        names |= {f"{layer}.input_norm.scale",
+                  f"{layer}.post_attention_norm.scale"}
+        names |= {f"{layer}.{proj}.{leaf}" for proj in _PROJECTIONS
+                  for leaf in leaves}
+    return names
+
+
+#: Leaves kept in f32 whatever the compute dtype.
+_F32_LEAVES = ("scale", "lora_a", "lora_b")
+
+
 def params_from_tpudl(tree, dtype: torch.dtype = torch.bfloat16,
                       device="cuda") -> Dict[str, torch.Tensor]:
-    """Convert a tpudl ``LlamaForCausalLM`` params tree (nested dicts of
-    numpy arrays, as ``model.init(...)["params"]`` holds them) to this
-    module's state_dict.
+    """Convert a tpudl ``LlamaForCausalLM`` or
+    ``LlamaForSequenceClassification`` params tree (nested dicts of numpy
+    arrays, as ``model.init(...)["params"]`` holds them; LoRA adapters or
+    not) to this module's state_dict.
 
     Each weight is stored in the dtype the JAX model computes with it:
     the projections and the embedding in ``dtype`` (the config's — flax
     ``Dense(dtype=bf16)`` casts its f32 kernel at use, so storing bf16
-    gives the same numbers at half the bytes), the RMSNorm scales and
-    the ``lm_head`` in f32. Dense kernels ``[in, out]`` become Linear
-    weights ``[out, in]``. Raises on a leaf this module has no place for
-    (LoRA, MoE, quantized kernels)."""
+    gives the same numbers at half the bytes), the RMSNorm scales, the
+    ``lm_head``, the classifier and the adapters in f32. Dense kernels
+    ``[in, out]`` become Linear weights ``[out, in]``; ``lora_a`` ``[in,
+    r]`` and ``lora_b`` ``[r, out]`` keep tpudl's orientation. Raises on
+    a leaf this module has no place for (MoE, quantized kernels) and on
+    one the model needs that the tree lacks."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -417,18 +544,32 @@ def params_from_tpudl(tree, dtype: torch.dtype = torch.bfloat16,
                 arr, name = arr.T, f"{module}.weight"
             elif leaf == "embedding":
                 name = f"{module}.weight"
-            elif leaf == "scale":
-                name = f"{module}.scale"
+            elif leaf in ("scale", "bias", "lora_a", "lora_b"):
+                name = f"{module}.{leaf}"
             else:
                 raise ValueError(
                     f"tpudl leaf {'/'.join(path + [key])} has no "
-                    f"counterpart in tpudl_torch (LoRA/MoE/quantized "
-                    f"trees are not ported yet)"
+                    f"counterpart in tpudl_torch (MoE/quantized trees are "
+                    f"not ported yet)"
                 )
-            keep_f32 = leaf == "scale" or module == "lm_head"
+            keep_f32 = leaf in _F32_LEAVES or module in ("lm_head",
+                                                         "classifier")
             out[name] = torch.tensor(np.ascontiguousarray(arr)).to(
                 device=device, dtype=torch.float32 if keep_f32 else dtype
             )
 
     walk(tree, [])
+    layers = [int(k.split(".")[1].removeprefix("layer_")) for k in out
+              if k.startswith("model.layer_")]
+    want = param_names(max(layers) + 1 if layers else 0,
+                       any(is_lora_param(k) for k in out),
+                       "classifier" if any(k.startswith("classifier.")
+                                           for k in out) else "lm_head")
+    unmapped = sorted(set(out) - want)
+    missing = sorted(want - set(out))
+    if unmapped:
+        raise ValueError(f"tpudl leaves with no counterpart in tpudl_torch: "
+                         f"{unmapped}")
+    if missing:
+        raise ValueError(f"tpudl tree lacks parameters: {missing}")
     return out

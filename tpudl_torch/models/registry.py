@@ -1,5 +1,6 @@
 """Model registry: config model names -> the port's modules (the
-counterpart of tpudl.models.registry, BERT sizes only)."""
+counterpart of tpudl.models.registry: the BERT sizes and the Llama sizes
+as sequence classifiers)."""
 
 from __future__ import annotations
 
@@ -24,8 +25,38 @@ _BERT_SIZES = {
 #: tpudl's other model names, with the ROADMAP item that ports each.
 _NOT_PORTED = {
     "resnet": "queue A item 5 (the CV path)",
-    "llama": "queue A item 4 (the non-decode Llama forward)",
 }
+
+
+def build_llama(name: str, num_classes: int, device="cuda",
+                dtype=torch.bfloat16, **kwargs: Any):
+    """tpudl.models.llama.build_llama: 'llama-tiny' / 'llama3-1b' /
+    'llama3-8b' with composable suffixes — '-lora' turns on rank-16
+    adapters (override with lora_rank=); '-moe' raises (the MoE MLP is
+    not ported) — as a LlamaForSequenceClassification."""
+    from tpudl_torch.models.llama import (
+        LLAMA_SIZES,
+        LlamaForSequenceClassification,
+    )
+
+    base, lora = name, False
+    while True:
+        if base.endswith("-lora"):
+            base, lora = base.removesuffix("-lora"), True
+        elif base.endswith("-moe"):
+            raise NotImplementedError(
+                f"model {name!r}: the MoE MLP is not ported to tpudl_torch "
+                f"yet (ROADMAP queue A item 4)")
+        else:
+            break
+    if base not in LLAMA_SIZES:
+        raise ValueError(
+            f"unknown llama size {base!r}; available: {sorted(LLAMA_SIZES)}"
+        )
+    if lora:
+        kwargs.setdefault("lora_rank", 16)
+    cfg = LLAMA_SIZES[base](num_labels=num_classes, dtype=dtype, **kwargs)
+    return LlamaForSequenceClassification(cfg, device=device)
 
 
 def build_model(name: str, num_classes: int, device="cuda", **kwargs: Any):
@@ -37,6 +68,8 @@ def build_model(name: str, num_classes: int, device="cuda", **kwargs: Any):
     if name in _BERT_SIZES:
         cfg = _BERT_SIZES[name](num_labels=num_classes, dtype=dtype, **kwargs)
         return BertForSequenceClassification(cfg, device=device)
+    if name.startswith("llama"):
+        return build_llama(name, num_classes, device, dtype, **kwargs)
     for prefix, item in _NOT_PORTED.items():
         if name.startswith(prefix):
             raise NotImplementedError(

@@ -2,10 +2,12 @@
 
 The port's counterpart of tpudl.ops.attention. ``dot_product_attention``
 is the reference implementation (bf16 batched products, f32 softmax) and
-``attend`` dispatches by implementation name: ``"reference"`` and
+``attend`` dispatches by implementation name: ``"reference"``,
 ``"fused"`` at S <= 256 (tpudl_torch.ops.softmax_dropout's
-``hybrid_attention``) are ported; the other Pallas-backed names, and
-``"fused"`` above 256, raise until their kernels land.
+``hybrid_attention``) and above 512 (flash, as tpudl falls through), and
+``"flash"`` (tpudl_torch.ops.flash_attention) are ported; ``"fused"`` at
+256 < S <= 512, ``"ring"`` and ``"ulysses"`` raise until their kernels
+land.
 
 Shapes follow the JAX package:
   q, k, v: [batch, seq, heads, head_dim]   (BSHD)
@@ -26,10 +28,9 @@ from tpudl_torch.ops.dropout import dropout_keep_mask, quantized_rate
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 #: Implementations of tpudl's ``attend`` not ported yet, with the
-#: ROADMAP item that ports each. ``"fused"`` is ported at S <= 256 only
-#: (see ``attend``).
+#: ROADMAP item that ports each. ``"fused"`` is not ported at
+#: 256 < S <= 512 (see ``attend``).
 _NOT_PORTED = {
-    "flash": "queue B item 5 (flash attention)",
     "ring": "queue A item 10 (ring attention)",
     "ulysses": "queue A item 10 (Ulysses attention)",
 }
@@ -138,9 +139,12 @@ def attend(
     - "fused": at S <= 256, ``hybrid_attention`` (plain batched products
       around the softmax+dropout kernel on CUDA tensors, its plain
       version on CPU tensors), as tpudl's "fused" at short sequence;
-      longer sequences raise NotImplementedError naming their ROADMAP
-      item (the whole-attention kernel up to 512, flash beyond);
-    - "flash", "ring", "ulysses" raise NotImplementedError likewise.
+      above 512 it falls through to "flash", as tpudl's does; in between
+      it raises NotImplementedError naming its ROADMAP item (the
+      whole-attention kernel);
+    - "flash": ``flash_attention`` (the kernels on CUDA tensors, their
+      plain versions on CPU tensors);
+    - "ring", "ulysses" raise NotImplementedError naming their item.
 
     ``dropout_exact`` (bernoulli masks) is the reference path's only."""
     if dropout_rate > 0.0 and dropout_rng is None:
@@ -170,12 +174,19 @@ def attend(
                 q, k, v, mask=mask, causal=causal, dropout_rate=dropout_rate,
                 dropout_rng=dropout_rng,
             )
-        item = ("queue B item 6 (the whole-attention kernel, sites 12-13)"
-                if seq <= 512 else
-                "queue B item 5 (flash attention, sites 9-11)")
-        raise NotImplementedError(
-            f"attention implementation 'fused' at S={seq} > 256 is not "
-            f"ported to tpudl_torch yet: ROADMAP {item}"
+        if seq <= 512:
+            raise NotImplementedError(
+                f"attention implementation 'fused' at S={seq} (256 < S <= "
+                f"512) is not ported to tpudl_torch yet: ROADMAP queue B "
+                f"item 6 (the whole-attention kernel, sites 12-13)"
+            )
+        implementation = "flash"
+    if implementation == "flash":
+        from tpudl_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(
+            q, k, v, mask=mask, causal=causal, dropout_rate=dropout_rate,
+            dropout_rng=dropout_rng,
         )
     if implementation in _NOT_PORTED:
         raise NotImplementedError(

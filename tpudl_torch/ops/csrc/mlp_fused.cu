@@ -1,12 +1,14 @@
-// Fused MLP epilogues for Hopper (sm_90a): SwiGLU forward, and bias+GeLU
-// forward and backward.
+// Fused MLP epilogues for Hopper (sm_90a): SwiGLU forward and backward, and
+// bias+GeLU forward and backward.
 //
 // Replaces, in tpudl/ops/mlp_fused.py:
-//   _sw_fwd_kernel, launched by _sw_call via pl.pallas_call;
+//   _sw_fwd_kernel and _sw_bwd_kernel, launched by _sw_call via pl.pallas_call;
 //   _bg_fwd_kernel and _bg_bwd_kernel, launched by _bg_call via pl.pallas_call.
 //
 // Computes, in f32, rounding once to the inputs' dtype:
 //   SwiGLU:          y = (g * (1 / (1 + exp(-g)))) * u
+//   its backward:    with s = sigmoid(g) and silu = g * s,
+//                    dg = go * u * (s + silu * (1 - s)), du = go * silu
 //   bias+GeLU:       y = gelu(x + b), gelu(u) = u * 0.5 * (1 + erf(u / sqrt(2)))
 //   its backward:    du = g * (Phi(u) + u * phi(u)) with u = x + b (no forward
 //                    recompute beyond u), and db = sum over rows of du (f32).
@@ -16,7 +18,9 @@
 // column per block) for a handful of f32 operations and one exp or erf,
 // well under the ~20 operations per byte where the f32 units would become
 // the limit. On the Llama-3-8B path SwiGLU runs on [N, 14336]: 344 KB at
-// decode (N = 4 slots), 11 MB at a 128-token prefill. On the BERT-base
+// decode (N = 4 slots), 11 MB at a 128-token prefill; its backward, on the
+// Llama-3-8B LoRA step's [8192, 14336] bf16, reads three and writes two
+// values per element (~1.17 GB, ~350 us at 3.35 TB/s). On the BERT-base
 // train step bias+GeLU runs on [32768, 3072] bf16: ~403 MB forward
 // (~120 us at 3.35 TB/s) and ~604 MB backward (~180 us).
 //
@@ -25,6 +29,8 @@
 //   (8 bf16 or 4 f32 values) of gate, up and y, so each warp issues fully
 //   coalesced 512-byte accesses; the grid is capped at a few waves of the
 //   132 SMs and each thread walks the rest.
+// - The SwiGLU backward: the forward's grid-stride loop with five 16-byte
+//   streams (gate, up, go in; dg, du out), each output rounded once.
 // - bias+GeLU: a 2-D grid, x over column chunks (one 16-byte vector each)
 //   and y over runs of rows, so a thread loads its bias chunk once and
 //   walks down its column chunk; no per-element index division.
@@ -95,6 +101,69 @@ int launch(const void* gate, const void* up, void* y, int64_t n, cudaStream_t st
     swiglu_fwd_kernel<T, true><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(g, u, out, n);
   } else {
     swiglu_fwd_kernel<T, false><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(g, u, out, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dg, du of y = silu(g) * u, in f32, each rounded once to T.
+__device__ __forceinline__ void swiglu_grad_f32(float g, float u, float go, float& dg,
+                                                float& du) {
+  const float s = 1.0f / (1.0f + expf(-g));
+  const float silu = g * s;
+  dg = go * u * (s + silu * (1.0f - s));
+  du = go * silu;
+}
+
+template <typename T, bool VEC>
+__global__ void swiglu_bwd_kernel(const T* __restrict__ gate, const T* __restrict__ up,
+                                  const T* __restrict__ go, T* __restrict__ dg,
+                                  T* __restrict__ du, int64_t n) {
+  constexpr int V = VecWidth<T>::value;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  int64_t scalar0 = 0;
+  if (VEC) {
+    const int64_t nvec = n / V;
+    for (int64_t i = tid; i < nvec; i += stride) {
+      float g[V], u[V], o[V];
+      load_vec(gate, i, g);
+      load_vec(up, i, u);
+      load_vec(go, i, o);
+#pragma unroll
+      for (int j = 0; j < V; ++j) swiglu_grad_f32(g[j], u[j], o[j], g[j], u[j]);
+      store_vec(dg, i, g);
+      store_vec(du, i, u);
+    }
+    scalar0 = nvec * V;
+  }
+  for (int64_t c = scalar0 + tid; c < n; c += stride) {
+    float a, b;
+    swiglu_grad_f32(to_f32(gate[c]), to_f32(up[c]), to_f32(go[c]), a, b);
+    dg[c] = from_f32<T>(a);
+    du[c] = from_f32<T>(b);
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* gate, const void* up, const void* go, void* dg, void* du,
+               int64_t n, cudaStream_t stream) {
+  constexpr int V = VecWidth<T>::value;
+  constexpr int kThreads = 256;
+  constexpr int64_t kMaxBlocks = 132 * 8 * 4;
+  const bool vec = tpudl::aligned16(gate) && tpudl::aligned16(up) && tpudl::aligned16(go) &&
+                   tpudl::aligned16(dg) && tpudl::aligned16(du);
+  const int64_t work = vec ? (n + V - 1) / V : n;
+  int64_t blocks = (work + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  const T* g = static_cast<const T*>(gate);
+  const T* u = static_cast<const T*>(up);
+  const T* o = static_cast<const T*>(go);
+  T* a = static_cast<T*>(dg);
+  T* b = static_cast<T*>(du);
+  if (vec) {
+    swiglu_bwd_kernel<T, true><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(g, u, o, a, b, n);
+  } else {
+    swiglu_bwd_kernel<T, false><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(g, u, o, a, b, n);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -240,6 +309,21 @@ extern "C" int tpudl_swiglu_fwd(const void* gate, const void* up, void* y, int64
       return launch<float>(gate, up, y, n, st);
     case tpudl::kBFloat16:
       return launch<__nv_bfloat16>(gate, up, y, n, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// gate, up, go, dg, du: n contiguous elements of tpudl::DType `dtype`.
+extern "C" int tpudl_swiglu_bwd(const void* gate, const void* up, const void* go, void* dg,
+                                void* du, int64_t n, int dtype, void* stream) {
+  if (n <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case tpudl::kFloat32:
+      return launch_bwd<float>(gate, up, go, dg, du, n, st);
+    case tpudl::kBFloat16:
+      return launch_bwd<__nv_bfloat16>(gate, up, go, dg, du, n, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -356,7 +356,7 @@ int launch_fwd(const void* x, const void* r, const void* scale, const void* bias
 // Block b takes rows [b * rows_per_block, (b + 1) * rows_per_block) in
 // order. Thread t owns column chunks t, t + blockDim.x, ... (K of them,
 // W elements each); nchunks = H / W. The dscale (and dbias) partials of
-// the block go to ws[0][b][:] (and ws[1][b][:]).
+// the block go to ws[0][b][:] (and ws[1][b][:]); a null ws skips them.
 template <typename T, int KIND, int W, int K>
 __global__ void __launch_bounds__(512) norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
                                 const float* __restrict__ scale, const T* __restrict__ g,
@@ -438,6 +438,7 @@ __global__ void __launch_bounds__(512) norm_bwd_kernel(const T* __restrict__ x, 
       }
     }
   }
+  if (ws == nullptr) return;
   float* ws_s = ws + static_cast<int64_t>(blockIdx.x) * h;
   float* ws_b = ws + (static_cast<int64_t>(nblocks) + blockIdx.x) * h;
 #pragma unroll
@@ -509,7 +510,7 @@ int launch_bwd(const void* x, const void* r, const void* scale, const void* g,
                                      r_stride, rows_per_block, nblocks, stream)
           : launch_bwd_w<T, KIND, 1>(xp, rp, sc, gp, gsp, mp, rs, dxp, wsp, n, h, x_stride,
                                      r_stride, rows_per_block, nblocks, stream);
-  if (code != 0) return code;
+  if (code != 0 || dscale == nullptr) return code;
   return tpudl::launch_column_sum(wsp, static_cast<float*>(dscale), nblocks, h,
                                   KIND == kLayer ? 2 : 1, stream);
 }
@@ -560,7 +561,7 @@ extern "C" int tpudl_norm_fwd(int kind, const void* x, const void* r, const void
 // dx: [n, h] contiguous, the gradient of x (and of r). dscale: [h] f32,
 // followed directly by dbias [h] f32 for LayerNorm (one [2, h] buffer).
 // ws: f32 workspace of (LayerNorm ? 2 : 1) * ceil(n / rows_per_block) * h
-// values. dtype: tpudl::DType of x, r, g, gs, dx. h at most 512 * 4 16-byte
+// values. dscale and ws both null compute dx alone (frozen scales). dtype: tpudl::DType of x, r, g, gs, dx. h at most 512 * 4 16-byte
 // vectors per row (16384 f32, 32768 bf16) on the vector path and 4096 on
 // the scalar path; wider rows return cudaErrorInvalidValue.
 extern "C" int tpudl_norm_bwd(int kind, const void* x, const void* r, const void* scale,
@@ -571,6 +572,7 @@ extern "C" int tpudl_norm_bwd(int kind, const void* x, const void* r, const void
   if (n <= 0 || h <= 0 || rows_per_block <= 0) return cudaErrorInvalidValue;
   if (kind == kLayer && mean == nullptr) return cudaErrorInvalidValue;
   if (kind != kRms && kind != kLayer) return cudaErrorInvalidValue;
+  if ((dscale == nullptr) != (ws == nullptr)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case tpudl::kFloat32:

@@ -5,17 +5,21 @@ The port's counterpart of tpudl.ops.mlp_fused. ``bias_gelu`` and
 ``swiglu`` keep the JAX package's signatures and ``impl`` seam; the
 kernels are in ``csrc/mlp_fused.cu`` (``tpudl_bias_gelu_fwd`` /
 ``tpudl_bias_gelu_bwd`` replace ``_bg_fwd_kernel`` / ``_bg_bwd_kernel``,
-``tpudl_swiglu_fwd`` replaces ``_sw_fwd_kernel``); ``bias_gelu_ref``,
-``bias_gelu_bwd_ref`` and ``swiglu_ref`` are the plain PyTorch versions
+``tpudl_swiglu_fwd`` / ``tpudl_swiglu_bwd`` replace ``_sw_fwd_kernel`` /
+``_sw_bwd_kernel``); ``bias_gelu_ref``, ``bias_gelu_bwd_ref``,
+``swiglu_ref`` and ``swiglu_bwd_ref`` are the plain PyTorch versions
 beside them. Dispatch follows tpudl_torch.ops.norms.resolve_impl: the
 kernel on CUDA tensors, the plain version on CPU tensors, no fallback.
 
 Under autograd the bias+GeLU kernel runs through ``_FusedBiasGelu``,
 whose forward saves only ``x`` and ``bias`` (the backward is closed-form
 in ``u = x + bias``, no forward recompute) and whose backward is the
-``bias_gelu_bwd`` kernel, with the dbias column sum folded in.
+``bias_gelu_bwd`` kernel, with the dbias column sum folded in. The SwiGLU
+kernel runs through ``_FusedSwiGLU`` likewise (it saves ``gate`` and
+``up``; its backward is the ``swiglu_bwd`` kernel); without autograd
+(serving) it is the forward kernel alone.
 
-``swiglu.launches``, ``bias_gelu.launches`` and
+``swiglu.launches``, ``swiglu_bwd.launches``, ``bias_gelu.launches`` and
 ``bias_gelu_bwd.launches`` count kernel launches.
 """
 
@@ -62,6 +66,8 @@ def _kernel():
         ]
         lib.tpudl_swiglu_fwd.restype = ctypes.c_int
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.tpudl_swiglu_bwd.argtypes = [p, p, p, p, p, i64, i32, p]
+        lib.tpudl_swiglu_bwd.restype = i32
         lib.tpudl_bias_gelu_fwd.argtypes = [p, p, p, i64, i32, i32, p]
         lib.tpudl_bias_gelu_fwd.restype = i32
         lib.tpudl_bias_gelu_bwd.argtypes = [
@@ -72,20 +78,25 @@ def _kernel():
     return _lib
 
 
-def _swiglu_cuda(gate, up):
+def _check_swiglu(gate, up, op, *others):
     if gate.dtype not in KERNEL_DTYPES:
         raise ValueError(
-            f"swiglu kernel takes float32 or bfloat16, got {gate.dtype}"
+            f"{op} kernel takes float32 or bfloat16, got {gate.dtype}"
         )
     device = gate.device
-    check_cuda_operand(gate, "gate", device, gate.dtype)
-    check_cuda_operand(up, "up", device, gate.dtype)
-    if up.shape != gate.shape:
-        raise ValueError(
-            f"up shape {tuple(up.shape)} != gate shape {tuple(gate.shape)}"
-        )
-    if not (gate.is_contiguous() and up.is_contiguous()):
-        raise ValueError("swiglu kernel takes contiguous gate and up")
+    for name, t in (("gate", gate), ("up", up), *others):
+        check_cuda_operand(t, name, device, gate.dtype)
+        if t.shape != gate.shape:
+            raise ValueError(
+                f"{name} shape {tuple(t.shape)} != gate shape "
+                f"{tuple(gate.shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{op} kernel takes contiguous gate and up")
+
+
+def _swiglu_cuda(gate, up):
+    _check_swiglu(gate, up, "swiglu")
     y = torch.empty_like(gate)
     n = gate.numel()
     if n:
@@ -93,11 +104,68 @@ def _swiglu_cuda(gate, up):
         code = lib.tpudl_swiglu_fwd(
             gate.data_ptr(), up.data_ptr(), y.data_ptr(), n,
             KERNEL_DTYPES[gate.dtype],
-            torch.cuda.current_stream(device).cuda_stream,
+            torch.cuda.current_stream(gate.device).cuda_stream,
         )
         _build.check(lib, "swiglu_fwd", code)
         swiglu.launches += 1
     return y
+
+
+def swiglu_bwd_ref(gate: torch.Tensor, up: torch.Tensor, g: torch.Tensor):
+    """Plain version of the backward kernel (tpudl.ops.mlp_fused
+    ``_sw_bwd_kernel``): in f32, with ``s = sigmoid(gate)`` and ``silu =
+    gate * s``, ``dgate = g * up * (s + silu * (1 - s))`` and ``dup = g *
+    silu``, each rounded once to its input's dtype."""
+    g32, u32, go = gate.float(), up.float(), g.float()
+    s = torch.sigmoid(g32)
+    silu = g32 * s
+    return ((go * u32 * (s + silu * (1.0 - s))).to(gate.dtype),
+            (go * silu).to(up.dtype))
+
+
+def _swiglu_bwd_cuda(gate, up, g):
+    # Autograd may hand over a gradient with any strides.
+    g = g.contiguous()
+    _check_swiglu(gate, up, "swiglu_bwd", ("g", g))
+    dgate, dup = torch.empty_like(gate), torch.empty_like(up)
+    n = gate.numel()
+    if n:
+        lib = _kernel()
+        code = lib.tpudl_swiglu_bwd(
+            gate.data_ptr(), up.data_ptr(), g.data_ptr(), dgate.data_ptr(),
+            dup.data_ptr(), n, KERNEL_DTYPES[gate.dtype],
+            torch.cuda.current_stream(gate.device).cuda_stream,
+        )
+        _build.check(lib, "swiglu_bwd", code)
+        swiglu_bwd.launches += 1
+    return dgate, dup
+
+
+def swiglu_bwd(gate: torch.Tensor, up: torch.Tensor, g: torch.Tensor, *,
+               impl: str = "auto"):
+    """The backward of ``swiglu``: ``(dgate, dup)`` — the kernel on CUDA
+    tensors, ``swiglu_bwd_ref`` on CPU tensors."""
+    if not resolve_impl(impl, gate.device):
+        return swiglu_bwd_ref(gate, up, g)
+    return _swiglu_bwd_cuda(gate, up, g)
+
+
+swiglu_bwd.launches = 0
+
+
+class _FusedSwiGLU(torch.autograd.Function):
+    """tpudl's ``_sw`` custom_vjp: the forward kernel saves ``gate`` and
+    ``up``; the backward kernel returns their gradients."""
+
+    @staticmethod
+    def forward(ctx, gate, up):
+        ctx.save_for_backward(gate, up)
+        return _swiglu_cuda(gate, up)
+
+    @staticmethod
+    def backward(ctx, g):
+        gate, up = ctx.saved_tensors
+        return _swiglu_bwd_cuda(gate, up, g)
 
 
 def swiglu(
@@ -107,9 +175,13 @@ def swiglu(
     impl: str = "auto",
 ) -> torch.Tensor:
     """``silu(gate) * up`` (the Llama MLP gate), f32 math, output in the
-    inputs' dtype. ``impl``: see tpudl_torch.ops.norms."""
+    inputs' dtype. ``impl``: see tpudl_torch.ops.norms. Under autograd the
+    kernel path runs through ``_FusedSwiGLU`` (whose backward is the
+    ``swiglu_bwd`` kernel)."""
     if not resolve_impl(impl, gate.device):
         return swiglu_ref(gate, up)
+    if needs_grad(gate, up):
+        return _FusedSwiGLU.apply(gate, up)
     return _swiglu_cuda(gate, up)
 
 

@@ -263,7 +263,11 @@ def _norm_fwd_cuda(kind, x, scale, bias, residual, eps, emit_sum, stats):
     return y, s, mean, rstd
 
 
-def _norm_bwd_cuda(kind, x, scale, residual, mean, rstd, g, gs):
+def _norm_bwd_cuda(kind, x, scale, residual, mean, rstd, g, gs,
+                   params=True):
+    """Launch the backward kernel: ``(dx, dscale, dbias)``, with ``dbias``
+    None for RMSNorm and both sums None (and not computed) unless
+    ``params``."""
     x2, r2 = _check_rows(x, residual, scale, None, "norm_bwd")
     device = x.device
     n, h = x2.shape
@@ -291,25 +295,28 @@ def _norm_bwd_cuda(kind, x, scale, residual, mean, rstd, g, gs):
             raise ValueError(f"{name} must be a contiguous [{n}] tensor")
     dx = torch.empty(x.shape, dtype=x.dtype, device=device)
     arrays = 2 if kind == "layer" else 1
-    dparams = torch.empty(arrays, h, dtype=torch.float32, device=device)
+    dparams = (torch.empty(arrays, h, dtype=torch.float32, device=device)
+               if params else None)
     if n and h:
         rows_per_block = -(-n // min(n, _BWD_BLOCKS))
         blocks = -(-n // rows_per_block)
-        ws = torch.empty(arrays * blocks * h, dtype=torch.float32,
-                         device=device)
+        ws = (torch.empty(arrays * blocks * h, dtype=torch.float32,
+                          device=device) if params else None)
         lib = _kernel()
         code = lib.tpudl_norm_bwd(
             _KINDS[kind], x2.data_ptr(), _ptr(r2), scale.data_ptr(),
             g2.data_ptr(), _ptr(gs2), _ptr(mean), rstd.data_ptr(),
-            dx.data_ptr(), dparams.data_ptr(), ws.data_ptr(),
+            dx.data_ptr(), _ptr(dparams), _ptr(ws),
             n, h, x2.stride(0), r2.stride(0) if r2 is not None else 0,
             rows_per_block, KERNEL_DTYPES[x.dtype],
             torch.cuda.current_stream(device).cuda_stream,
         )
         _build.check(lib, "norm_bwd", code)
         norm_bwd.launches += 1
-    else:
+    elif params:
         dparams.zero_()
+    if not params:
+        return dx, None, None
     return dx, dparams[0], dparams[1] if kind == "layer" else None
 
 
@@ -353,8 +360,10 @@ class _FusedNorm(torch.autograd.Function):
         x, scale, residual, mean, rstd = ctx.saved_tensors
         if gy is None:
             gy = torch.zeros_like(x)
+        # Frozen scales (the Llama LoRA path) skip the column sums.
+        params = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
         dx, dscale, dbias = _norm_bwd_cuda(ctx.kind, x, scale, residual,
-                                           mean, rstd, gy, gs)
+                                           mean, rstd, gy, gs, params)
         return (None, dx, dscale, dbias if ctx.has_bias else None,
                 dx if ctx.has_res else None, None, None)
 

@@ -4,7 +4,10 @@ single-device path of tpudl.train.loop.
 - ``TrainState`` holds the model (its parameters are the f32 masters),
   the optimizer, its state and the step count. Unlike JAX, a step
   updates the parameters and the optimizer state IN PLACE (no copy of
-  the state per step) and returns the same object.
+  the state per step) and returns the same object. Its ``params`` are
+  the trainable parameters only (``requires_grad``): a frozen base
+  (tpudl_torch.models.lora) gets no gradient, no zeros in their place
+  and no optimizer state.
 - ``make_classification_train_step`` builds ``step(state, batch, rng)``:
   forward with ``train=True``, mean cross-entropy, backward, one
   optimizer update. ``rng`` is an int seed; the step's dropout masks
@@ -49,7 +52,9 @@ class TrainState:
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
-        return dict(self.model.named_parameters())
+        """The trainable parameters, by state_dict name."""
+        return {k: p for k, p in self.model.named_parameters()
+                if p.requires_grad}
 
     def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> "TrainState":
         """One optimizer update of the parameters, in place."""
@@ -127,7 +132,8 @@ def make_classification_train_step(
     then through ``input_transform``. ``loss_impl``: see the module
     docstring. ``step.grads_and_metrics(state,
     batch, generator)`` is the step without the optimizer update (the
-    gradients as a dict of f32 tensors), for checks."""
+    gradients of the trainable parameters as a dict of tensors), for
+    checks."""
     if isinstance(input_keys, str):
         input_keys = (input_keys,)
     if accum_steps != 1:
