@@ -106,6 +106,42 @@ The Llama LoRA slice (Llama-3-8B fine-tuned with rank-16 adapters on the
 14. llama_train_parity — full width, 2 layers, batch 1 x 2048: phase 10's
              gate on the kernel path, the plain path and an f32 oracle.
 
+The multi-tenant serving slice (Llama-3-8B with six LoRA tenants over
+the paged KV cache, ServeSession.from_model(adapters=...)) and BERT-base
+at seq 512 (attend("fused") reaching the whole-row attention) add:
+
+3b. seg_lora kernels (after phase 3) — the segmented-LoRA kernel against
+             its plain version at the decode step's [4, 4096] -> 4096 and
+             -> 14336 and the prefill's [1, 128, 4096] -> 4096 (rank 16,
+             f32 pages, bf16 x), int8 pages, f32 x with ragged ranks and
+             an empty slot, 3-D x; bitwise repeatable; timed like phase 7,
+             beside two torch.bmm over the gathered pages;
+4b. tenant_tiny (after phase 4) — LLAMA_TINY in f32 with three tenants on
+             the card: assert_tenant_parity exact for f32 pages, the CPU
+             plain path's tokens, int8 pages within the margin;
+6b. tenant_slice (after phase 6, the 8B weights still resident) — six
+             tenants (five of rank 16, one of rank 8, lora_b nonzero) in a
+             65-page pool, 12 ragged greedy requests over the tenants and
+             the base and one sampled: every result ok, evictions and
+             reloads, exactly 224 segmented-LoRA, 65 RMSNorm and 32 SwiGLU
+             launches per prefill and decode step, TTFT / TPOT / tokens/s
+             beside the dense slice's, a profiled decode window;
+6c. tenant_parity — phase 6's gate on those requests: the plain path
+             (fused_ops=False, adapter_impl="reference") and an f32 oracle
+             with the tenant's adapter;
+7d. whole attention kernels (after phase 7c) — the whole-row attention
+             forward and two-launch backward at [32, 512, 12, 64] bf16
+             (padding mask, dropout 0.1; no dropout; ragged S 300 and 384;
+             causal; f32; D 32 and 128) against their plain versions, each
+             backward bitwise repeatable, each gate rejecting a planted
+             5 % error; the keep mask bitwise the plain one, the
+             dropout-on output hybrid_attention's; timed beside SDPA;
+15. train_512 (after phase 12) — phase 11 at batch 32 x seq 512, 20 timed
+             steps: exactly 12 whole-attention forward and 12 backward, no
+             softmax_dropout, 25/25 norm, 12/12 bias+GeLU and 1/1
+             cross-entropy launches per step, then one eval batch;
+16. train_512_parity — phase 12's gate at seq 512 with 2 layers.
+
 The last three lines are the ``{"kernels": [...]}`` record (``launches``
 is each kernel's count over its main-path run, ``launches_per_step`` per
 decode or train step), the card's
@@ -156,36 +192,51 @@ TRAIN_WARMUP_STEPS = 3
 TRAIN_STEPS = 20
 PROFILE_STEPS = 3
 PARITY_BATCHES = 4
+#: The fused slice at seq 512 (train_512): sst2_bert_base's own global
+#: batch, BERT-base's max_position_embeddings; attend("fused") runs the
+#: whole-row attention kernels there.
+BERT_512_BATCH = 32
+BERT_512_SEQ = 512
 
 
-def launches_per_step(num_layers, fused_slice=False):
+def attention_kernels(seq):
+    """The kernels attend("fused") launches at ``seq``: softmax_dropout at
+    S <= 256, the whole-row attention up to 512."""
+    return ("softmax_dropout_fwd", "softmax_dropout_bwd") if seq <= 256 \
+        else ("fused_attn_fwd", "fused_attn_bwd")
+
+
+def launches_per_step(num_layers, fused_slice=False, seq=BERT_SEQ):
     """Kernel launches per BERT train step: the embeddings' LayerNorm and
     two per layer, forward and backward; one bias+GeLU per layer each
     way; on the fused slice (attention_impl="fused", loss_impl="auto")
-    also one softmax_dropout per layer each way and one cross-entropy
-    each way."""
+    also one attention kernel per layer each way (softmax_dropout at S
+    <= 256, the whole-row attention above) and one cross-entropy each
+    way."""
     out = {"layer_norm_fwd": 1 + 2 * num_layers,
            "norm_bwd": 1 + 2 * num_layers,
            "bias_gelu_fwd": num_layers, "bias_gelu_bwd": num_layers}
     if fused_slice:
-        out.update(softmax_dropout_fwd=num_layers,
-                   softmax_dropout_bwd=num_layers, xent_fwd=1, xent_bwd=1)
+        fwd, bwd = attention_kernels(seq)
+        out.update({fwd: num_layers, bwd: num_layers, "xent_fwd": 1,
+                    "xent_bwd": 1})
     return out
 
 
-def eval_launches(num_layers):
+def eval_launches(num_layers, seq=BERT_SEQ):
     """Kernel launches of one eval batch on the fused slice: the forward
     kernels only."""
-    return {"layer_norm_fwd": 1 + 2 * num_layers, "norm_bwd": 0,
-            "bias_gelu_fwd": num_layers, "bias_gelu_bwd": 0,
-            "softmax_dropout_fwd": num_layers, "softmax_dropout_bwd": 0,
-            "xent_fwd": 1, "xent_bwd": 0}
+    out = launches_per_step(num_layers, True, seq)
+    return {k: v if k.endswith("_fwd") else 0 for k, v in out.items()}
 
 
 #: BERT-base: 25, 25, 12, 12.
 TRAIN_LAUNCHES = launches_per_step(12)
 #: The fused slice at BERT-base: those, and 12, 12, 1, 1.
 TRAIN_FUSED_LAUNCHES = launches_per_step(12, fused_slice=True)
+#: The fused slice at seq 512: 25, 25, 12, 12, 12 whole-row attention
+#: forward and 12 backward, 1, 1.
+TRAIN_512_LAUNCHES = launches_per_step(12, True, BERT_512_SEQ)
 #: softmax_dropout and cross-entropy kernels vs plain (rtol, atol): one
 #: bf16 step (2^-7 relative), or 1e-5 in f32. The keep masks are held
 #: bit for bit.
@@ -380,11 +431,390 @@ def report_cases(cases):
                 f"library_ms={lib if lib is None else round(lib, 5)}"
                 f"{' (' + c['library'] + ')' if c.get('library') else ''} "
                 f"bound_us={c['bound'][0] * 1e3:.3f} ({c['bound'][1]})"
+                f"{'; beyond the bound: ' + c['beyond_bound'] if c.get('beyond_bound') else ''}"
             )
             if not c["ok"]:
                 bad.append(f"{name} {c['variant']} {c['shape']} {c['dtype']}")
     if bad:
         fail(f"kernel outside tolerance: {bad}")
+
+
+def seg_lora_kernel_phase(torch):
+    """The segmented-LoRA kernel against its plain version at the serving
+    path's shapes, each adding onto a base output as the path calls it:
+    the decode step's [4, 4096] -> 4096 (q_proj, its headline call), ->
+    14336 (gate/up) and [4, 14336] -> 4096 (down), and the prefill's [1,
+    128, 4096] -> 4096, rank 16 on every slot, f32 pages, bf16 x; then
+    int8 pages, f32 x with ragged ranks (16 and 8) and an empty slot, and
+    3-D x with int8 pages, without a base. Bound: the pages this run's
+    table names (page 0 skipped), x (and the base) in, the result out.
+    Library: two torch.bmm over the same pages gathered beforehand
+    (f32)."""
+    from tpudl_torch.ops import segmented_lora as sl
+    from tpudl_torch.serve.lora import _quantize_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {"seg_lora": []}
+    r_max, pages = 16, 4 * 16 + 1
+    # The main path adds onto the projection in the same call (base).
+    for x_shape, fout, dtype, quantized, ragged, with_base, variant in (
+        ((NUM_SLOTS, 4096), 4096, bf16, False, False, True,
+         "decode q_proj + base, 4 slots at rank 16 (the main path's 32 "
+         "q_proj calls)"),
+        ((NUM_SLOTS, 4096), 14336, bf16, False, False, True,
+         "decode gate/up_proj + base"),
+        ((NUM_SLOTS, 14336), 4096, bf16, False, False, True,
+         "decode down_proj + base"),
+        ((1, PROMPT_LEN, 4096), 4096, bf16, False, False, True,
+         "prefill q_proj + base"),
+        ((NUM_SLOTS, 4096), 4096, bf16, True, False, False,
+         "decode q_proj, int8 pages"),
+        ((NUM_SLOTS, 4096), 4096, f32, False, True, False,
+         "f32 x, ranks 16 and 8, an empty slot"),
+        ((3, 7, 1000), 1500, bf16, True, True, False,
+         "3-D x, int8 pages, ragged"),
+    ):
+        b, fin = x_shape[0], x_shape[-1]
+        a = torch.randn(pages, fin, generator=gen, device="cuda") / 16
+        bp = torch.randn(pages, fout, generator=gen, device="cuda") / 16
+        a[0] = bp[0] = 0.0
+        if quantized:
+            (qa, sa), (qb, sb) = (_quantize_rows(m.cpu().numpy()) for m in (a, bp))
+            pools = {k: torch.from_numpy(v).cuda() for k, v in (
+                ("a", qa), ("b", qb), ("a_scale", sa), ("b_scale", sb))}
+        else:
+            pools = {"a": a, "b": bp}
+        table = torch.randperm(pages - 1, generator=gen, device="cuda")[
+            :b * r_max].reshape(b, r_max).int() + 1
+        if ragged:
+            table[b // 2:, 8:] = 0
+            table[-1] = 0
+        scale = torch.full((b,), 1.0, device="cuda")
+        x = torch.randn(x_shape, generator=gen, device="cuda").to(dtype)
+        y = (torch.randn(x_shape[:-1] + (fout,), generator=gen, device="cuda")
+             .to(dtype) if with_base else None)
+        out = sl.segmented_lora(x, pools, table, scale, base=y, impl="fused")
+        want = sl.segmented_lora_ref(x, pools, table, scale, y)
+        tol = 2e-5 if dtype == f32 else 2.0**-7
+        err = errors(out, want, tol, tol * float(want.float().abs().max()))
+        if not torch.equal(out, sl.segmented_lora(x, pools, table, scale,
+                                                  base=y, impl="fused")):
+            err = (err[0], err[1], False)
+            print(f"seg_lora {variant}: not bitwise repeatable")
+        used = int((table != 0).sum())
+        e_pool = 1 if quantized else 4
+        s = x.numel() // (b * fin)
+        e = torch.finfo(dtype).bits // 8
+        nbytes = (used * (fin + fout) * e_pool + (8 * used if quantized else 0)
+                  + x.numel() * e + b * s * fout * e * (2 if with_base else 1)
+                  + table.numel() * 4 + b * 4)
+        ops = 2.0 * s * used * (fin + fout)
+        ga = (pools["a"][table.long()].float()
+              * (pools["a_scale"][table.long()][..., None] if quantized else 1))
+        gb = (pools["b"][table.long()].float()
+              * (pools["b_scale"][table.long()][..., None] if quantized else 1))
+        x3 = x.reshape(b, s, fin).float()
+
+        def bmm():
+            return torch.bmm(torch.bmm(x3, ga.transpose(1, 2)), gb)
+
+        if not cases["seg_lora"]:
+            # The serving path's 224 calls a step are host-bound: each
+            # entry's wall time per eager call, the checked one and the
+            # held-contract one the model's hot path takes.
+            held = (sl.SitePools(pools).args, sl.batch_args(table, scale))
+            host = {
+                "checked segmented_lora": eager_us(torch, lambda: sl.segmented_lora(
+                    x, pools, table, scale, base=y, impl="fused")),
+                "held-contract launch": eager_us(torch, lambda: sl.launch(
+                    x, *held, y))}
+            print(f"seg_lora {variant}: wall us per eager call "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
+
+        cases["seg_lora"].append(timed_case(
+            case_row(x_shape + (fout,), dtype, variant, err, tol, nbytes, ops),
+            lambda: sl.segmented_lora(x, pools, table, scale, base=y,
+                                      impl="fused"),
+            lambda: sl.segmented_lora_ref(x, pools, table, scale, y), bmm,
+            "two torch.bmm on the pages gathered beforehand (f32), no base"))
+        del a, bp, pools, ga, gb, x3, x, y, out, want
+    torch.cuda.empty_cache()
+    report_cases(cases)
+    return cases
+
+
+def tenant_adapters(torch, cfg, ranks, seed, b_std, device="cuda"):
+    """Flat-form adapters for every projection site of ``cfg``, one per
+    rank in ``ranks`` (tenants "t0", "t1", ...): lora_a drawn as the
+    port's init draws it (normal, std 1 / r) and lora_b nonzero (normal,
+    std ``b_std``, draw_lora_b's rule), from one seeded generator."""
+    from tpudl_torch.serve.lora import _site_shapes
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    sites = {"q_proj": "attention.q_proj", "k_proj": "attention.k_proj",
+             "v_proj": "attention.v_proj", "o_proj": "attention.o_proj",
+             "gate_proj": "gate_proj", "up_proj": "up_proj",
+             "down_proj": "down_proj"}
+    out = {}
+    for t, r in enumerate(ranks):
+        out[f"t{t}"] = {
+            f"model.layer_{i}.{path}": {
+                "lora_a": torch.randn(fin, r, generator=g, device=device) / r,
+                "lora_b": b_std * torch.randn(r, fout, generator=g,
+                                              device=device)}
+            for i in range(cfg.num_layers)
+            for site, path in sites.items()
+            for fin, fout in [_site_shapes(cfg)[site]]}
+    return out
+
+
+def tenant_tiny_phase(torch):
+    """LLAMA_TINY in f32 on the card with the kernels and three tenants
+    (ranks 4, 2, 4; a pool of 9 pages, so it evicts and reloads):
+    assert_tenant_parity exact against the merged-adapter reference for
+    f32 pages, and the same tokens as the CPU plain path; then int8 pages
+    under the margin (tpudl's alpha 4, atol 0.1). On the card the
+    segmented LoRA launches its kernel 7 times per layer per prefill and
+    decode step, on the CPU never."""
+    from tpudl_torch.models.llama import LLAMA_TINY, LlamaForCausalLM, init_params
+    from tpudl_torch.ops import segmented_lora as sl
+    from tpudl_torch.serve import Request, ServeSession, assert_tenant_parity
+
+    import numpy as np
+
+    cfg = LLAMA_TINY(dtype=torch.float32, max_seq_len=64)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    model = LlamaForCausalLM(cfg, device="meta")
+    adapters = tenant_adapters(torch, cfg, (4, 2, 4), 3, 0.05, "cpu")
+    rng = np.random.default_rng(2)
+    tenants = [None] + sorted(adapters)
+    reqs = [Request(f"t{i}", rng.integers(1, cfg.vocab_size, size=int(
+        rng.integers(2, 9))).tolist(), max_new_tokens=int(rng.integers(3, 16)),
+        tenant=tenants[i % len(tenants)]) for i in range(10)]
+    tokens = {}
+    for device in ("cuda", "cpu"):
+        p = {k: v.to(device) for k, v in params.items()}
+        session = ServeSession.from_model(model, p, prompt_len=8, num_slots=3,
+                                          adapters=adapters, adapter_pages=9,
+                                          page_size=4)
+        before = sl.segmented_lora.launches
+        assert_tenant_parity(session, model, p, adapters,
+                             [Request(**r.__dict__) for r in reqs])
+        eng = session.engine
+        want = (7 * cfg.num_layers * (eng.num_prefills + eng.num_decode_steps)
+                if device == "cuda" else 0)
+        if sl.segmented_lora.launches - before != want:
+            fail(f"tenant_tiny: {sl.segmented_lora.launches - before} "
+                 f"segmented-LoRA launches on {device}, expected {want}")
+        stats = eng.adapter_pool.stats()
+        tokens[device] = {rid: r.tokens for rid, r in session.serve(
+            [Request(**r.__dict__) for r in reqs]).items()}
+    if tokens["cuda"] != tokens["cpu"]:
+        fail("tenant_tiny: the card's tokens differ from the CPU plain path's")
+    p = {k: v.cuda() for k, v in params.items()}
+    session = ServeSession.from_model(model, p, prompt_len=8, num_slots=3,
+                                      adapters=adapters, adapter_dtype="int8",
+                                      adapter_alpha=4.0)
+    assert_tenant_parity(session, model, p, adapters,
+                         [Request(**r.__dict__) for r in reqs], atol=0.1,
+                         alpha=4.0)
+    print(f"tenant_tiny: f32 LLAMA_TINY, 3 tenants + the base, kernels on the "
+          f"card: exact tokens against the merged-adapter reference with f32 "
+          f"pages ({stats['evictions']} evictions, {stats['reloads']} "
+          f"reloads), equal to the CPU plain path's; int8 pages within the "
+          f"0.1 margin")
+
+
+#: The multi-tenant slice: 6 tenants, 5 of rank 16 and one of rank 8, in a
+#: pool of 4 rank-16 adapters and the zero page.
+TENANT_RANKS = (16, 16, 16, 16, 16, 8)
+TENANT_PAGES = 4 * 16 + 1
+TENANT_B_STD = 0.01
+
+
+def tenant_requests(Request, vocab, tenants):
+    """12 ragged greedy requests over the tenants and the plain base, and
+    one sampled one."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    cycle = list(tenants) + [None]
+    greedy = [Request(f"m{i}", rng.integers(1, vocab, size=int(rng.integers(
+        16, PROMPT_LEN + 1))).tolist(), max_new_tokens=int(rng.integers(16, 49)),
+        tenant=cycle[i % len(cycle)]) for i in range(12)]
+    sampled = Request("ms", rng.integers(1, vocab, size=40).tolist(),
+                      max_new_tokens=24, temperature=0.8, seed=9,
+                      tenant=cycle[1])
+    return greedy + [sampled]
+
+
+def tenant_slice_phase(torch, model, params, card, dense):
+    """Llama-3-8B (phase 5's resident weights) served with six LoRA
+    tenants through ServeSession.from_model(adapters=...): every result
+    ok, the pool evicts and reloads, exactly 224 segmented-LoRA, 65
+    RMSNorm and 32 SwiGLU launches per prefill and per decode step;
+    TTFT, TPOT and tokens/s beside the dense slice's, then a profiled
+    window of adapter decode steps. Returns (adapters, requests,
+    results, launches, metrics)."""
+    from tpudl_torch.ops import segmented_lora as sl
+    from tpudl_torch.ops.mlp_fused import swiglu
+    from tpudl_torch.ops.norms import rms_norm
+    from tpudl_torch.serve import Request, ServeSession
+
+    t0 = time.perf_counter()
+    adapters = tenant_adapters(torch, model.cfg, TENANT_RANKS, 17,
+                               TENANT_B_STD)
+    kw = dict(prompt_len=PROMPT_LEN, num_slots=NUM_SLOTS, adapters=adapters,
+              adapter_pages=TENANT_PAGES, adapter_rank_max=16)
+    session = ServeSession.from_model(model, params, **kw)
+    pool = session.engine.adapter_pool
+    print(f"tenant_slice: {len(adapters)} tenants (ranks {TENANT_RANKS}), a "
+          f"pool of {pool.num_pages} pages x {pool.bytes_per_page / 1e6:.3f} "
+          f"MB = {pool.nbytes / 2**30:.3f} GiB, set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    session.serve([Request("warm", [1, 2, 3], max_new_tokens=2, tenant="t0")])
+    session = ServeSession.from_model(model, params, **kw)
+    requests = tenant_requests(Request, model.cfg.vocab_size, sorted(adapters))
+    torch.cuda.synchronize()
+    rms_norm.launches = swiglu.launches = sl.segmented_lora.launches = 0
+    t0 = time.perf_counter()
+    results = session.serve([Request(**r.__dict__) for r in requests])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"seg_lora": sl.segmented_lora.launches,
+                "rms_norm_fwd": rms_norm.launches,
+                "swiglu_fwd": swiglu.launches}
+    eng = session.engine
+    calls = eng.num_prefills + eng.num_decode_steps
+    stats = eng.adapter_pool.stats()
+    print(f"tenant_slice: {len(results)} requests, {eng.num_prefills} "
+          f"prefills, {eng.num_decode_steps} decode steps, launches "
+          f"{launches}, pool {stats}")
+    bad = [rid for rid, r in results.items() if not r.ok]
+    if bad:
+        fail(f"tenant_slice: requests not ok: {bad}")
+    for req in requests:
+        toks = results[req.request_id].tokens
+        if len(toks) != req.max_new_tokens or not all(
+                0 <= x < model.cfg.vocab_size for x in toks):
+            fail(f"tenant_slice: request {req.request_id}: {len(toks)} tokens")
+    want = {"seg_lora": 224 * calls, "rms_norm_fwd": 65 * calls,
+            "swiglu_fwd": 32 * calls}
+    if launches != want:
+        fail(f"tenant_slice: launches {launches} != expected {want} (224 "
+             f"segmented-LoRA, 65 RMSNorm, 32 SwiGLU per prefill and decode "
+             f"step)")
+    if not (stats["evictions"] > 0 and stats["reloads"] > 0):
+        fail(f"tenant_slice: the pool did not evict and reload: {stats}")
+    ttft = [r.ttft_s * 1e3 for r in results.values()]
+    tpot = [r.tpot_s * 1e3 for r in results.values() if r.tpot_s is not None]
+    tokens = sum(len(r.tokens) for r in results.values())
+    metrics = {"ttft_p50_ms": pct(ttft, 50), "ttft_p90_ms": pct(ttft, 90),
+               "tpot_p50_ms": pct(tpot, 50), "tpot_p90_ms": pct(tpot, 90),
+               "tokens_per_s": tokens / wall, "prefills": eng.num_prefills,
+               "decode_steps": eng.num_decode_steps, "pool": stats,
+               "pool_bytes": eng.adapter_pool.nbytes}
+    print(f"tenant_slice metrics ({card}): TTFT p50 {metrics['ttft_p50_ms']:.2f}"
+          f" ms, p90 {metrics['ttft_p90_ms']:.2f} ms (dense slice "
+          f"{dense['ttft_p50_ms']:.2f} / {dense['ttft_p90_ms']:.2f}); TPOT p50 "
+          f"{metrics['tpot_p50_ms']:.3f} ms, p90 {metrics['tpot_p90_ms']:.3f} "
+          f"ms (dense {dense['tpot_p50_ms']:.3f} / {dense['tpot_p90_ms']:.3f});"
+          f" {tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s "
+          f"(dense {dense['tokens_per_s']:.1f})")
+    metrics["decode_device_busy_share"] = profile_decode(
+        torch, model, params, Request, kw, sorted(adapters))
+    return adapters, requests, results, launches, metrics
+
+
+def tenant_parity_phase(torch, model, params, adapters, requests,
+                        kernel_results):
+    """Phase 6's gate on the multi-tenant slice. The same requests are
+    served on the plain path (fused_ops=False, adapter_impl="reference",
+    same weights and adapters, so the same schedule); where the kernel
+    and plain token streams part, the prompt and the plain stream up to
+    that step go through an f32 oracle (the plain f32 model with the
+    tenant's adapter applied by the plain segmented LoRA on the same
+    pages, TF32 off), which may prefer the plain token by at most
+    ATOL_BANDS x the plain path's max logit error; over every
+    teacher-forced prefix the kernel path's mean logit error against the
+    oracle may not exceed KERNEL_ERR_RATIO x the plain path's."""
+    import numpy as np
+
+    from tpudl_torch.models.llama import LLAMA3_8B, LlamaForCausalLM, bind_params
+    from tpudl_torch.models.lora import AdapterView
+    from tpudl_torch.serve import Request, ServeSession
+
+    kw = dict(prompt_len=PROMPT_LEN, num_slots=NUM_SLOTS, adapters=adapters,
+              adapter_pages=TENANT_PAGES, adapter_rank_max=16)
+    plain = LlamaForCausalLM(LLAMA3_8B(dtype=torch.bfloat16,
+                                       max_seq_len=MAX_SEQ_LEN,
+                                       fused_ops=False), device="meta")
+    session = ServeSession.from_model(plain, params, adapter_impl="reference",
+                                      **kw)
+    plain_results = session.serve([Request(**r.__dict__) for r in requests])
+    pool = session.engine.adapter_pool
+    oracle = LlamaForCausalLM(LLAMA3_8B(dtype=torch.float32,
+                                        max_seq_len=MAX_SEQ_LEN,
+                                        fused_ops=False), device="meta")
+    params32 = {k: v.float() for k, v in params.items()}
+
+    def logits(m, p, ids, tenant, impl):
+        row, scaling = pool.acquire(tenant)
+        try:
+            view = AdapterView(pool.pools, torch.as_tensor(
+                row[None], device="cuda"), torch.tensor(
+                [scaling], dtype=torch.float32, device="cuda"), impl)
+            with torch.no_grad():
+                bind_params(m, p)
+                x = torch.as_tensor(ids, device="cuda")[None, :]
+                out, _ = m(x, torch.ones_like(x), decode=True, adapters=view)
+        finally:
+            pool.release(tenant)
+        if not bool(torch.isfinite(out).all()):
+            fail("tenant_parity: non-finite logits")
+        return out[0]
+
+    same, count = 0, 0
+    sums = {"kernel": 0.0, "plain": 0.0}
+    greedy = [r for r in requests if r.temperature == 0.0]
+    for req in greedy:
+        got = np.asarray(kernel_results[req.request_id].tokens)
+        want = np.asarray(plain_results[req.request_id].tokens)
+        diff = np.nonzero(got != want)[0]
+        t = int(diff[0]) if diff.size else len(want) - 1
+        n0 = len(req.input_ids)
+        ids = np.concatenate([np.asarray(req.input_ids), want[:t]])
+        ref = logits(oracle, params32, ids, req.tenant, "reference")[n0 - 1:]
+        err_k = (logits(model, params, ids, req.tenant, "auto")[n0 - 1:]
+                 - ref).abs()
+        err_p = (logits(plain, params, ids, req.tenant, "reference")[n0 - 1:]
+                 - ref).abs()
+        sums["kernel"] += float(err_k.sum())
+        sums["plain"] += float(err_p.sum())
+        count += err_k.numel()
+        if diff.size == 0:
+            same += 1
+            continue
+        atol = ATOL_BANDS * float(err_p.max())
+        margin = float(ref[-1, int(want[t])] - ref[-1, int(got[t])])
+        print(f"tenant_parity: {req.request_id} (tenant {req.tenant}) parts "
+              f"from the plain path at step {t}/{len(want)}: oracle margin "
+              f"{margin:.4f}, atol {atol:.4f}")
+        if margin > atol:
+            fail(f"tenant_parity: {req.request_id}: the oracle prefers the "
+                 f"plain token by {margin:.4f} > {atol:.4f}")
+    mean_k, mean_p = sums["kernel"] / count, sums["plain"] / count
+    print(f"tenant_parity: {same}/{len(greedy)} greedy requests "
+          f"token-identical to the plain path; mean |logit - f32 oracle| over "
+          f"{count} logits: kernel path {mean_k:.5f}, plain path {mean_p:.5f}")
+    if mean_k > KERNEL_ERR_RATIO * mean_p:
+        fail(f"tenant_parity: kernel path mean logit error {mean_k:.5f} > "
+             f"{KERNEL_ERR_RATIO} x the plain path's {mean_p:.5f}")
+    del params32, session
+    torch.cuda.empty_cache()
+    return {"identical": same, "greedy": len(greedy), "mean_err_kernel": mean_k,
+            "mean_err_plain": mean_p}
 
 
 def requests_for(Request, vocab):
@@ -548,24 +978,31 @@ def slice_phase(torch, card):
     busy = profile_decode(torch, model, params, Request)
     return model, params, greedy + [sampled], results, launches, {
         "ttft_p50_ms": pct(ttft, 50), "tpot_p50_ms": pct(tpot, 50),
+        "ttft_p90_ms": pct(ttft, 90), "tpot_p90_ms": pct(tpot, 90),
         "tokens_per_s": tokens / wall, "decode_steps": eng.num_decode_steps,
         "prefills": eng.num_prefills, "decode_device_busy_share": busy,
     }
 
 
-def profile_decode(torch, model, params, Request):
+def profile_decode(torch, model, params, Request, session_kw=None,
+                   tenants=None):
     """Device busy share and the top kernels and host ops over a steady
     window of decode steps (4 slots busy): the window's wall time is
     taken without the profiler (which slows the host), the device time
-    from a second, profiled window of as many steps. Returns the busy
-    share, or None where the profiler saw no device time."""
+    from a second, profiled window of as many steps. ``session_kw`` and
+    ``tenants`` (one per slot, in turn) make it the multi-tenant
+    session's. Returns the busy share, or None where the profiler saw no
+    device time."""
     from tpudl_torch.serve import ServeSession
 
-    session = ServeSession.from_model(model, params, prompt_len=PROMPT_LEN,
-                                      num_slots=NUM_SLOTS)
+    session = ServeSession.from_model(
+        model, params, **(session_kw or dict(prompt_len=PROMPT_LEN,
+                                             num_slots=NUM_SLOTS)))
     for i in range(NUM_SLOTS):
         session.submit(Request(f"p{i}", list(range(1 + i, 101 + i)),
-                               max_new_tokens=40))
+                               max_new_tokens=40,
+                               tenant=tenants[i % len(tenants)] if tenants
+                               else None))
     eng = session.engine
     for _ in range(4):
         eng.step()
@@ -591,7 +1028,10 @@ KERNEL_KINDS = (
     ("this repo's kernels", ("norm_fwd_kernel", "norm_bwd_kernel",
                              "column_sum_kernel", "bias_gelu_", "swiglu_",
                              "softmax_dropout_", "xent_", "flash_fwd_kernel",
-                             "flash_dq_kernel", "flash_dkv_kernel")),
+                             "flash_dq_kernel", "flash_dkv_kernel",
+                             "whole_fwd_kernel", "whole_dq_kernel",
+                             "whole_dkv_kernel",
+                             "seg_lora_kernel")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "cutlass", "splitKreduce")),
     ("softmax", ("softmax",)),
     ("random bits", ("distribution", "philox")),
@@ -776,6 +1216,27 @@ def timed_case(row, kernel, plain, library=None, library_name=None,
                          else library_ms(library, calls=20, reps=5))
     row["library"] = library_name or "none computes this function"
     return row
+
+
+def eager_us(torch, fn, calls=500):
+    """Wall microseconds per eager call of ``fn`` over ``calls`` calls,
+    the card drained before and after: the host's cost per call where it
+    exceeds the card's."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def beyond_bound(what, nbytes, ops, peak=F32_OPS_PER_S):
+    """What a design moves or computes beyond its function (which the
+    bound counts), with its least time at the card's rates."""
+    return (f"{what} = {(nbytes / HBM_BYTES_PER_S + ops / peak) * 1e6:.3f} "
+            f"us at the memory and operation rates")
 
 
 def case_row(shape, dtype, variant, err, tol, nbytes, ops,
@@ -1173,6 +1634,7 @@ def counted():
     """Kernel name -> (the wrapper that counts its launches, the counter's
     attribute)."""
     from tpudl_torch.ops import flash_attention as fa
+    from tpudl_torch.ops import fused_attention as fu
     from tpudl_torch.ops import softmax_dropout as sd
     from tpudl_torch.ops.cross_entropy import softmax_cross_entropy, xent_bwd
     from tpudl_torch.ops.mlp_fused import (
@@ -1189,7 +1651,9 @@ def counted():
            "swiglu_bwd": swiglu_bwd,
            "softmax_dropout_fwd": sd.softmax_dropout,
            "softmax_dropout_bwd": sd.softmax_dropout_bwd,
-           "xent_fwd": softmax_cross_entropy, "xent_bwd": xent_bwd}
+           "xent_fwd": softmax_cross_entropy, "xent_bwd": xent_bwd,
+           "fused_attn_fwd": fu.fused_attention_fwd,
+           "fused_attn_bwd": fu.fused_attention_bwd}
     out = {name: (fn, "launches") for name, fn in out.items()}
     for name in ("fwd", "dq", "dkv"):
         out[f"flash_{name}"] = (fa.flash_attention, f"launches_{name}")
@@ -1279,10 +1743,12 @@ def tiny_train_phase(torch, fused_slice=False):
           f"{worst_p:.3e} (rtol 2e-3, atol 2e-5)")
 
 
-def train_phase(torch, card, fused_slice=False):
-    """BERT-base through the user's entry points: W warm-up steps, then T
-    timed steps (counts reset just before), then a profiled window. With
-    ``fused_slice`` (the train_fused phase) the model runs
+def train_phase(torch, card, fused_slice=False, batch_size=BERT_BATCH,
+                seq=BERT_SEQ, name=None):
+    """BERT-base through the user's entry points: W warm-up steps, then
+    TRAIN_STEPS timed steps (counts reset just before), then a
+    profiled window, at ``batch_size`` x ``seq``. With ``fused_slice``
+    (the train_fused and train_512 phases) the model runs
     attention_impl="fused" and the step loss_impl="auto", and one eval
     batch through make_classification_eval_step follows (counts reset
     just before)."""
@@ -1302,9 +1768,9 @@ def train_phase(torch, card, fused_slice=False):
         transformer_train_flops,
     )
 
-    name = "train_fused" if fused_slice else "train"
+    name = name or ("train_fused" if fused_slice else "train")
     model_kw, loss_impl = bert_variant(fused_slice)
-    per_step = launches_per_step(12, fused_slice)
+    per_step = launches_per_step(12, fused_slice, seq)
     t0 = time.perf_counter()
     model = build_model("bert-base", 2, **model_kw)
     state = create_train_state(0, model, sst2_optimizer())
@@ -1313,13 +1779,13 @@ def train_phase(torch, card, fused_slice=False):
     step = make_classification_train_step(input_keys=keys, label_key="label",
                                           loss_impl=loss_impl)
     steps = TRAIN_WARMUP_STEPS + TRAIN_STEPS + PROFILE_STEPS
-    batches = list(synthetic_token_batches(BERT_BATCH, BERT_SEQ,
+    batches = list(synthetic_token_batches(batch_size, seq,
                                            model.cfg.vocab_size,
                                            num_batches=steps))
     losses = []
     w = TRAIN_WARMUP_STEPS
     # The window opens once the last warm-up step has finished on the card.
-    meter = Throughput(BERT_BATCH, warmup=w)
+    meter = Throughput(batch_size, warmup=w)
 
     def recorded(state, batch, rng):
         state, metrics = step(state, batch, rng)
@@ -1329,8 +1795,8 @@ def train_phase(torch, card, fused_slice=False):
 
     torch.cuda.synchronize()
     print(f"{name}: BERT-base ({model_kw}, loss_impl={loss_impl!r}), "
-          f"{n_params / 1e6:.2f} M parameters, batch {BERT_BATCH} x seq "
-          f"{BERT_SEQ}, set-up {time.perf_counter() - t0:.1f} s")
+          f"{n_params / 1e6:.2f} M parameters, batch {batch_size} x seq "
+          f"{seq}, set-up {time.perf_counter() - t0:.1f} s")
     state, _, _ = fit(recorded, state, batches[:w], 1)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1350,11 +1816,11 @@ def train_phase(torch, card, fused_slice=False):
         fail(f"{name}: the meter timed {timed['steps_measured']} steps, not "
              f"{TRAIN_STEPS}")
     step_s = timed["step_ms"] / 1e3
-    flops = transformer_train_flops(n_params, BERT_BATCH * BERT_SEQ)
+    flops = transformer_train_flops(n_params, batch_size * seq)
     peak_flops = device_peak_flops()
     util = mfu(flops, step_s, peak_per_chip=peak_flops)
     print(f"{name} metrics ({card}): step {step_s * 1e3:.2f} ms, "
-          f"{BERT_BATCH / step_s:.1f} samples/s, MFU {100 * util:.2f}% "
+          f"{batch_size / step_s:.1f} samples/s, MFU {100 * util:.2f}% "
           f"(6ND = {flops:.3e} FLOP over {peak_flops / 1e12:.0f} TFLOP/s dense "
           f"bf16), peak memory {peak:.2f} GiB, losses "
           f"{loss_t[0].item():.4f} -> {last['loss']:.4f}")
@@ -1373,10 +1839,10 @@ def train_phase(torch, card, fused_slice=False):
           f"the optimizer update (clip, AdamW) and the rest "
           f"{step_s * 1e3 - fwd_bwd_ms:.2f} ms")
     metrics = {
-        "step_ms": step_s * 1e3, "samples_per_s": BERT_BATCH / step_s,
+        "step_ms": step_s * 1e3, "samples_per_s": batch_size / step_s,
         "mfu": util, "peak_memory_gib": peak, "device_busy_share": busy,
         "forward_backward_ms": fwd_bwd_ms, "num_params": n_params,
-        "steps": TRAIN_STEPS,
+        "steps": TRAIN_STEPS, "batch": batch_size, "seq": seq,
     }
     if fused_slice:
         evaluate = make_classification_eval_step(input_keys=keys,
@@ -1385,7 +1851,7 @@ def train_phase(torch, card, fused_slice=False):
         reset_counts()
         ev = evaluate(state, batches[0])
         ev_launches = train_counts()
-        want = {k: eval_launches(12).get(k, 0) for k in ev_launches}
+        want = {k: eval_launches(12, seq).get(k, 0) for k in ev_launches}
         if ev_launches != want:
             fail(f"{name}: the eval batch launched {ev_launches}, expected "
                  f"{want}")
@@ -1409,9 +1875,11 @@ UNGATED = {
 }
 
 
-def train_parity_phase(torch, fused_slice=False):
+def train_parity_phase(torch, fused_slice=False, batch_size=BERT_BATCH,
+                       seq=BERT_SEQ, num_layers=12, phase=None):
     """The kernel path, the plain bf16 path (fused_ops=False) and an f32
-    oracle (plain, TF32 off), from the same fresh BERT-base weights, over
+    oracle (plain, TF32 off), from the same fresh BERT-base weights
+    (``num_layers`` of them; batches of ``batch_size`` x ``seq``), over
     PARITY_BATCHES batches, each with its own dropout seed shared by the
     three paths (the kernels draw no bits, so the masks are the same).
     With ``fused_slice`` (train_fused_parity) the kernel path also runs
@@ -1433,13 +1901,16 @@ def train_parity_phase(torch, fused_slice=False):
     from tpudl_torch.rng import fold_in
     from tpudl_torch.train import create_train_state, make_classification_train_step
 
-    phase = "train_fused_parity" if fused_slice else "train_parity"
-    init = BertForSequenceClassification(BERT_BASE(), device="cuda")
+    phase = phase or ("train_fused_parity" if fused_slice else "train_parity")
+    init = BertForSequenceClassification(BERT_BASE(num_layers=num_layers),
+                                         device="cuda")
     init.init_weights(torch.Generator(device="cuda").manual_seed(11))
     params = {k: v.detach() for k, v in init.state_dict().items()}
     keys = ("input_ids", "attention_mask")
     kernel_kw, kernel_loss = bert_variant(fused_slice)
-    common = {"attention_dropout": 0.0} if fused_slice else {}
+    common = {"num_layers": num_layers}
+    if fused_slice:
+        common["attention_dropout"] = 0.0
     paths = {"kernel": (torch.bfloat16, kernel_kw, kernel_loss),
              "plain": (torch.bfloat16, {"fused_ops": False}, "reference"),
              "oracle": (torch.float32, {"fused_ops": False}, "reference")}
@@ -1451,7 +1922,7 @@ def train_parity_phase(torch, fused_slice=False):
             sst2_optimizer(), params=params)
         steps[name] = make_classification_train_step(
             input_keys=keys, label_key="label", loss_impl=loss_impl)
-    counted_kernels = launches_per_step(12, fused_slice)
+    counted_kernels = launches_per_step(num_layers, fused_slice, seq)
     del init, params
     sq = {name: {} for name in ("kernel", "plain", "oracle")}
 
@@ -1459,7 +1930,7 @@ def train_parity_phase(torch, fused_slice=False):
         sq[name][key] = sq[name].get(key, 0.0) + value
 
     for b, batch in enumerate(synthetic_token_batches(
-            BERT_BATCH, BERT_SEQ, 30522, seed=9, num_batches=PARITY_BATCHES)):
+            batch_size, seq, 30522, seed=9, num_batches=PARITY_BATCHES)):
         out = {}
         for name, st in states.items():
             before = train_counts()
@@ -1834,6 +2305,177 @@ def flash_dropout_checks(torch, fa, keep_mask, hybrid_attention):
     torch.cuda.empty_cache()
 
 
+def whole_attention_kernel_phase(torch, F):
+    """The whole-row attention forward and two-launch backward against
+    their plain versions at the seq-512 step's [32, 512, 12, 64] bf16
+    with the padding mask and dropout 0.1 (its 12 calls), then without
+    dropout, ragged S 300 and 384, causal, f32, and D 32 and 128; each
+    backward run twice and compared bit for bit, and each gate shown to
+    reject a 5 % error planted on one 64-row tile (flash_errors). Then
+    the dropout contract: the keep mask at [4, 512, 12, 64] bitwise equal
+    to the plain one at a rate within 5 sigma of 0.9, and the dropout-on
+    output and gradients equal to hybrid_attention's on the same seed
+    words at S = 384. Times as phase 7c, beside
+    F.scaled_dot_product_attention (forward, and forward + backward for
+    the backward rows) with the same boolean padding mask and dropout_p
+    on [B, H, S, D] copies."""
+    from tpudl_torch.ops import fused_attention as fu
+    from tpudl_torch.ops import keep_mask
+    from tpudl_torch.ops.softmax_dropout import hybrid_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(97531)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {"fused_attn_fwd": [], "fused_attn_bwd": []}
+    b0, s0 = BERT_512_BATCH, BERT_512_SEQ
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    for b, s, h, d, dtype, causal, masking, rate, variant in (
+        (b0, s0, 12, 64, bf16, False, "padding", 0.1,
+         "padding mask, dropout 0.1 (the seq-512 step's 12 calls)"),
+        (b0, s0, 12, 64, bf16, False, "padding", 0.0,
+         "padding mask, no dropout"),
+        (b0, 300, 12, 64, bf16, False, "padding", 0.1,
+         "ragged S 300, dropout 0.1"),
+        (b0, 384, 12, 64, bf16, False, "padding", 0.0, "ragged S 384"),
+        (b0, s0, 12, 64, bf16, True, "ones", 0.0, "causal"),
+        (8, s0, 12, 64, f32, False, "padding", 0.1,
+         "f32 (CUDA cores), dropout 0.1"),
+        (b0, s0, 24, 32, bf16, False, "padding", 0.0, "D 32"),
+        (16, s0, 12, 128, bf16, False, "padding", 0.0, "D 128"),
+    ):
+        q, k, v, do = (rand((b, s, h, d), dtype) for _ in range(4))
+        kvmask = torch.ones(b, s, dtype=torch.bool, device="cuda")
+        if masking == "padding":
+            lengths = torch.randint(s // 2, s + 1, (b,), generator=gen,
+                                    device="cuda")
+            kvmask = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
+        seed = (keep_mask.draw_seed(gen) if rate
+                else keep_mask.zero_seed("cuda"))
+        scale = d ** -0.5
+        args = (kvmask, seed, causal, scale, rate)
+        o, lse = fu.fused_attention_fwd(q, k, v, *args, impl="fused")
+        wo, wlse = fu.fused_attention_ref(q, k, v, *args)
+        err_f = merged(flash_errors(o, wo, dtype),
+                       errors(lse, wlse, 1e-5, 1e-4))
+        bwd_args = (q, k, v, kvmask, seed, do, lse, causal, scale, rate)
+        grads = fu.fused_attention_bwd(*bwd_args, impl="fused")
+        want = fu.fused_attention_bwd_ref(*bwd_args)
+        err_b = merged(*(flash_errors(g_, w_, dtype)
+                         for g_, w_ in zip(grads, want)))
+        # One 64-row tile below S / 2: attended under every mask here.
+        rows = slice(s // 2 - 64, s // 2)
+        for name, out_, ref_ in (("o", o, wo), ("dq", grads[0], want[0]),
+                                 ("dk", grads[1], want[1]),
+                                 ("dv", grads[2], want[2])):
+            if not flash_check_sees(out_, ref_, dtype, rows):
+                fail(f"whole attention {variant}: the {name} check passes a "
+                     f"{FLASH_PLANTED:.0%} error planted on one tile")
+        again = fu.fused_attention_bwd(*bwd_args, impl="fused")
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            err_b = (err_b[0], err_b[1], False)
+            print(f"fused_attn_bwd {variant}: not bitwise repeatable")
+        del wo, wlse, want, again
+        pairs = attended_pairs(torch, b, s, s, kvmask, causal) * h
+        product = 2.0 * pairs * d
+        e = torch.finfo(dtype).bits // 8
+        peak = BF16_OPS_PER_S if dtype == bf16 else F32_OPS_PER_S
+        qb, rows_b = b * s * h * d * e, b * h * s * 4
+        tol = FLASH_TOL[str(dtype).split(".")[-1]]
+        shape = [b, s, h, d]
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+        keep = kvmask[:, None, None, :]
+        if causal:
+            keep = keep & torch.ones(s, s, dtype=torch.bool,
+                                     device="cuda").tril()
+        lib_kw = ({"is_causal": True} if masking == "ones" and causal
+                  else {"attn_mask": keep})
+        lib_kw["dropout_p"] = rate
+        ql, kl, vl = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(ql, kl, vl, **lib_kw)
+            return torch.autograd.grad(out, (ql, kl, vl), dot)
+
+        # Forward (tpudl's site 12): q, k, v and the mask in, o out; two
+        # products. The lse row statistic it also writes for the backward
+        # is this design's, not the function's: shown beside the bound.
+        row = timed_case(
+            case_row(shape, dtype, variant, err_f, tol, 4 * qb + b * s,
+                     2 * product, peak),
+            lambda: fu.fused_attention_fwd(q, k, v, *args, impl="fused"),
+            lambda: fu.fused_attention_ref(q, k, v, *args),
+            sdpa, "F.scaled_dot_product_attention forward", plain_calls=2)
+        row["beyond_bound"] = beyond_bound(f"lse write {rows_b} B", rows_b, 0)
+        cases["fused_attn_fwd"].append(row)
+        # Backward (site 13): q, k, v, do, lse and the mask in, dq, dk, dv
+        # out; five products (s, dp, dq, dk, dv). The design's delta
+        # (written once, read by each dK/dV block) and the dQ launch's
+        # second sweep of s and dp are shown beside the bound.
+        row = timed_case(
+            case_row(shape, dtype, variant, err_b, tol,
+                     7 * qb + rows_b + b * s, 5 * product, peak),
+            lambda: fu.fused_attention_bwd(*bwd_args, impl="fused"),
+            lambda: fu.fused_attention_bwd_ref(*bwd_args), sdpa_fwd_bwd,
+            "F.scaled_dot_product_attention forward + backward "
+            "(torch.autograd.grad)", plain_calls=2)
+        row["beyond_bound"] = beyond_bound(
+            f"delta write + read {2 * rows_b} B, 2 more products",
+            2 * rows_b, 2 * product, peak)
+        cases["fused_attn_bwd"].append(row)
+        del q, k, v, do, o, lse, grads, qt, kt, vt, dot, ql, kl, vl
+        torch.cuda.empty_cache()
+
+    # The dropout contract: the window probe of flash_dropout_checks.
+    b, s, h, d, rate = 4, s0, 12, 64, 0.1
+    seed = keep_mask.draw_seed(torch.Generator(device="cuda").manual_seed(37))
+    q = torch.zeros(b, s, h, d, dtype=bf16, device="cuda")
+    eye = torch.eye(d, dtype=bf16, device="cuda")
+    v = eye.repeat(s // d, 1)[None, :, None, :].expand(b, s, h, d).contiguous()
+    kept = torch.empty(b, h, s, s, dtype=torch.bool, device="cuda")
+    for w in range(s // d):
+        window = torch.zeros(b, s, dtype=torch.bool, device="cuda")
+        window[:, w * d:(w + 1) * d] = True
+        o, _ = fu.fused_attention_fwd(q, q, v, window, seed, False, None,
+                                      rate, impl="fused")
+        kept[..., w * d:(w + 1) * d] = (o != 0).permute(0, 2, 1, 3)
+    bitwise = torch.equal(kept, keep_mask.keep_mask(seed, kept.shape, rate))
+    share = kept.float().mean().item()
+    sigma = (rate * (1 - rate) / kept.numel()) ** 0.5
+    del q, v, kept, o
+    g = torch.Generator(device="cuda").manual_seed(39)
+    q, k, v = (torch.randn(8, 384, 12, 64, generator=g, device="cuda")
+               for _ in range(3))
+    am = torch.ones(8, 384, dtype=torch.int32, device="cuda")
+    am[1, 250:] = 0
+    outs = []
+    for fn in (fu.fused_attention, hybrid_attention):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*leaves, am, causal=True, dropout_rate=rate,
+                 dropout_rng=torch.Generator(device="cuda").manual_seed(41))
+        (out * out).sum().backward()
+        outs.append([out] + [x.grad for x in leaves])
+    outs = [[x.detach() for x in o] for o in outs]
+    diff = max(float((a - b_).abs().max()) for a, b_ in zip(*outs))
+    same = all(torch.allclose(a, b_, rtol=1e-4, atol=1e-4)
+               for a, b_ in zip(*outs))
+    print(f"whole attention dropout contract: keep mask of {b * h * s * s} "
+          f"elements bitwise equal to the plain version's: {bitwise}; keep "
+          f"rate {share:.6f} (0.9 +- 5 sigma = {5 * sigma:.2e}); f32 output "
+          f"and gradients vs hybrid_attention on the same seed words at S = "
+          f"384: max |diff| {diff:.3e} (tol 1e-4)")
+    if not (bitwise and abs(share - (1 - rate)) < 5 * sigma and same):
+        fail("whole attention dropout contract: a check failed")
+    del q, k, v, outs
+    torch.cuda.empty_cache()
+    report_cases(cases)
+    return cases
+
+
 def llama_optimizer(constant=False):
     """The llama3_8b_lora optimizer (AdamW 1e-4, warmup 100, weight decay
     0, clip 1.0); ``constant`` drops the warm-up (a nonzero first step)."""
@@ -2183,19 +2825,27 @@ def main() -> int:
         print(f"build: {name}: {info['seconds']:.2f} s, ptxas {regs}")
 
     cases = kernel_phase(torch, F)
+    seg_cases = seg_lora_kernel_phase(torch)
     tiny_reference_phase(torch)
+    tenant_tiny_phase(torch)
     model, params, requests, results, launches, metrics = slice_phase(
         torch, card)
     parity_phase(torch, model, params, requests, results)
     serve_steps = metrics["prefills"] + metrics["decode_steps"]
+    adapters, t_requests, t_results, tenant_launches, tenant_metrics = \
+        tenant_slice_phase(torch, model, params, card, metrics)
+    tenant_metrics["parity"] = tenant_parity_phase(
+        torch, model, params, adapters, t_requests, t_results)
+    tenant_steps = tenant_metrics["prefills"] + tenant_metrics["decode_steps"]
     # Free the 8B model before the training phases.
-    del model, params, requests, results
+    del model, params, requests, results, adapters, t_results
     gc.collect()
     torch.cuda.empty_cache()
 
     train_cases = train_kernel_phase(torch, F)
     fused_cases = fused_kernel_phase(torch, F)
     llama_cases = llama_kernel_phase(torch, F)
+    whole_cases = whole_attention_kernel_phase(torch, F)
     tiny_train_phase(torch)
     tiny_train_phase(torch, fused_slice=True)
     tiny_llama_train_phase(torch)
@@ -2208,6 +2858,14 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     fused_metrics["parity"] = train_parity_phase(torch, fused_slice=True)
+    state, launches_512, metrics_512 = train_phase(
+        torch, card, fused_slice=True, batch_size=BERT_512_BATCH,
+        seq=BERT_512_SEQ, name="train_512")
+    del state
+    torch.cuda.empty_cache()
+    metrics_512["parity"] = train_parity_phase(
+        torch, fused_slice=True, batch_size=BERT_512_BATCH, seq=BERT_512_SEQ,
+        num_layers=2, phase="train_512_parity")
     gc.collect()
     torch.cuda.empty_cache()
     llama_launches, llama_metrics = llama_lora_train_phase(torch, card)
@@ -2220,6 +2878,8 @@ def main() -> int:
     sd_cu = "tpudl_torch/ops/csrc/softmax_dropout.cu"
     xent_cu = "tpudl_torch/ops/csrc/cross_entropy.cu"
     flash_cu = "tpudl_torch/ops/csrc/flash_attention.cu"
+    whole_cu = "tpudl_torch/ops/csrc/fused_attention.cu"
+    seg_cu = "tpudl_torch/ops/csrc/segmented_lora.cu"
     # name -> (source, replaces, main-path launches, per step, headline case)
     table = {
         # Serving: the decode shape in bf16 (the path's dtype), without a
@@ -2273,6 +2933,20 @@ def main() -> int:
         "flash_dkv": (flash_cu, "tpudl/ops/flash_attention.py:477",
                       llama_launches["flash_dkv"],
                       LLAMA_LAUNCHES["flash_dkv"], llama_cases),
+        # BERT-base at seq 512: the first case, the train_512 step's own
+        # call ([32, 512, 12, 64] bf16, padding mask, dropout 0.1);
+        # launches from the train_512 run.
+        "fused_attn_fwd": (whole_cu, "tpudl/ops/fused_attention.py:218",
+                           launches_512["fused_attn_fwd"],
+                           TRAIN_512_LAUNCHES["fused_attn_fwd"], whole_cases),
+        "fused_attn_bwd": (whole_cu, "tpudl/ops/fused_attention.py:248",
+                           launches_512["fused_attn_bwd"],
+                           TRAIN_512_LAUNCHES["fused_attn_bwd"], whole_cases),
+        # Multi-tenant serving: the first case, the decode step's q_proj
+        # call ([4, 4096] -> 4096 bf16, f32 pages); launches per prefill
+        # and decode step from the tenant_slice run.
+        "seg_lora": (seg_cu, "tpudl/ops/segmented_lora.py:177",
+                     tenant_launches["seg_lora"], 224, seg_cases),
     }
     kernels = []
     for name, (source, replaces, count, per_step, where) in table.items():
@@ -2285,10 +2959,15 @@ def main() -> int:
                 fail(f"{name}: {count} launches over {serve_steps} steps")
         else:
             head = rows[0]
+        if where is seg_cases and count != per_step * tenant_steps:
+            fail(f"{name}: {count} launches over {tenant_steps} steps")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": count,
             "launches_per_step": per_step,
+            # Calls count once; the whole-row backward is two launches
+            # (dQ with the row term, then dK/dV).
+            "kernel_launches_per_call": 2 if name == "fused_attn_bwd" else 1,
             "max_abs_err": max(c["max_abs_err"] for c in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound"][0], "bound_by": head["bound"][1],
@@ -2298,8 +2977,9 @@ def main() -> int:
                       | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
                       for c in rows],
         })
-    print(json.dumps({"slice": metrics, "train": train_metrics,
-                      "train_fused": fused_metrics,
+    print(json.dumps({"slice": metrics, "tenant_slice": tenant_metrics,
+                      "train": train_metrics,
+                      "train_fused": fused_metrics, "train_512": metrics_512,
                       "llama_lora_train": llama_metrics, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -30,7 +30,10 @@ def test_every_module_imports_without_jax_flax_or_tpudl():
     names = _modules()
     for name in ("tpudl_torch.serve.engine", "tpudl_torch.train.loop",
                  "tpudl_torch.models.bert", "tpudl_torch.models.lora",
-                 "tpudl_torch.ops.flash_attention"):
+                 "tpudl_torch.ops.flash_attention",
+                 "tpudl_torch.ops.fused_attention",
+                 "tpudl_torch.ops.segmented_lora", "tpudl_torch.models.paged",
+                 "tpudl_torch.serve.lora"):
         assert name in names
     code = (
         "import importlib, sys\n"

@@ -996,3 +996,248 @@ def test_flash_refusals(dev):
     with pytest.raises(NotImplementedError, match="dense mask"):
         fa.flash_attention(x, x, x, torch.ones(1, 2, 8, 8, dtype=torch.bool,
                                                device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,d", [
+    (2, 300, 2, 64), (2, 384, 3, 32), (1, 512, 2, 128), (2, 257, 1, 64),
+    (1, 40, 2, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("masking", ["none", "padding"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_attention_kernels_match_plain(dev, dtype, b, s, h, d, causal,
+                                             masking, rate):
+    """The whole-row forward and the two-launch backward against their
+    plain versions (the flash gate: rows and elements relative to the
+    row's scale, a planted 5 % error rejected), each backward bitwise
+    repeatable."""
+    from tpudl_torch.ops import fused_attention as fu
+
+    q, k, v, do, kvmask = _fa_inputs(dev, b, s, s, h, d, dtype, masking)
+    seed = torch.tensor([4242, 2**32 - 5], dtype=torch.int64, device=dev)
+    before = (fu.fused_attention_fwd.launches, fu.fused_attention_bwd.launches)
+    o, lse = fu.fused_attention_fwd(q, k, v, kvmask, seed, causal, None,
+                                    rate, impl="fused")
+    wo, wlse = fu.fused_attention_ref(q, k, v, kvmask, seed, causal, None,
+                                      rate)
+    _fa_close(o, wo, dtype)
+    torch.testing.assert_close(lse, wlse, rtol=1e-5, atol=1e-4)
+    grads = fu.fused_attention_bwd(q, k, v, kvmask, seed, do, lse, causal,
+                                   None, rate, impl="fused")
+    want = fu.fused_attention_bwd_ref(q, k, v, kvmask, seed, do, lse, causal,
+                                      None, rate)
+    torch.cuda.synchronize()
+    assert (fu.fused_attention_fwd.launches,
+            fu.fused_attention_bwd.launches) == tuple(x + 1 for x in before)
+    for got, ref in zip(grads, want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        _fa_close(got, ref, dtype)
+    again = fu.fused_attention_bwd(q, k, v, kvmask, seed, do, lse, causal,
+                                   None, rate, impl="fused")
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+
+
+def test_fused_attention_rows_that_keep_nothing(dev):
+    from tpudl_torch.ops import fused_attention as fu
+    from tpudl_torch.ops.attention import MASK_VALUE
+
+    q, k, v, _, kvmask = _fa_inputs(dev, 2, 300, 300, 2, 64, torch.bfloat16,
+                                    "padding")
+    seed = torch.zeros(2, dtype=torch.int64, device=dev)
+    o, lse = fu.fused_attention_fwd(q, k, v, kvmask, seed, impl="fused")
+    assert not bool(kvmask[0].any())  # _fa_inputs empties batch row 0
+    assert float(o[0].float().abs().max()) == 0.0
+    assert bool((lse[0] == MASK_VALUE).all())
+    assert bool((lse[1] > -1e30).all())
+
+
+def test_fused_attention_keep_mask_is_the_plain_mask(dev):
+    """Flash's window probe at S = 384: uniform logits, one-hot values, the
+    kv mask open on one 64-column window at a time; the union of the
+    kept entries is the plain keep mask bit for bit."""
+    from tpudl_torch.ops import fused_attention as fu
+
+    b, s, h, d, rate = 2, 384, 3, 64, 0.1
+    seed = keep_mask.draw_seed(torch.Generator(device=dev).manual_seed(6))
+    q = torch.zeros(b, s, h, d, dtype=torch.bfloat16, device=dev)
+    eye = torch.eye(d, dtype=torch.bfloat16, device=dev)
+    v = eye.repeat(s // d, 1)[None, :, None, :].expand(b, s, h, d).contiguous()
+    kept = torch.empty(b, h, s, s, dtype=torch.bool, device=dev)
+    for w in range(s // d):
+        window = torch.zeros(b, s, dtype=torch.bool, device=dev)
+        window[:, w * d:(w + 1) * d] = True
+        o, _ = fu.fused_attention_fwd(q, q, v, window, seed, False, None,
+                                      rate, impl="fused")
+        kept[..., w * d:(w + 1) * d] = (o != 0).permute(0, 2, 1, 3)
+    assert torch.equal(kept, keep_mask.keep_mask(seed, (b, h, s, s), rate))
+    share = kept.float().mean().item()
+    assert abs(share - (1 - rate)) < 5 * (rate * (1 - rate) / kept.numel()) ** 0.5
+
+
+def test_fused_attention_matches_hybrid_attention_on_the_same_seed(dev):
+    from tpudl_torch.ops import fused_attention as fu
+
+    rng = np.random.default_rng(7)
+    q, k, v = (_t(rng, (2, 128, 4, 64), torch.float32, dev) for _ in range(3))
+    am = torch.ones(2, 128, dtype=torch.int32, device=dev)
+    am[1, 90:] = 0
+    outs = []
+    for fn in (fu.fused_attention, sd.hybrid_attention):
+        leaves = [_leaf(t) for t in (q, k, v)]
+        o = fn(*leaves, am, causal=True, dropout_rate=0.1,
+               dropout_rng=torch.Generator(device=dev).manual_seed(9))
+        (o * o).sum().backward()
+        outs.append([o] + [t.grad for t in leaves])
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_fused_attention_autograd_matches_plain(dev):
+    from tpudl_torch.ops import fused_attention as fu
+
+    q, k, v, do, kvmask = _fa_inputs(dev, 2, 320, 320, 2, 64, torch.float32,
+                                     "padding", seed=8)
+    outs = {}
+    for impl in ("fused", "reference"):
+        leaves = [_leaf(t) for t in (q, k, v)]
+        o = fu.fused_attention(*leaves, kvmask, causal=True, impl=impl)
+        (o * do).sum().backward()
+        outs[impl] = [o] + [t.grad for t in leaves]
+    for got, want in zip(outs["fused"], outs["reference"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_fused_attention_refusals(dev):
+    from tpudl_torch.ops import fused_attention as fu
+
+    x = torch.zeros(1, 300, 2, 48, device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        fu.fused_attention(x, x, x)
+    x = torch.zeros(1, 300, 2, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fu.fused_attention(x, x, x)
+    x = torch.zeros(1, 520, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="S=520 > 512"):
+        fu.fused_attention(x, x, x)
+    x = torch.zeros(1, 300, 2, 64, device=dev)
+    with pytest.raises(NotImplementedError, match="dense mask"):
+        fu.fused_attention(x, x, x, torch.ones(1, 2, 300, 300,
+                                               dtype=torch.bool, device=dev))
+
+
+def _seg_inputs(dev, x_shape, dtype, quantized, rank, out, seed=0):
+    """Pools of 40 pages (page 0 zero), a table with full, short and empty
+    rows, per-slot scales, and x."""
+    from tpudl_torch.serve.lora import _quantize_rows
+
+    rng = np.random.default_rng(seed)
+    fin, b = x_shape[-1], x_shape[0]
+    a = rng.normal(size=(40, fin)).astype(np.float32)
+    bp = rng.normal(size=(40, out)).astype(np.float32)
+    a[0] = bp[0] = 0.0
+    if quantized:
+        (qa, sa), (qb, sb) = _quantize_rows(a), _quantize_rows(bp)
+        pools = {"a": qa, "b": qb, "a_scale": sa, "b_scale": sb}
+    else:
+        pools = {"a": a, "b": bp}
+    pools = {k: torch.from_numpy(v).to(dev) for k, v in pools.items()}
+    table = rng.integers(1, 40, size=(b, rank)).astype(np.int32)
+    table[b // 2:, rank // 2:] = 0  # short ranks
+    table[-1] = 0  # an empty slot
+    scale = rng.uniform(0.5, 2.0, size=b).astype(np.float32)
+    x = _t(rng, x_shape, dtype, dev)
+    return (x, pools, torch.from_numpy(table).to(dev),
+            torch.from_numpy(scale).to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("x_shape,rank,out", [
+    ((4, 96), 16, 1100), ((4, 5, 96), 3, 40), ((2, 40, 600), 16, 300),
+    ((1, 17, 1030), 8, 2049), ((3, 97), 5, 64)])
+@pytest.mark.parametrize("with_base", [False, True])
+def test_segmented_lora_kernel_matches_plain(dev, dtype, quantized, x_shape,
+                                             rank, out, with_base):
+    from tpudl_torch.ops import segmented_lora as sl
+
+    x, pools, table, scale = _seg_inputs(dev, x_shape, dtype, quantized, rank,
+                                         out)
+    base = None
+    if with_base:
+        base = _t(np.random.default_rng(9), x_shape[:-1] + (out,), dtype, dev)
+    before = sl.segmented_lora.launches
+    got = sl.segmented_lora(x, pools, table, scale, base=base, impl="fused")
+    torch.cuda.synchronize()
+    assert sl.segmented_lora.launches == before + 1
+    want = sl.segmented_lora_ref(x, pools, table, scale, base)
+    assert got.dtype == dtype and got.shape == want.shape
+    # f32: the summation order only; bf16: one rounding of the same f32
+    # value (two with a base), so at most one bf16 step apart each.
+    tol = 2e-5 if dtype == torch.float32 else 2.0**-7
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * float(want.float().abs().max()))
+    # The empty slot adds nothing.
+    assert torch.equal(got[-1], torch.zeros_like(got[-1]) if base is None
+                       else base[-1])
+    assert torch.equal(got, sl.segmented_lora(x, pools, table, scale,
+                                              base=base, impl="fused"))
+
+
+def test_segmented_lora_kernel_refusals(dev):
+    from tpudl_torch.ops import segmented_lora as sl
+
+    x, pools, table, scale = _seg_inputs(dev, (2, 64), torch.float32, False,
+                                         4, 32)
+    with pytest.raises(ValueError, match="r_max <= 64"):
+        sl.segmented_lora(x, pools, torch.zeros(2, 65, dtype=torch.int32,
+                                                device=dev), scale)
+    with pytest.raises(ValueError, match="dtype torch.int64"):
+        sl.segmented_lora(x, pools, table.long(), scale)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        sl.segmented_lora(x.half(), pools, table, scale)
+    with pytest.raises(ValueError, match="does not match"):
+        sl.segmented_lora(torch.zeros(2, 63, device=dev), pools, table, scale)
+
+
+def test_tiny_multi_tenant_session_on_the_card(dev):
+    """LLAMA_TINY in f32 with three tenants (one of rank 2 under r_max 4)
+    served on the card through the kernels: exact tokens against the
+    merged-adapter reference, and the CPU plain path's tokens."""
+    from tpudl_torch.models.llama import LLAMA_TINY, LlamaForCausalLM, init_params
+    from tpudl_torch.ops import segmented_lora as sl
+    from tpudl_torch.serve import Request, ServeSession, assert_tenant_parity
+
+    cfg = LLAMA_TINY(dtype=torch.float32, max_seq_len=64)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    model = LlamaForCausalLM(cfg, device="meta")
+    rng = np.random.default_rng(1)
+    shapes = {"attention.q_proj": (128, 128), "attention.k_proj": (128, 64),
+              "attention.v_proj": (128, 64), "attention.o_proj": (128, 128),
+              "gate_proj": (128, 256), "up_proj": (128, 256),
+              "down_proj": (256, 128)}
+    adapters = {t: {f"model.layer_{i}.{site}": {
+        "lora_a": rng.normal(0, 1 / r, (fi, r)).astype(np.float32),
+        "lora_b": rng.normal(0, 0.05, (r, fo)).astype(np.float32)}
+        for i in range(cfg.num_layers) for site, (fi, fo) in shapes.items()}
+        for t, r in (("a", 4), ("b", 2), ("c", 4))}
+    reqs = [Request(f"r{i}", rng.integers(1, 512, size=int(
+        rng.integers(2, 9))).tolist(), max_new_tokens=int(rng.integers(3, 10)),
+        tenant=[None, "a", "b", "c"][i % 4]) for i in range(9)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        p = {k: v.to(device) for k, v in params.items()}
+        session = ServeSession.from_model(model, p, prompt_len=8, num_slots=3,
+                                          adapters=adapters, adapter_pages=9,
+                                          page_size=4)
+        before = sl.segmented_lora.launches
+        assert_tenant_parity(session, model, p, adapters,
+                             [Request(**r.__dict__) for r in reqs])
+        launched = sl.segmented_lora.launches - before
+        eng = session.engine
+        assert launched == (7 * cfg.num_layers * (eng.num_prefills
+                                                   + eng.num_decode_steps)
+                            if device == "cuda" else 0)
+        assert eng.adapter_pool.stats()["evictions"] > 0
+        out[device] = session.serve([Request(**r.__dict__) for r in reqs])
+    for r in reqs:
+        assert out["cuda"][r.request_id].tokens == out["cpu"][r.request_id].tokens

@@ -212,11 +212,16 @@ def test_sampling_is_batch_composition_independent(pair):
 
 def test_unported_serving_tiers_are_refused(pair, monkeypatch):
     _, _, tmodel, tparams = pair
-    monkeypatch.setenv("TPUDL_SERVE_PAGED", "1")
-    with pytest.raises(NotImplementedError, match="TPUDL_SERVE_PAGED"):
+    monkeypatch.setenv("TPUDL_SERVE_PREFIX_SHARE", "1")
+    with pytest.raises(NotImplementedError, match="TPUDL_SERVE_PREFIX_SHARE"):
         ServeSession.from_model(tmodel, tparams, prompt_len=PROMPT_LEN)
-    monkeypatch.setenv("TPUDL_SERVE_PAGED", "0")  # off, like tpudl reads it
-    ServeSession.from_model(tmodel, tparams, prompt_len=PROMPT_LEN)
+    monkeypatch.setenv("TPUDL_SERVE_PREFIX_SHARE", "0")  # off, as tpudl reads it
+    assert not ServeSession.from_model(tmodel, tparams,
+                                       prompt_len=PROMPT_LEN).engine.paged
+    # The paged cache is ported (tests/test_torch_tenant_lora.py).
+    monkeypatch.setenv("TPUDL_SERVE_PAGED", "1")
+    assert ServeSession.from_model(tmodel, tparams,
+                                   prompt_len=PROMPT_LEN).engine.paged
 
 
 def test_slot_cache_bookkeeping():

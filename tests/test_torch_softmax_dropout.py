@@ -235,9 +235,13 @@ def test_attend_fused_dispatch_and_refusals():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
     np.testing.assert_allclose(
         got.numpy(), attention.attend(*_t(q, k, v)).numpy(), atol=2e-4)
-    big = torch.zeros(1, 384, 2, 8)
-    with pytest.raises(NotImplementedError, match="queue B item 6"):
-        attention.attend(big, big, big, implementation="fused")
+    # At 256 < S <= 512 "fused" is the whole-row attention
+    # (tests/test_torch_fused_attention.py).
+    from tpudl_torch.ops.fused_attention import fused_attention
+
+    big = torch.randn(1, 384, 2, 8, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(attention.attend(big, big, big, implementation="fused"),
+                       fused_attention(big, big, big))
     # Past S = 512 "fused" is flash attention (tests/test_torch_flash_attention.py).
     big = torch.zeros(1, 640, 2, 32)
     assert torch.equal(attention.attend(big, big, big, implementation="fused"),

@@ -315,20 +315,21 @@ def _slice_batch(batch=8, seq=16, seed=0):
     }
 
 
-def _slice_states():
+def _slice_states(**overrides):
     """tpudl's state (fused_ops="force", attention_impl="fused": every
     Pallas kernel in interpret mode) and the port's (fused_ops=True,
     attention_impl="fused": the kernels' plain versions on the CPU), f32,
-    same weights, the sst2_bert_base optimizer at a constant rate."""
+    same weights, the sst2_bert_base optimizer at a constant rate.
+    ``overrides`` change ``_SLICE_CFG``."""
     from tpudl.config import get_config as jget
     from tpudl.models import bert as jbert
     from tpudl.train import create_train_state as jcreate
     from tpudl.train.optim import make_optimizer as jopt
     from tpudl_torch.models import bert
 
+    cfg = dict(_SLICE_CFG, **overrides)
     jmodel = jbert.BertForSequenceClassification(jbert.BertConfig(
-        dtype=jnp.float32, fused_ops="force", attention_impl="fused",
-        **_SLICE_CFG))
+        dtype=jnp.float32, fused_ops="force", attention_impl="fused", **cfg))
     jocfg = dataclasses.replace(jget("sst2_bert_base").optim,
                                 schedule="constant", warmup_steps=0)
     jstate = jcreate(jax.random.key(0), jmodel, jnp.zeros((1, 16), jnp.int32),
@@ -336,8 +337,8 @@ def _slice_states():
     ocfg = dataclasses.replace(get_config("sst2_bert_base").optim,
                                schedule="constant", warmup_steps=0)
     model = bert.BertForSequenceClassification(bert.BertConfig(
-        dtype=torch.float32, fused_ops=True, attention_impl="fused",
-        **_SLICE_CFG), device="meta")
+        dtype=torch.float32, fused_ops=True, attention_impl="fused", **cfg),
+        device="meta")
     state = create_train_state(
         0, model, optim.make_optimizer(ocfg),
         params=bert.params_from_tpudl(jstate.params, device="cpu"),
@@ -353,13 +354,28 @@ def test_fused_slice_train_step_matches_tpudl(one_thread):
     tests/test_fused_ops_integration.py:75-91): the loss rtol 1e-4 /
     atol 1e-5, the gradients and the parameters after the update rtol
     2e-3 / atol 2e-5."""
+    _check_fused_slice_step(_slice_states(), _slice_batch())
+
+
+def test_fused_slice_train_step_at_seq_384_matches_tpudl(one_thread):
+    """The same step on BERT_TINY (hidden 128, 2 layers, 2 heads, MLP
+    512, BERT's vocabulary and 512 positions) at S = 384, where
+    attention_impl="fused" runs the whole-row attention
+    (tpudl_torch.ops.fused_attention; tpudl's fused_attention in
+    interpret mode), batch 2, same bands."""
+    _check_fused_slice_step(
+        _slice_states(vocab_size=30522, hidden_size=128,
+                      intermediate_size=512, max_position_embeddings=512),
+        _slice_batch(batch=2, seq=384, seed=5))
+
+
+def _check_fused_slice_step(states, batch):
     from tpudl.train import cross_entropy_loss as jloss
     from tpudl.train import make_classification_train_step as jstep
     from tpudl_torch.models import bert
     from tpudl_torch.rng import fold_in
 
-    jmodel, jstate, state = _slice_states()
-    batch = _slice_batch()
+    jmodel, jstate, state = states
 
     def loss_fn(params):
         logits = jmodel.apply({"params": params},

@@ -26,9 +26,21 @@ KNOBS: Dict[str, str] = {
     "TPUDL_PROCESS_ID": "Process index tag on span records.",
     "TPUDL_SERVE_SLOTS": "Default slot count for ServeSession.from_model.",
     "TPUDL_SERVE_QUEUE_DEPTH": "Admission queue capacity.",
-    # Read only to refuse them: the paged/radix caches, speculation
-    # and weight quantization are not ported yet (ROADMAP queue A).
-    "TPUDL_SERVE_PAGED": "Paged KV cache (not ported: refused when set).",
+    "TPUDL_SERVE_PAGED": "Paged KV cache: per-slot page tables, no "
+                         "shared write horizon.",
+    "TPUDL_SERVE_PAGE_SIZE": "Paged KV cache: tokens per page (default 16).",
+    "TPUDL_SERVE_LORA_RANK": "Multi-tenant adapters: per-tenant rank budget "
+                             "(r_max); unset = the largest registered rank.",
+    "TPUDL_SERVE_LORA_PAGES": "Multi-tenant adapters: pool size in pages "
+                              "(one page = one rank unit; page 0 is the "
+                              "zero page); unset = 64 full-rank adapters + 1.",
+    "TPUDL_SERVE_LORA_DTYPE": "Multi-tenant adapters: page storage (int8 = "
+                              "quantized pages with per-page f32 scales); "
+                              "unset = f32 pages.",
+    # Read only to refuse them: int8 KV pages, the radix cache,
+    # speculation and weight quantization are not ported yet (ROADMAP
+    # queue A item 3).
+    "TPUDL_SERVE_KV_DTYPE": "int8 KV pages (not ported: refused when set).",
     "TPUDL_SERVE_PREFIX_SHARE": "Radix prefix sharing (not ported).",
     "TPUDL_SERVE_SPEC_K": "Speculative decoding window (not ported).",
     "TPUDL_SERVE_WEIGHT_DTYPE": "Serving weight quantization (not ported).",

@@ -1,4 +1,5 @@
-"""Model families of the port: the Llama decoder's serving path and BERT
+"""Model families of the port: the Llama decoder (serving over the dense
+or paged cache, with multi-tenant adapters; the LoRA fine-tune) and BERT
 for sequence classification (the fine-tune path)."""
 
 from tpudl_torch.models.bert import (  # noqa: F401

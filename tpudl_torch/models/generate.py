@@ -65,6 +65,108 @@ def decode_fn(model):
     return fn
 
 
+def _paged_view(dev, page_size, page_table, start, lens):
+    from tpudl_torch.models.paged import PagedView
+
+    def tensor(a):
+        return torch.as_tensor(a, device=dev).long()
+
+    return PagedView(tensor(page_table), tensor(start), tensor(lens),
+                     page_size)
+
+
+def _adapter_view(dev, apools, atable, ascale, impl):
+    from tpudl_torch.models.lora import AdapterView
+    from tpudl_torch.ops.norms import resolve_impl
+    from tpudl_torch.ops.segmented_lora import batch_args, check_table
+
+    # The kernel reads the pages the table names unchecked: hold the host
+    # table to the pool's page range before it goes to the device.
+    site = next(iter(next(iter(apools.values())).values()))
+    check_table(atable, site["a"].shape[0])
+    table = torch.as_tensor(atable, device=dev, dtype=torch.int32)
+    scale = torch.as_tensor(ascale, device=dev, dtype=torch.float32)
+    # Held to the kernel's contract once for the dispatch's 7 x L calls.
+    batch = batch_args(table, scale) if resolve_impl(impl, dev) else None
+    return AdapterView(apools, table, scale, impl, batch)
+
+
+def paged_decode_fn(model, page_size: int):
+    """THE paged single-token decode contract (tpudl_torch.models.paged):
+    ``(params, cache, token, position, page_table, start, lens) ->
+    (logits, cache)`` where ``cache`` holds per-layer page pools
+    (``pages_k``/``pages_v``, written in place) and the three small int
+    arrays are the host-owned addressing — the page table [B, P], the
+    first attendable logical position [B] and the logical write position
+    [B]. Built for the serve engine's paged mode
+    (tpudl_torch.serve.cache.PagedKVCache owns the pools and the
+    addressing)."""
+
+    @torch.no_grad()
+    def fn(params, cache, token, position, page_table, start, lens):
+        bind_params(model, params)
+        dev = params_device(params)
+        token = torch.as_tensor(token, device=dev)[:, None]
+        position = torch.as_tensor(position, device=dev)[:, None]
+        logits, cache = model(
+            token, torch.ones_like(token), decode=True, positions=position,
+            cache=cache, paged=_paged_view(dev, page_size, page_table, start,
+                                           lens))
+        return logits[:, -1, :], cache
+
+    return fn
+
+
+def lora_prefill_fn(model, impl: str = "auto"):
+    """THE multi-tenant prefill contract: ``(params, input_ids,
+    attention_mask, adapter_pools, adapter_table [1, r_max],
+    adapter_scale [1]) -> (last_logits, cache)``: the batch-1 prefill
+    with ONE tenant's adapter applied through the segmented-LoRA seam
+    (tpudl_torch.models.lora.AdapterView). An all-zero table row (every
+    entry on the never-written page 0) serves the plain base model, so
+    tenantless requests take the same path. ``impl`` is the segmented
+    kernel's dispatch seam."""
+
+    @torch.no_grad()
+    def fn(params, input_ids, attention_mask, apools, atable, ascale):
+        bind_params(model, params)
+        dev = params_device(params)
+        ids = torch.as_tensor(input_ids, device=dev)
+        mask = torch.as_tensor(attention_mask, device=dev)
+        positions = (mask.cumsum(-1) - 1).clamp_min(0)
+        logits, cache = model(
+            ids, mask, decode=True, positions=positions,
+            adapters=_adapter_view(dev, apools, atable, ascale, impl))
+        return logits[:, -1, :], cache
+
+    return fn
+
+
+def lora_paged_decode_fn(model, page_size: int, impl: str = "auto"):
+    """THE multi-tenant paged decode contract: ``paged_decode_fn``'s seven
+    arguments plus ``(adapter_pools, adapter_table [B, r_max],
+    adapter_scale [B])``: every slot applies ITS tenant's adapter pages
+    through one segmented-LoRA call per projection site
+    (tpudl_torch.ops.segmented_lora). Slots with no tenant carry an
+    all-zero table row and decode the plain base model."""
+
+    @torch.no_grad()
+    def fn(params, cache, token, position, page_table, start, lens, apools,
+           atable, ascale):
+        bind_params(model, params)
+        dev = params_device(params)
+        token = torch.as_tensor(token, device=dev)[:, None]
+        position = torch.as_tensor(position, device=dev)[:, None]
+        logits, cache = model(
+            token, torch.ones_like(token), decode=True, positions=position,
+            cache=cache,
+            paged=_paged_view(dev, page_size, page_table, start, lens),
+            adapters=_adapter_view(dev, apools, atable, ascale, impl))
+        return logits[:, -1, :], cache
+
+    return fn
+
+
 _NEG_INF = -1e30
 
 

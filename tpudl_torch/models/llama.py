@@ -1,9 +1,16 @@
 """Llama-family decoder (RoPE + RMSNorm + SwiGLU + GQA) in PyTorch: the
-dense decode path, the non-decode forward and the LoRA classifier.
+dense and paged decode paths, the non-decode forward, the LoRA
+classifier and the multi-tenant adapter hooks.
 
 The port's counterpart of tpudl.models.llama. Serving applies the model
 with ``decode=True`` for prefill and decode alike (the dense KV-cache
-branch of ``LlamaAttention``); training applies it with ``decode=False``
+branch of ``LlamaAttention``, or with ``paged=`` a
+tpudl_torch.models.paged.PagedView, the paged branch: k/v written into
+and gathered from page pools by a host-owned page table, each slot at
+its own length). ``adapters=`` (a tpudl_torch.models.lora.AdapterView)
+adds each slot's own LoRA delta after every projection (q/k/v/o,
+gate/up/down) through one segmented-LoRA call per site, the base
+weights resident once. Training applies it with ``decode=False``
 (GQA heads expanded with ``repeat_interleave``, as ``jnp.repeat``, then
 ``attend`` with the causal flag and ``cfg.attention_impl``: "flash" runs
 the flash-attention kernels). ``LlamaForSequenceClassification`` pools
@@ -52,7 +59,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpudl_torch.models.lora import LoRALinear, is_lora_param
+from tpudl_torch.models.lora import LoRALinear, adapter_delta, is_lora_param
+from tpudl_torch.models.paged import (
+    paged_attend_mask,
+    paged_gather,
+    paged_write,
+)
 from tpudl_torch.ops.attention import MASK_VALUE, attend
 from tpudl_torch.ops.mlp_fused import swiglu
 from tpudl_torch.ops.norms import fused_ops_impl, rms_norm
@@ -210,6 +222,14 @@ def _linear(cfg, d_in, d_out, device):
     return nn.Linear(d_in, d_out, bias=False, device=device, dtype=cfg.dtype)
 
 
+def _adapted(y, adapters, site, x):
+    """``y`` plus the multi-tenant adapter delta of ``site`` (tpudl's
+    ``y + adapter_delta(...)``, the add done by the same segmented-LoRA
+    call); ``y`` itself, with no extra pass, where no view or no pool
+    adapts the site."""
+    return adapter_delta(adapters, site, x, base=y)
+
+
 def init_cache(cfg: LlamaConfig, batch_size: int, device="cuda") -> dict:
     """A zeroed decode cache for ``batch_size`` rows (all slots invalid,
     write index 0) — what tpudl's flax cache collection starts as.
@@ -238,22 +258,34 @@ class LlamaAttention(nn.Module):
         self.v_proj = _linear(cfg, cfg.hidden_size, cfg.num_kv_heads * hd, device)
         self.o_proj = _linear(cfg, cfg.num_heads * hd, cfg.hidden_size, device)
 
-    def forward(self, hidden, rope_cs, causal, kv_mask, cache):
-        """With a ``cache`` (this layer's dict), the dense decode branch:
-        write this chunk's k/v/validity at the cache's write index, attend
-        to slots that are causally prior in WRITE order and valid;
-        ``causal`` is the [1, 1, S, T] slot-order triangle for this chunk.
-        Without one (``cache=None``), the non-decode branch: kv heads
-        expanded to the query heads, then ``attend`` with the [B, S]
-        validity row and the causal flag; returns ``(out, None)``."""
+    def forward(self, hidden, rope_cs, causal, kv_mask, cache, paged=None,
+                adapters=None):
+        """With a ``cache`` (this layer's dict) and a ``paged`` view
+        (tpudl_torch.models.paged), the paged decode branch: write this
+        chunk's k/v into the pool pages the view addresses, attend to each
+        slot's logical positions [start, lens + j]. With a ``cache`` and
+        no view, the dense decode branch: write this chunk's
+        k/v/validity at the cache's write index, attend to slots that are
+        causally prior in WRITE order and valid; ``causal`` is the [1, 1,
+        S, T] slot-order triangle for this chunk. Without a cache, the
+        non-decode branch: kv heads expanded to the query heads, then
+        ``attend`` with the [B, S] validity row and the causal flag;
+        returns ``(out, None)``. ``adapters`` (this layer's AdapterView)
+        adds each slot's own LoRA delta after every projection."""
         cfg = self.cfg
         b, s, _ = hidden.shape
         hd = cfg.head_dim
-        q = self.q_proj(hidden).view(b, s, cfg.num_heads, hd)
-        k = self.k_proj(hidden).view(b, s, cfg.num_kv_heads, hd)
-        v = self.v_proj(hidden).view(b, s, cfg.num_kv_heads, hd)
-        q = apply_rope(q, *rope_cs)
-        k = apply_rope(k, *rope_cs)
+        q = _adapted(self.q_proj(hidden), adapters, "q_proj", hidden)
+        k = _adapted(self.k_proj(hidden), adapters, "k_proj", hidden)
+        v = _adapted(self.v_proj(hidden), adapters, "v_proj", hidden)
+        q = apply_rope(q.view(b, s, cfg.num_heads, hd), *rope_cs)
+        k = apply_rope(k.view(b, s, cfg.num_kv_heads, hd), *rope_cs)
+        v = v.view(b, s, cfg.num_kv_heads, hd)
+
+        def out_proj(ctx):
+            ctx = ctx.reshape(b, s, cfg.num_heads * hd)
+            return _adapted(self.o_proj(ctx), adapters, "o_proj", ctx)
+
         if cache is None:
             if cfg.num_kv_heads != cfg.num_heads:
                 reps = cfg.num_heads // cfg.num_kv_heads
@@ -261,7 +293,16 @@ class LlamaAttention(nn.Module):
                 v = v.repeat_interleave(reps, dim=2)
             ctx = attend(q, k, v, mask=kv_mask, causal=True,
                          implementation=cfg.attention_impl)
-            return self.o_proj(ctx.reshape(b, s, cfg.num_heads * hd)), None
+            return out_proj(ctx), None
+        if paged is not None:
+            # Prefill stays dense batch-1; PagedKVCache.seat scatters its
+            # row cache into pages. Chunks of any length step together.
+            pk = paged_write(cache["pages_k"], k, paged)
+            pv = paged_write(cache["pages_v"], v, paged)
+            ctx = _gqa_decode_attention(q, paged_gather(pk, paged),
+                                        paged_gather(pv, paged),
+                                        paged_attend_mask(paged, chunk=s))
+            return out_proj(ctx), {"pages_k": pk, "pages_v": pv}
 
         ck, cv, cvalid = cache["k"], cache["v"], cache["valid"]
         start = cache["index"]
@@ -277,8 +318,8 @@ class LlamaAttention(nn.Module):
         mask = causal & cvalid[:, None, None, :]
         # Grouped-query attention against the UNEXPANDED cache.
         ctx = _gqa_decode_attention(q, ck, cv, mask)
-        out = self.o_proj(ctx.reshape(b, s, cfg.num_heads * hd))
-        return out, {"k": ck, "v": cv, "valid": cvalid, "index": start + s}
+        return out_proj(ctx), {"k": ck, "v": cv, "valid": cvalid,
+                               "index": start + s}
 
 
 class LlamaBlock(nn.Module):
@@ -294,16 +335,20 @@ class LlamaBlock(nn.Module):
         self.up_proj = _linear(cfg, h, f, device)
         self.down_proj = _linear(cfg, f, h, device)
 
-    def forward(self, hidden, rope_cs, causal, kv_mask, cache):
+    def forward(self, hidden, rope_cs, causal, kv_mask, cache, paged=None,
+                adapters=None):
         attn, attn_cache = self.attention(
             self.input_norm(hidden), rope_cs, causal, kv_mask,
-            None if cache is None else cache["attention"],
+            None if cache is None else cache["attention"], paged, adapters,
         )
         # The attention residual add rides inside the post-attention norm
         # kernel; the summed value comes back as the carried residual.
         x, hidden = self.post_attention_norm(attn, residual=hidden)
-        act = swiglu(self.gate_proj(x), self.up_proj(x), impl=self.impl)
-        out = hidden + self.down_proj(act)
+        gate = _adapted(self.gate_proj(x), adapters, "gate_proj", x)
+        up = _adapted(self.up_proj(x), adapters, "up_proj", x)
+        act = swiglu(gate, up, impl=self.impl)
+        out = hidden + _adapted(self.down_proj(act), adapters, "down_proj",
+                                act)
         return out, None if cache is None else {"attention": attn_cache}
 
 
@@ -324,11 +369,18 @@ class LlamaModel(nn.Module):
         )
 
     def forward(self, input_ids, attention_mask=None, decode=False,
-                positions=None, cache=None):
+                positions=None, cache=None, paged=None, adapters=None):
         """``(hidden [B, S, hidden], cache)``: with ``decode``, the cache
-        advanced by this chunk (a new zeroed one when ``cache`` is None);
-        without, the non-decode forward and None."""
+        advanced by this chunk (a new zeroed one when ``cache`` is None;
+        with a ``paged`` view, the page pools written in place); without,
+        the non-decode forward and None. ``adapters`` (an AdapterView)
+        applies each slot's adapter at every projection."""
         cfg = self.cfg
+
+        def layer_view(i):
+            return None if adapters is None else adapters.for_layer(
+                f"layer_{i}")
+
         kv_mask = attention_mask
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
@@ -339,8 +391,23 @@ class LlamaModel(nn.Module):
             rope_cs = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
             for i in range(cfg.num_layers):
                 x, _ = getattr(self, f"layer_{i}")(x, rope_cs, None, kv_mask,
-                                                   None)
+                                                   None, None, layer_view(i))
             return self.final_norm(x), None
+        if paged is not None:
+            if cache is None:
+                raise ValueError(
+                    "paged decode requires the page pools (the cache "
+                    "tpudl_torch.serve.cache.PagedKVCache builds): there is "
+                    "no shape information to make one here")
+            x = self.embed_tokens(input_ids.long()).to(cfg.dtype)
+            rope_cs = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+            new_cache = {}
+            for i in range(cfg.num_layers):
+                name = f"layer_{i}"
+                x, new_cache[name] = getattr(self, name)(
+                    x, rope_cs, None, kv_mask, cache[name], paged,
+                    layer_view(i))
+            return self.final_norm(x), new_cache
         if cache is None:
             cache = init_cache(cfg, input_ids.shape[0],
                                self.embed_tokens.weight.device)["model"]
@@ -360,7 +427,7 @@ class LlamaModel(nn.Module):
         for i in range(cfg.num_layers):
             name = f"layer_{i}"
             x, new_cache[name] = getattr(self, name)(
-                x, rope_cs, causal, kv_mask, cache[name]
+                x, rope_cs, causal, kv_mask, cache[name], None, layer_view(i)
             )
         return self.final_norm(x), new_cache
 
@@ -385,10 +452,10 @@ class LlamaForCausalLM(nn.Module):
         self._bound_params = None
 
     def forward(self, input_ids, attention_mask=None, decode=False,
-                positions=None, cache=None):
+                positions=None, cache=None, paged=None, adapters=None):
         x, model_cache = self.model(
             input_ids, attention_mask, decode, positions,
-            None if cache is None else cache["model"],
+            None if cache is None else cache["model"], paged, adapters,
         )
         logits = F.linear(x.float(), self.lm_head.weight)
         return logits, None if model_cache is None else {"model": model_cache}

@@ -1,13 +1,16 @@
 """Ops with hand-written Hopper kernels (``csrc/``) and their plain
 PyTorch versions: LayerNorm and RMSNorm (+residual) forward and backward,
-bias+GeLU forward and backward, SwiGLU, masked softmax + attention
-dropout forward and backward (``softmax_dropout``, with the Philox keep
-mask of ``keep_mask``), softmax cross-entropy forward and backward; and
-the plain ops around them (attention, dropout).
+bias+GeLU forward and backward, SwiGLU forward and backward, masked
+softmax + attention dropout forward and backward (``softmax_dropout``,
+with the Philox keep mask of ``keep_mask``), flash attention
+(``flash_attention``), whole-row attention at S <= 512
+(``fused_attention``), softmax cross-entropy forward and backward, and
+the segmented multi-tenant LoRA delta (``segmented_lora``); and the
+plain ops around them (attention, dropout).
 
-``softmax_dropout`` is reached as the module
-``tpudl_torch.ops.softmax_dropout``; its entry points are not re-exported
-here, so the module name stays importable."""
+``softmax_dropout`` and the attention and LoRA modules are reached as
+modules (``tpudl_torch.ops.softmax_dropout`` ...); their entry points are
+not re-exported here, so the module names stay importable."""
 
 from tpudl_torch.ops.cross_entropy import (  # noqa: F401
     softmax_cross_entropy,

@@ -3,11 +3,11 @@
 The port's counterpart of tpudl.ops.attention. ``dot_product_attention``
 is the reference implementation (bf16 batched products, f32 softmax) and
 ``attend`` dispatches by implementation name: ``"reference"``,
-``"fused"`` at S <= 256 (tpudl_torch.ops.softmax_dropout's
-``hybrid_attention``) and above 512 (flash, as tpudl falls through), and
-``"flash"`` (tpudl_torch.ops.flash_attention) are ported; ``"fused"`` at
-256 < S <= 512, ``"ring"`` and ``"ulysses"`` raise until their kernels
-land.
+``"fused"`` (at S <= 256 tpudl_torch.ops.softmax_dropout's
+``hybrid_attention``, up to 512 tpudl_torch.ops.fused_attention's
+whole-row kernels, above 512 flash, as tpudl dispatches), and
+``"flash"`` (tpudl_torch.ops.flash_attention) are ported; ``"ring"`` and
+``"ulysses"`` raise until their kernels land.
 
 Shapes follow the JAX package:
   q, k, v: [batch, seq, heads, head_dim]   (BSHD)
@@ -28,8 +28,7 @@ from tpudl_torch.ops.dropout import dropout_keep_mask, quantized_rate
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 #: Implementations of tpudl's ``attend`` not ported yet, with the
-#: ROADMAP item that ports each. ``"fused"`` is not ported at
-#: 256 < S <= 512 (see ``attend``).
+#: ROADMAP item that ports each.
 _NOT_PORTED = {
     "ring": "queue A item 10 (ring attention)",
     "ulysses": "queue A item 10 (Ulysses attention)",
@@ -138,10 +137,10 @@ def attend(
     - "reference": this module's batched-product attention;
     - "fused": at S <= 256, ``hybrid_attention`` (plain batched products
       around the softmax+dropout kernel on CUDA tensors, its plain
-      version on CPU tensors), as tpudl's "fused" at short sequence;
-      above 512 it falls through to "flash", as tpudl's does; in between
-      it raises NotImplementedError naming its ROADMAP item (the
-      whole-attention kernel);
+      version on CPU tensors), as tpudl's "fused" at short sequence; up
+      to S = 512, ``fused_attention`` (the whole-row kernels; their
+      plain versions on CPU tensors); above 512 it falls through to
+      "flash", as tpudl's does;
     - "flash": ``flash_attention`` (the kernels on CUDA tensors, their
       plain versions on CPU tensors);
     - "ring", "ulysses" raise NotImplementedError naming their item.
@@ -174,11 +173,12 @@ def attend(
                 q, k, v, mask=mask, causal=causal, dropout_rate=dropout_rate,
                 dropout_rng=dropout_rng,
             )
-        if seq <= 512:
-            raise NotImplementedError(
-                f"attention implementation 'fused' at S={seq} (256 < S <= "
-                f"512) is not ported to tpudl_torch yet: ROADMAP queue B "
-                f"item 6 (the whole-attention kernel, sites 12-13)"
+        from tpudl_torch.ops.fused_attention import MAX_SEQ, fused_attention
+
+        if seq <= MAX_SEQ:
+            return fused_attention(
+                q, k, v, mask=mask, causal=causal, dropout_rate=dropout_rate,
+                dropout_rng=dropout_rng,
             )
         implementation = "flash"
     if implementation == "flash":

@@ -1,6 +1,8 @@
 """Request-level serving API: ``Request`` in, ``Result`` out.
 
-The port's counterpart of tpudl.serve.api, dense live-model sessions:
+The port's counterpart of tpudl.serve.api: live-model sessions over the
+dense cache, the paged cache, and the paged cache with many LoRA
+tenants (``adapters=``):
 
     session = ServeSession.from_model(model, params, prompt_len=64)
     session.submit(Request("r0", prompt_ids, max_new_tokens=32))
@@ -12,12 +14,16 @@ request that can NEVER be seated is a caller bug, not load. Overload is
 data, not an exception: a full queue or a missed deadline produces a
 ``Result`` with finish_reason ``shed_capacity`` / ``shed_timeout``.
 
-Knobs: ``TPUDL_SERVE_SLOTS`` (default slot count for ``from_model``) and
-``TPUDL_SERVE_QUEUE_DEPTH`` (admission queue capacity). The knobs of the
-tiers not ported yet (``TPUDL_SERVE_PAGED``, ``TPUDL_SERVE_PREFIX_SHARE``,
-``TPUDL_SERVE_SPEC_K``, ``TPUDL_SERVE_WEIGHT_DTYPE``) are refused when
-switched on, rather than served densely behind the operator's back. Artifact sessions
-(``from_artifacts``) wait for the export slice.
+Knobs: ``TPUDL_SERVE_SLOTS`` (default slot count for ``from_model``),
+``TPUDL_SERVE_QUEUE_DEPTH`` (admission queue capacity),
+``TPUDL_SERVE_PAGED`` and ``TPUDL_SERVE_PAGE_SIZE`` (the paged cache),
+``TPUDL_SERVE_LORA_RANK``, ``TPUDL_SERVE_LORA_PAGES`` and
+``TPUDL_SERVE_LORA_DTYPE`` (the adapter pool). The knobs of the tiers not
+ported yet (``TPUDL_SERVE_KV_DTYPE``, ``TPUDL_SERVE_PREFIX_SHARE``,
+``TPUDL_SERVE_SPEC_K``, ``TPUDL_SERVE_WEIGHT_DTYPE``, and the arguments of
+the same names) are refused when switched on, rather than served without
+them behind the operator's back. Artifact sessions (``from_artifacts``)
+wait for the export slice.
 
 Streaming: ``session.stream(requests)`` yields ``StreamChunk``s as
 tokens are selected; a request's concatenated chunk tokens equal the
@@ -41,15 +47,23 @@ from tpudl_torch.serve.cache import SlotCache
 from tpudl_torch.serve.queue import CAT_SERVE_REQUEST, AdmissionQueue
 
 
-def _unported_tiers_requested() -> List[str]:
-    """The serving-tier knobs that are switched on but not ported yet."""
+def _unported_tiers_requested(kv_dtype=None, prefix_share=None,
+                              spec_k=None, weight_dtype=None) -> List[str]:
+    """The serving tiers switched on (by argument, else by knob) that are
+    not ported yet."""
     return [
         name for name, on in (
-            ("TPUDL_SERVE_PAGED", env_flag("TPUDL_SERVE_PAGED")),
-            ("TPUDL_SERVE_PREFIX_SHARE", env_flag("TPUDL_SERVE_PREFIX_SHARE")),
-            ("TPUDL_SERVE_SPEC_K", bool(env_int("TPUDL_SERVE_SPEC_K"))),
-            ("TPUDL_SERVE_WEIGHT_DTYPE",
-             env_str("TPUDL_SERVE_WEIGHT_DTYPE") is not None),
+            ("kv_dtype / TPUDL_SERVE_KV_DTYPE",
+             (kv_dtype or env_str("TPUDL_SERVE_KV_DTYPE")) is not None),
+            ("prefix_share / TPUDL_SERVE_PREFIX_SHARE",
+             prefix_share if prefix_share is not None
+             else env_flag("TPUDL_SERVE_PREFIX_SHARE")),
+            ("spec_k / TPUDL_SERVE_SPEC_K",
+             bool(spec_k if spec_k is not None
+                  else env_int("TPUDL_SERVE_SPEC_K"))),
+            ("weight_dtype / TPUDL_SERVE_WEIGHT_DTYPE",
+             (weight_dtype or env_str("TPUDL_SERVE_WEIGHT_DTYPE"))
+             is not None),
         ) if on
     ]
 
@@ -62,8 +76,9 @@ class Request:
     composition; ``temperature=0`` is greedy argmax, identical to
     ``generate()``. ``deadline_s`` is relative seconds from submit — a
     request not SEATED by then is shed (running requests are never
-    aborted). tpudl's ``session_key`` and ``tenant`` fields wait for the
-    router and adapter serving that read them."""
+    aborted). ``tenant`` picks the LoRA adapter a multi-tenant session
+    applies (None = the plain base model). tpudl's ``session_key`` waits
+    for the router that reads it."""
 
     request_id: Any
     input_ids: Sequence[int]
@@ -73,6 +88,7 @@ class Request:
     seed: int = 0
     priority: int = 0
     deadline_s: Optional[float] = None
+    tenant: Optional[Any] = None
 
 
 @dataclasses.dataclass
@@ -152,6 +168,7 @@ class ServeSession:
         clock: Callable[[], float] = time.monotonic,
         continuous: bool = True,
         cache: Optional[SlotCache] = None,
+        adapter_pool=None,
     ):
         # Deferred import: engine imports Request/Result from this module.
         from tpudl_torch.serve.engine import Engine
@@ -167,6 +184,7 @@ class ServeSession:
         self.engine = Engine(
             prefill_call, decode_call, params, cache, self.queue,
             prompt_len, clock=clock, continuous=continuous,
+            adapter_pool=adapter_pool,
         )
         self._pending_ids: set = set()
         #: Weakref to the live stream() generator (see stream()).
@@ -181,21 +199,61 @@ class ServeSession:
         params,
         prompt_len: int,
         num_slots: Optional[int] = None,
+        paged: Optional[bool] = None,
+        page_size: Optional[int] = None,
+        kv_dtype: Optional[str] = None,
+        num_pages: Optional[int] = None,
+        weight_dtype: Optional[str] = None,
+        prefix_share: Optional[bool] = None,
+        spec_k: Optional[int] = None,
+        adapters: Optional[Dict[Any, Any]] = None,
+        adapter_rank_max: Optional[int] = None,
+        adapter_pages: Optional[int] = None,
+        adapter_dtype: Optional[str] = None,
+        adapter_alpha: float = 16.0,
+        adapter_impl: str = "auto",
         **kwargs,
     ) -> "ServeSession":
         """Live-model session over a LlamaForCausalLM and its state_dict:
         the batch-1 prefill and the ``num_slots``-batched decode
-        contracts, and a zeroed dense cache on the params' device."""
-        from tpudl_torch.models.generate import decode_fn, prefill_fn
+        contracts over a zeroed cache on the params' device.
+
+        ``paged=True`` (or ``TPUDL_SERVE_PAGED=1``) swaps the dense
+        fixed-slot cache for the paged layout (per-slot page tables, no
+        shared write horizon, so no rollovers); ``page_size``
+        (``TPUDL_SERVE_PAGE_SIZE``, default 16) and ``num_pages``
+        (default: capacity parity with the dense cache) size the pool.
+
+        ``adapters={tenant: lora_tree}`` turns on multi-tenant adapter
+        serving (tpudl_torch.serve.lora): the base model stays resident
+        once while every tenant's LoRA factors live in paged pools —
+        loaded lazily, evicted LRU at refcount 0 under pressure, reloaded
+        transparently — and each call applies every slot's own adapter
+        through ONE segmented-LoRA call per projection site
+        (tpudl_torch.ops.segmented_lora). ``Request.tenant`` picks the
+        adapter (None = the plain base). It turns ``paged`` on.
+        ``adapter_rank_max`` (``TPUDL_SERVE_LORA_RANK``; default the
+        largest registered rank) bounds per-tenant rank,
+        ``adapter_pages`` (``TPUDL_SERVE_LORA_PAGES``) sizes the pool,
+        ``adapter_dtype="int8"`` (``TPUDL_SERVE_LORA_DTYPE``) stores
+        pages quantized with per-page dequant scales, ``adapter_alpha``
+        is every adapter's alpha and ``adapter_impl`` the segmented
+        kernel's dispatch seam. Parity contract:
+        ``tpudl_torch.serve.lora.assert_tenant_parity``.
+
+        ``prefix_share`` and ``spec_k`` with adapters raise ValueError,
+        as tpudl's do; ``kv_dtype``, ``prefix_share``, ``spec_k`` and
+        ``weight_dtype`` (or their knobs) raise NotImplementedError: those
+        tiers are not ported yet (ROADMAP queue A item 3)."""
+        from tpudl_torch.models.generate import (
+            decode_fn,
+            lora_paged_decode_fn,
+            lora_prefill_fn,
+            paged_decode_fn,
+            prefill_fn,
+        )
         from tpudl_torch.models.llama import init_cache, params_device
 
-        unported = _unported_tiers_requested()
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)} switched on, but tpudl_torch serves "
-                f"the dense cache only (the paged/radix caches, "
-                f"speculation and weight quantization are not ported yet)"
-            )
         num_slots = (
             num_slots
             if num_slots is not None
@@ -203,12 +261,82 @@ class ServeSession:
         )
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+        if paged is None:
+            paged = env_flag("TPUDL_SERVE_PAGED")
+        if adapters is not None:
+            if not adapters:
+                raise ValueError("adapters={} registers no tenants — pass "
+                                 "None to serve the plain base model")
+            # Adapter serving rides the paged substrate; a dense request
+            # for it is a configuration error, not a silent downgrade.
+            paged = True
+            if prefix_share if prefix_share is not None else env_flag(
+                    "TPUDL_SERVE_PREFIX_SHARE"):
+                raise ValueError(
+                    "prefix_share cannot compose with per-tenant adapters: "
+                    "k/v projections are tenant-adapted, so identical "
+                    "prompt tokens produce DIFFERENT KV per tenant — a "
+                    "shared page would be wrong for one of them")
+            if spec_k if spec_k is not None else env_int(
+                    "TPUDL_SERVE_SPEC_K"):
+                raise ValueError("spec_k cannot compose with per-tenant "
+                                 "adapters yet (the draft path has no "
+                                 "adapter view)")
+        unported = _unported_tiers_requested(kv_dtype, prefix_share, spec_k,
+                                             weight_dtype)
+        if unported:
+            raise NotImplementedError(
+                f"{', '.join(unported)} switched on, but tpudl_torch serves "
+                f"the dense and paged caches only (int8 KV, the radix cache, "
+                f"speculation and weight quantization are not ported yet: "
+                f"ROADMAP queue A item 3)")
+        device = params_device(params)
         template = init_cache(model.cfg, num_slots, device="meta")
-        cache = SlotCache(template, device=params_device(params))
+        prefill = prefill_fn(model)
+        if not paged:
+            if page_size is not None or num_pages is not None:
+                raise ValueError("page_size/num_pages require paged=True")
+            cache = SlotCache(template, device=device)
+            return cls(prefill, decode_fn(model), params, template,
+                       prompt_len, cache=cache, **kwargs)
+        from tpudl_torch.serve.cache import PagedKVCache
+
+        cache = PagedKVCache(
+            template,
+            page_size=(page_size if page_size is not None
+                       else env_int("TPUDL_SERVE_PAGE_SIZE", 16, min_value=1)),
+            num_pages=num_pages, device=device)
+        if adapters is None:
+            return cls(prefill, paged_decode_fn(model, cache.page_size),
+                       params, template, prompt_len, cache=cache, **kwargs)
+        from tpudl_torch.models.lora import as_flat_adapters
+        from tpudl_torch.serve.lora import AdapterPool
+
+        if adapter_rank_max is None:
+            adapter_rank_max = env_int("TPUDL_SERVE_LORA_RANK")
+        if adapter_pages is None:
+            adapter_pages = env_int("TPUDL_SERVE_LORA_PAGES")
+        if adapter_dtype is None:
+            adapter_dtype = env_str("TPUDL_SERVE_LORA_DTYPE")
+        if adapter_rank_max is None:
+            # Default rank budget: the largest registered adapter (ranks
+            # validate again at register).
+            ranks = [int(f["lora_a"].shape[-1])
+                     for tree in adapters.values()
+                     for f in as_flat_adapters(tree).values()]
+            if not ranks:
+                raise ValueError("no lora_a/lora_b leaves in any adapter")
+            adapter_rank_max = max(ranks)
+        pool = AdapterPool(model.cfg, r_max=adapter_rank_max,
+                           num_slots=num_slots, num_pages=adapter_pages,
+                           dtype=adapter_dtype, device=device)
+        for tenant, tree in adapters.items():
+            pool.register(tenant, tree, alpha=adapter_alpha)
         return cls(
-            prefill_fn(model), decode_fn(model), params, template,
-            prompt_len, cache=cache, **kwargs,
-        )
+            lora_prefill_fn(model, impl=adapter_impl),
+            lora_paged_decode_fn(model, cache.page_size, impl=adapter_impl),
+            params, template, prompt_len, cache=cache, adapter_pool=pool,
+            **kwargs)
 
     # -- introspection -------------------------------------------------
 
@@ -235,6 +363,18 @@ class ServeSession:
         if rid in self._pending_ids or rid in self.engine.results:
             raise ValueError(f"duplicate request_id {rid!r}")
         validate_request(request, self.prompt_len, self.max_seq_len)
+        if request.tenant is not None:
+            pool = self.engine.adapter_pool
+            if pool is None:
+                raise ValueError(
+                    f"request {rid!r} names tenant {request.tenant!r} but "
+                    f"this session serves no adapters (build it with "
+                    f"ServeSession.from_model(adapters=...))")
+            if not pool.knows(request.tenant):
+                raise ValueError(
+                    f"unknown tenant {request.tenant!r} — register its "
+                    f"adapter before submitting (known: "
+                    f"{sorted(map(str, pool.tenants))})")
         self._pending_ids.add(rid)
         admitted = self.queue.push(
             request, priority=request.priority, deadline_s=request.deadline_s

@@ -1,8 +1,9 @@
-"""KV-slot manager: the fixed-shape cache behind the engine.
+"""KV-slot managers: the fixed-shape caches behind the engine.
 
-The port's counterpart of tpudl.serve.cache's dense ``SlotCache`` (the
-paged, int8 and radix caches and migration wait for later slices). The
-engine's decode call runs on a fixed-slot cache (``[num_slots,
+The port's counterpart of tpudl.serve.cache: the dense ``SlotCache`` and
+the paged ``PagedKVCache`` (below; its int8 pages, the radix prefix tree
+and migration wait for ROADMAP queue A item 3). The
+engine's dense decode call runs on a fixed-slot cache (``[num_slots,
 max_seq_len, ...]`` per layer, the layout
 tpudl_torch.models.llama.init_cache builds). Continuous batching never
 reshapes it — requests come and go by mutating WHICH rows mean
@@ -167,3 +168,264 @@ class SlotCache:
             if _is_valid_leaf(leaf):
                 return leaf.sum(-1).cpu().numpy()
         raise AssertionError("unreachable: ctor checked a valid leaf")
+
+
+# ---------------------------------------------------------------------------
+# The paged cache
+# ---------------------------------------------------------------------------
+
+#: The ROADMAP item that ports the paged cache's other tiers.
+_ITEM = "ROADMAP queue A item 3"
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(
+        f"{what} is not ported to tpudl_torch yet ({_ITEM}: the radix "
+        f"prefix cache, int8 KV pages and migration)")
+
+
+class RadixPrefixTree:
+    """tpudl's radix prefix tree (copy-on-write sharing of prompt pages):
+    not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        _not_ported("RadixPrefixTree (prefix sharing)")
+
+
+def _attn_caches(tree: Any, path=()):
+    """(path, attention dict) pairs of a decode cache: the dicts holding
+    a layer's k/v (dense) or pages_k/pages_v (paged)."""
+    if isinstance(tree, dict):
+        if "k" in tree or "pages_k" in tree:
+            yield path, tree
+            return
+        for key, value in tree.items():
+            yield from _attn_caches(value, path + (key,))
+
+
+def _at(tree: Any, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+class PagedKVCache:
+    """The paged successor to ``SlotCache`` (tpudl's, without the int8,
+    radix and migration tiers).
+
+    KV lives in per-layer page pools ``[num_pages, page_size, Hkv, D]``;
+    a slot owns the pages its HOST-side page-table row maps. What the
+    engine builds on:
+
+    - **No shared write index**: each slot carries its own length, so
+      the dense cache's horizon rollover does not exist here.
+    - **Reservation-based admission**: ``seat`` reserves every page a
+      request could need (``ceil((prompt window + max_new_tokens) /
+      page_size)``) up front, so a seated request never strands
+      mid-decode; ``fits_tokens`` is the admission predicate.
+    - **Physical page 0 is the trash page**: free and idle slots' rows
+      point at it, so their ride-along decode writes land where no live
+      slot reads.
+
+    ``template`` is the dense decode cache template (``init_cache(cfg,
+    num_slots, device="meta")``); the pools take its layers, k/v dtypes
+    and head shapes and are made zeroed on ``device``. The addressing
+    (page table, per-slot start and length) is host numpy, shipped into
+    each decode call (``dispatch_args``). Pool writes are in place."""
+
+    #: Marks the paged engine path (Engine branches on this).
+    paged = True
+
+    def __init__(
+        self,
+        template: Any,
+        page_size: int = 16,
+        num_pages: Optional[int] = None,
+        kv_dtype: Optional[str] = None,
+        prefix_share: bool = False,
+        device: Optional[torch.device] = None,
+    ):
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"kv_dtype must be None (store dtype) or 'int8', "
+                             f"got {kv_dtype!r}")
+        if kv_dtype == "int8":
+            _not_ported("kv_dtype='int8' (quantized KV pages)")
+        if prefix_share:
+            _not_ported("prefix_share (the radix prefix cache)")
+        valid = [leaf for leaf in _leaves(template) if _is_valid_leaf(leaf)]
+        if not valid:
+            raise ValueError(
+                "cache template has no [num_slots, max_seq_len] bool "
+                "validity leaf — not a tpudl_torch decode cache")
+        self.num_slots = int(valid[0].shape[0])
+        self.model_seq_len = int(valid[0].shape[1])
+        self.page_size = int(page_size)
+        self.quantized = False
+        self.pages_per_slot = -(-self.model_seq_len // self.page_size)
+        if num_pages is None:
+            # Capacity parity with the dense cache (+1 trash page).
+            num_pages = self.num_slots * self.pages_per_slot + 1
+        if num_pages < self.pages_per_slot + 1:
+            raise ValueError(
+                f"num_pages={num_pages} cannot hold even one slot "
+                f"(pages_per_slot={self.pages_per_slot} + trash page)")
+        self.num_pages = int(num_pages)
+        self.cache: dict = {}
+        for path, attn in _attn_caches(template):
+            node = self.cache
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = {
+                name: torch.zeros(
+                    (self.num_pages, self.page_size) + tuple(attn[kv].shape[2:]),
+                    dtype=attn[kv].dtype,
+                    device=attn[kv].device if device is None else device)
+                for name, kv in (("pages_k", "k"), ("pages_v", "v"))}
+        # Host-owned addressing: page 0 is never allocated.
+        self._free: list = list(range(1, self.num_pages))
+        self._reserved: dict = {}
+        self.page_table = np.zeros((self.num_slots, self.pages_per_slot),
+                                   np.int32)
+        self.start = np.zeros((self.num_slots,), np.int32)
+        self.lens = np.zeros((self.num_slots,), np.int32)
+
+    # -- capacity ------------------------------------------------------
+
+    @property
+    def max_seq_len(self) -> int:
+        """Logical positions addressable per slot — the admission bound,
+        clamped to the model's sequence bound (a page_size that does not
+        divide it rounds the page span up past positions the model does
+        not have)."""
+        return min(self.pages_per_slot * self.page_size, self.model_seq_len)
+
+    def pages_needed(self, tokens: int) -> int:
+        return -(-tokens // self.page_size)
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def available_pages(self) -> int:
+        """Pages seatable right now: the free pool (radix mode, not ported,
+        would add its evictable pages)."""
+        return len(self._free)
+
+    def fits_tokens(self, tokens: int) -> bool:
+        """Admission predicate: can a request that may write ``tokens``
+        logical positions be seated right now? Reservation up front means
+        yes here == never strands mid-decode."""
+        return self.pages_needed(tokens) <= self.available_pages
+
+    def fits_request(self, input_ids, tokens: int) -> bool:
+        """Radix-mode admission; without the radix tree, ``fits_tokens``."""
+        return self.fits_tokens(tokens)
+
+    # -- seating / freeing ---------------------------------------------
+
+    def seat(self, row_cache: Any, slot: int, pad: int, prompt_len: int,
+             reserve_tokens: int) -> None:
+        """Reserve pages for ``reserve_tokens`` logical positions and copy
+        a batch-1 dense prefill row cache's prompt region (``[0,
+        prompt_len)``) into the first of them. ``pad`` is the row's
+        left-pad count: logical positions below it stay masked, as dense
+        validity masks them."""
+        if not 0 <= slot < self.num_slots:
+            raise IndexError(f"slot {slot} out of range [0, {self.num_slots})")
+        if slot in self._reserved:
+            raise ValueError(f"slot {slot} is already seated")
+        if reserve_tokens > self.max_seq_len:
+            raise ValueError(
+                f"reserve_tokens {reserve_tokens} exceeds the logical "
+                f"per-slot bound {self.max_seq_len}")
+        n = self.pages_needed(reserve_tokens)
+        if n > len(self._free):
+            raise RuntimeError(
+                f"page pool exhausted: need {n} pages, {len(self._free)} free "
+                f"(admission should have checked fits_tokens)")
+        pages = [self._free.pop() for _ in range(n)]
+        self._reserved[slot] = pages
+        self.page_table[slot, :] = 0
+        self.page_table[slot, :n] = pages
+        self.start[slot] = pad
+        self.lens[slot] = prompt_len
+        prompt_pages = self.pages_needed(prompt_len)
+        span = prompt_pages * self.page_size
+        for path, pool in _attn_caches(self.cache):
+            row = _at(row_cache, path)
+            ids = torch.as_tensor(pages[:prompt_pages],
+                                  device=pool["pages_k"].device)
+            for name, kv in (("pages_k", "k"), ("pages_v", "v")):
+                blocks = row[kv][0, :span]
+                if blocks.shape[0] < span:
+                    # page_size does not divide the model bound: the last
+                    # prompt page runs past the dense row. Its tail sits
+                    # past prompt_len, masked until decode writes it.
+                    blocks = torch.cat([blocks, blocks.new_zeros(
+                        (span - blocks.shape[0],) + tuple(blocks.shape[1:]))])
+                pool[name][ids] = blocks.reshape(
+                    prompt_pages, self.page_size, *blocks.shape[1:]).to(
+                        pool[name].dtype)
+
+    def free(self, slot: int) -> None:
+        """Return the slot's pages to the pool and point its table row at
+        the trash page (idle ride-along writes land there)."""
+        if not 0 <= slot < self.num_slots:
+            raise IndexError(f"slot {slot} out of range [0, {self.num_slots})")
+        self._free.extend(self._reserved.pop(slot, ()))
+        self.page_table[slot, :] = 0
+        self.start[slot] = 0
+        self.lens[slot] = 0
+
+    def reset(self) -> None:
+        """Free every slot (the pools keep their bytes, masked)."""
+        for slot in list(self._reserved):
+            self.free(slot)
+
+    def seat_shared(self, *args, **kwargs):
+        _not_ported("seat_shared (radix seating)")
+
+    def gather_prefix_rows(self, *args, **kwargs):
+        _not_ported("gather_prefix_rows (radix prefix rows)")
+
+    def match_and_lease(self, *args, **kwargs):
+        _not_ported("match_and_lease (radix prefix matching)")
+
+    def export_request(self, *args, **kwargs):
+        _not_ported("export_request (page-granular migration)")
+
+    def import_request(self, *args, **kwargs):
+        _not_ported("import_request (page-granular migration)")
+
+    # -- the decode call's addressing ----------------------------------
+
+    def dispatch_args(self):
+        """The three small inputs each paged decode call takes:
+        (page_table [B, P], start [B], lens [B]), host int32 copies."""
+        return self.page_table.copy(), self.start.copy(), self.lens.copy()
+
+    def advance(self, slots, steps: int = 1) -> None:
+        """Advance the logical length of each ACTIVE slot after a decode
+        call wrote its token(s) (idle slots stay at 0 on the trash
+        page)."""
+        for slot in slots:
+            self.lens[slot] += steps
+
+    def set_len(self, slot: int, length: int) -> None:
+        """Pin one slot's logical length (per-slot bookkeeping only)."""
+        self.lens[slot] = int(length)
+
+    # -- accounting ----------------------------------------------------
+
+    @property
+    def nbytes(self) -> int:
+        """Resident bytes: the page pools plus the host-side page table,
+        start and lens (the number behind ``serve_cache_bytes``)."""
+        device = sum(leaf.numel() * leaf.element_size()
+                     for leaf in _leaves(self.cache)
+                     if isinstance(leaf, torch.Tensor))
+        return device + (self.page_table.nbytes + self.start.nbytes
+                         + self.lens.nbytes)

@@ -17,12 +17,26 @@ A slot that finishes (eos / max tokens) is refilled IMMEDIATELY, while
 its neighbors keep decoding (``continuous=False`` disables exactly
 this refill: the run-to-completion static-batch baseline).
 
-The one resource all slots share is the cache WRITE INDEX: every decode
-writes all rows at the same slot and advances it by one, so the horizon
-``max_seq_len - write_index`` shrinks for everyone. The engine
-therefore (a) only seats a request whose max_new_tokens fits the
-remaining horizon, and (b) when the batch drains with work still
+The one resource all slots share — in DENSE mode — is the cache WRITE
+INDEX: every decode writes all rows at the same slot and advances it by
+one, so the horizon ``max_seq_len - write_index`` shrinks for everyone.
+The engine therefore (a) only seats a request whose max_new_tokens fits
+the remaining horizon, and (b) when the batch drains with work still
 queued, RESETS the cache to recover the full horizon (a "rollover").
+
+In PAGED mode (``cache.paged``, a tpudl_torch.serve.cache.PagedKVCache)
+there is no shared index: each slot carries its own length and decode
+writes through a host-owned page table, so rollovers do not exist and
+admission is ``fits_tokens`` (are enough free pages left to reserve the
+request's worst case up front). The decode call takes three more small
+inputs (``paged_decode_fn``: page table, start, lens).
+
+With an ``adapter_pool`` (tpudl_torch.serve.lora.AdapterPool, paged mode
+only) the engine serves many LoRA tenants off the one resident base: the
+prefill and decode calls are the ``lora_*`` contracts (three more
+inputs: the pools, the per-slot table and scale), each seated request
+pins its tenant's adapter pages for the slot's lifetime, and a request
+is seated only once its adapter is securable.
 
 Sampling is per-request and batch-composition-independent: token ``t``
 of a request is drawn from a ``torch.Generator`` seeded from
@@ -31,9 +45,9 @@ torch cannot reproduce), so the same request yields the same tokens
 whatever its neighbors are. Greedy requests match ``generate()`` token
 for token.
 
-Not ported yet (ROADMAP queue A): the paged cache, speculation,
-multi-tenant adapters, migration, the disaggregation inbox, the SLO
-hook, chaos hooks, the request log and the exporter's health source.
+Not ported yet (ROADMAP queue A item 3): the radix and int8 tiers of
+the paged cache, speculation, migration, the disaggregation inbox, the
+SLO hook, chaos hooks, the request log and the exporter's health source.
 """
 
 from __future__ import annotations
@@ -98,7 +112,7 @@ class _Slot:
 
     __slots__ = (
         "entry", "request", "tokens", "position", "steps",
-        "t_seated", "t_first", "t_last",
+        "t_seated", "t_first", "t_last", "adapter_reloads",
     )
 
     def __init__(self, entry: _Entry, first_token: int, prompt_len: int,
@@ -111,6 +125,8 @@ class _Slot:
         self.t_seated = seated  # pop time: queue wait ends HERE
         self.t_first = now  # first token out: TTFT ends here (incl. prefill)
         self.t_last = now
+        # Adapter reloads this request's seating paid for.
+        self.adapter_reloads = 0
 
 
 class Engine:
@@ -130,6 +146,7 @@ class Engine:
         prompt_len: int,
         clock: Callable[[], float] = time.monotonic,
         continuous: bool = True,
+        adapter_pool=None,
     ):
         if prompt_len < 1 or prompt_len >= cache.max_seq_len:
             raise ValueError(
@@ -146,6 +163,14 @@ class Engine:
         self.max_seq_len = cache.max_seq_len
         self.clock = clock
         self.continuous = continuous
+        self.paged = bool(getattr(cache, "paged", False))
+        # Multi-tenant LoRA serving: the prefill/decode calls are the
+        # lora_* contracts and each seated request pins its tenant.
+        self.adapter_pool = adapter_pool
+        if adapter_pool is not None and not self.paged:
+            raise ValueError(
+                "multi-tenant adapters require a paged cache (the adapter "
+                "pool rides the same host-owned-table contract)")
         self._slots: List[Optional[_Slot]] = [None] * self.num_slots
         self.results: Dict[Any, Result] = {}
         # Streaming feed: called with (request_id, token) the moment a
@@ -185,7 +210,9 @@ class Engine:
     def _seat(self, entry: _Entry, slot: int) -> None:
         """Prefill one request (left-padded to the prompt window), copy
         its cache row into ``slot`` of the live cache, select its first
-        token."""
+        token. With adapters, the tenant's pages are pinned BEFORE the
+        prefill (loaded on demand: an evicted tenant reloads here) and
+        released if the prefill fails."""
         req = entry.request
         ids = np.asarray(req.input_ids, np.int32)
         rec = active_recorder()
@@ -195,8 +222,24 @@ class Engine:
         mask = np.concatenate(
             [np.zeros(pad, np.int32), np.ones(ids.shape[0], np.int32)]
         )[None, :]
-        logits, row_cache = self.prefill_call(self.params, padded, mask)
-        first = first_token(logits, req)
+        pool = self.adapter_pool
+        reloads0 = pool.num_reloads if pool is not None else 0
+        tenant_pinned = False
+        try:
+            if pool is not None:
+                arow, ascale = pool.acquire(req.tenant)
+                tenant_pinned = req.tenant is not None
+                logits, row_cache = self.prefill_call(
+                    self.params, padded, mask, pool.pools, arow[None, :],
+                    np.float32([ascale]))
+            else:
+                logits, row_cache = self.prefill_call(self.params, padded,
+                                                      mask)
+            first = first_token(logits, req)
+        except BaseException:
+            if tenant_pinned:
+                pool.release(req.tenant)
+            raise
         now = self.clock()
         if rec is not None:
             rec.record("prefill", CAT_SERVE_PREFILL, t0, now - t0,
@@ -204,21 +247,40 @@ class Engine:
                         "queue_wait_s": t0 - entry.submitted_at})
         self.num_prefills += 1
         registry().counter("serve_prefills").inc()
-        self._install(entry, slot, row_cache, first, ids.shape[0], t0, now)
+        self._install(entry, slot, row_cache, first, ids.shape[0], t0, now,
+                      pool.num_reloads - reloads0 if pool is not None else 0)
 
     def _install(self, entry: _Entry, slot: int, row_cache: Any,
                  first: int, ids_len: int, t_popped: float,
-                 t_first: float) -> None:
-        """Seat tail: cache insertion, latency accounting, slot
-        activation."""
+                 t_first: float, adapter_reloads: int = 0) -> None:
+        """Seat tail: cache insertion (dense copy, or paged reservation
+        and scatter), adapter binding (the seat's pin moves to the slot),
+        latency accounting, slot activation."""
         req = entry.request
-        self.cache.insert(row_cache, slot)
+        tenant = req.tenant
+        try:
+            if self.paged:
+                self.cache.seat(
+                    row_cache, slot, self.prompt_len - ids_len,
+                    self.prompt_len, self.prompt_len + req.max_new_tokens)
+            else:
+                self.cache.insert(row_cache, slot)
+        except BaseException:
+            # The slot was never bound, so free_slot will never release
+            # the seat's pin: without this the pages stay unevictable.
+            if self.adapter_pool is not None:
+                self.adapter_pool.release(tenant)
+            raise
+        if self.adapter_pool is not None:
+            self.adapter_pool.bind_slot(slot, tenant)
         queue_wait_ms = 1e3 * (t_popped - entry.submitted_at)
         ttft_ms = 1e3 * (t_first - entry.submitted_at)
         reg = registry()
         reg.histogram("serve_queue_wait_ms").observe(queue_wait_ms)
         reg.histogram("serve_ttft_ms").observe(ttft_ms)
-        self._slots[slot] = _Slot(entry, first, ids_len, t_popped, t_first)
+        s = _Slot(entry, first, ids_len, t_popped, t_first)
+        s.adapter_reloads = adapter_reloads
+        self._slots[slot] = s
         if self.on_token is not None:
             self.on_token(req.request_id, first)
         # A request can finish on its very first token.
@@ -233,7 +295,7 @@ class Engine:
         a slot frees."""
         if not self.continuous and self._active():
             return
-        if not self._active() and len(self.queue):
+        if not self.paged and not self._active() and len(self.queue):
             # Batch drained with work queued: recover the full write
             # horizon before seating the next wave.
             if self.cache.write_index > self.prompt_len:
@@ -251,7 +313,8 @@ class Engine:
             if entry is None:
                 break
             self._seat(entry, slot)
-        if self._active() and self.cache.write_index < self.prompt_len:
+        if (not self.paged and self._active()
+                and self.cache.write_index < self.prompt_len):
             # Fresh cache just seated its first wave: the batch-1 row
             # caches carried their own write indices (discarded by
             # insert); pin the shared index past the prompt region.
@@ -261,8 +324,18 @@ class Engine:
         )
 
     def _fits(self, request) -> bool:
-        """Can this request be seated RIGHT NOW? Its worst case must fit
-        the remaining shared write horizon."""
+        """Can this request be seated RIGHT NOW? Dense: its worst case
+        fits the remaining shared write horizon. Paged: its worst case
+        fits the per-slot bound and enough pool pages are free to reserve
+        it up front (so it never strands mid-decode). With adapters, the
+        tenant's pages must be securable too (resident, or loadable by
+        evicting lease-free adapters)."""
+        if self.adapter_pool is not None and request.tenant is not None:
+            if not self.adapter_pool.can_seat(request.tenant):
+                return False
+        if self.paged:
+            need = self.prompt_len + request.max_new_tokens
+            return need <= self.max_seq_len and self.cache.fits_tokens(need)
         base = max(self.cache.write_index, self.prompt_len)
         return base + request.max_new_tokens <= self.max_seq_len
 
@@ -305,14 +378,24 @@ class Engine:
                 request_id=req.request_id, finish_reason=reason,
                 ttft_s=ttft, tpot_s=tpot, queue_wait_s=queue_wait,
                 generation_s=s.t_last - s.t_first, num_tokens=n,
+                # The tenant and the reloads its seating paid (tpudl
+                # writes these into its request log, not ported yet).
+                **({"tenant": req.tenant, "adapter_reloads":
+                    s.adapter_reloads} if self.adapter_pool is not None
+                   else {}),
             )
         self.cache.free(slot)
+        if self.adapter_pool is not None:
+            # Drops the slot's tenant pin; the adapter stays cached at
+            # refcount 0 (the evictable pool) for the next request.
+            self.adapter_pool.free_slot(slot)
         self._slots[slot] = None
 
     def _decode_step(self) -> None:
         """One slot-batched decode call + selection + host readback; idle
-        slots ride along with zeros and their output is discarded."""
-        assert self.cache.write_index < self.max_seq_len, (
+        slots ride along with zeros and their output is discarded (paged:
+        idle rows write into the trash page)."""
+        assert self.paged or self.cache.write_index < self.max_seq_len, (
             "decode past the cache horizon (admission fit checks should "
             "make this unreachable)"
         )
@@ -332,16 +415,25 @@ class Engine:
             steps[i] = s.steps
         rec = active_recorder()
         t0 = self.clock()
-        logits, self.cache.cache = self.decode_call(
-            self.params, self.cache.cache, tokens, positions
-        )
+        args = (self.params, self.cache.cache, tokens, positions)
+        if self.paged:
+            args += self.cache.dispatch_args()
+        if self.adapter_pool is not None:
+            args += self.adapter_pool.dispatch_args()
+        logits, self.cache.cache = self.decode_call(*args)
         # The per-step token readback is the one intended device-to-host
         # sync of the decode loop.
         if temps.any():
             sel = _select_tokens(logits, temps, seeds, steps)
         else:
             sel = _select_greedy(logits)
-        self.cache.advance_write_index()
+        if self.paged:
+            # Each ACTIVE slot's logical length advanced by one (idle
+            # slots stay on the trash page).
+            self.cache.advance(
+                [i for i, s in enumerate(self._slots) if s is not None])
+        else:
+            self.cache.advance_write_index()
         now = self.clock()
         if rec is not None:
             rec.record("decode_step", CAT_SERVE_DECODE, t0, now - t0,
