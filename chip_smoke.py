@@ -93,7 +93,8 @@ The Llama LoRA slice (Llama-3-8B fine-tuned with rank-16 adapters on the
              backward bitwise repeatable; flash's keep mask bitwise the
              plain one and its dropout-on output hybrid_attention's on the
              same seed words; timed like phase 7, beside
-             F.scaled_dot_product_attention;
+             F.scaled_dot_product_attention (and, for the backward rows,
+             its backward alone);
 8c. tiny_llama_train (after phase 8b) — an f32 LLAMA_TINY LoRA step with
              the kernels on the card against the CPU plain path;
 13. llama_lora_train (after phase 12) — the slice at full width and depth
@@ -135,7 +136,8 @@ at seq 512 (attend("fused") reaching the whole-row attention) add:
              causal; f32; D 32 and 128) against their plain versions, each
              backward bitwise repeatable, each gate rejecting a planted
              5 % error; the keep mask bitwise the plain one, the
-             dropout-on output hybrid_attention's; timed beside SDPA;
+             dropout-on output hybrid_attention's; timed beside SDPA
+             (the backward rows also beside SDPA's backward alone);
 15. train_512 (after phase 12) — phase 11 at batch 32 x seq 512, 20 timed
              steps: exactly 12 whole-attention forward and 12 backward, no
              softmax_dropout, 25/25 norm, 12/12 bias+GeLU and 1/1
@@ -326,6 +328,23 @@ def library_ms(fn, **kw):
         return None
 
 
+def library_bwd_ms(torch, F, q, k, v, do, lib_kw):
+    """SDPA's backward alone on these [B, H, S, D] leaves: one forward
+    outside the timed region, then ``eager_ms`` of torch.autograd.grad
+    with the graph retained. Not captured in a CUDA graph like the other
+    rows: the autograd engine runs a backward on its forward's stream,
+    and a backward captured on the forward's side stream faulted (illegal
+    address) at [32, 512, 12, 64] with dropout. Eager, the host's cost
+    per call shows where the backward is short."""
+    try:
+        out = F.scaled_dot_product_attention(q, k, v, **lib_kw)
+        return eager_ms(lambda: torch.autograd.grad(
+            out, (q, k, v), do, retain_graph=True), calls=10, reps=5)
+    except RuntimeError as e:
+        print(f"library backward not timed: {e}")
+        return None
+
+
 def bound(nbytes: float, ops: float, peak: float = F32_OPS_PER_S):
     """(least ms, "bytes" or "operations"): the bytes over the memory rate
     or the operations over ``peak`` (f32 CUDA cores by default; the bf16
@@ -430,6 +449,7 @@ def report_cases(cases):
                 f"{eager}"
                 f"library_ms={lib if lib is None else round(lib, 5)}"
                 f"{' (' + c['library'] + ')' if c.get('library') else ''} "
+                f"{'library_bwd_ms=' + format(c['library_bwd_ms'], '.5f') + ' (its backward alone) ' if c.get('library_bwd_ms') else ''}"
                 f"bound_us={c['bound'][0] * 1e3:.3f} ({c['bound'][1]})"
                 f"{'; beyond the bound: ' + c['beyond_bound'] if c.get('beyond_bound') else ''}"
             )
@@ -2228,6 +2248,8 @@ def llama_kernel_phase(torch, F):
             return timed_case(row, kernel, plain, library, library_name,
                               plain_calls=2)
 
+        lib_bwd = library_bwd_ms(torch, F, ql, kl, vl, dot, lib_kw)
+
         cases["flash_fwd"].append(timed(
             case_row(shape, dtype, variant, err_f, tol,
                      2 * qb + 2 * kb + rows + b * skv, 2 * product, peak),
@@ -2242,12 +2264,12 @@ def llama_kernel_phase(torch, F):
             case_row(shape, dtype, variant, err_q, tol,
                      3 * qb + 2 * kb + 2 * rows + b * skv, 3 * product, peak),
             lambda: fa.launch_dq(ops, *args), bwd_plain, sdpa_fwd_bwd,
-            lib_name))
+            lib_name) | {"library_bwd_ms": lib_bwd})
         cases["flash_dkv"].append(timed(
             case_row(shape, dtype, variant, err_kv, tol,
                      2 * qb + 4 * kb + 2 * rows + b * skv, 4 * product, peak),
             lambda: fa.launch_dkv(ops, *args), bwd_plain, sdpa_fwd_bwd,
-            lib_name))
+            lib_name) | {"library_bwd_ms": lib_bwd})
         del q, k, v, do, o, lse, delta, ops, dq, dk, dv, qt, kt, vt, dot
         del ql, kl, vl, keep
         torch.cuda.empty_cache()
@@ -2426,6 +2448,8 @@ def whole_attention_kernel_phase(torch, F):
         row["beyond_bound"] = beyond_bound(
             f"delta write + read {2 * rows_b} B, 2 more products",
             2 * rows_b, 2 * product, peak)
+        row["library_bwd_ms"] = library_bwd_ms(torch, F, ql, kl, vl, dot,
+                                               lib_kw)
         cases["fused_attn_bwd"].append(row)
         del q, k, v, do, o, lse, grads, qt, kt, vt, dot, ql, kl, vl
         torch.cuda.empty_cache()
@@ -2793,6 +2817,34 @@ def llama_train_parity_phase(torch):
             "worst_ratio": [worst[0], ratio[worst[0]]]}
 
 
+def hopper_ptxas(text):
+    """ptxas -v's figures for each bf16 attention forward (the TMA and
+    wgmma kernels, named ``*_fwd_kernel`` with template arguments D, N,
+    slots): registers at entry (the consumers raise theirs with
+    setmaxnreg), spill stores and loads, and any wgmma serialisation
+    warning (C7512 / C7515). Their shared memory is dynamic (Plan in
+    attention_hopper.cuh), so ptxas does not see it."""
+    import re
+
+    out, current = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '[^']*?((?:flash|whole)_fwd_kernel)"
+                      r"ILi(\d+)ELi(\d+)ELi(\d+)", line)
+        if m:
+            current = f"{m.group(1)}<D {m.group(2)}, N {m.group(3)}, slots {m.group(4)}>"
+            continue
+        if current and "spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            current += f": spill stores {spill.group(1)} B, loads {spill.group(2)} B"
+        elif current and "Used " in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{current}, {regs} registers at entry")
+            current = None
+        elif re.search(r"C751[25]", line):
+            out.append("wgmma serialised: " + line.strip())
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2823,6 +2875,8 @@ def main() -> int:
                        for line in info["ptxas"].splitlines()
                        if "Used " in line})
         print(f"build: {name}: {info['seconds']:.2f} s, ptxas {regs}")
+        for line in hopper_ptxas(info["ptxas"]):
+            print(f"build: {name}: {line}")
 
     cases = kernel_phase(torch, F)
     seg_cases = seg_lora_kernel_phase(torch)
@@ -2973,6 +3027,10 @@ def main() -> int:
             "bound_ms": head["bound"][0], "bound_by": head["bound"][1],
             "library_ms": head["library_ms"],
             "shape": head["shape"], "dtype": head["dtype"],
+            # Backward rows: SDPA's backward alone beside library_ms (its
+            # forward + backward).
+            **({"library_bwd_ms": head["library_bwd_ms"]}
+               if "library_bwd_ms" in head else {}),
             "cases": [{k: v for k, v in c.items() if k != "bound"}
                       | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
                       for c in rows],

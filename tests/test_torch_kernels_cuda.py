@@ -878,7 +878,11 @@ def _fa_close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,sq,skv,h,d", [
     (2, 128, 128, 2, 128), (1, 100, 150, 2, 64), (2, 150, 100, 1, 32),
-    (1, 1000, 1500, 1, 64), (2, 64, 64, 3, 128)])
+    (1, 1000, 1500, 1, 64), (2, 64, 64, 3, 128),
+    # Around the bf16 forward's 128-row q blocks and kv tiles, and causal
+    # Sq != Skv with the diagonal inside a block.
+    (1, 127, 127, 2, 64), (2, 129, 129, 1, 32), (1, 255, 255, 2, 128),
+    (1, 257, 257, 1, 64), (1, 200, 330, 2, 128), (2, 257, 200, 1, 32)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("masking", ["none", "padding"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -910,6 +914,50 @@ def test_flash_kernels_match_plain(dev, dtype, b, sq, skv, h, d, causal,
     again = fa.flash_attention_bwd(q, k, v, kvmask, seed, do, lse, delta,
                                    causal, None, rate, impl="fused")
     assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+
+
+@pytest.mark.parametrize("kind", ["flash", "whole"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal,rate", [(False, 0.1), (True, 0.0)])
+def test_bf16_forwards_are_bitwise_repeatable(dev, kind, d, causal, rate):
+    """The bf16 forwards (TMA, wgmma, a warp-specialised pipeline) give the
+    same bits on every call: no atomics, one owner per output row."""
+    from tpudl_torch.ops import flash_attention as fa
+    from tpudl_torch.ops import fused_attention as fu
+
+    fwd = fa.flash_attention_fwd if kind == "flash" else fu.fused_attention_fwd
+    q, k, v, _, kvmask = _fa_inputs(dev, 2, 300, 300, 3, d, torch.bfloat16,
+                                    "padding", seed=11)
+    seed = torch.tensor([777, 2**31 + 3], dtype=torch.int64, device=dev)
+    o, lse = fwd(q, k, v, kvmask, seed, causal, None, rate, impl="fused")
+    for _ in range(3):
+        o2, lse2 = fwd(q, k, v, kvmask, seed, causal, None, rate,
+                       impl="fused")
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("kind", ["flash", "whole"])
+def test_dropout_draw_is_the_plain_mask_at_unaligned_rows(dev, kind):
+    """At Skv = 150 (not a multiple of 4) a row's four-element groups
+    straddle two Philox blocks: the forwards' keep bits are still the
+    plain keep mask's, bit for bit (the window probe: q = k = 0, values
+    one-hot over a 50-column window)."""
+    from tpudl_torch.ops import flash_attention as fa
+    from tpudl_torch.ops import fused_attention as fu
+
+    fwd = fa.flash_attention_fwd if kind == "flash" else fu.fused_attention_fwd
+    b, s, h, d, w, rate = 2, 150, 3, 64, 50, 0.1
+    seed = keep_mask.draw_seed(torch.Generator(device=dev).manual_seed(8))
+    q = torch.zeros(b, s, h, d, dtype=torch.bfloat16, device=dev)
+    eye = torch.eye(d, dtype=torch.bfloat16, device=dev)[:w]
+    v = eye.repeat(s // w, 1)[None, :, None, :].expand(b, s, h, d).contiguous()
+    kept = torch.empty(b, h, s, s, dtype=torch.bool, device=dev)
+    for i in range(s // w):
+        window = torch.zeros(b, s, dtype=torch.bool, device=dev)
+        window[:, i * w:(i + 1) * w] = True
+        o, _ = fwd(q, q, v, window, seed, False, None, rate, impl="fused")
+        kept[..., i * w:(i + 1) * w] = (o[..., :w] != 0).permute(0, 2, 1, 3)
+    assert torch.equal(kept, keep_mask.keep_mask(seed, (b, h, s, s), rate))
 
 
 def test_flash_fully_masked_rows_give_zero_and_mask_value(dev):
@@ -1001,7 +1049,9 @@ def test_flash_refusals(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,d", [
     (2, 300, 2, 64), (2, 384, 3, 32), (1, 512, 2, 128), (2, 257, 1, 64),
-    (1, 40, 2, 64)])
+    (1, 40, 2, 64),
+    # Around the bf16 forward's 128-row q blocks and kv tiles.
+    (1, 127, 2, 64), (2, 129, 1, 32), (1, 255, 2, 128), (1, 257, 2, 128)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("masking", ["none", "padding"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])

@@ -275,6 +275,16 @@ def test_softmax_dropout_refusals():
             sd.softmax_dropout_bwd.launches) == before
 
 
+def test_softmax_dropout_long_rows_name_the_attention_routes():
+    """Rows past the kernel's width are refused before any device check,
+    and the refusal names the routes that take them."""
+    skv = sd.MAX_SKV + 88
+    with pytest.raises(ValueError, match=rf'Skv={skv}: longer rows go to '
+                       r'flash_attention, or to attend\("fused"\)'):
+        sd._check(torch.zeros(1, 2, 4, skv), None, keep_mask.zero_seed("cpu"),
+                  "softmax_dropout")
+
+
 def test_normalize_kv_mask_matches_tpudl():
     am = _padding(3, 3, 10)
     for mask in (None, am, am[:, None, None, :], am[:1]):

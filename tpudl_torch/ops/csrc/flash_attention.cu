@@ -31,44 +31,214 @@
 // per byte, so the tensor cores are the limit: 139, 208 and 278 us at
 // 989 TFLOP/s.
 //
-// What the design does about that (a first version that is right, not
-// yet fast):
-// - bf16 products run on the tensor cores with mma.sync m16n8k16 and f32
-//   accumulation, operands loaded by ldmatrix (.trans for the [k, n]
-//   operands V, K, Q, do); f32 operands run in full f32 on the CUDA cores
-//   (never TF32) with the same fragment ownership, so one body serves
-//   both.
-// - One block of 4 warps takes 64 rows of its own side (q rows for the
-//   forward and dQ, kv rows for dK/dV); each warp owns 16 of them and
-//   keeps their accumulator in registers in mma fragment layout. The
-//   other side streams through shared memory a tile at a time, two
-//   buffers deep (cp.async: the next tile's copy runs during this tile's
-//   products). The online-softmax rescale multiplies the fragment rows in
-//   registers, and the probabilities (and ds) go from the accumulator
-//   registers straight into the next product's A fragments, rounded to
-//   the inputs' type there (tpudl's p.astype(v.dtype), ds.astype(k.dtype));
-//   the f32 path stages them in shared memory.
+// What the design does about that:
+// - The bf16 forward is a Hopper kernel (attention_hopper.cuh): a block
+//   of 128 q rows in two consumer warpgroups and a producer warpgroup
+//   that streams the K and V tiles (128 rows) by TMA through a ring of
+//   mbarrier-guarded slots; S = Q K^T and O += P V are wgmma, P goes from
+//   the S accumulator registers into the second product's A operand,
+//   rounded to bf16 there. Tiles past the causal diagonal, and kv tiles
+//   the mask empties, are never loaded; q blocks run longest first. A
+//   Philox block serves four elements of the dropout draw.
+// - The f32 forward and the two backward kernels run the first design:
+//   mma.sync m16n8k16 for bf16 (operands by ldmatrix, .trans for the
+//   [k, n] operands V, K, Q, do), full f32 on the CUDA cores for f32
+//   (never TF32; wgmma has no f32 mode) with the same fragment
+//   ownership. One block of 4 warps takes 64 rows of its own side (q
+//   rows for dQ and the f32 forward, kv rows for dK/dV); each warp owns
+//   16 and keeps their accumulator in registers. The other side streams
+//   through shared memory a tile at a time, two buffers deep (cp.async).
+//   Probabilities and ds go from the accumulator registers straight into
+//   the next product's A fragments, rounded to the inputs' type there
+//   (tpudl's p.astype(v.dtype), ds.astype(k.dtype)); the f32 path
+//   stages them in shared memory.
 // - The Pallas grid carries accumulators across a sequential grid axis;
 //   here the loop over the streamed side runs inside the block, and the
 //   two backward kernels stay separate so each accumulator has one owner:
-//   no float atomics, so the backward is bitwise repeatable.
+//   no float atomics, so every kernel is bitwise repeatable.
 // - Causal tiles that cannot contribute are skipped; a tile that every
 //   (q, kv) pair attends (below the diagonal, in range, no kv-mask zero)
 //   skips the per-element mask checks; ragged Sq and Skv are bounds
 //   checks (rows past the end load as zeros and never store).
-// wgmma, TMA and warp specialisation are later work.
-#include "attention_tiles.cuh"
+#include <type_traits>
+
+#include "attention_hopper.cuh"
 
 namespace {
 
 using namespace tpudl::attn;
+namespace hopper = tpudl::hopper;
 
 // ---------------------------------------------------------------------------
-// forward: block = (q block, h, b); kv tiles of N stream through, two
-// buffers deep (the next tile's copy runs during this tile's products).
+// forward, bf16: the Hopper kernel (attention_hopper.cuh). block = (128 q
+// rows, h, b), taken longest first under causal masking (the q block
+// index reversed); kv tiles of N rows stream through a ring of kSlots.
+// Each consumer warpgroup runs the online softmax on its 64 rows: per
+// tile the row max over the quad, corr = exp(m_old - m), p = exp(s - m)
+// (unnormalised, summed into l per lane, then dropped), P rounded to
+// bf16 into the P.V product, o rescaled by corr; at the end o / l, then
+// times 1 / (1 - rate), and lse = m + log(l).
 // ---------------------------------------------------------------------------
-template <typename T, int D, int N>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
+template <int D, int N, int kSlots>
+__global__ void __launch_bounds__(hopper::kThreads, 1)
+    flash_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap) {
+  using namespace tpudl::hopper;
+  using Pl = Plan<D, N, kSlots>;
+  extern __shared__ __align__(1024) uint8_t hopper_smem[];
+  const Shared<D, N, kSlots> sm(hopper_smem);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int qblk = p.causal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  const int q0 = qblk * kBlockRows;
+  const uint8_t* mrow = p.kvmask ? p.kvmask + static_cast<int64_t>(b) * p.Skv : nullptr;
+  block_setup(sm, p, mrow);
+  const int tiles = reach_tiles(p, q0, kBlockRows, N);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: Q once, then the live kv tiles through the ring.
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      mbar_expect_tx(sm.qbar(), Pl::kQBytes);
+      load_tile<D>(sm.q(), kBlockRows, qmap, sm.qbar(), b, h, q0);
+      int i = 0;
+      for (int t = 0; t < tiles; ++t) {
+        if (!tile_bit(sm.live(), t)) continue;
+        const int slot = i % kSlots, round = i / kSlots;
+        if (round > 0) mbar_wait(sm.empty(slot), (round - 1) & 1);
+        mbar_expect_tx(sm.kfull(slot), Pl::kTileBytes);
+        load_tile<D>(sm.k(slot), N, kmap, sm.kfull(slot), b, h, t * N);
+        mbar_expect_tx(sm.vfull(slot), Pl::kTileBytes);
+        load_tile<D>(sm.v(slot), N, vmap, sm.vfull(slot), b, h, t * N);
+        ++i;
+      }
+    }
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int r0 = q0 + wg * kWgRows;               // the warpgroup's rows
+    const int row = r0 + 16 * warp + (lane >> 2);  // the thread's: row, row + 8
+    const int mine = reach_tiles(p, r0, kWgRows, N);
+    uint32_t k0 = 0, k1 = 0;
+    if (p.dropout) {
+      k0 = static_cast<uint32_t>(p.seed[0]);
+      k1 = static_cast<uint32_t>(p.seed[1]);
+    }
+    uint64_t rowbase[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      rowbase[hf] = ((static_cast<uint64_t>(b) * p.H + h) * p.Sq + row + 8 * hf) *
+                    static_cast<uint64_t>(p.Skv);
+    }
+    float o[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.0f;
+    // m is the quad's running row max; l the lane's share of the row sum.
+    float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.0f, 0.0f};
+    const uint32_t* live = sm.live();
+    auto next_live = [&](int t) {
+      while (t < mine && !tile_bit(live, t)) ++t;
+      return t;
+    };
+    // Hand a slot back: every consumer warp, once the slot's products are done.
+    auto release = [&](int slot) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.empty(slot));
+    };
+    mbar_wait(sm.qbar(), 0);
+    // Per live tile: S = Q K^T into a fresh array (no earlier value to
+    // carry into the products' registers), waited for; the softmax; P.V,
+    // waited for; the slot handed back. Each product completes inside its
+    // step, so the two warpgroups' products and softmaxes interleave on
+    // the SM rather than within a warpgroup.
+    int i = 0;  // ring step
+    for (int t = next_live(0); t < mine; t = next_live(t + 1)) {
+      const int slot = i % kSlots;
+      const uint32_t parity = (i / kSlots) & 1;
+      const int kv0 = t * N;
+      mbar_wait(sm.kfull(slot), parity);
+      float s[N / 2];
+      qk<D, N>(s, sm.q(), sm.k(slot), wg);
+      wgmma_wait_all();
+      reg_fence(s);
+      const bool whole = tile_whole(p, tile_bit(sm.gap(), t), r0, kv0, N);
+      float mt[2] = {m[0], m[1]}, corr[2], ls[2];
+      if (whole) {
+        tile_max<N, true>(s, p.scale, mt);
+      } else {
+        mask_tile<N>(s, p, mrow, row, kv0);
+        tile_max<N, false>(s, p.scale, mt);
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        mt[hf] = quad_max(mt[hf]);
+        corr[hf] = ex2((m[hf] - mt[hf]) * kLog2e);
+        m[hf] = mt[hf];
+      }
+      if (whole) {
+        tile_exp<N, true>(s, p.scale, m, ls);
+      } else {
+        tile_exp<N, false>(s, p.scale, m, ls);
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) l[hf] = l[hf] * corr[hf] + ls[hf];
+      if (p.dropout) dropout<N>(s, p, rowbase, kv0, k0, k1, 1.0f);
+      uint32_t pa[N / 4];
+      pack_p<N>(s, pa);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= corr[0];
+        o[4 * j + 1] *= corr[0];
+        o[4 * j + 2] *= corr[1];
+        o[4 * j + 3] *= corr[1];
+      }
+      mbar_wait(sm.vfull(slot), parity);
+      pv<D, N>(o, pa, sm.v(slot));
+      wgmma_wait_all();
+      reg_fence(o);
+      reg_fence(pa);
+      release(slot);
+      ++i;
+    }
+    // Live tiles past this warpgroup's diagonal: handed back once they
+    // landed (so each hand-back counts in its own round).
+    for (int u = mine; u < tiles; ++u) {
+      if (!tile_bit(live, u)) continue;
+      mbar_wait(sm.kfull(i % kSlots), (i / kSlots) & 1);
+      release(i % kSlots);
+      ++i;
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float lt = quad_sum(l[hf]);
+      const float l_safe = lt > 0.0f ? lt : 1.0f;
+      const int r = row + 8 * hf;
+      if ((lane & 3) == 0 && r < p.Sq) {
+        p.lse_out[(static_cast<int64_t>(b) * p.H + h) * p.Sq + r] = m[hf] + logf(l_safe);
+      }
+      // tpudl's order: o / l_safe, then (with dropout) * 1 / (1 - rate).
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+        for (int e = 2 * hf; e < 2 * hf + 2; ++e) {
+          o[4 * j + e] = o[4 * j + e] / l_safe;
+          if (p.dropout) o[4 * j + e] *= p.inv_keep;
+        }
+      }
+    }
+    store_o<D>(p, b, h, row, o);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward, f32 (full f32 on the CUDA cores; wgmma has no f32 mode and the
+// port never runs TF32): block = (64 q rows, h, b); kv tiles of N stream
+// through, two buffers deep (the next tile's copy runs during this tile's
+// products).
+// ---------------------------------------------------------------------------
+template <int D, int N>
+__global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
+  using T = float;
   using S = Smem<T, D, N>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);
@@ -402,9 +572,16 @@ size_t smem_bytes(Which which) {
 
 template <typename T, int D, int N>
 int launch_one(Which which, const Params& p, cudaStream_t stream) {
-  void (*kernel)(Params) = which == kFwd  ? flash_fwd_kernel<T, D, N>
-                           : which == kDq ? flash_dq_kernel<T, D, N>
-                                          : flash_dkv_kernel<T, D, N>;
+  void (*kernel)(Params) = nullptr;
+  if (which == kDq) {
+    kernel = flash_dq_kernel<T, D, N>;
+  } else if (which == kDkv) {
+    kernel = flash_dkv_kernel<T, D, N>;
+  } else if constexpr (std::is_same<T, float>::value) {
+    kernel = flash_fwd_f32_kernel<D, N>;
+  } else {
+    return cudaErrorInvalidValue;  // the bf16 forward is launch_fwd_bf16's
+  }
   const size_t smem = smem_bytes<T, D, N>(which);
   // Above 48 KB only as opted-in dynamic shared memory; set once per kernel
   // (before any graph capture: the first call of each runs eagerly).
@@ -422,10 +599,33 @@ int launch_one(Which which, const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 forward: kv tiles of 128 rows (64 at D = 128, where the
+// [64, 128] f32 output already holds 64 registers a thread), a ring of 4
+// slots (160 KB with Q at D = 128).
+template <int D>
+int launch_fwd_bf16(const Params& p, cudaStream_t stream) {
+  constexpr int N = D == 128 ? 64 : 128, kSlots = 4;
+  using Pl = hopper::Plan<D, N, kSlots>;
+  hopper::Maps maps;
+  if (const int err = hopper::encode_maps<D, N>(&maps, p)) return err;
+  static bool opted = false;
+  if (const int err = hopper::opt_in_smem(flash_fwd_kernel<D, N, kSlots>, Pl::kBytes, opted)) {
+    return err;
+  }
+  const dim3 grid(static_cast<unsigned>((p.Sq + hopper::kBlockRows - 1) / hopper::kBlockRows),
+                  static_cast<unsigned>(p.H), static_cast<unsigned>(p.B));
+  flash_fwd_kernel<D, N, kSlots><<<grid, hopper::kThreads, Pl::kBytes, stream>>>(p, maps.q, maps.k,
+                                                                                  maps.v);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The streamed tile: 64 rows, 32 for the dK/dV kernel at D = 128 (its two
 // [16, D] accumulators already hold 128 f32 registers per thread).
 template <typename T, int D>
 int launch_d(Which which, const Params& p, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (which == kFwd) return launch_fwd_bf16<D>(p, stream);
+  }
   if (which == kDkv && D == 128) return launch_one<T, D, 32>(which, p, stream);
   return launch_one<T, D, 64>(which, p, stream);
 }

@@ -41,16 +41,21 @@
 //
 // The TPU kernel holds a head's whole [S, S] f32 score tile in VMEM; on
 // this card that tile is 1 MB at S = 512 and fits no block. What the
-// design does instead (a first version that is right, not yet fast):
-// - Forward: a block of 4 warps owns 64 query rows of one (batch row,
-//   head); each warp keeps 16 rows' accumulators in registers. The head's
-//   kv tiles stream through shared memory (cp.async, two buffers deep)
-//   three times: the row max, then the exp-sum under that max, then
-//   P.V with the normalized probabilities — each row's full softmax
-//   exactly, with no online rescaling of o, as the TPU computes it. The
-//   logits are recomputed in each pass (three Q K^T products and one
-//   P.V against the TPU's two): the forward is bound by bytes, and the
-//   recompute reads K from L2.
+// design does instead:
+// - Forward, bf16: a Hopper kernel (attention_hopper.cuh). A block of 128
+//   query rows (two consumer warpgroups of 64) and a producer warpgroup
+//   that loads the tiles by TMA; S = Q K^T and O += P V are wgmma. Two
+//   sweeps over the head's kv tiles: the first takes each row's max and
+//   exp-sum (an online max per lane, l rescaled, no o), the second forms
+//   p = exp(s - m) / l, drops it and runs P.V — each row's softmax
+//   normalised in f32 before its bf16 rounding, as the TPU computes it,
+//   with 2 Q K^T products and 1 P.V. At D <= 64 the head's K and V (S <=
+//   512) land in shared memory once and stay; at D = 128 they stream
+//   through a ring. One Philox block serves four elements of the dropout
+//   draw.
+// - Forward, f32 (CUDA cores, never TF32): a block of 4 warps owns 64
+//   query rows; the kv tiles stream through shared memory (cp.async,
+//   two buffers deep) three times: the row max, the exp-sum, then P.V.
 // - Backward: two launches in stream order, so each accumulator has one
 //   owner (no float atomics; the backward is bitwise repeatable). The dQ
 //   launch: a block owns 64 query rows and streams the head's kv tiles
@@ -63,13 +68,17 @@
 // - Causal tiles past the diagonal are not visited; a tile that every
 //   pair attends skips the per-element mask checks; ragged S is bounds
 //   checks (rows past S load as zeros and never store).
-// mma.sync fragments, cp.async and the mask and dropout predicates come
-// from attention_tiles.cuh (shared with flash_attention.cu).
-#include "attention_tiles.cuh"
+// The backward and the f32 forward take mma.sync fragments, cp.async
+// and the mask and dropout predicates from attention_tiles.cuh (shared
+// with flash_attention.cu).
+#include <type_traits>
+
+#include "attention_hopper.cuh"
 
 namespace {
 
 using namespace tpudl::attn;
+namespace hopper = tpudl::hopper;
 
 // tpudl.ops.fused_attention.MAX_SEQ.
 constexpr int kMaxSeq = 512;
@@ -93,11 +102,214 @@ __device__ __forceinline__ int causal_tiles(const Params& p, int row0, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// forward: block = (64 q rows, h, b); the kv tiles of N rows stream three
-// times (max, exp-sum, P.V), two buffers deep across the passes.
+// forward, bf16: the Hopper kernel (attention_hopper.cuh). block = (128 q
+// rows, h, b), longest first under causal masking; two sweeps over the
+// head's kv tiles of N rows. Sweep 1: each lane keeps the running max of
+// its own columns and their exp-sum, rescaling only l (no o); the quad
+// then forms the row's m and l. Sweep 2: p = exp(s - m) / l in f32,
+// dropped and scaled by 1 / (1 - rate), rounded to bf16 into P.V: the
+// TPU kernel's rounding points, with 2 Q K^T products and 1 P.V.
+// kResident (D <= 64): the head's whole K and V (S <= 512: 4 tiles) land
+// once per block and stay, so sweep 2 reads nothing from L2; else the
+// tiles stream through a ring of kSlots, K in sweep 1, K and V in sweep 2.
+// With dropout, producer warps 1-3 draw the keep bits of every tile
+// (draw_drop_bits: one Philox block per four elements) while the
+// consumers run sweep 1; sweep 2 only tests them.
 // ---------------------------------------------------------------------------
-template <typename T, int D, int N>
-__global__ void __launch_bounds__(kThreads) whole_fwd_kernel(Params p) {
+template <int D, int N, int kSlots, bool kResident>
+__global__ void __launch_bounds__(hopper::kThreads, 1)
+    whole_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap) {
+  using namespace tpudl::hopper;
+  constexpr int kTiles = kMaxSeq / N;  // kv tiles of the longest row
+  using Pl = Plan<D, N, kSlots, kTiles>;
+  static_assert(!kResident || kSlots >= kTiles, "resident: every kv tile has its slot");
+  extern __shared__ __align__(1024) uint8_t hopper_smem[];
+  const Shared<D, N, kSlots, kTiles> sm(hopper_smem);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int qblk = p.causal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  const int q0 = qblk * kBlockRows;
+  const uint8_t* mrow = p.kvmask ? p.kvmask + static_cast<int64_t>(b) * p.Skv : nullptr;
+  // Dropout bits: all four producer warps once the loads are issued
+  // (resident), or warps 1-3 beside the ring's loader.
+  constexpr int kDrawWarps = kResident ? 4 : 3;
+  block_setup(sm, p, mrow, kDrawWarps);
+  const int tiles = reach_tiles(p, q0, kBlockRows, N);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      mbar_expect_tx(sm.qbar(), Pl::kQBytes);
+      load_tile<D>(sm.q(), kBlockRows, qmap, sm.qbar(), b, h, q0);
+      if constexpr (kResident) {
+        // Every K tile first (sweep 1 needs only K), then every V tile.
+        for (int t = 0; t < tiles; ++t) {
+          if (!tile_bit(sm.live(), t)) continue;
+          mbar_expect_tx(sm.kfull(t), Pl::kTileBytes);
+          load_tile<D>(sm.k(t), N, kmap, sm.kfull(t), b, h, t * N);
+        }
+        for (int t = 0; t < tiles; ++t) {
+          if (!tile_bit(sm.live(), t)) continue;
+          mbar_expect_tx(sm.vfull(t), Pl::kTileBytes);
+          load_tile<D>(sm.v(t), N, vmap, sm.vfull(t), b, h, t * N);
+        }
+      } else {
+        int i = 0;
+        for (int sweep = 0; sweep < 2; ++sweep) {
+          for (int t = 0; t < tiles; ++t) {
+            if (!tile_bit(sm.live(), t)) continue;
+            const int slot = i % kSlots, round = i / kSlots;
+            if (round > 0) mbar_wait(sm.empty(slot), (round - 1) & 1);
+            mbar_expect_tx(sm.kfull(slot), (1 + sweep) * Pl::kTileBytes);
+            load_tile<D>(sm.k(slot), N, kmap, sm.kfull(slot), b, h, t * N);
+            if (sweep) load_tile<D>(sm.v(slot), N, vmap, sm.kfull(slot), b, h, t * N);
+            ++i;
+          }
+        }
+      }
+    }
+    if (p.dropout && threadIdx.x >= hopper::kThreads - 32 * kDrawWarps) {
+      // The dropout keep bits, while the consumers run sweep 1.
+      __syncwarp();
+      uint32_t k0, k1;
+      seed_words(p, k0, k1);
+      draw_drop_bits(sm, p, b, h, q0, tiles, k0, k1, kDrawWarps);
+    }
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int r0 = q0 + wg * kWgRows;               // the warpgroup's rows
+    const int row = r0 + 16 * warp + (lane >> 2);  // the thread's: row, row + 8
+    const int mine = reach_tiles(p, r0, kWgRows, N);
+    // The step counter of the ring (stream mode) and the hand-back of a
+    // slot (every consumer warp, once the slot's products are done).
+    int i = 0;
+    auto slot_of = [&](int t) { return kResident ? t : i % kSlots; };
+    auto parity_of = [&]() -> uint32_t { return kResident ? 0u : (i / kSlots) & 1; };
+    auto release = [&](int slot) {
+      if constexpr (!kResident) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(sm.empty(slot));
+      }
+      ++i;
+    };
+    mbar_wait(sm.qbar(), 0);
+    // Sweep 1: per lane, the running max of its columns and their
+    // exp-sum under it.
+    float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.0f, 0.0f};
+    for (int t = 0; t < tiles; ++t) {
+      if (!tile_bit(sm.live(), t)) continue;
+      const int slot = slot_of(t);
+      mbar_wait(sm.kfull(slot), parity_of());
+      if (t < mine) {
+        const int kv0 = t * N;
+        // A fresh array per Q K^T: no earlier value to carry into the
+        // products' registers.
+        float s[N / 2];
+        qk<D, N>(s, sm.q(), sm.k(slot), wg);
+        wgmma_wait_all();
+        reg_fence(s);
+        const bool whole = tile_whole(p, tile_bit(sm.gap(), t), r0, kv0, N);
+        float mt[2] = {m[0], m[1]}, ls[2];
+        if (whole) {
+          tile_max<N, true>(s, p.scale, mt);
+        } else {
+          mask_tile<N>(s, p, mrow, row, kv0);
+          tile_max<N, false>(s, p.scale, mt);
+        }
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          l[hf] *= ex2((m[hf] - mt[hf]) * kLog2e);
+          m[hf] = mt[hf];
+        }
+        if (whole) {
+          tile_exp<N, true>(s, p.scale, m, ls);
+        } else {
+          tile_exp<N, false>(s, p.scale, m, ls);
+        }
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) l[hf] += ls[hf];
+      }
+      release(slot);
+    }
+    // The row's m and l over the quad; l = 1 for a row that keeps nothing.
+    float scale_row[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float mr = quad_max(m[hf]);
+      l[hf] = quad_sum(l[hf] * ex2((m[hf] - mr) * kLog2e));
+      if (!(l[hf] > 0.0f)) l[hf] = 1.0f;
+      m[hf] = mr;
+      scale_row[hf] = p.dropout ? p.inv_keep / l[hf] : 1.0f / l[hf];
+    }
+    // Sweep 2: the normalised, dropped probabilities into P.V.
+    float o[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.0f;
+    auto next_live = [&](int t) {
+      while (t < mine && !tile_bit(sm.live(), t)) ++t;
+      return t;
+    };
+    for (int t = next_live(0); t < mine; t = next_live(t + 1)) {
+      const int slot = slot_of(t), kv0 = t * N;
+      const uint32_t parity = parity_of();
+      mbar_wait(sm.kfull(slot), parity);
+      float s[N / 2];
+      qk<D, N>(s, sm.q(), sm.k(slot), wg);
+      wgmma_wait_all();
+      reg_fence(s);
+      float ls[2];
+      if (tile_whole(p, tile_bit(sm.gap(), t), r0, kv0, N)) {
+        tile_exp<N, true>(s, p.scale, m, ls);
+      } else {
+        mask_tile<N>(s, p, mrow, row, kv0);
+        tile_exp<N, false>(s, p.scale, m, ls);
+      }
+      // Normalised (and, with dropout, scaled to 1 / (1 - rate)) in f32.
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) s[e] *= scale_row[(e & 3) >> 1];
+      if (p.dropout) {
+        mbar_wait(sm.dbar(t), 0);
+        apply_drop_bits<N>(s, sm.drop(), t, row - q0);
+      }
+      uint32_t pa[N / 4];
+      pack_p<N>(s, pa);
+      if constexpr (kResident) mbar_wait(sm.vfull(slot), 0);
+      pv<D, N>(o, pa, sm.v(slot));
+      wgmma_wait_all();
+      reg_fence(o);
+      reg_fence(pa);
+      release(slot);
+    }
+    if constexpr (!kResident) {
+      // Live tiles past this warpgroup's diagonal: handed back once landed.
+      for (int u = mine; u < tiles; ++u) {
+        if (!tile_bit(sm.live(), u)) continue;
+        mbar_wait(sm.kfull(slot_of(u)), parity_of());
+        release(slot_of(u));
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = row + 8 * hf;
+      if ((lane & 3) == 0 && r < p.Sq) {
+        p.lse_out[(static_cast<int64_t>(b) * p.H + h) * p.Sq + r] = m[hf] + logf(l[hf]);
+      }
+    }
+    store_o<D>(p, b, h, row, o);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward, f32 (full f32 on the CUDA cores; wgmma has no f32 mode and the
+// port never runs TF32): block = (64 q rows, h, b); the kv tiles of N
+// rows stream three times (max, exp-sum, P.V), two buffers deep across
+// the passes.
+// ---------------------------------------------------------------------------
+template <int D, int N>
+__global__ void __launch_bounds__(kThreads) whole_fwd_f32_kernel(Params p) {
+  using T = float;
   using S = Smem<T, D, N>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);
@@ -414,10 +626,10 @@ template <int D> struct BwdTiles {
   static constexpr int nkv = D == 128 ? 32 : 64;
 };
 
-template <typename T, int D, int N>
-size_t fwd_smem() {  // Q; K, V x 2; P
-  using S = Smem<T, D, N>;
-  return (kRows * S::ldd + 2 * 2 * N * S::ldd + S::pbuf) * sizeof(T);
+template <int D, int N>
+size_t fwd_f32_smem() {  // Q; K, V x 2; P
+  using S = Smem<float, D, N>;
+  return (kRows * S::ldd + 2 * 2 * N * S::ldd + S::pbuf) * sizeof(float);
 }
 
 template <typename T, int D>
@@ -433,16 +645,24 @@ size_t dkv_smem() {  // K, V; Q, do x 2; P; lse, delta x 2
          4 * BwdTiles<D>::nkv * sizeof(float);
 }
 
-// Above 48 KB only as opted-in dynamic shared memory; set once per kernel
-// (before any graph capture: the first call of each runs eagerly).
-template <typename Kernel>
-int opt_in(Kernel kernel, size_t smem, bool& done) {
-  if (done) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  done = true;
-  return 0;
+// The bf16 forward: kv tiles of 128 rows, resident at D <= 64 (Q, 4 K
+// and 4 V tiles: 144 KB at D = 64); at D = 128 tiles of 64 rows through
+// a ring of 4 slots (160 KB with Q).
+template <int D>
+int launch_fwd_bf16(const Params& p, cudaStream_t stream) {
+  constexpr bool kResident = D <= 64;
+  constexpr int N = kResident ? 128 : 64;
+  constexpr int kSlots = kResident ? kMaxSeq / N : 4;
+  using Pl = hopper::Plan<D, N, kSlots, kMaxSeq / N>;
+  hopper::Maps maps;
+  if (const int err = hopper::encode_maps<D, N>(&maps, p)) return err;
+  static bool opted = false;
+  const auto kernel = whole_fwd_kernel<D, N, kSlots, kResident>;
+  if (const int err = hopper::opt_in_smem(kernel, Pl::kBytes, opted)) return err;
+  const dim3 grid(static_cast<unsigned>((p.Sq + hopper::kBlockRows - 1) / hopper::kBlockRows),
+                  static_cast<unsigned>(p.H), static_cast<unsigned>(p.B));
+  kernel<<<grid, hopper::kThreads, Pl::kBytes, stream>>>(p, maps.q, maps.k, maps.v);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
@@ -454,16 +674,22 @@ int launch_d(bool backward, const Params& p, cudaStream_t stream) {
     static bool opted_dq = false, opted_dkv = false;
     const size_t sdq = dq_smem<T, D>(), sdkv = dkv_smem<T, D>();
     constexpr int nq = BwdTiles<D>::nq, nkv = BwdTiles<D>::nkv;
-    if (const int err = opt_in(whole_dq_kernel<T, D, nq>, sdq, opted_dq)) return err;
-    if (const int err = opt_in(whole_dkv_kernel<T, D, nkv>, sdkv, opted_dkv)) return err;
+    if (const int err = hopper::opt_in_smem(whole_dq_kernel<T, D, nq>, sdq, opted_dq)) {
+      return err;
+    }
+    if (const int err = hopper::opt_in_smem(whole_dkv_kernel<T, D, nkv>, sdkv, opted_dkv)) {
+      return err;
+    }
     whole_dq_kernel<T, D, nq><<<grid, kThreads, sdq, stream>>>(p);
     if (const int err = static_cast<int>(cudaGetLastError())) return err;
     whole_dkv_kernel<T, D, nkv><<<grid, kThreads, sdkv, stream>>>(p);
-  } else {
+  } else if constexpr (std::is_same<T, float>::value) {
     static bool opted = false;
-    const size_t smem = fwd_smem<T, D, 64>();
-    if (const int err = opt_in(whole_fwd_kernel<T, D, 64>, smem, opted)) return err;
-    whole_fwd_kernel<T, D, 64><<<grid, kThreads, smem, stream>>>(p);
+    const size_t smem = fwd_f32_smem<D, 64>();
+    if (const int err = hopper::opt_in_smem(whole_fwd_f32_kernel<D, 64>, smem, opted)) return err;
+    whole_fwd_f32_kernel<D, 64><<<grid, kThreads, smem, stream>>>(p);
+  } else {
+    return launch_fwd_bf16<D>(p, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

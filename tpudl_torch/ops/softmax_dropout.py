@@ -136,8 +136,9 @@ def _check(logits, kvmask, seed, op):
     if skv > MAX_SKV:
         raise ValueError(
             f"{op} kernel takes rows of at most {MAX_SKV} columns (one warp "
-            f"per row), got Skv={skv}: longer rows are the flash kernel's "
-            f"(ROADMAP queue B item 5)"
+            f"per row), got Skv={skv}: longer rows go to flash_attention, "
+            f"or to attend(\"fused\"), which sends S <= 512 to the "
+            f"whole-row kernel (fused_attention) and longer rows to flash"
         )
     device = logits.device
     logits = logits.contiguous()
