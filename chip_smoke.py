@@ -90,7 +90,8 @@ The Llama LoRA slice (Llama-3-8B fine-tuned with rank-16 adapters on the
              [4, 2048, 32, 128] bf16 causal (all-ones and padding masks,
              Sq != Skv, ragged 1000 / 1500, D 64 and 32, f32, dropout 0.1
              at [8, 1024, 12, 64]) against their plain versions, each
-             backward bitwise repeatable; flash's keep mask bitwise the
+             backward bitwise repeatable, dK and dV exactly 0 on padded kv
+             rows; flash's keep mask bitwise the
              plain one and its dropout-on output hybrid_attention's on the
              same seed words; timed like phase 7, beside
              F.scaled_dot_product_attention (and, for the backward rows,
@@ -132,12 +133,13 @@ at seq 512 (attend("fused") reaching the whole-row attention) add:
              with the tenant's adapter;
 7d. whole attention kernels (after phase 7c) — the whole-row attention
              forward and two-launch backward at [32, 512, 12, 64] bf16
-             (padding mask, dropout 0.1; no dropout; ragged S 300 and 384;
-             causal; f32; D 32 and 128) against their plain versions, each
-             backward bitwise repeatable, each gate rejecting a planted
-             5 % error; the keep mask bitwise the plain one, the
-             dropout-on output hybrid_attention's; timed beside SDPA
-             (the backward rows also beside SDPA's backward alone);
+             (padding mask, dropout 0.1; no dropout; ragged S 300, 384
+             and 301 with dropout; causal; f32; D 32 and 128) against
+             their plain versions, each backward bitwise repeatable, its
+             padded kv rows exactly 0, each gate rejecting a planted 5 %
+             error; the keep mask bitwise the plain one, the dropout-on
+             output hybrid_attention's; timed beside SDPA (the backward
+             rows also beside SDPA's backward alone);
 15. train_512 (after phase 12) — phase 11 at batch 32 x seq 512, 20 timed
              steps: exactly 12 whole-attention forward and 12 backward, no
              softmax_dropout, 25/25 norm, 12/12 bias+GeLU and 1/1
@@ -1050,7 +1052,8 @@ KERNEL_KINDS = (
                              "softmax_dropout_", "xent_", "flash_fwd_kernel",
                              "flash_dq_kernel", "flash_dkv_kernel",
                              "whole_fwd_kernel", "whole_dq_kernel",
-                             "whole_dkv_kernel",
+                             "whole_dkv_kernel", "whole_dq_tma_kernel",
+                             "attn_dkv_tma_kernel",
                              "seg_lora_kernel")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "cutlass", "splitKreduce")),
     ("softmax", ("softmax",)),
@@ -2086,6 +2089,14 @@ def flash_check_sees(out, ref, dtype, rows):
     return not flash_errors(planted, ref, dtype)[2]
 
 
+def dead_rows_zero(kvmask, *grads):
+    """Whether the kv rows the padding mask drops (among them whole kv
+    blocks, which the bf16 dK/dV kernel skips) got dK and dV of exactly
+    0."""
+    dead = ~kvmask
+    return all(not bool(g[dead].any()) for g in grads)
+
+
 def attended_pairs(torch, b, sq, skv, kvmask, causal):
     """(q, kv) pairs that attend, summed over the batch: the work the
     kernels do for these inputs (causal tiles that cannot contribute are
@@ -2199,6 +2210,9 @@ def llama_kernel_phase(torch, F):
         err_q = flash_errors(dq, wdq, dtype)
         err_kv = merged(flash_errors(dk, wdk, dtype),
                         flash_errors(dv, wdv, dtype))
+        if not dead_rows_zero(kvmask, dk, dv):
+            err_kv = (err_kv[0], err_kv[1], False)
+            print(f"flash_dkv {variant}: padded kv rows not exactly 0")
         # The gate must see a planted error on one tile: the last 64 q
         # rows (the smallest causal rows), kv rows below Skv / 2 (never
         # padded, every one attended).
@@ -2331,8 +2345,9 @@ def whole_attention_kernel_phase(torch, F):
     """The whole-row attention forward and two-launch backward against
     their plain versions at the seq-512 step's [32, 512, 12, 64] bf16
     with the padding mask and dropout 0.1 (its 12 calls), then without
-    dropout, ragged S 300 and 384, causal, f32, and D 32 and 128; each
-    backward run twice and compared bit for bit, and each gate shown to
+    dropout, ragged S 300, 384 and 301 (S % 4 != 0, with dropout),
+    causal, f32, and D 32 and 128; each backward run twice and compared
+    bit for bit, its padded kv rows exactly 0, and each gate shown to
     reject a 5 % error planted on one 64-row tile (flash_errors). Then
     the dropout contract: the keep mask at [4, 512, 12, 64] bitwise equal
     to the plain one at a rate within 5 sigma of 0.9, and the dropout-on
@@ -2361,6 +2376,8 @@ def whole_attention_kernel_phase(torch, F):
         (b0, 300, 12, 64, bf16, False, "padding", 0.1,
          "ragged S 300, dropout 0.1"),
         (b0, 384, 12, 64, bf16, False, "padding", 0.0, "ragged S 384"),
+        (b0, 301, 12, 64, bf16, False, "padding", 0.1,
+         "ragged S 301 (S % 4 != 0), dropout 0.1"),
         (b0, s0, 12, 64, bf16, True, "ones", 0.0, "causal"),
         (8, s0, 12, 64, f32, False, "padding", 0.1,
          "f32 (CUDA cores), dropout 0.1"),
@@ -2386,6 +2403,9 @@ def whole_attention_kernel_phase(torch, F):
         want = fu.fused_attention_bwd_ref(*bwd_args)
         err_b = merged(*(flash_errors(g_, w_, dtype)
                          for g_, w_ in zip(grads, want)))
+        if not dead_rows_zero(kvmask, *grads[1:]):
+            err_b = (err_b[0], err_b[1], False)
+            print(f"fused_attn_bwd {variant}: padded kv rows not exactly 0")
         # One 64-row tile below S / 2: attended under every mask here.
         rows = slice(s // 2 - 64, s // 2)
         for name, out_, ref_ in (("o", o, wo), ("dq", grads[0], want[0]),
@@ -2436,8 +2456,12 @@ def whole_attention_kernel_phase(torch, F):
         cases["fused_attn_fwd"].append(row)
         # Backward (site 13): q, k, v, do, lse and the mask in, dq, dk, dv
         # out; five products (s, dp, dq, dk, dv). The design's delta
-        # (written once, read by each dK/dV block) and the dQ launch's
-        # second sweep of s and dp are shown beside the bound.
+        # (written once, read by each dK/dV block), the dQ launch's second
+        # sweep of s and dp and, bf16 with dropout, the keep bits the dQ
+        # launch hands the dK/dV launch (a bit a pair, written and read)
+        # are shown beside the bound.
+        bits_b = (b * h * s * ((s + 31) // 32) * 4
+                  if dtype == bf16 and rate > 0 else 0)
         row = timed_case(
             case_row(shape, dtype, variant, err_b, tol,
                      7 * qb + rows_b + b * s, 5 * product, peak),
@@ -2445,9 +2469,12 @@ def whole_attention_kernel_phase(torch, F):
             lambda: fu.fused_attention_bwd_ref(*bwd_args), sdpa_fwd_bwd,
             "F.scaled_dot_product_attention forward + backward "
             "(torch.autograd.grad)", plain_calls=2)
+        extra = f"delta write + read {2 * rows_b} B"
+        if bits_b:
+            extra += f", keep bits write + read {2 * bits_b} B"
         row["beyond_bound"] = beyond_bound(
-            f"delta write + read {2 * rows_b} B, 2 more products",
-            2 * rows_b, 2 * product, peak)
+            f"{extra}, 2 more products", 2 * rows_b + 2 * bits_b,
+            2 * product, peak)
         row["library_bwd_ms"] = library_bwd_ms(torch, F, ql, kl, vl, dot,
                                                lib_kw)
         cases["fused_attn_bwd"].append(row)
@@ -2818,17 +2845,20 @@ def llama_train_parity_phase(torch):
 
 
 def hopper_ptxas(text):
-    """ptxas -v's figures for each bf16 attention forward (the TMA and
-    wgmma kernels, named ``*_fwd_kernel`` with template arguments D, N,
-    slots): registers at entry (the consumers raise theirs with
-    setmaxnreg), spill stores and loads, and any wgmma serialisation
-    warning (C7512 / C7515). Their shared memory is dynamic (Plan in
-    attention_hopper.cuh), so ptxas does not see it."""
+    """ptxas -v's figures for each bf16 attention kernel on TMA and wgmma
+    (the forwards ``*_fwd_kernel``, the whole-row dQ launch
+    ``whole_dq_tma_kernel`` and the dK/dV kernel ``attn_dkv_tma_kernel``,
+    with template arguments D, N, slots): registers at entry (the
+    consumers raise theirs with setmaxnreg), spill stores and loads, and
+    any wgmma serialisation warning (C7512 / C7515). Their shared memory
+    is dynamic (Plan and DkvPlan in attention_hopper.cuh and
+    attention_dkv.cuh), so ptxas does not see it."""
     import re
 
     out, current = [], None
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '[^']*?((?:flash|whole)_fwd_kernel)"
+        m = re.search(r"Compiling entry function '[^']*?((?:flash|whole)_fwd_kernel"
+                      r"|whole_dq_tma_kernel|attn_dkv_tma_kernel)"
                       r"ILi(\d+)ELi(\d+)ELi(\d+)", line)
         if m:
             current = f"{m.group(1)}<D {m.group(2)}, N {m.group(3)}, slots {m.group(4)}>"

@@ -113,6 +113,35 @@ def test_grads_match_tpudl(causal, masking, one_thread):
                                    atol=1e-4)
 
 
+@pytest.mark.parametrize("sq,causal", [(160, False), (96, True)])
+def test_dead_kv_blocks_get_zero_dk_dv_like_tpudl(sq, causal, one_thread):
+    """A 128-row kv block that the padding mask leaves dead (kv rows 128 ..
+    159 of batch row 0) gets dK = dV = 0 exactly, in tpudl's backward and
+    in the port's (the dK/dV kernel writes zeros there and runs no
+    product), and the gradients agree; causal with Sq 96 != Skv 160."""
+    skv = 160
+    q, k, v = _qkv(29, sq=sq, skv=skv)
+    am = (np.arange(skv)[None, :] < np.array([100, 160])[:, None]).astype(
+        np.int32)
+    g = np.random.default_rng(30).normal(size=q.shape).astype(np.float32)
+
+    def loss_j(q, k, v):
+        o = jflash(q, k, v, mask=jnp.asarray(am), causal=causal,
+                   interpret=True)
+        return jnp.sum(o * jnp.asarray(g))
+
+    want = jax.grad(loss_j, (0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    o = fa.flash_attention(*leaves, mask=torch.from_numpy(am), causal=causal)
+    (o * torch.from_numpy(g)).sum().backward()
+    for t, w in zip(leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4)
+    for grad in (leaves[1].grad, leaves[2].grad, *want[1:]):
+        assert not np.asarray(grad)[0, 128:].any()
+    assert leaves[1].grad[1, 128:].abs().amax() > 0
+
+
 def test_with_lse_and_its_cotangent_match_tpudl(one_thread):
     """lse [B, H, Sq] and the gradients of a loss that reads both outputs
     (the lse cotangent folds into delta)."""

@@ -85,6 +85,38 @@ def test_grads_match_tpudl(s, causal, one_thread):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=5e-4)
 
 
+@pytest.mark.parametrize("s,lengths,causal", [
+    (300, (100, 300), False),
+    (384, (128, 250), True),
+])
+def test_dead_kv_blocks_get_zero_dk_dv_like_tpudl(s, lengths, causal,
+                                                  one_thread):
+    """A 128-row kv block that the padding mask leaves dead gets dK = dV
+    = 0 exactly, in tpudl's backward and in the port's (the dK/dV kernel
+    writes zeros there and runs no product), and the gradients agree."""
+    import jax
+
+    q, k, v = _qkv(s + 7, s=s)
+    am = (np.arange(s)[None, :] < np.array(lengths)[:, None]).astype(np.int32)
+    go = np.random.default_rng(s + 8).normal(size=q.shape).astype(np.float32)
+
+    def loss(q, k, v):
+        o = jfused(q, k, v, mask=jnp.asarray(am), causal=causal)
+        return jnp.sum(o * jnp.asarray(go))
+
+    want = jax.grad(loss, (0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    leaves = [t.requires_grad_(True) for t in _t(q, k, v)]
+    o = fu.fused_attention(*leaves, mask=torch.from_numpy(am), causal=causal)
+    (o * torch.from_numpy(go)).sum().backward()
+    for t, w in zip(leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=5e-4)
+    dead = -(-lengths[0] // 128) * 128  # the first kv block past the length
+    assert dead < s
+    for grad in (leaves[1].grad, leaves[2].grad, *want[1:]):
+        assert not np.asarray(grad)[0, dead:].any()
+    assert leaves[1].grad[1].abs().amax() > 0
+
+
 def test_fully_masked_rows_give_zero_like_tpudl(one_thread):
     """A batch row whose kv mask is all zeros keeps nothing: o = 0 there,
     as the TPU kernel's re-zeroing gives (the reference softmax would

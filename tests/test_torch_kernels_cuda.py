@@ -882,7 +882,11 @@ def _fa_close(got, want, dtype):
     # Around the bf16 forward's 128-row q blocks and kv tiles, and causal
     # Sq != Skv with the diagonal inside a block.
     (1, 127, 127, 2, 64), (2, 129, 129, 1, 32), (1, 255, 255, 2, 128),
-    (1, 257, 257, 1, 64), (1, 200, 330, 2, 128), (2, 257, 200, 1, 32)])
+    (1, 257, 257, 1, 64), (1, 200, 330, 2, 128), (2, 257, 200, 1, 32),
+    # Around the bf16 dK/dV kernel's kv blocks (64 rows at D 128, else
+    # 128) and q tiles (64): causal Sq 1024 != Skv 2048,
+    # a ragged q tile, Skv % 4 != 0 under dropout.
+    (1, 1024, 2048, 1, 128), (1, 330, 330, 2, 128), (2, 97, 301, 1, 64)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("masking", ["none", "padding"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -1051,7 +1055,11 @@ def test_flash_refusals(dev):
     (2, 300, 2, 64), (2, 384, 3, 32), (1, 512, 2, 128), (2, 257, 1, 64),
     (1, 40, 2, 64),
     # Around the bf16 forward's 128-row q blocks and kv tiles.
-    (1, 127, 2, 64), (2, 129, 1, 32), (1, 255, 2, 128), (1, 257, 2, 128)])
+    (1, 127, 2, 64), (2, 129, 1, 32), (1, 255, 2, 128), (1, 257, 2, 128),
+    # Around the bf16 backward's tiles (dQ: 64-row kv tiles; dK/dV: kv
+    # blocks of 64 rows at D 128, else 128): S 384 at D 128, a ragged q
+    # tile, S % 4 != 0 under dropout.
+    (2, 384, 2, 128), (1, 330, 2, 128), (2, 301, 2, 64)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("masking", ["none", "padding"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -1085,6 +1093,126 @@ def test_fused_attention_kernels_match_plain(dev, dtype, b, s, h, d, causal,
     again = fu.fused_attention_bwd(q, k, v, kvmask, seed, do, lse, causal,
                                    None, rate, impl="fused")
     assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+
+
+@pytest.mark.parametrize("kind,sq,causal", [("whole", 384, False),
+                                             ("flash", 384, False),
+                                             ("flash", 256, True)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_dead_kv_blocks_get_exact_zero_dk_dv(dev, kind, sq, causal, d,
+                                                  rate):
+    """A batch row whose padding leaves whole kv blocks dead (kv rows 128
+    .. 383 of row 0): the bf16 dK/dV kernel writes exact zeros there and
+    runs no product; the other row's gradients there are not zero, and
+    every gradient passes the plain version's gate."""
+    from tpudl_torch.ops import flash_attention as fa
+    from tpudl_torch.ops import fused_attention as fu
+
+    skv = 384
+    rng = np.random.default_rng(21)
+    q, do = (_t(rng, (2, sq, 2, d), torch.bfloat16, dev) for _ in range(2))
+    k, v = (_t(rng, (2, skv, 2, d), torch.bfloat16, dev) for _ in range(2))
+    kvmask = torch.ones(2, skv, dtype=torch.bool, device=dev)
+    kvmask[0, 100:] = False
+    seed = torch.tensor([99, 2**32 - 11], dtype=torch.int64, device=dev)
+    if kind == "whole":
+        o, lse = fu.fused_attention_fwd(q, k, v, kvmask, seed, causal, None,
+                                        rate, impl="fused")
+        args = (q, k, v, kvmask, seed, do, lse, causal, None, rate)
+        grads = fu.fused_attention_bwd(*args, impl="fused")
+        want = fu.fused_attention_bwd_ref(*args)
+    else:
+        o, lse = fa.flash_attention_fwd(q, k, v, kvmask, seed, causal, None,
+                                        rate, impl="fused")
+        delta = fa.backward_delta(do, o)
+        args = (q, k, v, kvmask, seed, do, lse, delta, causal, None, rate)
+        grads = fa.flash_attention_bwd(*args, impl="fused")
+        want = fa.flash_attention_bwd_ref(*args)
+    for got, ref in zip(grads, want):
+        _fa_close(got, ref, torch.bfloat16)
+    for g in grads[1:]:
+        assert not bool(g[0, 128:].any())
+        assert bool(g[1, 128:].any())
+
+
+@pytest.mark.parametrize("kind,s,d", [("whole", 384, 64), ("whole", 301, 128),
+                                      ("flash", 384, 128), ("flash", 257, 64)])
+def test_bf16_dropout_gradients_match_hybrid_attention_on_the_same_seed(
+        dev, kind, s, d):
+    """The bf16 backward kernels regenerate the forward's keep mask: with
+    dropout on, their output and gradients are hybrid_attention's (in f32,
+    on the same bf16 values and the same seed words) within the bf16
+    gate, at S % 4 == 0 and != 0 (a row's Philox blocks straddle). Flash's
+    dq is left out here: its delta is tpudl's sum(do * o) of the bf16 o,
+    which the f32 reference does not share. test_flash_kernels_match_plain
+    holds it against its plain version under dropout and causal masking."""
+    from tpudl_torch.ops import flash_attention as fa
+    from tpudl_torch.ops import fused_attention as fu
+
+    rng = np.random.default_rng(13)
+    q, k, v, do = (_t(rng, (2, s, 2, d), torch.bfloat16, dev)
+                   for _ in range(4))
+    am = torch.ones(2, s, dtype=torch.int32, device=dev)
+    am[1, s - 70:] = 0
+    fn = fu.fused_attention if kind == "whole" else fa.flash_attention
+    outs = []
+    for f, dtype in ((fn, torch.bfloat16), (sd.hybrid_attention, torch.float32)):
+        leaves = [_leaf(t.to(dtype)) for t in (q, k, v)]
+        o = f(*leaves, am, causal=True, dropout_rate=0.1,
+              dropout_rng=torch.Generator(device=dev).manual_seed(15))
+        (o.float() * do.float()).sum().backward()
+        outs.append([o.detach()] + [t.grad for t in leaves])
+    if kind == "flash":
+        outs = [[o, dk, dv] for o, _, dk, dv in outs]
+    for got, want in zip(*outs):
+        _fa_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", ["flash", "whole"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_causal_left_padding_gradients_match_plain(dev, kind, d, rate):
+    """Causal masking with left padding (the first 96 kv rows of batch row
+    0 dead, the first 200 of row 1): at D <= 64 a dK/dV block's first 64
+    kv rows are dead while its next 64 are not, so both consumer
+    warpgroups skip the block's first q tile (their rows dead, or past
+    the tile's reach). The slot ring must stay in step all the same: the
+    gradients pass the plain version's gate and repeat bit for bit over
+    eight more calls."""
+    from tpudl_torch.ops import flash_attention as fa
+    from tpudl_torch.ops import fused_attention as fu
+
+    s = 384
+    rng = np.random.default_rng(31)
+    q, k, v, do = (_t(rng, (2, s, 2, d), torch.bfloat16, dev)
+                   for _ in range(4))
+    kvmask = torch.ones(2, s, dtype=torch.bool, device=dev)
+    kvmask[0, :96] = False
+    kvmask[1, :200] = False
+    seed = torch.tensor([5150, 2**32 - 3], dtype=torch.int64, device=dev)
+    if kind == "whole":
+        o, lse = fu.fused_attention_fwd(q, k, v, kvmask, seed, True, None,
+                                        rate, impl="fused")
+        args = (q, k, v, kvmask, seed, do, lse, True, None, rate)
+
+        def bwd():
+            return fu.fused_attention_bwd(*args, impl="fused")
+        want = fu.fused_attention_bwd_ref(*args)
+    else:
+        o, lse = fa.flash_attention_fwd(q, k, v, kvmask, seed, True, None,
+                                        rate, impl="fused")
+        args = (q, k, v, kvmask, seed, do, lse, fa.backward_delta(do, o),
+                True, None, rate)
+
+        def bwd():
+            return fa.flash_attention_bwd(*args, impl="fused")
+        want = fa.flash_attention_bwd_ref(*args)
+    grads = bwd()
+    for got, ref in zip(grads, want):
+        _fa_close(got, ref, torch.bfloat16)
+    for _ in range(8):
+        assert all(torch.equal(a, b_) for a, b_ in zip(grads, bwd()))
 
 
 def test_fused_attention_rows_that_keep_nothing(dev):

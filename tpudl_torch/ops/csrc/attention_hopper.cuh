@@ -289,14 +289,15 @@ template <int D> struct Geom {
   static constexpr uint32_t kGroup = 8 * kRowBytes;  // 8 rows: one swizzle pattern
 };
 
-// The block's shared memory: Q, kSlots K and V tiles of N rows, then
+// The block's shared memory: kOwn tiles of the block's 128 rows (Q; the
+// whole-row dQ launch also dO), kSlots K and V tiles of N rows, then
 // the barriers (q, kfull, vfull, empty per slot; one per dropout tile),
 // the tile bits and, for kDropTiles kv tiles, the dropout keep bits the
 // producer warps draw (4 words per block row and tile, see drop_bits).
-template <int D, int N, int kSlots, int kDropTiles = 0> struct Plan {
+template <int D, int N, int kSlots, int kDropTiles = 0, int kOwn = 1> struct Plan {
   static constexpr uint32_t kQBytes = kBlockRows * D * 2;
   static constexpr uint32_t kTileBytes = N * D * 2;
-  static constexpr uint32_t kK = kQBytes;
+  static constexpr uint32_t kK = kOwn * kQBytes;
   static constexpr uint32_t kV = kK + kSlots * kTileBytes;
   static constexpr uint32_t kBars = kV + kSlots * kTileBytes;
   static constexpr uint32_t kDbars = kBars + 8 * (1 + 3 * kSlots);
@@ -309,8 +310,8 @@ template <int D, int N, int kSlots, int kDropTiles = 0> struct Plan {
 };
 
 // The block's view of its shared memory.
-template <int D, int N, int kSlots, int kDropTiles = 0> struct Shared {
-  using P = Plan<D, N, kSlots, kDropTiles>;
+template <int D, int N, int kSlots, int kDropTiles = 0, int kOwn = 1> struct Shared {
+  using P = Plan<D, N, kSlots, kDropTiles, kOwn>;
   static constexpr int kN = N, kRing = kSlots, kDrops = kDropTiles;
   uint8_t* base;  // 1024-byte aligned
   uint32_t addr;  // its shared address
@@ -321,6 +322,8 @@ template <int D, int N, int kSlots, int kDropTiles = 0> struct Shared {
     addr = a + pad;
   }
   __device__ __forceinline__ uint32_t q() const { return addr; }
+  // Own tile i (0: Q; 1: dO in the whole-row dQ launch).
+  __device__ __forceinline__ uint32_t own(int i) const { return addr + i * P::kQBytes; }
   __device__ __forceinline__ uint32_t k(int slot) const {
     return addr + P::kK + slot * P::kTileBytes;
   }
@@ -419,38 +422,39 @@ __device__ __forceinline__ void load_tile(uint32_t dst, int rows, const CUtensor
   }
 }
 
-// S = Q K^T for consumer warpgroup `wg`: its 64 rows of the Q tile at
-// `sq` against the N-row K tile at `sk`. Issued and committed, not
-// waited for.
-template <int D, int N>
+// S = Q K^T for consumer warpgroup `wg`: its 64 rows of the kARows-row Q
+// tile at `sq` against the N-row K tile at `sk`. Issued, not waited for;
+// kGroup: fenced and committed as a group of its own, else the caller
+// fences and commits.
+template <int D, int N, int kARows = kBlockRows, bool kGroup = true>
 __device__ __forceinline__ void qk(float (&s)[N / 2], uint32_t sq, uint32_t sk, int wg) {
   using G = Geom<D>;
-  wgmma_fence();
+  if constexpr (kGroup) wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int box = kk * 16 / G::kBoxCols, col = kk * 16 % G::kBoxCols;
-    const uint32_t a = sq + box * kBlockRows * G::kRowBytes + wg * kWgRows * G::kRowBytes + 2 * col;
+    const uint32_t a = sq + box * kARows * G::kRowBytes + wg * kWgRows * G::kRowBytes + 2 * col;
     const uint32_t b = sk + box * N * G::kRowBytes + 2 * col;
     Wgmma<N>::ss(s, smem_desc(a, 0, G::kGroup, G::kLayout), smem_desc(b, 0, G::kGroup, G::kLayout),
                  kk > 0);
   }
-  wgmma_commit();
+  if constexpr (kGroup) wgmma_commit();
 }
 
 // O += P V: P [64, N] as bf16 A fragments (4 registers per 16 columns),
-// V the N-row tile at `sv` (MN-major: D is contiguous). Issued and
-// committed, not waited for.
-template <int D, int N>
+// V the N-row tile at `sv` (MN-major: D is contiguous). Issued, not
+// waited for; kGroup as qk.
+template <int D, int N, bool kGroup = true>
 __device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&pa)[N / 4], uint32_t sv) {
   using G = Geom<D>;
-  wgmma_fence();
+  if constexpr (kGroup) wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
     const uint32_t b = sv + kk * 16 * G::kRowBytes;
     Wgmma<D>::rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
                  smem_desc(b, N * G::kRowBytes, G::kGroup, G::kLayout), 1);
   }
-  wgmma_commit();
+  if constexpr (kGroup) wgmma_commit();
 }
 
 // P's A fragments from the accumulator layout: 16 columns are n-tiles 2kk
@@ -475,45 +479,77 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// A tile's logits (scaled) with the entries that do not attend set to
-// MASK_VALUE: the kv mask and Skv per column, Sq and the causal diagonal
-// per row, as predicates (no branch per element). `row` is the thread's
-// first row (g); the second is row + 8.
-template <int N>
-__device__ __forceinline__ void mask_tile(float (&s)[N / 2], const Params& p, const uint8_t* mrow,
-                                          int row, int kv0) {
+// Which entries of a tile in the m64nN accumulator layout attend: the
+// kv mask and Skv per column, Sq and the causal diagonal per row, as
+// predicates (no branch per element). `row` is the thread's first row
+// (g); the second is row + 8; columns kv0 + 8j + 2t + e.
+template <int N> struct TileKeep {
   static_assert(N / 4 <= 32, "one bit per column of the thread");
-  const int t = threadIdx.x & 3;
   uint32_t cols = 0;  // bit 2j + e: column kv0 + 8j + 2t + e
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      cols |= static_cast<uint32_t>(kv0 + 8 * j + 2 * t + e < p.Skv) << (2 * j + e);
-    }
-  }
-  if (mrow != nullptr) {
+  int lim[2];
+  bool in[2];
+  int first;  // kv0 + 2t: the thread's column of j = e = 0
+  __device__ __forceinline__ TileKeep(const Params& p, const uint8_t* mrow, int row, int kv0) {
+    const int t = threadIdx.x & 3;
+    first = kv0 + 2 * t;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int c = min(kv0 + 8 * j + 2 * t + e, p.Skv - 1);
-        cols &= ~(static_cast<uint32_t>(mrow[c] == 0) << (2 * j + e));
+        cols |= static_cast<uint32_t>(first + 8 * j + e < p.Skv) << (2 * j + e);
       }
     }
-  }
-  int lim[2];
-  bool in[2];
+    if (mrow != nullptr) {
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    in[hf] = row + 8 * hf < p.Sq;
-    lim[hf] = p.causal ? row + 8 * hf + (p.Skv - p.Sq) : INT_MAX;
-  }
+      for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
+        for (int e = 0; e < 2; ++e) {
+          const int c = min(first + 8 * j + e, p.Skv - 1);
+          cols &= ~(static_cast<uint32_t>(mrow[c] == 0) << (2 * j + e));
+        }
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      in[hf] = row + 8 * hf < p.Sq;
+      lim[hf] = p.causal ? row + 8 * hf + (p.Skv - p.Sq) : INT_MAX;
+    }
+  }
+  // Element i of the thread's N / 2 (n-tile i / 4, row (i & 3) / 2, column i & 1).
+  __device__ __forceinline__ bool operator()(int i) const {
     const int j = i >> 2, hf = (i & 3) >> 1, e = i & 1;
-    const bool keep = ((cols >> (2 * j + e)) & 1u) && in[hf] && kv0 + 8 * j + 2 * t + e <= lim[hf];
-    s[i] = keep ? s[i] * p.scale : kMaskValue;
+    return ((cols >> (2 * j + e)) & 1u) && in[hf] && first + 8 * j + e <= lim[hf];
+  }
+};
+
+// A tile's logits (scaled) with the entries that do not attend set to
+// MASK_VALUE.
+template <int N>
+__device__ __forceinline__ void mask_tile(float (&s)[N / 2], const Params& p, const uint8_t* mrow,
+                                          int row, int kv0) {
+  const TileKeep<N> keep(p, mrow, row, kv0);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s[i] = keep(i) ? s[i] * p.scale : kMaskValue;
+}
+
+// The backward's probabilities in place: p = exp(s * scale - lse) from a
+// tile's raw logits, one FFMA and one MUFU.EX2 each (lsel: the lse of the
+// thread's two rows times log2 e); unless the tile is whole, 0 where the
+// pair does not attend.
+template <int N, bool kWhole>
+__device__ __forceinline__ void tile_p(float (&s)[N / 2], const Params& p, const uint8_t* mrow,
+                                       int row, int kv0, const float (&lsel)[2]) {
+  const float k = p.scale * kLog2e;
+  if constexpr (kWhole) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) s[i] = ex2(fmaf(s[i], k, -lsel[(i & 3) >> 1]));
+  } else {
+    const TileKeep<N> keep(p, mrow, row, kv0);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float pe = ex2(fmaf(s[i], k, -lsel[(i & 3) >> 1]));
+      s[i] = keep(i) ? pe : 0.0f;
+    }
   }
 }
 
@@ -603,7 +639,9 @@ __device__ __forceinline__ uint32_t keep2(uint32_t a, uint32_t b, uint32_t thres
 // the consumers' order: word t' holds, at bit 2j + e, column 8j + 2t' + e
 // of the tile (the columns thread t' of a quad holds in the m64nN
 // layout). Philox4x32-10 blocks of philox.cuh's contract; when Skv % 4 !=
-// 0 a row starts mid-block and its bits come element by element.
+// 0 a row starts mid-block and its bits come element by element. With
+// p.drop_bits set (the whole-row backward's dQ launch) the bits also go
+// to device memory in row order, for the dK/dV launch.
 template <class Sh>
 __device__ __forceinline__ void draw_drop_bits(const Sh& sm, const Params& p, int b, int h, int q0,
                                                int tiles, uint32_t k0, uint32_t k1, int warps) {
@@ -615,6 +653,13 @@ __device__ __forceinline__ void draw_drop_bits(const Sh& sm, const Params& p, in
     if (!tile_bit(sm.live(), t)) continue;
     for (int r = dt; r < kBlockRows; r += 32 * warps) {
       uint32_t w0 = 0, w1 = 0, w2 = 0, w3 = 0;
+      uint32_t pl[4] = {0u, 0u, 0u, 0u};  // row order: bit c % 32 of word c / 32
+      // Column byte j (columns 8j .. 8j + 7) into the row-order words.
+      auto put = [&](int j, uint32_t byte) {
+        const uint32_t sh = byte << (8 * (j & 3));
+#pragma unroll
+        for (int x = 0; x < N / 32; ++x) pl[x] |= (j >> 2) == x ? sh : 0u;
+      };
       const int q = q0 + r;
       if (q < p.Sq) {
         const uint64_t base = ((static_cast<uint64_t>(b) * p.H + h) * p.Sq + q) *
@@ -625,10 +670,13 @@ __device__ __forceinline__ void draw_drop_bits(const Sh& sm, const Params& p, in
           for (int j = 0; j < N / 8; ++j) {
             const uint4 lo = philox_block((base >> 2) + 2 * j, k0, k1);     // columns 8j .. 8j+3
             const uint4 hi = philox_block((base >> 2) + 2 * j + 1, k0, k1); // 8j+4 .. 8j+7
-            w0 |= keep2(lo.x, lo.y, p.threshold) << (2 * j);
-            w1 |= keep2(lo.z, lo.w, p.threshold) << (2 * j);
-            w2 |= keep2(hi.x, hi.y, p.threshold) << (2 * j);
-            w3 |= keep2(hi.z, hi.w, p.threshold) << (2 * j);
+            const uint32_t a = keep2(lo.x, lo.y, p.threshold), c = keep2(lo.z, lo.w, p.threshold);
+            const uint32_t d = keep2(hi.x, hi.y, p.threshold), f = keep2(hi.z, hi.w, p.threshold);
+            w0 |= a << (2 * j);
+            w1 |= c << (2 * j);
+            w2 |= d << (2 * j);
+            w3 |= f << (2 * j);
+            put(j, a | c << 2 | d << 4 | f << 6);
           }
         } else {
           for (int j = 0; j < N / 8; ++j) {
@@ -639,6 +687,17 @@ __device__ __forceinline__ void draw_drop_bits(const Sh& sm, const Params& p, in
             w1 |= (e[2] | e[3] << 1) << (2 * j);
             w2 |= (e[4] | e[5] << 1) << (2 * j);
             w3 |= (e[6] | e[7] << 1) << (2 * j);
+            put(j, e[0] | e[1] << 1 | e[2] << 2 | e[3] << 3 | e[4] << 4 | e[5] << 5 | e[6] << 6 |
+                       e[7] << 7);
+          }
+        }
+        if (p.drop_bits != nullptr) {
+          uint32_t* row = p.drop_bits + ((static_cast<int64_t>(b) * p.H + h) * p.Sq + q) *
+                                            p.drop_words;
+#pragma unroll
+          for (int x = 0; x < N / 32; ++x) {
+            const int word = t * (N / 32) + x;
+            if (word < p.drop_words) row[word] = pl[x];
           }
         }
       }
@@ -670,24 +729,52 @@ __device__ __forceinline__ void apply_drop_bits(float (&s)[N / 2], const uint32_
   }
 }
 
-// Store the warpgroup's O rows (thread rows `row`, row + 8), rounded to
-// bf16; rows past Sq are not stored.
+// The backward's dp by the producer's bits (tile t, as apply_drop_bits):
+// kept entries scaled by 1 / (1 - rate), dropped ones 0.
+template <int N>
+__device__ __forceinline__ void drop_scaled(float (&s)[N / 2], const uint32_t* words, int t,
+                                            int rowblk, float inv_keep) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const uint32_t w = words[(t * kBlockRows + rowblk + 8 * hf) * 4 + tq];
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * hf + e];
+        x = (w >> (2 * j + e)) & 1u ? x * inv_keep : 0.0f;
+      }
+    }
+  }
+}
+
+// Store a warpgroup's [64, D] accumulator rows (thread rows `row`, row +
+// 8) of (b, h) to a [B, S, H, D] bf16 tensor, rounded; rows past S are
+// not stored.
 template <int D>
-__device__ __forceinline__ void store_o(const Params& p, int b, int h, int row,
-                                        const float (&o)[D / 2]) {
+__device__ __forceinline__ void store_rows(void* base, int S, int H, int b, int h, int row,
+                                           const float (&o)[D / 2]) {
   const int t = threadIdx.x & 3;
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(base);
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int r = row + 8 * hf;
-    if (r >= p.Sq) continue;
-    __nv_bfloat16* dst = out + ((static_cast<int64_t>(b) * p.Sq + r) * p.H + h) * D + 2 * t;
+    if (r >= S) continue;
+    __nv_bfloat16* dst = out + ((static_cast<int64_t>(b) * S + r) * H + h) * D + 2 * t;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2 * hf], o[4 * j + 2 * hf + 1]);
     }
   }
+}
+
+// The forward's O rows, rounded to bf16; rows past Sq are not stored.
+template <int D>
+__device__ __forceinline__ void store_o(const Params& p, int b, int h, int row,
+                                        const float (&o)[D / 2]) {
+  store_rows<D>(p.o, p.Sq, p.H, b, h, row, o);
 }
 
 // ---------------------------------------------------------------------------

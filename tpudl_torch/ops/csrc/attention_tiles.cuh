@@ -254,6 +254,11 @@ struct Params {
   void* o3;               // whole backward: dv
   float* lse_out;         // forward: lse
   float* delta_out;       // whole backward, dQ launch: delta [B, H, Sq]
+  // Whole backward with dropout: the keep bits, [B, H, Sq, drop_words]
+  // u32, bit kv % 32 of word kv / 32; the dQ launch writes them as it
+  // draws them, the dK/dV launch reads them.
+  uint32_t* drop_bits;
+  int drop_words;
   int B, Sq, Skv, H;
   int causal;
   float scale;

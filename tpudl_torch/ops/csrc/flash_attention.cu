@@ -40,7 +40,17 @@
 //   rounded to bf16 there. Tiles past the causal diagonal, and kv tiles
 //   the mask empties, are never loaded; q blocks run longest first. A
 //   Philox block serves four elements of the dropout draw.
-// - The f32 forward and the two backward kernels run the first design:
+// - The bf16 dK/dV kernel is attention_dkv.cuh's, shared with the
+//   whole-row backward: a block owns kv rows and keeps dK and dV in
+//   registers, a producer warpgroup streams the Q and dO tiles by TMA
+//   with each tile's lse and delta rows beside them, and S^T, dP^T, dV
+//   and dK are wgmma, each waited for inside its step. It replaces the
+//   first design's mma.sync kernel, which ran 2328.91 us at the Llama
+//   step's shape against a 278.07 us bound. At D = 128 a block owns 64
+//   kv rows and each consumer warpgroup one of the two gradients: ptxas
+//   keeps the consumers near 168 registers, and dK and dV together would
+//   hold 128 of them.
+// - bf16 dQ and everything f32 run the first design:
 //   mma.sync m16n8k16 for bf16 (operands by ldmatrix, .trans for the
 //   [k, n] operands V, K, Q, do), full f32 on the CUDA cores for f32
 //   (never TF32; wgmma has no f32 mode) with the same fragment
@@ -62,7 +72,7 @@
 //   checks (rows past the end load as zeros and never store).
 #include <type_traits>
 
-#include "attention_hopper.cuh"
+#include "attention_dkv.cuh"
 
 namespace {
 
@@ -449,7 +459,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// dK/dV: block = (kv block, h, b); q tiles of N stream through, two deep.
+// dK/dV, the first design (launched for f32; bf16 takes attention_dkv.cuh):
+// block = (kv block, h, b); q tiles of N stream through, two deep.
 // ---------------------------------------------------------------------------
 template <typename T, int D, int N>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
@@ -575,12 +586,10 @@ int launch_one(Which which, const Params& p, cudaStream_t stream) {
   void (*kernel)(Params) = nullptr;
   if (which == kDq) {
     kernel = flash_dq_kernel<T, D, N>;
-  } else if (which == kDkv) {
-    kernel = flash_dkv_kernel<T, D, N>;
   } else if constexpr (std::is_same<T, float>::value) {
-    kernel = flash_fwd_f32_kernel<D, N>;
+    kernel = which == kDkv ? flash_dkv_kernel<T, D, N> : flash_fwd_f32_kernel<D, N>;
   } else {
-    return cudaErrorInvalidValue;  // the bf16 forward is launch_fwd_bf16's
+    return cudaErrorInvalidValue;  // bf16 forward and dK/dV: the Hopper kernels
   }
   const size_t smem = smem_bytes<T, D, N>(which);
   // Above 48 KB only as opted-in dynamic shared memory; set once per kernel
@@ -619,14 +628,19 @@ int launch_fwd_bf16(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The streamed tile: 64 rows, 32 for the dK/dV kernel at D = 128 (its two
-// [16, D] accumulators already hold 128 f32 registers per thread).
+// bf16: the forward and dK/dV are the Hopper kernels (dK/dV in
+// attention_dkv.cuh, shared with the whole-row backward). The first
+// design's streamed tile: 64 rows, 32 for the f32 dK/dV kernel at D = 128
+// (its two [16, D] accumulators already hold 128 f32 registers per thread).
 template <typename T, int D>
 int launch_d(Which which, const Params& p, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (which == kFwd) return launch_fwd_bf16<D>(p, stream);
+    if (which == kDkv) return hopper::launch_dkv<D, false>(p, stream);
   }
-  if (which == kDkv && D == 128) return launch_one<T, D, 32>(which, p, stream);
+  if constexpr (std::is_same<T, float>::value && D == 128) {
+    if (which == kDkv) return launch_one<T, D, 32>(which, p, stream);
+  }
   return launch_one<T, D, 64>(which, p, stream);
 }
 

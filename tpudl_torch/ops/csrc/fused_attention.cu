@@ -36,8 +36,11 @@
 // What bounds them on the H100, at BERT-base's seq-512 step ([32, 512,
 // 12, 64] bf16, B H S^2 D = 6.44e9): the forward moves 100.7 MB (q, k, v
 // in, o out: 30.0 us at 3.35 TB/s) for 4 x 6.44e9 operations (26.1 us at
-// 989 TFLOP/s), so bytes; the backward does five products, 64.4 GFLOP
-// (65.1 us), against 176 MB (53 us), so operations.
+// 989 TFLOP/s), so bytes. The backward moves 176 MB (q, k, v, do in; dq,
+// dk, dv out: 52.8 us) and does five products: 64.4 GFLOP (65.1 us) when
+// every pair attends, so operations; under the step's padding mask
+// (lengths uniform in [S/2, S]) about 3/4 of the pairs attend, 48 GFLOP
+// (49 us), so bytes (52.83 us, the figure PERF.md's row 13 gives).
 //
 // The TPU kernel holds a head's whole [S, S] f32 score tile in VMEM; on
 // this card that tile is 1 MB at S = 512 and fits no block. What the
@@ -57,23 +60,37 @@
 //   query rows; the kv tiles stream through shared memory (cp.async,
 //   two buffers deep) three times: the row max, the exp-sum, then P.V.
 // - Backward: two launches in stream order, so each accumulator has one
-//   owner (no float atomics; the backward is bitwise repeatable). The dQ
-//   launch: a block owns 64 query rows and streams the head's kv tiles
-//   twice, first into delta = rowsum(dp * p) (the TPU kernel's row term;
-//   the block writes it out), then into dq. The dK/dV launch: a block
-//   owns 64 kv rows and streams the q, do, lse and delta tiles into dk
-//   and dv. Both recompute p from the forward's row statistic. (One
+//   owner (no float atomics; the backward is bitwise repeatable). (One
 //   launch of both roles would need delta before it: the dK/dV blocks
-//   read every query row's, which only the dQ blocks form.)
+//   read every query row's, which only the dQ blocks form.) Both
+//   recompute p from the forward's row statistic.
+//   bf16, Hopper kernels on the forward's machinery. They replace the
+//   first design's mma.sync kernels (4 warps, cp.async two deep, a
+//   __syncthreads a tile, a Philox block per element drawn three times),
+//   which ran 2458.79 us at the step shape with dropout. The dQ launch
+//   (whole_dq_tma_kernel): 128 query rows, Q and dO loaded once, two
+//   sweeps over the live kv tiles (resident at D <= 64), the first
+//   forming and writing delta = rowsum(dp * p) (the TPU kernel's row
+//   term), the second dq += round(ds) K; the producer warps draw each
+//   tile's keep bits once (four elements per Philox block) into shared
+//   memory during the first sweep, and write them to device memory in
+//   row order. The dK/dV launch is attention_dkv.cuh's kernel, shared
+//   with flash: a block owns kv rows, streams Q, dO, lse and delta
+//   through a TMA ring, its producer transposes those keep bits into the
+//   consumers' order (no second draw), and it writes zeros without a
+//   product where the padding mask leaves its rows dead. The design's
+//   cost beyond the bound: delta and the keep bits (a bit per pair)
+//   written and read, and the dQ launch's second S and dP.
+//   f32: the first design's two launches (CUDA cores).
 // - Causal tiles past the diagonal are not visited; a tile that every
 //   pair attends skips the per-element mask checks; ragged S is bounds
 //   checks (rows past S load as zeros and never store).
-// The backward and the f32 forward take mma.sync fragments, cp.async
-// and the mask and dropout predicates from attention_tiles.cuh (shared
-// with flash_attention.cu).
+// The f32 kernels take mma.sync fragments (their f32 form), cp.async and
+// the mask and dropout predicates from attention_tiles.cuh (shared with
+// flash_attention.cu).
 #include <type_traits>
 
-#include "attention_hopper.cuh"
+#include "attention_dkv.cuh"
 
 namespace {
 
@@ -302,6 +319,165 @@ __global__ void __launch_bounds__(hopper::kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// backward, dQ launch, bf16: the Hopper kernel (attention_hopper.cuh).
+// block = (128 q rows, h, b), longest first under causal masking; Q and
+// dO land once, two sweeps over the head's live kv tiles of N rows. Sweep
+// 1: S = Q K^T and dP = dO V^T (wgmma ss, fresh arrays, waited for), p =
+// exp(s - lse), dp dropped and scaled, delta += dp * p per lane; the quad
+// sums each row's delta and the block writes it for the dK/dV launch.
+// Sweep 2: the same products, ds = p (dp - delta) scale in f32, rounded
+// to bf16 into dq += dS K (wgmma rs, K through the transpose bit).
+// kResident (D <= 64): the head's K and V (S <= 512) land once and stay;
+// else they stream through a ring of kSlots, both in each sweep. With
+// dropout, producer warps draw every live tile's keep bits into shared
+// memory during sweep 1 (draw_drop_bits, one Philox block per four
+// elements) and write them to p.drop_bits for the dK/dV launch; both
+// sweeps test them.
+// ---------------------------------------------------------------------------
+template <int D, int N, int kSlots, bool kResident>
+__global__ void __launch_bounds__(hopper::kThreads, 1)
+    whole_dq_tma_kernel(const Params p, const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap dmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap) {
+  using namespace tpudl::hopper;
+  constexpr int kTiles = kMaxSeq / N;  // kv tiles of the longest row
+  using Pl = Plan<D, N, kSlots, kTiles, 2>;
+  static_assert(!kResident || kSlots >= kTiles, "resident: every kv tile has its slot");
+  extern __shared__ __align__(1024) uint8_t hopper_smem[];
+  const Shared<D, N, kSlots, kTiles, 2> sm(hopper_smem);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int qblk = p.causal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  const int q0 = qblk * kBlockRows;
+  const uint8_t* mrow = p.kvmask ? p.kvmask + static_cast<int64_t>(b) * p.Skv : nullptr;
+  constexpr int kDrawWarps = kResident ? 4 : 3;
+  block_setup(sm, p, mrow, kDrawWarps);
+  const int tiles = reach_tiles(p, q0, kBlockRows, N);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      mbar_expect_tx(sm.qbar(), 2 * Pl::kQBytes);
+      load_tile<D>(sm.own(0), kBlockRows, qmap, sm.qbar(), b, h, q0);
+      load_tile<D>(sm.own(1), kBlockRows, dmap, sm.qbar(), b, h, q0);
+      // Each tile's K and V together: both sweeps need both.
+      int i = 0;
+      for (int sweep = 0; sweep < (kResident ? 1 : 2); ++sweep) {
+        for (int t = 0; t < tiles; ++t) {
+          if (!tile_bit(sm.live(), t)) continue;
+          const int slot = kResident ? t : i % kSlots, round = kResident ? 0 : i / kSlots;
+          if (round > 0) mbar_wait(sm.empty(slot), (round - 1) & 1);
+          mbar_expect_tx(sm.kfull(slot), 2 * Pl::kTileBytes);
+          load_tile<D>(sm.k(slot), N, kmap, sm.kfull(slot), b, h, t * N);
+          load_tile<D>(sm.v(slot), N, vmap, sm.kfull(slot), b, h, t * N);
+          ++i;
+        }
+      }
+    }
+    if (p.dropout && threadIdx.x >= hopper::kThreads - 32 * kDrawWarps) {
+      __syncwarp();
+      uint32_t k0, k1;
+      seed_words(p, k0, k1);
+      draw_drop_bits(sm, p, b, h, q0, tiles, k0, k1, kDrawWarps);
+    }
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int r0 = q0 + wg * kWgRows;               // the warpgroup's rows
+    const int row = r0 + 16 * warp + (lane >> 2);  // the thread's: row, row + 8
+    const int mine = reach_tiles(p, r0, kWgRows, N);
+    int i = 0;
+    auto slot_of = [&](int t) { return kResident ? t : i % kSlots; };
+    auto parity_of = [&]() -> uint32_t { return kResident ? 0u : (i / kSlots) & 1; };
+    auto release = [&](int slot) {
+      if constexpr (!kResident) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(sm.empty(slot));
+      }
+      ++i;
+    };
+    const int64_t rows = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
+    float lsel[2];  // lse * log2 e of the thread's rows
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = row + 8 * hf;
+      lsel[hf] = r < p.Sq ? p.lse[rows + r] * kLog2e : 0.0f;
+    }
+    // Tile t (in `slot`): p into s, the dropped and scaled dp into dp.
+    auto products = [&](int t, int slot, float(&s)[N / 2], float(&dp)[N / 2]) {
+      qk<D, N>(s, sm.own(0), sm.k(slot), wg);
+      qk<D, N>(dp, sm.own(1), sm.v(slot), wg);
+      wgmma_wait_all();
+      reg_fence(s);
+      reg_fence(dp);
+      const int kv0 = t * N;
+      if (tile_whole(p, tile_bit(sm.gap(), t), r0, kv0, N)) {
+        tile_p<N, true>(s, p, mrow, row, kv0, lsel);
+      } else {
+        tile_p<N, false>(s, p, mrow, row, kv0, lsel);
+      }
+      if (p.dropout) {
+        mbar_wait(sm.dbar(t), 0);
+        drop_scaled<N>(dp, sm.drop(), t, row - q0, p.inv_keep);
+      }
+    };
+    mbar_wait(sm.qbar(), 0);
+    // Sweep 1: delta = rowsum(dp * p), per lane, then over the quad.
+    float dl[2] = {0.0f, 0.0f};
+    for (int t = 0; t < tiles; ++t) {
+      if (!tile_bit(sm.live(), t)) continue;
+      const int slot = slot_of(t);
+      mbar_wait(sm.kfull(slot), parity_of());
+      if (t < mine) {
+        float s[N / 2], dp[N / 2];
+        products(t, slot, s, dp);
+#pragma unroll
+        for (int e = 0; e < N / 2; ++e) dl[(e & 3) >> 1] += dp[e] * s[e];
+      }
+      release(slot);
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      dl[hf] = quad_sum(dl[hf]);
+      const int r = row + 8 * hf;
+      if ((lane & 3) == 0 && r < p.Sq) p.delta_out[rows + r] = dl[hf];
+    }
+    // Sweep 2: ds = p (dp - delta) scale, rounded to bf16 into dq += dS K.
+    float dq[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) dq[e] = 0.0f;
+    auto next_live = [&](int t) {
+      while (t < mine && !tile_bit(sm.live(), t)) ++t;
+      return t;
+    };
+    for (int t = next_live(0); t < mine; t = next_live(t + 1)) {
+      const int slot = slot_of(t);
+      mbar_wait(sm.kfull(slot), parity_of());
+      float s[N / 2], dp[N / 2];
+      products(t, slot, s, dp);
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) s[e] = s[e] * (dp[e] - dl[(e & 3) >> 1]) * p.scale;
+      uint32_t pa[N / 4];
+      pack_p<N>(s, pa);
+      pv<D, N>(dq, pa, sm.k(slot));
+      wgmma_wait_all();
+      reg_fence(dq);
+      reg_fence(pa);
+      release(slot);
+    }
+    if constexpr (!kResident) {
+      // Live tiles past this warpgroup's diagonal: handed back once landed.
+      for (int u = mine; u < tiles; ++u) {
+        if (!tile_bit(sm.live(), u)) continue;
+        mbar_wait(sm.kfull(slot_of(u)), parity_of());
+        release(slot_of(u));
+      }
+    }
+    store_rows<D>(p.o, p.Sq, p.H, b, h, row, dq);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // forward, f32 (full f32 on the CUDA cores; wgmma has no f32 mode and the
 // port never runs TF32): block = (64 q rows, h, b); the kv tiles of N
 // rows stream three times (max, exp-sum, P.V), two buffers deep across
@@ -425,7 +601,8 @@ __global__ void __launch_bounds__(kThreads) whole_fwd_f32_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// backward, dQ launch: block = (64 q rows, h, b); the kv tiles of N rows
+// backward, dQ launch, the first design (launched for f32; bf16 takes
+// whole_dq_tma_kernel): block = (64 q rows, h, b); the kv tiles of N rows
 // stream twice, two buffers deep across the passes: pass 0 sums delta =
 // rowsum(dp * p) and writes it for the dK/dV launch, pass 1 forms dq.
 // ---------------------------------------------------------------------------
@@ -522,7 +699,8 @@ __global__ void __launch_bounds__(kThreads) whole_dq_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// backward, dK/dV launch: block = (64 kv rows, h, b); the q, do, lse and
+// backward, dK/dV launch, the first design (launched for f32; bf16 takes
+// attention_dkv.cuh): block = (64 kv rows, h, b); the q, do, lse and
 // delta tiles of N rows stream, two deep.
 // ---------------------------------------------------------------------------
 template <typename T, int D, int N>
@@ -619,8 +797,9 @@ __global__ void __launch_bounds__(kThreads) whole_dkv_kernel(Params p) {
   store_frag<T, D>(static_cast<T*>(p.o3), off, p.H, h, kv0 + rw, p.Skv, dv);
 }
 
-// The streamed tiles: 64 rows; the dK/dV role streams 32 at D = 128 (its
-// two [16, D] accumulators already hold 128 f32 registers per thread).
+// The first design's streamed tiles: 64 rows; the dK/dV role streams 32
+// at D = 128 (its two [16, D] accumulators hold 128 f32 registers a
+// thread).
 template <int D> struct BwdTiles {
   static constexpr int nq = 64;
   static constexpr int nkv = D == 128 ? 32 : 64;
@@ -665,12 +844,49 @@ int launch_fwd_bf16(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch_d(bool backward, const Params& p, cudaStream_t stream) {
+// The bf16 backward: the dQ launch (it writes delta), then in stream
+// order the dK/dV launch (attention_dkv.cuh; dk, dv to p.o2, p.o3). dQ's
+// kv tiles: 64 rows (S and dP in flight together at 128 spilled and made
+// ptxas serialise the wgmmas, C7512), resident at D <= 64 (Q, dO, 8 K
+// and 8 V tiles and the dropout bits: 177.5 KB at D = 64); at D = 128
+// through a ring of 3 slots (177.4 KB).
+template <int D>
+int launch_bwd_bf16(const Params& p, cudaStream_t stream) {
+  constexpr bool kResident = D <= 64;
+  constexpr int N = 64;
+  constexpr int kSlots = kResident ? kMaxSeq / N : 3;
+  using Pl = hopper::Plan<D, N, kSlots, kMaxSeq / N, 2>;
+  CUtensorMap qmap, dmap, kmap, vmap;
+  if (const int e = hopper::encode_rows<D>(&qmap, p.q, p.B, p.Sq, p.H, hopper::kBlockRows)) {
+    return e;
+  }
+  if (const int e = hopper::encode_rows<D>(&dmap, p.dout, p.B, p.Sq, p.H, hopper::kBlockRows)) {
+    return e;
+  }
+  if (const int e = hopper::encode_rows<D>(&kmap, p.k, p.B, p.Skv, p.H, N)) return e;
+  if (const int e = hopper::encode_rows<D>(&vmap, p.v, p.B, p.Skv, p.H, N)) return e;
+  static bool opted = false;
+  const auto kernel = whole_dq_tma_kernel<D, N, kSlots, kResident>;
+  if (const int err = hopper::opt_in_smem(kernel, Pl::kBytes, opted)) return err;
+  const dim3 grid(static_cast<unsigned>((p.Sq + hopper::kBlockRows - 1) / hopper::kBlockRows),
+                  static_cast<unsigned>(p.H), static_cast<unsigned>(p.B));
+  kernel<<<grid, hopper::kThreads, Pl::kBytes, stream>>>(p, qmap, dmap, kmap, vmap);
+  if (const int err = static_cast<int>(cudaGetLastError())) return err;
+  Params pkv = p;
+  pkv.o = p.o2;
+  pkv.o2 = p.o3;
+  return hopper::launch_dkv<D, true>(pkv, stream);
+}
+
+// f32 (CUDA cores): the forward, and the two backward launches of the
+// first design (attention_tiles.cuh) in stream order, the dK/dV launch
+// reading the delta the dQ launch writes.
+template <int D>
+int launch_f32(bool backward, const Params& p, cudaStream_t stream) {
+  using T = float;
   const unsigned tiles = static_cast<unsigned>((p.Sq + kRows - 1) / kRows);
   const dim3 grid(tiles, static_cast<unsigned>(p.H), static_cast<unsigned>(p.B));
   if (backward) {
-    // The dK/dV launch reads the delta the dQ launch writes: stream order.
     static bool opted_dq = false, opted_dkv = false;
     const size_t sdq = dq_smem<T, D>(), sdkv = dkv_smem<T, D>();
     constexpr int nq = BwdTiles<D>::nq, nkv = BwdTiles<D>::nkv;
@@ -683,15 +899,22 @@ int launch_d(bool backward, const Params& p, cudaStream_t stream) {
     whole_dq_kernel<T, D, nq><<<grid, kThreads, sdq, stream>>>(p);
     if (const int err = static_cast<int>(cudaGetLastError())) return err;
     whole_dkv_kernel<T, D, nkv><<<grid, kThreads, sdkv, stream>>>(p);
-  } else if constexpr (std::is_same<T, float>::value) {
+  } else {
     static bool opted = false;
     const size_t smem = fwd_f32_smem<D, 64>();
     if (const int err = hopper::opt_in_smem(whole_fwd_f32_kernel<D, 64>, smem, opted)) return err;
     whole_fwd_f32_kernel<D, 64><<<grid, kThreads, smem, stream>>>(p);
-  } else {
-    return launch_fwd_bf16<D>(p, stream);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_d(bool backward, const Params& p, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return backward ? launch_bwd_bf16<D>(p, stream) : launch_fwd_bf16<D>(p, stream);
+  } else {
+    return launch_f32<D>(backward, p, stream);
+  }
 }
 
 template <typename T>
@@ -744,10 +967,12 @@ extern "C" int tpudl_fused_attn_fwd(const void* q, const void* k, const void* v,
 
 // As tpudl_fused_attn_fwd; dout, dq, dk, dv: [b, s, h, d]; lse (the
 // forward's): [b, h, s] f32; delta: [b, h, s] f32 scratch, written with
-// rowsum(dp * p) by the first of the two launches and read by the second.
+// rowsum(dp * p) by the first of the two launches and read by the second;
+// bits: with dropout and bf16, [b, h, s, (s + 31) / 32] u32 scratch for
+// the keep bits the first launch draws and the second reads (else null).
 extern "C" int tpudl_fused_attn_bwd(const void* q, const void* k, const void* v,
                                     const void* kvmask, const void* seed, const void* dout,
-                                    const void* lse, void* delta, void* dq, void* dk,
+                                    const void* lse, void* delta, void* bits, void* dq, void* dk,
                                     void* dv, int b, int s, int h, int d, int causal, float scale,
                                     uint32_t threshold, float inv_keep, int dropout, int dtype,
                                     void* stream) {
@@ -757,6 +982,11 @@ extern "C" int tpudl_fused_attn_bwd(const void* q, const void* k, const void* v,
   p.lse = static_cast<const float*>(lse);
   p.delta_out = static_cast<float*>(delta);
   p.delta = p.delta_out;
+  if (dropout && dtype == tpudl::kBFloat16) {
+    if (bits == nullptr) return cudaErrorInvalidValue;
+    p.drop_bits = static_cast<uint32_t*>(bits);
+    p.drop_words = (s + 31) / 32;
+  }
   p.o = dq;
   p.o2 = dk;
   p.o3 = dv;

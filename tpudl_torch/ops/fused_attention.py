@@ -13,7 +13,10 @@ normalized probabilities, as the TPU kernel does, with no online
 rescaling) and keeps for the backward the row statistic ``lse`` ([B, H,
 S] f32). The backward recomputes p from lse in two launches in stream
 order: the dQ launch forms the row term ``delta = rowsum(dp * p)`` and
-then dq, the dK/dV launch reads that delta and forms dk and dv.
+then dq, the dK/dV launch reads that delta and forms dk and dv. With
+dropout in bf16 the dQ launch also writes the keep bits it draws (a bit
+per pair, 12.6 MB at BERT-base's seq-512 step) to a scratch tensor the
+dK/dV launch reads instead of drawing them again.
 
 The rounding points are the TPU kernel's: f32 logits and softmax; the
 probabilities divided by the row sum and (with dropout) scaled by
@@ -142,7 +145,7 @@ def _kernel():
         tail = [i32, i32, i32, i32, i32, f32, u32, f32, i32, i32, p]
         lib.tpudl_fused_attn_fwd.argtypes = [p] * 7 + tail
         lib.tpudl_fused_attn_fwd.restype = i32
-        lib.tpudl_fused_attn_bwd.argtypes = [p] * 11 + tail
+        lib.tpudl_fused_attn_bwd.argtypes = [p] * 12 + tail
         lib.tpudl_fused_attn_bwd.restype = i32
         _lib = lib
     return _lib
@@ -229,13 +232,19 @@ def _bwd_cuda(q, k, v, kvmask, seed, do, lse, causal, scale, rate):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if not q.numel():
         return dq, dk, dv
-    # The row term the dQ launch writes and the dK/dV launch reads.
+    # The row term the dQ launch writes and the dK/dV launch reads, and
+    # (bf16, dropout) the keep bits the dQ launch draws for the dK/dV
+    # launch: a bit per (q, kv) in 32-bit words.
     delta = torch.empty_like(lse)
+    bits = None
+    if rate > 0.0 and q.dtype == torch.bfloat16:
+        bits = torch.empty(b, h, s, (s + 31) // 32, dtype=torch.int32,
+                           device=device)
     lib = _kernel()
     code = lib.tpudl_fused_attn_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kvmask),
         seed.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _ptr(bits), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *_tail(q, causal, scale, rate))
     _build.check(lib, "fused_attn_bwd", code)
     fused_attention_bwd.launches += 1

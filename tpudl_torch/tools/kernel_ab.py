@@ -1,5 +1,8 @@
-"""Time the serving kernels (RMSNorm with and without its residual,
-SwiGLU) of two checkouts in turns on one card: A, B, B, A.
+"""Time kernels of two checkouts in turns on one card: A, B, B, A. The
+serving kernels (RMSNorm with and without its residual, SwiGLU) and the
+attention backward rows (the whole-row backward, dQ and dK/dV launches,
+at BERT-base's seq-512 step, with and without dropout; flash dK/dV at the
+Llama-3-8B LoRA step).
 
     python3 -m tpudl_torch.tools.kernel_ab OTHER_CHECKOUT [ROUNDS]
 
@@ -25,10 +28,19 @@ import sys
 #: (op, rows, width, residual) at the serving path's shapes, bf16 and f32.
 CASES = [("rms_norm", n, 4096, res) for n in (4, 128) for res in (False, True)]
 CASES += [("swiglu", n, 14336, False) for n in (4, 128)]
+#: (op, [b, sq, skv, h, d], causal, rate): the attention backward rows in
+#: bf16 at their step shapes (PERF.md rows 13 and 11); the whole-row
+#: rows take chip_smoke's padding mask (lengths uniform in [S/2, S]).
+ATTENTION = [("whole_bwd", [32, 512, 512, 12, 64], False, rate)
+             for rate in (0.1, 0.0)]
+ATTENTION += [("flash_dkv", [4, 2048, 2048, 32, 128], True, 0.0)]
 
 _TURN = r"""
 import json, sys, torch
 import chip_smoke
+from tpudl_torch.ops import flash_attention as fa
+from tpudl_torch.ops import fused_attention as fu
+from tpudl_torch.ops import keep_mask
 from tpudl_torch.ops.mlp_fused import swiglu
 from tpudl_torch.ops.norms import rms_norm
 g = torch.Generator(device="cuda").manual_seed(0)
@@ -44,12 +56,39 @@ for op, n, h, res in json.loads(sys.argv[1]):
             fn = lambda: swiglu(x, r, impl="fused")
         key = f"{op} [{n}, {h}] {str(dtype)[6:]}{' residual' if res else ''}"
         out[key] = chip_smoke.graph_ms(fn)
+for op, (b, sq, skv, h, d), causal, rate in json.loads(sys.argv[2]):
+    q, do = (torch.randn(b, sq, h, d, generator=g, device="cuda").bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(b, skv, h, d, generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    kvmask = torch.ones(b, skv, dtype=torch.bool, device="cuda")
+    if op == "whole_bwd":
+        lengths = torch.randint(skv // 2, skv + 1, (b,), generator=g,
+                                device="cuda")
+        kvmask = torch.arange(skv, device="cuda")[None, :] < lengths[:, None]
+    seed = keep_mask.draw_seed(g) if rate else keep_mask.zero_seed("cuda")
+    args = (kvmask, seed, causal, d ** -0.5, rate)
+    if op == "whole_bwd":
+        o, lse = fu.fused_attention_fwd(q, k, v, *args, impl="fused")
+        fn = lambda: fu.fused_attention_bwd(q, k, v, kvmask, seed, do, lse,
+                                            causal, d ** -0.5, rate,
+                                            impl="fused")
+    else:
+        o, lse = fa.flash_attention_fwd(q, k, v, *args, impl="fused")
+        ops = fa.bwd_operands(q, k, v, kvmask, seed, do, lse,
+                              fa.backward_delta(do, o))
+        fn = lambda: fa.launch_dkv(ops, *args)
+    key = f"{op} {[b, sq, skv, h, d]} bf16{' causal' if causal else ''} rate {rate}"
+    out[key] = chip_smoke.graph_ms(fn, calls=10, reps=5)
+    del q, do, k, v, o, lse, fn
+    torch.cuda.empty_cache()
 print(json.dumps(out))
 """
 
 
 def turn(tree: str) -> dict:
-    proc = subprocess.run([sys.executable, "-c", _TURN, json.dumps(CASES)],
+    proc = subprocess.run([sys.executable, "-c", _TURN, json.dumps(CASES),
+                           json.dumps(ATTENTION)],
                           cwd=tree, capture_output=True, text=True, check=True)
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
@@ -71,8 +110,8 @@ def main(argv) -> int:
     for key in runs[a][0]:
         ta, tb = ([r[key] * 1e3 for r in runs[t]] for t in (a, b))
         ma, mb = statistics.median(ta), statistics.median(tb)
-        print(f"  {key:38s} A {ma:7.3f} [{min(ta):.3f}, {max(ta):.3f}]  "
-              f"B {mb:7.3f} [{min(tb):.3f}, {max(tb):.3f}]  B/A {mb / ma:.3f}")
+        print(f"  {key:60s} A {ma:8.3f} [{min(ta):.3f}, {max(ta):.3f}]  "
+              f"B {mb:8.3f} [{min(tb):.3f}, {max(tb):.3f}]  B/A {mb / ma:.3f}")
     return 0
 
 
