@@ -117,7 +117,8 @@ at seq 512 (attend("fused") reaching the whole-row attention) add:
              -> 14336 and the prefill's [1, 128, 4096] -> 4096 (rank 16,
              f32 pages, bf16 x), int8 pages, f32 x with ragged ranks and
              an empty slot, 3-D x; bitwise repeatable; timed like phase 7,
-             beside two torch.bmm over the gathered pages;
+             beside the page gather and two torch.bmm, and the two
+             torch.bmm on pages gathered beforehand;
 4b. tenant_tiny (after phase 4) — LLAMA_TINY in f32 with three tenants on
              the card: assert_tenant_parity exact for f32 pages, the CPU
              plain path's tokens, int8 pages within the margin;
@@ -452,6 +453,7 @@ def report_cases(cases):
                 f"library_ms={lib if lib is None else round(lib, 5)}"
                 f"{' (' + c['library'] + ')' if c.get('library') else ''} "
                 f"{'library_bwd_ms=' + format(c['library_bwd_ms'], '.5f') + ' (its backward alone) ' if c.get('library_bwd_ms') else ''}"
+                f"{'library_pregathered_ms=' + format(c['library_pregathered_ms'], '.5f') + ' (the products on pages gathered beforehand) ' if c.get('library_pregathered_ms') else ''}"
                 f"bound_us={c['bound'][0] * 1e3:.3f} ({c['bound'][1]})"
                 f"{'; beyond the bound: ' + c['beyond_bound'] if c.get('beyond_bound') else ''}"
             )
@@ -470,8 +472,8 @@ def seg_lora_kernel_phase(torch):
     int8 pages, f32 x with ragged ranks (16 and 8) and an empty slot, and
     3-D x with int8 pages, without a base. Bound: the pages this run's
     table names (page 0 skipped), x (and the base) in, the result out.
-    Library: two torch.bmm over the same pages gathered beforehand
-    (f32)."""
+    Library: the page gather and two torch.bmm (f32), and beside it the
+    two torch.bmm on the pages gathered beforehand."""
     from tpudl_torch.ops import segmented_lora as sl
     from tpudl_torch.serve.lora import _quantize_rows
 
@@ -532,14 +534,24 @@ def seg_lora_kernel_phase(torch):
                   + x.numel() * e + b * s * fout * e * (2 if with_base else 1)
                   + table.numel() * 4 + b * 4)
         ops = 2.0 * s * used * (fin + fout)
-        ga = (pools["a"][table.long()].float()
-              * (pools["a_scale"][table.long()][..., None] if quantized else 1))
-        gb = (pools["b"][table.long()].float()
-              * (pools["b_scale"][table.long()][..., None] if quantized else 1))
         x3 = x.reshape(b, s, fin).float()
+
+        def gather():
+            t = table.long()
+            ga = (pools["a"][t].float()
+                  * (pools["a_scale"][t][..., None] if quantized else 1))
+            gb = (pools["b"][t].float()
+                  * (pools["b_scale"][t][..., None] if quantized else 1))
+            return ga, gb
+
+        ga, gb = gather()
 
         def bmm():
             return torch.bmm(torch.bmm(x3, ga.transpose(1, 2)), gb)
+
+        def gather_bmm():
+            a_, b_ = gather()
+            return torch.bmm(torch.bmm(x3, a_.transpose(1, 2)), b_)
 
         if not cases["seg_lora"]:
             # The serving path's 224 calls a step are host-bound: each
@@ -554,12 +566,17 @@ def seg_lora_kernel_phase(torch):
             print(f"seg_lora {variant}: wall us per eager call "
                   + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
 
-        cases["seg_lora"].append(timed_case(
+        row = timed_case(
             case_row(x_shape + (fout,), dtype, variant, err, tol, nbytes, ops),
             lambda: sl.segmented_lora(x, pools, table, scale, base=y,
                                       impl="fused"),
-            lambda: sl.segmented_lora_ref(x, pools, table, scale, y), bmm,
-            "two torch.bmm on the pages gathered beforehand (f32), no base"))
+            lambda: sl.segmented_lora_ref(x, pools, table, scale, y),
+            gather_bmm, "the page gather (pools[table], f32) and two "
+            "torch.bmm, no base")
+        # The same two bmm on pages gathered beforehand: the products
+        # alone, without the gather the kernel does itself.
+        row["library_pregathered_ms"] = library_ms(bmm, calls=20, reps=5)
+        cases["seg_lora"].append(row)
         del a, bp, pools, ga, gb, x3, x, y, out, want
     torch.cuda.empty_cache()
     report_cases(cases)
@@ -1050,11 +1067,12 @@ KERNEL_KINDS = (
     ("this repo's kernels", ("norm_fwd_kernel", "norm_bwd_kernel",
                              "column_sum_kernel", "bias_gelu_", "swiglu_",
                              "softmax_dropout_", "xent_", "flash_fwd_kernel",
-                             "flash_dq_kernel", "flash_dkv_kernel",
+                             "flash_dq_kernel", "flash_dq_tma_kernel",
+                             "flash_dkv_kernel",
                              "whole_fwd_kernel", "whole_dq_kernel",
                              "whole_dkv_kernel", "whole_dq_tma_kernel",
                              "attn_dkv_tma_kernel",
-                             "seg_lora_kernel")),
+                             "seg_lora_cluster_kernel")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "cutlass", "splitKreduce")),
     ("softmax", ("softmax",)),
     ("random bits", ("distribution", "philox")),
@@ -2202,8 +2220,11 @@ def llama_kernel_phase(torch, F):
                        errors(lse, wlse, 1e-5, 1e-4))
         delta = fa.backward_delta(do, o)
         ops = fa.bwd_operands(q, k, v, kvmask, seed, do, lse, delta)
-        dq = fa.launch_dq(ops, *args)
-        dk, dv = fa.launch_dkv(ops, *args)
+        # bf16 with dropout: the dQ launch's keep bits feed the dK/dV
+        # launch (every dK/dV call below follows a dQ call on them).
+        bits = fa.keep_scratch(q, k, rate)
+        dq = fa.launch_dq(ops, *args, bits)
+        dk, dv = fa.launch_dkv(ops, *args, bits)
         wdq, wdk, wdv = fa.flash_attention_bwd_ref(q, k, v, kvmask, seed, do,
                                                    lse, delta, causal, scale,
                                                    rate)
@@ -2224,10 +2245,10 @@ def llama_kernel_phase(torch, F):
             if not flash_check_sees(out_, ref_, dtype, rows):
                 fail(f"flash {variant}: the {name} check passes a "
                      f"{FLASH_PLANTED:.0%} error planted on one tile")
-        if not torch.equal(dq, fa.launch_dq(ops, *args)):
+        if not torch.equal(dq, fa.launch_dq(ops, *args, bits)):
             err_q = (err_q[0], err_q[1], False)
             print(f"flash_dq {variant}: not bitwise repeatable")
-        dk2, dv2 = fa.launch_dkv(ops, *args)
+        dk2, dv2 = fa.launch_dkv(ops, *args, bits)
         if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
             err_kv = (err_kv[0], err_kv[1], False)
             print(f"flash_dkv {variant}: not bitwise repeatable")
@@ -2274,17 +2295,25 @@ def llama_kernel_phase(torch, F):
             q, k, v, kvmask, seed, do, lse, delta, causal, scale, rate))
         lib_name = ("F.scaled_dot_product_attention forward + backward "
                     "(torch.autograd.grad); plain: the whole backward")
+        # bf16 with dropout: the keep bits the dQ launch writes and the
+        # dK/dV launch reads (a bit a pair), beside the bound.
+        bits_b = 0 if bits is None else bits.numel() * 4
+        beyond = ({"beyond_bound": beyond_bound(
+            f"keep bits write {bits_b} B", bits_b, 0)} if bits_b else {})
         cases["flash_dq"].append(timed(
             case_row(shape, dtype, variant, err_q, tol,
                      3 * qb + 2 * kb + 2 * rows + b * skv, 3 * product, peak),
-            lambda: fa.launch_dq(ops, *args), bwd_plain, sdpa_fwd_bwd,
-            lib_name) | {"library_bwd_ms": lib_bwd})
+            lambda: fa.launch_dq(ops, *args, bits), bwd_plain, sdpa_fwd_bwd,
+            lib_name) | {"library_bwd_ms": lib_bwd} | beyond)
+        if bits_b:
+            beyond = {"beyond_bound": beyond_bound(
+                f"keep bits read {bits_b} B", bits_b, 0)}
         cases["flash_dkv"].append(timed(
             case_row(shape, dtype, variant, err_kv, tol,
                      2 * qb + 4 * kb + 2 * rows + b * skv, 4 * product, peak),
-            lambda: fa.launch_dkv(ops, *args), bwd_plain, sdpa_fwd_bwd,
-            lib_name) | {"library_bwd_ms": lib_bwd})
-        del q, k, v, do, o, lse, delta, ops, dq, dk, dv, qt, kt, vt, dot
+            lambda: fa.launch_dkv(ops, *args, bits), bwd_plain, sdpa_fwd_bwd,
+            lib_name) | {"library_bwd_ms": lib_bwd} | beyond)
+        del q, k, v, do, o, lse, delta, ops, bits, dq, dk, dv, qt, kt, vt, dot
         del ql, kl, vl, keep
         torch.cuda.empty_cache()
     flash_dropout_checks(torch, fa, keep_mask, hybrid_attention)
@@ -2846,9 +2875,9 @@ def llama_train_parity_phase(torch):
 
 def hopper_ptxas(text):
     """ptxas -v's figures for each bf16 attention kernel on TMA and wgmma
-    (the forwards ``*_fwd_kernel``, the whole-row dQ launch
-    ``whole_dq_tma_kernel`` and the dK/dV kernel ``attn_dkv_tma_kernel``,
-    with template arguments D, N, slots): registers at entry (the
+    (the forwards ``*_fwd_kernel``, the dQ launches ``flash_dq_tma_kernel``
+    and ``whole_dq_tma_kernel`` and the dK/dV kernel
+    ``attn_dkv_tma_kernel``, with template arguments D, N, slots): registers at entry (the
     consumers raise theirs with setmaxnreg), spill stores and loads, and
     any wgmma serialisation warning (C7512 / C7515). Their shared memory
     is dynamic (Plan and DkvPlan in attention_hopper.cuh and
@@ -2858,7 +2887,7 @@ def hopper_ptxas(text):
     out, current = [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '[^']*?((?:flash|whole)_fwd_kernel"
-                      r"|whole_dq_tma_kernel|attn_dkv_tma_kernel)"
+                      r"|(?:flash|whole)_dq_tma_kernel|attn_dkv_tma_kernel)"
                       r"ILi(\d+)ELi(\d+)ELi(\d+)", line)
         if m:
             current = f"{m.group(1)}<D {m.group(2)}, N {m.group(3)}, slots {m.group(4)}>"
@@ -3061,6 +3090,9 @@ def main() -> int:
             # forward + backward).
             **({"library_bwd_ms": head["library_bwd_ms"]}
                if "library_bwd_ms" in head else {}),
+            # Segmented LoRA: the two bmm without the page gather.
+            **({"library_pregathered_ms": head["library_pregathered_ms"]}
+               if "library_pregathered_ms" in head else {}),
             "cases": [{k: v for k, v in c.items() if k != "bound"}
                       | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
                       for c in rows],

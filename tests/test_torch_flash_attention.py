@@ -308,3 +308,23 @@ def test_dispatch_rules_and_counters():
     g1, g2 = torch.Generator().manual_seed(1), torch.Generator().manual_seed(1)
     fa.flash_attention(q, k, v, dropout_rng=g1)
     assert torch.equal(g1.get_state(), g2.get_state())
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 5, 70), (1, 2, 7, 301),
+                                   (2, 1, 4, 33), (1, 1, 3, 64)])
+def test_keep_words_are_the_keep_mask_in_row_order(shape):
+    """``keep_words`` (the plain twin of the row-order keep bits the bf16
+    dQ launches hand their dK/dV launches) is ``keep_mask`` packed bit for
+    bit: bit kv % 32 of word kv // 32, bits past Skv clear, at Skv % 32
+    != 0 and Skv % 4 != 0. Packed here independently with numpy."""
+    b, h, sq, skv = shape
+    seed = torch.tensor([12345, 2**32 - 77], dtype=torch.int64)
+    words = keep_mask.keep_words(seed, b, h, sq, skv, 0.3)
+    nwords = -(-skv // 32)
+    assert words.dtype == torch.int32 and words.shape == (b, h, sq, nwords)
+    kept = keep_mask.keep_mask(seed, shape, 0.3).numpy()
+    padded = np.zeros((b, h, sq, 32 * nwords), dtype=bool)
+    padded[..., :skv] = kept
+    want = np.packbits(padded, axis=-1, bitorder="little").view("<u4")
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), want)
+    assert 0.6 < kept.mean() < 0.8

@@ -886,7 +886,10 @@ def _fa_close(got, want, dtype):
     # Around the bf16 dK/dV kernel's kv blocks (64 rows at D 128, else
     # 128) and q tiles (64): causal Sq 1024 != Skv 2048,
     # a ragged q tile, Skv % 4 != 0 under dropout.
-    (1, 1024, 2048, 1, 128), (1, 330, 330, 2, 128), (2, 97, 301, 1, 64)])
+    (1, 1024, 2048, 1, 128), (1, 330, 330, 2, 128), (2, 97, 301, 1, 64),
+    # Around the bf16 dQ launch's kv tiles (64 rows) at D 128: Skv = 63,
+    # 65 and 129.
+    (1, 60, 63, 2, 128), (2, 70, 65, 1, 128), (1, 130, 129, 2, 128)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("masking", ["none", "padding"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -918,6 +921,98 @@ def test_flash_kernels_match_plain(dev, dtype, b, sq, skv, h, d, causal,
     again = fa.flash_attention_bwd(q, k, v, kvmask, seed, do, lse, delta,
                                    causal, None, rate, impl="fused")
     assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+
+
+def _attended(kvmask, b, h, sq, skv, causal, dev):
+    """[b, h, sq, skv] bool: the (q, kv) pairs that attend."""
+    keep = torch.ones(b, h, sq, skv, dtype=torch.bool, device=dev)
+    if kvmask is not None:
+        keep = keep & kvmask[:, None, None, :]
+    if causal:
+        qi = torch.arange(sq, device=dev)[:, None] + (skv - sq)
+        keep = keep & (torch.arange(skv, device=dev)[None, :] <= qi)
+    return keep
+
+
+def _unpack_words(words, skv):
+    """keep_words' int32 [..., W] as bool [..., skv]."""
+    u = words.long() & 0xFFFFFFFF
+    bits = (u[..., None] >> torch.arange(32, device=words.device)) & 1
+    return bits.reshape(*words.shape[:-1], -1)[..., :skv].bool()
+
+
+@pytest.mark.parametrize("kind,b,sq,skv,h,d,causal,masking", [
+    ("flash", 2, 300, 301, 2, 128, True, "padding"),
+    ("flash", 1, 130, 97, 3, 64, False, "none"),
+    ("flash", 2, 257, 200, 2, 32, True, "none"),
+    ("whole", 2, 301, 301, 2, 64, False, "padding"),
+    ("whole", 1, 384, 384, 2, 128, True, "none")])
+def test_bf16_dq_launches_write_the_plain_keep_words(dev, kind, b, sq, skv, h,
+                                                     d, causal, masking):
+    """The keep bits the bf16 dQ launches draw and write in row order for
+    their dK/dV launches are ``keep_mask.keep_words``' on every pair that
+    attends (Skv % 32 != 0, Skv % 4 != 0 among the shapes)."""
+    from tpudl_torch.ops import flash_attention as fa
+    from tpudl_torch.ops import fused_attention as fu
+
+    q, k, v, do, kvmask = _fa_inputs(dev, b, sq, skv, h, d, torch.bfloat16,
+                                     masking, seed=21)
+    seed = torch.tensor([4242, 2**32 - 5], dtype=torch.int64, device=dev)
+    rate = 0.1
+    if kind == "flash":
+        o, lse = fa.flash_attention_fwd(q, k, v, kvmask, seed, causal, None,
+                                        rate, impl="fused")
+        ops = fa.bwd_operands(q, k, v, kvmask, seed, do, lse,
+                              fa.backward_delta(do, o))
+        bits = fa.keep_scratch(q, k, rate)
+        fa.launch_dq(ops, kvmask, seed, causal, d ** -0.5, rate, bits)
+    else:
+        o, lse = fu.fused_attention_fwd(q, k, v, kvmask, seed, causal, None,
+                                        rate, impl="fused")
+        bits = fa.keep_scratch(q, k, rate)
+        fu._bwd_cuda(q, k, v, kvmask, seed, do, lse, causal, d ** -0.5, rate,
+                     bits)
+    torch.cuda.synchronize()
+    want = keep_mask.keep_words(seed, b, h, sq, skv, rate, dev)
+    attended = _attended(kvmask, b, h, sq, skv, causal, dev)
+    got, ref = _unpack_words(bits, skv), _unpack_words(want, skv)
+    assert bool(attended.any())
+    assert torch.equal(got[attended], ref[attended])
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal,masking", [(True, "padding"),
+                                            (False, "padding"),
+                                            (True, "none")])
+def test_flash_dkv_reads_only_the_keep_words_dq_wrote(dev, d, causal,
+                                                      masking):
+    """The flash dK/dV launch reads its keep bits from the scratch the dQ
+    launch wrote, and never consults a word the dQ launch left unwritten
+    for a pair that attends: with the scratch's other words poisoned (all
+    ones, then all zeros) before the dQ launch, dk and dv are bitwise the
+    same, and they pass the plain version's gate."""
+    from tpudl_torch.ops import flash_attention as fa
+
+    b, sq, skv, h, rate = 2, 300, 333, 2, 0.1
+    q, k, v, do, kvmask = _fa_inputs(dev, b, sq, skv, h, d, torch.bfloat16,
+                                     masking, seed=23)
+    seed = torch.tensor([99, 2**31 + 17], dtype=torch.int64, device=dev)
+    args = (kvmask, seed, causal, d ** -0.5, rate)
+    o, lse = fa.flash_attention_fwd(q, k, v, *args, impl="fused")
+    delta = fa.backward_delta(do, o)
+    ops = fa.bwd_operands(q, k, v, kvmask, seed, do, lse, delta)
+    grads = []
+    for poison in (-1, 0):
+        bits = fa.keep_scratch(q, k, rate).fill_(poison)
+        fa.launch_dq(ops, *args, bits)
+        grads.append(fa.launch_dkv(ops, *args, bits))
+    assert all(torch.equal(a, b_) for a, b_ in zip(*grads))
+    _, wdk, wdv = fa.flash_attention_bwd_ref(q, k, v, kvmask, seed, do, lse,
+                                             delta, causal, None, rate)
+    _fa_close(grads[0][0], wdk, torch.bfloat16)
+    _fa_close(grads[0][1], wdv, torch.bfloat16)
+    with pytest.raises(ValueError, match="keep-bit scratch"):
+        fa.launch_dkv(ops, *args)
 
 
 @pytest.mark.parametrize("kind", ["flash", "whole"])
@@ -1332,7 +1427,13 @@ def _seg_inputs(dev, x_shape, dtype, quantized, rank, out, seed=0):
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("x_shape,rank,out", [
     ((4, 96), 16, 1100), ((4, 5, 96), 3, 40), ((2, 40, 600), 16, 300),
-    ((1, 17, 1030), 8, 2049), ((3, 97), 5, 64)])
+    ((1, 17, 1030), 8, 2049), ((3, 97), 5, 64),
+    # The serving widths: decode q_proj, gate/up and down_proj at 4 slots,
+    # a 128-token prefill; rank 64 (the kernel's table width) at 8 slots;
+    # an IN and an OUT that no cluster slice divides.
+    ((4, 4096), 16, 4096), ((4, 4096), 16, 14336), ((4, 14336), 16, 4096),
+    ((1, 128, 4096), 16, 4096), ((8, 4096), 64, 4096),
+    ((2, 4100), 64, 1030)])
 @pytest.mark.parametrize("with_base", [False, True])
 def test_segmented_lora_kernel_matches_plain(dev, dtype, quantized, x_shape,
                                              rank, out, with_base):

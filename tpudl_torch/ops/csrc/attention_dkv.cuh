@@ -17,12 +17,12 @@
 //   kSlots slots (completion on "full", hand-back on "empty"). All four
 //   warps then fill the slot's side data: the tile's lse (times log2 e)
 //   and delta rows, and with dropout its keep bits, and arrive on the
-//   slot's "aux" barrier. The bits are drawn here (draw_dkv_bits, four
-//   elements per Philox block) for flash, and transposed from the row
-//   order the whole-row dQ launch wrote them in (transpose_dkv_bits;
-//   kHanded). Every consumer warpgroup waits on "aux" each round before
-//   it hands the slot back, whether or not it computes the tile: else
-//   the producer warps could drift a round apart on "aux".
+//   slot's "aux" barrier. The bits are never drawn here: both backwards'
+//   dQ launches wrote them in row order (p.drop_bits), and the producer
+//   transposes a tile's words into the consumers' order
+//   (transpose_dkv_bits). Every consumer warpgroup waits on "aux" each
+//   round before it hands the slot back, whether or not it computes the
+//   tile: else the producer warps could drift a round apart on "aux".
 // - warpgroups 0 and 1, the consumers, own 64 kv rows each and keep dK
 //   and dV [64, D] in registers. Per tile S^T = K Q^T and dP^T = V dO^T
 //   are wgmma ss (both operands K-major), issued into fresh arrays and
@@ -52,26 +52,25 @@ namespace {
 // The dK/dV block's shared memory: K and V (kRows kv rows each), then
 // kSlots ring slots of a Q and a dO tile (N rows), the tile's lse * log2 e
 // and delta rows (N floats each) and its keep bits (kRows kv rows x 4
-// words), then (kHanded) the staging of the handed bits, then the
-// barriers: kv (K and V landed), full, empty and aux per slot.
-template <int D, int N, int kSlots, int kRows, bool kHanded> struct DkvPlan {
+// words), then the staging of the dQ launch's row-order bits (two
+// buffers of N q rows x kRows / 32 words), then the barriers: kv (K and
+// V landed), full, empty and aux per slot.
+template <int D, int N, int kSlots, int kRows> struct DkvPlan {
   static constexpr uint32_t kOwnBytes = kRows * D * 2;
   static constexpr uint32_t kTileBytes = N * D * 2;
   static constexpr uint32_t kQ = 2 * kOwnBytes;
   static constexpr uint32_t kDo = kQ + kSlots * kTileBytes;
   static constexpr uint32_t kStats = kDo + kSlots * kTileBytes;
   static constexpr uint32_t kDrop = kStats + kSlots * 2 * N * 4;
-  // kHanded: the whole-row backward's row-order keep bits of a tile,
-  // staged for the transpose: two buffers of N q rows x kRows / 32 words.
   static constexpr uint32_t kStage = kDrop + kSlots * kRows * 16;
-  static constexpr uint32_t kBars = kStage + (kHanded ? 2 * N * (kRows / 32) * 4 : 0);
+  static constexpr uint32_t kBars = kStage + 2 * N * (kRows / 32) * 4;
   static constexpr uint32_t kEnd = kBars + 8 * (1 + 3 * kSlots);
   static constexpr size_t kBytes = kEnd + 1024;  // + slack to align the base
   static_assert(kBytes <= 232448, "shared memory of one block");
 };
 
-template <int D, int N, int kSlots, int kRows, bool kHanded> struct DkvShared {
-  using P = DkvPlan<D, N, kSlots, kRows, kHanded>;
+template <int D, int N, int kSlots, int kRows> struct DkvShared {
+  using P = DkvPlan<D, N, kSlots, kRows>;
   uint8_t* base;  // 1024-byte aligned
   uint32_t addr;  // its shared address
   __device__ __forceinline__ explicit DkvShared(uint8_t* raw) {
@@ -106,64 +105,15 @@ template <int D, int N, int kSlots, int kRows, bool kHanded> struct DkvShared {
   }
 };
 
-// The producer warpgroup's share of dK/dV dropout (thread pt of 128): the
-// keep bits of q tile [qt0, qt0 + N) against the block's kv rows [kv0,
-// kv0 + kRows), in the consumers' order: word t' of block kv row c holds,
-// at bit 2j + e, q column qt0 + 8j + 2t' + e (the columns thread t' of a
-// quad holds in the m64nN layout of S^T). A Philox4x32-10 block covers
-// four consecutive kv of one q row, which in S^T are four rows held by
-// four lanes: so an item here is four rows (c .. c + 3) and the columns
-// of one t' in a span of four j, drawn whole, and it writes one byte of
-// each row's word. When Skv % 4 != 0 a row group straddles blocks and
-// the bits come element by element.
-template <int N, int kRows>
-__device__ __forceinline__ void draw_dkv_bits(uint32_t* words, const Params& p, int b, int h,
-                                              int qt0, int kv0, uint32_t k0, uint32_t k1,
-                                              int pt) {
-  constexpr int kSpans = N / 32;  // bytes of a word in use
-  static_assert(kSpans >= 1 && kSpans <= 4, "N in 32 .. 128");
-  uint8_t* bytes = reinterpret_cast<uint8_t*>(words);
-  const uint64_t head = (static_cast<uint64_t>(b) * p.H + h) * p.Sq;
-  const bool aligned = (p.Skv & 3) == 0;
-  for (int item = pt; item < kRows * kSpans; item += 128) {
-    const int span = item % kSpans, tq = (item / kSpans) & 3, c = 4 * (item / (4 * kSpans));
-    const int kv = kv0 + c;
-    uint32_t w[4] = {0u, 0u, 0u, 0u};
-    if (kv < p.Skv) {
-#pragma unroll 2
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int q = qt0 + 8 * (4 * span + jj) + 2 * tq + e;
-          if (q >= p.Sq) continue;
-          const uint64_t f = (head + q) * static_cast<uint64_t>(p.Skv) + kv;
-          uint4 blk;
-          if (aligned) {
-            blk = philox_block(f >> 2, k0, k1);
-          } else {
-            blk = make_uint4(philox_bits(f, k0, k1), philox_bits(f + 1, k0, k1),
-                             philox_bits(f + 2, k0, k1), philox_bits(f + 3, k0, k1));
-          }
-          const int bit = 2 * jj + e;
-          w[0] |= static_cast<uint32_t>(blk.x >= p.threshold) << bit;
-          w[1] |= static_cast<uint32_t>(blk.y >= p.threshold) << bit;
-          w[2] |= static_cast<uint32_t>(blk.z >= p.threshold) << bit;
-          w[3] |= static_cast<uint32_t>(blk.w >= p.threshold) << bit;
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) bytes[((c + r) * 4 + tq) * 4 + span] = static_cast<uint8_t>(w[r]);
-  }
-}
-
-// The producer warpgroup's other route to the keep bits (thread pt of
-// 128; the whole-row backward, whose dQ launch wrote them in row order to
-// p.drop_bits): the tile's words for q rows [qt0, qt0 + N) and the
-// block's kRows kv rows are staged in shared memory, the producer
-// warpgroup syncs (named barrier 1), and each thread gathers the
-// consumers' words of its kv rows: bit 2j + e of word t' of row c is bit
-// c of q row 8j + 2t' + e. No Philox draw.
+// The producer warpgroup's share of dropout (thread pt of 128): the keep
+// bits of q tile [qt0, qt0 + N) against the block's kRows kv rows, which
+// the dQ launch wrote in row order to p.drop_bits, staged in shared
+// memory; the producer warpgroup syncs (named barrier 1), and each thread
+// gathers the consumers' words of its kv rows: bit 2j + e of word t' of
+// row c is bit c of q row 8j + 2t' + e (the q columns thread t' of a quad
+// holds in the m64nN layout of S^T). No Philox draw. The dQ launch drew
+// only the (q, kv) words its blocks can reach; the consumers mask every
+// other pair's bit with its attend bit before they use it.
 template <int N, int kRows>
 __device__ __forceinline__ void transpose_dkv_bits(uint32_t* words, uint32_t* stage,
                                                    const Params& p, int64_t row_off, int qt0,
@@ -238,8 +188,8 @@ __device__ __forceinline__ void dkv_tile_math(float (&s)[N / 2],
 }
 
 // A consumer warpgroup's loop over the block's q tiles (see the kernel).
-template <int D, int N, int kSlots, int kRows, bool kHanded, int kRole>
-__device__ __forceinline__ void dkv_consume(const DkvShared<D, N, kSlots, kRows, kHanded>& sm,
+template <int D, int N, int kSlots, int kRows, int kRole>
+__device__ __forceinline__ void dkv_consume(const DkvShared<D, N, kSlots, kRows>& sm,
                                             const Params& p, const uint8_t* mrow, int b, int h,
                                             int kv0, int first, int tiles, bool rows_whole,
                                             bool mine, int wg) {
@@ -302,9 +252,15 @@ __device__ __forceinline__ void dkv_consume(const DkvShared<D, N, kSlots, kRows,
       }
       uint32_t w[2] = {0u, 0u};
       if (p.dropout) {
+        // Only the bits of pairs that attend: the dQ launch wrote no
+        // other word.
         const uint32_t* words = sm.drop(slot);
         w[0] = words[rowblk * 4 + t];
         w[1] = words[(rowblk + 8) * 4 + t];
+        if (!whole) {
+          w[0] &= keep[0];
+          w[1] &= keep[1];
+        }
       }
       if (whole) {
         if (p.dropout) {
@@ -352,19 +308,18 @@ __device__ __forceinline__ void dkv_consume(const DkvShared<D, N, kSlots, kRows,
 // kSplit: blocks of 64 kv rows, consumer warpgroup 0 accumulates dV and 1
 // dK (S^T computed by both: five products a tile for half the
 // accumulator registers a thread); else blocks of 128 rows, each
-// warpgroup both gradients for its 64. kHanded: the keep bits come from
-// p.drop_bits (the whole-row dQ launch), else they are drawn here. Writes
-// dk to p.o and dv to p.o2.
-template <int D, int N, int kSlots, bool kSplit, bool kHanded>
+// warpgroup both gradients for its 64. With dropout the keep bits come
+// from p.drop_bits (the dQ launch's). Writes dk to p.o and dv to p.o2.
+template <int D, int N, int kSlots, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
     attn_dkv_tma_kernel(const Params p, const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap dmap,
                         const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap) {
   constexpr int kRows = kSplit ? kWgRows : kBlockRows;  // the block's kv rows
-  using Pl = DkvPlan<D, N, kSlots, kRows, kHanded>;
+  using Pl = DkvPlan<D, N, kSlots, kRows>;
   extern __shared__ __align__(1024) uint8_t hopper_smem[];
-  const DkvShared<D, N, kSlots, kRows, kHanded> sm(hopper_smem);
+  const DkvShared<D, N, kSlots, kRows> sm(hopper_smem);
   const int b = blockIdx.z, h = blockIdx.y, kv0 = blockIdx.x * kRows;
   const int tid = threadIdx.x;
   const uint8_t* mrow = p.kvmask ? p.kvmask + static_cast<int64_t>(b) * p.Skv : nullptr;
@@ -409,11 +364,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == 2) {
     reg_dealloc<kProducerRegs>();
     const int pt = tid - 2 * 128, lane = tid & 31;
-    uint32_t k0 = 0, k1 = 0;
-    if (p.dropout) {
-      k0 = static_cast<uint32_t>(p.seed[0]);
-      k1 = static_cast<uint32_t>(p.seed[1]);
-    }
     const int64_t row_off = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
     if (pt == 0) {
       mbar_expect_tx(sm.kvbar(), 2 * Pl::kOwnBytes);
@@ -434,12 +384,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm.lsel(slot)[pt] = in ? p.lse[row_off + q] * kLog2e : 0.0f;
         sm.delta(slot)[pt] = in ? p.delta[row_off + q] : 0.0f;
       }
-      if constexpr (kHanded) {
-        if (p.dropout) {
-          transpose_dkv_bits<N, kRows>(sm.drop(slot), sm.stage(i), p, row_off, qt0, kv0, pt);
-        }
-      } else if (p.dropout) {
-        draw_dkv_bits<N, kRows>(sm.drop(slot), p, b, h, qt0, kv0, k0, k1, pt);
+      if (p.dropout) {
+        transpose_dkv_bits<N, kRows>(sm.drop(slot), sm.stage(i), p, row_off, qt0, kv0, pt);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(sm.aux(slot));
@@ -448,31 +394,31 @@ __global__ void __launch_bounds__(kThreads, 1)
     reg_alloc<kConsumerRegs>();
     if constexpr (kSplit) {
       if (wg == 0) {
-        dkv_consume<D, N, kSlots, kRows, kHanded, kDvOnly>(sm, p, mrow, b, h, kv0, first, tiles,
+        dkv_consume<D, N, kSlots, kRows, kDvOnly>(sm, p, mrow, b, h, kv0, first, tiles,
                                                    rows_whole, live0, wg);
       } else {
-        dkv_consume<D, N, kSlots, kRows, kHanded, kDkOnly>(sm, p, mrow, b, h, kv0, first, tiles,
+        dkv_consume<D, N, kSlots, kRows, kDkOnly>(sm, p, mrow, b, h, kv0, first, tiles,
                                                    rows_whole, live0, wg);
       }
     } else {
-      dkv_consume<D, N, kSlots, kRows, kHanded, kBothGrads>(sm, p, mrow, b, h, kv0, first, tiles,
+      dkv_consume<D, N, kSlots, kRows, kBothGrads>(sm, p, mrow, b, h, kv0, first, tiles,
                                                     rows_whole, wg == 0 ? live0 : live1, wg);
     }
   }
 }
 
 // One configuration of the bf16 dK/dV launch (dk to p.o, dv to p.o2).
-template <int D, int N, int kSlots, bool kSplit, bool kHanded>
+template <int D, int N, int kSlots, bool kSplit>
 int launch_dkv_with(const Params& p, cudaStream_t stream) {
   constexpr int kRows = kSplit ? kWgRows : kBlockRows;
-  using Pl = DkvPlan<D, N, kSlots, kRows, kHanded>;
+  using Pl = DkvPlan<D, N, kSlots, kRows>;
   CUtensorMap qmap, dmap, kmap, vmap;
   if (const int e = encode_rows<D>(&qmap, p.q, p.B, p.Sq, p.H, N)) return e;
   if (const int e = encode_rows<D>(&dmap, p.dout, p.B, p.Sq, p.H, N)) return e;
   if (const int e = encode_rows<D>(&kmap, p.k, p.B, p.Skv, p.H, kRows)) return e;
   if (const int e = encode_rows<D>(&vmap, p.v, p.B, p.Skv, p.H, kRows)) return e;
   static bool opted = false;
-  const auto kernel = attn_dkv_tma_kernel<D, N, kSlots, kSplit, kHanded>;
+  const auto kernel = attn_dkv_tma_kernel<D, N, kSlots, kSplit>;
   if (const int e = opt_in_smem(kernel, Pl::kBytes, opted)) return e;
   const dim3 grid(static_cast<unsigned>((p.Skv + kRows - 1) / kRows),
                   static_cast<unsigned>(p.H), static_cast<unsigned>(p.B));
@@ -484,12 +430,11 @@ int launch_dkv_with(const Params& p, cudaStream_t stream) {
 // whatever setmaxnreg asks, so at D = 128, where dK and dV alone would
 // hold 128 f32 registers a thread, blocks split (64 kv rows, one gradient
 // per warpgroup); below, blocks of 128 kv rows. Q tiles of 64, rings of 4
-// slots. kHanded: the whole-row backward, whose dQ launch hands over the
-// keep bits in p.drop_bits (tpudl_fused_attn_bwd requires them with
-// dropout).
-template <int D, bool kHanded>
+// slots. With dropout p.drop_bits holds the keep bits the dQ launch
+// wrote (both C entry points require them).
+template <int D>
 int launch_dkv(const Params& p, cudaStream_t stream) {
-  return launch_dkv_with<D, 64, 4, D == 128, kHanded>(p, stream);
+  return launch_dkv_with<D, 64, 4, D == 128>(p, stream);
 }
 
 }  // namespace

@@ -1,6 +1,8 @@
-// Hopper machinery shared by the two bf16 attention forwards:
-// flash_attention.cu (flash_fwd_kernel, the online softmax) and
-// fused_attention.cu (whole_fwd_kernel, the whole-row softmax).
+// Hopper machinery shared by the bf16 attention kernels: the two
+// forwards, flash_attention.cu (flash_fwd_kernel, the online softmax) and
+// fused_attention.cu (whole_fwd_kernel, the whole-row softmax), the two
+// dQ launches (flash_dq_tma_kernel, whole_dq_tma_kernel) and the dK/dV
+// kernel of attention_dkv.cuh.
 //
 // One block takes 128 query rows of one (batch row, head) and runs three
 // warpgroups (384 threads):
@@ -33,7 +35,10 @@
 // two n-tiles and they trade words (dropout). In the whole-row forward
 // the producer warps draw the keep bits of every tile into shared memory
 // while the consumers run the first sweep (draw_drop_bits), and the
-// second sweep only tests them (apply_drop_bits).
+// second sweep only tests them (apply_drop_bits). In the dQ launches the
+// producer warps draw each live tile's bits once (draw_tile_bits: flash
+// into the tile's ring slot) and also write them in row order to device
+// memory, for the dK/dV launch, which never draws.
 //
 // Why the products wait inside each step: a Q K^T issued while a P.V is
 // in flight made ptxas serialise every wgmma of the kernel (C7515: the
@@ -290,10 +295,11 @@ template <int D> struct Geom {
 };
 
 // The block's shared memory: kOwn tiles of the block's 128 rows (Q; the
-// whole-row dQ launch also dO), kSlots K and V tiles of N rows, then
-// the barriers (q, kfull, vfull, empty per slot; one per dropout tile),
-// the tile bits and, for kDropTiles kv tiles, the dropout keep bits the
-// producer warps draw (4 words per block row and tile, see drop_bits).
+// dQ launches also dO), kSlots K and V tiles of N rows, then the
+// barriers (q, kfull, vfull, empty per slot; one per dropout tile), the
+// tile bits and, for kDropTiles kv tiles (flash's dQ launch: one per
+// ring slot), the dropout keep bits the producer warps draw (4 words per
+// block row and tile, see draw_tile_bits).
 template <int D, int N, int kSlots, int kDropTiles = 0, int kOwn = 1> struct Plan {
   static constexpr uint32_t kQBytes = kBlockRows * D * 2;
   static constexpr uint32_t kTileBytes = N * D * 2;
@@ -631,78 +637,85 @@ __device__ __forceinline__ uint32_t keep2(uint32_t a, uint32_t b, uint32_t thres
   return static_cast<uint32_t>(a >= threshold) | static_cast<uint32_t>(b >= threshold) << 1;
 }
 
-// The producer's share of dropout (the whole-row forward): the last
-// `warps` warps of the producer warpgroup draw the keep bits of the
-// block's rows for each live kv tile t < tiles of N columns, while the
-// consumers run the first sweep, and arrive on dbar(t) once a tile's
-// bits are written. The bits of block row r and tile t are 4 words in
-// the consumers' order: word t' holds, at bit 2j + e, column 8j + 2t' + e
-// of the tile (the columns thread t' of a quad holds in the m64nN
-// layout). Philox4x32-10 blocks of philox.cuh's contract; when Skv % 4 !=
-// 0 a row starts mid-block and its bits come element by element. With
-// p.drop_bits set (the whole-row backward's dQ launch) the bits also go
-// to device memory in row order, for the dK/dV launch.
+// The keep bits of the block's rows against kv tile t of N columns, drawn
+// by producer thread dt of `threads`: 4 words per block row into `words`
+// (the tile's kBlockRows x 4 words) in the consumers' order: word t' holds,
+// at bit 2j + e, column 8j + 2t' + e of the tile (the columns thread t' of
+// a quad holds in the m64nN layout). Philox4x32-10 blocks of philox.cuh's
+// contract; when Skv % 4 != 0 a row starts mid-block and its bits come
+// element by element. With p.drop_bits set (the backwards' dQ launches)
+// the bits also go to device memory in row order, for the dK/dV launch.
+template <int N>
+__device__ __forceinline__ void draw_tile_bits(uint32_t* words, const Params& p, int b, int h,
+                                               int q0, int t, uint32_t k0, uint32_t k1, int dt,
+                                               int threads) {
+  static_assert(N % 32 == 0 && N / 4 <= 32, "a word per quad thread and row; whole row words");
+  for (int r = dt; r < kBlockRows; r += threads) {
+    uint32_t w0 = 0, w1 = 0, w2 = 0, w3 = 0;
+    uint32_t pl[4] = {0u, 0u, 0u, 0u};  // row order: bit c % 32 of word c / 32
+    // Column byte j (columns 8j .. 8j + 7) into the row-order words.
+    auto put = [&](int j, uint32_t byte) {
+      const uint32_t sh = byte << (8 * (j & 3));
+#pragma unroll
+      for (int x = 0; x < N / 32; ++x) pl[x] |= (j >> 2) == x ? sh : 0u;
+    };
+    const int q = q0 + r;
+    if (q < p.Sq) {
+      const uint64_t base = ((static_cast<uint64_t>(b) * p.H + h) * p.Sq + q) *
+                                static_cast<uint64_t>(p.Skv) + static_cast<uint64_t>(t) * N;
+      if ((p.Skv & 3) == 0) {
+        // Unrolled for four independent Philox chains in flight.
+#pragma unroll 2
+        for (int j = 0; j < N / 8; ++j) {
+          const uint4 lo = philox_block((base >> 2) + 2 * j, k0, k1);     // columns 8j .. 8j+3
+          const uint4 hi = philox_block((base >> 2) + 2 * j + 1, k0, k1); // 8j+4 .. 8j+7
+          const uint32_t a = keep2(lo.x, lo.y, p.threshold), c = keep2(lo.z, lo.w, p.threshold);
+          const uint32_t d = keep2(hi.x, hi.y, p.threshold), f = keep2(hi.z, hi.w, p.threshold);
+          w0 |= a << (2 * j);
+          w1 |= c << (2 * j);
+          w2 |= d << (2 * j);
+          w3 |= f << (2 * j);
+          put(j, a | c << 2 | d << 4 | f << 6);
+        }
+      } else {
+        for (int j = 0; j < N / 8; ++j) {
+          uint32_t e[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) e[u] = philox_bits(base + 8 * j + u, k0, k1) >= p.threshold;
+          w0 |= (e[0] | e[1] << 1) << (2 * j);
+          w1 |= (e[2] | e[3] << 1) << (2 * j);
+          w2 |= (e[4] | e[5] << 1) << (2 * j);
+          w3 |= (e[6] | e[7] << 1) << (2 * j);
+          put(j, e[0] | e[1] << 1 | e[2] << 2 | e[3] << 3 | e[4] << 4 | e[5] << 5 | e[6] << 6 |
+                     e[7] << 7);
+        }
+      }
+      if (p.drop_bits != nullptr) {
+        uint32_t* row = p.drop_bits + ((static_cast<int64_t>(b) * p.H + h) * p.Sq + q) *
+                                          p.drop_words;
+#pragma unroll
+        for (int x = 0; x < N / 32; ++x) {
+          const int word = t * (N / 32) + x;
+          if (word < p.drop_words) row[word] = pl[x];
+        }
+      }
+    }
+    *reinterpret_cast<uint4*>(words + r * 4) = make_uint4(w0, w1, w2, w3);
+  }
+}
+
+// The producer's share of dropout (the whole-row forward and dQ launch):
+// the last `warps` warps of the producer warpgroup draw the keep bits of
+// the block's rows for each live kv tile t < tiles of N columns
+// (draw_tile_bits), while the consumers run the first sweep, and arrive
+// on dbar(t) once a tile's bits are written.
 template <class Sh>
 __device__ __forceinline__ void draw_drop_bits(const Sh& sm, const Params& p, int b, int h, int q0,
                                                int tiles, uint32_t k0, uint32_t k1, int warps) {
-  constexpr int N = Sh::kN;
-  static_assert(N % 8 == 0 && N / 4 <= 32, "a word per quad thread and row");
   const int dt = threadIdx.x - (kThreads - 32 * warps);  // 0 .. 32 * warps - 1
-  uint32_t* words = sm.drop();
   for (int t = 0; t < tiles; ++t) {
     if (!tile_bit(sm.live(), t)) continue;
-    for (int r = dt; r < kBlockRows; r += 32 * warps) {
-      uint32_t w0 = 0, w1 = 0, w2 = 0, w3 = 0;
-      uint32_t pl[4] = {0u, 0u, 0u, 0u};  // row order: bit c % 32 of word c / 32
-      // Column byte j (columns 8j .. 8j + 7) into the row-order words.
-      auto put = [&](int j, uint32_t byte) {
-        const uint32_t sh = byte << (8 * (j & 3));
-#pragma unroll
-        for (int x = 0; x < N / 32; ++x) pl[x] |= (j >> 2) == x ? sh : 0u;
-      };
-      const int q = q0 + r;
-      if (q < p.Sq) {
-        const uint64_t base = ((static_cast<uint64_t>(b) * p.H + h) * p.Sq + q) *
-                                  static_cast<uint64_t>(p.Skv) + static_cast<uint64_t>(t) * N;
-        if ((p.Skv & 3) == 0) {
-          // Unrolled for four independent Philox chains in flight.
-#pragma unroll 2
-          for (int j = 0; j < N / 8; ++j) {
-            const uint4 lo = philox_block((base >> 2) + 2 * j, k0, k1);     // columns 8j .. 8j+3
-            const uint4 hi = philox_block((base >> 2) + 2 * j + 1, k0, k1); // 8j+4 .. 8j+7
-            const uint32_t a = keep2(lo.x, lo.y, p.threshold), c = keep2(lo.z, lo.w, p.threshold);
-            const uint32_t d = keep2(hi.x, hi.y, p.threshold), f = keep2(hi.z, hi.w, p.threshold);
-            w0 |= a << (2 * j);
-            w1 |= c << (2 * j);
-            w2 |= d << (2 * j);
-            w3 |= f << (2 * j);
-            put(j, a | c << 2 | d << 4 | f << 6);
-          }
-        } else {
-          for (int j = 0; j < N / 8; ++j) {
-            uint32_t e[8];
-#pragma unroll
-            for (int u = 0; u < 8; ++u) e[u] = philox_bits(base + 8 * j + u, k0, k1) >= p.threshold;
-            w0 |= (e[0] | e[1] << 1) << (2 * j);
-            w1 |= (e[2] | e[3] << 1) << (2 * j);
-            w2 |= (e[4] | e[5] << 1) << (2 * j);
-            w3 |= (e[6] | e[7] << 1) << (2 * j);
-            put(j, e[0] | e[1] << 1 | e[2] << 2 | e[3] << 3 | e[4] << 4 | e[5] << 5 | e[6] << 6 |
-                       e[7] << 7);
-          }
-        }
-        if (p.drop_bits != nullptr) {
-          uint32_t* row = p.drop_bits + ((static_cast<int64_t>(b) * p.H + h) * p.Sq + q) *
-                                            p.drop_words;
-#pragma unroll
-          for (int x = 0; x < N / 32; ++x) {
-            const int word = t * (N / 32) + x;
-            if (word < p.drop_words) row[word] = pl[x];
-          }
-        }
-      }
-      *reinterpret_cast<uint4*>(words + (t * kBlockRows + r) * 4) = make_uint4(w0, w1, w2, w3);
-    }
+    draw_tile_bits<Sh::kN>(sm.drop() + t * kBlockRows * 4, p, b, h, q0, t, k0, k1, dt, 32 * warps);
     __syncwarp();
     if ((threadIdx.x & 31) == 0) mbar_arrive(sm.dbar(t));
   }

@@ -43,25 +43,31 @@
 // - The bf16 dK/dV kernel is attention_dkv.cuh's, shared with the
 //   whole-row backward: a block owns kv rows and keeps dK and dV in
 //   registers, a producer warpgroup streams the Q and dO tiles by TMA
-//   with each tile's lse and delta rows beside them, and S^T, dP^T, dV
-//   and dK are wgmma, each waited for inside its step. It replaces the
-//   first design's mma.sync kernel, which ran 2328.91 us at the Llama
-//   step's shape against a 278.07 us bound. At D = 128 a block owns 64
+//   with each tile's lse and delta rows (and the dQ launch's keep bits)
+//   beside them, and S^T, dP^T, dV and dK are wgmma, each waited for
+//   inside its step. It replaces the first design's mma.sync kernel,
+//   which ran 2328.91 us at the Llama step's shape against a 278.07 us
+//   bound. At D = 128 a block owns 64
 //   kv rows and each consumer warpgroup one of the two gradients: ptxas
 //   keeps the consumers near 168 registers, and dK and dV together would
 //   hold 128 of them.
-// - bf16 dQ and everything f32 run the first design:
-//   mma.sync m16n8k16 for bf16 (operands by ldmatrix, .trans for the
-//   [k, n] operands V, K, Q, do), full f32 on the CUDA cores for f32
-//   (never TF32; wgmma has no f32 mode) with the same fragment
-//   ownership. One block of 4 warps takes 64 rows of its own side (q
-//   rows for dQ and the f32 forward, kv rows for dK/dV); each warp owns
-//   16 and keeps their accumulator in registers. The other side streams
-//   through shared memory a tile at a time, two buffers deep (cp.async).
-//   Probabilities and ds go from the accumulator registers straight into
-//   the next product's A fragments, rounded to the inputs' type there
-//   (tpudl's p.astype(v.dtype), ds.astype(k.dtype)); the f32 path
-//   stages them in shared memory.
+// - The bf16 dQ kernel (flash_dq_tma_kernel) is on the same machinery:
+//   a block of 128 q rows, Q and dO loaded once by TMA, K and V tiles of
+//   64 rows through a ring, S = Q K^T and dP = dO V^T (wgmma ss) and dq
+//   += round(dS) K (wgmma rs), delta from the caller. With dropout its
+//   producer warps draw each tile's keep bits once and write them in row
+//   order to a scratch that the dK/dV launch reads (no second draw). It
+//   replaces the first design's mma.sync kernel (4 warps, cp.async two
+//   deep, a __syncthreads a tile, a Philox block per element), which ran
+//   1972.08 us at the Llama step's shape against a 208.55 us bound.
+// - Everything f32 runs the first design: full f32 on the CUDA cores
+//   (never TF32; wgmma has no f32 mode). One block of 4 warps takes 64
+//   rows of its own side (q rows for dQ and the forward, kv rows for
+//   dK/dV); each warp owns 16 and keeps their accumulator in registers.
+//   The other side streams through shared memory a tile at a time, two
+//   buffers deep (cp.async); probabilities and ds are staged in shared
+//   memory for the second product. Each f32 kernel draws its own keep
+//   bits.
 // - The Pallas grid carries accumulators across a sequential grid axis;
 //   here the loop over the streamed side runs inside the block, and the
 //   two backward kernels stay separate so each accumulator has one owner:
@@ -372,10 +378,143 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// dQ: block = (q block, h, b); kv tiles of N stream through, two deep.
+// dQ, bf16: the Hopper kernel (attention_hopper.cuh). block = (128 q rows,
+// h, b), longest first under causal masking; Q and dO land once by TMA,
+// the live kv tiles of N rows (K and V together) stream through a ring of
+// kSlots. Per tile each consumer warpgroup runs S = Q K^T and dP = dO V^T
+// (wgmma ss, fresh arrays, waited for), the f32 element work in the
+// accumulator registers (p by tile_p, specialised on whole tiles; dp
+// dropped by the slot's keep bits, drop_scaled), and dq += round(dS) K
+// (wgmma rs, K through the transpose bit). With dropout the last
+// kDrawWarps warps of the producer warpgroup draw each live tile's keep
+// bits once (one Philox block per four elements) into the tile's ring
+// slot, arrive on the slot's dbar, and write them to p.drop_bits in row
+// order for the dK/dV launch. Every consumer warpgroup waits on each
+// slot's kfull (and dbar) every round, even for a tile past its causal
+// reach, before it hands the slot back: else the producer warps could
+// drift a round apart.
 // ---------------------------------------------------------------------------
-template <typename T, int D, int N>
+
+template <int D, int N, int kSlots>
+__global__ void __launch_bounds__(hopper::kThreads, 1)
+    flash_dq_tma_kernel(const Params p, const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap dmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap) {
+  using namespace tpudl::hopper;
+  // The keep bits go with the ring slot: kSlots tiles of them.
+  using Sh = Shared<D, N, kSlots, kSlots, 2>;
+  using Pl = typename Sh::P;
+  constexpr int kDrawWarps = 3;
+  extern __shared__ __align__(1024) uint8_t hopper_smem[];
+  const Sh sm(hopper_smem);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int qblk = p.causal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  const int q0 = qblk * kBlockRows;
+  const uint8_t* mrow = p.kvmask ? p.kvmask + static_cast<int64_t>(b) * p.Skv : nullptr;
+  block_setup(sm, p, mrow, kDrawWarps);
+  const int tiles = reach_tiles(p, q0, kBlockRows, N);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      mbar_expect_tx(sm.qbar(), 2 * Pl::kQBytes);
+      load_tile<D>(sm.own(0), kBlockRows, qmap, sm.qbar(), b, h, q0);
+      load_tile<D>(sm.own(1), kBlockRows, dmap, sm.qbar(), b, h, q0);
+      for (int t = 0, i = 0; t < tiles; ++t) {
+        if (!tile_bit(sm.live(), t)) continue;
+        const int slot = i % kSlots, round = i / kSlots;
+        if (round > 0) mbar_wait(sm.empty(slot), (round - 1) & 1);
+        mbar_expect_tx(sm.kfull(slot), 2 * Pl::kTileBytes);
+        load_tile<D>(sm.k(slot), N, kmap, sm.kfull(slot), b, h, t * N);
+        load_tile<D>(sm.v(slot), N, vmap, sm.kfull(slot), b, h, t * N);
+        ++i;
+      }
+    } else if (p.dropout && threadIdx.x >= hopper::kThreads - 32 * kDrawWarps) {
+      const uint32_t k0 = static_cast<uint32_t>(p.seed[0]), k1 = static_cast<uint32_t>(p.seed[1]);
+      const int dt = threadIdx.x - (hopper::kThreads - 32 * kDrawWarps);
+      for (int t = 0, i = 0; t < tiles; ++t) {
+        if (!tile_bit(sm.live(), t)) continue;
+        const int slot = i % kSlots, round = i / kSlots;
+        if (round > 0) mbar_wait(sm.empty(slot), (round - 1) & 1);
+        draw_tile_bits<N>(sm.drop() + slot * kBlockRows * 4, p, b, h, q0, t, k0, k1, dt,
+                          32 * kDrawWarps);
+        __syncwarp();
+        if ((threadIdx.x & 31) == 0) mbar_arrive(sm.dbar(slot));
+        ++i;
+      }
+    }
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int r0 = q0 + wg * kWgRows;               // the warpgroup's rows
+    const int row = r0 + 16 * warp + (lane >> 2);  // the thread's: row, row + 8
+    const int mine = reach_tiles(p, r0, kWgRows, N);
+    const int64_t rows = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
+    float lsel[2], dl[2];  // lse * log2 e and delta of the thread's rows
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = row + 8 * hf;
+      lsel[hf] = r < p.Sq ? p.lse[rows + r] * kLog2e : 0.0f;
+      dl[hf] = r < p.Sq ? p.delta[rows + r] : 0.0f;
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) dq[e] = 0.0f;
+    mbar_wait(sm.qbar(), 0);
+    for (int t = 0, i = 0; t < tiles; ++t) {
+      if (!tile_bit(sm.live(), t)) continue;
+      const int slot = i % kSlots;
+      const uint32_t parity = (i / kSlots) & 1;
+      mbar_wait(sm.kfull(slot), parity);
+      if (t < mine) {
+        // S = Q K^T and dP = dO V^T: fresh arrays, one group, waited for.
+        float s[N / 2], dp[N / 2];
+        wgmma_fence();
+        qk<D, N, kBlockRows, false>(s, sm.own(0), sm.k(slot), wg);
+        qk<D, N, kBlockRows, false>(dp, sm.own(1), sm.v(slot), wg);
+        wgmma_commit();
+        if (p.dropout) mbar_wait(sm.dbar(slot), parity);
+        wgmma_wait_all();
+        reg_fence(s);
+        reg_fence(dp);
+        const int kv0 = t * N;
+        const bool whole = tile_whole(p, tile_bit(sm.gap(), t), r0, kv0, N);
+        if (whole) {
+          tile_p<N, true>(s, p, mrow, row, kv0, lsel);
+        } else {
+          tile_p<N, false>(s, p, mrow, row, kv0, lsel);
+        }
+        if (p.dropout) drop_scaled<N>(dp, sm.drop(), slot, row - q0, p.inv_keep);
+        // ds = p (dp - delta) scale.
+#pragma unroll
+        for (int e = 0; e < N / 2; ++e) s[e] = s[e] * (dp[e] - dl[(e & 3) >> 1]) * p.scale;
+        // dq += dS K, waited for.
+        uint32_t pa[N / 4];
+        pack_p<N>(s, pa);
+        pv<D, N>(dq, pa, sm.k(slot));
+        wgmma_wait_all();
+        reg_fence(dq);
+        reg_fence(pa);
+      } else if (p.dropout) {
+        mbar_wait(sm.dbar(slot), parity);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.empty(slot));
+      ++i;
+    }
+    store_rows<D>(p.o, p.Sq, p.H, b, h, row, dq);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dQ, f32 (full f32 on the CUDA cores; wgmma has no f32 mode and the port
+// never runs TF32): block = (64 q rows, h, b); kv tiles of N stream
+// through, two deep.
+// ---------------------------------------------------------------------------
+template <int D, int N>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
+  using T = float;
   using S = Smem<T, D, N>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);
@@ -567,8 +706,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
-template <typename T, int D, int N>
+// The first design's shared memory (f32).
+template <int D, int N>
 size_t smem_bytes(Which which) {
+  using T = float;
   using S = Smem<T, D, N>;
   const size_t own = kRows * S::ldd, stream = 2 * 2 * N * S::ldd;  // 2 tensors, 2 buffers
   switch (which) {
@@ -581,17 +722,13 @@ size_t smem_bytes(Which which) {
   }
 }
 
-template <typename T, int D, int N>
-int launch_one(Which which, const Params& p, cudaStream_t stream) {
-  void (*kernel)(Params) = nullptr;
-  if (which == kDq) {
-    kernel = flash_dq_kernel<T, D, N>;
-  } else if constexpr (std::is_same<T, float>::value) {
-    kernel = which == kDkv ? flash_dkv_kernel<T, D, N> : flash_fwd_f32_kernel<D, N>;
-  } else {
-    return cudaErrorInvalidValue;  // bf16 forward and dK/dV: the Hopper kernels
-  }
-  const size_t smem = smem_bytes<T, D, N>(which);
+// One f32 kernel of the first design (CUDA cores).
+template <int D, int N>
+int launch_f32(Which which, const Params& p, cudaStream_t stream) {
+  void (*kernel)(Params) = which == kDq    ? flash_dq_kernel<D, N>
+                           : which == kDkv ? flash_dkv_kernel<float, D, N>
+                                           : flash_fwd_f32_kernel<D, N>;
+  const size_t smem = smem_bytes<D, N>(which);
   // Above 48 KB only as opted-in dynamic shared memory; set once per kernel
   // (before any graph capture: the first call of each runs eagerly).
   static bool opted[3] = {false, false, false};
@@ -628,20 +765,53 @@ int launch_fwd_bf16(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16: the forward and dK/dV are the Hopper kernels (dK/dV in
-// attention_dkv.cuh, shared with the whole-row backward). The first
-// design's streamed tile: 64 rows, 32 for the f32 dK/dV kernel at D = 128
-// (its two [16, D] accumulators already hold 128 f32 registers per thread).
+// The bf16 dQ launch's kv tiles and ring: N rows (at N 64 a consumer
+// thread holds dq[D / 2], s[32], dp[32] and the 16 words of dS), kSlots
+// K and V tile pairs with their keep bits (D 128: 4 slots, 197.6 KB
+// with Q and dO).
+template <int D> struct DqTiles {
+  static constexpr int N = 64;
+  static constexpr int kSlots = D == 128 ? 4 : 6;
+};
+
+template <int D>
+int launch_dq_bf16(const Params& p, cudaStream_t stream) {
+  constexpr int N = DqTiles<D>::N, kSlots = DqTiles<D>::kSlots;
+  using Pl = hopper::Plan<D, N, kSlots, kSlots, 2>;
+  CUtensorMap qmap, dmap, kmap, vmap;
+  if (const int e = hopper::encode_rows<D>(&qmap, p.q, p.B, p.Sq, p.H, hopper::kBlockRows)) {
+    return e;
+  }
+  if (const int e = hopper::encode_rows<D>(&dmap, p.dout, p.B, p.Sq, p.H, hopper::kBlockRows)) {
+    return e;
+  }
+  if (const int e = hopper::encode_rows<D>(&kmap, p.k, p.B, p.Skv, p.H, N)) return e;
+  if (const int e = hopper::encode_rows<D>(&vmap, p.v, p.B, p.Skv, p.H, N)) return e;
+  static bool opted = false;
+  const auto kernel = flash_dq_tma_kernel<D, N, kSlots>;
+  if (const int err = hopper::opt_in_smem(kernel, Pl::kBytes, opted)) return err;
+  const dim3 grid(static_cast<unsigned>((p.Sq + hopper::kBlockRows - 1) / hopper::kBlockRows),
+                  static_cast<unsigned>(p.H), static_cast<unsigned>(p.B));
+  kernel<<<grid, hopper::kThreads, Pl::kBytes, stream>>>(p, qmap, dmap, kmap, vmap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16: the Hopper kernels (dK/dV in attention_dkv.cuh, shared with the
+// whole-row backward). f32: the first design; its streamed tile is 64
+// rows, 32 for the dK/dV kernel at D = 128 (its two [16, D] accumulators
+// already hold 128 f32 registers per thread).
 template <typename T, int D>
 int launch_d(Which which, const Params& p, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (which == kFwd) return launch_fwd_bf16<D>(p, stream);
-    if (which == kDkv) return hopper::launch_dkv<D, false>(p, stream);
+    if (which == kDq) return launch_dq_bf16<D>(p, stream);
+    return hopper::launch_dkv<D>(p, stream);
+  } else {
+    if constexpr (D == 128) {
+      if (which == kDkv) return launch_f32<D, 32>(which, p, stream);
+    }
+    return launch_f32<D, 64>(which, p, stream);
   }
-  if constexpr (std::is_same<T, float>::value && D == 128) {
-    if (which == kDkv) return launch_one<T, D, 32>(which, p, stream);
-  }
-  return launch_one<T, D, 64>(which, p, stream);
 }
 
 template <typename T>
@@ -689,32 +859,51 @@ extern "C" int tpudl_flash_fwd(const void* q, const void* k, const void* v, cons
   return launch(kFwd, d, dtype, p, stream);
 }
 
-// As tpudl_flash_fwd; dout, dq: [b, sq, h, d]; lse, delta: [b, h, sq] f32.
-extern "C" int tpudl_flash_dq(const void* q, const void* k, const void* v, const void* kvmask,
-                              const void* seed, const void* dout, const void* lse,
-                              const void* delta, void* dq, int b, int sq, int skv, int h, int d,
-                              int causal, float scale, uint32_t threshold, float inv_keep,
-                              int dropout, int dtype, void* stream) {
+// The backward's Params: bits, with dropout in bf16, is the [b, h, sq,
+// (skv + 31) / 32] u32 keep-bit scratch the dQ launch writes and the dK/dV
+// launch reads (bit kv % 32 of word kv / 32); else unused.
+static Params bwd_params(const void* q, const void* k, const void* v, const void* kvmask,
+                         const void* seed, const void* dout, const void* lse, const void* delta,
+                         void* bits, int b, int sq, int skv, int h, int causal,
+                         float scale, uint32_t threshold, float inv_keep, int dropout,
+                         int dtype) {
   Params p = make_params(q, k, v, kvmask, seed, b, sq, skv, h, causal, scale, threshold,
                          inv_keep, dropout);
   p.dout = dout;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
+  if (dropout && dtype == tpudl::kBFloat16) {
+    p.drop_bits = static_cast<uint32_t*>(bits);
+    p.drop_words = (skv + 31) / 32;
+  }
+  return p;
+}
+
+// As tpudl_flash_fwd; dout, dq: [b, sq, h, d]; lse, delta: [b, h, sq] f32;
+// bits: see bwd_params (written here; required with dropout in bf16).
+extern "C" int tpudl_flash_dq(const void* q, const void* k, const void* v, const void* kvmask,
+                              const void* seed, const void* dout, const void* lse,
+                              const void* delta, void* bits, void* dq, int b, int sq, int skv,
+                              int h, int d, int causal, float scale, uint32_t threshold,
+                              float inv_keep, int dropout, int dtype, void* stream) {
+  Params p = bwd_params(q, k, v, kvmask, seed, dout, lse, delta, bits, b, sq, skv, h, causal,
+                        scale, threshold, inv_keep, dropout, dtype);
+  if (dropout && dtype == tpudl::kBFloat16 && bits == nullptr) return cudaErrorInvalidValue;
   p.o = dq;
   return launch(kDq, d, dtype, p, stream);
 }
 
-// As tpudl_flash_dq; dk, dv: [b, skv, h, d].
+// As tpudl_flash_dq; dk, dv: [b, skv, h, d]; bits: the dQ launch's (read
+// here, in stream order after it).
 extern "C" int tpudl_flash_dkv(const void* q, const void* k, const void* v, const void* kvmask,
                                const void* seed, const void* dout, const void* lse,
-                               const void* delta, void* dk, void* dv, int b, int sq, int skv,
-                               int h, int d, int causal, float scale, uint32_t threshold,
-                               float inv_keep, int dropout, int dtype, void* stream) {
-  Params p = make_params(q, k, v, kvmask, seed, b, sq, skv, h, causal, scale, threshold,
-                         inv_keep, dropout);
-  p.dout = dout;
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
+                               const void* delta, void* bits, void* dk, void* dv, int b, int sq,
+                               int skv, int h, int d, int causal, float scale,
+                               uint32_t threshold, float inv_keep, int dropout, int dtype,
+                               void* stream) {
+  Params p = bwd_params(q, k, v, kvmask, seed, dout, lse, delta, bits, b, sq, skv, h, causal,
+                        scale, threshold, inv_keep, dropout, dtype);
+  if (dropout && dtype == tpudl::kBFloat16 && bits == nullptr) return cudaErrorInvalidValue;
   p.o = dk;
   p.o2 = dv;
   return launch(kDkv, d, dtype, p, stream);

@@ -875,7 +875,7 @@ int launch_bwd_bf16(const Params& p, cudaStream_t stream) {
   Params pkv = p;
   pkv.o = p.o2;
   pkv.o2 = p.o3;
-  return hopper::launch_dkv<D, true>(pkv, stream);
+  return hopper::launch_dkv<D>(pkv, stream);
 }
 
 // f32 (CUDA cores): the forward, and the two backward launches of the

@@ -26,9 +26,12 @@ Dropout follows the contract of tpudl_torch.ops.keep_mask (the bits of
 element i of the unpadded [B, H, Sq, Skv] tensor are word i mod 4 of
 Philox4x32-10 at counter i // 4 under two seed words drawn per call from
 the step's generator): the softmax denominator stays undropped (dropout
-applies after normalization), o is scaled by 1 / (1 - rate), and both
-backward kernels regenerate the same mask. The mask is bitwise the one
-``hybrid_attention`` draws for the same seed words. Its bits are not the
+applies after normalization), o is scaled by 1 / (1 - rate), and the
+backward regenerates the same mask: in bf16 the dQ launch draws it and
+hands its words to the dK/dV launch through a scratch (``keep_scratch``,
+the layout of ``keep_mask.keep_words``); the f32 kernels each draw it.
+The mask is bitwise the one ``hybrid_attention`` draws for the same seed
+words. Its bits are not the
 TPU's (tpudl's flash draws dropout only on a TPU).
 
 The autograd Function saves what tpudl's ``_flash_fwd`` saves (q, k, v,
@@ -150,9 +153,9 @@ def _kernel():
         tail = [i32, i32, i32, i32, i32, i32, f32, u32, f32, i32, i32, p]
         lib.tpudl_flash_fwd.argtypes = [p] * 7 + tail
         lib.tpudl_flash_fwd.restype = i32
-        lib.tpudl_flash_dq.argtypes = [p] * 9 + tail
+        lib.tpudl_flash_dq.argtypes = [p] * 10 + tail
         lib.tpudl_flash_dq.restype = i32
-        lib.tpudl_flash_dkv.argtypes = [p] * 10 + tail
+        lib.tpudl_flash_dkv.argtypes = [p] * 11 + tail
         lib.tpudl_flash_dkv.restype = i32
         _lib = lib
     return _lib
@@ -243,9 +246,43 @@ def bwd_operands(q, k, v, kvmask, seed, do, lse, delta):
     return q, k, v, do, lse, delta
 
 
-def launch_dq(operands, kvmask, seed, causal, scale, rate):
-    """The dQ kernel on ``bwd_operands``' result: dq."""
+def keep_scratch(q, k, rate):
+    """The scratch a bf16 dQ launch (flash's or the whole-row attention's)
+    writes its keep bits into and its dK/dV launch reads them from, with
+    dropout: int32 [B, H, Sq, ceil(Skv / 32)] on q's device, in
+    ``keep_mask.keep_words``' layout (words of pairs no query block
+    reaches are left unwritten). None when the launches take none (no
+    dropout, or f32)."""
+    if not (rate > 0.0 and q.dtype == torch.bfloat16):
+        return None
+    b, sq, h, _ = q.shape
+    return torch.empty(b, h, sq, -(-k.shape[1] // 32), dtype=torch.int32,
+                       device=q.device)
+
+
+def _bits(operands, rate, bits, op):
+    """Check a launch's keep-bit scratch; return its address (or None)."""
+    q, k = operands[:2]
+    if bits is None:
+        if rate > 0.0 and q.dtype == torch.bfloat16:
+            raise ValueError(f"{op} with dropout in bf16 takes the keep-bit "
+                             f"scratch (keep_scratch)")
+        return None
+    b, sq, h, _ = q.shape
+    shape = (b, h, sq, -(-k.shape[1] // 32))
+    check_cuda_operand(bits, "bits", q.device, torch.int32)
+    if tuple(bits.shape) != shape or not bits.is_contiguous():
+        raise ValueError(f"{op}: bits must be a contiguous {shape} int32 "
+                         f"tensor")
+    return bits.data_ptr()
+
+
+def launch_dq(operands, kvmask, seed, causal, scale, rate, bits=None):
+    """The dQ kernel on ``bwd_operands``' result: dq. With dropout in bf16
+    it also writes the keep bits it draws into ``bits``
+    (``keep_scratch``), which the dK/dV launch then reads."""
     q, k, v, do, lse, delta = operands
+    bits_ptr = _bits(operands, rate, bits, "flash_dq")
     dq = torch.empty_like(q)
     if not (q.numel() and k.numel()):
         return dq.zero_()
@@ -253,15 +290,18 @@ def launch_dq(operands, kvmask, seed, causal, scale, rate):
     code = lib.tpudl_flash_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kvmask),
         seed.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), *_tail(q, k, causal, scale, rate))
+        bits_ptr, dq.data_ptr(), *_tail(q, k, causal, scale, rate))
     _build.check(lib, "flash_dq", code)
     flash_attention.launches_dq += 1
     return dq
 
 
-def launch_dkv(operands, kvmask, seed, causal, scale, rate):
-    """The dK/dV kernel on ``bwd_operands``' result: (dk, dv)."""
+def launch_dkv(operands, kvmask, seed, causal, scale, rate, bits=None):
+    """The dK/dV kernel on ``bwd_operands``' result: (dk, dv). With
+    dropout in bf16 it reads the keep bits a dQ launch on the same
+    operands wrote into ``bits`` (in stream order before it)."""
     q, k, v, do, lse, delta = operands
+    bits_ptr = _bits(operands, rate, bits, "flash_dkv")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if not (q.numel() and k.numel()):
         return dk.zero_(), dv.zero_()
@@ -269,7 +309,8 @@ def launch_dkv(operands, kvmask, seed, causal, scale, rate):
     code = lib.tpudl_flash_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kvmask),
         seed.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), *_tail(q, k, causal, scale, rate))
+        bits_ptr, dk.data_ptr(), dv.data_ptr(),
+        *_tail(q, k, causal, scale, rate))
     _build.check(lib, "flash_dkv", code)
     flash_attention.launches_dkv += 1
     return dk, dv
@@ -277,8 +318,10 @@ def launch_dkv(operands, kvmask, seed, causal, scale, rate):
 
 def _bwd_cuda(q, k, v, kvmask, seed, do, lse, delta, causal, scale, rate):
     operands = bwd_operands(q, k, v, kvmask, seed, do, lse, delta)
-    dq = launch_dq(operands, kvmask, seed, causal, scale, rate)
-    return (dq, *launch_dkv(operands, kvmask, seed, causal, scale, rate))
+    bits = keep_scratch(operands[0], operands[1], rate)
+    dq = launch_dq(operands, kvmask, seed, causal, scale, rate, bits)
+    return (dq, *launch_dkv(operands, kvmask, seed, causal, scale, rate,
+                            bits))
 
 
 def flash_attention_fwd(q, k, v, kvmask, seed, causal=False, scale=None,

@@ -61,7 +61,7 @@ import torch
 
 from tpudl_torch.ops import _build
 from tpudl_torch.ops.attention import MASK_VALUE, normalize_kv_mask
-from tpudl_torch.ops.flash_attention import HEAD_DIMS, _logits_keep
+from tpudl_torch.ops.flash_attention import HEAD_DIMS, _logits_keep, keep_scratch
 from tpudl_torch.ops.keep_mask import draw_seed, keep_mask, threshold, zero_seed
 from tpudl_torch.ops.norms import KERNEL_DTYPES, check_cuda_operand, resolve_impl
 
@@ -218,7 +218,11 @@ def _fwd_cuda(q, k, v, kvmask, seed, causal, scale, rate):
     return o, lse
 
 
-def _bwd_cuda(q, k, v, kvmask, seed, do, lse, causal, scale, rate):
+def _bwd_cuda(q, k, v, kvmask, seed, do, lse, causal, scale, rate,
+              bits=None):
+    """The two backward launches; ``bits``: flash_attention's
+    ``keep_scratch`` of q and k to hand the keep bits over in (one is
+    allocated when None)."""
     q, k, v = _check(q, k, v, kvmask, seed)
     device = q.device
     do = _operand(do, "do", device, q.dtype)
@@ -236,10 +240,11 @@ def _bwd_cuda(q, k, v, kvmask, seed, do, lse, causal, scale, rate):
     # (bf16, dropout) the keep bits the dQ launch draws for the dK/dV
     # launch: a bit per (q, kv) in 32-bit words.
     delta = torch.empty_like(lse)
-    bits = None
-    if rate > 0.0 and q.dtype == torch.bfloat16:
-        bits = torch.empty(b, h, s, (s + 31) // 32, dtype=torch.int32,
-                           device=device)
+    if bits is None:
+        bits = keep_scratch(q, k, rate)
+    elif tuple(bits.shape) != (b, h, s, -(-s // 32)) or \
+            bits.dtype != torch.int32 or not bits.is_contiguous():
+        raise ValueError("bits must be keep_scratch's tensor")
     lib = _kernel()
     code = lib.tpudl_fused_attn_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kvmask),

@@ -108,3 +108,23 @@ def keep_mask(seed: torch.Tensor, shape: Sequence[int], rate: float,
         numel *= s
     bits = philox_bits(seed, numel, device)
     return (bits >= threshold(rate)).reshape(shape)
+
+
+def keep_words(seed: torch.Tensor, b: int, h: int, sq: int, skv: int,
+               rate: float, device: Optional[torch.device] = None
+               ) -> torch.Tensor:
+    """The attention keep mask of a [b, h, sq, skv] score tensor in the
+    row order the bf16 backwards' dQ launches write it for their dK/dV
+    launches: int32 ``[b, h, sq, ceil(skv / 32)]``, bit ``kv % 32`` of
+    word ``kv // 32`` set where element ``(b, h, q, kv)`` is kept (bits
+    past ``skv`` clear; the kernels leave them unspecified)."""
+    kept = keep_mask(seed, (b, h, sq, skv), rate, device)
+    words = -(-skv // 32)
+    pad = torch.zeros(b, h, sq, 32 * words - skv, dtype=torch.bool,
+                      device=kept.device)
+    bits = torch.cat([kept, pad], dim=-1).reshape(b, h, sq, words, 32)
+    weights = torch.ones((), dtype=torch.int64, device=kept.device) << \
+        torch.arange(32, dtype=torch.int64, device=kept.device)
+    packed = (bits.long() * weights).sum(-1)
+    # uint32 values into int32's range, two's complement.
+    return torch.where(packed >= 2**31, packed - 2**32, packed).to(torch.int32)

@@ -26,10 +26,12 @@ einsums — tpudl's reference composite). ``segmented_lora`` dispatches by
 tpudl_torch.ops.norms.resolve_impl: the kernel
 (``csrc/segmented_lora.cu``, which replaces ``_seg_lora_kernel``, one
 launch per call) on CUDA tensors, the plain version on CPU tensors, no
-fallback; ``segmented_lora.launches`` counts kernel launches. On the
-card the table's entries must lie in [0, NP): the kernel reads the pages
-they name unchecked (the pool's owner builds the table; ``check_table``
-holds a host copy to the contract). Inference only: no gradient.
+fallback; ``segmented_lora.launches`` counts kernel launches. The
+kernel forms each slot's coefficients once, in a thread block cluster
+that reads each page of the slot once. On the card the table's entries
+must lie in [0, NP): the kernel reads the pages they name unchecked (the
+pool's owner builds the table; ``check_table`` holds a host copy to the
+contract). Inference only: no gradient.
 
 The serving path makes one call per projection site, 224 per decode
 step of Llama-3-8B, so it holds the pools to the kernel's contract once
@@ -117,8 +119,10 @@ def _kernel():
 def pool_args(pools) -> tuple:
     """Hold one site's CUDA pool dict to the kernel's contract and return
     what its launches take: ``(device, a, b, a_scale, b_scale, num_pages,
-    in, out, quantized)`` with the tensors as addresses (the caller keeps
-    the tensors alive and never replaces them)."""
+    in, out, quantized, vec)`` with the tensors as addresses (the caller
+    keeps the tensors alive and never replaces them); ``vec``: the
+    kernel's 16-byte paths the pools allow (bit 0: the IN side, rows of
+    a; bit 1: the OUT side, rows of b)."""
     check_pools(pools)
     a, b = pools["a"], pools["b"]
     device = a.device
@@ -140,8 +144,11 @@ def pool_args(pools) -> tuple:
                 raise ValueError(f"{name} must be a contiguous [{num_pages}] "
                                  f"tensor")
         scales = (pools["a_scale"].data_ptr(), pools["b_scale"].data_ptr())
-    return (device, a.data_ptr(), b.data_ptr(), *scales, num_pages,
-            a.shape[1], fout, int(quantized))
+    fin = a.shape[1]
+    vec = (int(fin % 4 == 0 and a.data_ptr() % 16 == 0)
+           | int(fout % 4 == 0 and b.data_ptr() % 16 == 0) << 1)
+    return (device, a.data_ptr(), b.data_ptr(), *scales, num_pages, fin,
+            fout, int(quantized), vec)
 
 
 def batch_args(table, scale) -> tuple:
@@ -171,7 +178,7 @@ def launch(x, pool, batch, base=None):
     (``pool_args``, ``batch_args``): checks only what each call brings,
     ``x`` and ``base``. The serving path's per-site entry; arguments and
     result as ``segmented_lora``'s, with ``base`` of the result's shape."""
-    device, a, b, a_scale, b_scale, num_pages, fin, fout, quantized = pool
+    device, a, b, a_scale, b_scale, num_pages, fin, fout, quantized, vec = pool
     tdevice, table, scale, bsz, rank, stream = batch
     dtype = KERNEL_DTYPES.get(x.dtype)
     shape = tuple(x.shape)
@@ -199,13 +206,16 @@ def launch(x, pool, batch, base=None):
         return out
     if not fin:
         return out.zero_() if base is None else out.copy_(base)
-    xp = x.data_ptr()
+    xp, op = x.data_ptr(), out.data_ptr()
+    bp = 0 if base is None else base.data_ptr()
+    # The 16-byte paths the pools allow, where x (IN side) and base and
+    # out (OUT side) allow them too.
+    vec &= int(xp % 16 == 0) | int((op | bp) % 16 == 0) << 1
     lib = _kernel()
     code = lib.tpudl_seg_lora(
-        xp, a, b, a_scale, b_scale, table, scale,
-        None if base is None else base.data_ptr(), out.data_ptr(), bsz,
-        shape[1] if len(shape) == 3 else 1, fin, fout, rank,
-        int(fin % 4 == 0 and xp % 16 == 0), dtype, quantized, stream)
+        xp, a, b, a_scale, b_scale, table, scale, bp or None, op, bsz,
+        shape[1] if len(shape) == 3 else 1, fin, fout, rank, vec, dtype,
+        quantized, stream)
     _build.check(lib, "seg_lora", code)
     segmented_lora.launches += 1
     return out

@@ -1,8 +1,11 @@
 """Time kernels of two checkouts in turns on one card: A, B, B, A. The
-serving kernels (RMSNorm with and without its residual, SwiGLU) and the
-attention backward rows (the whole-row backward, dQ and dK/dV launches,
-at BERT-base's seq-512 step, with and without dropout; flash dK/dV at the
-Llama-3-8B LoRA step).
+serving kernels (RMSNorm with and without its residual, SwiGLU, the
+segmented LoRA at the decode step's q_proj and down_proj and a 128-token
+prefill, with its held-contract wall per eager call) and the attention
+backward rows (the whole-row backward, dQ and dK/dV launches, at
+BERT-base's seq-512 step, with and without dropout; flash dQ and dK/dV
+at the Llama-3-8B LoRA step, and flash dQ with dropout at BERT-base's
+heads).
 
     python3 -m tpudl_torch.tools.kernel_ab OTHER_CHECKOUT [ROUNDS]
 
@@ -33,7 +36,12 @@ CASES += [("swiglu", n, 14336, False) for n in (4, 128)]
 #: rows take chip_smoke's padding mask (lengths uniform in [S/2, S]).
 ATTENTION = [("whole_bwd", [32, 512, 512, 12, 64], False, rate)
              for rate in (0.1, 0.0)]
-ATTENTION += [("flash_dkv", [4, 2048, 2048, 32, 128], True, 0.0)]
+ATTENTION += [("flash_dq", [4, 2048, 2048, 32, 128], True, 0.0),
+              ("flash_dq", [8, 1024, 1024, 12, 64], False, 0.1),
+              ("flash_dkv", [4, 2048, 2048, 32, 128], True, 0.0)]
+#: (x shape, out): the segmented LoRA at the tenant slice's shapes, bf16 x
+#: and base, four slots at rank 16 on f32 pages.
+SEG_LORA = [([4, 4096], 4096), ([4, 14336], 4096), ([1, 128, 4096], 4096)]
 
 _TURN = r"""
 import json, sys, torch
@@ -43,6 +51,7 @@ from tpudl_torch.ops import fused_attention as fu
 from tpudl_torch.ops import keep_mask
 from tpudl_torch.ops.mlp_fused import swiglu
 from tpudl_torch.ops.norms import rms_norm
+from tpudl_torch.ops import segmented_lora as sl
 g = torch.Generator(device="cuda").manual_seed(0)
 out = {}
 for op, n, h, res in json.loads(sys.argv[1]):
@@ -62,7 +71,8 @@ for op, (b, sq, skv, h, d), causal, rate in json.loads(sys.argv[2]):
     k, v = (torch.randn(b, skv, h, d, generator=g, device="cuda").bfloat16()
             for _ in range(2))
     kvmask = torch.ones(b, skv, dtype=torch.bool, device="cuda")
-    if op == "whole_bwd":
+    masking = op == "whole_bwd" or rate > 0.0
+    if masking:
         lengths = torch.randint(skv // 2, skv + 1, (b,), generator=g,
                                 device="cuda")
         kvmask = torch.arange(skv, device="cuda")[None, :] < lengths[:, None]
@@ -77,18 +87,43 @@ for op, (b, sq, skv, h, d), causal, rate in json.loads(sys.argv[2]):
         o, lse = fa.flash_attention_fwd(q, k, v, *args, impl="fused")
         ops = fa.bwd_operands(q, k, v, kvmask, seed, do, lse,
                               fa.backward_delta(do, o))
-        fn = lambda: fa.launch_dkv(ops, *args)
+        # A checkout whose dQ launch hands its keep bits to dK/dV takes
+        # the scratch; the dK/dV launch reads what a dQ call wrote.
+        kw = ({"bits": fa.keep_scratch(q, k, rate)}
+              if hasattr(fa, "keep_scratch") else {})
+        fa.launch_dq(ops, *args, **kw)
+        launch = fa.launch_dq if op == "flash_dq" else fa.launch_dkv
+        fn = lambda: launch(ops, *args, **kw)
     key = f"{op} {[b, sq, skv, h, d]} bf16{' causal' if causal else ''} rate {rate}"
     out[key] = chip_smoke.graph_ms(fn, calls=10, reps=5)
     del q, do, k, v, o, lse, fn
     torch.cuda.empty_cache()
+for x_shape, fout in json.loads(sys.argv[3]):
+    b, fin = x_shape[0], x_shape[-1]
+    pools = {"a": torch.randn(65, fin, generator=g, device="cuda") / 16,
+             "b": torch.randn(65, fout, generator=g, device="cuda") / 16}
+    pools["a"][0] = pools["b"][0] = 0.0
+    table = (torch.randperm(64, generator=g, device="cuda")[:b * 16]
+             .reshape(b, 16).int() + 1)
+    scale = torch.ones(b, device="cuda")
+    x = torch.randn(x_shape, generator=g, device="cuda").bfloat16()
+    y = torch.randn(x_shape[:-1] + [fout], generator=g,
+                    device="cuda").bfloat16()
+    key = f"seg_lora {x_shape} -> {fout} bf16 + base, rank 16"
+    out[key] = chip_smoke.graph_ms(
+        lambda: sl.segmented_lora(x, pools, table, scale, base=y,
+                                  impl="fused"))
+    if x_shape == [4, 4096]:
+        held = (sl.SitePools(pools).args, sl.batch_args(table, scale))
+        out[key + ", wall per eager call (held contract)"] = \
+            chip_smoke.eager_us(torch, lambda: sl.launch(x, *held, y)) / 1e3
 print(json.dumps(out))
 """
 
 
 def turn(tree: str) -> dict:
     proc = subprocess.run([sys.executable, "-c", _TURN, json.dumps(CASES),
-                           json.dumps(ATTENTION)],
+                           json.dumps(ATTENTION), json.dumps(SEG_LORA)],
                           cwd=tree, capture_output=True, text=True, check=True)
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
