@@ -158,6 +158,7 @@ before printing any result.
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -454,6 +455,7 @@ def report_cases(cases):
                 f"{' (' + c['library'] + ')' if c.get('library') else ''} "
                 f"{'library_bwd_ms=' + format(c['library_bwd_ms'], '.5f') + ' (its backward alone) ' if c.get('library_bwd_ms') else ''}"
                 f"{'library_pregathered_ms=' + format(c['library_pregathered_ms'], '.5f') + ' (the products on pages gathered beforehand) ' if c.get('library_pregathered_ms') else ''}"
+                f"{'library_f32_ms=' + format(c['library_f32_ms'], '.5f') + ' (' + c['library_f32'] + ') ' if c.get('library_f32_ms') else ''}"
                 f"bound_us={c['bound'][0] * 1e3:.3f} ({c['bound'][1]})"
                 f"{'; beyond the bound: ' + c['beyond_bound'] if c.get('beyond_bound') else ''}"
             )
@@ -1126,6 +1128,18 @@ def profile_steps(torch, run, steps, what, wall_us):
         print("profile: device us/step by kind: " + ", ".join(
             f"{kind} {t / steps:.1f} ({100 * t / busy_us:.1f}%)"
             for kind, t in sorted(by_kind.items(), key=lambda kv: -kv[1])))
+        # This repo's kernels by name stem (template arguments dropped):
+        # each one's share of the step, which the top list may not reach.
+        ours = {}
+        for k in kernels:
+            if device_kind(k.key) == "this repo's kernels":
+                stem = re.search(r"(\w+)[<(]", k.key)
+                stem = stem.group(1) if stem else k.key[:40]
+                ours[stem] = ours.get(stem, 0.0) + k.self_device_time_total
+        if ours:
+            print("profile: this repo's kernels, device us/step: " + ", ".join(
+                f"{stem} {t / steps:.1f}"
+                for stem, t in sorted(ours.items(), key=lambda kv: -kv[1])))
         for k in sorted(kernels, key=lambda k: -k.self_device_time_total)[:12]:
             print(f"profile:   device {k.self_device_time_total / steps:9.1f} "
                   f"us/step {k.count / steps:6.1f}x  {k.key[:90]}")
@@ -1500,10 +1514,11 @@ def fused_kernel_phase(torch, F):
     vocab-sized [4096, 30522] (bf16 and f32, label smoothing 0 and 0.1).
     Within FUSED_TOL, the dropped entries equal, each backward bitwise
     repeatable. Times as train kernels (CUDA-graph replay). Library
-    calls: torch.softmax(x, -1, dtype=float32) and
-    aten._softmax_backward_data (no one call computes masked softmax with
-    dropout), F.cross_entropy(reduction="none", label_smoothing=s)
-    forward, and its forward + backward."""
+    calls (no one call computes the masked softmax with dropout): the
+    plain softmax in the logits' own dtype, torch.softmax(x, -1) and
+    aten._softmax_backward_data(g, y, -1, x.dtype), and beside them
+    ("library_f32_ms") the same two in f32; F.cross_entropy(reduction=
+    "none", label_smoothing=s) forward, and its forward + backward."""
     from tpudl_torch.ops import keep_mask
     from tpudl_torch.ops import softmax_dropout as sd
     from tpudl_torch.ops.cross_entropy import (
@@ -1581,10 +1596,14 @@ def fused_kernel_phase(torch, F):
         ops_fwd = elems * (8 + (28 if rate else 0))
         c = case_row(shape, dtype, variant, err, tol,
                 elems * 2 * e + mask_bytes + 16, ops_fwd)
+        y = torch.softmax(x, -1)
         y32 = torch.softmax(x, -1, dtype=f32)
         cases["softmax_dropout_fwd"].append(timed(
-            c, fwd, fwd_plain, lambda: torch.softmax(x, -1, dtype=f32),
-            "torch.softmax(x, -1, dtype=float32), no mask or dropout"))
+            c, fwd, fwd_plain, lambda: torch.softmax(x, -1),
+            f"torch.softmax(x, -1) in {dname(dtype)}, no mask or dropout"))
+        c["library_f32_ms"] = library_ms(
+            lambda: torch.softmax(x, -1, dtype=f32), calls=20, reps=5)
+        c["library_f32"] = "torch.softmax(x, -1, dtype=float32)"
         dx, want_dx = bwd(), bwd_plain()
         err = errors(dx, want_dx, tol[0], max(tol[1], 1e-5))
         if not torch.equal(dx, bwd()):
@@ -1593,14 +1612,18 @@ def fused_kernel_phase(torch, F):
         g32 = gy.float()
         c = case_row(shape, dtype, variant, err, tol,
                 elems * 3 * e + mask_bytes + 16, ops_fwd + elems * 4)
-        # The f32 softmax's backward: aten takes a bf16 input dtype only
-        # with bf16 gradients.
         cases["softmax_dropout_bwd"].append(timed(
             c, bwd, bwd_plain,
+            lambda: torch.ops.aten._softmax_backward_data(gy, y, -1, dtype),
+            f"aten._softmax_backward_data in {dname(dtype)}, no mask or "
+            f"dropout"))
+        # The f32 softmax's backward: aten takes a bf16 input dtype only
+        # with bf16 gradients.
+        c["library_f32_ms"] = library_ms(
             lambda: torch.ops.aten._softmax_backward_data(g32, y32, -1, f32),
-            "aten._softmax_backward_data of the f32 softmax, no mask or "
-            "dropout"))
-        del x, gy, out, want, dx, want_dx, y32, g32
+            calls=20, reps=5)
+        c["library_f32"] = "aten._softmax_backward_data of the f32 softmax"
+        del x, gy, out, want, dx, want_dx, y, y32, g32
         torch.cuda.empty_cache()
 
     for (rows_, v), dtype, smoothing, variant in (
@@ -2881,9 +2904,10 @@ def hopper_ptxas(text):
     consumers raise theirs with setmaxnreg), spill stores and loads, and
     any wgmma serialisation warning (C7512 / C7515). Their shared memory
     is dynamic (Plan and DkvPlan in attention_hopper.cuh and
-    attention_dkv.cuh), so ptxas does not see it."""
-    import re
-
+    attention_dkv.cuh), so ptxas does not see it. The same figures for
+    the softmax_dropout kernels at Skv 128 (the BERT step's rows: L lanes
+    a row, C runs a lane, R rows a pass), aligned path, one dtype in and
+    out."""
     out, current = [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '[^']*?((?:flash|whole)_fwd_kernel"
@@ -2891,6 +2915,15 @@ def hopper_ptxas(text):
                       r"ILi(\d+)ELi(\d+)ELi(\d+)", line)
         if m:
             current = f"{m.group(1)}<D {m.group(2)}, N {m.group(3)}, slots {m.group(4)}>"
+            continue
+        m = re.search(r"Compiling entry function '[^']*?(softmax_dropout_(?:fwd|bwd)_kernel)"
+                      r"I(13__nv_bfloat16S\d*_|ff)Li(\d+)ELi(\d+)ELi(\d+)ELb1E", line)
+        if m:
+            dtype = "f32" if m.group(2) == "ff" else "bf16"
+            lanes, runs, rows = m.group(3), m.group(4), m.group(5)
+            skv128 = (dtype, lanes) in (("bf16", "16"), ("f32", "32")) and runs == "1"
+            current = (f"{m.group(1)}<{dtype}, L {lanes}, C {runs}, R {rows}>"
+                       if skv128 else None)
             continue
         if current and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -3093,6 +3126,10 @@ def main() -> int:
             # Segmented LoRA: the two bmm without the page gather.
             **({"library_pregathered_ms": head["library_pregathered_ms"]}
                if "library_pregathered_ms" in head else {}),
+            # softmax_dropout: the plain softmax in f32 beside library_ms
+            # (the same in the logits' dtype).
+            **({"library_f32_ms": head["library_f32_ms"]}
+               if "library_f32_ms" in head else {}),
             "cases": [{k: v for k, v in c.items() if k != "bound"}
                       | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
                       for c in rows],

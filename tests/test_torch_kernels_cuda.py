@@ -598,6 +598,80 @@ def test_softmax_dropout_kernels_match_plain(dev, dtype, out_dtype, skv,
         assert float(dx[-1].float().abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 1, 3, 128), (3, 5, 7, 64)] + [
+    (2, 3, 5, skv) for skv in (1, 4, 8, 129, 256, 384)])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("masking", ["padding", "causal"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_softmax_dropout_row_layouts_match_plain(dev, dtype, shape, offset,
+                                                 masking, rate):
+    """The kernels' row layouts at their edges: row counts that do not fill
+    a block's pass ([1, 1, 3, 128], [3, 5, 7, 64]), rows of one run, rows
+    that are not a whole number of 16-byte runs, the widest geometries,
+    logits and gradient one element past an aligned address (the unaligned
+    path), causal with Sq < Skv, and a fully masked batch entry (the last).
+    Forward and backward against the plain versions with the same seed
+    words: the dropped entries equal, the values within one bf16 step (or
+    1e-5 in f32), the backward bitwise repeatable."""
+    n = int(np.prod(shape))
+    rng = np.random.default_rng(shape[-1] + offset)
+    x = _t(rng, (n + offset,), torch.float32, dev).mul(3.0).to(dtype)
+    x = x[offset:].view(shape)
+    g = _t(rng, (n + offset,), torch.float32, dev).to(dtype)[offset:].view(shape)
+    b, skv = shape[0], shape[-1]
+    lengths = rng.integers(skv // 2, skv + 1, size=b)
+    kvmask = torch.from_numpy(np.arange(skv)[None, :] < lengths[:, None]).to(dev)
+    kvmask[-1] = False
+    mask = kvmask if masking == "padding" else None
+    causal = masking == "causal"
+    seed = torch.tensor([7, 2**32 - 3], dtype=torch.int64, device=dev)
+    out = sd._sd_fwd_cuda(x, mask, seed, causal, rate, dtype)
+    dx = sd.softmax_dropout_bwd(x, mask, seed, g, causal, rate, impl="fused")
+    again = sd.softmax_dropout_bwd(x, mask, seed, g, causal, rate, impl="fused")
+    torch.cuda.synchronize()
+    want = sd.softmax_dropout_ref(x, mask, seed, causal, rate, dtype)
+    want_dx = sd.softmax_dropout_bwd_ref(x, mask, seed, g, causal, rate)
+    rtol, atol = _sd_tol(dtype)
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(dx.float(), want_dx.float(), rtol=rtol,
+                               atol=max(atol, 1e-5))
+    if rate:
+        assert torch.equal(out == 0, want == 0)
+    assert torch.equal(dx, again)
+    if mask is not None:
+        assert float(out[-1].float().abs().max()) == 0.0
+        assert float(dx[-1].float().abs().max()) == 0.0
+
+
+def test_philox_keyed_block_matches_philox_block(dev):
+    """philox.cuh's keyed philox_block (round keys hoisted, one
+    mul.wide.u32 a product, the zero high counter words folded into the
+    first round), which the softmax_dropout kernels draw with, against
+    philox_block on 65536 random counters and keys (the check library
+    csrc/philox_check.cu): bit for bit."""
+    import ctypes
+
+    from tpudl_torch.ops import _build
+
+    lib = _build.load("philox_check")
+    lib.tpudl_philox_keyed_pair.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_void_p]
+    lib.tpudl_philox_keyed_pair.restype = ctypes.c_int
+    rng = np.random.default_rng(5)
+    words = rng.integers(0, 2**32, size=(1 << 16, 4), dtype=np.uint64)
+    words[:8, 1] = 0  # counters below 2^32, as every tensor's flat quads
+    inp = torch.from_numpy(words.astype(np.int64)).to(torch.int32).to(dev)
+    keyed, plain = torch.empty_like(inp), torch.empty_like(inp)
+    code = lib.tpudl_philox_keyed_pair(
+        inp.data_ptr(), keyed.data_ptr(), plain.data_ptr(), inp.shape[0],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "philox_keyed_pair", code)
+    torch.cuda.synchronize()
+    assert torch.equal(keyed, plain)
+    assert not torch.equal(keyed[:, 0], keyed[:, 1])
+
+
 def test_softmax_dropout_keep_mask_is_the_plain_mask_and_regenerates(dev):
     """At the BERT shape, zero logits (p = 1/128): the forward's kept
     entries are exactly the plain keep mask, bit for bit, at a rate within

@@ -66,4 +66,45 @@ __device__ __forceinline__ uint32_t philox_bits(uint64_t index, uint32_t k0, uin
   return philox_word(philox_block(index >> 2, k0, k1), static_cast<int>(index & 3));
 }
 
+// The ten round keys of (k0, k1), formed once by a thread that draws many
+// blocks under one key.
+struct PhiloxKey {
+  uint32_t k0[10];
+  uint32_t k1[10];
+};
+
+__device__ __forceinline__ PhiloxKey philox_key(uint32_t k0, uint32_t k1) {
+  PhiloxKey k;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    k.k0[r] = k0 + static_cast<uint32_t>(r) * kPhiloxW0;
+    k.k1[r] = k1 + static_cast<uint32_t>(r) * kPhiloxW1;
+  }
+  return k;
+}
+
+// Both halves of a * m from one mul.wide.u32 (one IMAD.WIDE.U32).
+__device__ __forceinline__ void mul_wide(uint32_t a, uint32_t m, uint32_t& hi, uint32_t& lo) {
+  uint64_t p;
+  asm("mul.wide.u32 %0, %1, %2;" : "=l"(p) : "r"(a), "r"(m));
+  hi = static_cast<uint32_t>(p >> 32);
+  lo = static_cast<uint32_t>(p);
+}
+
+// philox_block(q, k0, k1) bit for bit, in fewer instructions: the round
+// keys come hoisted, each product's halves from one mul.wide.u32, and the
+// counter's words 2 and 3 are 0, so the first round has one product.
+__device__ __forceinline__ uint4 philox_block(uint64_t q, const PhiloxKey& k) {
+  uint32_t hi0, lo0, hi1, lo1;
+  mul_wide(static_cast<uint32_t>(q), kPhiloxM0, hi0, lo0);
+  uint4 c = make_uint4(static_cast<uint32_t>(q >> 32) ^ k.k0[0], 0u, hi0 ^ k.k1[0], lo0);
+#pragma unroll
+  for (int r = 1; r < 10; ++r) {
+    mul_wide(c.x, kPhiloxM0, hi0, lo0);
+    mul_wide(c.z, kPhiloxM1, hi1, lo1);
+    c = make_uint4(hi1 ^ c.y ^ k.k0[r], lo1, hi0 ^ c.w ^ k.k1[r], lo0);
+  }
+  return c;
+}
+
 }  // namespace tpudl

@@ -1,11 +1,14 @@
 """Time kernels of two checkouts in turns on one card: A, B, B, A. The
 serving kernels (RMSNorm with and without its residual, SwiGLU, the
 segmented LoRA at the decode step's q_proj and down_proj and a 128-token
-prefill, with its held-contract wall per eager call) and the attention
+prefill, with its held-contract wall per eager call), the attention
 backward rows (the whole-row backward, dQ and dK/dV launches, at
 BERT-base's seq-512 step, with and without dropout; flash dQ and dK/dV
 at the Llama-3-8B LoRA step, and flash dQ with dropout at BERT-base's
-heads).
+heads) and softmax_dropout forward and backward (the BERT-base seq-128
+step's call with its padding mask and dropout 0.1, the same shape causal
+without dropout, Skv 127, the unaligned path, causal with dropout, and
+the step's shape in f32 with and without mask and dropout).
 
     python3 -m tpudl_torch.tools.kernel_ab OTHER_CHECKOUT [ROUNDS]
 
@@ -39,6 +42,14 @@ ATTENTION = [("whole_bwd", [32, 512, 512, 12, 64], False, rate)
 ATTENTION += [("flash_dq", [4, 2048, 2048, 32, 128], True, 0.0),
               ("flash_dq", [8, 1024, 1024, 12, 64], False, 0.1),
               ("flash_dkv", [4, 2048, 2048, 32, 128], True, 0.0)]
+#: ([b, h, sq, skv], dtype, masking, rate): softmax_dropout (PERF.md rows
+#: 14 and 15) in bf16, and in f32 as chip_smoke.py's fused_kernel_phase
+#: holds it; the padding mask takes lengths uniform in [Skv/2, Skv].
+SOFTMAX = [([256, 12, 128, 128], "bfloat16", "padding", 0.1),
+           ([256, 12, 128, 128], "bfloat16", "causal", 0.0),
+           ([64, 12, 127, 127], "bfloat16", "causal", 0.1),
+           ([256, 12, 128, 128], "float32", "padding", 0.1),
+           ([256, 12, 128, 128], "float32", "none", 0.0)]
 #: (x shape, out): the segmented LoRA at the tenant slice's shapes, bf16 x
 #: and base, four slots at rank 16 on f32 pages.
 SEG_LORA = [([4, 4096], 4096), ([4, 14336], 4096), ([1, 128, 4096], 4096)]
@@ -52,6 +63,7 @@ from tpudl_torch.ops import keep_mask
 from tpudl_torch.ops.mlp_fused import swiglu
 from tpudl_torch.ops.norms import rms_norm
 from tpudl_torch.ops import segmented_lora as sl
+from tpudl_torch.ops import softmax_dropout as sd
 g = torch.Generator(device="cuda").manual_seed(0)
 out = {}
 for op, n, h, res in json.loads(sys.argv[1]):
@@ -117,13 +129,36 @@ for x_shape, fout in json.loads(sys.argv[3]):
         held = (sl.SitePools(pools).args, sl.batch_args(table, scale))
         out[key + ", wall per eager call (held contract)"] = \
             chip_smoke.eager_us(torch, lambda: sl.launch(x, *held, y)) / 1e3
+for shape, dt, masking, rate in json.loads(sys.argv[4]):
+    b, skv = shape[0], shape[-1]
+    dtype = getattr(torch, dt)
+    x = (3.0 * torch.randn(shape, generator=g, device="cuda")).to(dtype)
+    gy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    kvmask = None
+    if masking == "padding":
+        lengths = torch.randint(skv // 2, skv + 1, (b,), generator=g,
+                                device="cuda")
+        kvmask = torch.arange(skv, device="cuda")[None, :] < lengths[:, None]
+    causal = masking == "causal"
+    seed = keep_mask.draw_seed(g) if rate else keep_mask.zero_seed("cuda")
+    key = (f"softmax_dropout {{}} {shape} {'bf16' if dt == 'bfloat16' else 'f32'}"
+           f" {masking} rate {rate}")
+    out[key.format("fwd")] = chip_smoke.graph_ms(
+        lambda: sd._sd_fwd_cuda(x, kvmask, seed, causal, rate, dtype),
+        calls=20, reps=5)
+    out[key.format("bwd")] = chip_smoke.graph_ms(
+        lambda: sd.softmax_dropout_bwd(x, kvmask, seed, gy, causal, rate,
+                                       impl="fused"), calls=20, reps=5)
+    del x, gy
+    torch.cuda.empty_cache()
 print(json.dumps(out))
 """
 
 
 def turn(tree: str) -> dict:
     proc = subprocess.run([sys.executable, "-c", _TURN, json.dumps(CASES),
-                           json.dumps(ATTENTION), json.dumps(SEG_LORA)],
+                           json.dumps(ATTENTION), json.dumps(SEG_LORA),
+                           json.dumps(SOFTMAX)],
                           cwd=tree, capture_output=True, text=True, check=True)
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
