@@ -13,6 +13,13 @@ Phases, in order (any failure exits non-zero and prints no result):
              shapes the serving path gives it, bf16 and f32, with times
              (CUDA-graph replay, so launch overhead is excluded) beside
              the bound and, where one exists, one PyTorch call's time;
+             the launch floor (an empty one-block kernel, plain and as a
+             programmatic dependent launch);
+             and the dependent-launch chain (norm -> SwiGLU -> residual
+             norm -> norm, each fed the one before's output, 8 rounds at
+             the decode shape): serialized, eager and replayed from a
+             CUDA graph, equal bit for bit, each stage within tolerance
+             of its plain version;
 4. tiny    — a small input against the CPU reference: LLAMA_TINY in f32
              with the kernels on the card and with the plain versions on
              the CPU (the path the CPU tests hold against tpudl): prefill
@@ -85,7 +92,10 @@ The Llama LoRA slice (Llama-3-8B fine-tuned with rank-16 adapters on the
 7 projections, attention_impl="flash", fused_ops=True, batch 4 x seq
 2048, the llama3_8b_lora optimizer) adds:
 
-7c. llama kernels (after phase 7b) — the SwiGLU backward at [8192, 14336]
+7c. llama kernels (after phase 7b) — the RMSNorm forward with row
+             statistics at [8192, 4096] bf16 (plain and residual+sum,
+             beside F.rms_norm) and the SwiGLU forward at [8192, 14336]
+             bf16, each bitwise repeatable; the SwiGLU backward at [8192, 14336]
              (bf16, f32, unaligned) and flash forward, dQ and dK/dV at
              [4, 2048, 32, 128] bf16 causal (all-ones and padding masks,
              Sq != Skv, ragged 1000 / 1500, D 64 and 32, f32, dropout 0.1
@@ -434,6 +444,104 @@ def kernel_phase(torch, F):
             })
     report_cases(cases)
     return cases
+
+
+def launch_floor_phase(torch):
+    """The launch floor the short kernels are held against: ``graph_ms``
+    of an empty one-block kernel (csrc/norms.cu launch_floor_kernel)
+    launched plain and as a programmatic dependent
+    launch, as every norm and SwiGLU forward launches. Back to back in one
+    graph, the dependent launches overlap one another's launch."""
+    import ctypes
+
+    from tpudl_torch.ops import _build
+
+    lib = _build.load("norms")
+    lib.tpudl_launch_floor.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.tpudl_launch_floor.restype = ctypes.c_int
+
+    def launch(pdl):
+        _build.check(lib, "launch_floor", lib.tpudl_launch_floor(
+            pdl, torch.cuda.current_stream().cuda_stream))
+
+    out = {"plain_ms": graph_ms(lambda: launch(0)),
+           "pdl_ms": graph_ms(lambda: launch(1))}
+    print("launch floor (empty one-block kernel, CUDA-graph replay, ms): "
+          f"plain {out['plain_ms']:.5f}, dependent launch "
+          f"{out['pdl_ms']:.5f}")
+    return out
+
+
+def pdl_chain_check(torch):
+    """norm -> SwiGLU -> residual norm -> norm, each kernel fed the one
+    before's output, 8 rounds (each round's input the last one's output)
+    at the decode step's 4 rows of 4096 in bf16, the SwiGLU on the
+    flattened rows. Run three ways: with a synchronize after every launch
+    (no launch can overlap another), eagerly back to back (each
+    dependent launch may start while the one before runs), and replayed
+    from a CUDA graph of the same launches. A kernel that read device
+    memory before griddepcontrol.wait would see its input half written:
+    the three must agree bit for bit, and each stage of the last round
+    must be within KERNEL_TOL of its plain version on the same inputs."""
+    from tpudl_torch.ops.mlp_fused import swiglu, swiglu_ref
+    from tpudl_torch.ops.norms import rms_norm, rms_norm_ref
+
+    g = torch.Generator(device="cuda").manual_seed(97)
+    n, h, rounds = NUM_SLOTS, 4096, 8
+    x0 = torch.randn(n, h, generator=g, device="cuda").bfloat16()
+    up = torch.randn(n * h, generator=g, device="cuda").bfloat16()
+    s1, s2, s3 = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")
+                  for _ in range(3))
+
+    def chain(x, sync):
+        out = []
+        for _ in range(rounds):
+            y1 = rms_norm(x, s1, impl="fused")
+            sync()
+            a = swiglu(y1.view(-1), up, impl="fused").view(n, h)
+            sync()
+            y2, summed = rms_norm(a, s2, y1, impl="fused")
+            sync()
+            out.append((x, y1, a, y2, summed))
+            x = rms_norm(summed, s3, impl="fused")
+            sync()
+        return out, x
+
+    serial, x_serial = chain(x0, torch.cuda.synchronize)
+    eager, x_eager = chain(x0, lambda: None)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain(x0, lambda: None)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed, x_graph = chain(x0, lambda: None)
+    graph.replay()
+    torch.cuda.synchronize()
+    def flat(out, x):
+        return [t for stage in out for t in stage[1:]] + [x]
+
+    equal = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(
+        flat(serial, x_serial), flat(eager, x_eager),
+        flat(replayed, x_graph)))
+    x, y1, a, y2, summed = replayed[-1]
+    tol = KERNEL_TOL["bfloat16"]
+    want = rms_norm_ref(a, s2, y1)
+    err = merged(errors(y1, rms_norm_ref(x, s1), tol),
+                 errors(a.view(-1), swiglu_ref(y1.view(-1), up), tol),
+                 errors(y2, want[0], tol), errors(summed, want[1], tol),
+                 errors(x_graph, rms_norm_ref(summed, s3), tol))
+    print(f"pdl chain (norm -> SwiGLU -> residual norm -> norm, {rounds} "
+          f"rounds at [{n}, {h}] bf16): serialized, eager and graph "
+          f"{'equal bit for bit' if equal else 'DIFFER'}; last round "
+          f"against the plain versions max_abs_err={err[0]:.3e} "
+          f"{'ok' if err[2] else 'OUTSIDE TOLERANCE'}")
+    if not (equal and err[2]):
+        fail("the dependent-launch chain is not bitwise stable or not "
+             "within tolerance of the plain versions")
+    return {"bitwise_equal": equal, "max_abs_err": err[0]}
 
 
 def report_cases(cases):
@@ -1066,7 +1174,7 @@ def profile_decode(torch, model, params, Request, session_kw=None,
 
 #: Device kernel kinds, by a substring of the kernel's name (first match).
 KERNEL_KINDS = (
-    ("this repo's kernels", ("norm_fwd_kernel", "norm_bwd_kernel",
+    ("this repo's kernels", ("norm_fwd_", "norm_bwd_kernel",
                              "column_sum_kernel", "bias_gelu_", "swiglu_",
                              "softmax_dropout_", "xent_", "flash_fwd_kernel",
                              "flash_dq_kernel", "flash_dq_tma_kernel",
@@ -2167,18 +2275,73 @@ def llama_kernel_phase(torch, F):
     SwiGLU backward."""
     from tpudl_torch.ops import flash_attention as fa
     from tpudl_torch.ops import keep_mask
-    from tpudl_torch.ops.mlp_fused import swiglu_bwd, swiglu_bwd_ref
+    from tpudl_torch.ops.mlp_fused import (
+        swiglu,
+        swiglu_bwd,
+        swiglu_bwd_ref,
+        swiglu_ref,
+    )
+    from tpudl_torch.ops.norms import _norm_fwd_cuda, norm_stats_ref, rms_norm_ref
     from tpudl_torch.ops.softmax_dropout import hybrid_attention
 
     gen = torch.Generator(device="cuda").manual_seed(2468)
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = {k: [] for k in ("swiglu_bwd", "flash_fwd", "flash_dq",
-                             "flash_dkv")}
+    cases = {k: [] for k in ("rms_norm_fwd", "swiglu_fwd", "swiglu_bwd",
+                             "flash_fwd", "flash_dq", "flash_dkv")}
 
     def rand(shape, dtype, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
 
-    n, f = LLAMA_BATCH * LLAMA_SEQ, 14336
+    n, f, hidden = LLAMA_BATCH * LLAMA_SEQ, 14336, 4096
+    tol = KERNEL_TOL["bfloat16"]
+    # The RMSNorm forward with the row statistics autograd saves.
+    for residual, variant in (
+        (False, "plain, stats (the step's 32 input norms and the final one)"),
+        (True, "residual+sum, stats (the step's 32 post-attention norms)"),
+    ):
+        x = rand((n, hidden), bf16)
+        r = rand((n, hidden), bf16) if residual else None
+        scale = 1 + 0.1 * torch.randn(hidden, generator=gen, device="cuda")
+
+        def kernel():
+            return _norm_fwd_cuda("rms", x, scale, None, r, 1e-5, residual,
+                                  stats=True)
+
+        y, summed, _, rstd = kernel()
+        want = rms_norm_ref(x, scale, r)
+        errs = [errors(y, want[0] if residual else want, tol),
+                errors(rstd, norm_stats_ref(x, r, kind="rms", eps=1e-5)[1],
+                       1e-5)]
+        if residual:
+            errs.append(errors(summed, want[1], tol))
+        err = merged(*errs)
+        again = kernel()
+        if not (torch.equal(y, again[0]) and torch.equal(rstd, again[3])):
+            err = (err[0], err[1], False)
+            print(f"rms_norm_fwd {variant}: not bitwise repeatable")
+        # x (and r) in, y (and the sum) out, the scale and rstd.
+        c = case_row((n, hidden), bf16, variant, err, tol,
+                     n * hidden * 2 * (4 if residual else 2) + hidden * 4
+                     + n * 4, n * hidden * (5 if residual else 4))
+        cases["rms_norm_fwd"].append(timed_case(
+            c, kernel, lambda: rms_norm_ref(x, scale, r),
+            None if residual else (
+                lambda: F.rms_norm(x, (hidden,), scale, 1e-5)),
+            None if residual else "F.rms_norm, f32 weight"))
+        del x, r, y, summed, rstd, want, again
+        torch.cuda.empty_cache()
+    gate, up = rand((n, f), bf16, 2.0), rand((n, f), bf16)
+    y = swiglu(gate, up, impl="fused")
+    err = errors(y, swiglu_ref(gate, up), tol)
+    if not torch.equal(y, swiglu(gate, up, impl="fused")):
+        err = (err[0], err[1], False)
+        print("swiglu_fwd at the Llama step's shape: not bitwise repeatable")
+    cases["swiglu_fwd"].append(timed_case(
+        case_row((n, f), bf16, "the Llama step's 32 calls", err, tol,
+                 3 * n * f * 2, 6 * n * f),
+        lambda: swiglu(gate, up, impl="fused"), lambda: swiglu_ref(gate, up)))
+    del gate, up, y
+    torch.cuda.empty_cache()
     for shape, dtype, unaligned, variant in (
         ((n, f), bf16, False, "the Llama step's 32 calls"),
         ((n, f), f32, False, "f32"),
@@ -2896,6 +3059,14 @@ def llama_train_parity_phase(torch):
             "worst_ratio": [worst[0], ratio[worst[0]]]}
 
 
+#: (kernel, kind, variant, vectors a thread) of the bf16 norm forwards
+#: the main paths launch: BERT's LayerNorm at H 768 (3 vectors a lane),
+#: Llama's RMSNorm at H 4096 (2 vectors a thread).
+MAIN_PATH_NORM_KERNELS = {
+    ("norm_fwd_rows_kernel", "LayerNorm", v, "3") for v in ("plain", "residual")
+} | {("norm_fwd_wide_kernel", "RMSNorm", v, "2") for v in ("plain", "residual+sum")}
+
+
 def hopper_ptxas(text):
     """ptxas -v's figures for each bf16 attention kernel on TMA and wgmma
     (the forwards ``*_fwd_kernel``, the dQ launches ``flash_dq_tma_kernel``
@@ -2907,7 +3078,11 @@ def hopper_ptxas(text):
     attention_dkv.cuh), so ptxas does not see it. The same figures for
     the softmax_dropout kernels at Skv 128 (the BERT step's rows: L lanes
     a row, C runs a lane, R rows a pass), aligned path, one dtype in and
-    out."""
+    out. And for the bf16 norm and SwiGLU forwards
+    on the main paths: the rows kernel of LayerNorm at H 768 (3 vectors
+    a lane, with and without the residual), the wide kernel of RMSNorm
+    at H 4096 (2 vectors a thread, plain and residual+sum), and SwiGLU's
+    1 and 2 vectors a thread."""
     out, current = [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '[^']*?((?:flash|whole)_fwd_kernel"
@@ -2924,6 +3099,21 @@ def hopper_ptxas(text):
             skv128 = (dtype, lanes) in (("bf16", "16"), ("f32", "32")) and runs == "1"
             current = (f"{m.group(1)}<{dtype}, L {lanes}, C {runs}, R {rows}>"
                        if skv128 else None)
+            continue
+        m = re.search(r"Compiling entry function '[^']*?(norm_fwd_(?:rows|wide)_kernel)"
+                      r"I13__nv_bfloat16Li(\d)ELb([01])ELb([01])ELi(\d)E", line)
+        if m:
+            kind = "LayerNorm" if m.group(2) == "1" else "RMSNorm"
+            variant = {("0", "0"): "plain", ("1", "0"): "residual",
+                       ("1", "1"): "residual+sum"}[(m.group(3), m.group(4))]
+            key = (m.group(1), kind, variant, m.group(5))
+            current = (f"{m.group(1)}<bf16, {kind}, {variant}, {m.group(5)} vectors a "
+                       f"thread>" if key in MAIN_PATH_NORM_KERNELS else None)
+            continue
+        m = re.search(r"Compiling entry function '[^']*?(swiglu_fwd_kernel)"
+                      r"I13__nv_bfloat16Li(\d)E", line)
+        if m:
+            current = f"{m.group(1)}<bf16, {m.group(2)} vectors a thread>"
             continue
         if current and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -2970,6 +3160,8 @@ def main() -> int:
         for line in hopper_ptxas(info["ptxas"]):
             print(f"build: {name}: {line}")
 
+    floor = launch_floor_phase(torch)
+    chain = pdl_chain_check(torch)
     cases = kernel_phase(torch, F)
     seg_cases = seg_lora_kernel_phase(torch)
     tiny_reference_phase(torch)
@@ -3098,6 +3290,9 @@ def main() -> int:
     for name, (source, replaces, count, per_step, where) in table.items():
         rows = where[name]
         if where is cases:
+            # The serving cases, then the Llama LoRA step's.
+            rows = rows + llama_cases[name]
+        if where is cases:
             head = next(c for c in rows if c["shape"][0] == NUM_SLOTS
                         and c["dtype"] == "bfloat16"
                         and c["variant"] == "plain")
@@ -3137,7 +3332,9 @@ def main() -> int:
     print(json.dumps({"slice": metrics, "tenant_slice": tenant_metrics,
                       "train": train_metrics,
                       "train_fused": fused_metrics, "train_512": metrics_512,
-                      "llama_lora_train": llama_metrics, "card": card}))
+                      "llama_lora_train": llama_metrics,
+                      "launch_floor": floor, "pdl_chain": chain,
+                      "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

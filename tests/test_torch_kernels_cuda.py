@@ -61,30 +61,55 @@ def _t(rng, shape, dtype, dev):
 TOL = {torch.float32: 1e-5, torch.bfloat16: 0.05}
 
 
+# (rows, H) of the norm forward's paths: the rows kernel (H <= 1024, one
+# warp a row, up to 4 rows a warp; row counts that are not a multiple of
+# a block's rows); the wide kernel (a block a row) at H 4096 at the
+# decode step's 4 rows, a prefill's 130 and others, and at H 4104 (513
+# bf16 vectors, 1026 f32: a ragged last vector per thread); the scalar
+# path (H 100 in bf16 and 4100 in both: rows that are not whole 16-byte
+# vectors).
+NORM_SHAPES = [(10, 96), (10, 100), (3, 768), (517, 768), (4100, 768),
+               (1, 4096), (4, 4096), (16, 4096), (24, 4096), (48, 4096),
+               (130, 4096), (10, 4104), (37, 4100)]
+
+
+def _norm_inputs(rng, n, h, dtype, dev, mode, shift=0.0):
+    x = _t(rng, (n, h), dtype, dev) * 2 + shift
+    r = _t(rng, (n, h), dtype, dev) if mode != "plain" else None
+    return x, r
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h", [96, 100, 4096, 4104])
+@pytest.mark.parametrize("n,h", NORM_SHAPES)
 @pytest.mark.parametrize("mode", ["plain", "residual", "residual_nosum"])
-def test_rms_norm_kernel_matches_plain(dev, dtype, h, mode):
-    rng = np.random.default_rng(h)
-    x = _t(rng, (2, 5, h), dtype, dev)
-    r = _t(rng, (2, 5, h), dtype, dev) if mode != "plain" else None
+def test_rms_norm_kernel_matches_plain(dev, dtype, n, h, mode):
+    """The forward against its plain version on every path; a second call
+    gives the same bits (the cluster's partial sums are read in rank
+    order, never added atomically)."""
+    rng = np.random.default_rng(n * 10007 + h)
+    x, r = _norm_inputs(rng, n, h, dtype, dev, mode)
     scale = _t(rng, (h,), torch.float32, dev)
     before = rms_norm.launches
     out = rms_norm(x, scale, r, eps=1e-5, return_sum=mode != "residual_nosum",
                    impl="fused")
+    again = rms_norm(x, scale, r, eps=1e-5,
+                     return_sum=mode != "residual_nosum", impl="fused")
     torch.cuda.synchronize()
-    assert rms_norm.launches == before + 1
+    assert rms_norm.launches == before + 2
     ref = rms_norm_ref(x, scale, r, eps=1e-5)
     if mode == "residual":
         (y, s), (yr, sr) = out, ref
         # The sum is x + r rounded once, in both.
         torch.testing.assert_close(s.float(), sr.float(), rtol=TOL[dtype],
                                    atol=TOL[dtype])
+        assert torch.equal(s, again[1])
+        again = again[0]
     else:
         y, yr = out, ref if mode == "plain" else ref[0]
     assert y.dtype == dtype and y.shape == x.shape
     torch.testing.assert_close(y.float(), yr.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+    assert torch.equal(y, again)
 
 
 def test_rms_norm_kernel_unaligned_rows_take_scalar_path(dev):
@@ -112,19 +137,79 @@ def test_rms_norm_kernel_refuses_what_it_cannot_take(dev):
                  torch.ones(64, device=dev, dtype=torch.bfloat16))
 
 
+# SwiGLU forward shapes: decode (one vector a thread, 64-thread blocks),
+# a ragged tail on that path (9 x 3755), the smallest call past it (16 x
+# 14336 in bf16: two vectors a thread), a prefill, the Llama LoRA step's
+# [8192, 14336], a ragged tail, fewer elements than a vector.
+SWIGLU_SHAPES = [(4, 14336), (9, 3755), (16, 14336), (128, 14336),
+                 (8192, 14336), (3, 77), (1, 5)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 14336), (3, 77), (1, 5)])
+@pytest.mark.parametrize("shape", SWIGLU_SHAPES)
 def test_swiglu_kernel_matches_plain(dev, dtype, shape):
     rng = np.random.default_rng(shape[1])
     g = _t(rng, shape, dtype, dev) * 4
     u = _t(rng, shape, dtype, dev)
     before = swiglu.launches
     y = swiglu(g, u, impl="fused")
+    again = swiglu(g, u, impl="fused")
     torch.cuda.synchronize()
-    assert swiglu.launches == before + 1
+    assert swiglu.launches == before + 2
     assert y.dtype == dtype and y.shape == g.shape
     torch.testing.assert_close(y.float(), swiglu_ref(g, u).float(),
                                rtol=TOL[dtype], atol=TOL[dtype])
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h", [(4, 4096), (128, 4096), (517, 768),
+                                 (37, 4100)])
+def test_dependent_launches_back_to_back_match_serialized(dev, dtype, n, h):
+    """Norm -> SwiGLU -> residual norm -> LayerNorm, each kernel fed the
+    one before's output, 6 rounds, launched back to back on one stream
+    (each a programmatic dependent launch that may start while the one
+    before runs) and again with a synchronize after every launch, and
+    replayed from a CUDA graph: all equal bit for bit. A kernel that read
+    its input before griddepcontrol.wait would see it half written."""
+    rng = np.random.default_rng(n + h)
+    x0 = _t(rng, (n, h), dtype, dev)
+    up = _t(rng, (n * h,), dtype, dev)
+    s1, s2, s3, b3 = (_t(rng, (h,), torch.float32, dev) for _ in range(4))
+
+    def chain(x, sync):
+        out = []
+        for _ in range(6):
+            y1 = rms_norm(x, s1, impl="fused")
+            sync()
+            a = swiglu(y1.view(-1), up, impl="fused").view(n, h)
+            sync()
+            y2, summed = rms_norm(a, s2, y1, impl="fused")
+            sync()
+            x = layer_norm(summed, s3, b3, impl="fused")
+            sync()
+            out += [y1, a, y2, summed, x]
+        return out
+
+    serial = chain(x0, torch.cuda.synchronize)
+    eager = chain(x0, lambda: None)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain(x0, lambda: None)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = chain(x0, lambda: None)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, c in zip(serial, eager, replayed):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    # And the last stage is still a normed row.
+    torch.testing.assert_close(
+        serial[-1].float(),
+        layer_norm_ref(serial[-2], s3, b3, eps=1e-12).float(),
+        rtol=TOL[dtype], atol=TOL[dtype])
 
 
 def test_swiglu_kernel_unaligned_and_refusals(dev):
@@ -184,43 +269,52 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.05}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h", [96, 100, 768, 4104])
+@pytest.mark.parametrize("n,h", NORM_SHAPES)
 @pytest.mark.parametrize("mode", ["plain", "residual", "residual_nosum"])
-def test_layer_norm_kernel_matches_plain(dev, dtype, h, mode):
-    rng = np.random.default_rng(h)
-    x = _t(rng, (3, 7, h), dtype, dev) * 2 + 0.5
-    r = _t(rng, (3, 7, h), dtype, dev) if mode != "plain" else None
+def test_layer_norm_kernel_matches_plain(dev, dtype, n, h, mode):
+    """As test_rms_norm_kernel_matches_plain, for LayerNorm (its mean
+    away from 0, so the variance's clamp and cancellation show)."""
+    rng = np.random.default_rng(n * 10007 + h)
+    x, r = _norm_inputs(rng, n, h, dtype, dev, mode, shift=0.5)
     scale = _t(rng, (h,), torch.float32, dev)
     bias = _t(rng, (h,), torch.float32, dev)
     before = layer_norm.launches
     out = layer_norm(x, scale, bias, r, eps=1e-12,
                      return_sum=mode != "residual_nosum", impl="fused")
+    again = layer_norm(x, scale, bias, r, eps=1e-12,
+                       return_sum=mode != "residual_nosum", impl="fused")
     torch.cuda.synchronize()
-    assert layer_norm.launches == before + 1
+    assert layer_norm.launches == before + 2
     ref = layer_norm_ref(x, scale, bias, r, eps=1e-12)
     if mode == "residual":
         (y, s), (yr, sr) = out, ref
         torch.testing.assert_close(s.float(), sr.float(), rtol=TOL[dtype],
                                    atol=TOL[dtype])
+        assert torch.equal(s, again[1])
+        again = again[0]
     else:
         y, yr = out, ref if mode == "plain" else ref[0]
     assert y.dtype == dtype and y.shape == x.shape
     torch.testing.assert_close(y.float(), yr.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+    assert torch.equal(y, again)
 
 
 @pytest.mark.parametrize("kind", ["layer", "rms"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_norm_forward_saves_the_plain_statistics(dev, kind, dtype):
+@pytest.mark.parametrize("n,h", [(300, 768), (4, 4096), (130, 4096),
+                                 (37, 4100)])
+def test_norm_forward_saves_the_plain_statistics(dev, kind, dtype, n, h):
     """Under autograd the forward kernel also writes mean and rstd; they
-    match the plain statistics of the f32 sum."""
+    match the plain statistics of the f32 sum (the rows kernel, the wide
+    kernel in a cluster and in a block, the scalar path)."""
     from tpudl_torch.ops.norms import _norm_fwd_cuda
 
     rng = np.random.default_rng(3)
-    x = _t(rng, (300, 768), dtype, dev)
-    r = _t(rng, (300, 768), dtype, dev)
-    scale = _t(rng, (768,), torch.float32, dev)
-    bias = _t(rng, (768,), torch.float32, dev) if kind == "layer" else None
+    x = _t(rng, (n, h), dtype, dev)
+    r = _t(rng, (n, h), dtype, dev)
+    scale = _t(rng, (h,), torch.float32, dev)
+    bias = _t(rng, (h,), torch.float32, dev) if kind == "layer" else None
     _, _, mean, rstd = _norm_fwd_cuda(kind, x, scale, bias, r, 1e-6, False,
                                       stats=True)
     mean_ref, rstd_ref = norm_stats_ref(x, r, kind=kind, eps=1e-6)

@@ -30,15 +30,44 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
+// The i-th 16-byte vector of `base` (which must be 16-byte aligned), as
+// loaded: a kernel that keeps loads in flight holds these and widens them
+// later with unpack_vec.
+template <typename T>
+__device__ __forceinline__ uint4 load_raw(const T* __restrict__ base, int64_t i) {
+  return __ldg(reinterpret_cast<const uint4*>(base) + i);
+}
+
+template <typename T>
+__device__ __forceinline__ void unpack_vec(const uint4& raw, float (&out)[VecWidth<T>::value]) {
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int j = 0; j < VecWidth<T>::value; ++j) out[j] = to_f32(e[j]);
+}
+
 // Load the i-th 16-byte vector of `base` (which must be 16-byte aligned)
 // and widen it to f32.
 template <typename T>
 __device__ __forceinline__ void load_vec(const T* __restrict__ base, int64_t i,
                                          float (&out)[VecWidth<T>::value]) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(base) + i);
-  const T* e = reinterpret_cast<const T*>(&raw);
+  unpack_vec<T>(load_raw(base, i), out);
+}
+
+// The W f32 values [i * W, i * W + W) of `base` (16-byte aligned) as W / 4
+// 16-byte loads: a kernel's f32 scale or bias beside a vector of T.
+template <int W>
+__device__ __forceinline__ void load_f32(const float* __restrict__ base, int64_t i,
+                                         float (&out)[W]) {
+  static_assert(W % 4 == 0, "whole 16-byte vectors of f32");
+  const float4* p = reinterpret_cast<const float4*>(base) + i * (W / 4);
 #pragma unroll
-  for (int j = 0; j < VecWidth<T>::value; ++j) out[j] = to_f32(e[j]);
+  for (int q = 0; q < W / 4; ++q) {
+    const float4 f = __ldg(p + q);
+    out[4 * q] = f.x;
+    out[4 * q + 1] = f.y;
+    out[4 * q + 2] = f.z;
+    out[4 * q + 3] = f.w;
+  }
 }
 
 // Narrow f32 values to T and store them as the i-th 16-byte vector.
@@ -79,6 +108,41 @@ __device__ __forceinline__ void store_chunk(T* __restrict__ base, int64_t i,
 
 __host__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// Programmatic dependent launch (Hopper). A kernel started by launch_pdl
+// may begin while the kernel before it on the stream is still running,
+// once every block of that kernel has called pdl_launch_dependents() (or
+// exited). So it may do address arithmetic and shared-memory set-up
+// first, but must neither read nor write device memory before
+// pdl_wait(), which returns once the kernel before has finished and its
+// writes are visible. Launched without the attribute, both are no-ops.
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Launch `kernel` on `stream` with programmatic stream serialization.
+// Returns the launch's error code: a refused launch is reported, never
+// replaced by a plain one.
+template <typename... Params, typename... Args>
+__host__ int launch_pdl(void (*kernel)(Params...), dim3 grid, dim3 block, cudaStream_t stream,
+                        Args... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch's error
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 // Second pass of the cross-row reductions (dscale, dbias, db): the first

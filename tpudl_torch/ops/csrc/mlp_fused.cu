@@ -24,11 +24,22 @@
 // train step bias+GeLU runs on [32768, 3072] bf16: ~403 MB forward
 // (~120 us at 3.35 TB/s) and ~604 MB backward (~180 us).
 //
+// At decode (N = 4) SwiGLU's 344 KB take 0.1 us at the memory rate, so
+// the launch and one load's latency are its whole time.
+//
 // What the design does about that:
-// - SwiGLU: a grid-stride loop in which every thread moves 16-byte vectors
-//   (8 bf16 or 4 f32 values) of gate, up and y, so each warp issues fully
-//   coalesced 512-byte accesses; the grid is capped at a few waves of the
-//   132 SMs and each thread walks the rest.
+// - SwiGLU forward: every thread moves 16-byte vectors (8 bf16 or 4 f32
+//   values) of gate, up and y, so each warp issues fully coalesced
+//   512-byte accesses. Small calls (decode) take one vector a thread in
+//   blocks of 64 threads, so even [4, 14336]'s 7168 vectors spread over
+//   112 SMs; larger ones blocks of 256 threads of two vectors of each
+//   input a thread, all four loads issued before any math (a walk of 2, 4
+//   or 8 such steps a thread with the next step's loads in flight was
+//   slower at [8192, 14336] in kernel_ab). exp is one multiply
+//   and ex2.approx, the reciprocal rcp.approx (relative error ~1e-6 in
+//   f32). It is a programmatic dependent launch (common.cuh launch_pdl):
+//   no device memory is touched before griddepcontrol.wait, and the next
+//   dependent launch may start once the first loads are issued.
 // - The SwiGLU backward: the forward's grid-stride loop with five 16-byte
 //   streams (gate, up, go in; dg, du out), each output rounded once.
 // - bias+GeLU: a 2-D grid, x over column chunks (one 16-byte vector each)
@@ -41,8 +52,7 @@
 //   order. No float atomics, so the backward is bitwise repeatable.
 // Elements past the last whole vector (or all of them, when a pointer is
 // not 16-byte aligned or a row is not a whole number of vectors) take the
-// scalar path. exp and erf are the accurate expf / erff: this first
-// version keeps the numerics of the f32 composite before it is made fast.
+// scalar path. The backward and bias+GeLU keep the accurate expf / erff.
 #include "common.cuh"
 
 namespace {
@@ -55,30 +65,66 @@ using tpudl::store_chunk;
 using tpudl::store_vec;
 using tpudl::to_f32;
 
+// silu(g) * u in f32: exp(-g) as ex2.approx of -g * log2(e), the
+// reciprocal as rcp.approx (a large negative g gives exp(-g) = inf and a
+// reciprocal of 0, as expf and the division do).
 __device__ __forceinline__ float swiglu_f32(float g, float u) {
-  return (g * (1.0f / (1.0f + expf(-g)))) * u;
+  float e, q;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(g * -1.4426950408889634f));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(q) : "f"(1.0f + e));
+  return (g * q) * u;
 }
 
-template <typename T, bool VEC>
-__global__ void swiglu_fwd_kernel(const T* __restrict__ gate, const T* __restrict__ up,
-                                  T* __restrict__ y, int64_t n) {
+// Block b takes the vectors [b * blockDim.x * VPT, (b + 1) * blockDim.x *
+// VPT); thread t moves vectors base + k * blockDim.x (k < VPT), all its
+// loads issued before any math. The elements past the last whole vector
+// (fewer than one vector) go to block 0.
+template <typename T, int VPT>
+__global__ void __launch_bounds__(256)
+    swiglu_fwd_kernel(const T* __restrict__ gate, const T* __restrict__ up, T* __restrict__ y,
+                      int64_t n) {
   constexpr int V = VecWidth<T>::value;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  int64_t scalar0 = 0;
-  if (VEC) {
-    const int64_t nvec = n / V;
-    for (int64_t i = tid; i < nvec; i += stride) {
+  const int64_t nvec = n / V;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * blockDim.x * VPT + threadIdx.x;
+  tpudl::pdl_wait();
+  uint4 ga[VPT], ua[VPT];
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int64_t i = base + k * blockDim.x;
+    if (i < nvec) {
+      ga[k] = tpudl::load_raw(gate, i);
+      ua[k] = tpudl::load_raw(up, i);
+    }
+  }
+  tpudl::pdl_launch_dependents();
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int64_t i = base + k * blockDim.x;
+    if (i < nvec) {
       float g[V], u[V];
-      load_vec(gate, i, g);
-      load_vec(up, i, u);
+      tpudl::unpack_vec<T>(ga[k], g);
+      tpudl::unpack_vec<T>(ua[k], u);
 #pragma unroll
       for (int j = 0; j < V; ++j) g[j] = swiglu_f32(g[j], u[j]);
       store_vec(y, i, g);
     }
-    scalar0 = nvec * V;
   }
-  for (int64_t c = scalar0 + tid; c < n; c += stride) {
+  const int64_t tail = nvec * V + threadIdx.x;
+  if (blockIdx.x == 0 && tail < n) {
+    y[tail] = from_f32<T>(swiglu_f32(to_f32(gate[tail]), to_f32(up[tail])));
+  }
+}
+
+// Pointers off a 16-byte boundary: one element a thread, grid-stride.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    swiglu_fwd_scalar_kernel(const T* __restrict__ gate, const T* __restrict__ up,
+                             T* __restrict__ y, int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  tpudl::pdl_wait();
+  tpudl::pdl_launch_dependents();
+  for (int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; c < n;
+       c += stride) {
     y[c] = from_f32<T>(swiglu_f32(to_f32(gate[c]), to_f32(up[c])));
   }
 }
@@ -86,23 +132,26 @@ __global__ void swiglu_fwd_kernel(const T* __restrict__ gate, const T* __restric
 template <typename T>
 int launch(const void* gate, const void* up, void* y, int64_t n, cudaStream_t stream) {
   constexpr int V = VecWidth<T>::value;
-  constexpr int kThreads = 256;
-  // A few waves of 132 SMs at 8 blocks each; the grid-stride loop covers
-  // the rest.
-  constexpr int64_t kMaxBlocks = 132 * 8 * 4;
-  const bool vec = tpudl::aligned16(gate) && tpudl::aligned16(up) && tpudl::aligned16(y);
-  const int64_t work = vec ? (n + V - 1) / V : n;
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   const T* g = static_cast<const T*>(gate);
   const T* u = static_cast<const T*>(up);
   T* out = static_cast<T*>(y);
-  if (vec) {
-    swiglu_fwd_kernel<T, true><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(g, u, out, n);
-  } else {
-    swiglu_fwd_kernel<T, false><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(g, u, out, n);
+  if (!(tpudl::aligned16(gate) && tpudl::aligned16(up) && tpudl::aligned16(y))) {
+    int64_t blocks = (n + 255) / 256;
+    if (blocks > 132 * 8 * 4) blocks = 132 * 8 * 4;
+    return tpudl::launch_pdl(swiglu_fwd_scalar_kernel<T>, dim3(static_cast<unsigned>(blocks)),
+                             dim3(256), stream, g, u, out, n);
   }
-  return static_cast<int>(cudaGetLastError());
+  const int64_t nvec = n / V;
+  // Up to two blocks of 64 threads per SM at one vector a thread; past
+  // that, 256 threads of two vectors.
+  if (nvec <= 64 * 132 * 2) {
+    const int64_t blocks = nvec > 0 ? (nvec + 63) / 64 : 1;
+    return tpudl::launch_pdl(swiglu_fwd_kernel<T, 1>, dim3(static_cast<unsigned>(blocks)),
+                             dim3(64), stream, g, u, out, n);
+  }
+  return tpudl::launch_pdl(swiglu_fwd_kernel<T, 2>,
+                           dim3(static_cast<unsigned>((nvec + 511) / 512)), dim3(256), stream,
+                           g, u, out, n);
 }
 
 // dg, du of y = silu(g) * u, in f32, each rounded once to T.

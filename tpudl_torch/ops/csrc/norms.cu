@@ -22,34 +22,53 @@
 //        (+ gs, the gradient of the summed output, when given)
 // and over all rows dscale = sum(g * xhat), dbias = sum(g) (LayerNorm).
 //
-// What bounds them on the H100: memory traffic. Each reads its inputs once
-// and writes its outputs once at a few f32 operations per byte, far below
-// the ~20 f32 operations per byte where the arithmetic would matter. At
-// BERT-base's [32768, 768] bf16 the residual forward moves ~151 MB (~45 us
-// at 3.35 TB/s) and the residual backward ~201 MB (~60 us); at Llama
-// decode (4 rows of 4096) the forward moves ~100 KB and launch latency
-// bounds it instead.
+// What bounds them on the H100: memory traffic at the training shapes,
+// launch latency at decode. Each reads its inputs once and writes its
+// outputs once at a few f32 operations per byte, far below the ~20 f32
+// operations per byte where the arithmetic would matter. At BERT-base's
+// [32768, 768] bf16 the residual forward moves ~151 MB (~45 us at 3.35
+// TB/s), at the Llama-3-8B LoRA step's [8192, 4096] the residual+sum
+// forward ~268 MB (~80 us); the residual backward at BERT-base ~201 MB
+// (~60 us). At Llama decode (4 rows of 4096) the forward moves ~100 KB
+// (0.03 us) and the launch and one load's latency are the whole time.
 //
-// What the design does about that:
-// - Forward: one block per row, each thread loading 16-byte vectors (8 bf16
-//   or 4 f32 values) so neighbouring threads touch neighbouring addresses;
-//   the block is sized so most threads load exactly one vector. The row's
-//   sums are reduced in f32 through warp shuffles and one shared-memory
-//   exchange; the second pass re-reads the row, still in L1, instead of
-//   holding it in registers, so any H works with one code path. RMSNorm
-//   without statistics (inference) has a kernel of its own with no
-//   statistics or bias code, so the decode step keeps its first kernel.
-// - Backward: the Pallas kernel carries dscale/dbias across its sequential
-//   grid in VMEM scratch. Hopper's blocks run in no order, so each block
-//   walks a contiguous run of rows, keeps its column partials of dscale and
-//   dbias in registers (each thread owns K chunks of columns), and writes
-//   one f32 partial row to a workspace; a second kernel sums the partials
-//   of each column in a fixed order. No float atomics, so the backward is
+// What the forward's design does about that (every variant, both kinds):
+// - Each thread holds its part of the row in registers from the load to
+//   the store: one pass over device memory, no second read. The f32 scale
+//   (and bias) arrive as 16-byte vectors issued with the row's loads.
+// - Rows of at most 1024 values (BERT's 768): one warp per row, several
+//   rows per warp, shuffle-only sums (no barrier), the scale and bias
+//   loaded once per warp and held for all its rows, and the next row's
+//   loads issued before this row's math.
+// - Wider rows (Llama's 4096): one block per row of at most 256 threads,
+//   each holding up to 4 vectors (8 for wider rows), one barrier for the
+//   row's sums. At decode (4 rows) the row's bytes are few and a load's
+//   latency, not the bandwidth of the 4 SMs, sets the time: splitting a
+//   row over a thread block cluster of 2, 4 or 8 CTAs, with the partial
+//   sums read back through distributed shared memory, was slower at every
+//   size at [4, 4096] and [128, 4096] (kernel_ab against copies of this
+//   file; PERF.md section 6), so there is no cluster path.
+// - Every forward is a programmatic dependent launch (launch_pdl): it
+//   touches no device memory, not even the scale (an optimizer step may
+//   write it), before griddepcontrol.wait, and lets the next dependent
+//   launch start once its loads are issued, so back-to-back launches
+//   overlap their launch latency with this one's tail.
+// - Rows that cannot be read as aligned 16-byte vectors (H not a multiple
+//   of 8 bf16 or 4 f32 values, a row stride, scale, bias or pointer off a
+//   16-byte boundary) take a scalar kernel of one block per row and two
+//   passes over the row.
+//
+// Backward:
+// - The Pallas kernel carries dscale/dbias across its sequential grid in
+//   VMEM scratch. Hopper's blocks run in no order, so each block walks a
+//   contiguous run of rows, keeps its column partials of dscale and dbias
+//   in registers (each thread owns K chunks of columns), and writes one
+//   f32 partial row to a workspace; a second kernel sums the partials of
+//   each column in a fixed order. No float atomics, so the backward is
 //   bitwise repeatable. The grid is one wave (8 blocks per SM), so the
 //   partials add ~3% to the bytes at BERT-base's shape.
-// - Rows that cannot be read as aligned 16-byte vectors (H not a multiple
-//   of 8 bf16 or 4 f32 values, a row stride or pointer off a 16-byte
-//   boundary) take the scalar path of the same kernels (chunks of one).
+// - Rows that cannot be read as aligned 16-byte vectors take the scalar
+//   path of the same kernel (chunks of one).
 #include "common.cuh"
 
 namespace {
@@ -57,34 +76,14 @@ namespace {
 using tpudl::VecWidth;
 using tpudl::from_f32;
 using tpudl::load_chunk;
-using tpudl::load_vec;
+using tpudl::load_f32;
+using tpudl::load_raw;
 using tpudl::store_chunk;
 using tpudl::store_vec;
 using tpudl::to_f32;
+using tpudl::unpack_vec;
 
 enum Kind : int { kRms = 0, kLayer = 1 };
-
-// Sum of `v` over the block; every thread gets the result. blockDim.x is
-// a multiple of 32 and at most 1024. One call per kernel (the result slot
-// is reused without a trailing barrier).
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float warp_sums[32];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int nwarps = blockDim.x >> 5;
-    v = lane < nwarps ? warp_sums[lane] : 0.0f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0) warp_sums[0] = v;
-  }
-  __syncthreads();
-  return warp_sums[0];
-}
 
 // Two sums over the block at once; every thread gets both. Ends with a
 // barrier, so it may be called again in a loop.
@@ -119,234 +118,356 @@ __device__ __forceinline__ float2 block_sum2(float a, float b) {
 // forward
 // ---------------------------------------------------------------------------
 
-// RMSNorm without statistics: the inference path (65 calls per Llama decode
-// step). Kept apart from norm_fwd_kernel so the decode step's kernel carries
-// no bias, mean or statistics code; its timing is the serving slice's.
-template <typename T, bool HAS_RES, bool EMIT_SUM, bool VEC>
-__global__ void rms_norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
-                                    const float* __restrict__ scale, T* __restrict__ y,
-                                    T* __restrict__ s, int h, int64_t x_stride,
-                                    int64_t r_stride, float eps) {
-  constexpr int V = VecWidth<T>::value;
-  const int64_t row = blockIdx.x;
-  const T* xr = x + row * x_stride;
-  const T* rr = HAS_RES ? r + row * r_stride : nullptr;
-  T* yr = y + row * static_cast<int64_t>(h);
-  T* sr = EMIT_SUM ? s + row * static_cast<int64_t>(h) : nullptr;
-  const int nvec = VEC ? h / V : 0;
-  const int tail0 = nvec * V;
+// The forward's operands, passed by value to every forward kernel.
+template <typename T>
+struct FwdArgs {
+  const T* x;
+  const T* r;          // null without a residual
+  const float* scale;
+  const float* bias;   // LayerNorm only
+  T* y;
+  T* s;                // null unless the sum is written
+  float* mean;         // LayerNorm statistics, or null
+  float* rstd;         // or null
+  int64_t n;
+  int h;
+  int64_t x_stride;
+  int64_t r_stride;
+  float eps;
+};
 
-  // Pass 1: residual add in f32, optional sum write, sum of squares.
-  float sumsq = 0.0f;
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    float v[V];
-    load_vec(xr, i, v);
-    if (HAS_RES) {
-      float w[V];
-      load_vec(rr, i, w);
+// Sum of v over the warp by xor shuffles: every lane ends with the same
+// bits (each step adds two values, and a + b == b + a).
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-      for (int j = 0; j < V; ++j) v[j] += w[j];
-    }
-    if (EMIT_SUM) store_vec(sr, i, v);
-#pragma unroll
-    for (int j = 0; j < V; ++j) sumsq += v[j] * v[j];
-  }
-  for (int c = tail0 + threadIdx.x; c < h; c += blockDim.x) {
-    float v = to_f32(xr[c]);
-    if (HAS_RES) v += to_f32(rr[c]);
-    if (EMIT_SUM) sr[c] = from_f32<T>(v);
-    sumsq += v * v;
-  }
-  const float rstd = rsqrtf(block_sum(sumsq) / static_cast<float>(h) + eps);
-
-  // Pass 2: normalize and scale (the row is re-read from L1).
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    float v[V];
-    load_vec(xr, i, v);
-    if (HAS_RES) {
-      float w[V];
-      load_vec(rr, i, w);
-#pragma unroll
-      for (int j = 0; j < V; ++j) v[j] += w[j];
-    }
-#pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = (v[j] * rstd) * __ldg(scale + i * V + j);
-    store_vec(yr, i, v);
-  }
-  for (int c = tail0 + threadIdx.x; c < h; c += blockDim.x) {
-    float v = to_f32(xr[c]);
-    if (HAS_RES) v += to_f32(rr[c]);
-    yr[c] = from_f32<T>((v * rstd) * __ldg(scale + c));
-  }
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
-// The block shape of both forward kernels: one row per block, sized so
-// most threads load exactly one 16-byte vector (or one element on the
-// scalar path). Returns whether the vector path applies.
-template <typename T>
-bool fwd_shape(const void* x, const void* r, const void* y, const void* s, int h,
-               int64_t x_stride, int64_t r_stride, int* threads) {
-  constexpr int V = VecWidth<T>::value;
-  // 16-byte vectors need every row start 16-byte aligned.
-  bool vec = tpudl::aligned16(x) && tpudl::aligned16(y) &&
-             (x_stride * sizeof(T)) % 16 == 0 && (h * sizeof(T)) % 16 == 0;
-  if (r != nullptr) vec = vec && tpudl::aligned16(r) && (r_stride * sizeof(T)) % 16 == 0;
-  if (s != nullptr) vec = vec && tpudl::aligned16(s);
-  const int work = vec ? (h + V - 1) / V : h;
-  int t = ((work + 31) / 32) * 32;
-  *threads = t < 32 ? 32 : (t > 1024 ? 1024 : t);
-  return vec;
-}
-
-template <typename T>
-int launch_rms(const void* x, const void* r, const void* scale, void* y, void* s, int64_t n,
-               int h, int64_t x_stride, int64_t r_stride, float eps, cudaStream_t stream) {
-  int threads;
-  const bool vec = fwd_shape<T>(x, r, y, s, h, x_stride, r_stride, &threads);
-  const bool has_res = r != nullptr;
-  const bool emit_sum = s != nullptr;
-  const dim3 grid(static_cast<unsigned>(n));
-  const T* xp = static_cast<const T*>(x);
-  const T* rp = static_cast<const T*>(r);
-  const float* sc = static_cast<const float*>(scale);
-  T* yp = static_cast<T*>(y);
-  T* sp = static_cast<T*>(s);
-#define TPUDL_RMS_LAUNCH(RES, SUM, VEC)                                        \
-  rms_norm_fwd_kernel<T, RES, SUM, VEC><<<grid, threads, 0, stream>>>(        \
-      xp, rp, sc, yp, sp, h, x_stride, r_stride, eps)
-  if (vec) {
-    if (!has_res) TPUDL_RMS_LAUNCH(false, false, true);
-    else if (emit_sum) TPUDL_RMS_LAUNCH(true, true, true);
-    else TPUDL_RMS_LAUNCH(true, false, true);
+// The row's statistics from its sum and sum of squares: (mean, rstd).
+template <int KIND>
+__device__ __forceinline__ float2 row_stats(float sum, float sumsq, float hf, float eps) {
+  if constexpr (KIND == kLayer) {
+    const float mean = sum / hf;
+    return make_float2(mean, rsqrtf(fmaxf(sumsq / hf - mean * mean, 0.0f) + eps));
   } else {
-    if (!has_res) TPUDL_RMS_LAUNCH(false, false, false);
-    else if (emit_sum) TPUDL_RMS_LAUNCH(true, true, false);
-    else TPUDL_RMS_LAUNCH(true, false, false);
+    return make_float2(0.0f, rsqrtf(sumsq / hf + eps));
   }
-#undef TPUDL_RMS_LAUNCH
-  return static_cast<int>(cudaGetLastError());
 }
 
-// Both kinds, writing the row statistics when asked: the training path.
-template <typename T, int KIND, bool HAS_RES, bool EMIT_SUM, bool VEC>
-__global__ void norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
-                                const float* __restrict__ scale,
-                                const float* __restrict__ bias, T* __restrict__ y,
-                                T* __restrict__ s, float* __restrict__ mean_out,
-                                float* __restrict__ rstd_out, int h, int64_t x_stride,
-                                int64_t r_stride, float eps) {
-  constexpr int V = VecWidth<T>::value;
-  const int64_t row = blockIdx.x;
-  const T* xr = x + row * x_stride;
-  const T* rr = HAS_RES ? r + row * r_stride : nullptr;
-  T* yr = y + row * static_cast<int64_t>(h);
-  T* sr = EMIT_SUM ? s + row * static_cast<int64_t>(h) : nullptr;
-  const int nvec = VEC ? h / V : 0;
-  const int tail0 = nvec * V;
-
-  // Pass 1: residual add in f32, optional sum write, row sums.
-  float sum = 0.0f, sumsq = 0.0f;
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    float v[V];
-    load_vec(xr, i, v);
-    if (HAS_RES) {
-      float w[V];
-      load_vec(rr, i, w);
+// One vector of the output from the f32 sum v, its scale and bias.
+template <int KIND, int V>
+__device__ __forceinline__ void normalize(float (&v)[V], const float (&sc)[V],
+                                          const float (&bi)[V], float2 st) {
 #pragma unroll
-      for (int j = 0; j < V; ++j) v[j] += w[j];
-    }
-    if (EMIT_SUM) store_vec(sr, i, v);
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      sum += v[j];
-      sumsq += v[j] * v[j];
+  for (int j = 0; j < V; ++j) {
+    if constexpr (KIND == kLayer) {
+      v[j] = ((v[j] - st.x) * st.y) * sc[j] + bi[j];
+    } else {
+      v[j] = (v[j] * st.y) * sc[j];
     }
   }
-  for (int c = tail0 + threadIdx.x; c < h; c += blockDim.x) {
+}
+
+// Rows of at most 32 * VPL vectors: warp w of block b takes rows
+// [(b * kRowWarps + w) * rows_per_warp, + rows_per_warp); lane l owns the
+// row's vectors l, l + 32, ... (VPL of them) and the matching scale and
+// bias, loaded once. The next row's loads are issued before this row's
+// math.
+constexpr int kRowWarps = 4;
+
+template <typename T, int KIND, bool HAS_RES, bool EMIT_SUM, int VPL>
+__global__ void __launch_bounds__(kRowWarps * 32)
+    norm_fwd_rows_kernel(FwdArgs<T> a, int rows_per_warp) {
+  constexpr int V = VecWidth<T>::value;
+  const int lane = threadIdx.x & 31;
+  const int nvec = a.h / V;
+  const float hf = static_cast<float>(a.h);
+  const int64_t row0 =
+      (static_cast<int64_t>(blockIdx.x) * kRowWarps + (threadIdx.x >> 5)) * rows_per_warp;
+  const int64_t row1 = row0 + rows_per_warp < a.n ? row0 + rows_per_warp : a.n;
+  tpudl::pdl_wait();
+  if (row0 >= a.n) return;
+
+  uint4 xa[VPL], ra[VPL];
+  auto issue = [&](int64_t row) {
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int i = lane + 32 * k;
+      if (i < nvec) {
+        xa[k] = load_raw(a.x + row * a.x_stride, i);
+        if (HAS_RES) ra[k] = load_raw(a.r + row * a.r_stride, i);
+      }
+    }
+  };
+  issue(row0);
+  float sc[VPL][V], bi[VPL][V];
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    const int i = lane + 32 * k;
+    if (i < nvec) {
+      load_f32<V>(a.scale, i, sc[k]);
+      if (KIND == kLayer) load_f32<V>(a.bias, i, bi[k]);
+    }
+  }
+  tpudl::pdl_launch_dependents();
+
+  for (int64_t row = row0; row < row1; ++row) {
+    float v[VPL][V];
+    float sum = 0.0f, sumsq = 0.0f;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      if (lane + 32 * k < nvec) {
+        unpack_vec<T>(xa[k], v[k]);
+        if (HAS_RES) {
+          float w[V];
+          unpack_vec<T>(ra[k], w);
+#pragma unroll
+          for (int j = 0; j < V; ++j) v[k][j] += w[j];
+        }
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          if (KIND == kLayer) sum += v[k][j];
+          sumsq += v[k][j] * v[k][j];
+        }
+      }
+    }
+    if (row + 1 < row1) issue(row + 1);
+    if (KIND == kLayer) sum = warp_sum(sum);
+    sumsq = warp_sum(sumsq);
+    const float2 st = row_stats<KIND>(sum, sumsq, hf, a.eps);
+    if (lane == 0) {
+      if (KIND == kLayer && a.mean != nullptr) a.mean[row] = st.x;
+      if (a.rstd != nullptr) a.rstd[row] = st.y;
+    }
+    T* yr = a.y + row * static_cast<int64_t>(a.h);
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int i = lane + 32 * k;
+      if (i < nvec) {
+        if (EMIT_SUM) store_vec(a.s + row * static_cast<int64_t>(a.h), i, v[k]);
+        normalize<KIND, V>(v[k], sc[k], bi[k], st);
+        store_vec(yr, i, v[k]);
+      }
+    }
+  }
+}
+
+// Wider rows: one block per row; thread t owns the row's vectors t,
+// t + blockDim.x, ... (VPL of them). Each warp leaves its (sum, sumsq) in
+// shared memory; after one barrier lane j of every warp loads warp j's
+// and the warp adds them by xor shuffles, so every thread holds the same
+// bits.
+constexpr int kWideThreads = 512;
+
+template <typename T, int KIND, bool HAS_RES, bool EMIT_SUM, int VPL>
+__global__ void __launch_bounds__(kWideThreads) norm_fwd_wide_kernel(FwdArgs<T> a) {
+  constexpr int V = VecWidth<T>::value;
+  __shared__ float2 part[kWideThreads / 32];
+  const int64_t row = blockIdx.x;
+  const int nvec = a.h / V;
+  const T* xr = a.x + row * a.x_stride;
+  const T* rr = HAS_RES ? a.r + row * a.r_stride : nullptr;
+  const int lane = threadIdx.x & 31;
+  tpudl::pdl_wait();
+
+  uint4 xa[VPL], ra[VPL];
+  float sc[VPL][V], bi[VPL][V];
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < nvec) {
+      xa[k] = load_raw(xr, i);
+      if (HAS_RES) ra[k] = load_raw(rr, i);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < nvec) {
+      load_f32<V>(a.scale, i, sc[k]);
+      if (KIND == kLayer) load_f32<V>(a.bias, i, bi[k]);
+    }
+  }
+  tpudl::pdl_launch_dependents();
+
+  float v[VPL][V];
+  float sum = 0.0f, sumsq = 0.0f;
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    if (threadIdx.x + k * blockDim.x < nvec) {
+      unpack_vec<T>(xa[k], v[k]);
+      if (HAS_RES) {
+        float w[V];
+        unpack_vec<T>(ra[k], w);
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[k][j] += w[j];
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        if (KIND == kLayer) sum += v[k][j];
+        sumsq += v[k][j] * v[k][j];
+      }
+    }
+  }
+  if (KIND == kLayer) sum = warp_sum(sum);
+  sumsq = warp_sum(sumsq);
+  if (lane == 0) part[threadIdx.x >> 5] = make_float2(sum, sumsq);
+  __syncthreads();
+  const float2 p = lane < static_cast<int>(blockDim.x >> 5) ? part[lane] : make_float2(0.0f, 0.0f);
+  if (KIND == kLayer) sum = warp_sum(p.x);
+  sumsq = warp_sum(p.y);
+  const float2 st = row_stats<KIND>(sum, sumsq, static_cast<float>(a.h), a.eps);
+  if (threadIdx.x == 0) {
+    if (KIND == kLayer && a.mean != nullptr) a.mean[row] = st.x;
+    if (a.rstd != nullptr) a.rstd[row] = st.y;
+  }
+  T* yr = a.y + row * static_cast<int64_t>(a.h);
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < nvec) {
+      if (EMIT_SUM) store_vec(a.s + row * static_cast<int64_t>(a.h), i, v[k]);
+      normalize<KIND, V>(v[k], sc[k], bi[k], st);
+      store_vec(yr, i, v[k]);
+    }
+  }
+}
+
+// Rows that are not whole aligned 16-byte vectors: one block per row, one
+// element a thread per step, two passes (the second re-reads the row).
+template <typename T, int KIND, bool HAS_RES, bool EMIT_SUM>
+__global__ void __launch_bounds__(1024) norm_fwd_scalar_kernel(FwdArgs<T> a) {
+  const int64_t row = blockIdx.x;
+  const T* xr = a.x + row * a.x_stride;
+  const T* rr = HAS_RES ? a.r + row * a.r_stride : nullptr;
+  T* yr = a.y + row * static_cast<int64_t>(a.h);
+  T* sr = EMIT_SUM ? a.s + row * static_cast<int64_t>(a.h) : nullptr;
+  tpudl::pdl_wait();
+  tpudl::pdl_launch_dependents();
+  float sum = 0.0f, sumsq = 0.0f;
+  for (int c = threadIdx.x; c < a.h; c += blockDim.x) {
     float v = to_f32(xr[c]);
     if (HAS_RES) v += to_f32(rr[c]);
     if (EMIT_SUM) sr[c] = from_f32<T>(v);
     sum += v;
     sumsq += v * v;
   }
-  const float hf = static_cast<float>(h);
-  float mean = 0.0f, rstd;
-  if constexpr (KIND == kLayer) {
-    const float2 t = block_sum2(sum, sumsq);
-    mean = t.x / hf;
-    rstd = rsqrtf(fmaxf(t.y / hf - mean * mean, 0.0f) + eps);
-  } else {
-    rstd = rsqrtf(block_sum(sumsq) / hf + eps);
-  }
+  const float2 t = block_sum2(sum, sumsq);
+  const float2 st = row_stats<KIND>(t.x, t.y, static_cast<float>(a.h), a.eps);
   if (threadIdx.x == 0) {
-    if (KIND == kLayer && mean_out != nullptr) mean_out[row] = mean;
-    if (rstd_out != nullptr) rstd_out[row] = rstd;
+    if (KIND == kLayer && a.mean != nullptr) a.mean[row] = st.x;
+    if (a.rstd != nullptr) a.rstd[row] = st.y;
   }
-
-  // Pass 2: normalize, scale (and shift); the row is re-read from L1.
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    float v[V];
-    load_vec(xr, i, v);
-    if (HAS_RES) {
-      float w[V];
-      load_vec(rr, i, w);
-#pragma unroll
-      for (int j = 0; j < V; ++j) v[j] += w[j];
-    }
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const int c = i * V + j;
-      if constexpr (KIND == kLayer) {
-        v[j] = ((v[j] - mean) * rstd) * __ldg(scale + c) + __ldg(bias + c);
-      } else {
-        v[j] = (v[j] * rstd) * __ldg(scale + c);
-      }
-    }
-    store_vec(yr, i, v);
-  }
-  for (int c = tail0 + threadIdx.x; c < h; c += blockDim.x) {
+  for (int c = threadIdx.x; c < a.h; c += blockDim.x) {
     float v = to_f32(xr[c]);
     if (HAS_RES) v += to_f32(rr[c]);
-    if constexpr (KIND == kLayer) {
-      v = ((v - mean) * rstd) * __ldg(scale + c) + __ldg(bias + c);
-    } else {
-      v = (v * rstd) * __ldg(scale + c);
-    }
-    yr[c] = from_f32<T>(v);
+    float out[1] = {v};
+    const float sc[1] = {__ldg(a.scale + c)};
+    const float bi[1] = {KIND == kLayer ? __ldg(a.bias + c) : 0.0f};
+    normalize<KIND, 1>(out, sc, bi, st);
+    yr[c] = from_f32<T>(out[0]);
   }
 }
 
-template <typename T, int KIND>
-int launch_fwd(const void* x, const void* r, const void* scale, const void* bias, void* y,
-               void* s, void* mean, void* rstd, int64_t n, int h, int64_t x_stride,
-               int64_t r_stride, float eps, cudaStream_t stream) {
-  int threads;
-  const bool vec = fwd_shape<T>(x, r, y, s, h, x_stride, r_stride, &threads);
-  const bool has_res = r != nullptr;
-  const bool emit_sum = s != nullptr;
-  const dim3 grid(static_cast<unsigned>(n));
-  const T* xp = static_cast<const T*>(x);
-  const T* rp = static_cast<const T*>(r);
-  const float* sc = static_cast<const float*>(scale);
-  const float* bi = static_cast<const float*>(bias);
-  T* yp = static_cast<T*>(y);
-  T* sp = static_cast<T*>(s);
-  float* mp = static_cast<float*>(mean);
-  float* rs = static_cast<float*>(rstd);
-#define TPUDL_NORM_LAUNCH(RES, SUM, VEC)                                       \
-  norm_fwd_kernel<T, KIND, RES, SUM, VEC><<<grid, threads, 0, stream>>>(      \
-      xp, rp, sc, bi, yp, sp, mp, rs, h, x_stride, r_stride, eps)
-  if (vec) {
-    if (!has_res) TPUDL_NORM_LAUNCH(false, false, true);
-    else if (emit_sum) TPUDL_NORM_LAUNCH(true, true, true);
-    else TPUDL_NORM_LAUNCH(true, false, true);
-  } else {
-    if (!has_res) TPUDL_NORM_LAUNCH(false, false, false);
-    else if (emit_sum) TPUDL_NORM_LAUNCH(true, true, false);
-    else TPUDL_NORM_LAUNCH(true, false, false);
+// Vectors per thread of the wide kernel for a row of `nvec` vectors: the
+// fewest (1, 2, 4 or 8) that keep a block within 256 threads, else 8
+// (kernel_ab at H 4096: 256 threads of 2 bf16 vectors beat 128 of 4 and
+// 512 of 1 at decode, and 128 of 4 at the training shape's residual+sum).
+int wide_vpl(int nvec) {
+  for (int v = 1; v < 8; v *= 2) {
+    if ((nvec + v - 1) / v <= 256) return v;
   }
-#undef TPUDL_NORM_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return 8;
+}
+
+// Rows per warp of the rows kernel: up to 4 (kernel_ab at [32768, 768]:
+// 4 beat 8, 8 beat 16), fewer when the call has too few rows to give each
+// of the 132 SMs a few blocks.
+int rows_per_warp(int64_t n) {
+  int64_t r = n / (132 * 4 * kRowWarps);
+  return static_cast<int>(r < 1 ? 1 : (r > 4 ? 4 : r));
+}
+
+template <typename T, int KIND, bool HAS_RES, bool EMIT_SUM>
+int launch_fwd_variant(const FwdArgs<T>& a, bool vec, cudaStream_t stream) {
+  constexpr int V = VecWidth<T>::value;
+  if (!vec) {
+    int t = ((a.h + 31) / 32) * 32;
+    t = t > 1024 ? 1024 : t;
+    return tpudl::launch_pdl(norm_fwd_scalar_kernel<T, KIND, HAS_RES, EMIT_SUM>,
+                             dim3(static_cast<unsigned>(a.n)), dim3(t), stream, a);
+  }
+  const int nvec = a.h / V;
+  if (nvec <= 32 * (V == 8 ? 4 : 8)) {  // at most 1024 values a row
+    const int vpl = (nvec + 31) / 32;
+    const int rpw = rows_per_warp(a.n);
+    const int64_t rows_per_block = static_cast<int64_t>(rpw) * kRowWarps;
+    const dim3 grid(static_cast<unsigned>((a.n + rows_per_block - 1) / rows_per_block));
+    const dim3 block(kRowWarps * 32);
+#define TPUDL_ROWS(VPL)                                                                     \
+  return tpudl::launch_pdl(norm_fwd_rows_kernel<T, KIND, HAS_RES, EMIT_SUM, VPL>, grid, block, \
+                           stream, a, rpw)
+    if constexpr (V == 8) {
+      switch (vpl) {
+        case 1: TPUDL_ROWS(1);
+        case 2: TPUDL_ROWS(2);
+        case 3: TPUDL_ROWS(3);
+        default: TPUDL_ROWS(4);
+      }
+    } else {
+      switch (vpl) {
+        case 1: TPUDL_ROWS(1);
+        case 2: TPUDL_ROWS(2);
+        case 3: TPUDL_ROWS(3);
+        case 4: TPUDL_ROWS(4);
+        case 5:
+        case 6: TPUDL_ROWS(6);
+        default: TPUDL_ROWS(8);
+      }
+    }
+#undef TPUDL_ROWS
+  }
+  const int vpl = wide_vpl(nvec);
+  const int threads = (((nvec + vpl - 1) / vpl + 31) / 32) * 32;
+  if (threads > kWideThreads) return cudaErrorInvalidValue;  // H too wide to hold in registers
+  const dim3 grid(static_cast<unsigned>(a.n)), block(threads);
+#define TPUDL_WIDE(VPL)                                                                     \
+  return tpudl::launch_pdl(norm_fwd_wide_kernel<T, KIND, HAS_RES, EMIT_SUM, VPL>, grid, block, \
+                           stream, a)
+  switch (vpl) {
+    case 1: TPUDL_WIDE(1);
+    case 2: TPUDL_WIDE(2);
+    case 4: TPUDL_WIDE(4);
+    default: TPUDL_WIDE(8);
+  }
+#undef TPUDL_WIDE
+}
+
+template <typename T, int KIND>
+int launch_fwd(const FwdArgs<T>& a, cudaStream_t stream) {
+  // 16-byte vectors need every row start, the scale and the bias 16-byte
+  // aligned.
+  bool vec = tpudl::aligned16(a.x) && tpudl::aligned16(a.y) && tpudl::aligned16(a.scale) &&
+             (a.x_stride * sizeof(T)) % 16 == 0 && (a.h * sizeof(T)) % 16 == 0;
+  if (KIND == kLayer) vec = vec && tpudl::aligned16(a.bias);
+  if (a.r != nullptr) vec = vec && tpudl::aligned16(a.r) && (a.r_stride * sizeof(T)) % 16 == 0;
+  if (a.s != nullptr) vec = vec && tpudl::aligned16(a.s);
+  if (a.r == nullptr) return launch_fwd_variant<T, KIND, false, false>(a, vec, stream);
+  if (a.s != nullptr) return launch_fwd_variant<T, KIND, true, true>(a, vec, stream);
+  return launch_fwd_variant<T, KIND, true, false>(a, vec, stream);
+}
+
+template <typename T>
+int launch_fwd_kind(int kind, const void* x, const void* r, const void* scale, const void* bias,
+                    void* y, void* s, void* mean, void* rstd, int64_t n, int h, int64_t x_stride,
+                    int64_t r_stride, float eps, cudaStream_t stream) {
+  const FwdArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(r),
+                     static_cast<const float*>(scale), static_cast<const float*>(bias),
+                     static_cast<T*>(y), static_cast<T*>(s),
+                     kind == kLayer ? static_cast<float*>(mean) : nullptr,
+                     static_cast<float*>(rstd), n, h, x_stride, r_stride, eps};
+  return kind == kLayer ? launch_fwd<T, kLayer>(a, stream) : launch_fwd<T, kRms>(a, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -515,40 +636,51 @@ int launch_bwd(const void* x, const void* r, const void* scale, const void* g,
                                   KIND == kLayer ? 2 : 1, stream);
 }
 
+// An empty one-block kernel: the launch floor the short kernels are held
+// against. Launched plain, or as the forwards launch (launch_pdl), it
+// waits on the kernel before and lets the next one start.
+__global__ void launch_floor_kernel() {
+  tpudl::pdl_wait();
+  tpudl::pdl_launch_dependents();
+}
+
 }  // namespace
+
+// One launch of launch_floor_kernel (one block of 32 threads): plain
+// (pdl 0) or as the forwards launch (pdl 1).
+extern "C" int tpudl_launch_floor(int pdl, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!pdl) {
+    launch_floor_kernel<<<1, 32, 0, st>>>();
+    return static_cast<int>(cudaGetLastError());
+  }
+  return tpudl::launch_pdl(launch_floor_kernel, dim3(1), dim3(32), st);
+}
 
 // Forward. kind: 0 RMSNorm, 1 LayerNorm. x, r: [n, h] rows with
 // last-dimension stride 1 and row strides x_stride, r_stride (elements);
 // r may be null. scale (and, for LayerNorm, bias): [h] f32. y: [n, h]
 // contiguous. s: [n, h] contiguous, or null to skip the sum write (it must
 // be null when r is). mean (LayerNorm only), rstd: [n] f32, or null to skip
-// the statistics. dtype: tpudl::DType of x, r, y, s.
+// the statistics. dtype: tpudl::DType of x, r, y, s. On the vector path h
+// is at most 4096 16-byte vectors (16384 f32, 32768 bf16, as the
+// backward); wider rows return cudaErrorInvalidValue. Launched as a programmatic dependent
+// launch (see common.cuh launch_pdl).
 extern "C" int tpudl_norm_fwd(int kind, const void* x, const void* r, const void* scale,
                               const void* bias, void* y, void* s, void* mean, void* rstd,
                               int64_t n, int h, int64_t x_stride, int64_t r_stride, float eps,
                               int dtype, void* stream) {
   if (n <= 0 || h <= 0 || (s != nullptr && r == nullptr)) return cudaErrorInvalidValue;
+  if (kind != kRms && kind != kLayer) return cudaErrorInvalidValue;
   if (kind == kLayer && bias == nullptr) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kind != kRms && kind != kLayer) return cudaErrorInvalidValue;
-  const bool rms_plain = kind == kRms && rstd == nullptr;
   switch (dtype) {
     case tpudl::kFloat32:
-      if (rms_plain) return launch_rms<float>(x, r, scale, y, s, n, h, x_stride, r_stride, eps, st);
-      return kind == kLayer
-                 ? launch_fwd<float, kLayer>(x, r, scale, bias, y, s, mean, rstd, n, h,
-                                             x_stride, r_stride, eps, st)
-                 : launch_fwd<float, kRms>(x, r, scale, bias, y, s, mean, rstd, n, h,
-                                           x_stride, r_stride, eps, st);
+      return launch_fwd_kind<float>(kind, x, r, scale, bias, y, s, mean, rstd, n, h, x_stride,
+                                    r_stride, eps, st);
     case tpudl::kBFloat16:
-      if (rms_plain) {
-        return launch_rms<__nv_bfloat16>(x, r, scale, y, s, n, h, x_stride, r_stride, eps, st);
-      }
-      return kind == kLayer
-                 ? launch_fwd<__nv_bfloat16, kLayer>(x, r, scale, bias, y, s, mean, rstd, n,
-                                                     h, x_stride, r_stride, eps, st)
-                 : launch_fwd<__nv_bfloat16, kRms>(x, r, scale, bias, y, s, mean, rstd, n, h,
-                                                   x_stride, r_stride, eps, st);
+      return launch_fwd_kind<__nv_bfloat16>(kind, x, r, scale, bias, y, s, mean, rstd, n, h,
+                                            x_stride, r_stride, eps, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -19,6 +19,9 @@ kernel runs through ``_FusedSwiGLU`` likewise (it saves ``gate`` and
 ``up``; its backward is the ``swiglu_bwd`` kernel); without autograd
 (serving) it is the forward kernel alone.
 
+The SwiGLU forward is a programmatic dependent launch, as the norm
+forward is (tpudl_torch.ops.norms).
+
 ``swiglu.launches``, ``swiglu_bwd.launches``, ``bias_gelu.launches`` and
 ``bias_gelu_bwd.launches`` count kernel launches.
 """

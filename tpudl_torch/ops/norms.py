@@ -24,6 +24,11 @@ tpudl's ``_ln_fwd`` / ``_rms_fwd`` save them) and whose backward is the
 autograd (serving runs under ``torch.no_grad``) the forward skips the
 statistics.
 
+The forward kernel is a programmatic dependent launch
+(``csrc/common.cuh`` ``launch_pdl``): it may start while the kernel
+before it on the stream finishes, and reads nothing before that kernel's
+writes are visible. A launch the CUDA runtime refuses raises.
+
 ``layer_norm.launches``, ``rms_norm.launches`` and ``norm_bwd.launches``
 count kernel launches (plain ints; reset them to 0 before a run to see
 which path the run took).

@@ -1,6 +1,9 @@
 """Time kernels of two checkouts in turns on one card: A, B, B, A. The
 serving kernels (RMSNorm with and without its residual, SwiGLU, the
-segmented LoRA at the decode step's q_proj and down_proj and a 128-token
+norm forwards and SwiGLU at the training steps' shapes: RMSNorm with
+row statistics at the Llama LoRA step's [8192, 4096], plain and
+residual+sum, SwiGLU at its [8192, 14336], LayerNorm with statistics at
+BERT-base's [32768, 768] with and without its residual; the segmented LoRA at the decode step's q_proj and down_proj and a 128-token
 prefill, with its held-contract wall per eager call), the attention
 backward rows (the whole-row backward, dQ and dK/dV launches, at
 BERT-base's seq-512 step, with and without dropout; flash dQ and dK/dV
@@ -10,11 +13,13 @@ step's call with its padding mask and dropout 0.1, the same shape causal
 without dropout, Skv 127, the unaligned path, causal with dropout, and
 the step's shape in f32 with and without mask and dropout).
 
-    python3 -m tpudl_torch.tools.kernel_ab OTHER_CHECKOUT [ROUNDS]
+    python3 -m tpudl_torch.tools.kernel_ab OTHER_CHECKOUT [ROUNDS] [GROUPS]
 
 runs from the root of checkout B (this one) against checkout A (for
 example the parent commit, unpacked with ``git archive`` into a
-gitignored directory). Each turn is a fresh process that builds that
+gitignored directory). GROUPS, comma-separated, limits the cases to
+some of ``norms`` (the norm forwards and SwiGLU), ``attention``,
+``seg_lora`` and ``softmax`` (default: all). Each turn is a fresh process that builds that
 checkout's kernels and times every case by CUDA-graph replay with that
 checkout's ``chip_smoke.graph_ms``. ROUNDS (default 1) repeats the
 A, B, B, A sequence; the report gives each case's median and range over
@@ -34,6 +39,14 @@ import sys
 #: (op, rows, width, residual) at the serving path's shapes, bf16 and f32.
 CASES = [("rms_norm", n, 4096, res) for n in (4, 128) for res in (False, True)]
 CASES += [("swiglu", n, 14336, False) for n in (4, 128)]
+#: (op, rows, width, residual, dtypes): the training steps' calls, the
+#: norms with the row statistics autograd saves (and without the sum
+#: BERT never reads); RMSNorm's residual variant writes the sum.
+TRAIN_CASES = [("rms_norm", 8192, 4096, res, ["bfloat16"])
+               for res in (False, True)]
+TRAIN_CASES += [("swiglu", 8192, 14336, False, ["bfloat16"])]
+TRAIN_CASES += [("layer_norm", 32768, 768, True, ["bfloat16"]),
+                ("layer_norm", 32768, 768, False, ["bfloat16", "float32"])]
 #: (op, [b, sq, skv, h, d], causal, rate): the attention backward rows in
 #: bf16 at their step shapes (PERF.md rows 13 and 11); the whole-row
 #: rows take chip_smoke's padding mask (lengths uniform in [S/2, S]).
@@ -61,7 +74,7 @@ from tpudl_torch.ops import flash_attention as fa
 from tpudl_torch.ops import fused_attention as fu
 from tpudl_torch.ops import keep_mask
 from tpudl_torch.ops.mlp_fused import swiglu
-from tpudl_torch.ops.norms import rms_norm
+from tpudl_torch.ops.norms import _norm_fwd_cuda, rms_norm
 from tpudl_torch.ops import segmented_lora as sl
 from tpudl_torch.ops import softmax_dropout as sd
 g = torch.Generator(device="cuda").manual_seed(0)
@@ -77,6 +90,25 @@ for op, n, h, res in json.loads(sys.argv[1]):
             fn = lambda: swiglu(x, r, impl="fused")
         key = f"{op} [{n}, {h}] {str(dtype)[6:]}{' residual' if res else ''}"
         out[key] = chip_smoke.graph_ms(fn)
+for op, n, h, res, dtypes in json.loads(sys.argv[5]):
+    for dtype in (getattr(torch, d) for d in dtypes):
+        x = torch.randn(n, h, generator=g, device="cuda").to(dtype)
+        r = torch.randn(n, h, generator=g, device="cuda").to(dtype)
+        s = 1 + 0.1 * torch.randn(h, generator=g, device="cuda")
+        if op == "swiglu":
+            fn = lambda: swiglu(x, r, impl="fused")
+        elif op == "rms_norm":
+            fn = lambda: _norm_fwd_cuda("rms", x, s, None, r if res else None,
+                                        1e-5, res, stats=True)
+        else:
+            fn = lambda: _norm_fwd_cuda("layer", x, s, s, r if res else None,
+                                        1e-12, False, stats=True)
+        stats = "" if op == "swiglu" else " stats"
+        key = (f"{op} [{n}, {h}] {str(dtype)[6:]}{stats}"
+               f"{(' residual+sum' if op == 'rms_norm' else ' residual') if res else ''}")
+        out[key] = chip_smoke.graph_ms(fn, calls=20, reps=5)
+        del x, r, fn
+        torch.cuda.empty_cache()
 for op, (b, sq, skv, h, d), causal, rate in json.loads(sys.argv[2]):
     q, do = (torch.randn(b, sq, h, d, generator=g, device="cuda").bfloat16()
              for _ in range(2))
@@ -155,23 +187,38 @@ print(json.dumps(out))
 """
 
 
-def turn(tree: str) -> dict:
-    proc = subprocess.run([sys.executable, "-c", _TURN, json.dumps(CASES),
-                           json.dumps(ATTENTION), json.dumps(SEG_LORA),
-                           json.dumps(SOFTMAX)],
+#: Case lists by group, in the order the turn script reads them.
+GROUPS = {"norms": (CASES, TRAIN_CASES), "attention": (ATTENTION,),
+          "seg_lora": (SEG_LORA,), "softmax": (SOFTMAX,)}
+
+
+def turn(tree: str, groups) -> dict:
+    def cases(lst):
+        keep = any(lst is c for g in groups for c in GROUPS[g])
+        return json.dumps(lst if keep else [])
+
+    proc = subprocess.run([sys.executable, "-c", _TURN, cases(CASES),
+                           cases(ATTENTION), cases(SEG_LORA), cases(SOFTMAX),
+                           cases(TRAIN_CASES)],
                           cwd=tree, capture_output=True, text=True, check=True)
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def main(argv) -> int:
-    if len(argv) not in (2, 3):
+    if len(argv) not in (2, 3, 4):
         print(__doc__, file=sys.stderr)
         return 2
     a, b = os.path.abspath(argv[1]), os.getcwd()
-    rounds = int(argv[2]) if len(argv) == 3 else 1
+    rounds = int(argv[2]) if len(argv) >= 3 else 1
+    groups = argv[3].split(",") if len(argv) == 4 else list(GROUPS)
+    unknown = [g for g in groups if g not in GROUPS]
+    if unknown:
+        print(f"unknown groups {unknown}; known: {list(GROUPS)}",
+              file=sys.stderr)
+        return 2
     runs = {a: [], b: []}
     for tree in (a, b, b, a) * rounds:
-        runs[tree].append(turn(tree))
+        runs[tree].append(turn(tree, groups))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
