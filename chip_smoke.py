@@ -110,13 +110,18 @@ The Llama LoRA slice (Llama-3-8B fine-tuned with rank-16 adapters on the
              the kernels on the card against the CPU plain path;
 13. llama_lora_train (after phase 12) — the slice at full width and depth
              through build_model -> create_train_state(lora_optimizer(...))
-             -> make_classification_train_step -> fit: exactly 32 flash
-             forward, dQ and dK/dV, 32 SwiGLU forward and backward, 65
-             RMSNorm forward and 64 norm backward launches per step,
-             finite losses, the frozen base bit-identical, step time,
-             tokens/s, MFU, peak memory and a profiled window;
+             -> make_classification_train_step(accum_steps=16) -> fit, at
+             the config's global batch 64 as 16 microbatches of 4: per
+             microbatch exactly 32 flash forward, dQ and dK/dV, 32 SwiGLU
+             forward and backward, 65 RMSNorm forward and 64 norm backward
+             launches (16 times that per step), finite losses, the frozen
+             base bit-identical, step time, tokens/s, MFU, peak memory and
+             a profiled window;
 14. llama_train_parity — full width, 2 layers, batch 1 x 2048: phase 10's
-             gate on the kernel path, the plain path and an f32 oracle.
+             gate on the kernel path, the plain path and an f32 oracle;
+             the kernel path with remat=True gives its loss and gradients
+             bit for bit (forward kernels launched twice), peak memory
+             printed both ways.
 
 The multi-tenant serving slice (Llama-3-8B with six LoRA tenants over
 the paged KV cache, ServeSession.from_model(adapters=...)) and BERT-base
@@ -156,6 +161,35 @@ at seq 512 (attend("fused") reaching the whole-row attention) add:
              softmax_dropout, 25/25 norm, 12/12 bias+GeLU and 1/1
              cross-entropy launches per step, then one eval batch;
 16. train_512_parity — phase 12's gate at seq 512 with 2 layers.
+
+The CV path and the rest of the train loop (accumulation, BatchNorm
+state, remat, evaluate, the augmenter) add:
+
+11b. train_fused's checks (after phase 11) — from one set of seeded
+             BERT-base weights at 256 x 128: with dropout 0.1,
+             remat="layer" gives the step's loss and every gradient bit
+             for bit (the encoder's forward kernels launched twice), peak
+             memory printed both ways; with dropout off, accum_steps=8
+             gives the monolithic step's loss and gradients within
+             ACCUM_TOL (relative L2);
+17. resnet50_train (after phase 16) — configs[2] (imagenet_resnet50_dp)
+             through build_model("resnet50", 1000) -> create_train_state
+             -> make_optimizer -> make_classification_train_step(0.1,
+             accum_steps=8, input_transform=device_normalize(...),
+             loss_impl="auto") -> fit, at global batch 1024 = 8 x 128 of
+             uint8 224 x 224 images that the native BatchAugmenter pads
+             by 8 and crops and flips afresh each step on the host (the
+             native kernel checked against numpy first): step time,
+             images/s, MFU, peak memory, a profiled window; exactly 8
+             cross-entropy launches each way a step; losses finite,
+             running statistics moved and finite; then evaluate over 1000
+             images at batch 128, the 104-row tail padded, against the
+             same images unpadded within EVAL_PAD_TOL;
+18. resnet_parity — ResNet-50 at full width, 2 microbatches of 16 at
+             224 x 224: the bf16 path against an f32 oracle (TF32 off),
+             relative L2 errors of the logits, losses, gradients and
+             running statistics; logits and losses gated at
+             RESNET_PARITY_TOL.
 
 The last three lines are the ``{"kernels": [...]}`` record (``launches``
 is each kernel's count over its main-path run, ``launches_per_step`` per
@@ -1183,6 +1217,13 @@ KERNEL_KINDS = (
                              "whole_dkv_kernel", "whole_dq_tma_kernel",
                              "attn_dkv_tma_kernel",
                              "seg_lora_cluster_kernel")),
+    # Ahead of the convolutions (cuDNN's own batch norm kernels live in its
+    # namespace) and of the GEMMs (cuDNN's convolutions are implicit GEMMs).
+    ("batch norm", ("batch_norm", "batchnorm", "BatchNorm", "bn_fw", "bn_bw",
+                    "welford", "Welford")),
+    ("convolutions (cuDNN)", ("implicit_gemm", "fprop", "dgrad", "wgrad",
+                              "cudnn", "conv2d", "convolution",
+                              "nchwToNhwc", "nhwcToNchw")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "cutlass", "splitKreduce")),
     ("softmax", ("softmax",)),
     ("random bits", ("distribution", "philox")),
@@ -1236,6 +1277,16 @@ def profile_steps(torch, run, steps, what, wall_us):
         print("profile: device us/step by kind: " + ", ".join(
             f"{kind} {t / steps:.1f} ({100 * t / busy_us:.1f}%)"
             for kind, t in sorted(by_kind.items(), key=lambda kv: -kv[1])))
+        longest = {}
+        for k in kernels:
+            kind = device_kind(k.key)
+            if (kind not in longest or k.self_device_time_total
+                    > longest[kind].self_device_time_total):
+                longest[kind] = k
+        print("profile: each kind's longest kernel, device us/step: "
+              + "; ".join(f"{kind}: {longest[kind].key[:70]} "
+                          f"{longest[kind].self_device_time_total / steps:.1f}"
+                          for kind in sorted(by_kind, key=lambda k: -by_kind[k])))
         # This repo's kernels by name stem (template arguments dropped):
         # each one's share of the step, which the top list may not reach.
         ours = {}
@@ -1487,6 +1538,9 @@ def train_kernel_phase(torch, F):
         ("layer", (n, 768), bf16, False, False, "LayerNorm, plain"),
         ("rms", (2048, 4096), bf16, True, True,
          "RMSNorm, residual and sum gradient (a Llama training shape)"),
+        ("rms", (LLAMA_BATCH * LLAMA_SEQ, 4096), bf16, True, True,
+         "RMSNorm, residual and sum gradient (the Llama LoRA step's "
+         "microbatch of 4 x 2048)"),
         ("layer", (4099, 766), bf16, True, False,
          "LayerNorm, residual, unaligned"),
     ):
@@ -1738,6 +1792,9 @@ def fused_kernel_phase(torch, F):
         ((BERT_BATCH, 2), f32, 0.0, "the classifier's loss (1 call each way "
                                     "per step)"),
         ((BERT_BATCH, 2), f32, 0.1, "label smoothing 0.1"),
+        ((128, 1000), f32, 0.1, "ResNet-50's loss (imagenet_resnet50_dp: "
+                                "label smoothing 0.1, 8 calls each way per "
+                                "step)"),
         ((4096, 30522), bf16, 0.0, "vocab-sized head"),
         ((4096, 30522), bf16, 0.1, "vocab-sized head, label smoothing 0.1"),
         ((4096, 30522), f32, 0.0, "vocab-sized head, f32"),
@@ -2176,12 +2233,14 @@ def train_parity_phase(torch, fused_slice=False, batch_size=BERT_BATCH,
 # the Llama LoRA slice
 # ---------------------------------------------------------------------------
 
-#: The Llama-3-8B LoRA fine-tune step (llama3_8b_lora, cut to batch 4).
+#: The Llama-3-8B LoRA fine-tune step (llama3_8b_lora): its global batch
+#: 64 as 16 microbatches of 4 rows.
 LLAMA_BATCH = 4
+LLAMA_ACCUM = 16
 LLAMA_SEQ = 2048
-LLAMA_WARMUP_STEPS = 3
-LLAMA_STEPS = 5
-LLAMA_PROFILE_STEPS = 3
+LLAMA_WARMUP_STEPS = 1
+LLAMA_STEPS = 2
+LLAMA_PROFILE_STEPS = 1
 LLAMA_PARITY_BATCHES = 4
 #: Flash kernels vs their plain versions, relative to each element plus
 #: the size of its row (``flash_errors``): bf16 two bf16 steps (the
@@ -2192,20 +2251,21 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 FLASH_PLANTED = 0.05
 
 
-def llama_launches_per_step(num_layers):
-    """Kernel launches per Llama LoRA train step: per layer one flash
-    forward, dQ and dK/dV, one SwiGLU each way and two RMSNorms forward;
-    the final norm. Backward, every norm but the first layer's input norm:
-    its input is the frozen embedding's output, which needs no gradient,
-    so autograd runs no backward there (tpudl's jax.grad differentiates
-    the frozen scales too)."""
-    n = num_layers
-    return {"flash_fwd": n, "flash_dq": n, "flash_dkv": n, "swiglu_fwd": n,
-            "swiglu_bwd": n, "rms_norm_fwd": 2 * n + 1, "norm_bwd": 2 * n}
+def llama_launches_per_step(num_layers, accum=1, remat=False):
+    """Kernel launches per Llama LoRA train step of ``accum``
+    microbatches: per microbatch and layer one flash forward, dQ and
+    dK/dV, one SwiGLU each way and two RMSNorms forward; the final norm.
+    Backward, every norm but the first layer's input norm: its input is
+    the frozen embedding's output, which needs no gradient, so autograd
+    runs no backward there (tpudl's jax.grad differentiates the frozen
+    scales too). Under ``remat`` the backward recomputes each block's
+    forward: its forward kernels launch twice."""
+    n, f = num_layers, 2 if remat else 1
+    per = {"flash_fwd": f * n, "flash_dq": n, "flash_dkv": n,
+           "swiglu_fwd": f * n, "swiglu_bwd": n,
+           "rms_norm_fwd": 2 * f * n + 1, "norm_bwd": 2 * n}
+    return {k: accum * v for k, v in per.items()}
 
-
-#: Llama-3-8B: 32, 32, 32, 32, 32, 65, 64.
-LLAMA_LAUNCHES = llama_launches_per_step(32)
 
 
 def flash_errors(out, ref, dtype):
@@ -2843,8 +2903,9 @@ def llama_lora_train_phase(torch, card):
     build_model("llama3-8b-lora", 2, fused_ops=True,
     attention_impl="flash") -> create_train_state(0, model,
     lora_optimizer(make_optimizer(llama3_8b_lora's optim), model,
-    ("classifier",))) -> make_classification_train_step -> fit over
-    synthetic_token_batches(4, 2048, 128256). W warm-up steps, then T
+    ("classifier",))) -> make_classification_train_step(accum_steps=16)
+    -> fit over synthetic_token_batches(64, 2048, 128256): the config's
+    global batch 64 as 16 microbatches of 4. W warm-up steps, then T
     timed steps (counts reset just before; exact launches per step),
     then a profiled window; losses finite, the frozen base bit-identical
     after the steps (compared on the host)."""
@@ -2856,6 +2917,10 @@ def llama_lora_train_phase(torch, card):
     from tpudl_torch.train.metrics import Throughput
 
     cfg = get_config("llama3_8b_lora")
+    batch_size = cfg.global_batch_size
+    if batch_size != LLAMA_BATCH * LLAMA_ACCUM:
+        fail(f"llama_lora_train: {LLAMA_ACCUM} x {LLAMA_BATCH} is not the "
+             f"config's global batch {batch_size}")
     t0 = time.perf_counter()
     model = build_model(cfg.model, cfg.num_classes, fused_ops=True,
                         attention_impl="flash")
@@ -2873,18 +2938,19 @@ def llama_lora_train_phase(torch, card):
           f"{mcfg.hidden_size}, heads {mcfg.num_heads}/{mcfg.num_kv_heads}), "
           f"LoRA rank {mcfg.lora_rank} on the 7 projections, "
           f"attention_impl='flash', fused_ops=True: {total / 1e9:.3f} B "
-          f"parameters, {trainable / 1e6:.3f} M trainable; batch "
-          f"{LLAMA_BATCH} x seq {LLAMA_SEQ}; "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident; set-up "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"parameters, {trainable / 1e6:.3f} M trainable; global batch "
+          f"{batch_size} = {LLAMA_ACCUM} microbatches x {LLAMA_BATCH} x seq "
+          f"{LLAMA_SEQ}; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"resident; set-up {time.perf_counter() - t0:.1f} s")
     keys = ("input_ids", "attention_mask")
-    step = make_classification_train_step(input_keys=keys, label_key="label")
+    step = make_classification_train_step(input_keys=keys, label_key="label",
+                                          accum_steps=LLAMA_ACCUM)
     w, n = LLAMA_WARMUP_STEPS, LLAMA_STEPS
     batches = list(synthetic_token_batches(
-        LLAMA_BATCH, LLAMA_SEQ, mcfg.vocab_size,
+        batch_size, LLAMA_SEQ, mcfg.vocab_size,
         num_batches=w + n + LLAMA_PROFILE_STEPS))
     losses = []
-    tokens = LLAMA_BATCH * LLAMA_SEQ
+    tokens = batch_size * LLAMA_SEQ
     meter = Throughput(tokens, warmup=w)
 
     def recorded(state, batch, rng):
@@ -2901,7 +2967,7 @@ def llama_lora_train_phase(torch, card):
     timed = meter.result(losses[-1])
     launches = train_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    per_step = llama_launches_per_step(mcfg.num_layers)
+    per_step = llama_launches_per_step(mcfg.num_layers, LLAMA_ACCUM)
     want = {k: per_step.get(k, 0) * n for k in launches}
     print(f"llama_lora_train: {n} steps, launches {launches}")
     if launches != want:
@@ -2914,13 +2980,13 @@ def llama_lora_train_phase(torch, card):
         fail(f"llama_lora_train: the meter timed {timed['steps_measured']} "
              f"steps, not {n}")
     step_s = timed["step_ms"] / 1e3
-    attn = 7.0 * LLAMA_BATCH * mcfg.hidden_size * LLAMA_SEQ ** 2 * mcfg.num_layers
+    attn = 7.0 * batch_size * mcfg.hidden_size * LLAMA_SEQ ** 2 * mcfg.num_layers
     flops = 4.0 * n_proj * tokens + attn
     util = flops / step_s / BF16_OPS_PER_S
     print(f"llama_lora_train metrics ({card}): step {step_s * 1e3:.2f} ms, "
           f"{tokens / step_s:.1f} tokens/s, MFU {100 * util:.2f}% (model "
           f"FLOPs per step = 4 * N_proj * T + 7 * B * H * S^2 * D * L = 4 * "
-          f"{n_proj} * {tokens} + 7 * {LLAMA_BATCH} * {mcfg.num_heads} * "
+          f"{n_proj} * {tokens} + 7 * {batch_size} * {mcfg.num_heads} * "
           f"{LLAMA_SEQ}^2 * {mcfg.head_dim} * {mcfg.num_layers} = "
           f"{flops:.4e} over {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s dense bf16: "
           f"the frozen base's forward and input-gradient products, and 2 "
@@ -2942,7 +3008,8 @@ def llama_lora_train_phase(torch, card):
         "mfu": util, "model_flops_per_step": flops,
         "peak_memory_gib": peak, "device_busy_share": busy,
         "num_params": total, "trainable_params": trainable,
-        "batch": LLAMA_BATCH, "seq": LLAMA_SEQ, "steps": n,
+        "batch": batch_size, "microbatch": LLAMA_BATCH,
+        "accum_steps": LLAMA_ACCUM, "seq": LLAMA_SEQ, "steps": n,
         "losses": loss_t.tolist(),
     }
     del state, model, frozen, named
@@ -2959,7 +3026,9 @@ def llama_train_parity_phase(torch):
     path's relative L2 error of the per-example losses, of all gated
     gradients and of every adapter and classifier gradient tensor but the
     UNGATED classifier.bias may not exceed KERNEL_ERR_RATIO x the plain
-    path's."""
+    path's. The kernel path with ``remat=True`` must give the kernel
+    path's loss and gradients bit for bit, its forward kernels launched
+    twice (the recompute); the peak memory of both is printed."""
     from tpudl_torch.data.synthetic import synthetic_token_batches
     from tpudl_torch.models.llama import LLAMA3_8B, LlamaForSequenceClassification
     from tpudl_torch.models.lora import lora_optimizer
@@ -2978,6 +3047,8 @@ def llama_train_parity_phase(torch):
                                     "attention_impl": "flash"}),
         "plain": (torch.bfloat16, {"fused_ops": False}),
         "oracle": (torch.float32, {"fused_ops": False}),
+        "remat": (torch.bfloat16, {"fused_ops": True,
+                                   "attention_impl": "flash", "remat": True}),
     }
     states = {}
     for name, (dtype, extra) in paths.items():
@@ -2990,7 +3061,8 @@ def llama_train_parity_phase(torch):
     step = make_classification_train_step(
         input_keys=("input_ids", "attention_mask"), label_key="label")
     counted_kernels = llama_launches_per_step(layers)
-    sq = {name: {} for name in paths}
+    sq = {name: {} for name in ("kernel", "plain", "oracle")}
+    peaks = {"kernel": 0.0, "remat": 0.0}
 
     def acc(name, key, value):
         sq[name][key] = sq[name].get(key, 0.0) + value
@@ -2999,17 +3071,32 @@ def llama_train_parity_phase(torch):
             1, LLAMA_SEQ, 128256, seed=9, num_batches=LLAMA_PARITY_BATCHES)):
         out = {}
         for name, st in states.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             before = train_counts()
             grads, metrics = step.grads_and_metrics(st, batch,
                                                     fold_in(7, b, "cuda"))
             after = train_counts()
+            if name in peaks:
+                peaks[name] = max(peaks[name],
+                                  torch.cuda.max_memory_allocated() / 2**30)
             launched = {k: after[k] - before[k] for k in counted_kernels}
-            if name == "kernel" and launched != counted_kernels:
-                fail(f"llama_train_parity: the kernel path launched "
-                     f"{launched}, expected {counted_kernels}")
-            if name != "kernel" and any(launched.values()):
+            want = {"kernel": counted_kernels,
+                    "remat": llama_launches_per_step(layers, remat=True)}.get(
+                        name, {k: 0 for k in counted_kernels})
+            if launched != want:
                 fail(f"llama_train_parity: the {name} path launched "
-                     f"{launched}")
+                     f"{launched}, expected {want}")
+            if name == "remat":
+                loss0, grads0 = out["kernel"]
+                same = torch.equal(metrics["loss"].double().reshape(1), loss0)
+                bad = [k for k, g in grads.items()
+                       if not torch.equal(g.double(), grads0[k])]
+                if not same or bad or set(grads) != set(grads0):
+                    fail(f"llama_train_parity: remat=True differs from the "
+                         f"kernel path (loss equal: {same}; gradients "
+                         f"{bad[:5]})")
+                continue
             # Batch 1: the step's loss is the example's.
             out[name] = (metrics["loss"].double().reshape(1),
                          {k: g.double() for k, g in grads.items()})
@@ -3025,7 +3112,7 @@ def llama_train_parity_phase(torch):
         del out
     tensors = [k for k in sq["oracle"] if k != "losses"]
     gated = [k for k in tensors if k != "classifier.bias"]
-    for name in paths:
+    for name in sq:
         sq[name]["all gated gradients"] = sum(sq[name][k] for k in gated)
     err = {name: {k: (sq[name][k] / sq["oracle"][k]) ** 0.5
                   if sq["oracle"][k] > 0 else sq[name][k] ** 0.5
@@ -3046,6 +3133,11 @@ def llama_train_parity_phase(torch):
           f" vs {err['plain']['all gated gradients']:.4e}; worst judged "
           f"ratios: {shown}; ungated: classifier.bias "
           f"{ratio['classifier.bias']:.3f}")
+    print(f"llama_train_parity: remat=True: the kernel path's loss and all "
+          f"{len(tensors)} gradients bit for bit on {LLAMA_PARITY_BATCHES} "
+          f"batches, forward kernels launched twice; peak memory "
+          f"{peaks['kernel']:.2f} GiB without remat, {peaks['remat']:.2f} "
+          f"GiB with")
     bad = [k for k in judged if ratio[k] > KERNEL_ERR_RATIO]
     if bad:
         fail(f"llama_train_parity: the kernel path's error exceeds "
@@ -3053,10 +3145,472 @@ def llama_train_parity_phase(torch):
     del states
     torch.cuda.empty_cache()
     return {"batches": LLAMA_PARITY_BATCHES, "layers": layers,
+            "peak_memory_gib": peaks,
             "losses_rel_err": {n: err[n]["losses"] for n in err},
             "gradients_rel_err": {n: err[n]["all gated gradients"]
                                   for n in err},
             "worst_ratio": [worst[0], ratio[worst[0]]]}
+
+
+# ---------------------------------------------------------------------------
+# the CV path and the rest of the train loop
+# ---------------------------------------------------------------------------
+
+#: configs[2] (imagenet_resnet50_dp): global batch 1024 as 8 microbatches of
+#: 128 uint8 224 x 224 images, padded by 8 and cropped back on the host.
+RESNET_PAD = 8
+RESNET_WARMUP_STEPS = 2
+RESNET_STEPS = 5
+RESNET_PROFILE_STEPS = 1
+RESNET_EVAL_IMAGES = 1000
+RESNET_EVAL_BATCH = 128
+#: Host augmentation, native against numpy, and device_normalize against
+#: the host normalize: tests/test_augment.py's f32 band.
+AUGMENT_TOL = 1e-6
+#: evaluate with the ragged tail padded against the same images unpadded.
+EVAL_PAD_TOL = 1e-5
+#: resnet_parity: 2 microbatches of 16 images at full width. The bf16
+#: path's relative L2 error of the train-mode logits and of the
+#: per-example losses against the f32 oracle: 2^-5. A bf16 rounding is
+#: 2^-9 relative; the logits carry one per convolution, BatchNorm and
+#: residual add on the path (~60 at ResNet-50's depth, independent, so
+#: ~sqrt(60) x 2^-9 = 1.5 %), which the gate clears by a factor of 2.
+RESNET_PARITY_MICRO = 16
+RESNET_PARITY_TOL = 2.0 ** -5
+#: resnet_parity sets each block's zero-initialized last BatchNorm scale
+#: to this, so every residual branch reaches the logits.
+RESNET_LAST_SCALE = 0.25
+#: train_fused's accumulation check: accum 8 against the monolithic step,
+#: dropout off, relative L2 error of the loss and of all gradients
+#: together: bf16 rounding (the microbatches' products round at other
+#: places).
+ACCUM_TOL = 1e-2
+BERT_ACCUM = 8
+
+
+def resnet_counts(accum):
+    """Counted launches per ResNet-50 step of ``accum`` microbatches: the
+    loss's cross-entropy kernels (loss_impl="auto"), once each way per
+    microbatch; no other kernel of this repo."""
+    return {"xent_fwd": accum, "xent_bwd": accum}
+
+
+def resnet50_train_phase(torch, card):
+    """configs[2] through the user's entry points: build_model("resnet50",
+    1000) -> create_train_state -> make_optimizer(imagenet_resnet50_dp's
+    optim) -> make_classification_train_step(0.1, accum_steps=8,
+    input_transform=device_normalize(IMAGENET_MEAN, IMAGENET_STD),
+    loss_impl="auto") -> fit, over uint8 [1024, 224, 224, 3] images made
+    from a seed that BatchAugmenter(crop 224, pad 8, normalize=False,
+    backend="native") augments afresh each step on the host. First the
+    native augmenter against the numpy path, and device_normalize against
+    the host normalize (AUGMENT_TOL). W warm-up steps, T timed steps
+    (counts reset just before: exactly 8 cross-entropy launches each way
+    a step, no other kernel of this repo), a profiled window; every loss
+    finite; every running statistic finite and moved by the timed steps.
+    Then evaluate over 1000 eval images at batch 128: the 104-row tail
+    padded (one cross-entropy forward a batch) against the same images
+    unpadded, within EVAL_PAD_TOL."""
+    import numpy as np
+
+    from tpudl_torch.config import get_config
+    from tpudl_torch.data import native as native_lib
+    from tpudl_torch.data.augment import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        BatchAugmenter,
+        device_normalize,
+    )
+    from tpudl_torch.models.registry import build_model
+    from tpudl_torch.train import (
+        create_train_state,
+        evaluate,
+        fit,
+        make_classification_eval_step,
+        make_classification_train_step,
+        make_optimizer,
+    )
+    from tpudl_torch.train.metrics import Throughput
+
+    cfg = get_config("imagenet_resnet50_dp")
+    b, size, accum = cfg.global_batch_size, cfg.image_size, cfg.accum_steps
+    t0 = time.perf_counter()
+    model = build_model(cfg.model, cfg.num_classes)
+    state = create_train_state(cfg.seed, model, make_optimizer(cfg.optim))
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(cfg.seed)
+    images = rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)
+    labels = rng.integers(0, cfg.num_classes, b).astype(np.int32)
+    norm = device_normalize(IMAGENET_MEAN, IMAGENET_STD)
+    aug_kw = dict(crop=(size, size), pad=RESNET_PAD, mean=IMAGENET_MEAN,
+                  std=IMAGENET_STD)
+    # The native kernel (a failed build raises) against the numpy path,
+    # and the uint8 path normalized on the card against the host's.
+    sample = images[:64]
+    native = BatchAugmenter(backend="native", seed=1, **aug_kw)(sample)
+    plain = BatchAugmenter(backend="numpy", seed=1, **aug_kw)(sample)
+    raw = BatchAugmenter(backend="native", seed=1, normalize=False,
+                         **aug_kw)(sample)
+    on_card = norm({"image": torch.as_tensor(raw, device="cuda")})["image"]
+    aug_err = (float(np.abs(native - plain).max()),
+               float(np.abs(on_card.cpu().numpy() - native).max()))
+    if not max(aug_err) <= AUGMENT_TOL:
+        fail(f"resnet50_train: augmentation native vs numpy {aug_err[0]}, "
+             f"device_normalize vs host {aug_err[1]} (tol {AUGMENT_TOL})")
+    aug = BatchAugmenter(backend="native", seed=cfg.seed, normalize=False,
+                         **aug_kw)
+    t1 = time.perf_counter()
+    aug({"image": images, "label": labels})
+    aug_ms = (time.perf_counter() - t1) * 1e3
+    step = make_classification_train_step(
+        cfg.label_smoothing, accum_steps=accum, input_transform=norm,
+        loss_impl="auto")
+    flops = 3.0 * model.forward_flops(size, size) * b
+    torch.cuda.synchronize()
+    print(f"resnet50_train: ResNet-50 (bf16, channels_last), "
+          f"{n_params / 1e6:.3f} M parameters, global batch {b} = {accum} "
+          f"microbatches x {b // accum} at {size}x{size}, uint8 images padded "
+          f"by {RESNET_PAD} and cropped back on the host ({aug.backend} "
+          f"augmenter, OpenMP {native_lib.openmp()}; uint8 crop and flip "
+          f"{aug_ms:.1f} ms a batch; native vs numpy "
+          f"{aug_err[0]:.1e}, device_normalize vs host {aug_err[1]:.1e}); "
+          f"set-up {time.perf_counter() - t0:.1f} s")
+
+    def batches(n):
+        for _ in range(n):
+            yield aug({"image": images, "label": labels})
+
+    losses = []
+    w = RESNET_WARMUP_STEPS
+    meter = Throughput(b, warmup=w)
+
+    def recorded(state, batch, rng):
+        state, metrics = step(state, batch, rng)
+        losses.append(metrics["loss"])
+        meter.step(metrics["loss"])
+        return state, metrics
+
+    state, _, _ = fit(recorded, state, batches(w), 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats0 = {k: v.clone() for k, v in state.batch_stats.items()}
+    reset_counts()
+    state, last, _ = fit(recorded, state, batches(RESNET_STEPS), 1)
+    timed = meter.result(losses[-1])
+    launches = train_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = resnet_counts(accum)
+    want = {k: per_step.get(k, 0) * RESNET_STEPS for k in launches}
+    print(f"resnet50_train: {RESNET_STEPS} steps, launches {launches}")
+    if launches != want:
+        fail(f"resnet50_train: kernel launches {launches} != expected {want} "
+             f"({per_step} per step, none of the others)")
+    loss_t = torch.stack(losses)
+    if not bool(torch.isfinite(loss_t).all()):
+        fail(f"resnet50_train: non-finite loss in {loss_t.tolist()}")
+    stats = state.batch_stats
+    still = [k for k in stats if torch.equal(stats[k], stats0[k])]
+    bad = [k for k in stats if not bool(torch.isfinite(stats[k]).all())]
+    if still or bad:
+        fail(f"resnet50_train: running statistics that did not move "
+             f"{still[:5]} or are not finite {bad[:5]}")
+    if timed["steps_measured"] != RESNET_STEPS:
+        fail(f"resnet50_train: the meter timed {timed['steps_measured']} "
+             f"steps, not {RESNET_STEPS}")
+    step_s = timed["step_ms"] / 1e3
+    util = flops / step_s / BF16_OPS_PER_S
+    print(f"resnet50_train metrics ({card}): step {step_s * 1e3:.2f} ms, "
+          f"{b / step_s:.1f} images/s, MFU {100 * util:.2f}% (3 x the "
+          f"forward's convolution and dense FLOPs x {b} = 3 x "
+          f"{flops / 3 / b:.4e} x {b} = {flops:.4e} FLOP over "
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s dense bf16), peak memory "
+          f"{peak:.2f} GiB, {len(stats)} running statistics moved and "
+          f"finite, losses {', '.join(f'{x:.4f}' for x in loss_t.tolist())}")
+    busy = profile_steps(
+        torch, lambda: fit(step, state, batches(RESNET_PROFILE_STEPS), 1),
+        RESNET_PROFILE_STEPS, "resnet50_train",
+        step_s * 1e6 * RESNET_PROFILE_STEPS)
+
+    ev = rng.integers(0, 256, (RESNET_EVAL_IMAGES, size, size, 3),
+                      dtype=np.uint8)
+    ev_labels = rng.integers(0, cfg.num_classes,
+                             RESNET_EVAL_IMAGES).astype(np.int32)
+    center = BatchAugmenter(backend="native", train=False, normalize=False,
+                            **aug_kw)
+
+    def eval_batches():
+        for i in range(0, RESNET_EVAL_IMAGES, RESNET_EVAL_BATCH):
+            yield center({"image": ev[i:i + RESNET_EVAL_BATCH],
+                          "label": ev_labels[i:i + RESNET_EVAL_BATCH]})
+
+    eval_step = make_classification_eval_step(input_transform=norm,
+                                              loss_impl="auto")
+    sizes = []
+
+    def unpadded(state, batch):  # no mask_aware marker: the tail runs at 104
+        sizes.append(len(batch["label"]))
+        return eval_step(state, batch)
+
+    reset_counts()
+    padded = evaluate(eval_step, state, eval_batches())
+    ev_launches = train_counts()
+    n_batches = -(-RESNET_EVAL_IMAGES // RESNET_EVAL_BATCH)
+    want = {k: n_batches if k == "xent_fwd" else 0 for k in ev_launches}
+    if ev_launches != want:
+        fail(f"resnet50_train: evaluate launched {ev_launches}, expected "
+             f"{want}")
+    whole = evaluate(unpadded, state, eval_batches())
+    diff = {k: abs(padded[k] - whole[k]) for k in padded}
+    tail = RESNET_EVAL_IMAGES % RESNET_EVAL_BATCH
+    print(f"resnet50_train: evaluate over {RESNET_EVAL_IMAGES} images at "
+          f"batch {RESNET_EVAL_BATCH} (a {tail}-row tail padded with a "
+          f"'_valid' mask): loss {padded['loss']:.6f}, accuracy "
+          f"{padded['accuracy']:.6f}; unpadded (batches {sizes}): loss "
+          f"{whole['loss']:.6f}, accuracy {whole['accuracy']:.6f}; |diff| "
+          f"{diff} (tol {EVAL_PAD_TOL})")
+    if sizes[-1] != tail or not all(d <= EVAL_PAD_TOL for d in diff.values()):
+        fail(f"resnet50_train: padded evaluation {padded} vs unpadded "
+             f"{whole} (batches {sizes})")
+    metrics = {
+        "step_ms": step_s * 1e3, "images_per_s": b / step_s, "mfu": util,
+        "model_flops_per_step": flops, "peak_memory_gib": peak,
+        "device_busy_share": busy, "num_params": n_params, "batch": b,
+        "accum_steps": accum, "image_size": size, "steps": RESNET_STEPS,
+        "host_augment_ms": aug_ms, "losses": loss_t.tolist(),
+        "eval": padded, "eval_unpadded": whole,
+    }
+    del state, model
+    return launches, metrics
+
+
+def rel_l2(a, b):
+    """||a - b|| / ||b|| in f64 over tensors or lists of tensors."""
+    if not isinstance(a, (list, tuple)):
+        a, b = [a], [b]
+    num = sum(float(((x.double() - y.double()) ** 2).sum())
+              for x, y in zip(a, b))
+    den = sum(float((y.double() ** 2).sum()) for y in b)
+    return (num / den) ** 0.5 if den > 0 else num ** 0.5
+
+
+def resnet_parity_phase(torch):
+    """ResNet-50 at full width on the card from one set of seeded weights
+    (each block's last BatchNorm scale set to RESNET_LAST_SCALE), one
+    accumulated step of 2 microbatches of 16 uint8 224 x 224 images
+    (device_normalize, label smoothing 0.1) on the bf16 path (channels_last,
+    loss_impl="auto": 2 cross-entropy launches each way) and on an f32
+    oracle (TF32 off in cuDNN and cuBLAS, loss_impl="reference", no
+    launch). Relative L2 errors of the bf16 path against the oracle: the
+    train-mode logits, the per-example losses, the step's loss, every
+    gradient and the running statistics after the step; the logits and
+    losses are gated at RESNET_PARITY_TOL."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from tpudl_torch.config import get_config
+    from tpudl_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD, device_normalize
+    from tpudl_torch.models.resnet import BatchNorm, ResNet50
+    from tpudl_torch.rng import fold_in, fold_seed
+    from tpudl_torch.train import create_train_state, make_classification_train_step, make_optimizer
+
+    cfg = get_config("imagenet_resnet50_dp")
+    init = ResNet50(num_classes=cfg.num_classes, dtype=torch.float32,
+                    device="cuda")
+    init.init_weights(torch.Generator(device="cuda").manual_seed(11))
+    with torch.no_grad():
+        for m in init.modules():
+            if isinstance(m, BatchNorm) and m.zero_scale:
+                m.scale.fill_(RESNET_LAST_SCALE)
+    params = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init
+    accum, micro = 2, RESNET_PARITY_MICRO
+    rng = np.random.default_rng(5)
+    batch = {"image": rng.integers(0, 256, (accum * micro, 224, 224, 3),
+                                   dtype=np.uint8),
+             "label": rng.integers(0, cfg.num_classes,
+                                   accum * micro).astype(np.int32)}
+    labels = torch.as_tensor(batch["label"], device="cuda").long()
+    norm = device_normalize(IMAGENET_MEAN, IMAGENET_STD)
+    x = norm({"image": torch.as_tensor(batch["image"], device="cuda")})["image"]
+    seed = fold_seed(7, 0)
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    for name, dtype, loss_impl in (("bf16", torch.bfloat16, "auto"),
+                                   ("oracle", torch.float32, "reference")):
+        torch.backends.cudnn.allow_tf32 = name != "oracle"
+        st = create_train_state(0, ResNet50(num_classes=cfg.num_classes,
+                                            dtype=dtype, device="meta"),
+                                make_optimizer(cfg.optim), params=params)
+        step = make_classification_train_step(
+            cfg.label_smoothing, accum_steps=accum, input_transform=norm,
+            loss_impl=loss_impl)
+        stats0 = {k: v.clone() for k, v in st.batch_stats.items()}
+        with torch.no_grad():
+            logits = torch.cat([st.model(x[a * micro:(a + 1) * micro],
+                                         train=True)
+                                for a in range(accum)]).float()
+        for k, v in stats0.items():  # the step moves them from the start
+            st.batch_stats[k].copy_(v)
+        before = train_counts()
+        grads, metrics = step.grads_and_metrics(
+            st, batch, [fold_in(seed, a, "cuda") for a in range(accum)])
+        after = train_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        want = {k: (resnet_counts(accum).get(k, 0) if name == "bf16" else 0)
+                for k in after}
+        if launched != want:
+            fail(f"resnet_parity: the {name} path launched {launched}, "
+                 f"expected {want}")
+        out[name] = {
+            "logits": logits,
+            "losses": F.cross_entropy(logits, labels, reduction="none",
+                                      label_smoothing=cfg.label_smoothing),
+            "loss": metrics["loss"], "grads": grads,
+            "stats": {k: v.clone() for k, v in st.batch_stats.items()}}
+        del st
+    torch.backends.cudnn.allow_tf32 = tf32
+    k16, o = out["bf16"], out["oracle"]
+    names = sorted(o["grads"])
+    err = {"logits": rel_l2(k16["logits"], o["logits"]),
+           "losses": rel_l2(k16["losses"], o["losses"]),
+           "loss": rel_l2(k16["loss"], o["loss"]),
+           "all gradients": rel_l2([k16["grads"][k] for k in names],
+                                   [o["grads"][k] for k in names]),
+           "running statistics": rel_l2(list(k16["stats"].values()),
+                                        list(o["stats"].values()))}
+    per = {k: rel_l2(k16["grads"][k], o["grads"][k]) for k in names}
+    worst = sorted(per, key=lambda k: -per[k])[:4]
+    print(f"resnet_parity: ResNet-50, {accum} microbatches x {micro} at "
+          f"224x224, bf16 (channels_last, loss_impl='auto') vs the f32 oracle "
+          f"(TF32 off), rel L2 err: logits {err['logits']:.3e}, per-example "
+          f"losses {err['losses']:.3e} (gate {RESNET_PARITY_TOL:.4g} on "
+          f"both), step loss {err['loss']:.3e}, all {len(names)} gradients "
+          f"{err['all gradients']:.3e} (worst: "
+          + ", ".join(f"{k} {per[k]:.3e}" for k in worst)
+          + f"), running statistics {err['running statistics']:.3e}")
+    bad = [k for k in ("logits", "losses")
+           if not err[k] <= RESNET_PARITY_TOL]
+    if bad:
+        fail(f"resnet_parity: the bf16 path's {bad} exceed "
+             f"{RESNET_PARITY_TOL} against the f32 oracle")
+    del out, params
+    torch.cuda.empty_cache()
+    return {"rel_l2_err": err, "worst_gradients": {k: per[k] for k in worst},
+            "tol": RESNET_PARITY_TOL, "microbatches": accum,
+            "microbatch": micro}
+
+
+def bert_remat_accum_phase(torch):
+    """train_fused's two checks of the rest of the train loop, BERT-base at
+    batch 256 x seq 128 with the fused slice (the same seeded weights):
+    with dropout 0.1, remat="layer" gives the step's loss and every
+    gradient bit for bit, its encoder layers' forward kernels launched
+    twice (the recompute) — but the embedding tables', which the CUDA
+    embedding backward sums with atomics: a second run without remat
+    shows which, and remat must stay within 4x their run-to-run spread;
+    with dropout off, accum_steps=8 over the same
+    256 rows gives the monolithic step's loss and gradients within
+    ACCUM_TOL (relative L2, all gradients together)."""
+    from tpudl_torch.data.synthetic import synthetic_token_batches
+    from tpudl_torch.models.bert import BERT_BASE, BertForSequenceClassification
+    from tpudl_torch.rng import fold_in, fold_seed
+    from tpudl_torch.train import create_train_state, make_classification_train_step
+
+    init = BertForSequenceClassification(BERT_BASE(), device="cuda")
+    init.init_weights(torch.Generator(device="cuda").manual_seed(11))
+    params = {k: v.detach() for k, v in init.state_dict().items()}
+    del init
+    batch = next(synthetic_token_batches(BERT_BATCH, BERT_SEQ, 30522, seed=9))
+    keys = ("input_ids", "attention_mask")
+    model_kw, loss_impl = bert_variant(True)
+    per_pass = launches_per_step(12, True)
+    out, peaks = {}, {}
+    # No remat twice: the CUDA embedding backward adds with atomics, so the
+    # embedding tables' gradients differ from run to run without remat too.
+    for run, remat in (("none", False), ("again", False), ("layer", "layer")):
+        st = create_train_state(0, BertForSequenceClassification(
+            BERT_BASE(remat=remat, **model_kw), device="meta"),
+            sst2_optimizer(), params=params)
+        step = make_classification_train_step(input_keys=keys,
+                                              loss_impl=loss_impl)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = train_counts()
+        out[run] = step.grads_and_metrics(st, batch, fold_in(7, 0, "cuda"))
+        after = train_counts()
+        peaks[run] = torch.cuda.max_memory_allocated() / 2**30
+        launched = {k: after[k] - before[k] for k in per_pass}
+        want = dict(per_pass)
+        if remat:  # the 12 layers' forwards run again in the backward
+            for k in ("layer_norm_fwd", "bias_gelu_fwd",
+                      "softmax_dropout_fwd"):
+                want[k] += 24 if k == "layer_norm_fwd" else 12
+        if launched != want:
+            fail(f"train_fused: remat={remat!r} launched {launched}, "
+                 f"expected {want}")
+        del st
+    (g0, m0), (g1, m1) = out["none"], out["layer"]
+    unstable = [k for k in g0 if not torch.equal(g0[k], out["again"][0][k])]
+    if any(".embeddings." not in k for k in unstable):
+        fail(f"train_fused: gradients not repeatable without remat: "
+             f"{unstable}")
+    bad = [k for k in g0 if k not in unstable and not torch.equal(g0[k], g1[k])]
+    # The unstable tables: remat within the spread of two runs without it.
+    spread = {k: (rel_l2(g1[k], g0[k]), rel_l2(out["again"][0][k], g0[k]))
+              for k in unstable}
+    bad += [k for k, (r, r0) in spread.items() if r > max(4 * r0, 1e-6)]
+    if not torch.equal(m0["loss"], m1["loss"]) or bad:
+        fail(f"train_fused: remat='layer' differs from no remat: loss "
+             f"{float(m0['loss'])} vs {float(m1['loss'])}, gradients "
+             f"{bad[:5]}")
+    print(f"train_fused: remat='layer' with dropout 0.1: loss and "
+          f"{len(g0) - len(unstable)} of {len(g0)} gradients bit for bit; "
+          f"the embedding tables' ({unstable}; atomics in the CUDA embedding "
+          f"backward) rel L2 to no remat "
+          + ", ".join(f"{r:.2e} (two runs without remat: {r0:.2e})"
+                      for r, r0 in spread.values())
+          + f"; peak memory {peaks['none']:.2f} GiB without remat, "
+          f"{peaks['layer']:.2f} with")
+    del out
+    res = {}
+    for accum in (1, BERT_ACCUM):
+        st = create_train_state(0, BertForSequenceClassification(
+            BERT_BASE(hidden_dropout=0.0, attention_dropout=0.0, **model_kw),
+            device="meta"), sst2_optimizer(), params=params)
+        step = make_classification_train_step(
+            input_keys=keys, loss_impl=loss_impl, accum_steps=accum)
+        gen = (fold_in(7, 0, "cuda") if accum == 1 else
+               [fold_in(fold_seed(7, 0), a, "cuda") for a in range(accum)])
+        before = train_counts()
+        res[accum] = step.grads_and_metrics(st, batch, gen)
+        after = train_counts()
+        launched = {k: after[k] - before[k] for k in per_pass}
+        want = {k: v * accum for k, v in per_pass.items()}
+        if launched != want:
+            fail(f"train_fused: accum_steps={accum} launched {launched}, "
+                 f"expected {want}")
+        del st
+    (ga, ma), (gb, mb) = res[1], res[BERT_ACCUM]
+    names = sorted(ga)
+    err = {"loss": rel_l2(mb["loss"], ma["loss"]),
+           "all gradients": rel_l2([gb[k] for k in names],
+                                   [ga[k] for k in names])}
+    per = {k: rel_l2(gb[k], ga[k]) for k in names}
+    worst = sorted(per, key=lambda k: -per[k])[:4]
+    print(f"train_fused: accum_steps={BERT_ACCUM} (microbatches of "
+          f"{BERT_BATCH // BERT_ACCUM}) vs the monolithic step, dropout off, "
+          f"rel L2: loss {err['loss']:.3e}, all {len(names)} gradients "
+          f"{err['all gradients']:.3e} (tol {ACCUM_TOL}; worst tensors, not "
+          f"judged: " + ", ".join(f"{k} {per[k]:.3e}" for k in worst) + ")")
+    if not max(err.values()) <= ACCUM_TOL:
+        fail(f"train_fused: accumulation differs from the monolithic step "
+             f"by {err} (tol {ACCUM_TOL})")
+    del res, params
+    torch.cuda.empty_cache()
+    return {"remat_bitwise_tensors": len(g0) - len(unstable),
+            "remat_peak_memory_gib": {"none": peaks["none"],
+                                      "layer": peaks["layer"]},
+        "accum_rel_l2_err": err, "accum_steps": BERT_ACCUM}
 
 
 #: (kernel, kind, variant, vectors a thread) of the bf16 norm forwards
@@ -3195,6 +3749,7 @@ def main() -> int:
                                                       fused_slice=True)
     del state
     torch.cuda.empty_cache()
+    fused_metrics["remat_accum"] = bert_remat_accum_phase(torch)
     fused_metrics["parity"] = train_parity_phase(torch, fused_slice=True)
     state, launches_512, metrics_512 = train_phase(
         torch, card, fused_slice=True, batch_size=BERT_512_BATCH,
@@ -3204,6 +3759,12 @@ def main() -> int:
     metrics_512["parity"] = train_parity_phase(
         torch, fused_slice=True, batch_size=BERT_512_BATCH, seq=BERT_512_SEQ,
         num_layers=2, phase="train_512_parity")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_launches, resnet_metrics = resnet50_train_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_metrics["parity"] = resnet_parity_phase(torch)
     gc.collect()
     torch.cuda.empty_cache()
     llama_launches, llama_metrics = llama_lora_train_phase(torch, card)
@@ -3217,6 +3778,7 @@ def main() -> int:
     xent_cu = "tpudl_torch/ops/csrc/cross_entropy.cu"
     flash_cu = "tpudl_torch/ops/csrc/flash_attention.cu"
     whole_cu = "tpudl_torch/ops/csrc/fused_attention.cu"
+    llama_step = llama_launches_per_step(32, LLAMA_ACCUM)
     seg_cu = "tpudl_torch/ops/csrc/segmented_lora.cu"
     # name -> (source, replaces, main-path launches, per step, headline case)
     table = {
@@ -3261,16 +3823,16 @@ def main() -> int:
         # 128] bf16 causal); launches from the llama_lora_train run.
         "swiglu_bwd": (mlp_cu, "tpudl/ops/mlp_fused.py:207",
                        llama_launches["swiglu_bwd"],
-                       LLAMA_LAUNCHES["swiglu_bwd"], llama_cases),
+                       llama_step["swiglu_bwd"], llama_cases),
         "flash_fwd": (flash_cu, "tpudl/ops/flash_attention.py:224",
                       llama_launches["flash_fwd"],
-                      LLAMA_LAUNCHES["flash_fwd"], llama_cases),
+                      llama_step["flash_fwd"], llama_cases),
         "flash_dq": (flash_cu, "tpudl/ops/flash_attention.py:453",
-                     llama_launches["flash_dq"], LLAMA_LAUNCHES["flash_dq"],
+                     llama_launches["flash_dq"], llama_step["flash_dq"],
                      llama_cases),
         "flash_dkv": (flash_cu, "tpudl/ops/flash_attention.py:477",
                       llama_launches["flash_dkv"],
-                      LLAMA_LAUNCHES["flash_dkv"], llama_cases),
+                      llama_step["flash_dkv"], llama_cases),
         # BERT-base at seq 512: the first case, the train_512 step's own
         # call ([32, 512, 12, 64] bf16, padding mask, dropout 0.1);
         # launches from the train_512 run.
@@ -3321,6 +3883,12 @@ def main() -> int:
             # Segmented LoRA: the two bmm without the page gather.
             **({"library_pregathered_ms": head["library_pregathered_ms"]}
                if "library_pregathered_ms" in head else {}),
+            # The cross-entropy: the launches of resnet50_train's run too
+            # (8 each way a step, one per microbatch).
+            **({"launches_resnet50_train": resnet_launches[name],
+                "launches_per_step_resnet50_train":
+                    resnet_counts(8)[name]}
+               if name in ("xent_fwd", "xent_bwd") else {}),
             # softmax_dropout: the plain softmax in f32 beside library_ms
             # (the same in the logits' dtype).
             **({"library_f32_ms": head["library_f32_ms"]}
@@ -3332,6 +3900,7 @@ def main() -> int:
     print(json.dumps({"slice": metrics, "tenant_slice": tenant_metrics,
                       "train": train_metrics,
                       "train_fused": fused_metrics, "train_512": metrics_512,
+                      "resnet50_train": resnet_metrics,
                       "llama_lora_train": llama_metrics,
                       "launch_floor": floor, "pdl_chain": chain,
                       "card": card}))

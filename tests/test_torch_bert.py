@@ -229,14 +229,23 @@ def test_registry_and_refusals():
     assert model.cfg.hidden_size == 128 and model.cfg.num_layers == 2
     assert build_model("bert-base", 2, device="meta").cfg.hidden_size == 768
     assert build_model("bert-large", 2, device="meta").cfg.num_layers == 24
-    for name, item in (("resnet50", "queue A item 5"),
-                       ("llama3-8b-lora-moe", "queue A item 4")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(name, 2)
+    # The CV path and remat are ported (tests/test_torch_resnet.py,
+    # tests/test_torch_accumulation.py).
+    assert build_model("resnet50", 2, device="meta").head.out_features == 2
+    for remat in ("layer", "attention", True, "none"):
+        build_model("bert-tiny", 2, device="meta", remat=remat)
+    build_model("bert-tiny", 2, device="meta", remat="layer",
+                remat_policy="dots_saveable")
+    with pytest.raises(ValueError, match="remat must be one of"):
+        build_model("bert-tiny", 2, device="meta", remat="blocks")
+    with pytest.raises(ValueError, match="remat_policy must be one of"):
+        build_model("bert-tiny", 2, device="meta", remat="layer",
+                    remat_policy="everything_saveable")
+    with pytest.raises(NotImplementedError, match="queue A item 4"):
+        build_model("llama3-8b-lora-moe", 2)
     with pytest.raises(ValueError, match="unknown model"):
         build_model("gpt2", 2)
-    for kw, item in ((dict(remat="layer"), "queue A item 12"),
-                     (dict(weight_dtype="int8"), "queue A item 4"),
+    for kw, item in ((dict(weight_dtype="int8"), "queue A item 4"),
                      (dict(fp8_train=True), "queue A item 8")):
         with pytest.raises(NotImplementedError, match=item):
             build_model("bert-tiny", 2, device="meta", **kw)

@@ -823,7 +823,7 @@ def test_softmax_dropout_refusals(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,v", [(256, 2), (19, 1000), (7, 1003),
-                                 (64, 30522)])
+                                 (64, 30522), (128, 1000)])
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
 def test_cross_entropy_kernels_match_plain(dev, dtype, b, v, smoothing):
     rng = np.random.default_rng(v)
@@ -1688,3 +1688,56 @@ def test_tiny_multi_tenant_session_on_the_card(dev):
         out[device] = session.serve([Request(**r.__dict__) for r in reqs])
     for r in reqs:
         assert out["cuda"][r.request_id].tokens == out["cpu"][r.request_id].tokens
+
+
+@pytest.mark.parametrize("remat,policy", [("layer", None), ("attention", None),
+                                          ("layer", "dots_saveable")])
+def test_remat_gradients_are_bitwise_on_the_card(dev, remat, policy):
+    """A small BERT with the fused slice's kernels (norms, bias+GeLU,
+    softmax_dropout, cross-entropy) and dropout 0.1 on the card: the
+    rematerialized step's loss and every gradient equal the step's
+    without remat bit for bit (the recompute draws the same seed words),
+    and the recompute launches the layers' forward kernels again. The
+    embedding tables' gradients are held to f32 rounding instead: the
+    CUDA embedding backward sums repeated tokens with atomics, so they
+    differ from run to run without remat too."""
+    from tpudl_torch.config import OptimConfig
+    from tpudl_torch.models import bert
+    from tpudl_torch.rng import fold_in
+    from tpudl_torch.train import (
+        create_train_state,
+        make_classification_train_step,
+        make_optimizer,
+    )
+
+    rng = np.random.default_rng(0)
+    mask = np.ones((8, 64), np.int32)
+    mask[3, 40:] = 0
+    batch = {"input_ids": rng.integers(0, 512, (8, 64)),
+             "attention_mask": mask, "label": rng.integers(0, 2, 8)}
+    params = None
+    out = {}
+    for r, p in ((False, None), (remat, policy)):
+        cfg = bert.BERT_TINY(vocab_size=512, max_position_embeddings=64,
+                             fused_ops=True, attention_impl="fused",
+                             remat=r, remat_policy=p)
+        model = bert.BertForSequenceClassification(cfg, device=dev)
+        if params is None:
+            model.init_weights(torch.Generator(device=dev).manual_seed(1))
+            params = {k: v.detach().clone()
+                      for k, v in model.state_dict().items()}
+        state = create_train_state(0, model, make_optimizer(OptimConfig()),
+                                   params=params, device=dev)
+        step = make_classification_train_step(
+            input_keys=("input_ids", "attention_mask"), loss_impl="auto")
+        before = sd.softmax_dropout.launches
+        out[r] = step.grads_and_metrics(state, batch, fold_in(3, 0, dev))
+        launched = sd.softmax_dropout.launches - before
+        assert launched == (2 if r else 1) * cfg.num_layers, launched
+    (g0, m0), (g1, m1) = out[False], out[remat]
+    assert torch.equal(m0["loss"], m1["loss"])
+    for k in g0:
+        if ".embeddings." in k and k.endswith("_embeddings.weight"):
+            torch.testing.assert_close(g1[k], g0[k], rtol=1e-5, atol=1e-7)
+        else:
+            assert torch.equal(g0[k], g1[k]), k

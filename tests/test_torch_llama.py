@@ -167,8 +167,7 @@ def test_init_params_matches_the_module_and_tpudl_init():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("remat", True), ("moe_experts", 8), ("weight_dtype", "int8"),
-    ("fp8_train", True),
+    ("moe_experts", 8), ("weight_dtype", "int8"), ("fp8_train", True),
 ])
 def test_unported_tiers_raise(field, value):
     cfg = tllama.LLAMA_TINY(**{field: value})

@@ -284,8 +284,9 @@ def test_fit_and_step_refuse_what_is_not_ported():
                      (dict(async_metrics=True), "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             fit(step, state, batches, 0, **kw)
-    for kw, item in ((dict(accum_steps=4), "queue A item 12"),
-                     (dict(precision="bf16"), "queue A item 8"),
+    # Accumulation is ported (tests/test_torch_accumulation.py).
+    make_classification_train_step(accum_steps=4)
+    for kw, item in ((dict(precision="bf16"), "queue A item 8"),
                      (dict(moe_aux_weight=0.01), "queue A item 4")):
         with pytest.raises(NotImplementedError, match=item):
             make_classification_train_step(**kw)

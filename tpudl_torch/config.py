@@ -1,10 +1,12 @@
 """Workload configurations: the port's counterpart of tpudl.config.
 
 A copy of what the ported training paths need: ``OptimConfig``,
-``TrainConfig``, the ``sst2_bert_base`` entry (BASELINE.json
-``configs[1]``) and the ``llama3_8b_lora`` entry (``configs[4]``). tpudl's ``mesh`` and ``strategy`` fields wait for the
-launcher and sharding port (ROADMAP queue A item 7), and its other
-entries for their model families.
+``TrainConfig`` and the entries of BASELINE.json ``configs[0]``
+(``cifar10_resnet18``), ``configs[1]`` (``sst2_bert_base``),
+``configs[2]`` (``imagenet_resnet50_dp``) and ``configs[4]``
+(``llama3_8b_lora``). tpudl's ``mesh`` and ``strategy`` fields wait for
+the launcher and sharding port (ROADMAP queue A item 7), and its
+``bert_large_v4_32`` entry (``configs[3]``, an FSDP mesh) with them.
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ class OptimConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     name: str
-    model: str  # bert-* | llama*[-lora] (ported); resnet* not yet
-    dataset: str  # sst2
+    model: str  # resnet18 | resnet50 | bert-* | llama*[-lora]
+    dataset: str  # cifar10 | imagenet | sst2
     global_batch_size: int = 128
     image_size: int = 32
     seq_len: int = 128
@@ -51,6 +53,18 @@ class TrainConfig:
 
 
 CONFIGS = {
+    # configs[0]: ResNet-18 on CIFAR-10, single-process smoke.
+    "cifar10_resnet18": TrainConfig(
+        name="cifar10_resnet18",
+        model="resnet18",
+        dataset="cifar10",
+        global_batch_size=256,
+        image_size=32,
+        num_classes=10,
+        optim=OptimConfig(name="sgd", learning_rate=0.1, warmup_steps=50,
+                          total_steps=2000, weight_decay=5e-4),
+        num_steps=2000,
+    ),
     # configs[1]: BERT-base SST-2 fine-tune, single-process.
     "sst2_bert_base": TrainConfig(
         name="sst2_bert_base",
@@ -63,6 +77,22 @@ CONFIGS = {
                           total_steps=2000, weight_decay=0.01,
                           mu_dtype="bfloat16"),
         num_steps=2000,
+    ),
+    # configs[2]: ResNet-50 on ImageNet (tpudl's mesh dp=-1 and strategy
+    # "dp" wait for the launcher port): global batch 1024 as 8
+    # microbatches of 128.
+    "imagenet_resnet50_dp": TrainConfig(
+        name="imagenet_resnet50_dp",
+        model="resnet50",
+        dataset="imagenet",
+        global_batch_size=1024,
+        image_size=224,
+        num_classes=1000,
+        optim=OptimConfig(name="sgd", learning_rate=0.4, warmup_steps=500,
+                          total_steps=56300, weight_decay=1e-4),
+        num_steps=56300,
+        label_smoothing=0.1,
+        accum_steps=8,
     ),
     # configs[4]: Llama-3-8B LoRA fine-tune (tpudl's mesh (dp, fsdp 8,
     # tp 2) and strategy "lora" wait for the launcher port).

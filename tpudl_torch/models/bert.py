@@ -35,7 +35,14 @@ either tier and in either dtype.
 Parameters mirror tpudl's tree: ``bert.encoder.layer_0.attention.query
 .weight`` holds tpudl's ``bert/encoder/layer_0/attention/query/kernel``
 transposed (``[out, in]``); ``params_from_tpudl`` converts a tpudl tree.
-``remat``, ``weight_dtype`` and ``fp8_train`` are not ported and raise.
+
+``cfg.remat`` is tpudl's: "layer" (or True) recomputes each encoder layer
+in the backward, "attention" each self-attention block, with
+``remat_policy`` None (save nothing) or "dots_saveable" (keep the matrix
+products, "layer" only); tpudl_torch.models.remat draws the recompute's
+dropout bits from the step generator's recorded state, so the gradients
+are bitwise those without remat. ``weight_dtype`` and ``fp8_train`` are
+not ported and raise.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpudl_torch.models.remat import check_policy, checkpointed
 from tpudl_torch.ops.attention import attend, padding_mask
 from tpudl_torch.ops.dropout import Dropout
 from tpudl_torch.ops.mlp_fused import bias_gelu
@@ -74,14 +82,16 @@ class BertConfig:
     num_labels: int = 2
     dtype: torch.dtype = torch.bfloat16
     attention_impl: str = "reference"
-    # Tiers of the JAX model that are not ported yet; any other value
-    # raises NotImplementedError when the model is built.
+    #: Rematerialization: False / "none", True / "layer", "attention".
     remat: Any = False
+    #: "layer" remat's policy: None or "dots_saveable".
     remat_policy: Optional[str] = None
     #: Fused-epilogue tier: False = composite, True = the Hopper kernels on
     #: CUDA tensors and the plain versions on CPU tensors, "force" = the
     #: kernels or an error.
     fused_ops: Any = False
+    # Tiers of the JAX model that are not ported yet; any other value
+    # raises NotImplementedError when the model is built.
     weight_dtype: Optional[str] = None
     fp8_train: Any = False
 
@@ -96,15 +106,18 @@ BERT_BASE = BertConfig
 BERT_LARGE = partial(BertConfig, hidden_size=1024, num_layers=24, num_heads=16,
                      intermediate_size=4096)
 
+_REMAT = (False, "none", True, "layer", "attention")
+
 _NOT_PORTED = (
-    ("remat", (False, "none"), "rematerialization (torch.utils.checkpoint)",
-     "queue A item 12"),
     ("weight_dtype", (None,), "quantized encoder weights", "queue A item 4"),
     ("fp8_train", (False,), "fp8 training matmuls", "queue A item 8"),
 )
 
 
 def _check_ported(cfg: BertConfig) -> None:
+    if cfg.remat not in _REMAT:
+        raise ValueError(f"remat must be one of {_REMAT}, got {cfg.remat!r}")
+    check_policy(cfg.remat_policy)
     for field, off, what, item in _NOT_PORTED:
         if getattr(cfg, field) not in off:
             raise NotImplementedError(
@@ -219,7 +232,11 @@ class BertLayer(nn.Module):
 
     def forward(self, hidden, attn_mask, train, generator):
         cfg = self.cfg
-        attn_out = self.attention(hidden, attn_mask, train, generator)
+        if cfg.remat == "attention" and torch.is_grad_enabled():
+            attn_out = checkpointed(self.attention, generator, hidden,
+                                    attn_mask, train, generator)
+        else:
+            attn_out = self.attention(hidden, attn_mask, train, generator)
         if cfg.fused_ops:
             # The residual add rides inside the LayerNorm kernel; BERT is
             # post-norm and never reads the summed value, so the kernel
@@ -243,14 +260,21 @@ class BertLayer(nn.Module):
 class BertEncoder(nn.Module):
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
+        self.cfg = cfg
         self.num_layers = cfg.num_layers
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", BertLayer(cfg, device))
 
     def forward(self, hidden, attn_mask, train, generator):
+        remat = self.cfg.remat in (True, "layer") and torch.is_grad_enabled()
         for i in range(self.num_layers):
-            hidden = getattr(self, f"layer_{i}")(hidden, attn_mask, train,
-                                                 generator)
+            layer = getattr(self, f"layer_{i}")
+            if remat:
+                hidden = checkpointed(layer, generator, hidden, attn_mask,
+                                      train, generator,
+                                      policy=self.cfg.remat_policy)
+            else:
+                hidden = layer(hidden, attn_mask, train, generator)
         return hidden
 
 

@@ -16,9 +16,11 @@ weights resident once. Training applies it with ``decode=False``
 the flash-attention kernels). ``LlamaForSequenceClassification`` pools
 the last non-pad token into an f32 classifier with a bias.
 ``cfg.lora_rank > 0`` makes every projection a
-tpudl_torch.models.lora.LoRALinear. MoE, quantized weights, fp8 training
-and rematerialization wait for later slices and raise
-``NotImplementedError`` naming their ROADMAP item.
+tpudl_torch.models.lora.LoRALinear. ``cfg.remat`` recomputes each block
+of the non-decode forward in the backward (tpudl_torch.models.remat; the
+decode paths never remat, as tpudl's). MoE, quantized weights and fp8
+training wait for later slices and raise ``NotImplementedError`` naming
+their ROADMAP item.
 
 Numerics follow the JAX model: projections and the embedding compute in
 ``cfg.dtype``, RMSNorm statistics in f32, RoPE angles in f32, attention
@@ -65,6 +67,7 @@ from tpudl_torch.models.paged import (
     paged_gather,
     paged_write,
 )
+from tpudl_torch.models.remat import checkpointed
 from tpudl_torch.ops.attention import MASK_VALUE, attend
 from tpudl_torch.ops.mlp_fused import swiglu
 from tpudl_torch.ops.norms import fused_ops_impl, rms_norm
@@ -92,9 +95,10 @@ class LlamaConfig:
     # (the default here) = the Hopper kernels on CUDA tensors, the plain
     # versions on CPU tensors; "force" = the kernels or an error.
     fused_ops: Any = True
+    #: Recompute each block of the non-decode forward in the backward.
+    remat: bool = False
     # Tiers of the JAX model that are not ported yet; any other value
     # raises NotImplementedError when the model is built.
-    remat: bool = False
     weight_dtype: Optional[str] = None
     fp8_train: Any = False
     moe_experts: int = 0
@@ -133,7 +137,6 @@ LLAMA_SIZES = {
 }
 
 _NOT_PORTED = (
-    ("remat", False, "rematerialization", "queue A item 12"),
     ("moe_experts", 0, "the MoE MLP", "queue A item 4"),
     ("weight_dtype", None, "quantized serving weights", "queue A item 4"),
     ("fp8_train", False, "fp8 training matmuls", "queue A item 8"),
@@ -389,9 +392,13 @@ class LlamaModel(nn.Module):
         if not decode:
             x = self.embed_tokens(input_ids.long()).to(cfg.dtype)
             rope_cs = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+            remat = cfg.remat and torch.is_grad_enabled()
             for i in range(cfg.num_layers):
-                x, _ = getattr(self, f"layer_{i}")(x, rope_cs, None, kv_mask,
-                                                   None, None, layer_view(i))
+                args = (x, rope_cs, None, kv_mask, None, None, layer_view(i))
+                layer = getattr(self, f"layer_{i}")
+                # The training forward draws no bits: no generator to keep.
+                x, _ = (checkpointed(layer, None, *args) if remat
+                        else layer(*args))
             return self.final_norm(x), None
         if paged is not None:
             if cache is None:

@@ -1,6 +1,6 @@
 """Model registry: config model names -> the port's modules (the
-counterpart of tpudl.models.registry: the BERT sizes and the Llama sizes
-as sequence classifiers)."""
+counterpart of tpudl.models.registry: the ResNet sizes, the BERT sizes
+and the Llama sizes as sequence classifiers)."""
 
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from tpudl_torch.models.bert import (
     BERT_TINY,
     BertForSequenceClassification,
 )
+from tpudl_torch.models.resnet import RESNET_SIZES
 
 #: BertConfig factories by size name (tpudl_torch.models.bert).
 _BERT_SIZES = {
@@ -21,12 +22,6 @@ _BERT_SIZES = {
     "bert-base": BERT_BASE,
     "bert-large": BERT_LARGE,
 }
-
-#: tpudl's other model names, with the ROADMAP item that ports each.
-_NOT_PORTED = {
-    "resnet": "queue A item 5 (the CV path)",
-}
-
 
 def build_llama(name: str, num_classes: int, device="cuda",
                 dtype=torch.bfloat16, **kwargs: Any):
@@ -63,17 +58,18 @@ def build_model(name: str, num_classes: int, device="cuda", **kwargs: Any):
     """Build the module for a config ``model`` name (tpudl_torch.config)
     on ``device``, its weights drawn from torch's default generator
     (``create_train_state`` redraws them from a seeded one). ``dtype``
-    defaults to bf16; other keyword arguments go to the config."""
+    defaults to bf16; other keyword arguments go to the config (for a
+    ResNet, to the module: ``small_inputs=True`` is the CIFAR stem)."""
     dtype = kwargs.pop("dtype", torch.bfloat16)
+    if name.startswith("resnet"):
+        if name not in RESNET_SIZES:
+            raise ValueError(f"unknown resnet size {name!r}; available: "
+                             f"{sorted(RESNET_SIZES)}")
+        return RESNET_SIZES[name](num_classes=num_classes, dtype=dtype,
+                                  device=device, **kwargs)
     if name in _BERT_SIZES:
         cfg = _BERT_SIZES[name](num_labels=num_classes, dtype=dtype, **kwargs)
         return BertForSequenceClassification(cfg, device=device)
     if name.startswith("llama"):
         return build_llama(name, num_classes, device, dtype, **kwargs)
-    for prefix, item in _NOT_PORTED.items():
-        if name.startswith(prefix):
-            raise NotImplementedError(
-                f"model {name!r} is not ported to tpudl_torch yet: ROADMAP "
-                f"{item}"
-            )
     raise ValueError(f"unknown model name: {name!r}")

@@ -6,8 +6,11 @@ from tpudl_torch.train.loop import (  # noqa: F401
     TrainState,
     create_train_state,
     cross_entropy_loss,
+    evaluate,
     fit,
     make_classification_eval_step,
     make_classification_train_step,
+    microbatch,
+    pad_batch,
 )
 from tpudl_torch.train.optim import make_optimizer, make_schedule  # noqa: F401

@@ -8,39 +8,69 @@ single-device path of tpudl.train.loop.
   the trainable parameters only (``requires_grad``): a frozen base
   (tpudl_torch.models.lora) gets no gradient, no zeros in their place
   and no optimizer state.
+- ``TrainState.batch_stats`` is a view of the model's BatchNorm running
+  statistics (tpudl's ``state.batch_stats``), None for a model without
+  BatchNorm. A train forward moves them in place.
 - ``make_classification_train_step`` builds ``step(state, batch, rng)``:
   forward with ``train=True``, mean cross-entropy, backward, one
   optimizer update. ``rng`` is an int seed; the step's dropout masks
   come from ``fold_in(rng, state.step)``, so every step draws fresh bits
-  (tpudl's ``fold_in(rng, state.step)``). There is no ``compile_step``:
-  the step is a plain callable, run eagerly.
+  (tpudl's ``fold_in(rng, state.step)``). With ``accum_steps=A`` the
+  batch splits into A microbatches (``microbatch``); microbatch ``a``
+  draws from ``fold_in(fold_seed(rng, state.step), a)`` (tpudl's
+  ``fold_in(step_rng, a)``), each backward adds into the parameters'
+  ``.grad``, the BatchNorm statistics move microbatch by microbatch, and
+  the summed gradients and metrics are divided by A before the one
+  update. There is no ``compile_step``: the step is a plain callable,
+  run eagerly.
 - ``make_classification_eval_step`` builds ``step(state, batch)``: the
   forward with ``train=False`` and no autograd, the per-example loss and
   the accuracy as means (masked means over the real rows when the batch
-  has a ``"_valid"`` column).
+  has a ``"_valid"`` column); it carries the ``mask_aware`` marker.
+- ``pad_batch`` and ``evaluate``: a ragged eval tail padded with a
+  ``"_valid"`` mask for a mask-aware step, and the metrics weighted by
+  each batch's real rows.
 - ``loss_impl`` routes the per-example loss through
   tpudl_torch.ops.cross_entropy: "reference" is the composite the step
   always used; "auto" / "fused" the vocab-streaming kernels on the card.
 - ``fit`` drives a step over a batch iterator, one step per dispatch.
 
 Not ported (each raises NotImplementedError naming its ROADMAP item):
-gradient accumulation, mixed-precision policies, the MoE auxiliary loss;
-and fit's checkpointing, preemption, profiling, fused K-step dispatch
-and asynchronous metrics.
+mixed-precision policies, the MoE auxiliary loss; and fit's
+checkpointing, preemption, profiling, fused K-step dispatch and
+asynchronous metrics.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch import nn
 
+from tpudl_torch.models.resnet import BatchNorm
 from tpudl_torch.ops.cross_entropy import softmax_cross_entropy
-from tpudl_torch.rng import fold_in
+from tpudl_torch.rng import fold_in, fold_seed
 from tpudl_torch.train.optim import Optimizer
+
+
+def microbatch(batch: dict, accum_steps: int) -> dict:
+    """Split the [B, ...] columns of ``batch`` (arrays or tensors) into
+    [A, B/A, ...] microbatches: microbatch ``a`` is rows [a B/A, (a + 1)
+    B/A). tpudl's split over one batch shard, a plain reshape."""
+
+    def one(x):
+        b = x.shape[0]
+        if b % accum_steps:
+            raise ValueError(f"batch {b} not divisible by accum_steps "
+                             f"{accum_steps} x batch shards 1")
+        return x.reshape(accum_steps, b // accum_steps, *x.shape[1:])
+
+    return {k: one(v) for k, v in batch.items()}
 
 
 @dataclasses.dataclass
@@ -55,6 +85,15 @@ class TrainState:
         """The trainable parameters, by state_dict name."""
         return {k: p for k, p in self.model.named_parameters()
                 if p.requires_grad}
+
+    @property
+    def batch_stats(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The BatchNorm running statistics by state_dict name (the
+        model's buffers themselves), or None without BatchNorm."""
+        stats = {f"{name}.{leaf}": getattr(m, leaf)
+                 for name, m in self.model.named_modules()
+                 if isinstance(m, BatchNorm) for leaf in ("mean", "var")}
+        return stats or None
 
     def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> "TrainState":
         """One optimizer update of the parameters, in place."""
@@ -129,49 +168,81 @@ def make_classification_train_step(
     ``input_keys`` name the batch columns passed positionally to the
     model — ``("input_ids", "attention_mask")`` for BERT. The batch may
     hold numpy arrays or tensors; they go to the model's device first,
-    then through ``input_transform``. ``loss_impl``: see the module
-    docstring. ``step.grads_and_metrics(state,
-    batch, generator)`` is the step without the optimizer update (the
-    gradients of the trainable parameters as a dict of tensors), for
-    checks."""
+    then (per microbatch) through ``input_transform``. ``loss_impl``: see
+    the module docstring. ``accum_steps`` > 1 splits the batch into that
+    many microbatches, run in order with one optimizer update (see the
+    module docstring): equal to the monolithic step, up to summation
+    order, for a model whose loss is a mean over examples and which has
+    no BatchNorm. ``step.grads_and_metrics(state, batch, generator)`` is
+    the step without the optimizer update (the gradients of the
+    trainable parameters as a dict of tensors), for checks; under
+    accumulation ``generator`` is a sequence of one generator per
+    microbatch."""
     if isinstance(input_keys, str):
         input_keys = (input_keys,)
-    if accum_steps != 1:
-        _refuse("accum_steps", accum_steps, "queue A item 12")
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if precision is not None:
         _refuse("precision", precision, "queue A item 8")
     if moe_aux_weight:
         _refuse("moe_aux_weight", moe_aux_weight, "queue A item 4")
 
-    def grads_and_metrics(state: TrainState, batch: dict,
-                          generator: torch.Generator):
-        device = next(state.model.parameters()).device
-        batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    def backward(state: TrainState, batch: dict, generator):
+        """Forward and backward of one (micro)batch already on the
+        device; the backward adds into the parameters' ``.grad``. Returns
+        the metrics as means over its rows."""
         if input_transform is not None:
             batch = input_transform(batch)
-        params = state.params
-        for p in params.values():
-            p.grad = None
         logits = state.model(*(batch[k] for k in input_keys), train=True,
                              generator=generator)
         labels = batch[label_key].long()
         loss = cross_entropy_loss(logits, labels, label_smoothing,
                                   impl=loss_impl)
         loss.backward()
+        return {
+            "loss": loss.detach(),
+            "accuracy": (logits.detach().argmax(-1) == labels).float().mean(),
+        }
+
+    def grads_and_metrics(
+            state: TrainState, batch: dict,
+            generator: Union[torch.Generator, Sequence[torch.Generator]]):
+        device = next(state.model.parameters()).device
+        batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        params = state.params
+        for p in params.values():
+            p.grad = None
+        if accum_steps == 1:
+            metrics = backward(state, batch, generator)
+        else:
+            if isinstance(generator, torch.Generator) or \
+                    len(generator) != accum_steps:
+                raise ValueError(f"accum_steps={accum_steps} takes one "
+                                 f"generator per microbatch")
+            micro = microbatch(batch, accum_steps)
+            metrics = {}
+            for a, gen in enumerate(generator):
+                m = backward(state, {k: v[a] for k, v in micro.items()}, gen)
+                metrics = {k: metrics[k] + v if metrics else v
+                           for k, v in m.items()}
+            metrics = {k: v / accum_steps for k, v in metrics.items()}
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
         for p in params.values():
             p.grad = None
-        metrics = {
-            "loss": loss.detach(),
-            "accuracy": (logits.detach().argmax(-1) == labels).float().mean(),
-        }
+        if accum_steps > 1:
+            for g in grads.values():
+                g.div_(accum_steps)
         return grads, metrics
 
     def step(state: TrainState, batch: dict, rng: int):
         device = next(state.model.parameters()).device
-        grads, metrics = grads_and_metrics(state, batch,
-                                           fold_in(rng, state.step, device))
+        if accum_steps == 1:
+            generator = fold_in(rng, state.step, device)
+        else:
+            seed = fold_seed(rng, state.step)
+            generator = [fold_in(seed, a, device) for a in range(accum_steps)]
+        grads, metrics = grads_and_metrics(state, batch, generator)
         state.apply_gradients(grads)
         return state, metrics
 
@@ -215,7 +286,77 @@ def make_classification_eval_step(
             return {"loss": (per_loss * w).sum() / denom,
                     "accuracy": (correct * w).sum() / denom}
 
+    # evaluate() pads a ragged tail only into a step that weights the
+    # pads out (tpudl's ``_tpudl_mask_aware``).
+    step.mask_aware = True
     return step
+
+
+def pad_batch(batch: dict, to_size: int) -> dict:
+    """Pad every [B, ...] column of ``batch`` (arrays or tensors) to
+    ``to_size`` rows with zeros and add a ``"_valid"`` float32
+    [to_size] column: 1.0 on the real rows, 0.0 on the pads. An existing
+    ``"_valid"`` column is extended with zeros."""
+    sizes = {k: v.shape[0] for k, v in batch.items()}
+    b = next(iter(sizes.values()))
+    if any(s != b for s in sizes.values()):
+        raise ValueError(f"ragged leading dims within one batch: {sizes}")
+    if to_size < b:
+        raise ValueError(f"cannot pad batch of {b} down to {to_size}")
+
+    def pad0(x, width):
+        if isinstance(x, torch.Tensor):
+            return torch.cat([x, x.new_zeros((width, *x.shape[1:]))])
+        x = np.asarray(x)
+        return np.pad(x, [(0, width)] + [(0, 0)] * (x.ndim - 1))
+
+    valid = batch.get("_valid")
+    if valid is None:
+        valid = np.ones((b,), np.float32)
+    out = {k: pad0(v, to_size - b) for k, v in batch.items() if k != "_valid"}
+    out["_valid"] = pad0(valid, to_size - b)
+    return out
+
+
+def evaluate(
+    eval_step: Callable,
+    state: TrainState,
+    batches: Iterable[dict],
+    num_steps: Optional[int] = None,
+    pad_to: Optional[int] = None,
+) -> dict:
+    """Drive ``eval_step`` over ``batches`` (at most ``num_steps``) and
+    return the example-weighted mean of each metric as a float: each
+    batch weighs its real rows (the sum of a ``"_valid"`` column, else
+    its size). The first batch's size (or ``pad_to``) is the target: a
+    smaller later batch is zero-padded to it with a ``"_valid"`` mask
+    (``pad_batch``) when the step carries the ``mask_aware`` marker
+    (``make_classification_eval_step`` does) or ``pad_to`` is given;
+    otherwise it runs at its own size. The metrics stay on the device
+    until the one read at the end."""
+    if num_steps is not None and num_steps <= 0:
+        raise ValueError(f"num_steps must be positive, got {num_steps}")
+    may_pad = pad_to is not None or getattr(eval_step, "mask_aware", False)
+    totals: dict = {}
+    n_examples = 0.0
+    target = pad_to
+    for batch in itertools.islice(batches, num_steps):
+        bs = next(iter(batch.values())).shape[0]
+        if "_valid" in batch:
+            weight = float(torch.as_tensor(batch["_valid"]).sum())
+        else:
+            weight = float(bs)
+        if target is None:
+            target = bs
+        if bs < target and may_pad:
+            batch = pad_batch(batch, target)
+        metrics = eval_step(state, batch)
+        n_examples += weight
+        for k, v in metrics.items():
+            totals[k] = totals.get(k, 0.0) + v * weight
+    if n_examples == 0:
+        raise ValueError("evaluate() received no batches")
+    return {k: float(v) / n_examples for k, v in totals.items()}
 
 
 def _to_host(metrics: dict) -> dict:
