@@ -191,6 +191,21 @@ state, remat, evaluate, the augmenter) add:
              running statistics; logits and losses gated at
              RESNET_PARITY_TOL.
 
+The compiled step (tpudl_torch.graphs) makes every path run twice, from
+the same seeded weights over the same batches or requests: eagerly,
+then captured as CUDA graphs (train and eval steps through
+compile_step, whose first call is eager and second the capture; decode
+calls through ServeSession.from_model's CapturedCall). Phases 5, 6b, 9,
+11, 15, 17 and llama_lora_train print both ways (step ms or TTFT/TPOT,
+device busy share from a profiled window, launches per step, peak
+memory, capture time) and fail unless the captured run's losses,
+parameters, optimizer state, BatchNorm statistics, eval metrics and
+tokens equal the eager run's bit for bit and its launch counts are the
+exact per-step counts. resnet50_train feeds both runs through
+prefetch_to_device (assembly workers running a seeded native crop and
+flip per step) and prints the data wait of each step; its evaluate runs
+through one captured eval graph too.
+
 The last three lines are the ``{"kernels": [...]}`` record (``launches``
 is each kernel's count over its main-path run, ``launches_per_step`` per
 decode or train step), the card's
@@ -857,57 +872,69 @@ def tenant_slice_phase(torch, model, params, card, dense):
           f"MB = {pool.nbytes / 2**30:.3f} GiB, set-up "
           f"{time.perf_counter() - t0:.1f} s")
     session.serve([Request("warm", [1, 2, 3], max_new_tokens=2, tenant="t0")])
-    session = ServeSession.from_model(model, params, **kw)
     requests = tenant_requests(Request, model.cfg.vocab_size, sorted(adapters))
-    torch.cuda.synchronize()
-    rms_norm.launches = swiglu.launches = sl.segmented_lora.launches = 0
-    t0 = time.perf_counter()
-    results = session.serve([Request(**r.__dict__) for r in requests])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"seg_lora": sl.segmented_lora.launches,
-                "rms_norm_fwd": rms_norm.launches,
-                "swiglu_fwd": swiglu.launches}
-    eng = session.engine
-    calls = eng.num_prefills + eng.num_decode_steps
-    stats = eng.adapter_pool.stats()
-    print(f"tenant_slice: {len(results)} requests, {eng.num_prefills} "
-          f"prefills, {eng.num_decode_steps} decode steps, launches "
-          f"{launches}, pool {stats}")
-    bad = [rid for rid, r in results.items() if not r.ok]
-    if bad:
-        fail(f"tenant_slice: requests not ok: {bad}")
-    for req in requests:
-        toks = results[req.request_id].tokens
-        if len(toks) != req.max_new_tokens or not all(
-                0 <= x < model.cfg.vocab_size for x in toks):
-            fail(f"tenant_slice: request {req.request_id}: {len(toks)} tokens")
-    want = {"seg_lora": 224 * calls, "rms_norm_fwd": 65 * calls,
-            "swiglu_fwd": 32 * calls}
-    if launches != want:
-        fail(f"tenant_slice: launches {launches} != expected {want} (224 "
-             f"segmented-LoRA, 65 RMSNorm, 32 SwiGLU per prefill and decode "
-             f"step)")
-    if not (stats["evictions"] > 0 and stats["reloads"] > 0):
-        fail(f"tenant_slice: the pool did not evict and reload: {stats}")
-    ttft = [r.ttft_s * 1e3 for r in results.values()]
-    tpot = [r.tpot_s * 1e3 for r in results.values() if r.tpot_s is not None]
-    tokens = sum(len(r.tokens) for r in results.values())
-    metrics = {"ttft_p50_ms": pct(ttft, 50), "ttft_p90_ms": pct(ttft, 90),
-               "tpot_p50_ms": pct(tpot, 50), "tpot_p90_ms": pct(tpot, 90),
-               "tokens_per_s": tokens / wall, "prefills": eng.num_prefills,
-               "decode_steps": eng.num_decode_steps, "pool": stats,
-               "pool_bytes": eng.adapter_pool.nbytes}
-    print(f"tenant_slice metrics ({card}): TTFT p50 {metrics['ttft_p50_ms']:.2f}"
-          f" ms, p90 {metrics['ttft_p90_ms']:.2f} ms (dense slice "
-          f"{dense['ttft_p50_ms']:.2f} / {dense['ttft_p90_ms']:.2f}); TPOT p50 "
-          f"{metrics['tpot_p50_ms']:.3f} ms, p90 {metrics['tpot_p90_ms']:.3f} "
-          f"ms (dense {dense['tpot_p50_ms']:.3f} / {dense['tpot_p90_ms']:.3f});"
-          f" {tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s "
-          f"(dense {dense['tokens_per_s']:.1f})")
+    counted = {"seg_lora": sl.segmented_lora, "rms_norm_fwd": rms_norm,
+               "swiglu_fwd": swiglu}
+    runs = {capture: serve_run(
+        torch, ServeSession.from_model(model, params, capture=capture, **kw),
+        requests, counted) for capture in (False, True)}
+    out = {}
+    for capture, (session, results, wall, launches, peak) in runs.items():
+        way = "captured" if capture else "eager"
+        eng = session.engine
+        calls = eng.num_prefills + eng.num_decode_steps
+        stats = eng.adapter_pool.stats()
+        print(f"tenant_slice ({way}): {len(results)} requests, "
+              f"{eng.num_prefills} prefills, {eng.num_decode_steps} decode "
+              f"steps, launches {launches}, pool {stats}")
+        bad = [rid for rid, r in results.items() if not r.ok]
+        if bad:
+            fail(f"tenant_slice: requests not ok: {bad}")
+        for req in requests:
+            toks = results[req.request_id].tokens
+            if len(toks) != req.max_new_tokens or not all(
+                    0 <= x < model.cfg.vocab_size for x in toks):
+                fail(f"tenant_slice: request {req.request_id}: {len(toks)} "
+                     f"tokens")
+        want = {"seg_lora": 224 * calls, "rms_norm_fwd": 65 * calls,
+                "swiglu_fwd": 32 * calls}
+        if launches != want:
+            fail(f"tenant_slice ({way}): launches {launches} != expected "
+                 f"{want} (224 segmented-LoRA, 65 RMSNorm, 32 SwiGLU per "
+                 f"prefill and decode step)")
+        if not (stats["evictions"] > 0 and stats["reloads"] > 0):
+            fail(f"tenant_slice: the pool did not evict and reload: {stats}")
+        ttft = [r.ttft_s * 1e3 for r in results.values()]
+        tpot = [r.tpot_s * 1e3 for r in results.values()
+                if r.tpot_s is not None]
+        tokens = sum(len(r.tokens) for r in results.values())
+        capture_s = getattr(eng.decode_call, "capture_s", None)
+        m = {"ttft_p50_ms": pct(ttft, 50), "ttft_p90_ms": pct(ttft, 90),
+             "tpot_p50_ms": pct(tpot, 50), "tpot_p90_ms": pct(tpot, 90),
+             "tokens_per_s": tokens / wall, "prefills": eng.num_prefills,
+             "decode_steps": eng.num_decode_steps, "pool": stats,
+             "pool_bytes": eng.adapter_pool.nbytes, "peak_memory_gib": peak,
+             "launches": launches, "capture_s": capture_s}
+        d = dense if capture else dense["eager"]
+        print(f"tenant_slice metrics, {way} ({card}): TTFT p50 "
+              f"{m['ttft_p50_ms']:.2f} ms, p90 {m['ttft_p90_ms']:.2f} ms "
+              f"(dense slice {d['ttft_p50_ms']:.2f} / {d['ttft_p90_ms']:.2f});"
+              f" TPOT p50 {m['tpot_p50_ms']:.3f} ms, p90 "
+              f"{m['tpot_p90_ms']:.3f} ms (dense {d['tpot_p50_ms']:.3f} / "
+              f"{d['tpot_p90_ms']:.3f}); {tokens} tokens in {wall:.3f} s = "
+              f"{tokens / wall:.1f} tokens/s (dense {d['tokens_per_s']:.1f});"
+              f" peak memory {peak:.2f} GiB"
+              + ("" if capture_s is None
+                 else f"; decode graph captured in {capture_s * 1e3:.1f} ms"))
+        out[capture] = m
+    same_tokens(runs, requests, "tenant_slice")
+    metrics = out[True]
+    metrics["eager"] = out[False]
+    metrics["eager"]["decode_device_busy_share"] = profile_decode(
+        torch, model, params, Request, kw, sorted(adapters), capture=False)
     metrics["decode_device_busy_share"] = profile_decode(
         torch, model, params, Request, kw, sorted(adapters))
-    return adapters, requests, results, launches, metrics
+    return adapters, requests, runs[True][1], runs[True][3], metrics
 
 
 def tenant_parity_phase(torch, model, params, adapters, requests,
@@ -1114,61 +1141,110 @@ def slice_phase(torch, card):
 
     # Warm-up (cuBLAS handles, allocator) outside the counted run.
     ServeSession.from_model(model, params, prompt_len=PROMPT_LEN,
-                            num_slots=NUM_SLOTS).serve(
+                            num_slots=NUM_SLOTS, capture=False).serve(
         [Request("warm", [1, 2, 3], max_new_tokens=2)]
     )
     greedy, sampled = requests_for(Request, cfg.vocab_size)
-    session = ServeSession.from_model(model, params, prompt_len=PROMPT_LEN,
-                                      num_slots=NUM_SLOTS)
+    requests = greedy + [sampled]
+    runs = {}
+    for capture in (False, True):
+        runs[capture] = serve_run(
+            torch, ServeSession.from_model(model, params,
+                                          prompt_len=PROMPT_LEN,
+                                          num_slots=NUM_SLOTS,
+                                          capture=capture),
+            requests, {"rms_norm_fwd": rms_norm, "swiglu_fwd": swiglu})
+    out = {}
+    for capture, run in runs.items():
+        way = "captured" if capture else "eager"
+        session, results, wall, launches, peak = run
+        eng = session.engine
+        calls = eng.num_prefills + eng.num_decode_steps
+        print(f"slice ({way}): {len(results)} requests, {eng.num_prefills} "
+              f"prefills, {eng.num_decode_steps} decode steps, launches "
+              f"{launches}")
+        bad = [rid for rid, r in results.items() if not r.ok]
+        if bad:
+            fail(f"requests not ok: {[(rid, results[rid].finish_reason) for rid in bad]}")
+        for req in requests:
+            toks = results[req.request_id].tokens
+            if len(toks) != req.max_new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in toks
+            ):
+                fail(f"request {req.request_id}: {len(toks)} tokens, expected "
+                     f"{req.max_new_tokens} in [0, {cfg.vocab_size})")
+        want = {"rms_norm_fwd": 65 * calls, "swiglu_fwd": 32 * calls}
+        if launches != want:
+            fail(f"slice ({way}): kernel launches {launches} != expected "
+                 f"{want} (65 RMSNorm and 32 SwiGLU per prefill and decode "
+                 f"step)")
+        ttft = [r.ttft_s * 1e3 for r in results.values()]
+        tpot = [r.tpot_s * 1e3 for r in results.values()
+                if r.tpot_s is not None]
+        tokens = sum(len(r.tokens) for r in results.values())
+        capture_s = getattr(eng.decode_call, "capture_s", None)
+        print(f"slice metrics, {way} ({card}): TTFT p50 {pct(ttft, 50):.2f} "
+              f"ms, p90 {pct(ttft, 90):.2f} ms; TPOT p50 {pct(tpot, 50):.3f} "
+              f"ms, p90 {pct(tpot, 90):.3f} ms; {tokens} tokens in "
+              f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; "
+              f"{eng.num_decode_steps} decode steps ({wall / max(1, eng.num_decode_steps) * 1e3:.3f} "
+              f"ms per step incl. prefills); peak memory {peak:.2f} GiB"
+              + ("" if capture_s is None
+                 else f"; decode graph captured in {capture_s * 1e3:.1f} ms"))
+        out[capture] = {
+            "ttft_p50_ms": pct(ttft, 50), "tpot_p50_ms": pct(tpot, 50),
+            "ttft_p90_ms": pct(ttft, 90), "tpot_p90_ms": pct(tpot, 90),
+            "tokens_per_s": tokens / wall,
+            "decode_steps": eng.num_decode_steps,
+            "prefills": eng.num_prefills, "peak_memory_gib": peak,
+            "launches": launches, "capture_s": capture_s,
+        }
+    same_tokens(runs, requests, "slice")
+    session, results, _, launches, _ = runs[True]
+    metrics = out[True]
+    metrics["eager"] = out[False]
+    metrics["eager"]["decode_device_busy_share"] = profile_decode(
+        torch, model, params, Request, capture=False)
+    metrics["decode_device_busy_share"] = profile_decode(
+        torch, model, params, Request)
+    return model, params, requests, results, launches, metrics
+
+
+def serve_run(torch, session, requests, counted):
+    """Serve ``requests`` through ``session`` with the ``counted``
+    wrappers' counts (name -> wrapper) set to 0 just before: (session,
+    results, wall s, launches, peak GiB)."""
+    from tpudl_torch.serve import Request
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rms_norm.launches = 0
-    swiglu.launches = 0
+    for fn in counted.values():
+        fn.launches = 0
     t0 = time.perf_counter()
-    results = session.serve(greedy + [sampled])
+    results = session.serve([Request(**r.__dict__) for r in requests])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"rms_norm_fwd": rms_norm.launches,
-                "swiglu_fwd": swiglu.launches}
-    eng = session.engine
-    calls = eng.num_prefills + eng.num_decode_steps
-    print(f"slice: {len(results)} requests, {eng.num_prefills} prefills, "
-          f"{eng.num_decode_steps} decode steps, launches {launches}")
-    bad = [rid for rid, r in results.items() if not r.ok]
-    if bad:
-        fail(f"requests not ok: {[(rid, results[rid].finish_reason) for rid in bad]}")
-    for req in greedy + [sampled]:
-        toks = results[req.request_id].tokens
-        if len(toks) != req.max_new_tokens or not all(
-            0 <= t < cfg.vocab_size for t in toks
-        ):
-            fail(f"request {req.request_id}: {len(toks)} tokens, expected "
-                 f"{req.max_new_tokens} in [0, {cfg.vocab_size})")
-    want = {"rms_norm_fwd": 65 * calls, "swiglu_fwd": 32 * calls}
-    if launches != want:
-        fail(f"kernel launches {launches} != expected {want} "
-             f"(65 RMSNorm and 32 SwiGLU per prefill and decode step)")
-    ttft = [r.ttft_s * 1e3 for r in results.values()]
-    tpot = [r.tpot_s * 1e3 for r in results.values() if r.tpot_s is not None]
-    tokens = sum(len(r.tokens) for r in results.values())
-    print(f"slice metrics ({card}): TTFT p50 {pct(ttft, 50):.2f} ms, p90 "
-          f"{pct(ttft, 90):.2f} ms; TPOT p50 {pct(tpot, 50):.3f} ms, p90 "
-          f"{pct(tpot, 90):.3f} ms; {tokens} tokens in {wall:.3f} s = "
-          f"{tokens / wall:.1f} tokens/s; {eng.num_decode_steps} decode "
-          f"steps ({wall / max(1, eng.num_decode_steps) * 1e3:.3f} ms per "
-          f"step incl. prefills); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    busy = profile_decode(torch, model, params, Request)
-    return model, params, greedy + [sampled], results, launches, {
-        "ttft_p50_ms": pct(ttft, 50), "tpot_p50_ms": pct(tpot, 50),
-        "ttft_p90_ms": pct(ttft, 90), "tpot_p90_ms": pct(tpot, 90),
-        "tokens_per_s": tokens / wall, "decode_steps": eng.num_decode_steps,
-        "prefills": eng.num_prefills, "decode_device_busy_share": busy,
-    }
+    return (session, results, wall,
+            {name: fn.launches for name, fn in counted.items()},
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def same_tokens(runs, requests, what):
+    """The captured session's tokens, greedy and sampled, are the eager
+    session's."""
+    eager, captured = runs[False][1], runs[True][1]
+    differ = [r.request_id for r in requests
+              if eager[r.request_id].tokens != captured[r.request_id].tokens]
+    if differ:
+        fail(f"{what}: captured decode gave other tokens than eager for "
+             f"{differ}")
+    print(f"{what}: captured decode tokens equal the eager session's for all "
+          f"{len(requests)} requests ({sum(r.temperature > 0 for r in requests)} "
+          f"sampled)")
 
 
 def profile_decode(torch, model, params, Request, session_kw=None,
-                   tenants=None):
+                   tenants=None, capture=True):
     """Device busy share and the top kernels and host ops over a steady
     window of decode steps (4 slots busy): the window's wall time is
     taken without the profiler (which slows the host), the device time
@@ -1179,8 +1255,8 @@ def profile_decode(torch, model, params, Request, session_kw=None,
     from tpudl_torch.serve import ServeSession
 
     session = ServeSession.from_model(
-        model, params, **(session_kw or dict(prompt_len=PROMPT_LEN,
-                                             num_slots=NUM_SLOTS)))
+        model, params, capture=capture,
+        **(session_kw or dict(prompt_len=PROMPT_LEN, num_slots=NUM_SLOTS)))
     for i in range(NUM_SLOTS):
         session.submit(Request(f"p{i}", list(range(1 + i, 101 + i)),
                                max_new_tokens=40,
@@ -1201,7 +1277,9 @@ def profile_decode(torch, model, params, Request, session_kw=None,
         for _ in range(steps):
             eng.step()
 
-    busy = profile_steps(torch, run, steps, "decode", wall_us)
+    busy = profile_steps(torch, run, steps,
+                         "decode (captured)" if capture else "decode (eager)",
+                         wall_us)
     session.collect()
     return busy
 
@@ -1974,17 +2052,23 @@ def tiny_train_phase(torch, fused_slice=False):
 
 def train_phase(torch, card, fused_slice=False, batch_size=BERT_BATCH,
                 seq=BERT_SEQ, name=None):
-    """BERT-base through the user's entry points: W warm-up steps, then
-    TRAIN_STEPS timed steps (counts reset just before), then a
-    profiled window, at ``batch_size`` x ``seq``. With ``fused_slice``
+    """BERT-base through the user's entry points, twice from the same
+    seeded weights over the same batches: eagerly, then through
+    compile_step (its first call eager, its second the capture, then
+    replays). Each way W warm-up steps, then TRAIN_STEPS timed steps
+    (counts reset just before; exact launches a step), then a profiled
+    window, at ``batch_size`` x ``seq``, dropout 0.1; the captured run's
+    losses, and its parameters, optimizer state and step count after the
+    timed steps, equal the eager run's bit for bit. With ``fused_slice``
     (the train_fused and train_512 phases) the model runs
     attention_impl="fused" and the step loss_impl="auto", and one eval
-    batch through make_classification_eval_step follows (counts reset
-    just before)."""
+    batch through make_classification_eval_step follows, eager and
+    captured (counts reset just before each; equal bit for bit)."""
     from tpudl_torch.data.synthetic import synthetic_token_batches
     from tpudl_torch.models.registry import build_model
     from tpudl_torch.rng import fold_in
     from tpudl_torch.train import (
+        compile_step,
         create_train_state,
         fit,
         make_classification_eval_step,
@@ -2000,98 +2084,172 @@ def train_phase(torch, card, fused_slice=False, batch_size=BERT_BATCH,
     name = name or ("train_fused" if fused_slice else "train")
     model_kw, loss_impl = bert_variant(fused_slice)
     per_step = launches_per_step(12, fused_slice, seq)
-    t0 = time.perf_counter()
-    model = build_model("bert-base", 2, **model_kw)
-    state = create_train_state(0, model, sst2_optimizer())
-    n_params = sum(p.numel() for p in model.parameters())
     keys = ("input_ids", "attention_mask")
     step = make_classification_train_step(input_keys=keys, label_key="label",
                                           loss_impl=loss_impl)
     steps = TRAIN_WARMUP_STEPS + TRAIN_STEPS + PROFILE_STEPS
-    batches = list(synthetic_token_batches(batch_size, seq,
-                                           model.cfg.vocab_size,
-                                           num_batches=steps))
-    losses = []
     w = TRAIN_WARMUP_STEPS
-    # The window opens once the last warm-up step has finished on the card.
-    meter = Throughput(batch_size, warmup=w)
+    batches = None
+    runs = {}
+    for capture in (False, True):
+        way = "captured" if capture else "eager"
+        t0 = time.perf_counter()
+        model = build_model("bert-base", 2, **model_kw)
+        state = create_train_state(0, model, sst2_optimizer())
+        n_params = sum(p.numel() for p in model.parameters())
+        if batches is None:
+            batches = list(synthetic_token_batches(
+                batch_size, seq, model.cfg.vocab_size, num_batches=steps))
+        run_step = compile_step(step, state) if capture else step
+        losses = []
+        # The window opens once the last warm-up step has finished.
+        meter = Throughput(batch_size, warmup=w)
 
-    def recorded(state, batch, rng):
-        state, metrics = step(state, batch, rng)
-        losses.append(metrics["loss"])
-        meter.step(metrics["loss"])
-        return state, metrics
+        def recorded(state, batch, rng, run_step=run_step, losses=losses,
+                     meter=meter):
+            state, metrics = run_step(state, batch, rng)
+            losses.append(metrics["loss"])
+            meter.step(metrics["loss"])
+            return state, metrics
 
-    torch.cuda.synchronize()
-    print(f"{name}: BERT-base ({model_kw}, loss_impl={loss_impl!r}), "
-          f"{n_params / 1e6:.2f} M parameters, batch {batch_size} x seq "
-          f"{seq}, set-up {time.perf_counter() - t0:.1f} s")
-    state, _, _ = fit(recorded, state, batches[:w], 1)
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    state, last, _ = fit(recorded, state, batches[w:w + TRAIN_STEPS], 1)
-    timed = meter.result(losses[-1])
-    launches = train_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in launches}
-    print(f"{name}: {TRAIN_STEPS} steps, launches {launches}")
-    if launches != want:
-        fail(f"{name}: kernel launches {launches} != expected {want} "
-             f"({per_step} per step, none of the others)")
-    loss_t = torch.stack(losses)
-    if not bool(torch.isfinite(loss_t).all()):
-        fail(f"{name}: non-finite loss in {loss_t.tolist()}")
-    if timed["steps_measured"] != TRAIN_STEPS:
-        fail(f"{name}: the meter timed {timed['steps_measured']} steps, not "
-             f"{TRAIN_STEPS}")
-    step_s = timed["step_ms"] / 1e3
-    flops = transformer_train_flops(n_params, batch_size * seq)
-    peak_flops = device_peak_flops()
-    util = mfu(flops, step_s, peak_per_chip=peak_flops)
-    print(f"{name} metrics ({card}): step {step_s * 1e3:.2f} ms, "
-          f"{batch_size / step_s:.1f} samples/s, MFU {100 * util:.2f}% "
-          f"(6ND = {flops:.3e} FLOP over {peak_flops / 1e12:.0f} TFLOP/s dense "
-          f"bf16), peak memory {peak:.2f} GiB, losses "
-          f"{loss_t[0].item():.4f} -> {last['loss']:.4f}")
-    rest = batches[w + TRAIN_STEPS:]
-    busy = profile_steps(
-        torch, lambda: fit(step, state, rest, 1), PROFILE_STEPS, name,
-        step_s * 1e6 * PROFILE_STEPS)
-    # The same batches without the optimizer update: forward and backward.
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for b, batch in enumerate(rest):
-        step.grads_and_metrics(state, batch, fold_in(1, b, "cuda"))
-    torch.cuda.synchronize()
-    fwd_bwd_ms = (time.perf_counter() - t0) / len(rest) * 1e3
-    print(f"{name}: forward and backward alone {fwd_bwd_ms:.2f} ms per step; "
-          f"the optimizer update (clip, AdamW) and the rest "
-          f"{step_s * 1e3 - fwd_bwd_ms:.2f} ms")
-    metrics = {
-        "step_ms": step_s * 1e3, "samples_per_s": batch_size / step_s,
-        "mfu": util, "peak_memory_gib": peak, "device_busy_share": busy,
-        "forward_backward_ms": fwd_bwd_ms, "num_params": n_params,
-        "steps": TRAIN_STEPS, "batch": batch_size, "seq": seq,
-    }
-    if fused_slice:
-        evaluate = make_classification_eval_step(input_keys=keys,
-                                                 loss_impl=loss_impl)
         torch.cuda.synchronize()
+        print(f"{name} ({way}): BERT-base ({model_kw}, loss_impl="
+              f"{loss_impl!r}), {n_params / 1e6:.2f} M parameters, batch "
+              f"{batch_size} x seq {seq}, set-up "
+              f"{time.perf_counter() - t0:.1f} s")
+        # Peak memory over the warm-up too: a captured step allocates its
+        # activations once, in the capture, from the graph's own pool.
+        torch.cuda.reset_peak_memory_stats()
+        state, _, _ = fit(recorded, state, batches[:w], 1)
         reset_counts()
-        ev = evaluate(state, batches[0])
-        ev_launches = train_counts()
-        want = {k: eval_launches(12, seq).get(k, 0) for k in ev_launches}
-        if ev_launches != want:
-            fail(f"{name}: the eval batch launched {ev_launches}, expected "
-                 f"{want}")
-        ev = {k: float(v) for k, v in ev.items()}
-        if not all(v == v and abs(v) != float("inf") for v in ev.values()):
-            fail(f"{name}: non-finite eval metrics {ev}")
-        print(f"{name}: one eval batch through make_classification_eval_step"
-              f"(loss_impl={loss_impl!r}): loss {ev['loss']:.4f}, accuracy "
-              f"{ev['accuracy']:.4f}, launches {ev_launches}")
-        metrics["eval"] = ev
+        state, last, _ = fit(recorded, state, batches[w:w + TRAIN_STEPS], 1)
+        timed = meter.result(losses[-1])
+        launches = train_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in launches}
+        print(f"{name} ({way}): {TRAIN_STEPS} steps, launches {launches}")
+        if launches != want:
+            fail(f"{name} ({way}): kernel launches {launches} != expected "
+                 f"{want} ({per_step} per step, none of the others)")
+        loss_t = torch.stack(losses)
+        if not bool(torch.isfinite(loss_t).all()):
+            fail(f"{name}: non-finite loss in {loss_t.tolist()}")
+        if timed["steps_measured"] != TRAIN_STEPS:
+            fail(f"{name}: the meter timed {timed['steps_measured']} steps, "
+                 f"not {TRAIN_STEPS}")
+        step_s = timed["step_ms"] / 1e3
+        flops = transformer_train_flops(n_params, batch_size * seq)
+        peak_flops = device_peak_flops()
+        util = mfu(flops, step_s, peak_per_chip=peak_flops)
+        capture_s = getattr(run_step, "capture_s", None)
+        print(f"{name} metrics, {way} ({card}): step {step_s * 1e3:.2f} ms, "
+              f"{batch_size / step_s:.1f} samples/s, MFU {100 * util:.2f}% "
+              f"(6ND = {flops:.3e} FLOP over {peak_flops / 1e12:.0f} TFLOP/s "
+              f"dense bf16), peak memory {peak:.2f} GiB, losses "
+              f"{loss_t[0].item():.4f} -> {last['loss']:.4f}"
+              + ("" if capture_s is None
+                 else f", step captured in {capture_s:.3f} s"))
+        snapshot = (loss_t.clone(), {k: v.detach().clone() for k, v in
+                                     state.model.state_dict().items()},
+                    {k: {n: t.clone() for n, t in v.items()}
+                     for k, v in state.opt_state.items()
+                     if isinstance(v, dict)}, state.step)
+        rest = batches[w + TRAIN_STEPS:]
+        busy = profile_steps(
+            torch, lambda: fit(run_step, state, rest, 1), PROFILE_STEPS,
+            f"{name} ({way})", step_s * 1e6 * PROFILE_STEPS)
+        metrics = {
+            "step_ms": step_s * 1e3, "samples_per_s": batch_size / step_s,
+            "mfu": util, "peak_memory_gib": peak, "device_busy_share": busy,
+            "num_params": n_params, "steps": TRAIN_STEPS,
+            "batch": batch_size, "seq": seq, "capture_s": capture_s,
+        }
+        if not capture:
+            # The same batches without the optimizer update.
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b, batch in enumerate(rest):
+                step.grads_and_metrics(state, batch, fold_in(1, b, "cuda"))
+            torch.cuda.synchronize()
+            fwd_bwd_ms = (time.perf_counter() - t0) / len(rest) * 1e3
+            print(f"{name}: forward and backward alone {fwd_bwd_ms:.2f} ms "
+                  f"per step; the optimizer update (clip, AdamW) and the "
+                  f"rest {step_s * 1e3 - fwd_bwd_ms:.2f} ms")
+            metrics["forward_backward_ms"] = fwd_bwd_ms
+        if fused_slice:
+            evaluate = make_classification_eval_step(input_keys=keys,
+                                                     loss_impl=loss_impl)
+            if capture:
+                evaluate = compile_step(evaluate, state, has_rng=False)
+                evaluate(state, batches[1])  # the eager warm-up call
+            evs = []
+            for _ in range(2 if capture else 1):
+                torch.cuda.synchronize()
+                reset_counts()
+                evs.append(evaluate(state, batches[0]))
+                ev_launches = train_counts()
+                want = {k: eval_launches(12, seq).get(k, 0)
+                        for k in ev_launches}
+                if ev_launches != want:
+                    fail(f"{name} ({way}): the eval batch launched "
+                         f"{ev_launches}, expected {want}")
+            ev = {k: float(v) for k, v in evs[-1].items()}
+            if not all(v == v and abs(v) != float("inf") for v in ev.values()):
+                fail(f"{name}: non-finite eval metrics {ev}")
+            print(f"{name} ({way}): one eval batch through "
+                  f"make_classification_eval_step(loss_impl={loss_impl!r})"
+                  f": loss {ev['loss']:.4f}, accuracy {ev['accuracy']:.4f}, "
+                  f"launches {ev_launches}")
+            metrics["eval"] = ev
+            metrics["eval_tensors"] = evs[-1]
+        runs[capture] = (state if capture else None, launches, metrics,
+                         snapshot)
+        if not capture:
+            del state, model, run_step
+            gc.collect()
+            torch.cuda.empty_cache()
+    state, launches, metrics, snapshot = runs[True]
+    eager = runs[False][2]
+    check_bitwise(name, runs[False][3], snapshot)
+    if fused_slice:
+        a, b = eager.pop("eval_tensors"), metrics.pop("eval_tensors")
+        if not all(torch.equal(a[k], b[k]) for k in a):
+            fail(f"{name}: the captured eval step's metrics {b} are not the "
+                 f"eager step's {a}")
+    metrics["eager"] = eager
     return state, launches, metrics
+
+
+def check_bitwise(name, eager, captured):
+    """Hold a captured run's (losses, state_dict, optimizer state, step)
+    to the eager run's, bit for bit."""
+    (l0, p0, o0, s0), (l1, p1, o1, s1) = eager, captured
+    if not torch_equal(l0, l1):
+        fail(f"{name}: captured losses {l1.tolist()} are not the eager "
+             f"run's {l0.tolist()}")
+    bad = [k for k in p0 if not torch_equal(p0[k], p1[k])]
+    bad += [f"{k}/{n}" for k in o0 for n in o0[k]
+            if not torch_equal(o0[k][n], o1[k][n])]
+    if bad or s0 != s1:
+        fail(f"{name}: after the captured steps {len(bad)} tensors differ "
+             f"from the eager run's (e.g. {bad[:5]}), steps {s1} vs {s0}")
+    print(f"{name}: captured equal to eager bit for bit: {len(l0)} losses, "
+          f"{len(p0)} parameters and statistics, "
+          f"{sum(len(v) for v in o0.values())} optimizer tensors, step {s1}")
+
+
+def torch_equal(a, b):
+    """Bit for bit: the same shape, dtype and bytes (NaNs and signed zeros
+    included)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        bits = {8: torch.int64, 4: torch.int32, 2: torch.int16}[
+            a.element_size()]
+        a, b = a.contiguous().view(bits), b.contiguous().view(bits)
+    return torch.equal(a, b)
 
 
 #: Gradients the parity gate cannot judge (see train_parity_phase).
@@ -2242,6 +2400,8 @@ LLAMA_WARMUP_STEPS = 1
 LLAMA_STEPS = 2
 LLAMA_PROFILE_STEPS = 1
 LLAMA_PARITY_BATCHES = 4
+#: The Llama LoRA step's peak memory bound at 16 x 4 (PERF.md §2).
+LLAMA_PEAK_GIB = 75.0
 #: Flash kernels vs their plain versions, relative to each element plus
 #: the size of its row (``flash_errors``): bf16 two bf16 steps (the
 #: kernel rounds p and ds relative to its running max and sums in another
@@ -2913,7 +3073,12 @@ def llama_lora_train_phase(torch, card):
     from tpudl_torch.data.synthetic import synthetic_token_batches
     from tpudl_torch.models.lora import lora_optimizer, trainable_param_count
     from tpudl_torch.models.registry import build_model
-    from tpudl_torch.train import create_train_state, fit, make_classification_train_step
+    from tpudl_torch.train import (
+        compile_step,
+        create_train_state,
+        fit,
+        make_classification_train_step,
+    )
     from tpudl_torch.train.metrics import Throughput
 
     cfg = get_config("llama3_8b_lora")
@@ -2945,73 +3110,114 @@ def llama_lora_train_phase(torch, card):
     keys = ("input_ids", "attention_mask")
     step = make_classification_train_step(input_keys=keys, label_key="label",
                                           accum_steps=LLAMA_ACCUM)
-    w, n = LLAMA_WARMUP_STEPS, LLAMA_STEPS
+    n = LLAMA_STEPS
+    # The captured run warms up one step longer (its second call is the
+    # capture); both runs are compared after the same four steps.
+    compared = LLAMA_WARMUP_STEPS + n + LLAMA_PROFILE_STEPS
     batches = list(synthetic_token_batches(
-        batch_size, LLAMA_SEQ, mcfg.vocab_size,
-        num_batches=w + n + LLAMA_PROFILE_STEPS))
-    losses = []
+        batch_size, LLAMA_SEQ, mcfg.vocab_size, num_batches=compared + 1))
     tokens = batch_size * LLAMA_SEQ
-    meter = Throughput(tokens, warmup=w)
-
-    def recorded(state, batch, rng):
-        state, metrics = step(state, batch, rng)
-        losses.append(metrics["loss"])
-        meter.step(metrics["loss"])
-        return state, metrics
-
-    state, _, _ = fit(recorded, state, batches[:w], 1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    state, last, _ = fit(recorded, state, batches[w:w + n], 1)
-    timed = meter.result(losses[-1])
-    launches = train_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    per_step = llama_launches_per_step(mcfg.num_layers, LLAMA_ACCUM)
-    want = {k: per_step.get(k, 0) * n for k in launches}
-    print(f"llama_lora_train: {n} steps, launches {launches}")
-    if launches != want:
-        fail(f"llama_lora_train: kernel launches {launches} != expected "
-             f"{want} ({per_step} per step, none of the others)")
-    loss_t = torch.stack(losses)
-    if not bool(torch.isfinite(loss_t).all()):
-        fail(f"llama_lora_train: non-finite loss in {loss_t.tolist()}")
-    if timed["steps_measured"] != n:
-        fail(f"llama_lora_train: the meter timed {timed['steps_measured']} "
-             f"steps, not {n}")
-    step_s = timed["step_ms"] / 1e3
     attn = 7.0 * batch_size * mcfg.hidden_size * LLAMA_SEQ ** 2 * mcfg.num_layers
     flops = 4.0 * n_proj * tokens + attn
-    util = flops / step_s / BF16_OPS_PER_S
-    print(f"llama_lora_train metrics ({card}): step {step_s * 1e3:.2f} ms, "
-          f"{tokens / step_s:.1f} tokens/s, MFU {100 * util:.2f}% (model "
-          f"FLOPs per step = 4 * N_proj * T + 7 * B * H * S^2 * D * L = 4 * "
-          f"{n_proj} * {tokens} + 7 * {batch_size} * {mcfg.num_heads} * "
-          f"{LLAMA_SEQ}^2 * {mcfg.head_dim} * {mcfg.num_layers} = "
-          f"{flops:.4e} over {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s dense bf16: "
-          f"the frozen base's forward and input-gradient products, and 2 "
-          f"forward and 5 backward attention products, each causal-halved), "
-          f"peak memory {peak:.2f} GiB, losses "
-          f"{', '.join(f'{x:.4f}' for x in loss_t.tolist())}")
-    rest = batches[w + n:]
-    busy = profile_steps(
-        torch, lambda: fit(step, state, rest, 1), LLAMA_PROFILE_STEPS,
-        "llama_lora_train", step_s * 1e6 * LLAMA_PROFILE_STEPS)
+    per_step = llama_launches_per_step(mcfg.num_layers, LLAMA_ACCUM)
+    init = {k: p.detach().clone() for k, p in state.params.items()}
+    runs = {}
+    for capture in (False, True):
+        way = "captured" if capture else "eager"
+        w = LLAMA_WARMUP_STEPS + int(capture)
+        if capture:
+            # Back to the initial trainable weights and optimizer state
+            # (the frozen base never moves).
+            with torch.no_grad():
+                for k, p in state.params.items():
+                    p.copy_(init[k])
+            state.opt_state = state.tx.init(state.params)
+            state.step = 0
+        run_step = compile_step(step, state) if capture else step
+        losses = []
+        meter = Throughput(tokens, warmup=w)
+
+        def recorded(state, batch, rng, run_step=run_step, losses=losses,
+                     meter=meter):
+            state, metrics = run_step(state, batch, rng)
+            losses.append(metrics["loss"])
+            meter.step(metrics["loss"])
+            return state, metrics
+
+        torch.cuda.reset_peak_memory_stats()  # over the capture too
+        state, _, _ = fit(recorded, state, batches[:w], 1)
+        torch.cuda.synchronize()
+        reset_counts()
+        state, last, _ = fit(recorded, state, batches[w:w + n], 1)
+        timed = meter.result(losses[-1])
+        launches = train_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {k: per_step.get(k, 0) * n for k in launches}
+        print(f"llama_lora_train ({way}): {n} steps, launches {launches}")
+        if launches != want:
+            fail(f"llama_lora_train ({way}): kernel launches {launches} != "
+                 f"expected {want} ({per_step} per step, none of the others)")
+        loss_t = torch.stack(losses)
+        if not bool(torch.isfinite(loss_t).all()):
+            fail(f"llama_lora_train: non-finite loss in {loss_t.tolist()}")
+        if timed["steps_measured"] != n:
+            fail(f"llama_lora_train: the meter timed "
+                 f"{timed['steps_measured']} steps, not {n}")
+        if peak > LLAMA_PEAK_GIB:
+            fail(f"llama_lora_train ({way}): peak memory {peak:.2f} GiB over "
+                 f"{LLAMA_PEAK_GIB}")
+        step_s = timed["step_ms"] / 1e3
+        util = flops / step_s / BF16_OPS_PER_S
+        capture_s = getattr(run_step, "capture_s", None)
+        print(f"llama_lora_train metrics, {way} ({card}): step "
+              f"{step_s * 1e3:.2f} ms, {tokens / step_s:.1f} tokens/s, MFU "
+              f"{100 * util:.2f}% (model FLOPs per step = 4 * N_proj * T + 7 "
+              f"* B * H * S^2 * D * L = 4 * {n_proj} * {tokens} + 7 * "
+              f"{batch_size} * {mcfg.num_heads} * {LLAMA_SEQ}^2 * "
+              f"{mcfg.head_dim} * {mcfg.num_layers} = {flops:.4e} over "
+              f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s dense bf16: the frozen "
+              f"base's forward and input-gradient products, and 2 forward "
+              f"and 5 backward attention products, each causal-halved), peak "
+              f"memory {peak:.2f} GiB, losses "
+              f"{', '.join(f'{x:.4f}' for x in loss_t.tolist())}"
+              + ("" if capture_s is None
+                 else f", the whole step ({LLAMA_ACCUM} microbatches, one "
+                      f"graph) captured in {capture_s:.3f} s"))
+        rest = batches[w + n:]
+
+        def snapshot():
+            return (torch.stack(losses[:compared]),
+                    {k: p.detach().clone() for k, p in state.params.items()},
+                    {k: {name: t.clone() for name, t in v.items()}
+                     for k, v in state.opt_state.items()
+                     if isinstance(v, dict)}, state.step)
+
+        if capture:  # four steps done
+            after = snapshot()
+        busy = profile_steps(
+            torch, lambda: fit(recorded, state, rest[:LLAMA_PROFILE_STEPS],
+                               1),
+            LLAMA_PROFILE_STEPS, f"llama_lora_train ({way})",
+            step_s * 1e6 * LLAMA_PROFILE_STEPS)
+        if not capture:  # four steps done
+            after = snapshot()
+        runs[capture] = (launches, after, {
+            "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "mfu": util, "model_flops_per_step": flops,
+            "peak_memory_gib": peak, "device_busy_share": busy,
+            "num_params": total, "trainable_params": trainable,
+            "batch": batch_size, "microbatch": LLAMA_BATCH,
+            "accum_steps": LLAMA_ACCUM, "seq": LLAMA_SEQ, "steps": n,
+            "losses": loss_t.tolist(), "capture_s": capture_s})
+    check_bitwise("llama_lora_train", runs[False][1], runs[True][1])
     changed = [k for k, p in model.named_parameters()
                if k in frozen and not torch.equal(p.detach().cpu(), frozen[k])]
     if changed or not frozen:
         fail(f"llama_lora_train: frozen base weights changed: {changed[:5]}")
     print(f"llama_lora_train: {len(frozen)} frozen base tensors bit-identical "
-          f"after {w + n + LLAMA_PROFILE_STEPS} steps")
-    metrics = {
-        "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
-        "mfu": util, "model_flops_per_step": flops,
-        "peak_memory_gib": peak, "device_busy_share": busy,
-        "num_params": total, "trainable_params": trainable,
-        "batch": batch_size, "microbatch": LLAMA_BATCH,
-        "accum_steps": LLAMA_ACCUM, "seq": LLAMA_SEQ, "steps": n,
-        "losses": loss_t.tolist(),
-    }
+          f"after both runs")
+    launches, _, metrics = runs[True]
+    metrics["eager"] = runs[False][2]
     del state, model, frozen, named
     return launches, metrics
 
@@ -3164,6 +3370,9 @@ RESNET_STEPS = 5
 RESNET_PROFILE_STEPS = 1
 RESNET_EVAL_IMAGES = 1000
 RESNET_EVAL_BATCH = 128
+#: Assembly workers of the ResNet feed (at most the host's cores less two:
+#: the main thread and the transfer thread).
+RESNET_WORKERS = 4
 #: Host augmentation, native against numpy, and device_normalize against
 #: the host normalize: tests/test_augment.py's f32 band.
 AUGMENT_TOL = 1e-6
@@ -3221,8 +3430,10 @@ def resnet50_train_phase(torch, card):
         BatchAugmenter,
         device_normalize,
     )
+    from tpudl_torch.data.prefetch import prefetch_to_device
     from tpudl_torch.models.registry import build_model
     from tpudl_torch.train import (
+        compile_step,
         create_train_state,
         evaluate,
         fit,
@@ -3266,70 +3477,146 @@ def resnet50_train_phase(torch, card):
         cfg.label_smoothing, accum_steps=accum, input_transform=norm,
         loss_impl="auto")
     flops = 3.0 * model.forward_flops(size, size) * b
+    workers = max(1, min(RESNET_WORKERS, (os.cpu_count() or 1) - 2))
     torch.cuda.synchronize()
     print(f"resnet50_train: ResNet-50 (bf16, channels_last), "
           f"{n_params / 1e6:.3f} M parameters, global batch {b} = {accum} "
           f"microbatches x {b // accum} at {size}x{size}, uint8 images padded "
           f"by {RESNET_PAD} and cropped back on the host ({aug.backend} "
           f"augmenter, OpenMP {native_lib.openmp()}; uint8 crop and flip "
-          f"{aug_ms:.1f} ms a batch; native vs numpy "
+          f"{aug_ms:.1f} ms a batch on one thread; native vs numpy "
           f"{aug_err[0]:.1e}, device_normalize vs host {aug_err[1]:.1e}); "
-          f"set-up {time.perf_counter() - t0:.1f} s")
+          f"fed by prefetch_to_device with {workers} assembly workers "
+          f"(os.cpu_count() {os.cpu_count()}); set-up "
+          f"{time.perf_counter() - t0:.1f} s")
 
-    def batches(n):
-        for _ in range(n):
-            yield aug({"image": images, "label": labels})
+    def augment(batch):
+        # Each step's crops and flips from a seed of its own, so the
+        # batches do not depend on which worker ran them.
+        seed = int(batch.pop("seed"))
+        return BatchAugmenter(backend="native", seed=seed, normalize=False,
+                              **aug_kw)(batch)
 
-    losses = []
+    def feed(first, n):
+        return prefetch_to_device(
+            ({"image": images, "label": labels, "seed": first + i}
+             for i in range(n)),
+            transform=augment, assembly_workers=workers)
+
+    def feed_ms(n_workers, n=2 * RESNET_WORKERS):
+        """The feed alone, no step: wall ms a batch through the
+        prefetcher (crop and flip, pinned copy, host-to-card copy)."""
+        alone = prefetch_to_device(
+            ({"image": images, "label": labels, "seed": 1000 + i}
+             for i in range(n)), transform=augment,
+            assembly_workers=n_workers)
+        t = time.perf_counter()
+        for _ in alone:
+            pass
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / n
+
+    feed_ms(workers, RESNET_WORKERS)  # the pinned host blocks, allocated once
+    one, many = feed_ms(1), feed_ms(workers)
+    print(f"resnet50_train: the feed alone, no step: {one:.1f} ms a batch "
+          f"with 1 assembly worker, {many:.1f} with {workers} ({one / many:.2f}"
+          f"x; the crop and flip alone {aug_ms:.1f} ms a batch on one thread)")
     w = RESNET_WARMUP_STEPS
-    meter = Throughput(b, warmup=w)
+    runs = {}
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    for capture in (False, True):
+        way = "captured" if capture else "eager"
+        if capture:
+            model = build_model(cfg.model, cfg.num_classes)
+            state = create_train_state(cfg.seed, model,
+                                       make_optimizer(cfg.optim),
+                                       params=init)
+        run_step = compile_step(step, state) if capture else step
+        losses = []
+        meter = Throughput(b, warmup=w)
 
-    def recorded(state, batch, rng):
-        state, metrics = step(state, batch, rng)
-        losses.append(metrics["loss"])
-        meter.step(metrics["loss"])
-        return state, metrics
+        def recorded(state, batch, rng, run_step=run_step, losses=losses,
+                     meter=meter):
+            state, metrics = run_step(state, batch, rng)
+            losses.append(metrics["loss"])
+            meter.step(metrics["loss"])
+            return state, metrics
 
-    state, _, _ = fit(recorded, state, batches(w), 1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    stats0 = {k: v.clone() for k, v in state.batch_stats.items()}
-    reset_counts()
-    state, last, _ = fit(recorded, state, batches(RESNET_STEPS), 1)
-    timed = meter.result(losses[-1])
-    launches = train_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    per_step = resnet_counts(accum)
-    want = {k: per_step.get(k, 0) * RESNET_STEPS for k in launches}
-    print(f"resnet50_train: {RESNET_STEPS} steps, launches {launches}")
-    if launches != want:
-        fail(f"resnet50_train: kernel launches {launches} != expected {want} "
-             f"({per_step} per step, none of the others)")
-    loss_t = torch.stack(losses)
-    if not bool(torch.isfinite(loss_t).all()):
-        fail(f"resnet50_train: non-finite loss in {loss_t.tolist()}")
-    stats = state.batch_stats
-    still = [k for k in stats if torch.equal(stats[k], stats0[k])]
-    bad = [k for k in stats if not bool(torch.isfinite(stats[k]).all())]
-    if still or bad:
-        fail(f"resnet50_train: running statistics that did not move "
-             f"{still[:5]} or are not finite {bad[:5]}")
-    if timed["steps_measured"] != RESNET_STEPS:
-        fail(f"resnet50_train: the meter timed {timed['steps_measured']} "
-             f"steps, not {RESNET_STEPS}")
-    step_s = timed["step_ms"] / 1e3
-    util = flops / step_s / BF16_OPS_PER_S
-    print(f"resnet50_train metrics ({card}): step {step_s * 1e3:.2f} ms, "
-          f"{b / step_s:.1f} images/s, MFU {100 * util:.2f}% (3 x the "
-          f"forward's convolution and dense FLOPs x {b} = 3 x "
-          f"{flops / 3 / b:.4e} x {b} = {flops:.4e} FLOP over "
-          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s dense bf16), peak memory "
-          f"{peak:.2f} GiB, {len(stats)} running statistics moved and "
-          f"finite, losses {', '.join(f'{x:.4f}' for x in loss_t.tolist())}")
-    busy = profile_steps(
-        torch, lambda: fit(step, state, batches(RESNET_PROFILE_STEPS), 1),
-        RESNET_PROFILE_STEPS, "resnet50_train",
-        step_s * 1e6 * RESNET_PROFILE_STEPS)
+        # One feed for the warm-up and the timed steps: its fill (the
+        # first batch's crop, flip and copy) falls in the warm-up.
+        steps_feed = feed(0, w + RESNET_STEPS)
+        torch.cuda.reset_peak_memory_stats()  # over the capture too
+        state, _, _ = fit(recorded, state, steps_feed, 1, num_steps=w)
+        torch.cuda.synchronize()
+        stats0 = {k: v.clone() for k, v in state.batch_stats.items()}
+        reset_counts()
+        state, last, _ = fit(recorded, state, steps_feed, 1,
+                             num_steps=RESNET_STEPS)
+        timed = meter.result(losses[-1])
+        launches = train_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        waits = [x * 1e3 for x in steps_feed.waits[w:]]
+        steps_feed.close()
+        per_step = resnet_counts(accum)
+        want = {k: per_step.get(k, 0) * RESNET_STEPS for k in launches}
+        print(f"resnet50_train ({way}): {RESNET_STEPS} steps, launches "
+              f"{launches}")
+        if launches != want:
+            fail(f"resnet50_train ({way}): kernel launches {launches} != "
+                 f"expected {want} ({per_step} per step, none of the others)")
+        loss_t = torch.stack(losses)
+        if not bool(torch.isfinite(loss_t).all()):
+            fail(f"resnet50_train: non-finite loss in {loss_t.tolist()}")
+        stats = state.batch_stats
+        still = [k for k in stats if torch.equal(stats[k], stats0[k])]
+        bad = [k for k in stats if not bool(torch.isfinite(stats[k]).all())]
+        if still or bad:
+            fail(f"resnet50_train: running statistics that did not move "
+                 f"{still[:5]} or are not finite {bad[:5]}")
+        if timed["steps_measured"] != RESNET_STEPS:
+            fail(f"resnet50_train: the meter timed {timed['steps_measured']} "
+                 f"steps, not {RESNET_STEPS}")
+        step_s = timed["step_ms"] / 1e3
+        util = flops / step_s / BF16_OPS_PER_S
+        capture_s = getattr(run_step, "capture_s", None)
+        print(f"resnet50_train metrics, {way} ({card}): step "
+              f"{step_s * 1e3:.2f} ms, {b / step_s:.1f} images/s, MFU "
+              f"{100 * util:.2f}% (3 x the forward's convolution and dense "
+              f"FLOPs x {b} = 3 x {flops / 3 / b:.4e} x {b} = {flops:.4e} "
+              f"FLOP over {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s dense bf16), "
+              f"peak memory {peak:.2f} GiB, data wait a step "
+              f"{', '.join(f'{x:.2f}' for x in waits)} ms (mean "
+              f"{statistics.mean(waits):.2f}), {len(stats)} running "
+              f"statistics moved and finite, losses "
+              f"{', '.join(f'{x:.4f}' for x in loss_t.tolist())}"
+              + ("" if capture_s is None
+                 else f", step captured in {capture_s:.3f} s"))
+        snapshot = (loss_t.clone(), {k: v.detach().clone() for k, v in
+                                     state.model.state_dict().items()},
+                    {"trace": {n: t.clone() for n, t in
+                               state.opt_state["trace"].items()}}, state.step)
+        busy = profile_steps(
+            torch, lambda: fit(run_step, state, feed(w + RESNET_STEPS,
+                                                     RESNET_PROFILE_STEPS), 1),
+            RESNET_PROFILE_STEPS, f"resnet50_train ({way})",
+            step_s * 1e6 * RESNET_PROFILE_STEPS)
+        runs[capture] = (launches, snapshot, {
+            "step_ms": step_s * 1e3, "images_per_s": b / step_s, "mfu": util,
+            "model_flops_per_step": flops, "peak_memory_gib": peak,
+            "device_busy_share": busy, "num_params": n_params, "batch": b,
+            "accum_steps": accum, "image_size": size, "steps": RESNET_STEPS,
+            "data_wait_ms": waits, "assembly_workers": workers,
+            "cpu_count": os.cpu_count(), "host_augment_ms": aug_ms,
+            "feed_alone_ms": {"1": one, str(workers): many},
+            "losses": loss_t.tolist(), "capture_s": capture_s})
+        if not capture:
+            del state, model
+            gc.collect()
+            torch.cuda.empty_cache()
+    check_bitwise("resnet50_train", runs[False][1], runs[True][1])
+    launches = runs[True][0]
+    metrics = runs[True][2]
+    metrics["eager"] = runs[False][2]
 
     ev = rng.integers(0, 256, (RESNET_EVAL_IMAGES, size, size, 3),
                       dtype=np.uint8)
@@ -3351,14 +3638,30 @@ def resnet50_train_phase(torch, card):
         sizes.append(len(batch["label"]))
         return eval_step(state, batch)
 
-    reset_counts()
-    padded = evaluate(eval_step, state, eval_batches())
-    ev_launches = train_counts()
     n_batches = -(-RESNET_EVAL_IMAGES // RESNET_EVAL_BATCH)
-    want = {k: n_batches if k == "xent_fwd" else 0 for k in ev_launches}
-    if ev_launches != want:
-        fail(f"resnet50_train: evaluate launched {ev_launches}, expected "
-             f"{want}")
+    compiled_eval = compile_step(eval_step, state, has_rng=False)
+    for what, fn in (("eager", eval_step), ("captured", compiled_eval)):
+        reset_counts()
+        result = evaluate(fn, state, eval_batches())
+        ev_launches = train_counts()
+        want = {k: n_batches if k == "xent_fwd" else 0 for k in ev_launches}
+        if ev_launches != want:
+            fail(f"resnet50_train: evaluate ({what}) launched {ev_launches}, "
+                 f"expected {want}")
+        if fn is eval_step:
+            padded = result
+    if not compiled_eval.captured:
+        fail("resnet50_train: the compiled eval step never captured")
+    diff = {k: abs(padded[k] - result[k]) for k in padded}
+    print(f"resnet50_train: evaluate through one captured eval graph (every "
+          f"batch with a '_valid' column, the tail padded): loss "
+          f"{result['loss']:.6f}, accuracy {result['accuracy']:.6f}; against "
+          f"the eager step |diff| {diff} (tol {EVAL_PAD_TOL}), captured in "
+          f"{compiled_eval.capture_s:.3f} s")
+    if not all(d <= EVAL_PAD_TOL for d in diff.values()):
+        fail(f"resnet50_train: captured evaluation {result} vs eager "
+             f"{padded}")
+    metrics["eval_captured"] = result
     whole = evaluate(unpadded, state, eval_batches())
     diff = {k: abs(padded[k] - whole[k]) for k in padded}
     tail = RESNET_EVAL_IMAGES % RESNET_EVAL_BATCH
@@ -3371,15 +3674,9 @@ def resnet50_train_phase(torch, card):
     if sizes[-1] != tail or not all(d <= EVAL_PAD_TOL for d in diff.values()):
         fail(f"resnet50_train: padded evaluation {padded} vs unpadded "
              f"{whole} (batches {sizes})")
-    metrics = {
-        "step_ms": step_s * 1e3, "images_per_s": b / step_s, "mfu": util,
-        "model_flops_per_step": flops, "peak_memory_gib": peak,
-        "device_busy_share": busy, "num_params": n_params, "batch": b,
-        "accum_steps": accum, "image_size": size, "steps": RESNET_STEPS,
-        "host_augment_ms": aug_ms, "losses": loss_t.tolist(),
-        "eval": padded, "eval_unpadded": whole,
-    }
-    del state, model
+    metrics["eval"] = padded
+    metrics["eval_unpadded"] = whole
+    del state, model, compiled_eval
     return launches, metrics
 
 
@@ -3504,11 +3801,10 @@ def bert_remat_accum_phase(torch):
     """train_fused's two checks of the rest of the train loop, BERT-base at
     batch 256 x seq 128 with the fused slice (the same seeded weights):
     with dropout 0.1, remat="layer" gives the step's loss and every
-    gradient bit for bit, its encoder layers' forward kernels launched
-    twice (the recompute) — but the embedding tables', which the CUDA
-    embedding backward sums with atomics: a second run without remat
-    shows which, and remat must stay within 4x their run-to-run spread;
-    with dropout off, accum_steps=8 over the same
+    gradient bit for bit (the token-type table's too, since its lookup
+    became a one-hot product), its encoder layers' forward kernels
+    launched twice (the recompute); with dropout off, accum_steps=8 over
+    the same
     256 rows gives the monolithic step's loss and gradients within
     ACCUM_TOL (relative L2, all gradients together)."""
     from tpudl_torch.data.synthetic import synthetic_token_batches
@@ -3525,9 +3821,7 @@ def bert_remat_accum_phase(torch):
     model_kw, loss_impl = bert_variant(True)
     per_pass = launches_per_step(12, True)
     out, peaks = {}, {}
-    # No remat twice: the CUDA embedding backward adds with atomics, so the
-    # embedding tables' gradients differ from run to run without remat too.
-    for run, remat in (("none", False), ("again", False), ("layer", "layer")):
+    for run, remat in (("none", False), ("layer", "layer")):
         st = create_train_state(0, BertForSequenceClassification(
             BERT_BASE(remat=remat, **model_kw), device="meta"),
             sst2_optimizer(), params=params)
@@ -3550,27 +3844,14 @@ def bert_remat_accum_phase(torch):
                  f"expected {want}")
         del st
     (g0, m0), (g1, m1) = out["none"], out["layer"]
-    unstable = [k for k in g0 if not torch.equal(g0[k], out["again"][0][k])]
-    if any(".embeddings." not in k for k in unstable):
-        fail(f"train_fused: gradients not repeatable without remat: "
-             f"{unstable}")
-    bad = [k for k in g0 if k not in unstable and not torch.equal(g0[k], g1[k])]
-    # The unstable tables: remat within the spread of two runs without it.
-    spread = {k: (rel_l2(g1[k], g0[k]), rel_l2(out["again"][0][k], g0[k]))
-              for k in unstable}
-    bad += [k for k, (r, r0) in spread.items() if r > max(4 * r0, 1e-6)]
-    if not torch.equal(m0["loss"], m1["loss"]) or bad:
+    bad = [k for k in g0 if not torch_equal(g0[k], g1[k])]
+    if not torch_equal(m0["loss"], m1["loss"]) or bad:
         fail(f"train_fused: remat='layer' differs from no remat: loss "
              f"{float(m0['loss'])} vs {float(m1['loss'])}, gradients "
              f"{bad[:5]}")
-    print(f"train_fused: remat='layer' with dropout 0.1: loss and "
-          f"{len(g0) - len(unstable)} of {len(g0)} gradients bit for bit; "
-          f"the embedding tables' ({unstable}; atomics in the CUDA embedding "
-          f"backward) rel L2 to no remat "
-          + ", ".join(f"{r:.2e} (two runs without remat: {r0:.2e})"
-                      for r, r0 in spread.values())
-          + f"; peak memory {peaks['none']:.2f} GiB without remat, "
-          f"{peaks['layer']:.2f} with")
+    print(f"train_fused: remat='layer' with dropout 0.1: loss and all "
+          f"{len(g0)} gradients bit for bit; peak memory "
+          f"{peaks['none']:.2f} GiB without remat, {peaks['layer']:.2f} with")
     del out
     res = {}
     for accum in (1, BERT_ACCUM):
@@ -3607,7 +3888,7 @@ def bert_remat_accum_phase(torch):
              f"by {err} (tol {ACCUM_TOL})")
     del res, params
     torch.cuda.empty_cache()
-    return {"remat_bitwise_tensors": len(g0) - len(unstable),
+    return {"remat_bitwise_tensors": len(g0),
             "remat_peak_memory_gib": {"none": peaks["none"],
                                       "layer": peaks["layer"]},
         "accum_rel_l2_err": err, "accum_steps": BERT_ACCUM}

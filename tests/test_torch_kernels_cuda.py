@@ -823,7 +823,8 @@ def test_softmax_dropout_refusals(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,v", [(256, 2), (19, 1000), (7, 1003),
-                                 (64, 30522), (128, 1000)])
+                                 (64, 30522), (128, 1000), (33, 256),
+                                 (5, 257), (300, 7), (17, 100)])
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
 def test_cross_entropy_kernels_match_plain(dev, dtype, b, v, smoothing):
     rng = np.random.default_rng(v)
@@ -847,6 +848,8 @@ def test_cross_entropy_kernels_match_plain(dev, dtype, b, v, smoothing):
                                atol=max(atol, 1e-6))
     again = xent_bwd(z, labels, lse, g, smoothing, impl="fused")
     assert torch.equal(dz, again)
+    assert torch.equal(loss, softmax_cross_entropy(z, labels, smoothing,
+                                                   impl="fused"))
 
 
 def test_cross_entropy_autograd_matches_plain_and_leading_dims(dev):
@@ -1741,3 +1744,190 @@ def test_remat_gradients_are_bitwise_on_the_card(dev, remat, policy):
             torch.testing.assert_close(g1[k], g0[k], rtol=1e-5, atol=1e-7)
         else:
             assert torch.equal(g0[k], g1[k]), k
+
+
+# ---------------------------------------------------------------------------
+# captured steps (tpudl_torch.graphs): CUDA-graph replays against the eager
+# steps, bit for bit
+# ---------------------------------------------------------------------------
+
+
+def _launch_counts():
+    from tpudl_torch.graphs import launch_counters
+
+    return [getattr(f, a) for f, a in launch_counters()]
+
+
+def _twin_train_states(dev, kind):
+    """Two train states with the same weights, statistics and optimizer,
+    the step and its batches: a BERT_TINY with the fused slice and dropout
+    0.1 (AdamW with clipping and warmup), or a ResNetTiny with BatchNorm
+    (Nesterov SGD), each with ``accum_steps`` from ``kind``."""
+    from tpudl_torch.config import OptimConfig
+    from tpudl_torch.models import bert
+    from tpudl_torch.models.resnet import ResNetTiny
+    from tpudl_torch.train import (
+        create_train_state,
+        make_classification_train_step,
+        make_optimizer,
+    )
+
+    model_kind, accum = kind.split("-")
+    rng = np.random.default_rng(4)
+    if model_kind == "bert":
+        def make():
+            return bert.BertForSequenceClassification(bert.BERT_TINY(
+                vocab_size=512, max_position_embeddings=64, fused_ops=True,
+                attention_impl="fused", hidden_dropout=0.1,
+                attention_dropout=0.1), device=dev)
+        ocfg = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=6,
+                           grad_clip_norm=1.0, schedule="cosine")
+        step = make_classification_train_step(
+            input_keys=("input_ids", "attention_mask"), loss_impl="auto",
+            accum_steps=int(accum))
+        mask = np.ones((8, 64), np.int32)
+        mask[3, 40:] = 0
+        batches = [{"input_ids": rng.integers(0, 512, (8, 64)),
+                    "attention_mask": mask, "label": rng.integers(0, 2, 8)}
+                   for _ in range(4)]
+    else:
+        def make():
+            return ResNetTiny(num_classes=10, dtype=torch.bfloat16,
+                              device=dev)
+        ocfg = OptimConfig(name="sgd", learning_rate=0.1, momentum=0.9,
+                           weight_decay=1e-4, warmup_steps=1, total_steps=6,
+                           schedule="cosine", grad_clip_norm=None)
+        step = make_classification_train_step(
+            0.1, loss_impl="auto", accum_steps=int(accum))
+        batches = [{"image": rng.normal(size=(8, 16, 16, 3)).astype(
+            np.float32), "label": rng.integers(0, 10, 8)} for _ in range(4)]
+    model = make()
+    model.init_weights(torch.Generator(device=dev).manual_seed(1))
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    states = [create_train_state(0, make(), make_optimizer(ocfg),
+                                 params=params, device=dev)
+              for _ in range(2)]
+    return states, step, batches
+
+
+@pytest.mark.parametrize("kind", ["bert-1", "bert-2", "resnet-2"])
+def test_captured_train_steps_equal_the_eager_steps_bitwise(dev, kind):
+    """compile_step's first call runs eagerly, its second captures and
+    replays, the rest replay: the losses of four steps, every parameter,
+    the optimizer state and the BatchNorm statistics afterwards equal four
+    eager steps' bit for bit (dropout on: a frozen mask would show on the
+    second replay), and each replay adds the eager step's launch counts."""
+    from tpudl_torch.train import compile_step
+
+    (eager, captured), step, batches = _twin_train_states(dev, kind)
+    compiled = compile_step(step, captured)
+    per_step = []
+    for i, batch in enumerate(batches):
+        before = _launch_counts()
+        eager, want = step(eager, batch, 5)
+        torch.cuda.synchronize()
+        mid = _launch_counts()
+        captured, got = compiled(captured, batch, 5)
+        torch.cuda.synchronize()
+        after = _launch_counts()
+        per_step.append(([m - b for m, b in zip(mid, before)],
+                         [a - m for a, m in zip(after, mid)]))
+        assert compiled.captured == (i >= 1)
+        assert torch.equal(got["loss"], want["loss"]), i
+        assert torch.equal(got["accuracy"], want["accuracy"]), i
+    for e, c in per_step:
+        assert e == c and sum(e) > 0
+    assert captured.step == eager.step == 4
+    assert int(captured.opt_state["count"]) == 4
+    mine = captured.model.state_dict()
+    for name, t in eager.model.state_dict().items():
+        assert torch.equal(mine[name], t), name
+    if kind.startswith("resnet"):
+        assert captured.batch_stats and all(
+            torch.equal(v, eager.batch_stats[k])
+            for k, v in captured.batch_stats.items())
+    for key in ("mu", "nu", "trace"):
+        for name, t in eager.opt_state.get(key, {}).items():
+            assert torch.equal(captured.opt_state[key][name], t), (key, name)
+
+
+def test_captured_step_refuses_a_new_shape_and_evaluate_replays_one_graph(dev):
+    from tpudl_torch.train import (
+        compile_step,
+        evaluate,
+        make_classification_eval_step,
+    )
+
+    (state, _), step, batches = _twin_train_states(dev, "bert-1")
+    compiled = compile_step(step, state)
+    for batch in batches[:2]:
+        compiled(state, batch, 0)
+    short = {k: v[:, :32] if v.ndim == 2 else v for k, v in batches[0].items()}
+    with pytest.raises(ValueError, match=r"input_ids: \[8, 64\].*\[8, 32\]"):
+        compiled(state, short, 0)
+    eval_step = make_classification_eval_step(
+        input_keys=("input_ids", "attention_mask"), loss_impl="auto")
+    ceval = compile_step(eval_step, state, has_rng=False)
+    tail = {k: v[:5] for k, v in batches[3].items()}
+    data = batches + [tail]
+    got = evaluate(ceval, state, data)
+    want = evaluate(eval_step, state, data)
+    assert ceval.captured and state.graph_pool is not None
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-6 * max(1.0, abs(want[k])), k
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged", "adapters"])
+def test_captured_decode_serves_the_eager_tokens(dev, mode):
+    """LLAMA_TINY in f32 through the kernels, four slots: the session whose
+    decode calls replay a graph (greedy selection in the graph, sampling
+    eager) gives the eager session's tokens, greedy and sampled, and the
+    same launch counts; a dense cache's device index follows its host
+    mirror."""
+    from tpudl_torch.graphs import CapturedCall
+    from tpudl_torch.models.llama import LLAMA_TINY, LlamaForCausalLM, init_params
+    from tpudl_torch.serve import Request, ServeSession
+
+    cfg = LLAMA_TINY(dtype=torch.float32, max_seq_len=64)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    model = LlamaForCausalLM(cfg, device="meta")
+    rng = np.random.default_rng(6)
+    kw = {}
+    tenants = [None]
+    if mode == "paged":
+        kw = dict(paged=True, page_size=4)
+    elif mode == "adapters":
+        shapes = {"attention.q_proj": (128, 128),
+                  "attention.k_proj": (128, 64),
+                  "attention.v_proj": (128, 64),
+                  "attention.o_proj": (128, 128), "gate_proj": (128, 256),
+                  "up_proj": (128, 256), "down_proj": (256, 128)}
+        kw = dict(page_size=4, adapters={t: {f"model.layer_{i}.{site}": {
+            "lora_a": rng.normal(0, 1 / r, (fi, r)).astype(np.float32),
+            "lora_b": rng.normal(0, 0.05, (r, fo)).astype(np.float32)}
+            for i in range(cfg.num_layers) for site, (fi, fo) in shapes.items()}
+            for t, r in (("a", 4), ("b", 2))})
+        tenants = [None, "a", "b"]
+    reqs = [Request(f"r{i}", rng.integers(1, 512, size=int(
+        rng.integers(2, 9))).tolist(), max_new_tokens=int(rng.integers(4, 12)),
+        temperature=0.8 if i == 3 else 0.0, seed=i,
+        tenant=tenants[i % len(tenants)]) for i in range(9)]
+    out, counts = {}, {}
+    for capture in (False, True):
+        session = ServeSession.from_model(model, params, prompt_len=8,
+                                          num_slots=4, capture=capture, **kw)
+        call = session.engine.decode_call
+        assert isinstance(call, CapturedCall) == capture
+        before = _launch_counts()
+        out[capture] = session.serve([Request(**r.__dict__) for r in reqs])
+        torch.cuda.synchronize()
+        counts[capture] = [a - b for a, b in zip(_launch_counts(), before)]
+        if capture:
+            assert call.graph is not None and call.calls > 2
+        if mode == "dense":
+            cache = session.engine.cache
+            index = cache.cache["model"]["layer_0"]["attention"]["index"]
+            assert int(index) == cache.write_index
+    for r in reqs:
+        assert out[True][r.request_id].tokens == out[False][r.request_id].tokens
+    assert counts[True] == counts[False] and sum(counts[True]) > 0

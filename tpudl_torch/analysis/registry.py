@@ -37,6 +37,8 @@ KNOBS: Dict[str, str] = {
     "TPUDL_SERVE_LORA_DTYPE": "Multi-tenant adapters: page storage (int8 = "
                               "quantized pages with per-page f32 scales); "
                               "unset = f32 pages.",
+    "TPUDL_PREFETCH_DEPTH": "Pin the prefetch queue depth and disable the "
+                            "autotuner; unset = autotune.",
     # Read only to refuse them: int8 KV pages, the radix cache,
     # speculation and weight quantization are not ported yet (ROADMAP
     # queue A item 3).

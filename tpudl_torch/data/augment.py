@@ -118,8 +118,10 @@ class BatchAugmenter:
 
     ``backend``: "auto" uses the native kernel when it builds, else numpy;
     "native" requires it and raises when it does not build; "numpy"
-    forces numpy. The kernel takes up to 16 channels; wider images and
-    ``normalize=False`` take the numpy path. ``train=False`` center-crops.
+    forces numpy. The normalizing kernel takes up to 16 channels (wider
+    images take the numpy path); with ``normalize=False`` the native
+    backend crops and flips any width in uint8 (``tpudl_crop_flip_u8``,
+    bit for bit the numpy slicing). ``train=False`` center-crops.
     Call with a batch dict or a raw [N, H, W, C] uint8 array. Draws are
     lock-protected, so concurrent callers are safe.
     """
@@ -181,9 +183,9 @@ class BatchAugmenter:
             raise ValueError(
                 f"mean/std have {len(self._mean)} channels, images have {c}"
             )
-        lib = self._lib if c <= 16 and self.normalize else None
         if not self.train:
-            return self._center(images, lib)
+            return self._center(
+                images, self._lib if c <= 16 and self.normalize else None)
         max_top = h + 2 * self.pad - ch
         max_left = w + 2 * self.pad - cw
         if max_top < 0 or max_left < 0:
@@ -200,11 +202,20 @@ class BatchAugmenter:
             flip = (
                 self._rng.random(n) < 0.5 if self.hflip else np.zeros(n, bool)
             ).astype(np.uint8)
+        lib = self._lib if c <= 16 or not self.normalize else None
         if lib is None:
             return _augment_numpy(
                 images, self.pad, ch, cw, offsets, flip, self._mean,
                 self._std, normalize=self.normalize,
             )
+        if not self.normalize:
+            out = np.empty((n, ch, cw, c), np.uint8)
+            lib.tpudl_crop_flip_u8(
+                _ptr(images, ctypes.c_uint8), n, h, w, c, self.pad, ch, cw,
+                _ptr(offsets, ctypes.c_int32), _ptr(flip, ctypes.c_uint8),
+                _ptr(out, ctypes.c_uint8),
+            )
+            return out
         out = np.empty((n, ch, cw, c), np.float32)
         lib.tpudl_augment_batch(
             _ptr(images, ctypes.c_uint8), n, h, w, c, self.pad, ch, cw,

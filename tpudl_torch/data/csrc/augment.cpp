@@ -1,6 +1,11 @@
 // Native data-path kernel of tpudl_torch: fused crop + flip + normalize
 // batch augmentation. A copy of tpudl/native/augment.cpp (the JAX
-// package's), kept in the port so that it needs nothing of that package.
+// package's), kept in the port so that it needs nothing of that package,
+// plus tpudl_crop_flip_u8: the same crop and flip with uint8 out (the
+// batch a step normalizes on the card), where the JAX package slices in
+// numpy. ctypes releases the interpreter lock around each call, so the
+// prefetcher's assembly threads (tpudl_torch/data/prefetch.py) run these
+// in parallel.
 //
 // One pass over each uint8 HWC image produces the augmented, normalized
 // f32 NHWC batch. Randomness (crop offsets, flip coins) is drawn by the
@@ -10,7 +15,9 @@
 // Built at first use by tpudl_torch/data/native.py with `g++ -O3 -fopenmp
 // -shared -fPIC` into the checkout's build/ directory; loaded via ctypes.
 
+#include <cstddef>
 #include <cstdint>
+#include <cstring>
 
 extern "C" {
 
@@ -70,6 +77,65 @@ void tpudl_augment_batch(const std::uint8_t* images,
           for (std::int64_t k = 0; k < cc; ++k) {
             px[k] = bias[k];
           }
+        }
+      }
+    }
+  }
+}
+
+// The same crop and flip with the pixels copied as they are: images
+// [n, h, w, c] uint8 -> out [n, crop_h, crop_w, c] uint8, padding 0.
+// Bit for bit the numpy slicing of the Python caller.
+void tpudl_crop_flip_u8(const std::uint8_t* images,
+                        std::int64_t n,
+                        std::int64_t h,
+                        std::int64_t w,
+                        std::int64_t c,
+                        std::int64_t pad,
+                        std::int64_t crop_h,
+                        std::int64_t crop_w,
+                        const std::int32_t* offsets,
+                        const std::uint8_t* flip,
+                        std::uint8_t* out) {
+#pragma omp parallel for schedule(static)
+  for (std::int64_t i = 0; i < n; ++i) {
+    const std::uint8_t* img = images + i * h * w * c;
+    std::uint8_t* dst = out + i * crop_h * crop_w * c;
+    const std::int64_t top = static_cast<std::int64_t>(offsets[2 * i]) - pad;
+    const std::int64_t left =
+        static_cast<std::int64_t>(offsets[2 * i + 1]) - pad;
+    const bool mirror = flip[i] != 0;
+    for (std::int64_t y = 0; y < crop_h; ++y) {
+      const std::int64_t sy = top + y;
+      std::uint8_t* row = dst + y * crop_w * c;
+      if (sy < 0 || sy >= h) {
+        std::memset(row, 0, static_cast<std::size_t>(crop_w * c));
+        continue;
+      }
+      const std::uint8_t* src = img + sy * w * c;
+      if (!mirror) {
+        // One run of in-frame pixels between the zero margins.
+        const std::int64_t x0 = left < 0 ? -left : 0;
+        const std::int64_t x1 = w - left < crop_w ? w - left : crop_w;
+        if (x1 <= x0) {
+          std::memset(row, 0, static_cast<std::size_t>(crop_w * c));
+          continue;
+        }
+        std::memset(row, 0, static_cast<std::size_t>(x0 * c));
+        std::memcpy(row + x0 * c, src + (left + x0) * c,
+                    static_cast<std::size_t>((x1 - x0) * c));
+        std::memset(row + x1 * c, 0,
+                    static_cast<std::size_t>((crop_w - x1) * c));
+        continue;
+      }
+      for (std::int64_t x = 0; x < crop_w; ++x) {
+        const std::int64_t sx = left + (crop_w - 1 - x);
+        std::uint8_t* px = row + x * c;
+        if (sx >= 0 && sx < w) {
+          const std::uint8_t* sp = src + sx * c;
+          for (std::int64_t k = 0; k < c; ++k) px[k] = sp[k];
+        } else {
+          for (std::int64_t k = 0; k < c; ++k) px[k] = 0;
         }
       }
     }

@@ -119,6 +119,10 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.tpudl_augment_batch.argtypes = [
         u8p, i64, i64, i64, i64, i64, i64, i64, i32p, u8p, f32p, f32p, f32p,
     ]
+    lib.tpudl_crop_flip_u8.restype = None
+    lib.tpudl_crop_flip_u8.argtypes = [
+        u8p, i64, i64, i64, i64, i64, i64, i64, i32p, u8p, u8p,
+    ]
     lib.tpudl_normalize_batch.restype = None
     lib.tpudl_normalize_batch.argtypes = [
         u8p, i64, i64, i64, i64, i64, i64, f32p, f32p, f32p,

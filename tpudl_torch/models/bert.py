@@ -185,7 +185,14 @@ class BertEmbeddings(nn.Module):
         we = self.word_embeddings(input_ids.long())
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)
         pe = self.position_embeddings(pos)[None]
-        te = self.token_type_embeddings(token_type_ids.long())
+        # The token-type table has type_vocab_size (2) rows that a batch
+        # repeats thousands of times, and the CUDA embedding backward sums
+        # such a row in no fixed order. As a one-hot product the lookup is
+        # exact (1 x the row plus 0 x the others) and its backward is one
+        # matrix product, bitwise repeatable: what lets a captured step be
+        # held to the eager one bit for bit.
+        onehot = F.one_hot(token_type_ids.long(), self.cfg.type_vocab_size)
+        te = onehot.to(torch.float32) @ self.token_type_embeddings.weight
         x = self.layer_norm(we + pe + te)
         x = self.dropout(x, not train, generator)
         return x.to(self.cfg.dtype)

@@ -2,9 +2,14 @@
 
 The port's counterpart of tpudl.models.generate: the functional prefill
 and single-token decode contracts the serving engine runs, and the
-batched ``generate()`` loop. PyTorch runs eagerly, so the contracts are
-plain functions (tpudl jits them); ``params`` is the state_dict, bound
-into the model once (tpudl_torch.models.llama.bind_params).
+batched ``generate()`` loop. The contracts are plain functions (tpudl
+jits them); ``params`` is the state_dict, bound into the model once
+(tpudl_torch.models.llama.bind_params). Each decode contract also
+carries its host checks, its device body and the arguments it reads in
+place (``fn.check``, ``fn.body``, ``fn.static_args``), which is what
+tpudl_torch.graphs.CapturedCall needs to capture it: the serving
+engine's decode calls on the card are graphs. Prefill and
+``generate()`` stay eager.
 
 Greedy (temperature=0), temperature, top-k, and top-p (nucleus)
 sampling. Ragged prompt batches are served LEFT-padded: the cache marks
@@ -44,11 +49,27 @@ def prefill_fn(model):
     return fn
 
 
+def _contract(body, static_args, check=None):
+    """A decode contract: ``check`` (host checks) then ``body``, with both
+    and ``static_args`` (the arguments a captured call reads in place)
+    kept on the function for tpudl_torch.graphs.CapturedCall."""
+
+    def fn(*args):
+        fn.check(*args)
+        return body(*args)
+
+    fn.body = body
+    fn.check = check or (lambda *args: None)
+    fn.static_args = static_args
+    return fn
+
+
 def decode_fn(model):
     """THE functional single-token decode contract:
     (params, cache, token, position) -> (logits, new_cache). ``cache``'s
     k/v/valid tensors are updated in place; the returned dict carries
-    the advanced write index."""
+    the advanced write index (advanced in place where it is a device
+    tensor)."""
 
     @torch.no_grad()
     def fn(params, cache, token, position):
@@ -62,7 +83,7 @@ def decode_fn(model):
         )
         return logits[:, -1, :], cache
 
-    return fn
+    return _contract(fn, (0, 1))
 
 
 def _paged_view(dev, page_size, page_table, start, lens):
@@ -75,15 +96,20 @@ def _paged_view(dev, page_size, page_table, start, lens):
                      page_size)
 
 
+def _check_adapter_table(apools, atable) -> None:
+    """The kernel reads the pages the table names unchecked: hold the
+    host table to the pools' page range before it goes to the device."""
+    from tpudl_torch.ops.segmented_lora import check_table
+
+    site = next(iter(next(iter(apools.values())).values()))
+    check_table(atable, site["a"].shape[0])
+
+
 def _adapter_view(dev, apools, atable, ascale, impl):
     from tpudl_torch.models.lora import AdapterView
     from tpudl_torch.ops.norms import resolve_impl
-    from tpudl_torch.ops.segmented_lora import batch_args, check_table
+    from tpudl_torch.ops.segmented_lora import batch_args
 
-    # The kernel reads the pages the table names unchecked: hold the host
-    # table to the pool's page range before it goes to the device.
-    site = next(iter(next(iter(apools.values())).values()))
-    check_table(atable, site["a"].shape[0])
     table = torch.as_tensor(atable, device=dev, dtype=torch.int32)
     scale = torch.as_tensor(ascale, device=dev, dtype=torch.float32)
     # Held to the kernel's contract once for the dispatch's 7 x L calls.
@@ -114,7 +140,7 @@ def paged_decode_fn(model, page_size: int):
                                            lens))
         return logits[:, -1, :], cache
 
-    return fn
+    return _contract(fn, (0, 1))
 
 
 def lora_prefill_fn(model, impl: str = "auto"):
@@ -129,6 +155,7 @@ def lora_prefill_fn(model, impl: str = "auto"):
 
     @torch.no_grad()
     def fn(params, input_ids, attention_mask, apools, atable, ascale):
+        _check_adapter_table(apools, atable)
         bind_params(model, params)
         dev = params_device(params)
         ids = torch.as_tensor(input_ids, device=dev)
@@ -164,7 +191,11 @@ def lora_paged_decode_fn(model, page_size: int, impl: str = "auto"):
             adapters=_adapter_view(dev, apools, atable, ascale, impl))
         return logits[:, -1, :], cache
 
-    return fn
+    def check(params, cache, token, position, page_table, start, lens,
+              apools, atable, ascale):
+        _check_adapter_table(apools, atable)
+
+    return _contract(fn, (0, 1, 7), check)
 
 
 _NEG_INF = -1e30

@@ -45,9 +45,14 @@ tpudl params tree, ``init_params`` draws a fresh one from a
 The KV cache is an explicit dict in the layout of tpudl's flax ``cache``
 collection: ``cache["model"]["layer_{i}"]["attention"]`` holds ``k``,
 ``v`` ([B, max_seq_len, Hkv, D]), ``valid`` ([B, max_seq_len] bool) and
-``index`` (the shared write position, a host int). Unlike JAX, the
-forward writes ``k``/``v``/``valid`` IN PLACE (no cache-sized copy per
-step) and returns a new dict carrying the advanced ``index``.
+``index`` (the shared write position). Unlike JAX, the forward writes
+``k``/``v``/``valid`` IN PLACE (no cache-sized copy per step). A host
+int ``index`` (a fresh cache, prefill, ``generate()``) comes back
+advanced in a new dict; a 0-d int64 device tensor (one tensor shared by
+every layer: the serving engine's ``SlotCache``) is advanced in place,
+and the rows go in by ``index_copy_`` at the slots it names, so a
+captured decode step writes each replay's own slots. The horizon of a
+device index is its owner's to check, on the host.
 """
 
 from __future__ import annotations
@@ -309,20 +314,35 @@ class LlamaAttention(nn.Module):
 
         ck, cv, cvalid = cache["k"], cache["v"], cache["valid"]
         start = cache["index"]
-        if start + s > ck.shape[1]:
-            raise ValueError(
-                f"cache write [{start}, {start + s}) runs past max_seq_len "
-                f"{ck.shape[1]} (tpudl's dynamic_update_slice would clamp "
-                f"it onto the last slots and corrupt the cache)"
-            )
-        ck[:, start:start + s] = k
-        cv[:, start:start + s] = v
-        cvalid[:, start:start + s] = True if kv_mask is None else kv_mask.bool()
+        new_valid = (torch.ones((b, s), dtype=torch.bool, device=ck.device)
+                     if kv_mask is None else kv_mask.bool())
+        if isinstance(start, torch.Tensor):
+            # A device write index (the serving engine's SlotCache): its
+            # owner checked the horizon on the host, and the rows go in
+            # by index, so a captured step writes each replay's own slots.
+            # The model advances the index once all layers wrote.
+            slots = start + torch.arange(s, device=ck.device)
+            ck.index_copy_(1, slots, k.to(ck.dtype))
+            cv.index_copy_(1, slots, v.to(cv.dtype))
+            cvalid.index_copy_(1, slots, new_valid)
+            index = start
+        else:
+            if start + s > ck.shape[1]:
+                raise ValueError(
+                    f"cache write [{start}, {start + s}) runs past "
+                    f"max_seq_len {ck.shape[1]} (tpudl's "
+                    f"dynamic_update_slice would clamp it onto the last "
+                    f"slots and corrupt the cache)"
+                )
+            ck[:, start:start + s] = k
+            cv[:, start:start + s] = v
+            cvalid[:, start:start + s] = new_valid
+            index = start + s
         mask = causal & cvalid[:, None, None, :]
         # Grouped-query attention against the UNEXPANDED cache.
         ctx = _gqa_decode_attention(q, ck, cv, mask)
         return out_proj(ctx), {"k": ck, "v": cv, "valid": cvalid,
-                               "index": start + s}
+                               "index": index}
 
 
 class LlamaBlock(nn.Module):
@@ -421,8 +441,12 @@ class LlamaModel(nn.Module):
         x = self.embed_tokens(input_ids.long()).to(cfg.dtype)
         s = input_ids.shape[1]
         start = cache["layer_0"]["attention"]["index"]
-        if any(cache[f"layer_{i}"]["attention"]["index"] != start
-               for i in range(cfg.num_layers)):
+        device_index = isinstance(start, torch.Tensor)
+        indices = [cache[f"layer_{i}"]["attention"]["index"]
+                   for i in range(cfg.num_layers)]
+        # A device index is one tensor that every layer shares.
+        if any(i is not start if device_index else i != start
+               for i in indices):
             raise ValueError("cache layers disagree on the write index")
         # Slot-order causality for this chunk (shared by every layer; the
         # per-layer validity row is ANDed in by each attention).
@@ -436,6 +460,8 @@ class LlamaModel(nn.Module):
             x, new_cache[name] = getattr(self, name)(
                 x, rope_cs, causal, kv_mask, cache[name], None, layer_view(i)
             )
+        if device_index:
+            start.add_(s)
         return self.final_norm(x), new_cache
 
 

@@ -35,7 +35,20 @@
 //   round through shared memory, in a fixed order.
 // - Backward: a grid over (vector chunks of a row) x rows, each thread one
 //   16-byte vector in and out; the row's statistics are three scalars.
-// - No atomics: both kernels are bitwise repeatable.
+// - Rows of at most kRowMaxV = 256 logits (BERT's [256, 2] classifier
+//   loss) take the small-row path instead: a group of lanes a row, sized
+//   to V (one lane at V <= 8, a warp from V = 129), at most 8 values a
+//   lane held in registers: every load is issued before the first exp,
+//   the max and the exp-sum are two passes over registers (no serial
+//   online recurrence), and the group merges by shuffles alone; the
+//   backward likewise, loads first. A block of 256 threads a row spent
+//   most of its time on its shared-memory merge and idle lanes (V = 2:
+//   two lanes of 256 hold data). Both small-row kernels are programmatic
+//   dependent launches (common.cuh launch_pdl): they touch no device
+//   memory before pdl_wait(). At ResNet-50's [128, 1000] one warp a row
+//   (online, or 32 values a lane in registers) measured slower than the
+//   block a row both ways, so wider rows keep it.
+// - No atomics: all kernels are bitwise repeatable.
 // exp and log are the accurate expf and logf.
 #include <float.h>
 
@@ -203,6 +216,130 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The small-row path: rows of at most kRowMaxV logits. A group of LANES
+// lanes (a power of two, at most a warp) holds a row in registers, NV
+// values a lane (element i * LANES + lane of the group), so every load is
+// issued before the first exp and the max, the exp-sum and the label's
+// logit come from registers; the group's partials then merge by
+// shuffles, log2(LANES) rounds. kRowThreads / LANES rows a block.
+constexpr int64_t kRowMaxV = 256;
+constexpr int kRowThreads = 256;
+
+template <int LANES, int NV, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ zr, int64_t v, int sub, bool live,
+                                         float (&x)[NV]) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int64_t c = static_cast<int64_t>(i) * LANES + sub;
+    x[i] = live && c < v ? to_f32(zr[c]) : kMaskValue;
+  }
+}
+
+template <typename T, bool SMOOTH, int LANES, int NV>
+__global__ void __launch_bounds__(kRowThreads)
+    xent_fwd_rows_kernel(const T* __restrict__ z, const int64_t* __restrict__ labels,
+                         float* __restrict__ loss, float* __restrict__ lse, int64_t rows,
+                         int64_t v, float one_minus_s, float s_over_v) {
+  const int sub = threadIdx.x % LANES;
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * (kRowThreads / LANES) + threadIdx.x / LANES;
+  const bool live = row < rows;
+  tpudl::pdl_wait();
+  // Every lane of a warp takes part in the shuffles below, rows past the
+  // end included (they load nothing and write nothing).
+  const T* zr = z + (live ? row : 0) * v;
+  const int64_t label = live ? labels[row] : -1;
+  float x[NV];
+  load_row<LANES>(zr, v, sub, live, x);
+  tpudl::pdl_launch_dependents();
+  float m = kMaskValue;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) m = fmaxf(m, x[i]);
+  float l = 0.0f, t = 0.0f, sum = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int64_t c = static_cast<int64_t>(i) * LANES + sub;
+    if (c < v) {
+      l += expf(x[i] - m);
+      if (c == label) t += x[i];
+      if (SMOOTH) sum += x[i];
+    }
+  }
+#pragma unroll
+  for (int o = LANES / 2; o > 0; o >>= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+    const float l2 = __shfl_xor_sync(0xffffffffu, l, o);
+    const float mn = fmaxf(m, m2);
+    l = l * expf(m - mn) + l2 * expf(m2 - mn);
+    m = mn;
+    t += __shfl_xor_sync(0xffffffffu, t, o);
+    if (SMOOTH) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  }
+  if (live && sub == 0) {
+    const float lse_b = m + logf(l);
+    float loss_b = lse_b - one_minus_s * t;
+    if (SMOOTH) loss_b = loss_b - s_over_v * sum;
+    loss[row] = loss_b;
+    lse[row] = lse_b;
+  }
+}
+
+template <typename T, int LANES, int NV>
+__global__ void __launch_bounds__(kRowThreads)
+    xent_bwd_rows_kernel(const T* __restrict__ z, const int64_t* __restrict__ labels,
+                         const float* __restrict__ lse, const float* __restrict__ g,
+                         T* __restrict__ dz, int64_t rows, int64_t v, float one_minus_s,
+                         float s_over_v) {
+  const int sub = threadIdx.x % LANES;
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * (kRowThreads / LANES) + threadIdx.x / LANES;
+  tpudl::pdl_wait();
+  if (row >= rows) return;
+  float x[NV];
+  load_row<LANES>(z + row * v, v, sub, true, x);
+  const int64_t label = labels[row];
+  const float gb = g[row], lb = lse[row];
+  tpudl::pdl_launch_dependents();
+  T* dr = dz + row * v;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int64_t c = static_cast<int64_t>(i) * LANES + sub;
+    if (c < v) dr[c] = from_f32<T>(xent_grad(x[i], c, label, gb, lb, one_minus_s, s_over_v));
+  }
+}
+
+template <typename T, int LANES, int NV>
+int launch_fwd_rows(const T* z, const int64_t* labels, float* loss, float* lse, int64_t rows,
+                    int64_t v, float one_minus_s, float s_over_v, int smooth, cudaStream_t st) {
+  constexpr int64_t per_block = kRowThreads / LANES;
+  const dim3 grid(static_cast<unsigned>((rows + per_block - 1) / per_block));
+  const dim3 block(kRowThreads);
+  return smooth ? tpudl::launch_pdl(xent_fwd_rows_kernel<T, true, LANES, NV>, grid, block, st,
+                                    z, labels, loss, lse, rows, v, one_minus_s, s_over_v)
+                : tpudl::launch_pdl(xent_fwd_rows_kernel<T, false, LANES, NV>, grid, block, st,
+                                    z, labels, loss, lse, rows, v, one_minus_s, s_over_v);
+}
+
+template <typename T, int LANES, int NV>
+int launch_bwd_rows(const T* z, const int64_t* labels, const float* lse, const float* g, T* dz,
+                    int64_t rows, int64_t v, float one_minus_s, float s_over_v,
+                    cudaStream_t st) {
+  constexpr int64_t per_block = kRowThreads / LANES;
+  const dim3 grid(static_cast<unsigned>((rows + per_block - 1) / per_block));
+  return tpudl::launch_pdl(xent_bwd_rows_kernel<T, LANES, NV>, grid, dim3(kRowThreads), st, z,
+                           labels, lse, g, dz, rows, v, one_minus_s, s_over_v);
+}
+
+// The lane group (LANES, NV) that holds a row of v <= kRowMaxV logits: the
+// fewest lanes that hold it at 8 values a lane.
+#define TPUDL_XENT_ROW_SHAPE(v, CALL) \
+  ((v) <= 8     ? CALL(1, 8)        \
+   : (v) <= 16  ? CALL(2, 8)        \
+   : (v) <= 32  ? CALL(4, 8)        \
+   : (v) <= 64  ? CALL(8, 8)        \
+   : (v) <= 128 ? CALL(16, 8)       \
+                : CALL(32, 8))
+
 constexpr int64_t kMaxRowBlocks = 65535;
 
 template <typename T>
@@ -213,6 +350,12 @@ int launch_fwd(const void* z, const void* labels, void* loss, void* lse, int64_t
   const int64_t* lp = static_cast<const int64_t*>(labels);
   float* lo = static_cast<float*>(loss);
   float* ls = static_cast<float*>(lse);
+  if (v <= kRowMaxV) {
+#define TPUDL_XENT_FWD_ROWS(L, N) \
+  launch_fwd_rows<T, L, N>(zp, lp, lo, ls, rows, v, one_minus_s, s_over_v, smooth, st)
+    return TPUDL_XENT_ROW_SHAPE(v, TPUDL_XENT_FWD_ROWS);
+#undef TPUDL_XENT_FWD_ROWS
+  }
   if (smooth) {
     xent_fwd_kernel<T, true><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
         zp, lp, lo, ls, rows, v, one_minus_s, s_over_v);
@@ -227,6 +370,14 @@ template <typename T>
 int launch_bwd(const void* z, const void* labels, const void* lse, const void* g, void* dz,
                int64_t rows, int64_t v, float one_minus_s, float s_over_v, cudaStream_t st) {
   constexpr int W = VecWidth<T>::value;
+  if (v <= kRowMaxV) {
+#define TPUDL_XENT_BWD_ROWS(L, N)                                                             \
+  launch_bwd_rows<T, L, N>(static_cast<const T*>(z), static_cast<const int64_t*>(labels),     \
+                           static_cast<const float*>(lse), static_cast<const float*>(g),      \
+                           static_cast<T*>(dz), rows, v, one_minus_s, s_over_v, st)
+    return TPUDL_XENT_ROW_SHAPE(v, TPUDL_XENT_BWD_ROWS);
+#undef TPUDL_XENT_BWD_ROWS
+  }
   // Both rows start at the same offset from a 16-byte boundary when both
   // bases are aligned (the same row stride), so one head serves both.
   const bool vec = tpudl::aligned16(z) && tpudl::aligned16(dz);

@@ -212,6 +212,7 @@ class ServeSession:
         adapter_dtype: Optional[str] = None,
         adapter_alpha: float = 16.0,
         adapter_impl: str = "auto",
+        capture: Optional[bool] = None,
         **kwargs,
     ) -> "ServeSession":
         """Live-model session over a LlamaForCausalLM and its state_dict:
@@ -240,6 +241,15 @@ class ServeSession:
         is every adapter's alpha and ``adapter_impl`` the segmented
         kernel's dispatch seam. Parity contract:
         ``tpudl_torch.serve.lora.assert_tenant_parity``.
+
+        ``capture`` (default: on when the params live on the card) makes
+        the decode call a CUDA graph captured at ``num_slots``
+        (tpudl_torch.graphs.CapturedCall, with the greedy selection in
+        the graph): its first call runs eagerly, its second captures, and
+        every later call copies the step's tokens, positions, page table
+        and adapter table into the graph's buffers and replays. The
+        prefill stays eager (its shapes vary per prompt).
+        ``capture=False`` keeps every decode call eager.
 
         ``prefix_share`` and ``spec_k`` with adapters raise ValueError,
         as tpudl's do; ``kv_dtype``, ``prefix_share``, ``spec_k`` and
@@ -291,13 +301,26 @@ class ServeSession:
                 f"speculation and weight quantization are not ported yet: "
                 f"ROADMAP queue A item 3)")
         device = params_device(params)
+        if capture is None:
+            capture = device.type == "cuda"
+        if capture and device.type != "cuda":
+            raise ValueError(f"capture=True needs the params on the card, "
+                             f"they are on {device}")
+
+        def decode(fn):
+            if not capture:
+                return fn
+            from tpudl_torch.graphs import CapturedCall
+
+            return CapturedCall(fn)
+
         template = init_cache(model.cfg, num_slots, device="meta")
         prefill = prefill_fn(model)
         if not paged:
             if page_size is not None or num_pages is not None:
                 raise ValueError("page_size/num_pages require paged=True")
             cache = SlotCache(template, device=device)
-            return cls(prefill, decode_fn(model), params, template,
+            return cls(prefill, decode(decode_fn(model)), params, template,
                        prompt_len, cache=cache, **kwargs)
         from tpudl_torch.serve.cache import PagedKVCache
 
@@ -307,7 +330,7 @@ class ServeSession:
                        else env_int("TPUDL_SERVE_PAGE_SIZE", 16, min_value=1)),
             num_pages=num_pages, device=device)
         if adapters is None:
-            return cls(prefill, paged_decode_fn(model, cache.page_size),
+            return cls(prefill, decode(paged_decode_fn(model, cache.page_size)),
                        params, template, prompt_len, cache=cache, **kwargs)
         from tpudl_torch.models.lora import as_flat_adapters
         from tpudl_torch.serve.lora import AdapterPool
@@ -334,7 +357,8 @@ class ServeSession:
             pool.register(tenant, tree, alpha=adapter_alpha)
         return cls(
             lora_prefill_fn(model, impl=adapter_impl),
-            lora_paged_decode_fn(model, cache.page_size, impl=adapter_impl),
+            decode(lora_paged_decode_fn(model, cache.page_size,
+                                        impl=adapter_impl)),
             params, template, prompt_len, cache=cache, adapter_pool=pool,
             **kwargs)
 

@@ -76,11 +76,16 @@ class SlotCache:
     paged = False
 
     def __init__(self, template: Any, device: Optional[torch.device] = None):
+        if device is None:
+            device = next(leaf.device for leaf in _leaves(template)
+                          if isinstance(leaf, torch.Tensor))
+        # The write index: one 0-d device tensor every layer's "index"
+        # entry holds, which each decode call advances in place
+        # (tpudl_torch.models.llama), beside its host mirror.
+        self._index = torch.zeros((), dtype=torch.int64, device=device)
         self.cache = _tree_map(
-            lambda leaf: 0 if isinstance(leaf, int) else torch.zeros(
-                leaf.shape, dtype=leaf.dtype,
-                device=leaf.device if device is None else device,
-            ),
+            lambda leaf: self._index if isinstance(leaf, int) else torch.zeros(
+                leaf.shape, dtype=leaf.dtype, device=device),
             template,
         )
         valid = [leaf for leaf in _leaves(self.cache) if _is_valid_leaf(leaf)]
@@ -106,7 +111,7 @@ class SlotCache:
         length and must not rewind the live batch)."""
         self._check_slot(slot)
         for c, r in _zip_leaves(self.cache, row_cache):
-            if isinstance(c, torch.Tensor):
+            if isinstance(c, torch.Tensor) and c is not self._index:
                 c[slot].copy_(r[0])
 
     def free(self, slot: int) -> None:
@@ -126,23 +131,23 @@ class SlotCache:
 
     @property
     def write_index(self) -> int:
-        """The decode calls' next write slot, shared across rows. Mirrors
-        the cache's own ``index`` entries, which every decode call
-        advances; correct as long as every decode on ``self.cache`` is
-        followed by one ``advance_write_index()``, which
-        Engine._decode_step does."""
+        """The decode calls' next write slot, shared across rows: the host
+        mirror of the cache's device ``index``, which every decode call
+        advances in place; correct as long as every decode on
+        ``self.cache`` is followed by one ``advance_write_index()``, which
+        Engine._decode_step does. The horizon checks read this int, so
+        nothing waits for the card."""
         return self._write_index
 
     def set_write_index(self, index: int) -> None:
         """Pin every layer's write index (after filling a fresh cache
         from batch-1 prefills, whose own indices ``insert`` discarded)."""
-        self.cache = _tree_map(
-            lambda leaf: int(index) if isinstance(leaf, int) else leaf,
-            self.cache,
-        )
+        self._index.fill_(int(index))
         self._write_index = int(index)
 
     def advance_write_index(self, steps: int = 1) -> None:
+        """Advance the host mirror after a decode call advanced the
+        device index."""
         self._write_index += steps
 
     @property
@@ -159,7 +164,7 @@ class SlotCache:
         return sum(
             leaf.numel() * leaf.element_size()
             for leaf in _leaves(self.cache)
-            if isinstance(leaf, torch.Tensor)
+            if isinstance(leaf, torch.Tensor) and leaf is not self._index
         )
 
     def valid_counts(self) -> np.ndarray:

@@ -45,6 +45,14 @@ torch cannot reproduce), so the same request yields the same tokens
 whatever its neighbors are. Greedy requests match ``generate()`` token
 for token.
 
+On the card ``ServeSession.from_model`` hands the engine a captured
+decode call (tpudl_torch.graphs.CapturedCall): it replays one CUDA graph
+a step, greedy selection included, and leaves the argmax in
+``decode_call.greedy``, which the selection reads back instead of
+computing it again. The dense cache's write index is then a device
+tensor the graph advances; the engine's horizon checks read its host
+mirror (``SlotCache.write_index``).
+
 Not ported yet (ROADMAP queue A item 3): the radix and int8 tiers of
 the paged cache, speculation, migration, the disaggregation inbox, the
 SLO hook, chaos hooks, the request log and the exporter's health source.
@@ -71,21 +79,26 @@ CAT_SERVE_PREFILL = "serve_prefill"
 CAT_SERVE_DECODE = "serve_decode"
 
 
-def _select_greedy(logits: torch.Tensor) -> np.ndarray:
+def _select_greedy(logits: torch.Tensor, greedy=None) -> np.ndarray:
     """Argmax selection (every active slot greedy): one f32 argmax and
-    one readback."""
-    return torch.argmax(logits.float(), dim=-1).cpu().numpy()
+    one readback. ``greedy``: the argmax a captured decode call computed
+    in its graph (tpudl_torch.graphs.CapturedCall), read back as is."""
+    if greedy is None:
+        greedy = torch.argmax(logits.float(), dim=-1)
+    return greedy.cpu().numpy()
 
 
-def _select_tokens(logits, temps, seeds, steps) -> np.ndarray:
+def _select_tokens(logits, temps, seeds, steps, greedy=None) -> np.ndarray:
     """Per-slot next-token selection on [B, V] logits: greedy argmax
-    where ``temps[i] == 0``, else a categorical draw over
-    temperature-scaled logits from ``fold_in(seeds[i], steps[i])``
-    (a generator of its own per request and token, so a request's draws
-    do not depend on its neighbours or on how many draws they made).
-    f32 selection math like generate._select_impl."""
+    where ``temps[i] == 0`` (``greedy``, when a captured call computed
+    it), else a categorical draw over temperature-scaled logits from
+    ``fold_in(seeds[i], steps[i])`` (a generator of its own per request
+    and token, so a request's draws do not depend on its neighbours or
+    on how many draws they made), eagerly. f32 selection math like
+    generate._select_impl."""
     logits = logits.float()
-    out = torch.argmax(logits, dim=-1)
+    out = (torch.argmax(logits, dim=-1) if greedy is None
+           else greedy.clone())
     for i in np.nonzero(temps > 0)[0]:
         g = fold_in(seeds[i], steps[i], logits.device)
         out[i] = gumbel_argmax(logits[i: i + 1] / float(temps[i]), g)[0]
@@ -421,12 +434,13 @@ class Engine:
         if self.adapter_pool is not None:
             args += self.adapter_pool.dispatch_args()
         logits, self.cache.cache = self.decode_call(*args)
+        greedy = getattr(self.decode_call, "greedy", None)
         # The per-step token readback is the one intended device-to-host
         # sync of the decode loop.
         if temps.any():
-            sel = _select_tokens(logits, temps, seeds, steps)
+            sel = _select_tokens(logits, temps, seeds, steps, greedy)
         else:
-            sel = _select_greedy(logits)
+            sel = _select_greedy(logits, greedy)
         if self.paged:
             # Each ACTIVE slot's logical length advanced by one (idle
             # slots stay on the trash page).

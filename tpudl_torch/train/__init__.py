@@ -1,9 +1,11 @@
-"""Training of the port: the classification train step and loop, the
-optimizer stack and throughput accounting (tpudl.train's single-device
-path)."""
+"""Training of the port: the classification train step and loop, its
+CUDA-graph capture (``compile_step``), the optimizer stack and
+throughput accounting (tpudl.train's single-device path)."""
 
 from tpudl_torch.train.loop import (  # noqa: F401
+    CompiledStep,
     TrainState,
+    compile_step,
     create_train_state,
     cross_entropy_loss,
     evaluate,

@@ -21,8 +21,10 @@ single-device path of tpudl.train.loop.
   ``fold_in(step_rng, a)``), each backward adds into the parameters'
   ``.grad``, the BatchNorm statistics move microbatch by microbatch, and
   the summed gradients and metrics are divided by A before the one
-  update. There is no ``compile_step``: the step is a plain callable,
-  run eagerly.
+  update. ``step.seeds(state, rng)`` gives the step's generator seeds,
+  and ``step(state, batch, rng, generators=...)`` draws from the given
+  generators (seeded so) instead of fresh ones: what ``compile_step``
+  replays.
 - ``make_classification_eval_step`` builds ``step(state, batch)``: the
   forward with ``train=False`` and no autograd, the per-example loss and
   the accuracy as means (masked means over the real rows when the batch
@@ -33,12 +35,19 @@ single-device path of tpudl.train.loop.
 - ``loss_impl`` routes the per-example loss through
   tpudl_torch.ops.cross_entropy: "reference" is the composite the step
   always used; "auto" / "fused" the vocab-streaming kernels on the card.
-- ``fit`` drives a step over a batch iterator, one step per dispatch.
+- ``compile_step`` is tpudl's ``compile_step`` as CUDA-graph capture
+  (tpudl_torch.graphs): on a CUDA state the first call runs eagerly, the
+  second captures the whole step (every microbatch, the update, the
+  BatchNorm statistics) and replays it, and every later call copies the
+  batch into the graph's input buffers, reseeds its generators and
+  replays. On a CPU state it runs the step eagerly.
+- ``fit`` drives a step (eager or compiled) over a batch iterator, one
+  step per dispatch.
 
 Not ported (each raises NotImplementedError naming its ROADMAP item):
-mixed-precision policies, the MoE auxiliary loss; and fit's
-checkpointing, preemption, profiling, fused K-step dispatch and
-asynchronous metrics.
+mixed-precision policies, the MoE auxiliary loss, meshes, a captured
+remat step; and fit's checkpointing, preemption, profiling, fused
+K-step dispatch and asynchronous metrics.
 """
 
 from __future__ import annotations
@@ -46,15 +55,16 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
-from typing import Callable, Dict, Iterable, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from tpudl_torch.graphs import Graph, StaticInputs
 from tpudl_torch.models.resnet import BatchNorm
 from tpudl_torch.ops.cross_entropy import softmax_cross_entropy
-from tpudl_torch.rng import fold_in, fold_seed
+from tpudl_torch.rng import fold_seed
 from tpudl_torch.train.optim import Optimizer
 
 
@@ -79,6 +89,9 @@ class TrainState:
     tx: Optimizer
     opt_state: dict
     step: int = 0
+    #: The memory pool the state's captured steps share (compile_step).
+    graph_pool: Any = dataclasses.field(default=None, repr=False,
+                                        compare=False)
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -235,18 +248,28 @@ def make_classification_train_step(
                 g.div_(accum_steps)
         return grads, metrics
 
-    def step(state: TrainState, batch: dict, rng: int):
-        device = next(state.model.parameters()).device
+    def seeds(state: TrainState, rng: int) -> List[int]:
+        """The seeds of the step's generators: ``fold_in(rng,
+        state.step)``'s, or microbatch a's ``fold_in(fold_seed(rng,
+        state.step), a)``."""
+        seed = fold_seed(rng, state.step)
         if accum_steps == 1:
-            generator = fold_in(rng, state.step, device)
-        else:
-            seed = fold_seed(rng, state.step)
-            generator = [fold_in(seed, a, device) for a in range(accum_steps)]
+            return [seed]
+        return [fold_seed(seed, a) for a in range(accum_steps)]
+
+    def step(state: TrainState, batch: dict, rng: int,
+             generators: Optional[Sequence[torch.Generator]] = None):
+        if generators is None:
+            device = next(state.model.parameters()).device
+            generators = [torch.Generator(device=device).manual_seed(s)
+                          for s in seeds(state, rng)]
+        generator = generators[0] if accum_steps == 1 else generators
         grads, metrics = grads_and_metrics(state, batch, generator)
         state.apply_gradients(grads)
         return state, metrics
 
     step.grads_and_metrics = grads_and_metrics
+    step.seeds = seeds
     return step
 
 
@@ -292,6 +315,161 @@ def make_classification_eval_step(
     return step
 
 
+def _uses_remat(model: nn.Module) -> bool:
+    return any(getattr(getattr(m, "cfg", None), "remat", False)
+               for m in model.modules())
+
+
+class CompiledStep:
+    """The callable ``compile_step`` returns: ``step(state, batch, rng)``
+    for a train step, ``step(state, batch)`` for an eval step (see
+    ``compile_step``). ``captured`` says whether the graph exists,
+    ``capture_s`` what its capture took."""
+
+    def __init__(self, step_fn, state, has_rng, preprocess):
+        self.step_fn = step_fn
+        self.state = state
+        self.has_rng = has_rng
+        self.preprocess = preprocess
+        self.calls = 0
+        self.graph: Optional[Graph] = None
+        self.inputs: Optional[StaticInputs] = None
+        self.generators: List[torch.Generator] = []
+        self.outputs = None
+        if getattr(step_fn, "mask_aware", False):
+            self.mask_aware = True
+
+    @property
+    def captured(self) -> bool:
+        return self.graph is not None
+
+    @property
+    def capture_s(self) -> Optional[float]:
+        return None if self.graph is None else self.graph.capture_s
+
+    def _run(self, state, batch, rng=None, generators=None):
+        if self.preprocess is not None:
+            device = next(state.model.parameters()).device
+            batch = self.preprocess(
+                {k: torch.as_tensor(v, device=device) for k, v in batch.items()})
+        if not self.has_rng:
+            return self.step_fn(state, batch)
+        if generators is None:
+            return self.step_fn(state, batch, rng)
+        return self.step_fn(state, batch, rng, generators=generators)
+
+    def __call__(self, state: TrainState, batch: dict, rng=None):
+        if state is not self.state:
+            raise ValueError("a compiled step runs on the state it was "
+                             "compiled for (its graph holds that state's "
+                             "tensors)")
+        device = next(state.model.parameters()).device
+        if device.type != "cuda":
+            return self._run(state, batch, rng)
+        self.calls += 1
+        if self.calls == 1:
+            return self._run(state, batch, rng)
+        if self.graph is None:
+            self._capture(state, batch, rng, device)
+        else:
+            self.inputs.fill(batch)
+        if self.has_rng:
+            for gen, seed in zip(self.generators,
+                                 self.step_fn.seeds(state, rng)):
+                gen.manual_seed(seed)
+            state.tx.prepare_(state.opt_state)
+        self.graph.replay()
+        # The graph rewrites its outputs on the next replay.
+        if not self.has_rng:
+            return {k: v.clone() for k, v in self.outputs.items()}
+        state.step += 1
+        state.tx.advance_(state.opt_state)
+        return state, {k: v.clone() for k, v in self.outputs[1].items()}
+
+    def _capture(self, state, batch, rng, device) -> None:
+        self.inputs = StaticInputs(batch, device)
+        if self.has_rng:
+            self.generators = [torch.Generator(device=device)
+                               for _ in self.step_fn.seeds(state, rng)]
+        if state.graph_pool is None:
+            state.graph_pool = torch.cuda.graph_pool_handle()
+        self.graph = Graph(self.generators, pool=state.graph_pool)
+        # The capture runs the step's Python, which moves the host counts
+        # without running the update: put them back.
+        step, host_count = state.step, state.opt_state.get("host_count")
+        try:
+            self.outputs = self.graph.capture(
+                self._run, state, self.inputs.bufs, rng,
+                self.generators if self.has_rng else None)
+        finally:
+            state.step = step
+            if host_count is not None:
+                state.opt_state["host_count"] = host_count
+
+
+def compile_step(
+    step_fn: Callable,
+    state: TrainState,
+    has_rng: bool = True,
+    donate_state: Optional[bool] = None,
+    preprocess: Optional[Callable[[dict], dict]] = None,
+    steps_per_dispatch: int = 1,
+    precision=None,
+    *,
+    mesh=None,
+    rules=None,
+) -> CompiledStep:
+    """tpudl's ``compile_step`` on one card: ``step_fn`` captured as a CUDA
+    graph (tpudl_torch.graphs) for ``state``.
+
+    A train step (``has_rng=True``, built by
+    ``make_classification_train_step``) becomes ``step(state, batch, rng)
+    -> (state, metrics)``, an eval step (``has_rng=False``) ``step(state,
+    batch) -> metrics``. On a CUDA state the first call runs eagerly (the
+    warm-up: the kernels build, cuDNN settles its algorithms, the
+    allocator fills); the second captures the whole step, microbatches and
+    update included, and replays it once; every later call copies the
+    batch into the graph's input buffers, reseeds the step's generators
+    from ``step_fn.seeds(state, rng)``, fills the optimizer's device
+    scalars and replays. No call applies an update the eager loop would
+    not, and each draws the eager step's bits. The metrics returned are
+    copies. A batch of other keys, shapes or dtypes than the captured one
+    raises a ``ValueError`` naming both; a failed capture raises; nothing
+    falls back to eager. On a CPU state every call runs the step eagerly.
+    The state's train and eval graphs share one memory pool
+    (``state.graph_pool``). ``preprocess`` runs on the batch inside the
+    graph, before ``step_fn``.
+
+    Raise NotImplementedError: ``mesh`` / ``rules`` (queue A item 7),
+    ``steps_per_dispatch`` > 1 (item 10: the captured K-step graph),
+    ``precision`` (item 8), and a model with remat (item 15: its recompute
+    resets generator states, which a capture cannot replay). tpudl's
+    donation has no counterpart: a train step updates the state in place,
+    an eval step leaves it alone, so ``donate_state`` may only say so."""
+    if mesh is not None or rules is not None:
+        _refuse("mesh", mesh if mesh is not None else rules,
+                "queue A item 7 (launcher and sharding)")
+    if steps_per_dispatch < 1:
+        raise ValueError(
+            f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
+    if steps_per_dispatch > 1:
+        _refuse("steps_per_dispatch", steps_per_dispatch,
+                "queue A item 10 (the captured K-step graph)")
+    if precision is not None:
+        _refuse("precision", precision, "queue A item 8")
+    if donate_state is not None and bool(donate_state) != has_rng:
+        raise ValueError(
+            f"donate_state={donate_state!r}: a train step updates its state "
+            f"in place and an eval step leaves it alone (has_rng={has_rng})")
+    if has_rng and not hasattr(step_fn, "seeds"):
+        raise TypeError("compile_step captures train steps built by "
+                        "make_classification_train_step (it reseeds their "
+                        "generators, step_fn.seeds, before each replay)")
+    if _uses_remat(state.model):
+        _refuse("remat", True, "queue A item 15 (a captured remat step)")
+    return CompiledStep(step_fn, state, has_rng, preprocess)
+
+
 def pad_batch(batch: dict, to_size: int) -> dict:
     """Pad every [B, ...] column of ``batch`` (arrays or tensors) to
     ``to_size`` rows with zeros and add a ``"_valid"`` float32
@@ -332,11 +510,15 @@ def evaluate(
     smaller later batch is zero-padded to it with a ``"_valid"`` mask
     (``pad_batch``) when the step carries the ``mask_aware`` marker
     (``make_classification_eval_step`` does) or ``pad_to`` is given;
-    otherwise it runs at its own size. The metrics stay on the device
-    until the one read at the end."""
+    otherwise it runs at its own size. A compiled step
+    (``compile_step``) replays one graph of one batch signature, so there
+    every batch of a mask-aware step carries the ``"_valid"`` column
+    (all ones on a full batch). The metrics stay on the device until the
+    one read at the end."""
     if num_steps is not None and num_steps <= 0:
         raise ValueError(f"num_steps must be positive, got {num_steps}")
     may_pad = pad_to is not None or getattr(eval_step, "mask_aware", False)
+    pad_all = may_pad and isinstance(eval_step, CompiledStep)
     totals: dict = {}
     n_examples = 0.0
     target = pad_to
@@ -348,8 +530,8 @@ def evaluate(
             weight = float(bs)
         if target is None:
             target = bs
-        if bs < target and may_pad:
-            batch = pad_batch(batch, target)
+        if (bs < target or pad_all) and may_pad:
+            batch = pad_batch(batch, max(bs, target))
         metrics = eval_step(state, batch)
         n_examples += weight
         for k, v in metrics.items():
@@ -377,8 +559,9 @@ def fit(
     steps_per_dispatch: Optional[int] = None,
     async_metrics: Optional[bool] = None,
 ):
-    """Drive ``step_fn`` over ``batches`` (one step per batch, at most
-    ``num_steps``); returns ``(state, last metrics as floats, info)``.
+    """Drive ``step_fn`` (a step, or ``compile_step``'s) over ``batches``
+    (one step per batch, at most ``num_steps``); returns ``(state, last
+    metrics as floats, info)``.
     Every ``log_every`` steps the step's metrics are read back (a wait
     for the card) and handed to ``logger(step, metrics)``, or printed;
     otherwise nothing is read back until the end, so the host runs ahead
@@ -391,7 +574,7 @@ def fit(
         ("checkpoint_every", checkpoint_every, (0,),
          "queue A item 6 (checkpointing and preemption)"),
         ("steps_per_dispatch", steps_per_dispatch, (None, 1),
-         "queue A item 10 (fused K-step dispatch)"),
+         "queue A item 10 (the captured K-step graph on compile_step)"),
         ("async_metrics", async_metrics, (None, False),
          "queue A item 10 (asynchronous metrics)"),
     ):

@@ -19,6 +19,16 @@ The update is optax's chain, in optax's order and dtypes:
   learning rate;
 - the schedule reads the step count before it is incremented.
 
+The update reads nothing from the host, so a CUDA graph can capture it
+(tpudl_torch.train.loop.compile_step): the state's ``count`` is a 0-d
+int64 tensor on the parameters' device, advanced in place, and the
+step's learning rate and bias corrections are the f32 device tensor
+``scalars``, which ``prepare_`` fills from the host count (the same f32
+host math as before) ahead of each update. ``apply_`` is ``prepare_``,
+``update_`` (the device work) and ``advance_`` (the host count), so the
+eager update and a replayed one run the same operations on the same
+values. ``host_count`` mirrors ``count`` on the host.
+
 ``torch.optim.AdamW`` cannot hold the first moment in bf16 and rounds
 at other places, so it is not used.
 """
@@ -113,13 +123,47 @@ class Optimizer:
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
         zeros = lambda p, dtype=None: torch.zeros_like(  # noqa: E731
             p, dtype=dtype, memory_format=torch.contiguous_format)
-        if self.cfg.name == "sgd":
-            return {"count": 0, "trace": {k: zeros(p) for k, p in params.items()}}
-        return {
-            "count": 0,
-            "mu": {k: zeros(p, self.mu_dtype) for k, p in params.items()},
-            "nu": {k: zeros(p) for k, p in params.items()},
+        device = next(iter(params.values())).device if params else "cpu"
+        state = {
+            "count": torch.zeros((), dtype=torch.int64, device=device),
+            "host_count": 0,
+            # lr, then (AdamW) the two bias corrections of the next update.
+            "scalars": torch.zeros(1 if self.cfg.name == "sgd" else 3,
+                                   dtype=torch.float32, device=device),
         }
+        if self.cfg.name == "sgd":
+            state["trace"] = {k: zeros(p) for k, p in params.items()}
+        else:
+            state["mu"] = {k: zeros(p, self.mu_dtype) for k, p in params.items()}
+            state["nu"] = {k: zeros(p) for k, p in params.items()}
+        return state
+
+    def host_scalars(self, count: int) -> list:
+        """The f32 learning rate (and AdamW's bias corrections, which optax
+        computes in f32) of the update that reads ``count``."""
+        lr = float(np.float32(self.schedule(count)))
+        if self.cfg.name == "sgd":
+            return [lr]
+        t = np.float32(count + 1)
+        return [lr, float(1 - np.float32(self.cfg.b1) ** t),
+                float(1 - np.float32(self.cfg.b2) ** t)]
+
+    def prepare_(self, state: dict) -> None:
+        """Fill ``state["scalars"]`` for the next update. Skipped while a
+        CUDA graph captures (the caller fills them before each replay)."""
+        if torch.cuda.is_available() and \
+                torch.cuda.is_current_stream_capturing():
+            return
+        values = torch.tensor(self.host_scalars(state["host_count"]),
+                              dtype=torch.float32)
+        # Pageable memory, staged by CUDA before the call returns: no wait
+        # for the card.
+        state["scalars"].copy_(values, non_blocking=True)
+
+    @staticmethod
+    def advance_(state: dict) -> None:
+        """The host half of one update: the count's host mirror."""
+        state["host_count"] += 1
 
     def clip(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """optax.clip_by_global_norm(cfg.grad_clip_norm), without a host
@@ -133,41 +177,48 @@ class Optimizer:
         return {k: torch.where(keep, g, g / g_norm * max_norm)
                 for k, g in grads.items()}
 
-    @torch.no_grad()
     def apply_(self, params: Dict[str, torch.Tensor],
                grads: Dict[str, torch.Tensor], state: dict) -> dict:
+        """One update of ``params`` in place; returns ``state``, advanced
+        in place."""
+        self.prepare_(state)
+        self.update_(params, grads, state)
+        self.advance_(state)
+        return state
+
+    @torch.no_grad()
+    def update_(self, params: Dict[str, torch.Tensor],
+                grads: Dict[str, torch.Tensor], state: dict) -> None:
+        """The device half of one update: reads ``state["scalars"]``,
+        moves the parameters, the moments and ``count`` in place."""
         cfg = self.cfg
         grads = self.clip(grads)
-        count = state["count"]
-        lr = float(np.float32(self.schedule(count)))
         wd = cfg.weight_decay
+        neg_lr = -state["scalars"][0]
+        state["count"].add_(1)
         if cfg.name == "sgd":
             for k, p in params.items():
                 g = grads[k] + wd * p
                 trace = state["trace"][k]
                 trace.mul_(cfg.momentum).add_(g)
-                p.add_((g + cfg.momentum * trace) * -lr)
-            return {"count": count + 1, "trace": state["trace"]}
+                p.add_((g + cfg.momentum * trace) * neg_lr)
+            return
         b1, b2 = cfg.b1, cfg.b2
         # optax multiplies the stored moment by b1 in the moment's dtype:
         # with a bf16 moment b1 itself rounds to bf16 (0.9 -> 0.8984375),
         # and the compiled step keeps the product in f32. The bias
         # correction uses b1 as given.
         b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
-        t = count + 1
-        # optax computes the bias corrections in f32.
-        bc1 = float(1 - np.float32(b1) ** np.float32(t))
-        bc2 = float(1 - np.float32(b2) ** np.float32(t))
+        bc1, bc2 = state["scalars"][1], state["scalars"][2]
         for k, p in params.items():
             g = grads[k]
             mu = (1 - b1) * g + b1_mu * state["mu"][k].float()
             nu = state["nu"][k]
             nu.mul_(b2).add_((1 - b2) * (g * g))
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + 1e-8)
-            update = (update + wd * p) * -lr
+            update = (update + wd * p) * neg_lr
             p.add_(update)
             state["mu"][k].copy_(mu)
-        return {"count": t, "mu": state["mu"], "nu": state["nu"]}
 
 
 def make_optimizer(cfg: OptimConfig) -> Optimizer:
