@@ -191,11 +191,46 @@ state, remat, evaluate, the augmenter) add:
              running statistics; logits and losses gated at
              RESNET_PARITY_TOL.
 
+The rest of the compiled serving path and the export harness add:
+
+6d. generate_chunked (after phase 6c, the 8B weights still resident) —
+             generate() at batch 4 (ragged) x prompt 128, 64 new tokens,
+             chunks of 8: the chunked loop (a CUDA graph a chunk) against
+             the per-token loop, greedy and sampled, tokens bit for bit,
+             65 RMSNorm and 32 SwiGLU launches a token each way, tokens/s
+             of both, the chunk graphs captured;
+6e. export_llama_serving — export_serving_decoder of the slice (batch-1
+             prefill at 128, 4-slot decode, the weights as inputs), dense
+             and paged (page 16): 65 tpudl::rms_norm and 32 tpudl::swiglu
+             nodes in each program, export and load seconds;
+             ServeSession.from_artifacts (prefill and decode captured)
+             reads back slots, window, bound (and page size and pool
+             pages) and serves the slice's requests with the model
+             session's tokens and launches; TPOT beside the model
+             session's;
+11c. export_bert (after phase 11b) — BERT-base seq 128, fused, its eval
+             forward exported on the card: 25 tpudl::layer_norm, 12
+             bias_gelu and 12 softmax_dropout nodes and no random op, as
+             many launches for one forward of the loaded program, deployed
+             parity card against CPU;
+18b. export_resnet50 (after phase 18) — configs[2]'s ResNet-50 eval
+             forward exported on the card from a meta model, the weights
+             and statistics saved with save_params (safetensors) and read
+             back bit for bit, artifact sizes; strict parity (f32, batch
+             8, TF32 off in cuBLAS and cuDNN) and deployed parity (bf16,
+             batch 128) card against CPU from one artifact;
+             latency_benchmark at batch 1 and 128, the loaded program
+             alone and replayed from a CUDA graph;
+19. remat_captured (last) — compile_step with remat: BERT-base 256 x 128
+             fused, remat="layer", dropout 0.1, and the 2-layer Llama LoRA
+             classifier with remat=True, captured against eager bit for
+             bit; step ms, capture s, recompute twins, peak memory.
+
 The compiled step (tpudl_torch.graphs) makes every path run twice, from
 the same seeded weights over the same batches or requests: eagerly,
 then captured as CUDA graphs (train and eval steps through
-compile_step, whose first call is eager and second the capture; decode
-calls through ServeSession.from_model's CapturedCall). Phases 5, 6b, 9,
+compile_step, whose first call is eager and second the capture; prefill
+and decode calls through ServeSession.from_model's CapturedCall). Phases 5, 6b, 9,
 11, 15, 17 and llama_lora_train print both ways (step ms or TTFT/TPOT,
 device busy share from a profiled window, launches per step, peak
 memory, capture time) and fail unless the captured run's losses,
@@ -909,7 +944,10 @@ def tenant_slice_phase(torch, model, params, card, dense):
                 if r.tpot_s is not None]
         tokens = sum(len(r.tokens) for r in results.values())
         capture_s = getattr(eng.decode_call, "capture_s", None)
-        m = {"ttft_p50_ms": pct(ttft, 50), "ttft_p90_ms": pct(ttft, 90),
+        prefill_capture_s = getattr(eng.prefill_call, "capture_s", None)
+        prefill = prefill_ms(torch, session)
+        m = {"prefill_capture_s": prefill_capture_s, "prefill_ms": prefill,
+             "ttft_p50_ms": pct(ttft, 50), "ttft_p90_ms": pct(ttft, 90),
              "tpot_p50_ms": pct(tpot, 50), "tpot_p90_ms": pct(tpot, 90),
              "tokens_per_s": tokens / wall, "prefills": eng.num_prefills,
              "decode_steps": eng.num_decode_steps, "pool": stats,
@@ -923,9 +961,12 @@ def tenant_slice_phase(torch, model, params, card, dense):
               f"{m['tpot_p90_ms']:.3f} ms (dense {d['tpot_p50_ms']:.3f} / "
               f"{d['tpot_p90_ms']:.3f}); {tokens} tokens in {wall:.3f} s = "
               f"{tokens / wall:.1f} tokens/s (dense {d['tokens_per_s']:.1f});"
-              f" peak memory {peak:.2f} GiB"
+              f" prefill {prefill:.3f} ms a request [1, {PROMPT_LEN}] (dense "
+              f"{d['prefill_ms']:.3f}); peak memory {peak:.2f} GiB"
               + ("" if capture_s is None
-                 else f"; decode graph captured in {capture_s * 1e3:.1f} ms"))
+                 else f"; decode graph captured in {capture_s * 1e3:.1f} ms, "
+                      f"prefill graph (with the adapter view) in "
+                      f"{prefill_capture_s * 1e3:.1f} ms"))
         out[capture] = m
     same_tokens(runs, requests, "tenant_slice")
     metrics = out[True]
@@ -1183,14 +1224,21 @@ def slice_phase(torch, card):
                 if r.tpot_s is not None]
         tokens = sum(len(r.tokens) for r in results.values())
         capture_s = getattr(eng.decode_call, "capture_s", None)
+        prefill_capture_s = getattr(eng.prefill_call, "capture_s", None)
+        prefill = prefill_ms(torch, session)
         print(f"slice metrics, {way} ({card}): TTFT p50 {pct(ttft, 50):.2f} "
               f"ms, p90 {pct(ttft, 90):.2f} ms; TPOT p50 {pct(tpot, 50):.3f} "
-              f"ms, p90 {pct(tpot, 90):.3f} ms; {tokens} tokens in "
+              f"ms, p90 {pct(tpot, 90):.3f} ms (earlier, the prefill eager: "
+              f"TTFT p50 {EAGER_PREFILL_TTFT_P50_MS}, TPOT p50 "
+              f"{EAGER_PREFILL_TPOT_P50_MS}); "
+              f"{tokens} tokens in "
               f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; "
               f"{eng.num_decode_steps} decode steps ({wall / max(1, eng.num_decode_steps) * 1e3:.3f} "
-              f"ms per step incl. prefills); peak memory {peak:.2f} GiB"
+              f"ms per step incl. prefills); prefill {prefill:.3f} ms a "
+              f"request [1, {PROMPT_LEN}]; peak memory {peak:.2f} GiB"
               + ("" if capture_s is None
-                 else f"; decode graph captured in {capture_s * 1e3:.1f} ms"))
+                 else f"; decode graph captured in {capture_s * 1e3:.1f} ms, "
+                      f"prefill graph in {prefill_capture_s * 1e3:.1f} ms"))
         out[capture] = {
             "ttft_p50_ms": pct(ttft, 50), "tpot_p50_ms": pct(tpot, 50),
             "ttft_p90_ms": pct(ttft, 90), "tpot_p90_ms": pct(tpot, 90),
@@ -1198,7 +1246,26 @@ def slice_phase(torch, card):
             "decode_steps": eng.num_decode_steps,
             "prefills": eng.num_prefills, "peak_memory_gib": peak,
             "launches": launches, "capture_s": capture_s,
+            "prefill_ms": prefill, "prefill_capture_s": prefill_capture_s,
         }
+        # The same requests again on the same session: its graphs exist,
+        # so no capture lands inside this window (the first serve's
+        # captures do).
+        _, again, _, _, _ = serve_run(torch, session, requests, {})
+        if any(again[r.request_id].tokens != results[r.request_id].tokens
+               for r in requests):
+            fail(f"slice ({way}): a second serve on the session gave other "
+                 f"tokens")
+        s_ttft = [r.ttft_s * 1e3 for r in again.values()]
+        s_tpot = [r.tpot_s * 1e3 for r in again.values()
+                  if r.tpot_s is not None]
+        print(f"slice metrics, {way}, the same requests served again on the "
+              f"session ({card}): TTFT p50 {pct(s_ttft, 50):.2f} ms, p90 "
+              f"{pct(s_ttft, 90):.2f} ms; TPOT p50 {pct(s_tpot, 50):.3f} ms, "
+              f"p90 {pct(s_tpot, 90):.3f} ms")
+        out[capture]["again"] = {
+            "ttft_p50_ms": pct(s_ttft, 50), "ttft_p90_ms": pct(s_ttft, 90),
+            "tpot_p50_ms": pct(s_tpot, 50), "tpot_p90_ms": pct(s_tpot, 90)}
     same_tokens(runs, requests, "slice")
     session, results, _, launches, _ = runs[True]
     metrics = out[True]
@@ -1230,15 +1297,16 @@ def serve_run(torch, session, requests, counted):
 
 
 def same_tokens(runs, requests, what):
-    """The captured session's tokens, greedy and sampled, are the eager
-    session's."""
+    """The captured session's tokens (prefill and decode captured),
+    greedy and sampled, are the eager session's."""
     eager, captured = runs[False][1], runs[True][1]
     differ = [r.request_id for r in requests
               if eager[r.request_id].tokens != captured[r.request_id].tokens]
     if differ:
-        fail(f"{what}: captured decode gave other tokens than eager for "
-             f"{differ}")
-    print(f"{what}: captured decode tokens equal the eager session's for all "
+        fail(f"{what}: the captured session gave other tokens than eager "
+             f"for {differ}")
+    print(f"{what}: captured prefill and decode tokens equal the eager "
+          f"session's for all "
           f"{len(requests)} requests ({sum(r.temperature > 0 for r in requests)} "
           f"sampled)")
 
@@ -3894,6 +3962,516 @@ def bert_remat_accum_phase(torch):
         "accum_rel_l2_err": err, "accum_steps": BERT_ACCUM}
 
 
+#: generate()'s chunked decode on the 8B slice (generate_chunked).
+GEN_BATCH = 4
+GEN_PROMPT = 128
+GEN_NEW = 64
+GEN_EVERY = 8
+#: The captured dense slice with its prefill still eager, on this card
+#: (NVIDIA H100 80GB HBM3, 700 W): TTFT p50 and TPOT p50, ms, printed
+#: beside this run's.
+EAGER_PREFILL_TTFT_P50_MS = 713.14
+EAGER_PREFILL_TPOT_P50_MS = 14.249
+#: ResNet-50 export: strict parity in f32 at this batch, deployed parity
+#: and the latency at the other two (bf16, channels_last inside).
+RESNET_STRICT_BATCH = 8
+RESNET_DEPLOY_BATCH = 128
+LATENCY_WARMUP = 5
+LATENCY_ITERS = 30
+#: BERT-base export: the eval batch exported and compared card vs CPU.
+BERT_EXPORT_BATCH = 8
+#: Captured remat steps (remat_captured): steps a way, the last timed.
+REMAT_STEPS = 4
+REMAT_TIMED = 2
+
+
+def export_dir():
+    """Artifacts go under the checkout's gitignored build/ directory."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "export")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def prefill_ms(torch, session, reps=20):
+    """Wall ms per call of ``session``'s prefill on a left-padded [1,
+    PROMPT_LEN] prompt, the first token read back each call (what TTFT
+    pays a request), after two calls (the eager one and, where captured,
+    the capture)."""
+    import numpy as np
+
+    eng = session.engine
+    ids = np.zeros((1, PROMPT_LEN), np.int32)
+    ids[0, 28:] = np.arange(1, PROMPT_LEN - 27)
+    mask = (ids != 0).astype(np.int32)
+    args = (eng.params, ids, mask)
+    pool = eng.adapter_pool
+    if pool is not None:
+        # A tenantless request: the zero table row, nothing pinned.
+        row, scaling = pool.acquire(None)
+        args += (pool.pools, row[None, :], np.float32([scaling]))
+    call = eng.prefill_call
+    for _ in range(2):
+        call(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        logits, _ = call(*args)
+        greedy = getattr(call, "greedy", None)
+        int((logits.float().argmax(-1) if greedy is None else greedy)[0])
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def generate_chunked_phase(torch, model, params, card):
+    """generate() on the 8B slice at full width and depth, batch GEN_BATCH
+    (ragged, left-padded) x prompt GEN_PROMPT, GEN_NEW new tokens, chunks
+    of GEN_EVERY: the chunked loop (a CUDA graph a chunk, the first use of
+    each chunk length eager) against the per-token loop, greedy and
+    sampled (temperature 0.8, top-k 50, top-p 0.9, one generator seed):
+    tokens bit for bit, 65 RMSNorm and 32 SwiGLU launches a token each
+    way, tokens/s of each loop's last call."""
+    import importlib
+
+    import numpy as np
+
+    from tpudl_torch.ops.mlp_fused import swiglu
+    from tpudl_torch.ops.norms import rms_norm
+
+    gen = importlib.import_module("tpudl_torch.models.generate")
+    rng = np.random.default_rng(5)
+    ids = torch.as_tensor(rng.integers(1, model.cfg.vocab_size,
+                                       (GEN_BATCH, GEN_PROMPT)), device="cuda")
+    mask = torch.ones_like(ids)
+    mask[1, :40] = 0
+    mask[3, :90] = 0
+    ids = ids * mask
+    out = {}
+    for name, kw in (("greedy", {}),
+                     ("sampled", dict(temperature=0.8, top_k=50, top_p=0.9))):
+        toks, rate = {}, {}
+        for chunked in (False, True):
+            for _ in range(3 if chunked else 2):
+                rms_norm.launches = swiglu.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = gen.generate(
+                    model, params, ids, mask, max_new_tokens=GEN_NEW,
+                    eos_check_every=GEN_EVERY, chunked=chunked,
+                    generator=torch.Generator(device="cuda").manual_seed(11),
+                    **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if chunked in toks and not torch.equal(got, toks[chunked]):
+                    fail(f"generate_chunked ({name}): two runs of the "
+                         f"{'chunked' if chunked else 'per-token'} loop "
+                         f"differ")
+                toks[chunked] = got
+                launches = {"rms_norm_fwd": rms_norm.launches,
+                            "swiglu_fwd": swiglu.launches}
+                want = {"rms_norm_fwd": 65 * GEN_NEW,
+                        "swiglu_fwd": 32 * GEN_NEW}
+                if launches != want:
+                    fail(f"generate_chunked ({name}, chunked={chunked}): "
+                         f"launches {launches}, expected {want}")
+            rate[chunked] = GEN_BATCH * GEN_NEW / wall
+        if not torch.equal(toks[False], toks[True]):
+            fail(f"generate_chunked ({name}): the chunked loop's tokens are "
+                 f"not the per-token loop's")
+        if toks[True].shape != (GEN_BATCH, GEN_NEW):
+            fail(f"generate_chunked: tokens of shape {tuple(toks[True].shape)}")
+        print(f"generate_chunked ({name}, {card}): batch {GEN_BATCH} x prompt "
+              f"{GEN_PROMPT}, {GEN_NEW} new tokens, chunks of {GEN_EVERY}: "
+              f"tokens bit for bit the per-token loop's; per-token loop "
+              f"{rate[False]:.1f} tokens/s, chunked {rate[True]:.1f} "
+              f"tokens/s ({rate[True] / rate[False]:.2f}x)")
+        out[name] = {"token_loop_tokens_per_s": rate[False],
+                     "chunked_tokens_per_s": rate[True]}
+    out["chunk_graphs"] = gen.chunk_graphs(model)
+    print(f"generate_chunked: {out['chunk_graphs']} chunk graphs captured "
+          f"(per switch set: the chunk of {GEN_EVERY} and the remainder of "
+          f"{(GEN_NEW - 1) % GEN_EVERY})")
+    return out
+
+
+def export_llama_serving_phase(torch, model, params, card, requests,
+                               dense_results, dense_metrics):
+    """The slice's serving artifacts (export_serving_decoder: a batch-1
+    prefill at PROMPT_LEN and a NUM_SLOTS decode, the 8B weights as
+    inputs), dense and paged (page 16): every norm and SwiGLU a tpudl::
+    node, export and load seconds, program bytes; ServeSession.
+    from_artifacts (prefill and decode captured) reads the shapes back
+    and serves the slice's requests with the model session's tokens and
+    its launches; TPOT beside the model session's."""
+    from tpudl_torch.export.decode import export_serving_decoder
+    from tpudl_torch.export.export import load_exported_obj
+    from tpudl_torch.ops.library import graph_ops
+    from tpudl_torch.ops.mlp_fused import swiglu
+    from tpudl_torch.ops.norms import rms_norm
+    from tpudl_torch.serve import Request, ServeSession
+
+    counted = {"rms_norm_fwd": rms_norm, "swiglu_fwd": swiglu}
+    out = {}
+    for paged in (False, True):
+        way = "paged" if paged else "dense"
+        kw = dict(paged=True, page_size=16) if paged else {}
+        t0 = time.perf_counter()
+        pre, dec = export_serving_decoder(model, params, NUM_SLOTS,
+                                          PROMPT_LEN, **kw)
+        export_s = time.perf_counter() - t0
+        for what, blob in (("prefill", pre), ("decode", dec)):
+            ops = graph_ops(load_exported_obj(blob).graph_module)
+            if ops != {"rms_norm": 65, "swiglu": 32}:
+                fail(f"export_llama_serving ({way}): the {what} program "
+                     f"holds tpudl:: nodes {ops}, expected 65 rms_norm and "
+                     f"32 swiglu")
+        t0 = time.perf_counter()
+        session = ServeSession.from_artifacts(pre, dec, params, paged=paged)
+        load_s = time.perf_counter() - t0
+        if paged:
+            ref = ServeSession.from_model(model, params,
+                                          prompt_len=PROMPT_LEN,
+                                          num_slots=NUM_SLOTS, **kw)
+            shape = (ref.num_slots, ref.prompt_len, ref.max_seq_len,
+                     ref.engine.cache.page_size, ref.engine.cache.num_pages)
+            ref.serve([Request("warm", [1, 2, 3], max_new_tokens=2)])
+            _, ref_results, ref_wall, _, _ = serve_run(torch, ref, requests,
+                                                       counted)
+            ref_tpot = pct([r.tpot_s * 1e3 for r in ref_results.values()
+                            if r.tpot_s is not None], 50)
+        else:
+            shape = (NUM_SLOTS, PROMPT_LEN, MAX_SEQ_LEN)
+            ref_results = dense_results
+            ref_tpot = dense_metrics["tpot_p50_ms"]
+        got_shape = (session.num_slots, session.prompt_len,
+                     session.max_seq_len)
+        if paged:
+            got_shape += (session.engine.cache.page_size,
+                          session.engine.cache.num_pages)
+        if got_shape != shape:
+            fail(f"export_llama_serving ({way}): from_artifacts read back "
+                 f"{got_shape}, the session has {shape}")
+        session.serve([Request("warm", [1, 2, 3], max_new_tokens=2)])
+        _, results, wall, launches, peak = serve_run(torch, session, requests,
+                                                     counted)
+        eng = session.engine
+        calls = eng.num_prefills + eng.num_decode_steps
+        # The warm-up request's prefill and decode steps come first.
+        want = {"rms_norm_fwd": 65 * (calls - 2), "swiglu_fwd": 32 * (
+            calls - 2)}
+        if launches != want:
+            fail(f"export_llama_serving ({way}): launches {launches}, "
+                 f"expected {want}")
+        differ = [r.request_id for r in requests
+                  if results[r.request_id].tokens
+                  != ref_results[r.request_id].tokens]
+        if differ:
+            fail(f"export_llama_serving ({way}): the artifact session's "
+                 f"tokens differ from the model session's for {differ}")
+        tpot = pct([r.tpot_s * 1e3 for r in results.values()
+                    if r.tpot_s is not None], 50)
+        ttft = pct([r.ttft_s * 1e3 for r in results.values()], 50)
+        print(f"export_llama_serving ({way}, {card}): export "
+              f"{export_s:.2f} s (prefill {len(pre) / 1e6:.3f} MB, decode "
+              f"{len(dec) / 1e6:.3f} MB, no weights), load {load_s:.2f} s; "
+              f"from_artifacts read back slots, window, bound"
+              + (", page size, pool pages" if paged else "") + f" {got_shape}"
+              f"; {len(requests)} requests with the model session's tokens; "
+              f"TPOT p50 {tpot:.3f} ms (model session {ref_tpot:.3f}), TTFT "
+              f"p50 {ttft:.2f} ms; prefill graph captured in "
+              f"{eng.prefill_call.capture_s * 1e3:.1f} ms, decode graph in "
+              f"{eng.decode_call.capture_s * 1e3:.1f} ms; peak memory "
+              f"{peak:.2f} GiB")
+        out[way] = {"export_s": export_s, "load_s": load_s,
+                    "prefill_bytes": len(pre), "decode_bytes": len(dec),
+                    "tpot_p50_ms": tpot, "ttft_p50_ms": ttft,
+                    "model_tpot_p50_ms": ref_tpot, "launches": launches}
+        del session
+        gc.collect()
+    return out
+
+
+def _cpu_parity_cases(torch, report, what, strict):
+    if not report.ok:
+        fail(f"{what}: {report}")
+    print(f"{what}: {'strict' if strict else 'deployed'} parity card vs CPU "
+          f"from one artifact: {report}")
+    return {"ok": report.ok, "max_abs_err": report.max_abs_err,
+            "max_rel_err": report.max_rel_err, "rtol": report.rtol,
+            "atol": report.atol}
+
+
+def export_resnet50_phase(torch, card):
+    """imagenet_resnet50_dp's ResNet-50 (configs[2]) eval forward as an
+    artifact, exported on the card from a model built on meta (the
+    weights and BatchNorm statistics are inputs, saved apart with
+    save_params): f32 at batch RESNET_STRICT_BATCH held card against CPU
+    in strict mode (TF32 off in cuBLAS and cuDNN; rtol 1e-5, atol 1e-4),
+    bf16 at RESNET_DEPLOY_BATCH in deployed mode (2e-2); artifact sizes;
+    latency_benchmark (transfer and compute percentiles) of the loaded
+    bf16 program at batch 1 and RESNET_DEPLOY_BATCH, alone and replayed
+    from a CUDA graph."""
+    from tpudl_torch.export import (
+        artifact_sizes,
+        check_parity,
+        export_program,
+        forward_fn,
+        latency_benchmark,
+        load_exported,
+        load_params,
+        save_params,
+    )
+    from tpudl_torch.models.registry import build_model
+
+    out = {}
+    d = export_dir()
+    for dtype, batch, strict in ((torch.float32, RESNET_STRICT_BATCH, True),
+                                 (torch.bfloat16, RESNET_DEPLOY_BATCH, False)):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        model = build_model("resnet50", 1000, dtype=dtype)
+        model.init_weights(torch.Generator(device="cuda").manual_seed(3))
+        with torch.no_grad():
+            # Statistics off their init, so that the artifact's use of them
+            # shows in the output.
+            g = torch.Generator(device="cuda").manual_seed(4)
+            for name, t in model.named_buffers():
+                t.add_(0.1 * torch.rand(t.shape, generator=g, device="cuda"))
+        params = {k: v.detach() for k, v in model.state_dict().items()}
+        del model
+        meta = build_model("resnet50", 1000, dtype=dtype, device="meta")
+        x = torch.randn(batch, 224, 224, 3,
+                        generator=torch.Generator().manual_seed(5))
+        path = os.path.join(d, f"resnet50_{tag}.pt2")
+        ppath = os.path.join(d, f"resnet50_{tag}.safetensors")
+        t0 = time.perf_counter()
+        export_program(forward_fn(meta, train=False), (params, x.cuda()),
+                       path=path)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        save_params(ppath, params)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_params(ppath, like=params)
+        load_params_s = time.perf_counter() - t0
+        bad = [k for k in params if not torch_equal(params[k], loaded[k])]
+        if bad:
+            fail(f"export_resnet50: load_params changed {bad[:5]}")
+        t0 = time.perf_counter()
+        program = load_exported(path)
+        load_s = time.perf_counter() - t0
+        sizes = artifact_sizes(path, ppath)
+        t0 = time.perf_counter()
+        report = check_parity(path, (loaded, x), strict=strict)
+        parity_s = time.perf_counter() - t0
+        m = {"export_s": export_s, "load_s": load_s, "save_params_s": save_s,
+             "load_params_s": load_params_s, "parity_s": parity_s,
+             "program_bytes": sizes[path], "params_bytes": sizes[ppath],
+             "parity": _cpu_parity_cases(
+                 torch, report, f"export_resnet50 ({tag}, batch {batch})",
+                 strict)}
+        print(f"export_resnet50 ({tag}, {card}): export {export_s:.2f} s, "
+              f"program {sizes[path] / 1e6:.3f} MB, params "
+              f"{sizes[ppath] / 1e6:.1f} MB (save {save_s:.2f} s, load "
+              f"{load_params_s:.2f} s, bit for bit), program load "
+              f"{load_s:.2f} s, parity check {parity_s:.1f} s")
+        if not strict:
+            # Shapes are static: batch 1 is an artifact of its own.
+            programs = {RESNET_DEPLOY_BATCH: program}
+            path1 = os.path.join(d, f"resnet50_{tag}_batch1.pt2")
+            export_program(forward_fn(meta, train=False),
+                           (params, x[:1].cuda()), path=path1)
+            programs[1] = load_exported(path1)
+            for b in (1, RESNET_DEPLOY_BATCH):
+                def fn(images, program=programs[b], params=loaded):
+                    return program(params, images)
+
+                for graph in (False, True):
+                    res = latency_benchmark(fn, (x[:b].numpy(),),
+                                            warmup=LATENCY_WARMUP,
+                                            iters=LATENCY_ITERS, graph=graph)
+                    key = f"batch{b}_{'graph' if graph else 'program'}"
+                    m[key] = {w: {q: res[w][q] for q in
+                                  ("p50_ms", "p95_ms", "p99_ms")}
+                              for w in ("transfer", "compute")}
+                    print(f"export_resnet50 latency ({tag}, batch {b}, "
+                          f"{'CUDA graph' if graph else 'loaded program'}, "
+                          f"{card}): transfer p50/p95/p99 "
+                          + "/".join(f"{res['transfer'][q]:.3f}" for q in
+                                     ("p50_ms", "p95_ms", "p99_ms"))
+                          + " ms, compute "
+                          + "/".join(f"{res['compute'][q]:.3f}" for q in
+                                     ("p50_ms", "p95_ms", "p99_ms"))
+                          + f" ms ({LATENCY_ITERS} iterations after "
+                          f"{LATENCY_WARMUP})")
+        out[tag] = m
+        del program, loaded, params, meta
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def export_bert_phase(torch, card):
+    """BERT-base at seq 128 with the fused slice (train_fused's model),
+    its eval forward exported on the card: the program holds 25
+    tpudl::layer_norm, 12 bias_gelu and 12 softmax_dropout nodes (rate 0:
+    no draw); one forward of the loaded program on the card launches each
+    kernel that many times; deployed parity card against CPU at batch
+    BERT_EXPORT_BATCH."""
+    from tpudl_torch.data.synthetic import synthetic_token_batches
+    from tpudl_torch.export import check_parity, export_program, forward_fn
+    from tpudl_torch.export.export import load_exported_obj
+    from tpudl_torch.models.bert import BERT_BASE, BertForSequenceClassification
+    from tpudl_torch.ops.library import graph_ops
+
+    model_kw, _ = bert_variant(True)
+    init = BertForSequenceClassification(BERT_BASE(**model_kw), device="cuda")
+    init.init_weights(torch.Generator(device="cuda").manual_seed(11))
+    params = {k: v.detach() for k, v in init.state_dict().items()}
+    del init
+    meta = BertForSequenceClassification(BERT_BASE(**model_kw), device="meta")
+    batch = next(synthetic_token_batches(BERT_EXPORT_BATCH, BERT_SEQ, 30522,
+                                         seed=9))
+    ids = torch.as_tensor(batch["input_ids"])
+    mask = torch.as_tensor(batch["attention_mask"])
+    t0 = time.perf_counter()
+    path = os.path.join(export_dir(), "bert_base.pt2")
+    export_program(forward_fn(meta, train=False),
+                   (params, ids.cuda(), mask.cuda()), path=path)
+    export_s = time.perf_counter() - t0
+    program = load_exported_obj(path)
+    ops = graph_ops(program.graph_module)
+    want = {"layer_norm": 25, "bias_gelu": 12, "softmax_dropout": 12}
+    if ops != want:
+        fail(f"export_bert: the program holds tpudl:: nodes {ops}, expected "
+             f"{want}")
+    drawn = [str(n.target) for n in program.graph.nodes
+             if "rand" in str(n.target) or "bernoulli" in str(n.target)]
+    if drawn:
+        fail(f"export_bert: the eval program draws random bits: {drawn}")
+    module = program.module()
+    with torch.no_grad():
+        module(params, ids.cuda(), mask.cuda())  # warm-up
+        reset_counts()
+        module(params, ids.cuda(), mask.cuda())
+        torch.cuda.synchronize()
+    counts = train_counts()
+    launched = {"layer_norm": counts["layer_norm_fwd"],
+                "bias_gelu": counts["bias_gelu_fwd"],
+                "softmax_dropout": counts["softmax_dropout_fwd"]}
+    if launched != want or sum(counts.values()) != sum(want.values()):
+        fail(f"export_bert: one forward of the loaded program launched "
+             f"{counts}, expected {want}")
+    t0 = time.perf_counter()
+    report = check_parity(path, (params, ids, mask), strict=False)
+    parity_s = time.perf_counter() - t0
+    print(f"export_bert ({card}): BERT-base seq {BERT_SEQ}, batch "
+          f"{BERT_EXPORT_BATCH}, export {export_s:.2f} s, program "
+          f"{os.path.getsize(path) / 1e6:.3f} MB; tpudl:: nodes {ops}, one "
+          f"forward of the loaded program on the card launched {launched}; "
+          f"parity check {parity_s:.1f} s")
+    return {"export_s": export_s, "ops": ops, "launches": launched,
+            "parity": _cpu_parity_cases(torch, report, "export_bert", False)}
+
+
+def remat_captured_phase(torch, card, no_remat_peak_gib):
+    """compile_step with remat: BERT-base at batch 256 x seq 128 with the
+    fused slice, remat="layer", dropout 0.1 (the recomputes draw from the
+    capture's twin generators), and llama_train_parity's 2-layer
+    Llama-3-8B LoRA classifier with remat=True at 1 x 2048: REMAT_STEPS
+    steps eagerly and REMAT_STEPS through compile_step from the same
+    weights and batches, losses, parameters and optimizer state equal bit
+    for bit; step ms of the last REMAT_TIMED steps each way, capture
+    seconds and peak memory (BERT: against ``no_remat_peak_gib``, the
+    train_fused step's)."""
+    from tpudl_torch.data.synthetic import synthetic_token_batches
+    from tpudl_torch.models.bert import BERT_BASE, BertForSequenceClassification
+    from tpudl_torch.models.llama import LLAMA3_8B, LlamaForSequenceClassification
+    from tpudl_torch.models.lora import lora_optimizer
+    from tpudl_torch.train import (
+        compile_step,
+        create_train_state,
+        make_classification_train_step,
+    )
+
+    out = {}
+    keys = ("input_ids", "attention_mask")
+    model_kw, loss_impl = bert_variant(True)
+    init = BertForSequenceClassification(BERT_BASE(**model_kw), device="cuda")
+    init.init_weights(torch.Generator(device="cuda").manual_seed(11))
+    bert_params = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init
+    kw = dict(num_layers=2, lora_rank=16, num_labels=2)
+    init = LlamaForSequenceClassification(LLAMA3_8B(**kw), device="cuda")
+    init.init_weights(torch.Generator(device="cuda").manual_seed(11))
+    draw_lora_b(torch, init, torch.Generator(device="cuda").manual_seed(12),
+                0.02)
+    llama_params = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init
+    cases = {
+        "bert": (lambda: BertForSequenceClassification(
+            BERT_BASE(remat="layer", **model_kw), device="meta"),
+            sst2_optimizer, bert_params, loss_impl,
+            list(synthetic_token_batches(BERT_BATCH, BERT_SEQ, 30522, seed=3,
+                                         num_batches=REMAT_STEPS))),
+        "llama": (lambda: LlamaForSequenceClassification(
+            LLAMA3_8B(fused_ops=True, attention_impl="flash", remat=True,
+                      **kw), device="meta"),
+            None, llama_params, "reference",
+            list(synthetic_token_batches(1, LLAMA_SEQ, 128256, seed=9,
+                                         num_batches=REMAT_STEPS))),
+    }
+    for name, (make, optim, params, impl, batches) in cases.items():
+        step = make_classification_train_step(input_keys=keys,
+                                              loss_impl=impl)
+        runs = {}
+        for capture in (False, True):
+            model = make()
+            tx = (optim() if optim is not None else lora_optimizer(
+                llama_optimizer(constant=True), model, ("classifier",)))
+            state = create_train_state(0, model, tx, params=params)
+            run_step = compile_step(step, state) if capture else step
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses = []
+            for i, batch in enumerate(batches):
+                if i == REMAT_STEPS - REMAT_TIMED:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                state, metrics = run_step(state, batch, 5)
+                losses.append(metrics["loss"])
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / REMAT_TIMED * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            snapshot = (torch.stack(losses),
+                        {k: v.detach().clone() for k, v in
+                         state.model.state_dict().items()},
+                        {k: {n: t.clone() for n, t in v.items()}
+                         for k, v in state.opt_state.items()
+                         if isinstance(v, dict)}, state.step)
+            runs[capture] = (snapshot, step_ms, peak,
+                             getattr(run_step, "capture_s", None),
+                             getattr(run_step, "twins", None))
+            del state, model, run_step
+            gc.collect()
+            torch.cuda.empty_cache()
+        check_bitwise(f"remat_captured ({name})", runs[False][0],
+                      runs[True][0])
+        twins = runs[True][4]
+        n_twins = 0 if twins is None else len(twins.twins)
+        (_, eager_ms, eager_peak, _, _), (_, ms, peak, capture_s, _) = (
+            runs[False], runs[True])
+        print(f"remat_captured ({name}, {card}): step {ms:.2f} ms captured, "
+              f"{eager_ms:.2f} eager; captured in {capture_s:.3f} s with "
+              f"{n_twins} recompute twin generators; peak memory "
+              f"{peak:.2f} GiB captured, {eager_peak:.2f} eager"
+              + (f" (train_fused without remat: {no_remat_peak_gib:.2f})"
+                 if name == "bert" else ""))
+        out[name] = {"step_ms": ms, "eager_step_ms": eager_ms,
+                     "capture_s": capture_s, "peak_memory_gib": peak,
+                     "eager_peak_memory_gib": eager_peak,
+                     "recompute_twins": n_twins}
+    return out
+
+
 #: (kernel, kind, variant, vectors a thread) of the bf16 norm forwards
 #: the main paths launch: BERT's LayerNorm at H 768 (3 vectors a lane),
 #: Llama's RMSNorm at H 4096 (2 vectors a thread).
@@ -4010,6 +4588,9 @@ def main() -> int:
     tenant_metrics["parity"] = tenant_parity_phase(
         torch, model, params, adapters, t_requests, t_results)
     tenant_steps = tenant_metrics["prefills"] + tenant_metrics["decode_steps"]
+    gen_metrics = generate_chunked_phase(torch, model, params, card)
+    export_serving = export_llama_serving_phase(torch, model, params, card,
+                                                requests, results, metrics)
     # Free the 8B model before the training phases.
     del model, params, requests, results, adapters, t_results
     gc.collect()
@@ -4031,6 +4612,7 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     fused_metrics["remat_accum"] = bert_remat_accum_phase(torch)
+    bert_export = export_bert_phase(torch, card)
     fused_metrics["parity"] = train_parity_phase(torch, fused_slice=True)
     state, launches_512, metrics_512 = train_phase(
         torch, card, fused_slice=True, batch_size=BERT_512_BATCH,
@@ -4048,10 +4630,17 @@ def main() -> int:
     resnet_metrics["parity"] = resnet_parity_phase(torch)
     gc.collect()
     torch.cuda.empty_cache()
+    resnet_export = export_resnet50_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     llama_launches, llama_metrics = llama_lora_train_phase(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     llama_metrics["parity"] = llama_train_parity_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat_metrics = remat_captured_phase(torch, card,
+                                         fused_metrics["peak_memory_gib"])
 
     norms_cu = "tpudl_torch/ops/csrc/norms.cu"
     mlp_cu = "tpudl_torch/ops/csrc/mlp_fused.cu"
@@ -4183,6 +4772,11 @@ def main() -> int:
                       "train_fused": fused_metrics, "train_512": metrics_512,
                       "resnet50_train": resnet_metrics,
                       "llama_lora_train": llama_metrics,
+                      "generate_chunked": gen_metrics,
+                      "export_llama_serving": export_serving,
+                      "export_resnet50": resnet_export,
+                      "export_bert": bert_export,
+                      "remat_captured": remat_metrics,
                       "launch_floor": floor, "pdl_chain": chain,
                       "card": card}))
     print(json.dumps({"kernels": kernels}))

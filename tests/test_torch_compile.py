@@ -274,12 +274,23 @@ def test_compile_step_refusals(tpudl_bert_tiny):
         compile_step(step, state)(_port_state(jparams), _batches(1)[0], 0)
     from tpudl_torch.models import bert
 
-    remat = create_train_state(
-        0, bert.BertForSequenceClassification(
-            bert.BERT_TINY(dtype=torch.float32, remat="layer"), "meta"),
-        state.tx, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 15"):
-        compile_step(step, remat)
+    def remat_state():
+        return create_train_state(
+            0, bert.BertForSequenceClassification(
+                bert.BERT_TINY(dtype=torch.float32, remat="layer"), "meta"),
+            state.tx, device="cpu")
+
+    # A remat model compiles (its recomputes draw from twin generators
+    # under capture); on the CPU the compiled step is the eager step.
+    remat, twin = remat_state(), remat_state()
+    compiled = compile_step(step, remat)
+    assert compiled.remat
+    batch = _batches(1)[0]
+    _, got = compiled(remat, batch, 3)
+    _, want = step(twin, batch, 3)
+    assert torch.equal(got["loss"], want["loss"])
+    for name, p in remat.params.items():
+        assert torch.equal(p, twin.params[name]), name
 
 
 def test_static_inputs_refuse_a_new_shape_naming_both():

@@ -33,7 +33,10 @@ def test_every_module_imports_without_jax_flax_or_tpudl():
                  "tpudl_torch.ops.flash_attention",
                  "tpudl_torch.ops.fused_attention",
                  "tpudl_torch.ops.segmented_lora", "tpudl_torch.models.paged",
-                 "tpudl_torch.serve.lora"):
+                 "tpudl_torch.serve.lora", "tpudl_torch.ops.library",
+                 "tpudl_torch.export", "tpudl_torch.export.export",
+                 "tpudl_torch.export.parity", "tpudl_torch.export.latency",
+                 "tpudl_torch.export.decode"):
         assert name in names
     code = (
         "import importlib, sys\n"

@@ -1880,9 +1880,9 @@ def test_captured_step_refuses_a_new_shape_and_evaluate_replays_one_graph(dev):
 @pytest.mark.parametrize("mode", ["dense", "paged", "adapters"])
 def test_captured_decode_serves_the_eager_tokens(dev, mode):
     """LLAMA_TINY in f32 through the kernels, four slots: the session whose
-    decode calls replay a graph (greedy selection in the graph, sampling
-    eager) gives the eager session's tokens, greedy and sampled, and the
-    same launch counts; a dense cache's device index follows its host
+    prefill and decode calls replay graphs (greedy selection in the graph,
+    sampling eager) gives the eager session's tokens, greedy and sampled,
+    and the same launch counts; a dense cache's device index follows its host
     mirror."""
     from tpudl_torch.graphs import CapturedCall
     from tpudl_torch.models.llama import LLAMA_TINY, LlamaForCausalLM, init_params
@@ -1918,12 +1918,15 @@ def test_captured_decode_serves_the_eager_tokens(dev, mode):
                                           num_slots=4, capture=capture, **kw)
         call = session.engine.decode_call
         assert isinstance(call, CapturedCall) == capture
+        prefill = session.engine.prefill_call
+        assert isinstance(prefill, CapturedCall) == capture
         before = _launch_counts()
         out[capture] = session.serve([Request(**r.__dict__) for r in reqs])
         torch.cuda.synchronize()
         counts[capture] = [a - b for a, b in zip(_launch_counts(), before)]
         if capture:
             assert call.graph is not None and call.calls > 2
+            assert prefill.graph is not None and prefill.calls > 2
         if mode == "dense":
             cache = session.engine.cache
             index = cache.cache["model"]["layer_0"]["attention"]["index"]
@@ -1931,3 +1934,138 @@ def test_captured_decode_serves_the_eager_tokens(dev, mode):
     for r in reqs:
         assert out[True][r.request_id].tokens == out[False][r.request_id].tokens
     assert counts[True] == counts[False] and sum(counts[True]) > 0
+
+
+def _tiny_llama(dev, **kw):
+    from tpudl_torch.models.llama import LLAMA_TINY, LlamaForCausalLM, init_params
+
+    cfg = LLAMA_TINY(dtype=torch.float32, max_seq_len=64, **kw)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    return LlamaForCausalLM(cfg, device="meta"), params
+
+
+@pytest.mark.parametrize("sampling", [
+    {}, dict(temperature=0.8, top_k=50, top_p=0.9, eos_id=7)])
+def test_captured_generate_chunks_equal_the_token_loop_bitwise(dev, sampling):
+    """generate()'s decode chunks replay CUDA graphs (one per chunk length
+    and switches; the first use of each eager): a ragged left-padded
+    batch's tokens equal the per-token loop's bit for bit, greedy and
+    sampled from the same generator, in a first call (warm-up and
+    capture) and a second (replays), with the launch counts of the loop."""
+    import importlib
+
+    # The package re-exports the generate function under the module's name.
+    gen = importlib.import_module("tpudl_torch.models.generate")
+    model, params = _tiny_llama(dev)
+    rng = np.random.default_rng(9)
+    ids = torch.as_tensor(rng.integers(1, 512, (3, 8)), device=dev)
+    mask = torch.ones_like(ids)
+    mask[1, :3] = 0
+    kw = dict(max_new_tokens=20, eos_check_every=4, **sampling)
+    for call in range(2):
+        counts = []
+        outs = []
+        for chunked in (False, True):
+            before = _launch_counts()
+            outs.append(gen.generate(
+                model, params, ids, mask, chunked=chunked,
+                generator=torch.Generator(device=dev).manual_seed(3), **kw))
+            torch.cuda.synchronize()
+            counts.append([a - b for a, b in zip(_launch_counts(), before)])
+        assert torch.equal(outs[0], outs[1]), call
+        assert counts[0] == counts[1] and sum(counts[0]) > 0
+    # Chunks of 4 over 19 decode steps: the chunk length and the
+    # remainder, each captured on its second use (an early exit may
+    # skip the remainder when sampling with an eos).
+    assert gen.chunk_graphs(model) == 2 or (sampling and
+                                            gen.chunk_graphs(model) == 1)
+
+
+def test_captured_remat_step_equals_the_eager_remat_step_bitwise(dev):
+    """compile_step on a BERT_TINY with remat="layer", the fused slice and
+    dropout 0.1: the recomputes draw from twin generators registered with
+    the capture, and four steps' losses, parameters and optimizer state
+    equal the eager remat steps' bit for bit."""
+    from tpudl_torch.config import OptimConfig
+    from tpudl_torch.models import bert
+    from tpudl_torch.train import (
+        compile_step,
+        create_train_state,
+        make_classification_train_step,
+        make_optimizer,
+    )
+
+    def make():
+        return bert.BertForSequenceClassification(bert.BERT_TINY(
+            vocab_size=512, max_position_embeddings=64, fused_ops=True,
+            attention_impl="fused", hidden_dropout=0.1,
+            attention_dropout=0.1, remat="layer"), device=dev)
+
+    model = make()
+    model.init_weights(torch.Generator(device=dev).manual_seed(1))
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    ocfg = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=6,
+                       grad_clip_norm=1.0, schedule="cosine")
+    eager, captured = (create_train_state(0, make(), make_optimizer(ocfg),
+                                          params=params, device=dev)
+                       for _ in range(2))
+    step = make_classification_train_step(
+        input_keys=("input_ids", "attention_mask"), loss_impl="auto",
+        accum_steps=2)
+    rng = np.random.default_rng(4)
+    compiled = compile_step(step, captured)
+    for i in range(4):
+        batch = {"input_ids": rng.integers(0, 512, (8, 64)),
+                 "attention_mask": np.ones((8, 64), np.int32),
+                 "label": rng.integers(0, 2, 8)}
+        eager, want = step(eager, batch, 5)
+        captured, got = compiled(captured, batch, 5)
+        assert compiled.captured == (i >= 1)
+        assert torch.equal(got["loss"], want["loss"]), i
+    assert compiled.twins is not None and len(compiled.twins.twins) == 4
+    mine = captured.model.state_dict()
+    for name, t in eager.model.state_dict().items():
+        assert torch.equal(mine[name], t), name
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_artifact_sessions_serve_the_model_sessions_tokens(dev, paged):
+    """Serving artifacts exported on the card (tpudl:: nodes for the norms
+    and SwiGLU) and served through ServeSession.from_artifacts, prefill
+    and decode captured: the model session's greedy tokens, with the
+    artifact's shapes read back, and the kernels' counters moving; the
+    exported prefill on the card against the same program on the CPU,
+    strict."""
+    from tpudl_torch.export import check_parity
+    from tpudl_torch.export.decode import export_serving_decoder
+    from tpudl_torch.export.export import load_exported_obj
+    from tpudl_torch.graphs import CapturedCall
+    from tpudl_torch.ops.library import graph_ops
+    from tpudl_torch.ops.mlp_fused import swiglu
+    from tpudl_torch.ops.norms import rms_norm
+    from tpudl_torch.serve import Request, ServeSession
+
+    model, params = _tiny_llama(dev)
+    pre, dec = export_serving_decoder(model, params, 4, 8, paged=paged,
+                                      page_size=4)
+    ops = graph_ops(load_exported_obj(dec).graph_module)
+    assert ops == {"rms_norm": 5, "swiglu": 2}, ops
+    rng = np.random.default_rng(2)
+    reqs = [Request(f"r{i}", rng.integers(1, 512, int(rng.integers(
+        2, 9))).tolist(), max_new_tokens=10) for i in range(7)]
+    kw = dict(paged=True, page_size=4) if paged else {}
+    want = ServeSession.from_model(model, params, prompt_len=8, num_slots=4,
+                                   **kw).serve(
+        [Request(**r.__dict__) for r in reqs])
+    session = ServeSession.from_artifacts(pre, dec, params, paged=paged)
+    assert isinstance(session.engine.decode_call, CapturedCall)
+    assert (session.num_slots, session.prompt_len,
+            session.max_seq_len) == (4, 8, 64)
+    before = (rms_norm.launches, swiglu.launches)
+    got = session.serve([Request(**r.__dict__) for r in reqs])
+    assert rms_norm.launches > before[0] and swiglu.launches > before[1]
+    for r in reqs:
+        assert got[r.request_id].tokens == want[r.request_id].tokens
+    ids = torch.as_tensor(rng.integers(1, 512, (1, 8)), dtype=torch.int32)
+    report = check_parity(pre, (params, ids, torch.ones_like(ids)))
+    assert report.ok, str(report)

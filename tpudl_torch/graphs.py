@@ -1,6 +1,7 @@
-"""CUDA-graph capture: the port's counterpart of ``jax.jit`` for its two
-hot loops (tpudl_torch.train.loop.compile_step for the train and eval
-steps, ``CapturedCall`` for the serving engine's decode calls).
+"""CUDA-graph capture: the port's counterpart of ``jax.jit`` for its hot
+loops (tpudl_torch.train.loop.compile_step for the train and eval
+steps, ``CapturedCall`` for the serving engine's prefill and decode
+calls, ``KeyedGraphs`` for ``generate()``'s decode chunks).
 
 A captured call replays every kernel of one step from one graph launch,
 so the host pays one launch a step instead of one per kernel. What that
@@ -170,23 +171,28 @@ def _same_storage(a, b) -> bool:
 
 
 class CapturedCall:
-    """A decode contract of tpudl_torch.models.generate as a CUDA graph.
+    """A serving contract of tpudl_torch.models.generate (a prefill or a
+    decode step) as a CUDA graph.
 
     ``fn`` carries ``fn.body`` (the device work, on device or host
-    arguments), ``fn.check`` (the host checks the body does not repeat)
-    and ``fn.static_args`` (the positions of the arguments whose tensors
-    the graph reads in place: the weights, the cache, the adapter pools;
-    every other argument is copied into a static buffer each call).
+    arguments), ``fn.check`` (the host checks the body does not repeat),
+    ``fn.static_args`` (the positions of the arguments whose tensors the
+    graph reads in place: the weights, the cache, the adapter pools;
+    every other argument is copied into a static buffer each call) and
+    ``fn.cache_arg`` (the argument holding the cache a decode step writes
+    in place, None for a prefill, whose cache is an output).
 
     The first call runs ``fn`` eagerly (the warm-up: kernels built,
     cuBLAS and the allocator set up); the second checks, captures the
     body with the greedy selection (``argmax`` of the f32 logits) and
     replays it; every later call checks, copies its arguments in and
-    replays. A captured call returns ``(logits, cache)`` with the cache
-    argument itself (its tensors are written in place) and leaves the
-    greedy tokens in ``greedy``; after an eager call ``greedy`` is None.
-    The logits and ``greedy`` are the graph's buffers: the next call
-    rewrites them. A static argument whose tensors moved raises."""
+    replays. A captured call returns ``(logits, cache)``: a decode step's
+    cache is the cache argument itself (its tensors are written in
+    place), a prefill's the graph's output buffers; the greedy tokens
+    are left in ``greedy`` (None after an eager call). The logits,
+    ``greedy`` and a prefill's cache are the graph's buffers: the next
+    call rewrites them, so the caller reads or copies them out first. A
+    static argument whose tensors moved raises."""
 
     def __init__(self, fn: Callable):
         self.fn = fn
@@ -212,7 +218,7 @@ class CapturedCall:
                 continue
             if not _same_storage(args[i], known):
                 raise ValueError(
-                    f"argument {i} of the captured decode call holds other "
+                    f"argument {i} of the captured call holds other "
                     f"tensors than at capture (the graph reads the weights, "
                     f"the cache and the adapter pools in place)")
             self.static[i] = args[i]
@@ -229,9 +235,10 @@ class CapturedCall:
             self._check_static(args)
             self.inputs.fill(self._dynamic(args))
         self.graph.replay()
-        logits = self.outputs
+        logits, cache = self.outputs
         self.greedy = self._greedy
-        return logits, args[1]
+        cache_arg = self.fn.cache_arg
+        return logits, cache if cache_arg is None else args[cache_arg]
 
     def _capture(self, args) -> None:
         self.static = {i: args[i] for i in self.fn.static_args}
@@ -242,8 +249,43 @@ class CapturedCall:
             full[i] = buf
 
         def run():
-            logits, _ = self.fn.body(*full)
-            return logits, torch.argmax(logits.float(), dim=-1)
+            logits, cache = self.fn.body(*full)
+            return (logits, cache), torch.argmax(logits.float(), dim=-1)
 
         self.graph = Graph()
         self.outputs, self._greedy = self.graph.capture(run)
+
+
+class KeyedGraphs:
+    """Graphs of one device keyed by static shape and structural switches
+    (``generate()``'s decode chunks): per key, the first ``run`` calls
+    ``fn`` eagerly, the second captures it and every call from then on
+    replays. Each capture registers one generator of this object's own
+    (``register_generator_state``); ``run`` hands it the caller's
+    generator state before the replay and the advanced state back after,
+    so a replay draws what the eager call would have drawn from the
+    caller's generator, and leaves it where the eager call would."""
+
+    def __init__(self, device: torch.device):
+        self.generator = torch.Generator(device=device)
+        self.graphs: Dict[Any, Tuple[Graph, Any]] = {}
+        self.seen: set = set()
+
+    def run(self, key, fn: Callable[[torch.Generator], Any],
+            generator: torch.Generator):
+        """``fn(generator)``'s outputs, which the key's next replay
+        rewrites."""
+        entry = self.graphs.get(key)
+        if entry is None and key not in self.seen:
+            self.seen.add(key)
+            return fn(generator)
+        self.generator.set_state(generator.get_state())
+        if entry is None:
+            graph = Graph([self.generator])
+            entry = self.graphs[key] = (graph,
+                                        graph.capture(fn, self.generator))
+            self.generator.set_state(generator.get_state())
+        graph, out = entry
+        graph.replay()
+        generator.set_state(self.generator.get_state())
+        return out

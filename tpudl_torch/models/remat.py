@@ -19,6 +19,18 @@ recomputed activations, and so the gradients, are bitwise those of the
 forward without remat. The recompute launches the segment's kernels a
 second time.
 
+A captured step (tpudl_torch.train.loop.compile_step) cannot do that:
+``get_state`` / ``set_state`` are host reads and writes of a state the
+graph advances on the card. There the recompute draws from a twin
+generator instead, one per segment, registered with the capture: the
+eager warm-up step records each segment's generator and its offset at
+the segment's start (``recording``), the capture gives the k-th
+segment's recompute the k-th twin (``capturing``; the generator swaps to
+the twin's state with ``graphsafe_set_state`` for the recompute and
+back), and before every replay each twin is set to its generator's seed
+at the recorded offset (``CaptureTwins.prepare``). The recompute then
+draws, bit for bit, what the forward drew.
+
 ``policy="dots_saveable"`` is jax's policy of that name: the matrix
 products' outputs are saved and everything else is recomputed (selective
 activation checkpointing); None saves nothing.
@@ -26,8 +38,9 @@ activation checkpointing); None saves nothing.
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import (
@@ -56,11 +69,102 @@ def check_policy(policy: Optional[str]) -> None:
                          f"{policy!r}")
 
 
+#: Set while an eager step records its segments (``recording``): the
+#: (generator, offset at the segment's start) of each segment in order.
+_recorded: Optional[List[Tuple[torch.Generator, int]]] = None
+#: Set while a step is captured (``capturing``).
+_twins: Optional["CaptureTwins"] = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the segments the enclosed (eager) step runs: yields the
+    list of ``(generator, offset)`` pairs it fills."""
+    global _recorded
+    _recorded, outer = [], _recorded
+    try:
+        yield _recorded
+    finally:
+        _recorded = outer
+
+
+class CaptureTwins:
+    """The recompute twins of a captured step: ``plan`` is the recorded
+    ``(generator position, offset)`` of each segment, the position
+    indexing ``generators`` (the step's generators, reseeded before each
+    replay). ``generators`` + ``twins`` are what the capture registers."""
+
+    def __init__(self, plan: Sequence[Tuple[int, int]],
+                 generators: Sequence[torch.Generator]):
+        self.plan = list(plan)
+        self.generators = list(generators)
+        self.twins = [torch.Generator(device=generators[j].device)
+                      for j, _ in self.plan]
+        self.next = 0
+
+    def take(self, generator: torch.Generator) -> torch.Generator:
+        """The twin of the next segment, which must draw from the
+        generator the eager step's segment drew from."""
+        k = self.next
+        if k >= len(self.plan) or \
+                self.generators[self.plan[k][0]] is not generator:
+            raise RuntimeError(
+                f"remat segment {k} of the capture does not match the eager "
+                f"step's segments ({len(self.plan)} recorded): a captured "
+                f"remat step must run the segments its warm-up ran")
+        self.next += 1
+        return self.twins[k]
+
+    def prepare(self, seeds: Sequence[int]) -> None:
+        """Before a replay: each twin at its generator's seed (``seeds``,
+        in the generators' order) and its segment's offset."""
+        for twin, (j, offset) in zip(self.twins, self.plan):
+            twin.manual_seed(seeds[j])
+            twin.set_offset(offset)
+
+
+@contextlib.contextmanager
+def capturing(twins: CaptureTwins):
+    """Give each segment of the enclosed capture its twin."""
+    global _twins
+    _twins, outer = twins, _twins
+    twins.next = 0
+    try:
+        yield
+    finally:
+        _twins = outer
+    if twins.next != len(twins.plan):
+        raise RuntimeError(
+            f"the capture ran {twins.next} remat segments, the eager step "
+            f"{len(twins.plan)}")
+
+
+def _twin_run(fn, generator, twin):
+    calls = []
+
+    def run(*a):
+        if not calls:
+            calls.append(1)
+            return fn(*a)
+        current = generator.graphsafe_get_state()
+        generator.graphsafe_set_state(twin)
+        try:
+            return fn(*a)
+        finally:
+            generator.graphsafe_set_state(current)
+
+    return run
+
+
 def checkpointed(fn: Callable, generator: Optional[torch.Generator], *args,
                  policy: Optional[str] = None):
     check_policy(policy)
     run = fn
-    if generator is not None:
+    if generator is not None and _twins is not None:
+        run = _twin_run(fn, generator, _twins.take(generator))
+    elif generator is not None:
+        if _recorded is not None:
+            _recorded.append((generator, generator.get_offset()))
         start = generator.get_state()
         calls = []
 

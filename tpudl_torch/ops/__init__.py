@@ -6,7 +6,9 @@ with the Philox keep mask of ``keep_mask``), flash attention
 (``flash_attention``), whole-row attention at S <= 512
 (``fused_attention``), softmax cross-entropy forward and backward, and
 the segmented multi-tenant LoRA delta (``segmented_lora``); and the
-plain ops around them (attention, dropout).
+plain ops around them (attention, dropout). The forward kernels are
+also ops of the dispatcher, ``torch.ops.tpudl.*`` (``library``), which
+``torch.export`` traces into its artifacts.
 
 ``softmax_dropout`` and the attention and LoRA modules are reached as
 modules (``tpudl_torch.ops.softmax_dropout`` ...); their entry points are
@@ -36,3 +38,5 @@ from tpudl_torch.ops.norms import (  # noqa: F401
     rms_norm,
     rms_norm_ref,
 )
+# Registers the tpudl:: ops the wrappers above dispatch to.
+from tpudl_torch.ops import library  # noqa: E402,F401

@@ -40,6 +40,7 @@ from tpudl_torch.ops.norms import (
     check_cuda_operand,
     needs_grad,
     resolve_impl,
+    takes_op,
 )
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
@@ -163,7 +164,7 @@ class _FusedSwiGLU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, gate, up):
         ctx.save_for_backward(gate, up)
-        return _swiglu_cuda(gate, up)
+        return torch.ops.tpudl.swiglu(gate, up)
 
     @staticmethod
     def backward(ctx, g):
@@ -181,11 +182,11 @@ def swiglu(
     inputs' dtype. ``impl``: see tpudl_torch.ops.norms. Under autograd the
     kernel path runs through ``_FusedSwiGLU`` (whose backward is the
     ``swiglu_bwd`` kernel)."""
-    if not resolve_impl(impl, gate.device):
+    if not takes_op(impl, gate.device, gate, up):
         return swiglu_ref(gate, up)
-    if needs_grad(gate, up):
+    if gate.device.type == "cuda" and needs_grad(gate, up):
         return _FusedSwiGLU.apply(gate, up)
-    return _swiglu_cuda(gate, up)
+    return torch.ops.tpudl.swiglu(gate, up)
 
 
 swiglu.launches = 0
@@ -294,7 +295,7 @@ class _FusedBiasGelu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, bias):
         ctx.save_for_backward(x, bias)
-        return _bias_gelu_cuda(x, bias)
+        return torch.ops.tpudl.bias_gelu(x, bias)
 
     @staticmethod
     def backward(ctx, g):
@@ -313,11 +314,11 @@ def bias_gelu(
     with an f32 ``bias [F]``) — the BERT intermediate epilogue (12 calls
     per BERT-base forward); the kernel adds the bias and applies the GeLU
     in f32 and rounds once. ``impl``: see tpudl_torch.ops.norms."""
-    if not resolve_impl(impl, x.device):
+    if not takes_op(impl, x.device, x, bias):
         return bias_gelu_ref(x, bias)
-    if needs_grad(x, bias):
+    if x.device.type == "cuda" and needs_grad(x, bias):
         return _FusedBiasGelu.apply(x, bias)
-    return _bias_gelu_cuda(x, bias)
+    return torch.ops.tpudl.bias_gelu(x, bias)
 
 
 bias_gelu.launches = 0

@@ -16,6 +16,12 @@ Dispatch is by the tensor's device:
 - ``"auto"`` on a CPU tensor — the plain version (the CPU test path);
   ``"fused"`` on a CPU tensor raises.
 
+The forward kernel is the op ``tpudl::layer_norm`` / ``tpudl::rms_norm``
+(tpudl_torch.ops.library), whose CPU implementation is the plain
+version: without autograd, "auto" reaches the op on either device, so a
+``torch.export`` trace holds the op and the artifact dispatches by
+device.
+
 Under autograd (grad mode on and an operand that requires grad) the
 kernel path runs through ``_FusedNorm``, a ``torch.autograd.Function``
 whose forward also writes the per-row f32 statistics (mean and rstd, as
@@ -351,8 +357,8 @@ class _FusedNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, kind, x, scale, bias, residual, eps, emit_sum):
-        y, s, mean, rstd = _norm_fwd_cuda(kind, x, scale, bias, residual,
-                                          eps, emit_sum, stats=True)
+        y, s, mean, rstd = _op().norm_fwd(kind, x, scale, bias, residual,
+                                          eps, emit_sum, True)
         ctx.kind = kind
         ctx.has_bias = bias is not None
         ctx.has_res = residual is not None
@@ -373,12 +379,31 @@ class _FusedNorm(torch.autograd.Function):
                 dx if ctx.has_res else None, None, None)
 
 
-def _norm_cuda(kind, x, scale, bias, residual, eps, return_sum):
+def _op():
+    """tpudl_torch.ops.library (imported at call time: it imports this
+    module)."""
+    from tpudl_torch.ops import library
+
+    return library
+
+
+def takes_op(impl: str, device: torch.device, *operands) -> bool:
+    """Whether a wrapper goes through its ``tpudl::`` op
+    (tpudl_torch.ops.library) rather than calling the plain version
+    itself: ``impl`` "auto" or "fused" (``resolve_impl`` raises for
+    "fused" off the card), and on a CPU tensor only where autograd
+    records nothing (the op has no CPU backward)."""
+    if not resolve_impl(impl, device):
+        return impl != "reference" and not needs_grad(*operands)
+    return True
+
+
+def _norm_op(kind, x, scale, bias, residual, eps, return_sum):
     emit_sum = residual is not None and return_sum
-    if needs_grad(x, scale, bias, residual):
+    if x.device.type == "cuda" and needs_grad(x, scale, bias, residual):
         return _FusedNorm.apply(kind, x, scale, bias, residual, eps, emit_sum)
-    y, s, _, _ = _norm_fwd_cuda(kind, x, scale, bias, residual, eps,
-                                emit_sum, stats=False)
+    y, s, _, _ = _op().norm_fwd(kind, x, scale, bias, residual, eps,
+                                emit_sum, False)
     return (y, s) if emit_sum else y
 
 
@@ -400,12 +425,12 @@ def layer_norm(
     only the normed tensor and skips the sum write (BERT is post-norm
     and never reads it). ``scale`` and ``bias`` are f32 ``[H]``.
     ``impl``: see the module docstring."""
-    if not resolve_impl(impl, x.device):
+    if not takes_op(impl, x.device, x, scale, bias, residual):
         out = layer_norm_ref(x, scale, bias, residual, eps=eps)
         if residual is not None and not return_sum:
             return out[0]
         return out
-    return _norm_cuda("layer", x, scale, bias, residual, eps, return_sum)
+    return _norm_op("layer", x, scale, bias, residual, eps, return_sum)
 
 
 layer_norm.launches = 0
@@ -427,12 +452,12 @@ def rms_norm(
     residual)`` when ``residual`` is given; ``return_sum=False`` returns
     only the normed tensor and skips the sum write. ``impl``: see the
     module docstring."""
-    if not resolve_impl(impl, x.device):
+    if not takes_op(impl, x.device, x, scale, residual):
         out = rms_norm_ref(x, scale, residual, eps=eps)
         if residual is not None and not return_sum:
             return out[0]
         return out
-    return _norm_cuda("rms", x, scale, None, residual, eps, return_sum)
+    return _norm_op("rms", x, scale, None, residual, eps, return_sum)
 
 
 rms_norm.launches = 0

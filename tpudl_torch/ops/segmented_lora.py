@@ -50,7 +50,11 @@ import numpy as np
 import torch
 
 from tpudl_torch.ops import _build
-from tpudl_torch.ops.norms import KERNEL_DTYPES, check_cuda_operand, resolve_impl
+from tpudl_torch.ops.norms import (
+    KERNEL_DTYPES,
+    check_cuda_operand,
+    takes_op,
+)
 
 #: Table width (rank budget) the kernel takes.
 MAX_RANK = 64
@@ -269,9 +273,15 @@ def segmented_lora(x, pools, table, scale, *, base=None, impl: str = "auto"):
     the module docstring for the pool contract; ``impl``: see
     tpudl_torch.ops.norms."""
     check_pools(pools)
-    if not resolve_impl(impl, x.device):
+    if not takes_op(impl, x.device, x, base, *pools.values()):
         return segmented_lora_ref(x, pools, table, scale, base)
-    return _seg_lora_cuda(x, pools, table, scale, base)
+    from tpudl_torch.ops.library import seg_lora_op
+
+    # The op takes tensors; host arrays (the plain version's) become
+    # tensors as they are, and the kernel holds a tensor to its dtype.
+    table, scale = (t if isinstance(t, torch.Tensor) else torch.as_tensor(
+        np.asarray(t), device=x.device) for t in (table, scale))
+    return seg_lora_op(x, pools, table, scale, base)
 
 
 segmented_lora.launches = 0

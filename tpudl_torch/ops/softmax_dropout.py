@@ -43,6 +43,7 @@ from tpudl_torch.ops.norms import (
     check_cuda_operand,
     needs_grad,
     resolve_impl,
+    takes_op,
 )
 
 #: The longest row (Skv) the kernels take: one warp holds it in registers.
@@ -251,7 +252,8 @@ class _SoftmaxDropout(torch.autograd.Function):
     def forward(ctx, logits, kvmask, seed, causal, rate, out_dtype):
         ctx.causal, ctx.rate = causal, rate
         ctx.save_for_backward(logits, kvmask, seed)
-        return _sd_fwd_cuda(logits, kvmask, seed, causal, rate, out_dtype)
+        return torch.ops.tpudl.softmax_dropout(logits, kvmask, seed, causal,
+                                               rate, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -295,14 +297,14 @@ def softmax_dropout(
     if mask is not None:
         kvmask = normalize_kv_mask(mask, b, skv, dtype=torch.bool,
                                    impl="softmax_dropout").contiguous()
-    if not resolve_impl(impl, logits.device):
+    if not takes_op(impl, logits.device, logits):
         return softmax_dropout_ref(logits, kvmask, seed, causal,
                                    float(dropout_rate), out_dtype)
-    if needs_grad(logits):
+    if logits.device.type == "cuda" and needs_grad(logits):
         return _SoftmaxDropout.apply(logits, kvmask, seed, causal,
                                      float(dropout_rate), out_dtype)
-    return _sd_fwd_cuda(logits, kvmask, seed, causal, float(dropout_rate),
-                        out_dtype)
+    return torch.ops.tpudl.softmax_dropout(logits, kvmask, seed, causal,
+                                           float(dropout_rate), out_dtype)
 
 
 softmax_dropout.launches = 0

@@ -22,8 +22,9 @@ Knobs: ``TPUDL_SERVE_SLOTS`` (default slot count for ``from_model``),
 ported yet (``TPUDL_SERVE_KV_DTYPE``, ``TPUDL_SERVE_PREFIX_SHARE``,
 ``TPUDL_SERVE_SPEC_K``, ``TPUDL_SERVE_WEIGHT_DTYPE``, and the arguments of
 the same names) are refused when switched on, rather than served without
-them behind the operator's back. Artifact sessions (``from_artifacts``)
-wait for the export slice.
+them behind the operator's back. Artifact sessions (``from_artifacts``) serve
+the prefill and decode programs tpudl_torch.export.decode exports, with
+every shape read back from the programs.
 
 Streaming: ``session.stream(requests)`` yields ``StreamChunk``s as
 tokens are selected; a request's concatenated chunk tokens equal the
@@ -243,13 +244,16 @@ class ServeSession:
         ``tpudl_torch.serve.lora.assert_tenant_parity``.
 
         ``capture`` (default: on when the params live on the card) makes
-        the decode call a CUDA graph captured at ``num_slots``
+        the prefill and the decode call CUDA graphs
         (tpudl_torch.graphs.CapturedCall, with the greedy selection in
-        the graph): its first call runs eagerly, its second captures, and
-        every later call copies the step's tokens, positions, page table
-        and adapter table into the graph's buffers and replays. The
-        prefill stays eager (its shapes vary per prompt).
-        ``capture=False`` keeps every decode call eager.
+        the graph): each one's first call runs eagerly, its second
+        captures, and every later call copies its tokens (a prefill: the
+        left-padded prompt and mask, every prompt has the session's
+        ``[1, prompt_len]`` shape), positions, page table and adapter
+        table into the graph's buffers and replays. The engine reads a
+        prefill's first token and copies its row cache into the slot
+        before the next prefill replays. ``capture=False`` keeps both
+        eager.
 
         ``prefix_share`` and ``spec_k`` with adapters raise ValueError,
         as tpudl's do; ``kv_dtype``, ``prefix_share``, ``spec_k`` and
@@ -307,7 +311,7 @@ class ServeSession:
             raise ValueError(f"capture=True needs the params on the card, "
                              f"they are on {device}")
 
-        def decode(fn):
+        def captured(fn):
             if not capture:
                 return fn
             from tpudl_torch.graphs import CapturedCall
@@ -315,12 +319,12 @@ class ServeSession:
             return CapturedCall(fn)
 
         template = init_cache(model.cfg, num_slots, device="meta")
-        prefill = prefill_fn(model)
+        prefill = captured(prefill_fn(model))
         if not paged:
             if page_size is not None or num_pages is not None:
                 raise ValueError("page_size/num_pages require paged=True")
             cache = SlotCache(template, device=device)
-            return cls(prefill, decode(decode_fn(model)), params, template,
+            return cls(prefill, captured(decode_fn(model)), params, template,
                        prompt_len, cache=cache, **kwargs)
         from tpudl_torch.serve.cache import PagedKVCache
 
@@ -330,7 +334,8 @@ class ServeSession:
                        else env_int("TPUDL_SERVE_PAGE_SIZE", 16, min_value=1)),
             num_pages=num_pages, device=device)
         if adapters is None:
-            return cls(prefill, decode(paged_decode_fn(model, cache.page_size)),
+            return cls(prefill,
+                       captured(paged_decode_fn(model, cache.page_size)),
                        params, template, prompt_len, cache=cache, **kwargs)
         from tpudl_torch.models.lora import as_flat_adapters
         from tpudl_torch.serve.lora import AdapterPool
@@ -356,11 +361,107 @@ class ServeSession:
         for tenant, tree in adapters.items():
             pool.register(tenant, tree, alpha=adapter_alpha)
         return cls(
-            lora_prefill_fn(model, impl=adapter_impl),
-            decode(lora_paged_decode_fn(model, cache.page_size,
-                                        impl=adapter_impl)),
+            captured(lora_prefill_fn(model, impl=adapter_impl)),
+            captured(lora_paged_decode_fn(model, cache.page_size,
+                                          impl=adapter_impl)),
             params, template, prompt_len, cache=cache, adapter_pool=pool,
             **kwargs)
+
+    @classmethod
+    def from_artifacts(
+        cls,
+        prefill_blob_or_path,
+        decode_blob_or_path,
+        params,
+        paged: Optional[bool] = None,
+        capture: Optional[bool] = None,
+        **kwargs,
+    ) -> "ServeSession":
+        """Artifact session: every engine shape is recovered from the
+        loaded programs (tpudl_torch.export.decode) — the slot count and
+        the cache bound from the decode program's inputs, the prompt
+        window from the prefill's — read from their input placeholders,
+        with no side-channel metadata.
+
+        A PAGED decode artifact (``export_serving_decoder(...,
+        paged=True)``) is recognised by its addressing inputs (page
+        table, start, lens); page size and pool size come from its
+        page-pool inputs, the model's bound from the prefill's row cache.
+        ``paged`` (optional) asserts the expectation: a mismatch raises
+        instead of serving the wrong layout. ``params`` must hold the
+        artifacts' keys (in any order); another key set raises, naming
+        the first key that differs. ``capture`` (default: on when the
+        params live on the card) wraps the loaded prefill and decode in
+        CapturedCall, as ``from_model`` wraps its contracts."""
+        from tpudl_torch.export.decode import artifact_call
+        from tpudl_torch.export.export import input_values, load_exported_obj
+        from tpudl_torch.models.llama import params_device
+
+        pre = load_exported_obj(prefill_blob_or_path)
+        dec = load_exported_obj(decode_blob_or_path)
+        (pre_args, _) = input_values(pre)
+        (dec_args, _) = input_values(dec)
+        params = _params_in_order(params, pre_args[0], "prefill")
+        _params_in_order(params, dec_args[0], "decode")
+        is_paged = len(dec_args) == 7
+        if len(pre_args) != 3 or len(dec_args) not in (4, 7):
+            raise ValueError(
+                f"not a serving artifact pair: the prefill takes "
+                f"{len(pre_args)} inputs (expected 3), the decode "
+                f"{len(dec_args)} (expected 4, or 7 when paged)")
+        if paged is not None and bool(paged) != is_paged:
+            raise ValueError(
+                f"decode artifact is {'paged' if is_paged else 'dense'} "
+                f"but paged={paged} was requested")
+        ids = pre_args[1]
+        if ids.shape[0] != 1:
+            raise ValueError(
+                f"serving prefill artifact must be batch-1 (one request "
+                f"seated at a time), got batch {ids.shape[0]} — export "
+                f"with tpudl_torch.export.decode.export_serving_decoder")
+        prompt_len = int(ids.shape[1])
+        device = params_device(params)
+        if capture is None:
+            capture = device.type == "cuda"
+        token = dec_args[2]
+        num_slots = int(token.shape[0])
+        # The prefill's row cache ([1, max_seq_len, ...]) at num_slots.
+        template = _dense_template(pre, num_slots)
+        cache = None
+        if is_paged:
+            from tpudl_torch.serve.cache import PagedKVCache
+
+            pool = dec_args[1]["model"]["layer_0"]["attention"]
+            if "pages_k" not in pool:
+                raise ValueError("paged decode artifact carries no page-pool "
+                                 "cache (no pages_k input)")
+            table = dec_args[4]
+            cache = PagedKVCache(template,
+                                 page_size=int(pool["pages_k"].shape[1]),
+                                 num_pages=int(pool["pages_k"].shape[0]),
+                                 device=device)
+            if cache.pages_per_slot != int(table.shape[1]):
+                raise ValueError(
+                    f"the page table spans {int(table.shape[1])} pages a "
+                    f"slot, the model bound {cache.model_seq_len} at page "
+                    f"size {cache.page_size} needs {cache.pages_per_slot}")
+        else:
+            cache = SlotCache(template, device=device)
+
+        def wrap(program, static_args, cache_arg):
+            fn = artifact_call(program, static_args, cache_arg, device)
+            if not capture:
+                return fn
+            from tpudl_torch.graphs import CapturedCall
+
+            return CapturedCall(fn)
+
+        session = cls(wrap(pre, (0,), None), wrap(dec, (0, 1), 1), params,
+                      template, prompt_len, cache=cache, **kwargs)
+        if session.num_slots != num_slots:
+            raise ValueError(
+                "decode artifact's cache and token batch dims disagree")
+        return session
 
     # -- introspection -------------------------------------------------
 
@@ -518,6 +619,49 @@ class ServeSession:
         rec = active_recorder()
         if rec is not None:
             rec.counters(registry().snapshot())
+
+
+def _params_in_order(params, spec, which: str):
+    """``params`` in the key order the artifact's input spec fixed; a
+    dict of other keys raises, naming the first key that differs."""
+    want = list(spec)
+    if list(params) == want:
+        return params
+    if set(params) != set(want):
+        first = next((k for k in want if k not in params), None)
+        if first is None:
+            first = next(k for k in params if k not in spec)
+        raise ValueError(
+            f"params do not match the {which} artifact's parameters (first "
+            f"key that differs: {first!r}; {len(params)} keys against "
+            f"{len(want)})")
+    return {k: params[k] for k in want}
+
+
+def _dense_template(prefill_program, num_slots: int) -> dict:
+    """A meta cache template of ``num_slots`` rows (init_cache's layout,
+    host write index 0) from a batch-1 prefill program's row-cache
+    outputs."""
+    from torch.utils import _pytree
+
+    values = {n.name: n.meta.get("val") for n in prefill_program.graph.nodes}
+    leaves = []
+    for spec in prefill_program.graph_signature.output_specs:
+        if spec.kind.name != "USER_OUTPUT":
+            continue
+        arg = spec.arg
+        leaves.append(values[arg.name] if hasattr(arg, "name") and arg.name
+                      in values else getattr(arg, "value", None))
+    _, cache = _pytree.tree_unflatten(leaves,
+                                      prefill_program.call_spec.out_spec)
+
+    def meta(leaf):
+        if isinstance(leaf, torch.Tensor):
+            return torch.empty((num_slots, *leaf.shape[1:]), dtype=leaf.dtype,
+                               device="meta")
+        return 0
+
+    return _pytree.tree_map(meta, cache)
 
 
 def assert_serving_parity(

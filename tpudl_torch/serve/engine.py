@@ -46,10 +46,10 @@ whatever its neighbors are. Greedy requests match ``generate()`` token
 for token.
 
 On the card ``ServeSession.from_model`` hands the engine a captured
-decode call (tpudl_torch.graphs.CapturedCall): it replays one CUDA graph
-a step, greedy selection included, and leaves the argmax in
-``decode_call.greedy``, which the selection reads back instead of
-computing it again. The dense cache's write index is then a device
+prefill and a captured decode call (tpudl_torch.graphs.CapturedCall):
+each replays one CUDA graph a call, greedy selection included, and
+leaves the argmax in ``.greedy``, which the selection reads back instead
+of computing it again. The dense cache's write index is then a device
 tensor the graph advances; the engine's horizon checks read its host
 mirror (``SlotCache.write_index``).
 
@@ -105,9 +105,10 @@ def _select_tokens(logits, temps, seeds, steps, greedy=None) -> np.ndarray:
     return out.cpu().numpy()
 
 
-def first_token(logits, request) -> int:
+def first_token(logits, request, greedy=None) -> int:
     """Select a request's FIRST token from its batch-1 prefill logits
-    (step 0 of its per-request sampling stream)."""
+    (step 0 of its per-request sampling stream); ``greedy``: the argmax
+    a captured prefill computed in its graph."""
     if request.temperature > 0:
         sel = _select_tokens(
             logits,
@@ -116,7 +117,7 @@ def first_token(logits, request) -> int:
             np.int32([0]),
         )
     else:
-        sel = _select_greedy(logits)
+        sel = _select_greedy(logits, greedy)
     return int(sel[0])
 
 
@@ -248,7 +249,11 @@ class Engine:
             else:
                 logits, row_cache = self.prefill_call(self.params, padded,
                                                       mask)
-            first = first_token(logits, req)
+            # A captured prefill's logits, argmax and row cache are its
+            # graph's buffers: the token is read here and _install copies
+            # the row into the slot, both before the next prefill replays.
+            first = first_token(logits, req,
+                                getattr(self.prefill_call, "greedy", None))
         except BaseException:
             if tenant_pinned:
                 pool.release(req.tenant)

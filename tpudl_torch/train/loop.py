@@ -40,18 +40,21 @@ single-device path of tpudl.train.loop.
   second captures the whole step (every microbatch, the update, the
   BatchNorm statistics) and replays it, and every later call copies the
   batch into the graph's input buffers, reseeds its generators and
-  replays. On a CPU state it runs the step eagerly.
+  replays; a remat model's recomputes draw from twin generators the
+  capture registers (tpudl_torch.models.remat). On a CPU state it runs
+  the step eagerly.
 - ``fit`` drives a step (eager or compiled) over a batch iterator, one
   step per dispatch.
 
 Not ported (each raises NotImplementedError naming its ROADMAP item):
-mixed-precision policies, the MoE auxiliary loss, meshes, a captured
-remat step; and fit's checkpointing, preemption, profiling, fused
-K-step dispatch and asynchronous metrics.
+mixed-precision policies, the MoE auxiliary loss, meshes; and fit's
+checkpointing, preemption, profiling, fused K-step dispatch and
+asynchronous metrics.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import time
@@ -62,6 +65,7 @@ import torch
 from torch import nn
 
 from tpudl_torch.graphs import Graph, StaticInputs
+from tpudl_torch.models import remat
 from tpudl_torch.models.resnet import BatchNorm
 from tpudl_torch.ops.cross_entropy import softmax_cross_entropy
 from tpudl_torch.rng import fold_seed
@@ -335,6 +339,11 @@ class CompiledStep:
         self.graph: Optional[Graph] = None
         self.inputs: Optional[StaticInputs] = None
         self.generators: List[torch.Generator] = []
+        # A remat model's segments, recorded by the eager warm-up call,
+        # and the recompute twins the capture registers (models/remat.py).
+        self.remat = has_rng and _uses_remat(state.model)
+        self.segments: List[tuple] = []
+        self.twins = None
         self.outputs = None
         if getattr(step_fn, "mask_aware", False):
             self.mask_aware = True
@@ -368,15 +377,28 @@ class CompiledStep:
             return self._run(state, batch, rng)
         self.calls += 1
         if self.calls == 1:
-            return self._run(state, batch, rng)
+            if not self.remat:
+                return self._run(state, batch, rng)
+            with remat.recording() as segments:
+                out = self._run(state, batch, rng)
+            order: List[torch.Generator] = []
+            for gen, _ in segments:
+                if not any(gen is g for g in order):
+                    order.append(gen)
+            self.segments = [(next(j for j, g in enumerate(order)
+                                   if g is gen), offset)
+                             for gen, offset in segments]
+            return out
         if self.graph is None:
             self._capture(state, batch, rng, device)
         else:
             self.inputs.fill(batch)
         if self.has_rng:
-            for gen, seed in zip(self.generators,
-                                 self.step_fn.seeds(state, rng)):
+            seeds = self.step_fn.seeds(state, rng)
+            for gen, seed in zip(self.generators, seeds):
                 gen.manual_seed(seed)
+            if self.twins is not None:
+                self.twins.prepare(seeds)
             state.tx.prepare_(state.opt_state)
         self.graph.replay()
         # The graph rewrites its outputs on the next replay.
@@ -393,14 +415,21 @@ class CompiledStep:
                                for _ in self.step_fn.seeds(state, rng)]
         if state.graph_pool is None:
             state.graph_pool = torch.cuda.graph_pool_handle()
-        self.graph = Graph(self.generators, pool=state.graph_pool)
+        twins = []
+        context = contextlib.nullcontext()
+        if self.segments:
+            self.twins = remat.CaptureTwins(self.segments, self.generators)
+            twins = self.twins.twins
+            context = remat.capturing(self.twins)
+        self.graph = Graph(self.generators + twins, pool=state.graph_pool)
         # The capture runs the step's Python, which moves the host counts
         # without running the update: put them back.
         step, host_count = state.step, state.opt_state.get("host_count")
         try:
-            self.outputs = self.graph.capture(
-                self._run, state, self.inputs.bufs, rng,
-                self.generators if self.has_rng else None)
+            with context:
+                self.outputs = self.graph.capture(
+                    self._run, state, self.inputs.bufs, rng,
+                    self.generators if self.has_rng else None)
         finally:
             state.step = step
             if host_count is not None:
@@ -441,9 +470,11 @@ def compile_step(
     graph, before ``step_fn``.
 
     Raise NotImplementedError: ``mesh`` / ``rules`` (queue A item 7),
-    ``steps_per_dispatch`` > 1 (item 10: the captured K-step graph),
-    ``precision`` (item 8), and a model with remat (item 15: its recompute
-    resets generator states, which a capture cannot replay). tpudl's
+    ``steps_per_dispatch`` > 1 (item 10: the captured K-step graph) and
+    ``precision`` (item 8). A model with remat is captured too: its
+    recomputes draw from twin generators registered with the capture
+    (tpudl_torch.models.remat), which the warm-up call's recorded segment
+    offsets position before each replay. tpudl's
     donation has no counterpart: a train step updates the state in place,
     an eval step leaves it alone, so ``donate_state`` may only say so."""
     if mesh is not None or rules is not None:
@@ -465,8 +496,6 @@ def compile_step(
         raise TypeError("compile_step captures train steps built by "
                         "make_classification_train_step (it reseeds their "
                         "generators, step_fn.seeds, before each replay)")
-    if _uses_remat(state.model):
-        _refuse("remat", True, "queue A item 15 (a captured remat step)")
     return CompiledStep(step_fn, state, has_rng, preprocess)
 
 
