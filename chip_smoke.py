@@ -40,8 +40,10 @@ Phases, in order (any failure exits non-zero and prints no result):
              backward, bias+GeLU forward and backward) against their plain
              versions at the BERT-base step's shapes ([32768, 768] and
              [32768, 3072]), bf16 and f32, and one unaligned shape, timed
-             like phase 3 (library call: F.layer_norm and
-             aten.native_layer_norm_backward where they compute the same
+             like phase 3 (library call: F.layer_norm,
+             aten.native_layer_norm_backward and, for the RMS kind at the
+             Llama microbatch's [8192, 4096] without residual,
+             aten._fused_rms_norm_backward where they compute the same
              function; none computes bias+GeLU);
 8. tiny_train — one train step of a BERT_TINY-shaped model in f32, dropout
              off, with the kernels on the card against the same step on
@@ -225,6 +227,39 @@ The rest of the compiled serving path and the export harness add:
              fused, remat="layer", dropout 0.1, and the 2-layer Llama LoRA
              classifier with remat=True, captured against eager bit for
              bit; step ms, capture s, recompute twins, peak memory.
+
+Checkpointing and fault tolerance (tpudl_torch.checkpoint,
+tpudl_torch.ft) add, after phase 18b:
+
+20. ft_bert — BERT-base as train_fused runs it (256 x 128, dropout 0.1,
+             captured), checkpointed by an AsyncCheckpointManager in a
+             temporary directory: 12 uninterrupted steps; the same with
+             checkpoint_every=4 (step time with and without the cadence,
+             each save's stall and background write, the payload's
+             bytes); SIGTERM from the logger at step 6 under a
+             PreemptionGuard (a save at 4, the emergency save at 6,
+             info["preempted"]); the step-4 checkpoint restored in place
+             into that run's captured state (the same tensors) and
+             replayed to step 12; resume_run into a state from another
+             seed and 6 more steps (counts reset just before: the fused
+             slice's launches a step); the same save with
+             async_save=False. Every run equals the uninterrupted one bit
+             for bit: losses, parameters, moments, counts and step;
+21. ft_resnet50 — configs[2] at 1024 = 8 x 128 fed by
+             prefetch_to_device under a ResumableIterator: 6 steps
+             against a run saved at step 3 and resumed in a state from
+             another seed, bit for bit (BatchNorm statistics and SGD
+             traces included), 8 cross-entropy launches each way a
+             resumed step;
+22. ft_kill — tpudl_torch.ft.Supervisor over a one-process runner
+             (OneProcessRunner: a spawn child a run): the child trains
+             BERT-base 8 steps with a checkpoint every 2 and is
+             SIGKILLed once at step 5 (TPUDL_CHAOS_KILL_AT_STEP,
+             TPUDL_CHAOS_ONCE_DIR); the restarted child resumes at step 4
+             and ends with the payload digest of an uninterrupted child;
+             then the newest step is truncated and restore_full() falls
+             back to the one before it, counting ft_corrupt_checkpoints
+             once.
 
 The compiled step (tpudl_torch.graphs) makes every path run twice, from
 the same seeded weights over the same batches or requests: eagerly,
@@ -1687,6 +1722,8 @@ def train_kernel_phase(torch, F):
         ("rms", (LLAMA_BATCH * LLAMA_SEQ, 4096), bf16, True, True,
          "RMSNorm, residual and sum gradient (the Llama LoRA step's "
          "microbatch of 4 x 2048)"),
+        ("rms", (LLAMA_BATCH * LLAMA_SEQ, 4096), bf16, False, False,
+         "RMSNorm, plain (the Llama LoRA microbatch's shape)"),
         ("layer", (4099, 766), bf16, True, False,
          "LayerNorm, residual, unaligned"),
     ):
@@ -1711,20 +1748,27 @@ def train_kernel_phase(torch, F):
                 shape[0] * h * e * streams + h * 4 * (1 + stats)
                 + shape[0] * 4 * stats,
                 shape[0] * h * 14)
-        library = None
+        library = library_name = None
         if kind == "layer" and not residual:
             m2, r2 = mean.view(-1, 1), rstd.view(-1, 1)
             ls, lb = scale.to(dtype), bias.to(dtype)
             library = (lambda: torch.ops.aten.native_layer_norm_backward(
                 gy, x, [h], m2, r2, ls, lb, [True, True, True]))
+            library_name = (f"aten.native_layer_norm_backward, "
+                            f"{c['dtype']} weights")
+        elif kind == "rms" and not residual and not with_gs:
+            # dx and dscale from the saved f32 rstd, as the kernel does.
+            r2, ls = rstd.view(-1, 1), scale.to(dtype)
+            library = (lambda: torch.ops.aten._fused_rms_norm_backward(
+                gy, x, [h], r2, ls, [True, True]))
+            library_name = (f"aten._fused_rms_norm_backward, "
+                            f"{c['dtype']} weights")
         cases["norm_bwd"].append(timed_case(
             c,
             lambda: norm_bwd(x, scale, r, mean, rstd, gy, gs, kind=kind,
                              impl="fused"),
             lambda: norm_bwd_ref(x, scale, r, mean, rstd, gy, gs, kind=kind),
-            library,
-            f"aten.native_layer_norm_backward, {c['dtype']} weights"
-            if library else None,
+            library, library_name,
         ))
 
     # bias + GeLU, forward and backward.
@@ -2288,20 +2332,21 @@ def train_phase(torch, card, fused_slice=False, batch_size=BERT_BATCH,
     return state, launches, metrics
 
 
-def check_bitwise(name, eager, captured):
+def check_bitwise(name, eager, captured, names=("captured", "eager")):
     """Hold a captured run's (losses, state_dict, optimizer state, step)
-    to the eager run's, bit for bit."""
+    to the eager run's, bit for bit (``names``: what the two runs are)."""
     (l0, p0, o0, s0), (l1, p1, o1, s1) = eager, captured
+    mine, theirs = names
     if not torch_equal(l0, l1):
-        fail(f"{name}: captured losses {l1.tolist()} are not the eager "
+        fail(f"{name}: {mine} losses {l1.tolist()} are not the {theirs} "
              f"run's {l0.tolist()}")
     bad = [k for k in p0 if not torch_equal(p0[k], p1[k])]
     bad += [f"{k}/{n}" for k in o0 for n in o0[k]
             if not torch_equal(o0[k][n], o1[k][n])]
     if bad or s0 != s1:
-        fail(f"{name}: after the captured steps {len(bad)} tensors differ "
-             f"from the eager run's (e.g. {bad[:5]}), steps {s1} vs {s0}")
-    print(f"{name}: captured equal to eager bit for bit: {len(l0)} losses, "
+        fail(f"{name}: after the {mine} steps {len(bad)} tensors differ "
+             f"from the {theirs} run's (e.g. {bad[:5]}), steps {s1} vs {s0}")
+    print(f"{name}: {mine} equal to {theirs} bit for bit: {len(l0)} losses, "
           f"{len(p0)} parameters and statistics, "
           f"{sum(len(v) for v in o0.values())} optimizer tensors, step {s1}")
 
@@ -4480,6 +4525,642 @@ MAIN_PATH_NORM_KERNELS = {
 } | {("norm_fwd_wide_kernel", "RMSNorm", v, "2") for v in ("plain", "residual+sum")}
 
 
+#: Checkpointing and fault tolerance (ft_bert, ft_resnet50, ft_kill):
+#: BERT-base steps of the uninterrupted run, the checkpoint cadence, the
+#: step the logger sends SIGTERM at; ResNet-50 steps and the save step;
+#: the supervised child's steps, cadence and chaos kill step.
+FT_BERT_STEPS = 12
+FT_BERT_EVERY = 4
+FT_BERT_SIGTERM_AT = 6
+FT_RESNET_STEPS = 6
+FT_RESNET_SAVE_AT = 3
+FT_KILL_STEPS = 8
+FT_KILL_EVERY = 2
+FT_KILL_AT = 5
+
+
+def ft_snapshot(losses, state):
+    """check_bitwise's (losses, state_dict, optimizer tensors, step), with
+    the optimizer's device count and host count as one-element tensors."""
+    import torch
+
+    opt = {k: {n: t.clone() for n, t in v.items()}
+           for k, v in state.opt_state.items() if isinstance(v, dict)}
+    opt["counts"] = {
+        "count": state.opt_state["count"].detach().clone().view(1).cpu(),
+        "host_count": torch.tensor([state.opt_state["host_count"]])}
+    return (torch.stack(losses).clone(),
+            {k: v.detach().clone() for k, v in
+             state.model.state_dict().items()}, opt, state.step)
+
+
+def payload_digest(state):
+    """sha256 over every leaf of the checkpoint payload (keys and bytes,
+    in payload order): the state's parameters, statistics, optimizer
+    tensors, counts and step."""
+    import hashlib
+
+    import torch
+
+    from tpudl_torch.ft.manager import flatten_with_keys, state_payload
+
+    h = hashlib.sha256()
+    for key, t in flatten_with_keys(state_payload(state)):
+        h.update(key.encode())
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def histogram_since(name, before):
+    """The observations of a tpudl_torch.obs histogram after the first
+    ``before`` (the count when a phase started)."""
+    from tpudl_torch.obs import counters as obs_counters
+
+    values = obs_counters.registry().histogram(name).values
+    return values[before:]
+
+
+def hist_counts(*names):
+    from tpudl_torch.obs import counters as obs_counters
+
+    reg = obs_counters.registry()
+    return {n: reg.histogram(n).count for n in names}
+
+
+def ft_bert_state(torch, seed, params=None):
+    """BERT-base on the fused slice (bert_variant(True), dropout 0.1) from
+    ``seed`` (or ``params``), the sst2_bert_base optimizer at a constant
+    rate."""
+    from tpudl_torch.models.registry import build_model
+    from tpudl_torch.train import create_train_state
+
+    model_kw, _ = bert_variant(True)
+    model = build_model("bert-base", 2, **model_kw)
+    return create_train_state(seed, model, sst2_optimizer(), params=params)
+
+
+def ft_bert_step():
+    from tpudl_torch.train import make_classification_train_step
+
+    _, loss_impl = bert_variant(True)
+    return make_classification_train_step(
+        input_keys=("input_ids", "attention_mask"), label_key="label",
+        loss_impl=loss_impl)
+
+
+def ft_fit(torch, step, state, data, num_steps, mgr=None, every=0, rng=1,
+           on_log=None):
+    """fit through ``step`` (a compiled step) with a per-step logger: the
+    losses as device tensors, the wall clock at each log (after the
+    step's checkpoint, if any, and the loss's read-back), and ``on_log``.
+    Returns (state, losses, log times, info)."""
+    from tpudl_torch.train import fit
+
+    losses, times = [], []
+
+    def recorded(state, batch, rng):
+        state, metrics = step(state, batch, rng)
+        losses.append(metrics["loss"])
+        return state, metrics
+
+    def logger(i, metrics):
+        times.append(time.perf_counter())
+        if on_log is not None:
+            on_log(i, metrics)
+
+    state, _, info = fit(recorded, state, data, rng, num_steps=num_steps,
+                         log_every=1, logger=logger, checkpoint_manager=mgr,
+                         checkpoint_every=every)
+    return state, losses, times, info
+
+
+def ft_bert_phase(torch, card):
+    """configs[1] BERT-base at full width and depth, fused as
+    bert_variant(True) runs it (256 x 128, dropout 0.1, sst2_optimizer,
+    compile_step), checkpointed through an AsyncCheckpointManager in a
+    temporary directory (removed at the end):
+
+    1. control: FT_BERT_STEPS uninterrupted steps;
+    2. the same with checkpoint_every=FT_BERT_EVERY (the step time with
+       and without the cadence, each save's stall and write);
+    3. interrupted: checkpoint_every=FT_BERT_EVERY under a
+       PreemptionGuard, the logger sending SIGTERM at step
+       FT_BERT_SIGTERM_AT: a save at FT_BERT_EVERY, the emergency save at
+       FT_BERT_SIGTERM_AT, info["preempted"], the flag cleared after;
+    4. restore in place: the step-FT_BERT_EVERY checkpoint into the
+       interrupted run's own state, which its compiled step captured at
+       step 2: the same tensors (data_ptr), then that compiled step
+       replays the rest of the schedule to the control's end;
+    5. resumed: a state initialised from another seed, resume_run
+       (start FT_BERT_SIGTERM_AT, the saved seed), a fresh compile_step,
+       fit for the rest (counts reset just before: the fused slice's
+       launches a step);
+    6. the same save with async_save=False, and a restore's time.
+
+    4 and 5 end bit for bit where 1 ends: the losses, every parameter,
+    the optimizer's moments and counts, and the step."""
+    import shutil
+    import signal
+    import tempfile
+
+    from tpudl_torch.checkpoint import CheckpointManager
+    from tpudl_torch.data.synthetic import synthetic_token_batches
+    from tpudl_torch.ft import (
+        AsyncCheckpointManager,
+        PreemptionGuard,
+        ResumableIterator,
+        resume_run,
+    )
+    from tpudl_torch.ft import preemption as ft_preemption
+    from tpudl_torch.train import compile_step
+
+    n, every, stop = FT_BERT_STEPS, FT_BERT_EVERY, FT_BERT_SIGTERM_AT
+    step_fn = ft_bert_step()
+    root = tempfile.mkdtemp(prefix="tpudl_ft_bert_")
+    try:
+        t0 = time.perf_counter()
+        state = ft_bert_state(torch, 0)
+        batches = list(synthetic_token_batches(
+            BERT_BATCH, BERT_SEQ, state.model.cfg.vocab_size,
+            num_batches=n, seed=11))
+        init = {k: v.detach().clone()
+                for k, v in state.model.state_dict().items()}
+
+        def fresh_from_init():
+            return ft_bert_state(torch, 0, init)
+
+        print(f"ft_bert: BERT-base ({bert_variant(True)[0]}), batch "
+              f"{BERT_BATCH} x seq {BERT_SEQ}, dropout 0.1, compile_step, "
+              f"checkpoints under {root}; set-up "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # 1. control
+        state, losses, times, _ = ft_fit(
+            torch, compile_step(step_fn, state), state,
+            ResumableIterator(batches), n)
+        control = ft_snapshot(losses, state)
+        plain_ms = (times[-1] - times[1]) / (n - 2) * 1e3
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2. the cadence's cost
+        before = hist_counts("checkpoint_stall_s", "checkpoint_write_s",
+                             "checkpoint_backpressure_s")
+        state = fresh_from_init()
+        with AsyncCheckpointManager(os.path.join(root, "cadence")) as mgr:
+            state, losses, times, _ = ft_fit(
+                torch, compile_step(step_fn, state), state,
+                ResumableIterator(batches), n, mgr=mgr, every=every)
+            cadence_ms = (times[-1] - times[1]) / (n - 2) * 1e3
+            mgr.wait_until_finished()
+            meta = mgr.store.read_meta(n)
+        stalls = histogram_since("checkpoint_stall_s",
+                                 before["checkpoint_stall_s"])
+        writes = histogram_since("checkpoint_write_s",
+                                 before["checkpoint_write_s"])
+        waits = histogram_since("checkpoint_backpressure_s",
+                                before["checkpoint_backpressure_s"])
+        nbytes = sum(leaf["nbytes"] for leaf in meta["leaves"])
+        dtypes = {}
+        for leaf in meta["leaves"]:
+            kind = leaf["key"].split("']")[0][2:]
+            dtypes.setdefault(f"{kind} {leaf['dtype']}", 0)
+            dtypes[f"{kind} {leaf['dtype']}"] += leaf["nbytes"]
+        check_bitwise("ft_bert", control, ft_snapshot(losses, state),
+                      ("checkpoint_every=4", "uninterrupted"))
+        print(f"ft_bert ({card}): payload {nbytes} bytes in "
+              f"{len(meta['leaves'])} leaves ({dtypes}); captured step "
+              f"{plain_ms:.2f} ms without checkpoints, {cadence_ms:.2f} ms "
+              f"with checkpoint_every={every} (wall from the log after step "
+              f"2 to the log after step {n}, the loss read back each step); "
+              f"async save stall (host copy + back-pressure) "
+              f"{', '.join(f'{x:.3f}' for x in stalls)} s, back-pressure "
+              f"{', '.join(f'{x:.3f}' for x in waits) or 'none'} s, "
+              f"background write and commit "
+              f"{', '.join(f'{x:.3f}' for x in writes)} s")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 3. interrupted by SIGTERM
+        def sigterm(i, metrics):
+            if i == stop:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        ft_preemption.reset()
+        ck = os.path.join(root, "run")
+        state_i = fresh_from_init()
+        step_i = compile_step(step_fn, state_i)
+        with AsyncCheckpointManager(ck) as mgr:
+            with PreemptionGuard(grace_s=120.0):
+                state_i, head, _, info = ft_fit(
+                    torch, step_i, state_i, ResumableIterator(batches), n,
+                    mgr=mgr, every=every, on_log=sigterm)
+                flagged = ft_preemption.requested()
+            steps_saved = mgr.all_steps()
+        if not (info["preempted"] and info["steps"] == stop and flagged
+                and steps_saved == [every, stop]
+                and not ft_preemption.requested()):
+            fail(f"ft_bert: SIGTERM at step {stop}: info {info}, flag "
+                 f"{flagged} then {ft_preemption.requested()}, committed "
+                 f"steps {steps_saved} (expected [{every}, {stop}])")
+        if not step_i.captured:
+            fail("ft_bert: the interrupted run's step never captured")
+
+        # 4. restore in place into the captured state, replay the rest
+        ptrs = {k: v.data_ptr() for k, v in state_i.model.state_dict().items()}
+        ptrs.update({f"{k}/{m}": t.data_ptr()
+                     for k, v in state_i.opt_state.items()
+                     if isinstance(v, dict) for m, t in v.items()})
+        with AsyncCheckpointManager(ck) as mgr:
+            t1 = time.perf_counter()
+            state_i, rng, data_state = mgr.restore_full(state_i, step=every)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t1
+        now = {k: v.data_ptr() for k, v in state_i.model.state_dict().items()}
+        now.update({f"{k}/{m}": t.data_ptr()
+                    for k, v in state_i.opt_state.items()
+                    if isinstance(v, dict) for m, t in v.items()})
+        if now != ptrs or state_i.step != every or rng != 1 or \
+                data_state != {"epoch": 0, "offset": every}:
+            fail(f"ft_bert: restore in place moved "
+                 f"{sum(now[k] != ptrs[k] for k in ptrs)} tensors, step "
+                 f"{state_i.step}, rng {rng}, data {data_state}")
+        data = ResumableIterator(batches).seek(data_state)
+        state_i, replayed, _, _ = ft_fit(torch, step_i, state_i, data,
+                                         n - every, rng=rng)
+        check_bitwise("ft_bert", control,
+                      ft_snapshot(control[0][:every].unbind() + tuple(
+                          replayed), state_i),
+                      ("restored in place and replayed", "uninterrupted"))
+        del state_i, step_i
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 5. resumed in a fresh state
+        state_r = ft_bert_state(torch, 1)
+        with AsyncCheckpointManager(ck) as mgr:
+            t1 = time.perf_counter()
+            state_r, rng, data, start = resume_run(
+                mgr, state_r, ResumableIterator(batches))
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t1
+            if start != stop or rng != 1 or \
+                    data.state() != {"epoch": 0, "offset": stop}:
+                fail(f"ft_bert: resume_run gave start {start}, rng {rng}, "
+                     f"data {data.state()}")
+            reset_counts()
+            state_r, tail, _, _ = ft_fit(
+                torch, compile_step(step_fn, state_r), state_r, data,
+                n - start, mgr=mgr, every=every, rng=rng)
+            launches = train_counts()
+            saved_after = mgr.all_steps()
+        want = {k: TRAIN_FUSED_LAUNCHES.get(k, 0) * (n - start)
+                for k in launches}
+        if launches != want:
+            fail(f"ft_bert: the resumed run launched {launches}, expected "
+                 f"{want}")
+        check_bitwise("ft_bert", control, ft_snapshot(head + tail, state_r),
+                      ("preempted and resumed in a fresh state",
+                       "uninterrupted"))
+
+        # 6. the synchronous save of the same state
+        with CheckpointManager(os.path.join(root, "sync")) as sync_mgr:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sync_mgr.save(n, state_r)
+            sync_s = time.perf_counter() - t1
+        print(f"ft_bert ({card}): SIGTERM at step {stop}: emergency save, "
+              f"committed {steps_saved}, info {info}; restore in place of "
+              f"step {every} {restore_s:.3f} s (read, checksum, copy to the "
+              f"card), the captured graph replayed to step {n}; resume_run "
+              f"into a fresh state {resume_s:.3f} s, then steps {start + 1}-"
+              f"{n} (launches {launches}, committed {saved_after}); the same "
+              f"save with async_save=False {sync_s:.3f} s")
+        metrics = {
+            "payload_bytes": nbytes, "payload_leaves": len(meta["leaves"]),
+            "payload_bytes_by_dtype": dtypes,
+            "step_ms_no_checkpoint": plain_ms,
+            "step_ms_checkpoint_every_4": cadence_ms,
+            "async_save_stall_s": stalls, "backpressure_s": waits,
+            "background_write_s": writes, "sync_save_s": sync_s,
+            "restore_in_place_s": restore_s, "resume_run_s": resume_s,
+            "launches_resumed": launches, "steps": n,
+            "preempted_at": stop, "card": card,
+        }
+        del state_r
+        gc.collect()
+        torch.cuda.empty_cache()
+        return metrics
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def ft_resnet50_phase(torch, card):
+    """configs[2] at 1024 = 8 x 128 at 224², captured, fed by
+    prefetch_to_device (per-step seeded native crop and flip) with the
+    ResumableIterator outside it: FT_RESNET_STEPS uninterrupted steps
+    against a run checkpointed at step FT_RESNET_SAVE_AT and resumed in a
+    state initialised from another seed (resume_run drains the saved
+    offset through a new prefetcher); the losses, parameters, BatchNorm
+    statistics, SGD traces, counts and step equal bit for bit, the
+    resumed steps launch exactly 8 cross-entropy kernels each way."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tpudl_torch.config import get_config
+    from tpudl_torch.data.augment import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        BatchAugmenter,
+        device_normalize,
+    )
+    from tpudl_torch.data.prefetch import prefetch_to_device
+    from tpudl_torch.ft import AsyncCheckpointManager, ResumableIterator
+    from tpudl_torch.ft import resume_run
+    from tpudl_torch.models.registry import build_model
+    from tpudl_torch.train import (
+        compile_step,
+        create_train_state,
+        make_classification_train_step,
+        make_optimizer,
+    )
+
+    cfg = get_config("imagenet_resnet50_dp")
+    b, size, accum = cfg.global_batch_size, cfg.image_size, cfg.accum_steps
+    n, save_at = FT_RESNET_STEPS, FT_RESNET_SAVE_AT
+    rng = np.random.default_rng(cfg.seed + 7)
+    images = rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)
+    labels = rng.integers(0, cfg.num_classes, b).astype(np.int32)
+    aug_kw = dict(crop=(size, size), pad=RESNET_PAD, mean=IMAGENET_MEAN,
+                  std=IMAGENET_STD)
+    workers = max(1, min(RESNET_WORKERS, (os.cpu_count() or 1) - 2))
+    step_fn = make_classification_train_step(
+        cfg.label_smoothing, accum_steps=accum,
+        input_transform=device_normalize(IMAGENET_MEAN, IMAGENET_STD),
+        loss_impl="auto")
+    feeds = []
+
+    def augment(batch):
+        seed = int(batch.pop("seed"))
+        return BatchAugmenter(backend="native", seed=seed, normalize=False,
+                              **aug_kw)(batch)
+
+    def feed(epoch):
+        pf = prefetch_to_device(
+            ({"image": images, "label": labels, "seed": 100 * epoch + i}
+             for i in range(n)), transform=augment, assembly_workers=workers)
+        feeds.append(pf)
+        return pf
+
+    def fresh(seed, params=None):
+        return create_train_state(
+            seed, build_model(cfg.model, cfg.num_classes),
+            make_optimizer(cfg.optim), params=params)
+
+    root = tempfile.mkdtemp(prefix="tpudl_ft_resnet50_")
+    try:
+        state = fresh(cfg.seed)
+        init = {k: v.detach().clone()
+                for k, v in state.model.state_dict().items()}
+        state, losses, _, _ = ft_fit(torch, compile_step(step_fn, state),
+                                     state, ResumableIterator(feed), n)
+        control = ft_snapshot(losses, state)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        with AsyncCheckpointManager(root) as mgr:
+            state = fresh(cfg.seed, init)
+            state, head, _, _ = ft_fit(
+                torch, compile_step(step_fn, state), state,
+                ResumableIterator(feed), save_at, mgr=mgr, every=save_at)
+            meta = mgr.store.read_meta(save_at)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = fresh(cfg.seed + 1)
+        with AsyncCheckpointManager(root) as mgr:
+            t1 = time.perf_counter()
+            state, r_rng, data, start = resume_run(
+                mgr, state, ResumableIterator(feed))
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t1
+            if start != save_at or r_rng != 1:
+                fail(f"ft_resnet50: resume_run gave start {start}, rng "
+                     f"{r_rng}")
+            reset_counts()
+            state, tail, _, _ = ft_fit(
+                torch, compile_step(step_fn, state), state, data, n - start,
+                rng=r_rng)
+            launches = train_counts()
+        want = {k: resnet_counts(accum).get(k, 0) * (n - start)
+                for k in launches}
+        if launches != want:
+            fail(f"ft_resnet50: the resumed run launched {launches}, "
+                 f"expected {want}")
+        check_bitwise("ft_resnet50", control, ft_snapshot(head + tail, state),
+                      ("saved at step 3 and resumed in a fresh state",
+                       "uninterrupted"))
+        nbytes = sum(leaf["nbytes"] for leaf in meta["leaves"])
+        stats = len(state.batch_stats)
+        print(f"ft_resnet50 ({card}): ResNet-50 at {b} = {accum} x "
+              f"{b // accum}, {size}x{size}, prefetch_to_device with "
+              f"{workers} workers under a ResumableIterator: payload "
+              f"{nbytes} bytes in {len(meta['leaves'])} leaves ({stats} "
+              f"running statistics); resume_run (restore, then {start} "
+              f"batches drained through a new prefetcher) {resume_s:.3f} s; "
+              f"resumed steps {start + 1}-{n} launched {launches}")
+        del state
+        return {"payload_bytes": nbytes, "payload_leaves": len(meta["leaves"]),
+                "resume_run_s": resume_s, "launches_resumed": launches,
+                "steps": n, "saved_at": save_at, "card": card}
+    finally:
+        for pf in feeds:
+            pf.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class OneProcessRunner:
+    """The launcher's contract for one process (the port's launcher is
+    ROADMAP queue A item 7): ``run(fn, *args)`` runs ``fn(*args)`` in a
+    ``spawn`` child and returns ``[result]``, read from the JSON file that
+    is ``fn``'s last argument; a non-zero exit raises RuntimeError."""
+
+    def __init__(self, timeout_s=600.0):
+        self.timeout_s = timeout_s
+        self.exitcodes = []
+        self.seconds = []
+
+    def run(self, fn, *args):
+        import multiprocessing
+
+        t0 = time.perf_counter()
+        proc = multiprocessing.get_context("spawn").Process(target=fn,
+                                                            args=args)
+        proc.start()
+        try:
+            proc.join(self.timeout_s)
+        finally:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        self.exitcodes.append(proc.exitcode)
+        self.seconds.append(time.perf_counter() - t0)
+        if proc.exitcode != 0:
+            raise RuntimeError(f"worker exited with {proc.exitcode}")
+        with open(args[-1]) as f:
+            return [json.load(f)]
+
+
+def ft_kill_child(ckpt_dir, env, out_path):
+    """The resume-idempotent payload a supervised child runs: BERT-base
+    as ft_bert runs it, resume_run from ``ckpt_dir``, FT_KILL_STEPS steps
+    in all with a checkpoint every FT_KILL_EVERY, the environment's chaos
+    kill (``env``: TPUDL_CHAOS_*) checked after each step once the
+    writer has drained; writes the start step, the losses and the
+    payload digest to ``out_path``."""
+    os.environ.update(env)
+    import torch
+
+    from tpudl_torch.data.synthetic import synthetic_token_batches
+    from tpudl_torch.ft import AsyncCheckpointManager, ResumableIterator
+    from tpudl_torch.ft import chaos, resume_run
+    from tpudl_torch.train import compile_step
+
+    t0 = time.perf_counter()
+    state = ft_bert_state(torch, 0)
+    batches = list(synthetic_token_batches(
+        BERT_BATCH, BERT_SEQ, state.model.cfg.vocab_size,
+        num_batches=FT_KILL_STEPS, seed=13))
+    with AsyncCheckpointManager(ckpt_dir) as mgr:
+        state, rng, data, start = resume_run(mgr, state,
+                                             ResumableIterator(batches))
+        rng = 1 if rng is None else rng
+        kill = chaos.step_kill_hook()
+
+        def on_log(i, metrics):
+            if kill is not None:
+                mgr.wait_until_finished()
+                kill(start + i)
+
+        state, losses, _, _ = ft_fit(
+            torch, compile_step(ft_bert_step(), state), state, data,
+            FT_KILL_STEPS - start, mgr=mgr, every=FT_KILL_EVERY, rng=rng,
+            on_log=on_log)
+    with open(out_path, "w") as f:
+        json.dump({"start": start, "losses": [float(x) for x in losses],
+                   "digest": payload_digest(state), "step": state.step,
+                   "seconds": time.perf_counter() - t0}, f)
+
+
+def ft_kill_phase(torch, card):
+    """A kill and a restart by the supervisor: tpudl_torch.ft.Supervisor
+    over a OneProcessRunner runs ft_kill_child with
+    TPUDL_CHAOS_KILL_AT_STEP=FT_KILL_AT and TPUDL_CHAOS_ONCE_DIR set, so
+    the child is SIGKILLed once, after its step-4 checkpoint committed;
+    the restarted child resumes at step 4 through resume_run. Its final
+    payload digest and losses must equal an uninterrupted run's in a
+    child of its own, which runs beside the supervised children (all in
+    fresh processes). Then
+    chaos.truncate_checkpoint corrupts the newest step, and restore_full()
+    falls back to the one before it, counting ft_corrupt_checkpoints
+    once."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+    import warnings
+
+    from tpudl_torch.ft import (
+        AsyncCheckpointManager,
+        RestartPolicy,
+        Supervisor,
+        chaos,
+    )
+    from tpudl_torch.obs import counters as obs_counters
+
+    root = tempfile.mkdtemp(prefix="tpudl_ft_kill_")
+    try:
+        once = os.path.join(root, "once")
+        os.makedirs(once)
+        ck = os.path.join(root, "ck")
+        runner = OneProcessRunner()
+        sup = Supervisor(runner, policy=RestartPolicy(
+            max_restarts=2, backoff_s=1.0, backoff_factor=2.0,
+            max_backoff_s=4.0))
+        env = {chaos.ENV_KILL_AT_STEP: str(FT_KILL_AT),
+               chaos.ENV_ONCE_DIR: once}
+        control_runner = OneProcessRunner()
+        t0 = time.perf_counter()
+        # The uninterrupted child runs beside the supervised ones (a
+        # process and a CUDA context of its own either way).
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            pending = pool.submit(control_runner.run, ft_kill_child,
+                                  os.path.join(root, "control"), {},
+                                  os.path.join(root, "control.json"))
+            [resumed] = sup.run(ft_kill_child, ck, env,
+                                os.path.join(root, "supervised.json"))
+            supervised_s = time.perf_counter() - t0
+            [control] = pending.result()
+        killed_at = (FT_KILL_AT - 1) // FT_KILL_EVERY * FT_KILL_EVERY
+        if runner.exitcodes != [-9, 0] or sup.restarts != 1 or \
+                resumed["start"] != killed_at or control["start"] != 0:
+            fail(f"ft_kill: exit codes {runner.exitcodes}, restarts "
+                 f"{sup.restarts}, resumed at {resumed['start']} (expected "
+                 f"{killed_at}), control from {control['start']}")
+        if resumed["digest"] != control["digest"] or \
+                resumed["losses"] != control["losses"][killed_at:] or \
+                resumed["step"] != control["step"] != FT_KILL_STEPS:
+            fail(f"ft_kill: the supervised run ended at step "
+                 f"{resumed['step']} with digest {resumed['digest']} and "
+                 f"losses {resumed['losses']}; the uninterrupted run at "
+                 f"{control['step']} with {control['digest']} and "
+                 f"{control['losses']}")
+        counter = obs_counters.registry().counter("ft_corrupt_checkpoints")
+        before = counter.value
+        corrupted = chaos.truncate_checkpoint(ck)
+        state = ft_bert_state(torch, 2)
+        with AsyncCheckpointManager(ck) as mgr:
+            steps = mgr.all_steps()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                state, rng, data = mgr.restore_full(state)
+        fallback = state.step
+        if corrupted != FT_KILL_STEPS or fallback != steps[-2] or \
+                counter.value != before + 1 or counter.value != 1 or \
+                not any("corrupt" in str(w.message) for w in caught):
+            fail(f"ft_kill: truncated step {corrupted} of {steps}: restored "
+                 f"step {fallback}, ft_corrupt_checkpoints {before} -> "
+                 f"{counter.value}")
+        print(f"ft_kill ({card}): supervised child SIGKILLed at step "
+              f"{FT_KILL_AT} (exit codes {runner.exitcodes}), restarted "
+              f"after {sup.policy.backoff(1):.1f} s of backoff, resumed at "
+              f"step {resumed['start']}: digest {resumed['digest'][:16]} "
+              f"equal to the uninterrupted child's, losses "
+              f"{resumed['losses']}; children {runner.seconds} s wall "
+              f"(supervised run {supervised_s:.1f} s), control "
+              f"{control_runner.seconds[0]:.1f} s; truncated step "
+              f"{corrupted} -> restore_full() fell back to step {fallback} "
+              f"(rng {rng}, data {data}), ft_corrupt_checkpoints "
+              f"{counter.value:.0f}")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"exit_codes": runner.exitcodes, "restarts": sup.restarts,
+                "resumed_at": resumed["start"], "digest": resumed["digest"],
+                "supervised_s": supervised_s,
+                "child_s": runner.seconds + control_runner.seconds,
+                "fallback_step": fallback,
+                "ft_corrupt_checkpoints": counter.value, "card": card}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def hopper_ptxas(text):
     """ptxas -v's figures for each bf16 attention kernel on TMA and wgmma
     (the forwards ``*_fwd_kernel``, the dQ launches ``flash_dq_tma_kernel``
@@ -4633,6 +5314,15 @@ def main() -> int:
     resnet_export = export_resnet50_phase(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
+    ft_bert = ft_bert_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ft_resnet50 = ft_resnet50_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ft_kill = ft_kill_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     llama_launches, llama_metrics = llama_lora_train_phase(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4777,6 +5467,8 @@ def main() -> int:
                       "export_resnet50": resnet_export,
                       "export_bert": bert_export,
                       "remat_captured": remat_metrics,
+                      "ft_bert": ft_bert, "ft_resnet50": ft_resnet50,
+                      "ft_kill": ft_kill,
                       "launch_floor": floor, "pdl_chain": chain,
                       "card": card}))
     print(json.dumps({"kernels": kernels}))

@@ -20,6 +20,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "tpudl_torch")
 
 
+#: Checkpointing and fault tolerance (ROADMAP queue A item 6).
+_FT_MODULES = ("tpudl_torch.checkpoint", "tpudl_torch.ft",
+               "tpudl_torch.ft.chaos", "tpudl_torch.ft.data",
+               "tpudl_torch.ft.manager", "tpudl_torch.ft.preemption",
+               "tpudl_torch.ft.store", "tpudl_torch.ft.supervisor",
+               "tpudl_torch.ft.writer")
+
+
 def _modules():
     return sorted(
         m.name for m in pkgutil.walk_packages([PACKAGE], prefix="tpudl_torch.")
@@ -36,7 +44,7 @@ def test_every_module_imports_without_jax_flax_or_tpudl():
                  "tpudl_torch.serve.lora", "tpudl_torch.ops.library",
                  "tpudl_torch.export", "tpudl_torch.export.export",
                  "tpudl_torch.export.parity", "tpudl_torch.export.latency",
-                 "tpudl_torch.export.decode"):
+                 "tpudl_torch.export.decode", *_FT_MODULES):
         assert name in names
     code = (
         "import importlib, sys\n"
@@ -44,6 +52,33 @@ def test_every_module_imports_without_jax_flax_or_tpudl():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tpudl'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_checkpoint_and_ft_import_without_ml_dtypes():
+    """The fault-tolerance layer reads and writes bf16 leaves without
+    ml_dtypes (which comes with jax): it imports, and a bf16 leaf
+    round-trips, where ml_dtypes cannot be imported."""
+    code = (
+        "import sys\n"
+        "sys.modules['ml_dtypes'] = None\n"
+        "import importlib, tempfile, torch\n"
+        f"for name in {_FT_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from tpudl_torch.ft.store import CheckpointStore\n"
+        "store = CheckpointStore(tempfile.mkdtemp())\n"
+        "leaf = torch.tensor([1.5, -3.0], dtype=torch.bfloat16)\n"
+        "store.write(1, [('a', leaf)])\n"
+        "assert torch.equal(store.read(1)[1]['a'], leaf)\n"
+        "bad = sorted(m for m, v in sys.modules.items() if v is not None "
+        "and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpudl', "
+        "'ml_dtypes'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

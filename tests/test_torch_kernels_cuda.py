@@ -1877,6 +1877,92 @@ def test_captured_step_refuses_a_new_shape_and_evaluate_replays_one_graph(dev):
         assert abs(got[k] - want[k]) <= 1e-6 * max(1.0, abs(want[k])), k
 
 
+def _bitwise_states(a, b):
+    """Every parameter, statistic, optimizer tensor and count of two
+    train states, bit for bit."""
+    mine = b.model.state_dict()
+    for name, t in a.model.state_dict().items():
+        assert torch.equal(mine[name], t), name
+    for key, value in a.opt_state.items():
+        if isinstance(value, dict):
+            for name, t in value.items():
+                assert torch.equal(b.opt_state[key][name], t), (key, name)
+    assert torch.equal(a.opt_state["count"], b.opt_state["count"])
+    assert a.opt_state["host_count"] == b.opt_state["host_count"]
+    assert a.step == b.step
+
+
+@pytest.mark.parametrize("kind", ["bert-1", "resnet-2"])
+def test_captured_run_resumed_from_a_checkpoint_equals_the_uninterrupted_run(
+        dev, kind, tmp_path):
+    """A captured BERT_TINY (fused slice, dropout 0.1) or ResNetTiny
+    (BatchNorm, SGD traces) run checkpointed after 2 of 4 steps and
+    resumed through resume_run into a state whose weights differ: a new
+    compile_step captures again and the run ends bit for bit where the
+    uninterrupted captured run ends, its losses those of the last 2
+    steps."""
+    from tpudl_torch.ft import (
+        AsyncCheckpointManager,
+        ResumableIterator,
+        resume_run,
+    )
+    from tpudl_torch.train import compile_step, fit
+
+    (control, head), step, batches = _twin_train_states(dev, kind)
+    (fresh, _), _, _ = _twin_train_states(dev, kind)
+    with torch.no_grad():
+        for p in fresh.model.parameters():
+            p.add_(1.0)
+    want = []
+    compiled = compile_step(step, control)
+    for batch in batches:
+        control, m = compiled(control, batch, 5)
+        want.append(m["loss"])
+    with AsyncCheckpointManager(str(tmp_path)) as mgr:
+        fit(compile_step(step, head), head, ResumableIterator(batches), 5,
+            num_steps=2, checkpoint_manager=mgr, checkpoint_every=2)
+        state, rng, data, start = resume_run(mgr, fresh,
+                                             ResumableIterator(batches))
+        assert (state is fresh, rng, start) == (True, 5, 2)
+        compiled = compile_step(step, state)
+        got = []
+        for batch in data:
+            state, m = compiled(state, batch, rng)
+            got.append(m["loss"])
+    assert compiled.captured
+    assert all(torch.equal(g, w) for g, w in zip(got, want[2:]))
+    _bitwise_states(control, state)
+
+
+def test_restore_into_a_captured_state_replays_correctly(dev, tmp_path):
+    """compile_step's graph holds its state's tensors: a checkpoint of
+    step 1 restored into the state after its step captured (the same
+    tensors, the same storage) replays the remaining steps to the
+    uninterrupted run's end, bit for bit."""
+    from tpudl_torch.ft import AsyncCheckpointManager
+    from tpudl_torch.train import compile_step
+
+    (control, state), step, batches = _twin_train_states(dev, "bert-1")
+    compiled = compile_step(step, control)
+    for batch in batches:
+        control, _ = compiled(control, batch, 5)
+    compiled = compile_step(step, state)
+    with AsyncCheckpointManager(str(tmp_path)) as mgr:
+        state, _ = compiled(state, batches[0], 5)
+        mgr.save(1, state, rng=5)
+        for batch in batches[1:3]:
+            state, _ = compiled(state, batch, 5)
+        assert compiled.captured and state.step == 3
+        ptrs = [p.data_ptr() for p in state.model.parameters()]
+        mgr.wait_until_finished()
+        assert mgr.restore(state) is state
+    assert [p.data_ptr() for p in state.model.parameters()] == ptrs
+    assert state.step == 1
+    for batch in batches[1:]:
+        state, _ = compiled(state, batch, 5)
+    _bitwise_states(control, state)
+
+
 @pytest.mark.parametrize("mode", ["dense", "paged", "adapters"])
 def test_captured_decode_serves_the_eager_tokens(dev, mode):
     """LLAMA_TINY in f32 through the kernels, four slots: the session whose

@@ -1,10 +1,10 @@
 """Typed accessors for the ``TPUDL_*`` environment knobs the port reads.
 
 The port's counterpart of tpudl.analysis.registry, cut to the accessors
-(``env_str`` / ``env_int`` / ``env_flag``) and the knobs this package
-reads. Knob names are the JAX package's, so one environment configures
-either package. Semantics match it: an UNSET or EMPTY-STRING variable
-reads as the default, malformed numerics raise ``ValueError`` naming the
+(``env_str`` / ``env_int`` / ``env_float`` / ``env_flag``) and the knobs
+this package reads. Knob names are the JAX package's, so one
+environment configures either package. Semantics match it: an UNSET or
+EMPTY-STRING variable reads as the default, malformed numerics raise ``ValueError`` naming the
 variable, flags accept ``1/true/yes/on`` (case-insensitive), and reading
 a name that is not declared below raises ``UnknownKnobError``.
 
@@ -46,6 +46,21 @@ KNOBS: Dict[str, str] = {
     "TPUDL_SERVE_PREFIX_SHARE": "Radix prefix sharing (not ported).",
     "TPUDL_SERVE_SPEC_K": "Speculative decoding window (not ported).",
     "TPUDL_SERVE_WEIGHT_DTYPE": "Serving weight quantization (not ported).",
+    # Fault tolerance and its fault injection (tpudl_torch.ft).
+    "TPUDL_FT_GRACE_S": "Preemption grace window in seconds (SIGTERM -> "
+                        "emergency checkpoint -> hard-exit watchdog); "
+                        "default 15.",
+    "TPUDL_FT_MAX_RESTARTS": "Supervisor restart retry budget; default 3.",
+    "TPUDL_FT_BACKOFF_S": "Initial supervisor restart backoff; default 1.0.",
+    "TPUDL_FT_MAX_BACKOFF_S": "Supervisor restart backoff cap; default 30.",
+    "TPUDL_CHAOS_KILL_AT_STEP": "Fault injection: SIGKILL the matching rank "
+                                "at step N.",
+    "TPUDL_CHAOS_KILL_RANK": "Fault injection: rank to kill (unset = any).",
+    "TPUDL_CHAOS_ONCE_DIR": "Fault injection: marker directory making each "
+                            "rank's kill fire once across supervised "
+                            "restarts.",
+    "TPUDL_CHAOS_IO_DELAY_S": "Fault injection: added delay per checkpoint "
+                              "write (slow-disk simulation); default 0.",
 }
 
 
@@ -84,6 +99,16 @@ def env_int(
     if min_value is not None and value < min_value:
         raise ValueError(f"{name} must be >= {min_value}, got {value}")
     return value
+
+
+def env_float(name: str, default: Optional[float] = None) -> Optional[float]:
+    raw = env_raw(name)
+    if raw is None:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        raise ValueError(f"{name} must be a number, got {raw!r}") from None
 
 
 def env_flag(name: str) -> bool:

@@ -6,9 +6,10 @@ go" by recording host-side spans around the runtime's blocking calls.
 Records are plain dicts with a monotonic timestamp, duration, category,
 and host/process tags, streamed as JSONL in the same schema as the JAX
 package's, so ``python -m tpudl.obs.report`` reads either package's
-files. The serving path is the only instrumented layer of the port so
-far; the Chrome-trace export and the ``span()`` context manager wait
-for the layers that use them.
+files. The serving path and the fault-tolerance layer (tpudl_torch.ft:
+checkpoint saves, background writes, recovery) are the instrumented
+layers of the port so far; the Chrome-trace export waits for the layers
+that use it.
 
 Design constraints, all load-bearing:
 
@@ -37,6 +38,58 @@ import time
 from typing import Callable, Optional
 
 from tpudl_torch.analysis.registry import env_int, env_str
+
+#: Span categories the port records under, with tpudl.obs.spans's names
+#: (tpudl.obs.goodput classifies them; the port's goodput report is
+#: ROADMAP queue A item 10). Instrumentation may invent others.
+CAT_STEP = "step"
+#: The step path's checkpoint stall: the host snapshot and the
+#: back-pressure of a save, and restores.
+CAT_CHECKPOINT = "checkpoint"
+#: Time lost to failure recovery (the supervisor's backoff between a
+#: failed attempt and its relaunch).
+CAT_RECOVERY = "recovery"
+#: Background checkpoint writes (tpudl_torch.ft.writer): they overlap
+#: train steps, so they are reported and never charged to the run.
+CAT_CKPT_BG = "ckpt_bg"
+
+
+class _Span:
+    """Context manager recording one span on exit (``SpanRecorder.span``;
+    the module-level ``span()`` returns a shared no-op when recording is
+    off)."""
+
+    __slots__ = ("_rec", "_name", "_cat", "_attrs", "_t0")
+
+    def __init__(self, rec: "SpanRecorder", name: str, cat: str,
+                 attrs: dict):
+        self._rec = rec
+        self._name = name
+        self._cat = cat
+        self._attrs = attrs
+
+    def __enter__(self) -> "_Span":
+        self._t0 = self._rec.clock()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._rec.record(self._name, self._cat, self._t0,
+                         self._rec.clock() - self._t0, self._attrs)
+
+
+class _NullSpan:
+    """Shared no-op context manager for the disabled path."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
+_NULL_SPAN = _NullSpan()
 
 
 class SpanRecorder:
@@ -80,6 +133,10 @@ class SpanRecorder:
             self._file = open(path, "a")
 
     # -- recording -----------------------------------------------------
+
+    def span(self, name: str, cat: str = CAT_STEP, **attrs) -> _Span:
+        """Context manager: ``with rec.span("save", "checkpoint"): ...``"""
+        return _Span(self, name, cat, attrs)
 
     def record(
         self, name: str, cat: str, ts: float, dur: float,
@@ -243,3 +300,13 @@ def active_recorder() -> Optional[SpanRecorder]:
     if obs_dir:
         return enable(obs_dir)
     return None
+
+
+def span(name: str, cat: str = CAT_STEP, **attrs):
+    """A recording context manager when observability is on, a shared
+    no-op otherwise. Cold paths use this (checkpoint restores); per-step
+    loops use the explicit ``active_recorder()``/``record()`` form."""
+    rec = active_recorder()
+    if rec is None:
+        return _NULL_SPAN
+    return rec.span(name, cat, **attrs)

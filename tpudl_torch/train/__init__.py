@@ -1,6 +1,7 @@
-"""Training of the port: the classification train step and loop, its
-CUDA-graph capture (``compile_step``), the optimizer stack and
-throughput accounting (tpudl.train's single-device path)."""
+"""Training of the port: the classification train step and loop (with
+checkpointing and resume), its CUDA-graph capture (``compile_step``),
+the optimizer stack and throughput accounting (tpudl.train's
+single-device path)."""
 
 from tpudl_torch.train.loop import (  # noqa: F401
     CompiledStep,
@@ -9,10 +10,12 @@ from tpudl_torch.train.loop import (  # noqa: F401
     create_train_state,
     cross_entropy_loss,
     evaluate,
+    finalize_zero_step_run,
     fit,
     make_classification_eval_step,
     make_classification_train_step,
     microbatch,
     pad_batch,
+    resume_latest,
 )
 from tpudl_torch.train.optim import make_optimizer, make_schedule  # noqa: F401

@@ -44,18 +44,21 @@ single-device path of tpudl.train.loop.
   capture registers (tpudl_torch.models.remat). On a CPU state it runs
   the step eagerly.
 - ``fit`` drives a step (eager or compiled) over a batch iterator, one
-  step per dispatch.
+  step per dispatch, with tpudl's checkpoint cadence, preemption check
+  and end-of-fit (emergency) save through a checkpoint manager
+  (tpudl_torch.checkpoint, tpudl_torch.ft); ``resume_latest`` and
+  ``finalize_zero_step_run`` are tpudl's resume helpers.
 
 Not ported (each raises NotImplementedError naming its ROADMAP item):
 mixed-precision policies, the MoE auxiliary loss, meshes; and fit's
-checkpointing, preemption, profiling, fused K-step dispatch and
-asynchronous metrics.
+profiling, fused K-step dispatch and asynchronous metrics.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import itertools
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Union
@@ -64,9 +67,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpudl_torch.ft import preemption as ft_preemption
 from tpudl_torch.graphs import Graph, StaticInputs
 from tpudl_torch.models import remat
 from tpudl_torch.models.resnet import BatchNorm
+from tpudl_torch.obs import counters as obs_counters
+from tpudl_torch.obs import spans as obs_spans
 from tpudl_torch.ops.cross_entropy import softmax_cross_entropy
 from tpudl_torch.rng import fold_seed
 from tpudl_torch.train.optim import Optimizer
@@ -590,18 +596,32 @@ def fit(
 ):
     """Drive ``step_fn`` (a step, or ``compile_step``'s) over ``batches``
     (one step per batch, at most ``num_steps``); returns ``(state, last
-    metrics as floats, info)``.
+    metrics as floats, info)`` with ``info`` = ``{"steps", "seconds",
+    "preempted"}``.
     Every ``log_every`` steps the step's metrics are read back (a wait
     for the card) and handed to ``logger(step, metrics)``, or printed;
     otherwise nothing is read back until the end, so the host runs ahead
-    of the card. tpudl's checkpointing (and with it the preemption save),
-    profiling, fused K-step dispatch and asynchronous metrics raise."""
+    of the card.
+
+    Checkpointing (tpudl's): with a ``checkpoint_manager``
+    (tpudl_torch.checkpoint.CheckpointManager or
+    tpudl_torch.ft.AsyncCheckpointManager) the state is saved whenever
+    its step count is a multiple of ``checkpoint_every`` (> 0), and once
+    at the end. Saves are keyed by the state's own step count
+    (``state.step`` when fit starts, plus the steps taken), so a
+    restored-and-continued run lines up with an uninterrupted one. A
+    manager whose ``save`` takes ``rng`` and ``data_state`` gets full
+    resume state: the seed and ``batches.state()`` when ``batches`` has
+    one (a tpudl_torch.ft.ResumableIterator). Before each batch fit
+    checks the preemption flag (tpudl_torch.ft.preemption): once a
+    signal has arrived it pulls no more batches, and the end-of-fit save
+    is the emergency checkpoint; ``info["preempted"]`` says so. fit
+    waits for the manager's writes before it returns. Restore before
+    calling fit (``resume_latest``, or ``tpudl_torch.ft.resume_run`` for
+    the full resume state). tpudl's profiling, fused K-step dispatch and
+    asynchronous metrics raise."""
     for name, value, off, item in (
         ("profile_dir", profile_dir, (None,), "queue A item 10 (profiling)"),
-        ("checkpoint_manager", checkpoint_manager, (None,),
-         "queue A item 6 (checkpointing and preemption)"),
-        ("checkpoint_every", checkpoint_every, (0,),
-         "queue A item 6 (checkpointing and preemption)"),
         ("steps_per_dispatch", steps_per_dispatch, (None, 1),
          "queue A item 10 (the captured K-step graph on compile_step)"),
         ("async_metrics", async_metrics, (None, False),
@@ -609,23 +629,105 @@ def fit(
     ):
         if not any(value is v or value == v for v in off):
             _refuse(name, value, item)
+    rec = obs_spans.active_recorder()
+    start_step = int(state.step) if checkpoint_manager is not None else 0
+    # Full resume is a capability of the manager's save signature.
+    full_resume = False
+    if checkpoint_manager is not None:
+        try:
+            params = inspect.signature(checkpoint_manager.save).parameters
+            full_resume = "rng" in params and "data_state" in params
+        except (TypeError, ValueError):
+            pass
+    data_position = getattr(batches, "state", None)
+
+    def save(step_no):
+        if full_resume:
+            checkpoint_manager.save(
+                step_no, state, rng=rng,
+                data_state=data_position() if callable(data_position)
+                else None)
+        else:
+            checkpoint_manager.save(step_no, state)
+
+    last_ckpt_step = None
+    preempted = False
     metrics = None
     start = time.perf_counter()
     n = 0
     it = iter(batches)
     while num_steps is None or n < num_steps:
+        if ft_preemption.requested():
+            # The grace window is ticking: pull no more work; the
+            # emergency checkpoint is the end-of-fit save below.
+            preempted = True
+            if rec is not None:
+                rec.event("preempted", obs_spans.CAT_RECOVERY, step=n)
+            obs_counters.registry().counter("ft_preemptions").inc()
+            break
         try:
             batch = next(it)
         except StopIteration:
             break
         state, metrics = step_fn(state, batch, rng)
         n += 1
+        if checkpoint_manager is not None and checkpoint_every:
+            step_no = start_step + n
+            if step_no % checkpoint_every == 0:
+                # Safe although the next step updates the state in place:
+                # save() copies it to the host before it returns.
+                save(step_no)
+                last_ckpt_step = step_no
         if log_every and n % log_every == 0:
             host = _to_host(metrics)
             if logger:
                 logger(n, host)
             else:
                 print(f"step {n}: {host}")
+    if checkpoint_manager is not None and n:
+        step_no = start_step + n
+        if last_ckpt_step != step_no:
+            # Doubles as the preemption EMERGENCY save: on a grace-window
+            # exit this is the last committed state a restart resumes.
+            save(step_no)
+        checkpoint_manager.wait_until_finished()
     host_metrics = None if metrics is None else _to_host(metrics)
     return state, host_metrics, {"steps": n,
-                                 "seconds": time.perf_counter() - start}
+                                 "seconds": time.perf_counter() - start,
+                                 "preempted": preempted}
+
+
+def finalize_zero_step_run(checkpoint_manager, state: TrainState,
+                           warmup_steps_run: int) -> str:
+    """The epilogue of a run where fit() saw zero batches (a resume
+    landed at, or within warm-up of, the step budget): fit's final
+    checkpoint never fired, so warm-up steps trained outside fit are
+    saved here, or every rerun would retrain them. Returns the status
+    line to print."""
+    if checkpoint_manager is not None and warmup_steps_run:
+        checkpoint_manager.save(int(state.step), state)
+        checkpoint_manager.wait_until_finished()
+    if warmup_steps_run:
+        return (f"trained {warmup_steps_run} warmup step(s) only — no "
+                f"steady-state throughput window to report")
+    return "no training steps this run (budget already met)"
+
+
+def resume_latest(checkpoint_manager, state: TrainState, mesh=None,
+                  rules=None) -> tuple:
+    """Restore the latest checkpoint into ``state`` (in place) if one
+    exists. Returns ``(state, resumed_step)`` — ``(state, 0)`` untouched
+    when the directory is empty, so cold start and resume are one call
+    site. Fast-forward the data past the consumed steps, or the resumed
+    run re-trains on early batches (``tpudl_torch.ft.resume_run`` does
+    this, restoring the seed and the data position too)::
+
+        state, start_step = resume_latest(mgr, state)
+        fit(step, state, itertools.islice(batches, start_step, None), rng,
+            num_steps=total_steps - start_step, checkpoint_manager=mgr)
+    """
+    latest = checkpoint_manager.latest_step()
+    if latest is None:
+        return state, 0
+    return (checkpoint_manager.restore(state, latest, mesh=mesh, rules=rules),
+            latest)
