@@ -261,6 +261,40 @@ tpudl_torch.ft) add, after phase 18b:
              back to the one before it, counting ft_corrupt_checkpoints
              once.
 
+Mixed precision and fp8 (tpudl_torch.train.precision,
+tpudl_torch.ops.fp8_dot) add:
+
+23. fp8_matmul (after ft_kill) — fp8_dot's products (torch._scaled_mm)
+             at BERT-base's and Llama-3-8B's projection shapes against the
+             plain version (forward, dx, dw), and their times beside bf16
+             torch.matmul, the bound at the fp8 peak, the plain version,
+             and each site's casts, amaxes and transposed copies;
+24. train_precision — BERT-base 256 x 128 fused, dropout 0.1, in four
+             cells from one seed and one batch stream (f32 control, bf16,
+             bf16 with bf16 first moments, fp8 with loss scaling), 20
+             steps eager then captured, bit for bit, each cell's final
+             loss within its band of the control's; the fp8 cell's rings
+             after step 1, a sync save / restore in place replayed bit
+             for bit, a planted nonfinite step skipped with everything
+             but the loss scale unchanged and its retry drawing the same
+             masks, the ok readback's cost and a profiled window;
+25. llama_fp8_lora_train (after llama_lora_train) — configs[4] with
+             fp8_train=True under policy("fp8"), llama_lora_train's
+             weights and first 16 rows as 4 microbatches of 4 x 2048 a
+             step: the first two losses (empty rings, then filled ones,
+             both on the initial weights) within 0.08 of the bf16 loss of
+             the same weights and rows, at seeds 0, 1 and 2; the frozen
+             base unchanged, every ring advanced, eager and captured bit
+             for bit;
+26. llama1b_full_train (after llama_train_parity) — Llama-3.2-1B with
+             every parameter trained against f32 masters under
+             policy("bf16", bf16_moments=True), 2 microbatches of 4 x
+             2048, eager and captured bit for bit, every tensor moved,
+             the losses on the initial weights held to the eval step's;
+             then llama1b_cut_parity: the step at 2 layers through the
+             kernel path, the plain bf16 path and an f32 oracle (first
+             gradients, and losses after updates at a constant 1e-4).
+
 The compiled step (tpudl_torch.graphs) makes every path run twice, from
 the same seeded weights over the same batches or requests: eagerly,
 then captured as CUDA graphs (train and eval steps through
@@ -284,6 +318,7 @@ CUDA device, or outside a checkout of the repository, it exits non-zero
 before printing any result.
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -3234,6 +3269,14 @@ def llama_lora_train_phase(torch, card):
     flops = 4.0 * n_proj * tokens + attn
     per_step = llama_launches_per_step(mcfg.num_layers, LLAMA_ACCUM)
     init = {k: p.detach().clone() for k, p in state.params.items()}
+    # The bf16 loss llama_fp8_lora_train holds its first step to: the
+    # initial weights on the first LLAMA_FP8_ACCUM microbatches of batch 0
+    # (the mean of their means, as the accumulated step reports it).
+    from tpudl_torch.train import make_classification_eval_step
+
+    evaluate = make_classification_eval_step(input_keys=keys)
+    ref_loss = microbatch_eval_loss(torch, evaluate, state, batches[0],
+                                    LLAMA_FP8_ACCUM)
     runs = {}
     for capture in (False, True):
         way = "captured" if capture else "eager"
@@ -3331,6 +3374,7 @@ def llama_lora_train_phase(torch, card):
           f"after both runs")
     launches, _, metrics = runs[True]
     metrics["eager"] = runs[False][2]
+    metrics["fp8_reference_loss"] = ref_loss
     del state, model, frozen, named
     return launches, metrics
 
@@ -5161,6 +5205,1117 @@ def ft_kill_phase(torch, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Mixed precision and fp8 training (tpudl_torch.train.precision,
+# tpudl_torch.ops.fp8_dot)
+# ---------------------------------------------------------------------------
+
+#: H100 SXM dense fp8 peak (NVIDIA data sheet, at the 700 W limit).
+FP8_OPS_PER_S = 1979e12
+#: fp8_matmul: (what, tokens, in, out) — BERT-base's projections at the
+#: train step's 32768 tokens (768 -> 3072 is the composite path's
+#: intermediate), Llama-3-8B's at a 4 x 2048 microbatch.
+FP8_SHAPES = (
+    ("BERT-base q/k/v/out", 32768, 768, 768),
+    ("BERT-base output", 32768, 3072, 768),
+    ("BERT-base intermediate (composite)", 32768, 768, 3072),
+    ("Llama-3-8B q/o", 8192, 4096, 4096),
+    ("Llama-3-8B k/v", 8192, 4096, 1024),
+    ("Llama-3-8B gate/up", 8192, 4096, 14336),
+    ("Llama-3-8B down", 8192, 14336, 4096),
+)
+#: train_precision: the cells (policy, fp8_train, bf16 moments), all from
+#: one seed over one batch stream; the control computes in f32.
+PRECISION_CELLS = (("f32", None, False), ("bf16", "bf16", False),
+                   ("bf16_m8", "bf16", True), ("fp8", "fp8", True))
+#: Each cell's final loss against the f32 control's
+#: (benchmarks/train_precision.py:74, tpudl's PARITY_BANDS).
+PRECISION_BANDS = {"bf16": 0.03, "bf16_m8": 0.03, "fp8": 0.08}
+PRECISION_STEPS = 20
+PRECISION_SAVE_AT = 10
+#: fp8 sites a BERT-base fused step launches each way (5 a layer:
+#: q/k/v/out/output; the fused intermediate stays a plain product).
+BERT_FP8_SITES = 5 * 12
+#: llama_fp8_lora_train: llama_lora_train's 4 x 2048 microbatch, 4 of
+#: its 16 microbatches a step (cut to stay in time).
+LLAMA_FP8_ACCUM = 4
+LLAMA_FP8_STEPS = 2
+#: llama_fp8_lora_train: the seeds of the weights whose first and second
+#: fp8 losses are read beside the bf16 loss of the same weights on the
+#: same rows (seed 0 is the phase's own run, and the one held to the
+#: band; see the phase's docstring).
+LLAMA_FP8_SEEDS = (0, 1, 2)
+#: llama_fp8_lora_train's site check: each Fp8Dense output against the
+#: plain product of the same casts, as a share of the output's largest
+#: magnitude (fp8_matmul's tolerance: the bf16 output's rounding, and
+#: the f32 accumulation's order).
+FP8_SITE_TOL = 2.0 ** -7
+#: The bf16 reference of the fp8 model (its sites as bf16 products)
+#: against llama_lora_train's bf16 LoRA model at seed 0: the same
+#: weights and products, so only the classifier's bf16 rounding
+#: (a step casts it, the eval step does not) may separate them.
+LLAMA_FP8_REF_TOL = 1e-3
+#: llama1b_full_train: 2 microbatches of 4 x 2048.
+LLAMA1B_ACCUM = 2
+LLAMA1B_STEPS = 2
+#: llama1b_full_train: the step's loss on the initial weights against
+#: the eval step's (batches 0 and 1: the warm-up's first step moves
+#: nothing). The step casts the f32 classifier to bf16 under the policy,
+#: the eval step does not: a 2^-9 relative rounding of each weight.
+LLAMA1B_EVAL_TOL = 2e-3
+#: llama1b_cut_parity: Llama-3.2-1B at full width cut to 2 layers,
+#: batches of LLAMA_BATCH x LLAMA_SEQ: LLAMA1B_CUT_STEPS steps with the
+#: phase's optimizer (warm-up from 0), then LLAMA1B_CONSTANT_STEPS from
+#: the same weights at its constant 1e-4.
+LLAMA1B_CUT_LAYERS = 2
+LLAMA1B_CUT_STEPS = 4
+LLAMA1B_CONSTANT_STEPS = 2
+
+
+def fp8_counts():
+    from tpudl_torch.ops.fp8_dot import fp8_dot
+
+    return {k: getattr(fp8_dot, f"launches_{k}") for k in ("fwd", "dx", "dw")}
+
+
+def reset_fp8_counts():
+    from tpudl_torch.ops.fp8_dot import fp8_dot
+
+    for k in ("fwd", "dx", "dw"):
+        setattr(fp8_dot, f"launches_{k}", 0)
+
+
+def precision_leaves(state):
+    """The precision state's tensors by checkpoint key (clones)."""
+    from tpudl_torch.ft.manager import flatten_with_keys
+
+    if state.precision is None:
+        return {}
+    return {k: v.detach().clone()
+            for k, v in flatten_with_keys(state.precision)}
+
+
+def same_leaves(a, b):
+    return a.keys() == b.keys() and all(torch_equal(a[k], b[k]) for k in a)
+
+
+def fp8_matmul_phase(torch, card):
+    """fp8_dot's products (``torch._scaled_mm``: e4m3 x e4m3 forward,
+    e5m2 x e4m3 dx and dw) at BERT-base's and Llama-3-8B's projection
+    shapes: forward, dx and dw against the plain version (the same fp8
+    values dequantized to f32, an f32 product) within 2^-7 of the output's
+    largest magnitude (both sum in f32 and round once; bf16's step), then
+    each product's time (CUDA-graph replay) beside bf16 ``torch.matmul``
+    at the same shape, the bound at the fp8 peak, the plain version's
+    time, and per site the quantization (cast and amax of x, w and g) and
+    the transposed copies dx and dw need."""
+    from tpudl_torch.ops.fp8_dot import (
+        E4M3_MAX,
+        E5M2_MAX,
+        _cast_fp8,
+        _product,
+        amax,
+        amax_history_init,
+        fp8_dot,
+        update_amax_history,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for what, t, k, n in FP8_SHAPES:
+        x = torch.randn(t, k, device=dev, generator=gen).to(torch.bfloat16)
+        w = (torch.randn(n, k, device=dev, generator=gen) * 0.02).to(
+            torch.bfloat16)
+        g = (torch.randn(t, n, device=dev, generator=gen) * 1e-3).to(
+            torch.bfloat16)
+
+        def ring(a):
+            return update_amax_history(amax_history_init(16, dev),
+                                       torch.tensor(a, device=dev))
+
+        hx, hw, hg = ring(float(amax(x))), ring(float(amax(w))), \
+            ring(float(amax(g)) * 1.5)
+        outs = {}
+        for impl in ("auto", "reference"):
+            xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+            g_amax = torch.zeros((), device=dev)
+            out = fp8_dot(xi, wi, hx, hw, hg, g_amax, impl=impl)
+            out.backward(g)
+            outs[impl] = (out.detach(), xi.grad, wi.grad)
+        errs = {}
+        for name, got, want in zip(("fwd", "dx", "dw"), outs["auto"],
+                                   outs["reference"]):
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            if not err <= 2.0**-7 * scale:
+                fail(f"fp8_matmul {what} {name}: max abs err {err:.4e} vs "
+                     f"2^-7 x {scale:.4e}")
+            errs[name] = err
+        del outs
+        sx = torch.tensor(float(amax(x)) / E4M3_MAX, device=dev)
+        sw = torch.tensor(float(amax(w)) / E4M3_MAX, device=dev)
+        sg = torch.tensor(float(amax(g)) * 1.5 / E5M2_MAX, device=dev)
+        qx = _cast_fp8(x, sx, torch.float8_e4m3fn, E4M3_MAX)
+        qw = _cast_fp8(w, sw, torch.float8_e4m3fn, E4M3_MAX)
+        qg = _cast_fp8(g, sg, torch.float8_e5m2, E5M2_MAX)
+        qw_col = qw.t().contiguous().t()        # [N, K] column-major (dx)
+        qg_t = qg.t().contiguous()              # [N, T] row-major (dw)
+        qx_col = qx.t().contiguous().t()        # [T, K] column-major (dw)
+        mm = torch._scaled_mm
+        f32 = torch.float32
+        kw = dict(calls=10, reps=5)
+        row = {
+            "what": what, "tokens": t, "in": k, "out": n,
+            "fwd_ms": graph_ms(lambda: mm(qx, qw.t(), scale_a=sx, scale_b=sw,
+                                          out_dtype=torch.bfloat16), **kw),
+            "dx_ms": graph_ms(lambda: mm(qg, qw_col, scale_a=sg, scale_b=sw,
+                                         out_dtype=torch.bfloat16), **kw),
+            "dw_ms": graph_ms(lambda: mm(qg_t, qx_col, scale_a=sg,
+                                         scale_b=sx, out_dtype=f32), **kw),
+            "bf16_fwd_ms": graph_ms(lambda: x @ w.t(), **kw),
+            "bf16_dx_ms": graph_ms(lambda: g @ w, **kw),
+            "bf16_dw_ms": graph_ms(lambda: g.t() @ x, **kw),
+            "plain_fwd_ms": graph_ms(lambda: _product(
+                qx, qw.t(), sx, sw, torch.bfloat16, False, "fwd"),
+                calls=2, reps=3),
+            "quantize_ms": graph_ms(lambda: (
+                amax(x), _cast_fp8(x, sx, torch.float8_e4m3fn, E4M3_MAX),
+                amax(w), _cast_fp8(w, sw, torch.float8_e4m3fn, E4M3_MAX),
+                amax(g), _cast_fp8(g, sg, torch.float8_e5m2, E5M2_MAX)), **kw),
+            "transposes_ms": graph_ms(lambda: (
+                qw.t().contiguous(), qg.t().contiguous(),
+                qx.t().contiguous()), **kw),
+            "max_abs_err": errs,
+        }
+        ops = 2.0 * t * k * n
+        for name, (a_elems, b_elems, out_bytes) in {
+                "fwd": (t * k, n * k, 2 * t * n),
+                "dx": (t * n, n * k, 2 * t * k),
+                "dw": (t * n, t * k, 4 * n * k)}.items():
+            nbytes = a_elems + b_elems + out_bytes
+            row[f"{name}_bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                                          ops / FP8_OPS_PER_S) * 1e3
+        row["bound_by"] = ("operations" if ops / FP8_OPS_PER_S
+                           > (t * k + n * k + 2 * t * n) / HBM_BYTES_PER_S
+                           else "bytes")
+        # Per site a step: casts and amaxes of x, w, g (bytes: each read
+        # once, the fp8 copies written once).
+        q_bytes = 2 * (t * k + n * k + t * n) * 2 + (t * k + n * k + t * n)
+        row["quantize_bound_ms"] = q_bytes / HBM_BYTES_PER_S * 1e3
+        rows.append(row)
+        print(f"fp8_matmul {what} [{t}, {k}] -> {n} ({card}): _scaled_mm "
+              f"fwd {row['fwd_ms'] * 1e3:.2f} us, dx {row['dx_ms'] * 1e3:.2f},"
+              f" dw {row['dw_ms'] * 1e3:.2f} (bounds at the fp8 peak "
+              f"{row['fwd_bound_ms'] * 1e3:.2f} / {row['dx_bound_ms'] * 1e3:.2f}"
+              f" / {row['dw_bound_ms'] * 1e3:.2f}, {row['bound_by']}); bf16 "
+              f"torch.matmul {row['bf16_fwd_ms'] * 1e3:.2f} / "
+              f"{row['bf16_dx_ms'] * 1e3:.2f} / {row['bf16_dw_ms'] * 1e3:.2f};"
+              f" plain forward {row['plain_fwd_ms'] * 1e3:.2f}; quantize "
+              f"(cast + amax of x, w, g) {row['quantize_ms'] * 1e3:.2f} "
+              f"(bound {row['quantize_bound_ms'] * 1e3:.2f}), transposed "
+              f"copies {row['transposes_ms'] * 1e3:.2f}; max abs err vs plain "
+              f"{errs['fwd']:.3e} / {errs['dx']:.3e} / {errs['dw']:.3e}")
+        del x, w, g, qx, qw, qg, qw_col, qg_t, qx_col
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bert_precision_state(torch, pol, fp8_train, bf16_moments):
+    """BERT-base as train_fused builds it (fused_ops=True,
+    attention_impl="fused", dropout 0.1), configured by the policy (f32
+    without one), seed 0."""
+    from tpudl_torch.models.registry import build_model
+    from tpudl_torch.train import create_train_state, policy
+
+    precision = None if pol is None else policy(pol, bf16_moments=bf16_moments)
+    dtype = torch.float32 if precision is None else precision.compute_dtype
+    model = build_model("bert-base", 2, dtype=dtype, fused_ops=True,
+                        attention_impl="fused", fp8_train=fp8_train)
+    return create_train_state(0, model, sst2_optimizer(),
+                              precision=precision), precision
+
+
+def run_precision_cell(torch, card, name, pol, fp8_train, bf16_moments,
+                       batches, capture):
+    """One cell one way: PRECISION_STEPS steps (the first three outside
+    the timed window; a captured run's second call is its capture), the
+    launches of the timed steps, peak memory; returns (state, step,
+    metrics, snapshot)."""
+    from tpudl_torch.train import compile_step, make_classification_train_step
+    from tpudl_torch.train.metrics import Throughput, transformer_train_flops
+
+    state, precision = bert_precision_state(torch, pol, fp8_train,
+                                            bf16_moments)
+    step = make_classification_train_step(
+        input_keys=("input_ids", "attention_mask"), loss_impl="auto",
+        precision=precision)
+    run = compile_step(step, state, precision=precision) if capture else step
+    n_params = sum(p.numel() for p in state.model.parameters())
+    w = TRAIN_WARMUP_STEPS
+    meter = Throughput(BERT_BATCH, warmup=w)
+    losses, metrics = [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i, batch in enumerate(batches[:PRECISION_STEPS]):
+        if i == w:
+            torch.cuda.synchronize()
+            reset_counts()
+            reset_fp8_counts()
+        state, metrics = run(state, batch, 1)
+        losses.append(metrics["loss"])
+        meter.step(metrics["loss"])
+        if i == 0 and fp8_train:
+            bad = [k for k, v in precision_leaves(state).items()
+                   if k.endswith("_hist']") and not float(v[0]) > 0]
+            if bad:
+                fail(f"train_precision {name}: rings not positive after "
+                     f"step 1: {bad[:5]}")
+    timed = meter.result(losses[-1])
+    launches, fp8 = train_counts(), fp8_counts()
+    n = PRECISION_STEPS - w
+    want = {k: TRAIN_FUSED_LAUNCHES.get(k, 0) * n for k in launches}
+    want_fp8 = {k: BERT_FP8_SITES * n if fp8_train else 0 for k in fp8}
+    way = "captured" if capture else "eager"
+    if launches != want or fp8 != want_fp8:
+        fail(f"train_precision {name} ({way}): launches {launches} / fp8 "
+             f"{fp8}, expected {want} / {want_fp8}")
+    loss_t = torch.stack(losses)
+    if not bool(torch.isfinite(loss_t).all()):
+        fail(f"train_precision {name}: non-finite loss in {loss_t.tolist()}")
+    step_s = timed["step_ms"] / 1e3
+    flops = transformer_train_flops(n_params, BERT_BATCH * BERT_SEQ)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = {"step_ms": step_s * 1e3, "samples_per_s": BERT_BATCH / step_s,
+           "mfu": flops / step_s / BF16_OPS_PER_S, "peak_memory_gib": peak,
+           "final_loss": float(loss_t[-1]), "launches": launches,
+           "fp8_launches": fp8, "capture_s": getattr(run, "capture_s", None)}
+    if fp8_train:
+        out["mfu_fp8_peak"] = flops / step_s / FP8_OPS_PER_S
+        out["loss_scale"] = float(metrics["loss_scale"])
+        out["skipped"] = int(state.precision["loss_scale"]["skipped"])
+    print(f"train_precision {name} ({way}, {card}): step "
+          f"{out['step_ms']:.2f} ms, {out['samples_per_s']:.1f} samples/s, "
+          f"MFU {100 * out['mfu']:.2f}% of the bf16 peak"
+          + (f" ({100 * out['mfu_fp8_peak']:.2f}% of the fp8 peak)"
+             if fp8_train else "")
+          + f", peak memory {peak:.2f} GiB, losses {loss_t[0].item():.4f} -> "
+          f"{loss_t[-1].item():.4f}, launches {launches}, fp8 products {fp8}")
+    snapshot = (loss_t.clone(),
+                {k: v.detach().clone()
+                 for k, v in state.model.state_dict().items()},
+                {k: {m: t.clone() for m, t in v.items()}
+                 for k, v in state.opt_state.items() if isinstance(v, dict)},
+                state.step)
+    return state, run, out, snapshot
+
+
+def train_precision_phase(torch, card):
+    """BERT-base SST-2 (configs[1], 256 x 128, fused_ops=True, dropout
+    0.1) under four cells from one seed and one batch stream:
+    PRECISION_STEPS steps eager, then captured, held bit for bit (losses,
+    parameters, optimizer state, and the precision state). Each cell's
+    final loss within its band of the f32 control's. The fp8 cell: rings
+    positive after step 1, no skip and the scale at 2^15 after 20 steps;
+    a sync save after step 20, 10 more steps, a restore in place and the
+    same 10 steps again equal the first pass bit for bit (losses,
+    parameters, optimizer state, rings, loss-scale state); a step
+    repeated with the position table poisoned is skipped (everything but
+    the loss scale bitwise as before) and, the table put back, the retried
+    step's loss is the clean step's bit for bit; and the cost of the
+    ``ok`` read back
+    after each captured step (the graph replayed without it)."""
+    import tempfile
+
+    from tpudl_torch.checkpoint import CheckpointManager
+    from tpudl_torch.data.synthetic import synthetic_token_batches
+
+    batches = list(synthetic_token_batches(BERT_BATCH, BERT_SEQ, 30522,
+                                           num_batches=PRECISION_STEPS + 1))
+    cells = {}
+    for name, pol, bf16_moments in PRECISION_CELLS:
+        fp8_train = pol == "fp8"
+        runs = {}
+        for capture in (False, True):
+            state, run, metrics, snap = run_precision_cell(
+                torch, card, name, pol, fp8_train, bf16_moments, batches,
+                capture)
+            runs[capture] = (metrics, snap, precision_leaves(state))
+            if not capture:
+                del state, run
+                gc.collect()
+                torch.cuda.empty_cache()
+        check_bitwise(f"train_precision {name}", runs[False][1], runs[True][1])
+        if not same_leaves(runs[False][2], runs[True][2]):
+            fail(f"train_precision {name}: the captured precision state is "
+                 f"not the eager one's")
+        metrics = runs[True][0]
+        metrics["eager"] = runs[False][0]
+        if fp8_train:
+            if metrics["skipped"] or metrics["loss_scale"] != 2.0**15:
+                fail(f"train_precision fp8: skipped {metrics['skipped']}, "
+                     f"scale {metrics['loss_scale']}")
+            metrics.update(fp8_resume_and_skip(torch, state, run, batches))
+        cells[name] = metrics
+        del state, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    control = cells["f32"]["final_loss"]
+    for name, band in PRECISION_BANDS.items():
+        diff = abs(cells[name]["final_loss"] - control)
+        cells[name]["loss_gap_to_f32"] = diff
+        if not diff <= band:
+            fail(f"train_precision {name}: final loss "
+                 f"{cells[name]['final_loss']:.5f} is {diff:.5f} from the f32 "
+                 f"control's {control:.5f} (band {band})")
+        print(f"train_precision {name}: final loss {cells[name]['final_loss']:.5f}"
+              f", {diff:.5f} from f32's {control:.5f} (band {band})")
+    return cells
+
+
+def state_tensors(state):
+    """Every tensor of a train state by name (parameters, BatchNorm
+    statistics, optimizer tensors, precision leaves): the live tensors,
+    which a caller clones to keep a snapshot."""
+    from tpudl_torch.ft.manager import flatten_with_keys
+
+    out = {f"model/{k}": v for k, v in state.model.state_dict().items()}
+    opt = {k: v for k, v in state.opt_state.items()
+           if k not in ("scalars", "host_count")}
+    out.update({f"opt{k}": v for k, v in flatten_with_keys(opt)})
+    out.update({f"precision{k}": v for k, v in
+                flatten_with_keys(state.precision or {})})
+    return out
+
+
+def snapshot(state):
+    """Clones of ``state_tensors`` and the host counts."""
+    return ({k: v.detach().clone() for k, v in state_tensors(state).items()},
+            (state.step, state.opt_state["host_count"]))
+
+
+def fp8_resume_and_skip(torch, state, run, batches):
+    """The fp8 cell's captured state after its PRECISION_STEPS steps (see
+    train_precision_phase): the resume and skip checks, and the readback
+    cost. Returns their numbers."""
+    import tempfile
+
+    from tpudl_torch.checkpoint import CheckpointManager
+
+    out = {}
+    extra = batches[:PRECISION_SAVE_AT]
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, async_save=False)
+        t0 = time.perf_counter()
+        mgr.save(state.step, state)
+        out["save_s"] = time.perf_counter() - t0
+        saved_step = state.step
+        passes = []
+        for again in (False, True):
+            if again:
+                t0 = time.perf_counter()
+                mgr.restore(state, saved_step)
+                out["restore_s"] = time.perf_counter() - t0
+            losses = []
+            for batch in extra:
+                state, m = run(state, batch, 2)
+                losses.append(m["loss"])
+            passes.append((torch.stack(losses), snapshot(state)))
+        mgr.close()
+    (l0, (t0_, c0)), (l1, (t1_, c1)) = passes
+    bad = [k for k in t0_ if not torch_equal(t0_[k], t1_[k])]
+    if not torch_equal(l0, l1) or bad or c0 != c1:
+        fail(f"train_precision fp8: the restored pass differs from the first "
+             f"(losses {l1.tolist()} vs {l0.tolist()}, {bad[:5]}, counts "
+             f"{c1} vs {c0})")
+    print(f"train_precision fp8: a sync save after step {saved_step} "
+          f"({out['save_s']:.3f} s), {len(extra)} more steps, a restore in "
+          f"place ({out['restore_s']:.3f} s) and the same steps again: "
+          f"losses, {len(t0_)} tensors (rings and loss-scale state among "
+          f"them) and counts equal bit for bit")
+    # The skip: a clean step from a snapshot, then the same step from the
+    # same snapshot with the position table poisoned, then the retry.
+    params = dict(state.model.named_parameters())
+    pos = params["bert.embeddings.position_embeddings.weight"]
+    before, counts = snapshot(state)
+    live = state_tensors(state)
+    batch = batches[PRECISION_STEPS]
+    state, clean = run(state, batch, 3)
+    clean_loss = clean["loss"].clone()
+    with torch.no_grad():
+        for k, v in before.items():
+            live[k].copy_(v)
+    state.step, state.opt_state["host_count"] = counts
+    old = pos.detach().clone()
+    with torch.no_grad():
+        pos[0, 0] = float("inf")
+    state, m = run(state, batch, 3)
+    if float(m["grad_skipped"]) != 1.0:
+        fail("train_precision fp8: the poisoned step was not skipped")
+    with torch.no_grad():
+        pos.copy_(old)
+    after, counts_after = snapshot(state)
+    moved = [k for k in before if "loss_scale" not in k
+             and not torch_equal(before[k], after[k])]
+    if moved or counts_after != counts:
+        fail(f"train_precision fp8: the skipped step moved {moved[:5]} "
+             f"(counts {counts} -> {counts_after})")
+    ls = state.precision["loss_scale"]
+    if float(ls["scale"]) != 2.0**14 or int(ls["skipped"]) != 1:
+        fail(f"train_precision fp8: after the skip the scale is "
+             f"{float(ls['scale'])}, skipped {int(ls['skipped'])}")
+    state, retry = run(state, batch, 3)
+    if not torch_equal(retry["loss"], clean_loss):
+        fail(f"train_precision fp8: the retried step's loss "
+             f"{float(retry['loss'])} is not the clean step's "
+             f"{float(clean_loss)}")
+    print(f"train_precision fp8: a poisoned step skipped ({len(before)} "
+          f"tensors but the loss scale, and the counts, bit for bit; scale "
+          f"2^15 -> 2^14, skipped 1); the retried step drew the clean step's "
+          f"masks (its loss bit for bit)")
+    # The readback: K captured steps as fit calls them (ok read back after
+    # each) against K replays of the same graph alone.
+    k = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(k):
+        state, m = run(state, batch, 3)
+    torch.cuda.synchronize()
+    with_read = (time.perf_counter() - t0) / k * 1e3
+    t0 = time.perf_counter()
+    for _ in range(k):
+        run.graph.replay()
+    torch.cuda.synchronize()
+    replay_only = (time.perf_counter() - t0) / k * 1e3
+    out.update({"step_ms_with_ok_readback": with_read,
+                "step_ms_replay_only": replay_only,
+                "ok_readback_ms": with_read - replay_only})
+    print(f"train_precision fp8: captured step {with_read:.2f} ms called as "
+          f"fit calls it (ok read back), {replay_only:.2f} ms as bare replays "
+          f"of its graph: the readback and the host's bookkeeping cost "
+          f"{with_read - replay_only:.2f} ms a step")
+
+    def profiled():
+        for _ in range(PROFILE_STEPS):
+            run(state, batch, 3)
+
+    out["device_busy_share"] = profile_steps(
+        torch, profiled, PROFILE_STEPS, "train_precision fp8 (captured)",
+        with_read * 1e3 * PROFILE_STEPS)
+    return out
+
+
+def bits_digest(torch, tensors):
+    """name -> (sum, sum of squares) of each tensor's 16- or 32-bit words
+    as int64, on the card: a change of any bit moves them (used where a
+    host copy of the 8B base would cost more than the check)."""
+    out = {}
+    for name, t in tensors.items():
+        words = t.detach().contiguous().view(
+            {2: torch.int16, 4: torch.int32}[t.element_size()]).long()
+        out[name] = (int(words.sum()), int((words * words).sum()))
+    return out
+
+
+def restart(torch, state, init=None):
+    """A Llama phase's state back to step 0: the trainable weights from
+    ``init`` (None: as they are), a fresh optimizer state with the same
+    first-moment dtypes, empty rings and the initial loss scale."""
+    from tpudl_torch.ops.fp8_dot import reset_fp8_state
+
+    if init is not None:
+        with torch.no_grad():
+            for k, p in state.params.items():
+                p.copy_(init[k])
+    mu_dtypes = {k: v.dtype for k, v in state.opt_state.get("mu", {}).items()}
+    state.opt_state = state.tx.init(state.params, mu_dtypes=mu_dtypes)
+    state.step = 0
+    reset_fp8_state(state.model)
+    if state.precision and "loss_scale" in state.precision:
+        ls = state.precision["loss_scale"]
+        ls["scale"].fill_(2.0**15)
+        ls["growth_count"].zero_()
+        ls["skipped"].zero_()
+
+
+@contextlib.contextmanager
+def fp8_sites_as_plain(model):
+    """Every Fp8Dense of ``model`` computes its product in its compute
+    dtype (``x @ W^T``, then the adapters and the bias as Fp8Dense adds
+    them): the bf16 model of the same weights, the reference its fp8
+    losses are held to."""
+    import torch.nn.functional as F
+
+    from tpudl_torch.ops.fp8_dot import fp8_sites
+
+    def plain(site):
+        def forward(x):
+            x = x.to(site.dtype)
+            out = F.linear(x, site.weight.to(site.dtype))
+            if site.rank > 0:
+                delta = (x @ site.lora_a.to(site.dtype)) @ site.lora_b.to(
+                    site.dtype)
+                out = out + delta * (site.alpha / site.rank)
+            if site.bias is not None:
+                out = out + site.bias.to(site.dtype)
+            return out
+        return forward
+
+    sites = [site for _, site in fp8_sites(model)]
+    for site in sites:
+        site.forward = plain(site)
+    try:
+        yield
+    finally:
+        for site in sites:
+            del site.forward
+
+
+def microbatch_eval_loss(torch, evaluate, state, batch, accum):
+    """The eval step's loss over ``accum`` microbatches of LLAMA_BATCH rows
+    of ``batch``, as the accumulated train step reports it (the mean of
+    the microbatches' means)."""
+    return float(torch.stack([
+        evaluate(state, {k: v[a * LLAMA_BATCH:(a + 1) * LLAMA_BATCH]
+                         for k, v in batch.items()})["loss"]
+        for a in range(accum)]).mean())
+
+
+def llama_train_run(torch, card, name, state, step, batches, tokens, flops,
+                    want_launches, want_fp8, warmup, steps, init):
+    """The Llama phases' runs: eager, then captured (the state put back to
+    ``init`` between), ``warmup`` + ``steps`` + 1 steps each: the captured
+    run's warm-up is one longer (its second call is the capture), the
+    eager run's extra step comes after its timed ones. Counts are reset
+    before the timed steps. Returns the captured run's metrics (the eager
+    run's under "eager") after check_bitwise."""
+    from tpudl_torch.train import compile_step
+    from tpudl_torch.train.metrics import Throughput
+
+    runs = {}
+    for capture in (False, True):
+        way = "captured" if capture else "eager"
+        if capture:
+            restart(torch, state, init)
+        policy = getattr(step, "precision", None)
+        run = compile_step(step, state, precision=policy) if capture else step
+        w = warmup + int(capture)
+        meter = Throughput(tokens, warmup=w)
+        losses = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i, batch in enumerate(batches[:w + steps]):
+            if i == w:
+                torch.cuda.synchronize()
+                reset_counts()
+                reset_fp8_counts()
+            state, metrics = run(state, batch, 1)
+            losses.append(metrics["loss"])
+            meter.step(metrics["loss"])
+        timed = meter.result(losses[-1])
+        launches, fp8 = train_counts(), fp8_counts()
+        if not capture:
+            state, metrics = run(state, batches[w + steps], 1)
+            losses.append(metrics["loss"])
+        want = {k: want_launches.get(k, 0) * steps for k in launches}
+        want8 = {k: want_fp8.get(k, 0) * steps for k in fp8}
+        print(f"{name} ({way}): {steps} steps, launches {launches}, fp8 "
+              f"products {fp8}")
+        if launches != want or fp8 != want8:
+            fail(f"{name} ({way}): launches {launches} / {fp8}, expected "
+                 f"{want} / {want8}")
+        loss_t = torch.stack(losses)
+        if not bool(torch.isfinite(loss_t).all()):
+            fail(f"{name}: non-finite loss in {loss_t.tolist()}")
+        step_s = timed["step_ms"] / 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        metrics = {"step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+                   "mfu": flops / step_s / BF16_OPS_PER_S,
+                   "mfu_fp8_peak": flops / step_s / FP8_OPS_PER_S,
+                   "model_flops_per_step": flops, "peak_memory_gib": peak,
+                   "losses": loss_t.tolist(),
+                   "capture_s": getattr(run, "capture_s", None)}
+        print(f"{name} metrics, {way} ({card}): step {step_s * 1e3:.2f} ms, "
+              f"{tokens / step_s:.1f} tokens/s, MFU {100 * metrics['mfu']:.2f}%"
+              f" of the bf16 peak ({100 * metrics['mfu_fp8_peak']:.2f}% of the "
+              f"fp8 peak; {flops:.4e} model FLOP a step), peak memory "
+              f"{peak:.2f} GiB, losses "
+              f"{', '.join(f'{x:.4f}' for x in loss_t.tolist())}")
+        runs[capture] = (metrics, (
+            loss_t.clone(), {k: p.detach().clone()
+                             for k, p in state.params.items()},
+            {k: {n: t.clone() for n, t in v.items()}
+             for k, v in state.opt_state.items() if isinstance(v, dict)},
+            state.step), precision_leaves(state))
+    check_bitwise(name, runs[False][1], runs[True][1])
+    if not same_leaves(runs[False][2], runs[True][2]):
+        fail(f"{name}: the captured precision state is not the eager one's")
+    metrics = runs[True][0]
+    metrics["eager"] = runs[False][0]
+    return metrics
+
+
+def fp8_site_check(torch, model, ids, mask):
+    """One eval forward of ``model`` (its rings as they stand) with every
+    Fp8Dense's output held to a plain version computed here from its
+    inputs and rings alone: each scale the ring's max over E4M3_MAX (1.0
+    for an all-zero ring), x and w divided by it in f32, clipped to the
+    format's max and cast to e4m3, the f32 product of the casts times
+    both scales, then the adapters and bias as Fp8Dense adds them, in
+    the compute dtype. Returns site name -> the largest absolute
+    difference over the reference's largest magnitude."""
+    import torch.nn.functional as F
+
+    from tpudl_torch.ops.fp8_dot import fp8_sites
+
+    fmax = 448.0
+    errs = {}
+
+    def scale(hist):
+        top = hist.max()
+        return torch.where(top > 0, top / fmax, torch.ones_like(top))
+
+    def cast(t, sc):
+        return (t.float() / sc).clamp(-fmax, fmax).to(
+            torch.float8_e4m3fn).float()
+
+    def hook(name):
+        def check(site, inputs, out):
+            x = inputs[0].to(site.dtype)
+            sx, sw = scale(site.x_hist), scale(site.w_hist)
+            ref = (F.linear(cast(x, sx), cast(site.weight.to(site.dtype), sw))
+                   * (sx * sw)).to(site.dtype)
+            if site.rank > 0:
+                delta = (x @ site.lora_a.to(site.dtype)) @ site.lora_b.to(
+                    site.dtype)
+                ref = ref + delta * (site.alpha / site.rank)
+            if site.bias is not None:
+                ref = ref + site.bias.to(site.dtype)
+            ref = ref.float()
+            errs[name] = float((out.float() - ref).abs().max()
+                               / ref.abs().max())
+        return check
+
+    handles = [site.register_forward_hook(hook(name))
+               for name, site in fp8_sites(model)]
+    try:
+        with torch.no_grad():
+            model(ids, mask)
+    finally:
+        for h in handles:
+            h.remove()
+    return errs
+
+
+def fp8_drift(torch, model, ids, mask, layers):
+    """Readings, one microbatch: the relative L2 distance of the output of
+    each block in ``layers`` (0-based) of the fp8 forward (rings as they
+    stand) from the same block's output with the sites as bf16 products
+    (fp8_sites_as_plain) and with the sites' plain fp8 version
+    (impl="reference": the same casts, the products in f32)."""
+    from tpudl_torch.ops.fp8_dot import fp8_sites
+
+    sites = [site for _, site in fp8_sites(model)]
+    runs = {}
+    for way in ("fp8", "bf16", "fp8 plain"):
+        held = {}
+        handles = [getattr(model.model, f"layer_{i}").register_forward_hook(
+            lambda mod, inp, out, i=i: held.__setitem__(i, out[0].float()))
+            for i in layers]
+        for site in sites:
+            site.impl = "reference" if way == "fp8 plain" else "auto"
+        try:
+            with torch.no_grad(), (fp8_sites_as_plain(model) if way == "bf16"
+                                   else contextlib.nullcontext()):
+                model(ids, mask)
+        finally:
+            for h in handles:
+                h.remove()
+            for site in sites:
+                site.impl = "auto"
+        runs[way] = held
+    return {way: [float((runs["fp8"][i] - runs[way][i]).norm()
+                        / runs[way][i].norm()) for i in layers]
+            for way in ("bf16", "fp8 plain")}
+
+
+def llama_fp8_lora_train_phase(torch, card, bf16_loss):
+    """configs[4] at full width and depth (Llama-3-8B, rank 16 on the 7
+    projections, seq 2048, flash) with fp8_train=True under
+    policy("fp8"): llama_lora_train's weights (seed 0), its first batch's
+    first LLAMA_FP8_ACCUM microbatches of 4 x 2048 a step (cut from 16).
+    After the runs, every one of the 224 fp8 sites is held to a plain
+    version of its product on the same inputs and rings
+    (fp8_site_check, FP8_SITE_TOL). The frozen base bit for bit
+    unchanged (a digest of its words on the card); every ring advanced;
+    eager then captured, bit for bit, with the repo's kernels' and the
+    fp8 products' launch counts.
+
+    The warm-up's first step moves nothing (lr(0) = 0), so the first two
+    steps run on the initial weights: the first with empty rings (every
+    site at scale 1), the second with the rings it filled. At seed 0
+    both losses are held within the fp8 band (0.08) of the bf16 loss of
+    the same weights on the same rows (``bf16_loss``, from
+    llama_lora_train). At the other LLAMA_FP8_SEEDS the same gaps are
+    read, not held: the bf16 loss comes from the fp8 model with its
+    sites as bf16 products (fp8_sites_as_plain, held at seed 0 to
+    ``bf16_loss`` within LLAMA_FP8_REF_TOL). The band is not a property
+    of these random weights: e4m3's three mantissa bits move each
+    block's output by about a tenth and 32 blocks compound it, so the
+    loss of 16 rows lands on either side of it by seed (PERF.md)."""
+    from tpudl_torch.config import get_config
+    from tpudl_torch.data.synthetic import synthetic_token_batches
+    from tpudl_torch.models.lora import lora_optimizer
+    from tpudl_torch.models.registry import build_model
+    from tpudl_torch.train import (
+        create_train_state,
+        make_classification_eval_step,
+        make_classification_train_step,
+        policy,
+    )
+
+    cfg = get_config("llama3_8b_lora")
+    pol = policy("fp8")
+    band = PRECISION_BANDS["fp8"]
+    t0 = time.perf_counter()
+    model = build_model(cfg.model, cfg.num_classes, fused_ops=True,
+                        attention_impl="flash", fp8_train=True)
+    tx = lora_optimizer(llama_optimizer(), model, ("classifier",))
+    state = create_train_state(0, model, tx, precision=pol)
+    mcfg = model.cfg
+    named = dict(model.named_parameters())
+    n_proj = sum(p.numel() for n, p in named.items()
+                 if n.endswith("_proj.weight"))
+    frozen = {n: p for n, p in named.items() if not p.requires_grad}
+    digest = bits_digest(torch, frozen)
+    rows = LLAMA_BATCH * LLAMA_FP8_ACCUM
+    first = next(iter(synthetic_token_batches(
+        LLAMA_BATCH * LLAMA_ACCUM, LLAMA_SEQ, mcfg.vocab_size,
+        num_batches=1)))
+    batch = {k: v[:rows] for k, v in first.items()}
+    torch.cuda.synchronize()
+    print(f"llama_fp8_lora_train: Llama-3-8B LoRA rank {mcfg.lora_rank} with "
+          f"fp8_train=True (7 Fp8Dense sites a layer, base frozen in bf16) "
+          f"under policy('fp8'): {rows} rows = {LLAMA_FP8_ACCUM} microbatches "
+          f"x {LLAMA_BATCH} x seq {LLAMA_SEQ} a step (llama_lora_train's "
+          f"first {rows} rows); set-up {time.perf_counter() - t0:.1f} s")
+    step = make_classification_train_step(
+        input_keys=("input_ids", "attention_mask"), accum_steps=LLAMA_FP8_ACCUM,
+        precision=pol)
+    tokens = rows * LLAMA_SEQ
+    attn = 7.0 * rows * mcfg.hidden_size * LLAMA_SEQ ** 2 * mcfg.num_layers
+    flops = 4.0 * n_proj * tokens + attn
+    sites = 7 * mcfg.num_layers
+    # Backward: no dx at the first layer's q/k/v (their input is the
+    # frozen embedding's normed output), no dw anywhere (frozen base).
+    want_fp8 = {"fwd": sites * LLAMA_FP8_ACCUM,
+                "dx": (sites - 3) * LLAMA_FP8_ACCUM, "dw": 0}
+    init = {k: p.detach().clone() for k, p in state.params.items()}
+    metrics = llama_train_run(
+        torch, card, "llama_fp8_lora_train", state, step,
+        [batch] * (LLAMA_FP8_STEPS + 3), tokens, flops,
+        llama_launches_per_step(mcfg.num_layers, LLAMA_FP8_ACCUM), want_fp8,
+        1, LLAMA_FP8_STEPS, init)
+    changed = [k for k, v in bits_digest(torch, frozen).items()
+               if v != digest[k]]
+    if changed or not frozen:
+        fail(f"llama_fp8_lora_train: frozen base changed: {changed[:5]}")
+    rings = precision_leaves(state)
+    flat = [v for k, v in rings.items() if k.endswith("_hist']")]
+    if len(flat) != 3 * sites or not all(float(v[0]) > 0 for v in flat):
+        fail("llama_fp8_lora_train: a ring did not advance")
+    print(f"llama_fp8_lora_train: {len(frozen)} frozen base tensors "
+          f"unchanged (word digests); {len(flat)} rings advanced")
+    ids, mask = (torch.as_tensor(batch[k][:LLAMA_BATCH], device="cuda")
+                 for k in ("input_ids", "attention_mask"))
+    site_errs = fp8_site_check(torch, model, ids, mask)
+    worst = max(site_errs, key=site_errs.get)
+    print(f"llama_fp8_lora_train: all {len(site_errs)} fp8 sites (rings after "
+          f"the run, one microbatch of {LLAMA_BATCH} x {LLAMA_SEQ}) against "
+          f"the plain product of the same casts: largest difference "
+          f"{site_errs[worst]:.3e} of the output's largest magnitude, at "
+          f"{worst} (tol {FP8_SITE_TOL:.3e})")
+    if len(site_errs) != sites or not site_errs[worst] <= FP8_SITE_TOL:
+        fail(f"llama_fp8_lora_train: fp8 site {worst} is "
+             f"{site_errs[worst]:.3e} from its plain product (tol "
+             f"{FP8_SITE_TOL}; {len(site_errs)} sites checked)")
+    layers = (0, 7, 15, mcfg.num_layers - 1)
+    drift = fp8_drift(torch, model, ids, mask, layers)
+    print(f"llama_fp8_lora_train: the fp8 forward's block outputs (blocks "
+          f"{', '.join(str(i + 1) for i in layers)}), relative L2 distance "
+          f"from the bf16 products' {', '.join(f'{x:.3e}' for x in drift['bf16'])}"
+          f"; from the plain fp8 products' (the same casts, f32 products) "
+          f"{', '.join(f'{x:.3e}' for x in drift['fp8 plain'])}")
+    # The fp8 losses of the initial weights, step 1 (empty rings) and
+    # step 2 (filled rings), against the bf16 loss of the same weights.
+    evaluate = make_classification_eval_step(
+        input_keys=("input_ids", "attention_mask"))
+    seeds = {}
+    for seed in LLAMA_FP8_SEEDS:
+        model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+        with fp8_sites_as_plain(model):
+            ref = microbatch_eval_loss(torch, evaluate, state, batch,
+                                       LLAMA_FP8_ACCUM)
+        if seed == 0:
+            if not abs(ref - bf16_loss) <= LLAMA_FP8_REF_TOL:
+                fail(f"llama_fp8_lora_train: the fp8 model's sites as bf16 "
+                     f"products give {ref:.5f} at seed 0, the bf16 LoRA "
+                     f"model {bf16_loss:.5f} (tol {LLAMA_FP8_REF_TOL})")
+            fp8_losses = metrics["eager"]["losses"][:2]
+            ref_shown = f"{ref:.5f}; llama_lora_train's {bf16_loss:.5f}"
+            ref = bf16_loss
+        else:
+            restart(torch, state)
+            fp8_losses = []
+            for _ in range(2):
+                state, m = step(state, batch, 1)
+                fp8_losses.append(float(m["loss"]))
+            ref_shown = f"{ref:.5f}"
+        gaps = [abs(x - ref) for x in fp8_losses]
+        seeds[seed] = {"bf16_loss": ref, "fp8_losses": fp8_losses,
+                       "gaps": gaps}
+        print(f"llama_fp8_lora_train: seed {seed}: fp8 losses "
+              f"{fp8_losses[0]:.5f} (step 1, empty rings) and "
+              f"{fp8_losses[1]:.5f} (step 2, filled rings), bf16 loss of the "
+              f"same weights and rows {ref_shown}: gaps {gaps[0]:.5f} and "
+              f"{gaps[1]:.5f} (band {band}, "
+              f"{'held' if seed == 0 else 'read'})")
+        if seed == 0 and not max(gaps) <= band:
+            fail(f"llama_fp8_lora_train: an fp8 loss is {max(gaps):.5f} "
+                 f"from the bf16 loss {ref:.5f} (band {band})")
+    metrics.update({"first_step_loss": seeds[0]["fp8_losses"][0],
+                    "bf16_first_step_loss": bf16_loss,
+                    "loss_gap": seeds[0]["gaps"][0],
+                    "second_step_loss_gap": seeds[0]["gaps"][1],
+                    "seeds": seeds, "site_max_err": site_errs[worst],
+                    "drift_blocks": [i + 1 for i in layers], "drift": drift})
+    del state, model, named, frozen, init
+    return metrics
+
+
+def llama1b_full_train_phase(torch, card):
+    """Full-parameter training of Llama-3.2-1B (LLAMA3_1B) at full width and
+    depth: lora_rank=0, so every parameter trains against f32 masters cast
+    to bf16 at use, under policy("bf16", bf16_moments=True) (AdamW's
+    first moment in bf16), seq 2048, LLAMA1B_ACCUM microbatches of 4, the
+    llama3_8b_lora optimizer (its warm-up from 0: the first step moves
+    nothing, the others move every tensor). The losses of steps 1 and 2
+    (both on the initial weights) within LLAMA1B_EVAL_TOL of the eval
+    step's on the same batches; every parameter tensor has moved after
+    the run, the masters stay f32, losses finite; eager then captured,
+    bit for bit, with exact launch counts (every norm gets a backward:
+    the embedding trains). Then, as a reading, the same model from the
+    same weights at the optimizer's constant 1e-4 (no warm-up), and
+    llama1b_cut_parity."""
+    from tpudl_torch.data.synthetic import synthetic_token_batches
+    from tpudl_torch.models.registry import build_model
+    from tpudl_torch.train import (
+        create_train_state,
+        make_classification_eval_step,
+        make_classification_train_step,
+        policy,
+    )
+
+    pol = policy("bf16", bf16_moments=True)
+    t0 = time.perf_counter()
+    model = build_model("llama3-1b", 2, fused_ops=True, attention_impl="flash")
+    state = create_train_state(0, model, llama_optimizer(), precision=pol)
+    mcfg = model.cfg
+    named = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+    n_proj = sum(p.numel() for n, p in named.items()
+                 if n.endswith("_proj.weight"))
+    if not all(p.requires_grad and p.dtype == torch.float32
+               for p in named.values()):
+        fail("llama1b_full_train: not every parameter is a trainable f32 "
+             "master")
+    mus = {t.dtype for t in state.opt_state["mu"].values()}
+    if mus != {torch.bfloat16}:
+        fail(f"llama1b_full_train: first moments in {mus}, not bf16")
+    rows = LLAMA_BATCH * LLAMA1B_ACCUM
+    batches = list(synthetic_token_batches(rows, LLAMA_SEQ, mcfg.vocab_size,
+                                           num_batches=3 + LLAMA1B_STEPS))
+    torch.cuda.synchronize()
+    print(f"llama1b_full_train: Llama-3.2-1B ({mcfg.num_layers} layers, hidden "
+          f"{mcfg.hidden_size}), {n_params / 1e9:.3f} B parameters all "
+          f"trainable (f32 masters), policy('bf16', bf16_moments=True), "
+          f"{LLAMA1B_ACCUM} microbatches x {LLAMA_BATCH} x seq {LLAMA_SEQ}; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    keys = ("input_ids", "attention_mask")
+    evaluate = make_classification_eval_step(input_keys=keys)
+    # The initial weights' loss on each batch the runs see.
+    held = [microbatch_eval_loss(torch, evaluate, state, b, LLAMA1B_ACCUM)
+            for b in batches[:1 + LLAMA1B_STEPS + 1]]
+    step = make_classification_train_step(
+        input_keys=keys, accum_steps=LLAMA1B_ACCUM, precision=pol)
+    tokens = rows * LLAMA_SEQ
+    attn = 7.0 * rows * mcfg.hidden_size * LLAMA_SEQ ** 2 * mcfg.num_layers
+    # Forward, input and weight gradients of every projection.
+    flops = 6.0 * n_proj * tokens + attn
+    per_step = llama_launches_per_step(mcfg.num_layers, LLAMA1B_ACCUM)
+    # The first input norm's backward runs too: the embedding trains.
+    per_step["norm_bwd"] += LLAMA1B_ACCUM
+    init = {k: p.detach().clone() for k, p in state.params.items()}
+    metrics = llama_train_run(torch, card, "llama1b_full_train", state, step,
+                              batches, tokens, flops, per_step, {}, 1,
+                              LLAMA1B_STEPS, init)
+    losses = metrics["eager"]["losses"]
+    gaps = [abs(a - b) for a, b in zip(losses, held)]
+    print(f"llama1b_full_train: the initial weights' eval losses on the "
+          f"runs' batches {', '.join(f'{x:.4f}' for x in held)}; the steps' "
+          f"{', '.join(f'{x:.4f}' for x in losses)} (steps 1 and 2 run on "
+          f"the initial weights: gaps {gaps[0]:.2e} and {gaps[1]:.2e}, tol "
+          f"{LLAMA1B_EVAL_TOL})")
+    if not max(gaps[:2]) <= LLAMA1B_EVAL_TOL:
+        fail(f"llama1b_full_train: a loss on the initial weights is "
+             f"{max(gaps[:2]):.3e} from the eval step's (tol "
+             f"{LLAMA1B_EVAL_TOL})")
+    still = [k for k, p in state.params.items() if torch.equal(p, init[k])]
+    if still:
+        fail(f"llama1b_full_train: parameters that did not move: {still[:5]}")
+    if not all(p.dtype == torch.float32 for p in state.params.values()):
+        fail("llama1b_full_train: a master left f32")
+    print(f"llama1b_full_train: all {len(init)} parameter tensors moved, "
+          f"masters f32, first moments bf16")
+    # A reading: the same weights and batches at the optimizer's
+    # constant 1e-4, whose first step moves every weight.
+    state.tx = llama_optimizer(constant=True)
+    restart(torch, state, init)
+    constant = []
+    for b in batches[:1 + LLAMA1B_CONSTANT_STEPS]:
+        state, m = step(state, b, 1)
+        constant.append(float(m["loss"]))
+    print(f"llama1b_full_train: at a constant lr of 1e-4 from the same "
+          f"weights: losses {', '.join(f'{x:.4f}' for x in constant)}")
+    metrics.update({"num_params": n_params, "accum_steps": LLAMA1B_ACCUM,
+                    "microbatch": LLAMA_BATCH, "seq": LLAMA_SEQ,
+                    "initial_weights_eval_losses": held,
+                    "constant_lr_losses": constant})
+    del state, model, named, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    metrics["cut_parity"] = llama1b_cut_parity_phase(torch)
+    return metrics
+
+
+def llama1b_cut_parity_phase(torch):
+    """llama1b_full_train's step held to a plain reference: Llama-3.2-1B at
+    full width cut to LLAMA1B_CUT_LAYERS layers, from one set of weights,
+    through the kernel path (the phase's: fused_ops=True,
+    attention_impl="flash", policy("bf16", bf16_moments=True)), the plain
+    bf16 path (fused_ops=False, the reference attention, the same
+    policy) and an f32 oracle (plain, no policy, f32 moments), over
+    batches of LLAMA_BATCH x LLAMA_SEQ. The first step's gradients
+    against the oracle's: the kernel path's relative L2 error of all
+    gradients together, and of each tensor's but the ungated
+    classifier.bias, may not exceed KERNEL_ERR_RATIO x the plain path's
+    (as llama_train_parity). Then LLAMA1B_CUT_STEPS steps with the
+    phase's optimizer (warm-up from 0: steps 3 and 4 run on weights that
+    steps 2 and 3 moved) and LLAMA1B_CONSTANT_STEPS from the same
+    weights at its constant 1e-4: every loss within the bf16 band (0.03,
+    tpudl's bf16-vs-f32 band) of the oracle's."""
+    from tpudl_torch.data.synthetic import synthetic_token_batches
+    from tpudl_torch.models.llama import LLAMA3_1B, LlamaForSequenceClassification
+    from tpudl_torch.rng import fold_in
+    from tpudl_torch.train import (
+        create_train_state,
+        make_classification_train_step,
+        policy,
+    )
+
+    kw = dict(num_layers=LLAMA1B_CUT_LAYERS, num_labels=2)
+    init = LlamaForSequenceClassification(LLAMA3_1B(**kw), device="cuda")
+    init.init_weights(torch.Generator(device="cuda").manual_seed(13))
+    params = {k: v.detach() for k, v in init.state_dict().items()}
+    pol = policy("bf16", bf16_moments=True)
+    paths = {
+        "kernel": (torch.bfloat16, pol, {"fused_ops": True,
+                                         "attention_impl": "flash"}),
+        "plain": (torch.bfloat16, pol, {"fused_ops": False}),
+        "oracle": (torch.float32, None, {"fused_ops": False}),
+    }
+    batches = list(synthetic_token_batches(
+        LLAMA_BATCH, LLAMA_SEQ, init.cfg.vocab_size, seed=9,
+        num_batches=LLAMA1B_CUT_STEPS))
+    del init
+    runs = {"warm-up": (None, batches),
+            "constant 1e-4": (True, batches[:LLAMA1B_CONSTANT_STEPS])}
+    out = {}
+    for name, (dtype, prec, extra) in paths.items():
+        model = LlamaForSequenceClassification(
+            LLAMA3_1B(dtype=dtype, **kw, **extra), device="meta")
+        st = create_train_state(0, model, llama_optimizer(), params=params,
+                                precision=prec)
+        step = make_classification_train_step(
+            input_keys=("input_ids", "attention_mask"), precision=prec)
+        grads, _ = step.grads_and_metrics(st, batches[0], fold_in(7, 0, "cuda"))
+        out[name] = {"grads": {k: g.double() for k, g in grads.items()}}
+        for run, (constant, feed) in runs.items():
+            if constant:
+                st.tx = llama_optimizer(constant=True)
+                restart(torch, st, params)
+            losses = []
+            for b in feed:
+                st, m = step(st, b, 1)
+                losses.append(float(m["loss"]))
+            out[name][run] = losses
+        del st, model, step, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    go = out["oracle"]["grads"]
+    names = sorted(go)
+    gated = [k for k in names if k != "classifier.bias"]
+
+    def err(grads, keys):
+        num = sum(float(((grads[k] - go[k]) ** 2).sum()) for k in keys)
+        den = sum(float((go[k] ** 2).sum()) for k in keys)
+        return (num / den) ** 0.5 if den > 0 else num ** 0.5
+
+    errs = {p: {"all gradients": err(out[p]["grads"], gated),
+                **{k: err(out[p]["grads"], [k]) for k in names}}
+            for p in ("kernel", "plain")}
+    ratio = {k: errs["kernel"][k] / max(errs["plain"][k], 1e-300)
+             for k in errs["kernel"]}
+    judged = ["all gradients"] + gated
+    worst = sorted(judged, key=lambda k: -ratio[k])[:5]
+    band = PRECISION_BANDS["bf16"]
+    gaps = {p: {run: [abs(a - b) for a, b in zip(out[p][run],
+                                                  out["oracle"][run])]
+                for run in runs}
+            for p in ("kernel", "plain")}
+    print(f"llama1b_cut_parity: Llama-3.2-1B width, {LLAMA1B_CUT_LAYERS} "
+          f"layers, all {len(names)} parameters trained, rel L2 err of the "
+          f"first step's gradients vs the f32 oracle, kernel vs plain path: "
+          f"all gradients {errs['kernel']['all gradients']:.4e} vs "
+          f"{errs['plain']['all gradients']:.4e}; worst judged ratios: "
+          + ", ".join(f"{k} {ratio[k]:.3f} ({errs['kernel'][k]:.3e} vs "
+                      f"{errs['plain'][k]:.3e})" for k in worst)
+          + f"; ungated: classifier.bias {ratio['classifier.bias']:.3f}")
+    for run in runs:
+        print(f"llama1b_cut_parity: losses, {run}, batches of {LLAMA_BATCH} x "
+              f"{LLAMA_SEQ}: "
+              + "; ".join(f"{p} {', '.join(f'{x:.4f}' for x in out[p][run])}"
+                          for p in paths)
+              + f" (largest gap to the oracle: kernel "
+              f"{max(gaps['kernel'][run]):.4f}, plain "
+              f"{max(gaps['plain'][run]):.4f}; band {band})")
+    bad = [k for k in judged if ratio[k] > KERNEL_ERR_RATIO]
+    if bad:
+        fail(f"llama1b_cut_parity: the kernel path's gradient error exceeds "
+             f"{KERNEL_ERR_RATIO} x the plain path's in {bad[:5]}")
+    largest = max(x for p in gaps.values() for g in p.values() for x in g)
+    if not largest <= band:
+        fail(f"llama1b_cut_parity: a loss is {largest:.4f} from the f32 "
+             f"oracle's (band {band})")
+    return {"layers": LLAMA1B_CUT_LAYERS,
+            "gradients_rel_err": {p: errs[p]["all gradients"] for p in errs},
+            "worst_ratio": [worst[0], ratio[worst[0]]],
+            "losses": {p: {run: out[p][run] for run in runs} for p in out},
+            "loss_gaps": gaps}
+
+
 def hopper_ptxas(text):
     """ptxas -v's figures for each bf16 attention kernel on TMA and wgmma
     (the forwards ``*_fwd_kernel``, the dQ launches ``flash_dq_tma_kernel``
@@ -5323,10 +6478,23 @@ def main() -> int:
     ft_kill = ft_kill_phase(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
+    fp8_matmul = fp8_matmul_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_precision = train_precision_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     llama_launches, llama_metrics = llama_lora_train_phase(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
+    llama_fp8 = llama_fp8_lora_train_phase(
+        torch, card, llama_metrics["fp8_reference_loss"])
+    gc.collect()
+    torch.cuda.empty_cache()
     llama_metrics["parity"] = llama_train_parity_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    llama1b = llama1b_full_train_phase(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     remat_metrics = remat_captured_phase(torch, card,
@@ -5469,6 +6637,10 @@ def main() -> int:
                       "remat_captured": remat_metrics,
                       "ft_bert": ft_bert, "ft_resnet50": ft_resnet50,
                       "ft_kill": ft_kill,
+                      "fp8_matmul": fp8_matmul,
+                      "train_precision": train_precision,
+                      "llama_fp8_lora_train": llama_fp8,
+                      "llama1b_full_train": llama1b,
                       "launch_floor": floor, "pdl_chain": chain,
                       "card": card}))
     print(json.dumps({"kernels": kernels}))

@@ -391,3 +391,130 @@ def test_restore_into_a_compiled_state_keeps_its_tensors(tmp_path):
     for b in batches[data["offset"]:]:
         state, _ = compiled(state, b, rng)
     _assert_bitwise(control, state)
+
+
+# ---------------------------------------------------------------------------
+# the precision leaf (mixed precision and fp8)
+# ---------------------------------------------------------------------------
+
+_FP8_CFG = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=2,
+                intermediate_size=64, max_position_embeddings=16,
+                num_labels=2)
+
+
+def _fp8_state(seed=0, **cfg_kw):
+    """BERT tiny (tests/test_precision.py's config) with fp8 sites,
+    dropout on, under the "fp8" policy."""
+    from tpudl_torch.train import policy
+
+    cfg = policy("fp8").configure_model(bert.BertConfig(
+        **dict(_FP8_CFG, **cfg_kw), fp8_train=True))
+    model = bert.BertForSequenceClassification(cfg, device="meta")
+    return create_train_state(seed, model, make_optimizer(_sst2_optim()),
+                              device="cpu", precision="fp8")
+
+
+def _precision_tensors(state):
+    from tpudl_torch.ft.manager import flatten_with_keys
+
+    return dict(flatten_with_keys({"precision": state.precision}))
+
+
+def test_precision_leaf_cross_reads_with_tpudl(tmp_path):
+    """The payload's ``precision`` leaf under tpudl's key names and
+    dtypes: the port's store writes a trained fp8 state and tpudl's store
+    reads its precision leaves (the keys, dtypes and shapes of tpudl's
+    own fp8 payload, the port's values); tpudl's store writes tpudl's fp8
+    payload and the port's store reads it, and its precision leaves copy
+    into a port state (in place) key for key."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from tpudl.ft.manager import flatten_with_keys as jflatten
+    from tpudl.ft.manager import state_payload as jpayload
+    from tpudl.ft.store import CheckpointStore as JStore
+    from tpudl.models.bert import BertConfig as JBertConfig
+    from tpudl.models.bert import BertForSequenceClassification as JBert
+    from tpudl.train import create_train_state as jcreate
+    from tpudl.train import make_classification_train_step as jstep
+    from tpudl_torch.ft.manager import host_leaves, state_payload
+    from tpudl_torch.ft.store import CheckpointStore
+
+    state = _fp8_state()
+    step = make_classification_train_step(input_keys=_KEYS, precision="fp8")
+    for b in _token_batches(2, 64):
+        state, _ = step(state, b, 1)
+    assert "precision" in state_payload(state)
+    CheckpointStore(str(tmp_path / "t")).write(2, host_leaves(state))
+    _, theirs = JStore(str(tmp_path / "t")).read(2)
+
+    jcfg = JBertConfig(**_FP8_CFG, dtype=jnp.bfloat16, fp8_train="reference")
+    jstate = jcreate(jax.random.key(0), JBert(jcfg),
+                     jnp.zeros((1, 16), jnp.int32), optax.adamw(1e-3),
+                     precision="fp8")
+    jstate, _ = jax.jit(jstep(input_keys=_KEYS, precision="fp8"))(
+        jstate, {k: jnp.asarray(v) for k, v in _token_batches(1, 64)[0].items()},
+        jax.random.key(1))
+    jleaves = {k: np.asarray(v) for k, v in jflatten(jpayload(jstate))
+               if k.startswith("['precision']")}
+    mine = _precision_tensors(state)
+    # Six fp8 sites a composite layer, four leaves a site.
+    assert set(mine) == set(jleaves) and len(mine) == 3 + 4 * 6 * 2
+    for key, want in jleaves.items():
+        got = theirs[key]
+        assert got.dtype == want.dtype and got.shape == want.shape, key
+        np.testing.assert_array_equal(got, mine[key].numpy(), err_msg=key)
+
+    JStore(str(tmp_path / "j")).write(1, list(jleaves.items()))
+    _, read = CheckpointStore(str(tmp_path / "j")).read(1)
+    fresh = _fp8_state(seed=3)
+    live = _precision_tensors(fresh)
+    ptrs = {k: v.data_ptr() for k, v in live.items()}
+    with torch.no_grad():
+        for key, t in live.items():
+            assert read[key].dtype == t.dtype, key
+            t.copy_(read[key])
+    for key, t in _precision_tensors(fresh).items():
+        assert t.data_ptr() == ptrs[key]
+        np.testing.assert_array_equal(t.numpy(), jleaves[key], err_msg=key)
+    # A state without a policy writes no precision leaf.
+    assert "precision" not in state_payload(_fresh_state())
+
+
+@pytest.mark.parametrize("async_save", [False, True])
+def test_fp8_run_resumes_bitwise(tmp_path, async_save):
+    """tpudl's test_precision_state_resumes_schedule_identical on the
+    port: an fp8 BERT tiny run with dropout saved at step 3 and restored
+    into a state initialised from another seed continues bit for bit as
+    the uninterrupted run (losses, parameters, optimizer state, rings and
+    loss-scale state): the loss-scale schedule and every amax window
+    round-trip, restored in place."""
+    batches = _token_batches(6, 64)
+    step = make_classification_train_step(input_keys=_KEYS, precision="fp8")
+    control = _fp8_state(hidden_dropout=0.1, attention_dropout=0.1)
+    losses = []
+    for b in batches:
+        control, m = step(control, b, 1)
+        losses.append(float(m["loss"]))
+    state = _fp8_state(hidden_dropout=0.1, attention_dropout=0.1)
+    with CheckpointManager(str(tmp_path / f"ck{async_save}"),
+                           async_save=async_save) as mgr:
+        for b in batches[:3]:
+            state, _ = step(state, b, 1)
+        mgr.save(3, state)
+        mgr.wait_until_finished()
+        saved = {k: v.clone() for k, v in _precision_tensors(state).items()}
+        fresh = _fp8_state(seed=5, hidden_dropout=0.1, attention_dropout=0.1)
+        restored = mgr.restore(fresh, 3)
+    assert restored is fresh and restored.step == 3
+    for k, v in _precision_tensors(restored).items():
+        assert torch.equal(v, saved[k]), k
+    tail = []
+    for b in batches[3:]:
+        restored, m = step(restored, b, 1)
+        tail.append(float(m["loss"]))
+    assert tail == losses[3:]
+    _assert_bitwise(control, restored)
+    a, b = _precision_tensors(control), _precision_tensors(restored)
+    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)

@@ -257,10 +257,14 @@ def test_compile_step_refusals(tpudl_bert_tiny):
     step = make_classification_train_step(input_keys=_KEYS)
     for kw, item in ((dict(mesh=object()), "queue A item 7"),
                      (dict(rules=object()), "queue A item 7"),
-                     (dict(steps_per_dispatch=2), "queue A item 10"),
-                     (dict(precision="bf16"), "queue A item 8")):
+                     (dict(steps_per_dispatch=2), "queue A item 10")):
         with pytest.raises(NotImplementedError, match=item):
             compile_step(step, state, **kw)
+    # Precision policies are ported (tests/test_torch_precision.py): a
+    # policy that carries state needs it on the train state.
+    assert compile_step(step, state, precision="bf16").precision.name == "bf16"
+    with pytest.raises(ValueError, match="loss-scale state"):
+        compile_step(step, state, precision="fp8")
     with pytest.raises(ValueError, match="steps_per_dispatch"):
         compile_step(step, state, steps_per_dispatch=0)
     with pytest.raises(ValueError, match="in place"):

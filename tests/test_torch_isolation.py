@@ -28,6 +28,11 @@ _FT_MODULES = ("tpudl_torch.checkpoint", "tpudl_torch.ft",
                "tpudl_torch.ft.writer")
 
 
+#: Mixed precision and fp8 (ROADMAP queue A item 8).
+_PRECISION_MODULES = ("tpudl_torch.rules", "tpudl_torch.ops.fp8_dot",
+                      "tpudl_torch.train.precision")
+
+
 def _modules():
     return sorted(
         m.name for m in pkgutil.walk_packages([PACKAGE], prefix="tpudl_torch.")
@@ -44,7 +49,8 @@ def test_every_module_imports_without_jax_flax_or_tpudl():
                  "tpudl_torch.serve.lora", "tpudl_torch.ops.library",
                  "tpudl_torch.export", "tpudl_torch.export.export",
                  "tpudl_torch.export.parity", "tpudl_torch.export.latency",
-                 "tpudl_torch.export.decode", *_FT_MODULES):
+                 "tpudl_torch.export.decode", *_FT_MODULES,
+                 *_PRECISION_MODULES):
         assert name in names
     code = (
         "import importlib, sys\n"

@@ -2155,3 +2155,171 @@ def test_artifact_sessions_serve_the_model_sessions_tokens(dev, paged):
     ids = torch.as_tensor(rng.integers(1, 512, (1, 8)), dtype=torch.int32)
     report = check_parity(pre, (params, ids, torch.ones_like(ids)))
     assert report.ok, str(report)
+
+
+# ---------------------------------------------------------------------------
+# fp8 training: torch._scaled_mm against the plain version, the captured
+# policy step with a skipped step, the fused loss at a loss scale
+# ---------------------------------------------------------------------------
+
+
+def _fp8_rings(dev, *amaxes, window=16):
+    from tpudl_torch.ops.fp8_dot import amax_history_init, update_amax_history
+
+    out = []
+    for a in amaxes:
+        out.append(update_amax_history(amax_history_init(window, dev),
+                                       torch.tensor(a, device=dev)))
+    return out
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 32, 48), (256, 768, 768),
+                                   (512, 768, 3072), (512, 3072, 768)])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_fp8_dot_matches_plain_on_the_card(dev, m, k, n, w_dtype):
+    """``torch._scaled_mm`` (e4m3 x e4m3 forward, e5m2 x e4m3 dx, e5m2 x
+    e4m3 dw) against the plain version on the same fp8 values and scales:
+    both sum in f32 (``use_fast_accum=False``) and round once to the
+    output dtype, so they part by the sums' order and that one rounding:
+    at most 2^-7 of the output's largest magnitude (bf16's step); the
+    gradient amax is exact."""
+    from tpudl_torch.ops.fp8_dot import fp8_dot
+
+    rng = np.random.default_rng(m + k + n)
+    x0 = _t(rng, (2, m // 2, k), torch.bfloat16, dev)
+    w0 = (_t(rng, (n, k), torch.float32, dev) * 0.05).to(w_dtype)
+    g = _t(rng, (2, m // 2, n), torch.bfloat16, dev) * 0.01
+    hx, hw, hg = _fp8_rings(dev, float(x0.float().abs().max()) * 0.9,
+                            float(w0.float().abs().max()), 0.02)
+    outs = {}
+    for impl in ("auto", "reference"):
+        x = x0.clone().requires_grad_()
+        w = w0.clone().requires_grad_()
+        g_amax = torch.zeros((), device=dev)
+        out = fp8_dot(x, w, hx, hw, hg, g_amax, impl=impl)
+        out.backward(g)
+        outs[impl] = (out.detach(), x.grad, w.grad, g_amax)
+    for name, got, want in zip(("out", "dx", "dw"), outs["auto"][:3],
+                               outs["reference"][:3]):
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2.0**-7 * float(want.float().abs().max()), (name, err)
+    assert torch.equal(outs["auto"][3], outs["reference"][3])
+
+
+def test_fp8_dot_refuses_shapes_scaled_mm_does_not_take(dev):
+    """A dimension that is not a multiple of 16 raises, naming the shape;
+    nothing falls back to the plain version."""
+    from tpudl_torch.ops.fp8_dot import fp8_dot
+
+    hx, hw, hg = _fp8_rings(dev, 1.0, 1.0, 1.0)
+    x = torch.ones(8, 32, device=dev, dtype=torch.bfloat16)
+    w = torch.ones(48, 32, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"M=8, K=32, N=48"):
+        fp8_dot(x, w, hx, hw, hg)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fp8_dot(torch.ones(16, 40, device=dev, dtype=torch.bfloat16),
+                torch.ones(48, 40, device=dev, dtype=torch.bfloat16),
+                hx, hw, hg)
+
+
+def _fp8_states(dev):
+    from tpudl_torch.config import OptimConfig
+    from tpudl_torch.models import bert
+    from tpudl_torch.train import (
+        create_train_state,
+        make_classification_train_step,
+        make_optimizer,
+        policy,
+    )
+
+    cfg = policy("fp8").configure_model(bert.BERT_TINY(
+        vocab_size=512, max_position_embeddings=64, fused_ops=True,
+        attention_impl="fused", hidden_dropout=0.1, attention_dropout=0.1,
+        fp8_train=True))
+    model = bert.BertForSequenceClassification(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(1))
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    ocfg = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=8)
+    states = [create_train_state(
+        0, bert.BertForSequenceClassification(cfg, device=dev),
+        make_optimizer(ocfg), params=params, device=dev, precision="fp8")
+        for _ in range(2)]
+    step = make_classification_train_step(
+        input_keys=("input_ids", "attention_mask"), loss_impl="auto",
+        precision="fp8")
+    rng = np.random.default_rng(6)
+    batches = [{"input_ids": rng.integers(0, 512, (16, 64)),
+                "attention_mask": np.ones((16, 64), np.int32),
+                "label": rng.integers(0, 2, 16)} for _ in range(5)]
+    return states, step, batches
+
+
+def test_captured_fp8_step_with_a_skip_equals_the_eager_steps(dev):
+    """BERT_TINY with fp8 sites (``torch._scaled_mm``) under the fp8
+    policy, eager against compile_step: five steps, the fourth with the
+    position table poisoned (a nonfinite gradient: skipped, the table put
+    back after). Losses, ``grad_skipped``, every parameter, optimizer
+    tensor, ring and loss-scale leaf equal bit for bit; the skipped step
+    moved no host count, eager or replayed; each replay adds the eager
+    step's launches (the three ``_scaled_mm`` counters included)."""
+    from tpudl_torch.ops.fp8_dot import fp8_dot
+    from tpudl_torch.train import compile_step
+
+    (eager, captured), step, batches = _fp8_states(dev)
+    compiled = compile_step(step, captured, precision="fp8")
+    name = "bert.embeddings.position_embeddings.weight"
+    for i, batch in enumerate(batches):
+        olds = []
+        if i == 3:
+            for st in (eager, captured):
+                p = dict(st.model.named_parameters())[name]
+                olds.append(p.detach().clone())
+                with torch.no_grad():
+                    p[0, 0] = float("inf")
+        before = _launch_counts()
+        eager, want = step(eager, batch, 3)
+        torch.cuda.synchronize()
+        mid = _launch_counts()
+        captured, got = compiled(captured, batch, 3)
+        torch.cuda.synchronize()
+        after = _launch_counts()
+        assert [m - b for m, b in zip(mid, before)] == \
+            [a - m for a, m in zip(after, mid)]
+        assert fp8_dot.launches_fwd > 0 and fp8_dot.launches_dw > 0
+        for k in ("loss", "grad_skipped", "loss_scale"):
+            # The poisoned step's loss is NaN in both.
+            assert torch.equal(got[k], want[k]) or (
+                got[k].isnan() and want[k].isnan()), (i, k)
+        assert float(got["grad_skipped"]) == (1.0 if i == 3 else 0.0)
+        for st, old in zip((eager, captured), olds):
+            with torch.no_grad():
+                dict(st.model.named_parameters())[name].copy_(old)
+    assert captured.step == eager.step == 4
+    assert captured.opt_state["host_count"] == 4
+    assert int(captured.opt_state["count"]) == 4
+    _bitwise_states(eager, captured)
+    from tpudl_torch.ft.manager import flatten_with_keys
+
+    a = dict(flatten_with_keys(eager.precision))
+    b = dict(flatten_with_keys(captured.precision))
+    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    assert float(eager.precision["loss_scale"]["scale"]) == 2.0**14
+    assert int(eager.precision["loss_scale"]["skipped"]) == 1
+
+
+def test_cross_entropy_backward_at_loss_scale(dev):
+    """The fused loss's backward kernel receives the scaled upstream
+    gradient: at scale 2^15 it stays finite and is the unscaled gradient
+    times the scale, bit for bit (a power of two), as its plain version."""
+    rng = np.random.default_rng(9)
+    logits = _t(rng, (256, 30522), torch.bfloat16, dev) * 4
+    labels = torch.from_numpy(rng.integers(0, 30522, 256)).to(dev)
+    grads = []
+    for scale in (1.0, 2.0**15):
+        x = logits.clone().requires_grad_()
+        (softmax_cross_entropy(x, labels, impl="fused").mean() * scale
+         ).backward()
+        grads.append(x.grad)
+    assert bool(torch.isfinite(grads[1]).all())
+    assert torch.equal(grads[1], grads[0] * 2.0**15)

@@ -171,6 +171,14 @@ def test_init_params_matches_the_module_and_tpudl_init():
 ])
 def test_unported_tiers_raise(field, value):
     cfg = tllama.LLAMA_TINY(**{field: value})
+    if field == "fp8_train":
+        # Ported since (tests/test_torch_precision.py): the tier builds,
+        # and it refuses the quantized weight tier, as tpudl's.
+        tllama.LlamaForCausalLM(cfg, device="meta")
+        with pytest.raises(ValueError, match="does not compose"):
+            tllama.LlamaForCausalLM(tllama.LLAMA_TINY(
+                fp8_train=True, weight_dtype="int8"), device="meta")
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         tllama.LlamaForCausalLM(cfg, device="meta")
 

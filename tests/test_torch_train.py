@@ -285,10 +285,13 @@ def test_fit_and_step_refuse_what_is_not_ported():
             fit(step, state, batches, 0, **kw)
     # Accumulation is ported (tests/test_torch_accumulation.py).
     make_classification_train_step(accum_steps=4)
-    for kw, item in ((dict(precision="bf16"), "queue A item 8"),
-                     (dict(moe_aux_weight=0.01), "queue A item 4")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_classification_train_step(**kw)
+    with pytest.raises(NotImplementedError, match="queue A item 4"):
+        make_classification_train_step(moe_aux_weight=0.01)
+    # Precision policies are ported (tests/test_torch_precision.py).
+    assert make_classification_train_step(precision="bf16").precision.name \
+        == "bf16"
+    with pytest.raises(ValueError, match="unknown precision policy"):
+        make_classification_train_step(precision="fp4")
     # The fused loss is ported.
     make_classification_train_step(loss_impl="auto")
 

@@ -46,6 +46,18 @@ KNOBS: Dict[str, str] = {
     "TPUDL_SERVE_PREFIX_SHARE": "Radix prefix sharing (not ported).",
     "TPUDL_SERVE_SPEC_K": "Speculative decoding window (not ported).",
     "TPUDL_SERVE_WEIGHT_DTYPE": "Serving weight quantization (not ported).",
+    # Training precision (tpudl_torch.train.precision,
+    # tpudl_torch.ops.fp8_dot); the defaults are tpudl's.
+    "TPUDL_TRAIN_PRECISION": "Mixed-precision training policy preset (f32 | "
+                             "bf16 | fp8) for policy_from_env; unset = no "
+                             "policy.",
+    "TPUDL_FP8_AMAX_WINDOW": "fp8 delayed-scaling amax-history ring length "
+                             "per tensor site; default 16.",
+    "TPUDL_LOSS_SCALE_INIT": "Dynamic loss-scale starting value (a power of "
+                             "two); default 32768.",
+    "TPUDL_LOSS_SCALE_GROWTH_INTERVAL": "Consecutive finite steps before the "
+                                        "dynamic loss scale doubles (capped "
+                                        "at 2^24); default 2000.",
     # Fault tolerance and its fault injection (tpudl_torch.ft).
     "TPUDL_FT_GRACE_S": "Preemption grace window in seconds (SIGTERM -> "
                         "emergency checkpoint -> hard-exit watchdog); "

@@ -13,7 +13,9 @@ on-step stall (the port's counterpart of tpudl.ft.manager).
   model (a LoRA model's frozen base too), the optimizer state (its
   device ``count``, the host mirror ``host_count``, the moments or
   traces; ``scalars`` is refilled by ``prepare_`` before every update
-  and is left out), the BatchNorm running statistics, the step, the
+  and is left out), the BatchNorm running statistics, a precision
+  policy's state (the loss scale, its growth count and skipped steps,
+  and the fp8 amax rings; tpudl_torch.train.precision), the step, the
   training seed (``rng``, an int: each step draws from
   ``fold_seed(rng, state.step)``) and the data position — so a
   restarted run is schedule-identical to an uninterrupted one.
@@ -28,7 +30,11 @@ on-step stall (the port's counterpart of tpudl.ft.manager).
   ``ft_corrupt_checkpoints``; an explicit step raises.
 
 Leaf keys are ``['params']['<state_dict name>']``, ``['opt_state'][...]``,
-``['step']`` and ``['batch_stats'][...]``; the seed and the data
+``['step']``, ``['batch_stats'][...]`` and ``['precision'][...]`` (tpudl's
+key names and dtypes: ``['precision']['loss_scale']['scale']`` f32,
+``['growth_count']`` and ``['skipped']`` int32,
+``['precision']['fp8']['bert']...['query']['x_hist']`` f32 rings, so
+either store reads the other's precision leaves); the seed and the data
 position ride ``meta.json`` (``rng: {"seed": int}``, ``data_state``).
 Process 0 (``torch.distributed``'s rank, 0 without a process group) is
 the sole writer. ``mesh`` / ``rules`` raise NotImplementedError (ROADMAP
@@ -83,6 +89,11 @@ def state_payload(state: Any) -> dict:
     stats = getattr(state, "batch_stats", None)
     if stats is not None:
         payload["batch_stats"] = stats
+    precision = getattr(state, "precision", None)
+    if precision is not None:
+        # The live tensors: a restore copies into them, so a captured
+        # step keeps reading the restored scale and rings.
+        payload["precision"] = precision
     return payload
 
 

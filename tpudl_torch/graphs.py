@@ -51,6 +51,8 @@ def launch_counters() -> List[Tuple[Any, str]]:
         segmented_lora,
         softmax_dropout,
     )
+    # The module's name is shadowed by its function in tpudl_torch.ops.
+    from tpudl_torch.ops.fp8_dot import fp8_dot
 
     fns = (norms.layer_norm, norms.rms_norm, norms.norm_bwd,
            mlp_fused.bias_gelu, mlp_fused.bias_gelu_bwd, mlp_fused.swiglu,
@@ -62,7 +64,9 @@ def launch_counters() -> List[Tuple[Any, str]]:
            segmented_lora.segmented_lora)
     return [(fn, "launches") for fn in fns] + [
         (flash_attention.flash_attention, f"launches_{name}")
-        for name in ("fwd", "dq", "dkv")]
+        for name in ("fwd", "dq", "dkv")] + [
+        (fp8_dot, f"launches_{name}")
+        for name in ("fwd", "dx", "dw")]
 
 
 class Graph:

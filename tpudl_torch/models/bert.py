@@ -41,8 +41,22 @@ in the backward, "attention" each self-attention block, with
 ``remat_policy`` None (save nothing) or "dots_saveable" (keep the matrix
 products, "layer" only); tpudl_torch.models.remat draws the recompute's
 dropout bits from the step generator's recorded state, so the gradients
-are bitwise those without remat. ``weight_dtype`` and ``fp8_train`` are
-not ported and raise.
+are bitwise those without remat. ``weight_dtype`` is not ported and
+raises.
+
+``cfg.fp8_train`` is tpudl's fp8 training tier: the encoder's attention
+and MLP projections that tpudl's ``_dense(quantize=True)`` marks become
+tpudl_torch.ops.fp8_dot.Fp8Dense (the same f32 master ``weight`` and
+``bias``; e4m3 forward and e5m2 gradient products with delayed scaling,
+their amax rings carried by a train state built with the "fp8" policy).
+With ``fused_ops`` the intermediate projection stays a plain product in
+``cfg.dtype`` (tpudl's ``FusedBiasGeluDense``), so the fused model has 5
+fp8 sites a layer and the composite model 6; the pooler and the
+classifier stay full precision. True or "auto" picks the fp8 product's
+implementation by device, "reference" the plain one, "force" (or
+"fused") ``torch._scaled_mm`` or an error (``fp8_train_impl``). It excludes ``weight_dtype``.
+``tpudl_path`` maps a parameter name to its tpudl tree path (the inverse
+of ``params_from_tpudl``), which the precision rules match.
 """
 
 from __future__ import annotations
@@ -60,6 +74,7 @@ from torch import nn
 from tpudl_torch.models.remat import check_policy, checkpointed
 from tpudl_torch.ops.attention import attend, padding_mask
 from tpudl_torch.ops.dropout import Dropout
+from tpudl_torch.ops.fp8_dot import Fp8Dense, fp8_train_impl
 from tpudl_torch.ops.mlp_fused import bias_gelu
 from tpudl_torch.ops.norms import fused_ops_impl, layer_norm
 
@@ -90,9 +105,11 @@ class BertConfig:
     #: CUDA tensors and the plain versions on CPU tensors, "force" = the
     #: kernels or an error.
     fused_ops: Any = False
-    # Tiers of the JAX model that are not ported yet; any other value
+    # The quantized weight tier is not ported yet; any other value
     # raises NotImplementedError when the model is built.
     weight_dtype: Optional[str] = None
+    #: fp8 training products at the encoder's projections (module
+    #: docstring): False, True / "auto", "reference", "force" / "fused".
     fp8_train: Any = False
 
     @property
@@ -110,14 +127,22 @@ _REMAT = (False, "none", True, "layer", "attention")
 
 _NOT_PORTED = (
     ("weight_dtype", (None,), "quantized encoder weights", "queue A item 4"),
-    ("fp8_train", (False,), "fp8 training matmuls", "queue A item 8"),
 )
+_FP8_IMPLS = (False, True, "auto", "reference", "force", "fused")
 
 
 def _check_ported(cfg: BertConfig) -> None:
     if cfg.remat not in _REMAT:
         raise ValueError(f"remat must be one of {_REMAT}, got {cfg.remat!r}")
     check_policy(cfg.remat_policy)
+    if cfg.fp8_train not in _FP8_IMPLS:
+        raise ValueError(f"fp8_train must be one of {_FP8_IMPLS}, got "
+                         f"{cfg.fp8_train!r}")
+    if cfg.fp8_train and cfg.weight_dtype is not None:
+        raise ValueError(
+            "fp8_train (training-time fp8 matmuls) and weight_dtype "
+            "(serving quantization of a frozen tree) are mutually "
+            "exclusive — pick one")
     for field, off, what, item in _NOT_PORTED:
         if getattr(cfg, field) not in off:
             raise NotImplementedError(
@@ -127,22 +152,34 @@ def _check_ported(cfg: BertConfig) -> None:
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense(features, dtype=dtype)``: an f32 master ``weight``
-    ``[out, in]`` and ``bias``, both cast to ``dtype`` at use, the input
-    too. ``forward(x, add_bias=False)`` returns the product without the
-    bias (the fused bias+GeLU epilogue adds it)."""
+    """flax ``nn.Dense(features, dtype=dtype, use_bias=use_bias)``: an f32
+    master ``weight`` ``[out, in]`` and ``bias``, both cast to ``dtype``
+    at use, the input too. ``forward(x, add_bias=False)`` returns the
+    product without the bias (the fused bias+GeLU epilogue adds it)."""
 
-    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device=None):
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device=None,
+                 use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(
             torch.empty(d_out, d_in, dtype=torch.float32, device=device))
-        self.bias = nn.Parameter(
-            torch.empty(d_out, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.empty(
+            d_out, dtype=torch.float32, device=device)) if use_bias else None
 
     def forward(self, x, add_bias: bool = True):
-        bias = self.bias.to(self.dtype) if add_bias else None
+        bias = self.bias.to(self.dtype) if add_bias and \
+            self.bias is not None else None
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+
+
+def _dense(cfg: BertConfig, d_in: int, d_out: int, device,
+           quantize: bool = False) -> nn.Module:
+    """A projection: ``Dense``, or ``Fp8Dense`` at a site tpudl's
+    ``_dense(quantize=True)`` marks when ``cfg.fp8_train`` is set."""
+    if quantize and cfg.fp8_train:
+        return Fp8Dense(d_in, d_out, cfg.dtype,
+                        impl=fp8_train_impl(cfg.fp8_train), device=device)
+    return Dense(d_in, d_out, cfg.dtype, device)
 
 
 class LayerNorm(nn.Module):
@@ -191,8 +228,9 @@ class BertEmbeddings(nn.Module):
         # exact (1 x the row plus 0 x the others) and its backward is one
         # matrix product, bitwise repeatable: what lets a captured step be
         # held to the eager one bit for bit.
+        table = self.token_type_embeddings.weight
         onehot = F.one_hot(token_type_ids.long(), self.cfg.type_vocab_size)
-        te = onehot.to(torch.float32) @ self.token_type_embeddings.weight
+        te = onehot.to(table.dtype) @ table
         x = self.layer_norm(we + pe + te)
         x = self.dropout(x, not train, generator)
         return x.to(self.cfg.dtype)
@@ -204,7 +242,7 @@ class BertSelfAttention(nn.Module):
         self.cfg = cfg
         h = cfg.hidden_size
         for name in ("query", "key", "value", "out"):
-            self.add_module(name, Dense(h, h, cfg.dtype, device))
+            self.add_module(name, _dense(cfg, h, h, device, quantize=True))
         self.dropout = Dropout(cfg.hidden_dropout, exact=cfg.dropout_exact)
 
     def forward(self, hidden, attn_mask, train, generator):
@@ -232,8 +270,11 @@ class BertLayer(nn.Module):
         self.impl = fused_ops_impl(cfg.fused_ops)
         self.attention = BertSelfAttention(cfg, device)
         self.attention_norm = LayerNorm(h, cfg.layer_norm_eps, self.impl, device)
-        self.intermediate = Dense(h, f, cfg.dtype, device)
-        self.output = Dense(f, h, cfg.dtype, device)
+        # The fused tier's intermediate is tpudl's FusedBiasGeluDense: a
+        # plain product whose bias the bias+GeLU epilogue adds.
+        self.intermediate = _dense(cfg, h, f, device,
+                                   quantize=not cfg.fused_ops)
+        self.output = _dense(cfg, f, h, device, quantize=True)
         self.dropout = Dropout(cfg.hidden_dropout, exact=cfg.dropout_exact)
         self.output_norm = LayerNorm(h, cfg.layer_norm_eps, self.impl, device)
 
@@ -331,6 +372,9 @@ class BertForSequenceClassification(nn.Module):
         if torch.device(device).type != "meta":
             self.init_weights(None)
 
+    def tpudl_path(self, name: str) -> str:
+        return tpudl_path(name)
+
     def init_weights(self, generator: Optional[torch.Generator]) -> None:
         """Redraw every parameter in place as tpudl's ``model.init`` does:
         normal(0.02) projections and embedding tables, zero biases, unit
@@ -373,6 +417,17 @@ _TOP_LEAVES = (
     "bert.pooler.weight", "bert.pooler.bias",
     "classifier.weight", "classifier.bias",
 )
+
+
+def tpudl_path(name: str) -> str:
+    """A state_dict name's tpudl tree path, the inverse of
+    ``params_from_tpudl``: ``bert.encoder.layer_0.attention.query.weight``
+    -> ``bert/encoder/layer_0/attention/query/kernel``, an embedding
+    table's ``weight`` -> ``embedding``."""
+    module, leaf = name.rsplit(".", 1)
+    if leaf == "weight":
+        leaf = "embedding" if module.endswith("_embeddings") else "kernel"
+    return f"{module}.{leaf}".replace(".", "/")
 
 
 def param_names(num_layers: int):

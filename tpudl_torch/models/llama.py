@@ -18,9 +18,13 @@ the last non-pad token into an f32 classifier with a bias.
 ``cfg.lora_rank > 0`` makes every projection a
 tpudl_torch.models.lora.LoRALinear. ``cfg.remat`` recomputes each block
 of the non-decode forward in the backward (tpudl_torch.models.remat; the
-decode paths never remat, as tpudl's). MoE, quantized weights and fp8
-training wait for later slices and raise ``NotImplementedError`` naming
-their ROADMAP item.
+decode paths never remat, as tpudl's). ``cfg.fp8_train`` makes the seven
+projections of every block tpudl_torch.ops.fp8_dot.Fp8Dense (tpudl's
+``_proj``): e4m3 forward and e5m2 gradient products with delayed
+scaling, composing with ``lora_rank`` (the adapters run in ``cfg.dtype``
+on top of the fp8 base product); it excludes ``weight_dtype``. MoE and
+quantized weights wait for later slices and raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Numerics follow the JAX model: projections and the embedding compute in
 ``cfg.dtype``, RMSNorm statistics in f32, RoPE angles in f32, attention
@@ -29,12 +33,17 @@ f32 (TF32 off). With ``cfg.fused_ops`` (default True here) the norms and
 the SwiGLU go through the Hopper kernels of tpudl_torch.ops on CUDA
 tensors (forward and backward).
 
-The base weights (projections, embedding, norm scales) are frozen:
-they hold the compute dtype, which gives the numbers of tpudl's f32
-masters cast at use (``nn.Dense(dtype=bf16)`` casts its kernel, and
-``nn.Embed``'s lookup is rounded after), at half the bytes. Training
-updates the adapters and the classifier only (``lora_optimizer``);
-full-parameter Llama training with f32 masters is not ported.
+Serving models (``LlamaForCausalLM``) and adapter models (``lora_rank``
+> 0) keep their frozen base weights (projections, embedding) in the
+compute dtype, which gives the numbers of tpudl's f32 masters cast at
+use (``nn.Dense(dtype=bf16)`` casts its kernel, ``nn.Embed(dtype=bf16)``
+its table) at half the bytes; training updates the adapters and the
+classifier (``lora_optimizer``). ``LlamaForSequenceClassification`` with
+``lora_rank=0`` trains every parameter, as tpudl does: its projections
+and embedding are f32 masters cast to ``cfg.dtype`` at use (their
+gradients come back through the cast in f32). ``tpudl_path`` maps a
+parameter name to its tpudl tree path (the inverse of
+``params_from_tpudl``), which the precision rules match.
 
 Parameters mirror tpudl's tree: ``model.layer_{i}.attention.q_proj.weight``
 holds tpudl's ``model/layer_{i}/attention/q_proj/kernel`` transposed
@@ -66,6 +75,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpudl_torch.models.bert import Dense
 from tpudl_torch.models.lora import LoRALinear, adapter_delta, is_lora_param
 from tpudl_torch.models.paged import (
     paged_attend_mask,
@@ -74,6 +84,7 @@ from tpudl_torch.models.paged import (
 )
 from tpudl_torch.models.remat import checkpointed
 from tpudl_torch.ops.attention import MASK_VALUE, attend
+from tpudl_torch.ops.fp8_dot import Fp8Dense, fp8_train_impl
 from tpudl_torch.ops.mlp_fused import swiglu
 from tpudl_torch.ops.norms import fused_ops_impl, rms_norm
 
@@ -105,8 +116,11 @@ class LlamaConfig:
     # Tiers of the JAX model that are not ported yet; any other value
     # raises NotImplementedError when the model is built.
     weight_dtype: Optional[str] = None
-    fp8_train: Any = False
     moe_experts: int = 0
+    #: fp8 training products at the seven projections: False, True /
+    #: "auto", "reference", "force" / "fused" (tpudl_torch.ops.fp8_dot
+    #: .fp8_train_impl).
+    fp8_train: Any = False
 
     @property
     def head_dim(self) -> int:
@@ -144,7 +158,6 @@ LLAMA_SIZES = {
 _NOT_PORTED = (
     ("moe_experts", 0, "the MoE MLP", "queue A item 4"),
     ("weight_dtype", None, "quantized serving weights", "queue A item 4"),
-    ("fp8_train", False, "fp8 training matmuls", "queue A item 8"),
 )
 
 
@@ -152,6 +165,11 @@ def _check_ported(cfg: LlamaConfig) -> None:
     if cfg.lora_rank < 0:
         raise ValueError(f"lora_rank must be >= 0 (0 = adapters off), got "
                          f"{cfg.lora_rank}")
+    if cfg.fp8_train and cfg.weight_dtype is not None:
+        raise ValueError(
+            "fp8_train (training-time fp8 matmuls) does not compose "
+            "with weight_dtype (frozen-tree serving quantization) "
+            "— pick one")
     for field, off, what, item in _NOT_PORTED:
         if getattr(cfg, field) != off:
             raise NotImplementedError(
@@ -221,12 +239,23 @@ def _gqa_decode_attention(q, k, v, mask):
     return ctx.reshape(b, s, h, d)
 
 
-def _linear(cfg, d_in, d_out, device):
-    """A projection: bias-free Linear, or LoRALinear with adapters on
-    (tpudl's ``_proj``)."""
+def _linear(cfg, d_in, d_out, device, masters=False):
+    """A projection (tpudl's ``_proj``): Fp8Dense with ``fp8_train``
+    (adapters on it with ``lora_rank``), LoRALinear with adapters on, else
+    a bias-free Linear. ``masters``: the weight is an f32 master cast at
+    use (a trainable base; BERT's ``Dense`` without a bias) rather than a
+    frozen compute-dtype copy."""
+    if cfg.fp8_train:
+        return Fp8Dense(d_in, d_out, cfg.dtype, use_bias=False,
+                        rank=cfg.lora_rank, alpha=cfg.lora_alpha,
+                        impl=fp8_train_impl(cfg.fp8_train),
+                        weight_dtype=torch.float32 if masters else cfg.dtype,
+                        device=device)
     if cfg.lora_rank > 0:
         return LoRALinear(d_in, d_out, cfg.lora_rank, cfg.lora_alpha,
                           cfg.dtype, device)
+    if masters:
+        return Dense(d_in, d_out, cfg.dtype, device, use_bias=False)
     return nn.Linear(d_in, d_out, bias=False, device=device, dtype=cfg.dtype)
 
 
@@ -257,14 +286,15 @@ def init_cache(cfg: LlamaConfig, batch_size: int, device="cuda") -> dict:
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, masters=False):
         super().__init__()
         self.cfg = cfg
         hd = cfg.head_dim
-        self.q_proj = _linear(cfg, cfg.hidden_size, cfg.num_heads * hd, device)
-        self.k_proj = _linear(cfg, cfg.hidden_size, cfg.num_kv_heads * hd, device)
-        self.v_proj = _linear(cfg, cfg.hidden_size, cfg.num_kv_heads * hd, device)
-        self.o_proj = _linear(cfg, cfg.num_heads * hd, cfg.hidden_size, device)
+        h, q, kv = cfg.hidden_size, cfg.num_heads * hd, cfg.num_kv_heads * hd
+        self.q_proj = _linear(cfg, h, q, device, masters)
+        self.k_proj = _linear(cfg, h, kv, device, masters)
+        self.v_proj = _linear(cfg, h, kv, device, masters)
+        self.o_proj = _linear(cfg, q, h, device, masters)
 
     def forward(self, hidden, rope_cs, causal, kv_mask, cache, paged=None,
                 adapters=None):
@@ -346,17 +376,17 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, masters=False):
         super().__init__()
         _check_ported(cfg)
         self.impl = fused_ops_impl(cfg.fused_ops)
         h, f = cfg.hidden_size, cfg.intermediate_size
         self.input_norm = RMSNorm(h, cfg.rms_norm_eps, self.impl, device)
-        self.attention = LlamaAttention(cfg, device)
+        self.attention = LlamaAttention(cfg, device, masters)
         self.post_attention_norm = RMSNorm(h, cfg.rms_norm_eps, self.impl, device)
-        self.gate_proj = _linear(cfg, h, f, device)
-        self.up_proj = _linear(cfg, h, f, device)
-        self.down_proj = _linear(cfg, f, h, device)
+        self.gate_proj = _linear(cfg, h, f, device, masters)
+        self.up_proj = _linear(cfg, h, f, device, masters)
+        self.down_proj = _linear(cfg, f, h, device, masters)
 
     def forward(self, hidden, rope_cs, causal, kv_mask, cache, paged=None,
                 adapters=None):
@@ -376,20 +406,29 @@ class LlamaBlock(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    """Decoder stack: embeddings + N blocks + final RMSNorm."""
+    """Decoder stack: embeddings + N blocks + final RMSNorm. ``masters``:
+    the projections and the embedding are f32 masters cast to
+    ``cfg.dtype`` at use (a trainable base), else stored in ``cfg.dtype``."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, masters=False):
         super().__init__()
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(
-            cfg.vocab_size, cfg.hidden_size, device=device, dtype=cfg.dtype
+            cfg.vocab_size, cfg.hidden_size, device=device,
+            dtype=torch.float32 if masters else cfg.dtype,
         )
         for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", LlamaBlock(cfg, device))
+            self.add_module(f"layer_{i}", LlamaBlock(cfg, device, masters))
         self.final_norm = RMSNorm(
             cfg.hidden_size, cfg.rms_norm_eps, fused_ops_impl(cfg.fused_ops),
             device,
         )
+
+    def embed(self, input_ids):
+        """The lookup from the table cast to ``cfg.dtype`` (flax
+        ``nn.Embed(dtype=...)``; its backward sums in that dtype)."""
+        return F.embedding(input_ids.long(),
+                           self.embed_tokens.weight.to(self.cfg.dtype))
 
     def forward(self, input_ids, attention_mask=None, decode=False,
                 positions=None, cache=None, paged=None, adapters=None):
@@ -410,7 +449,7 @@ class LlamaModel(nn.Module):
         if positions is None:
             positions = (attention_mask.cumsum(-1) - 1).clamp_min(0)
         if not decode:
-            x = self.embed_tokens(input_ids.long()).to(cfg.dtype)
+            x = self.embed(input_ids)
             rope_cs = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
             remat = cfg.remat and torch.is_grad_enabled()
             for i in range(cfg.num_layers):
@@ -426,7 +465,7 @@ class LlamaModel(nn.Module):
                     "paged decode requires the page pools (the cache "
                     "tpudl_torch.serve.cache.PagedKVCache builds): there is "
                     "no shape information to make one here")
-            x = self.embed_tokens(input_ids.long()).to(cfg.dtype)
+            x = self.embed(input_ids)
             rope_cs = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
             new_cache = {}
             for i in range(cfg.num_layers):
@@ -438,7 +477,7 @@ class LlamaModel(nn.Module):
         if cache is None:
             cache = init_cache(cfg, input_ids.shape[0],
                                self.embed_tokens.weight.device)["model"]
-        x = self.embed_tokens(input_ids.long()).to(cfg.dtype)
+        x = self.embed(input_ids)
         s = input_ids.shape[1]
         start = cache["layer_0"]["attention"]["index"]
         device_index = isinstance(start, torch.Tensor)
@@ -552,19 +591,22 @@ class LlamaForSequenceClassification(nn.Module):
     ``classifier`` (weight and bias). ``forward(input_ids,
     attention_mask=None, train=False, generator=None)`` returns f32
     logits ``[B, num_labels]`` (Llama has no dropout, so ``train`` and
-    ``generator`` change nothing). The base is built frozen; adapters
-    and the classifier train. Built on ``device`` with weights drawn
-    from torch's default generator; ``init_weights`` (which
+    ``generator`` change nothing). With adapters (``lora_rank`` > 0) the
+    base is built frozen in ``cfg.dtype`` and the adapters and the
+    classifier train; with ``lora_rank=0`` every parameter trains
+    against f32 masters, as tpudl's. Built on ``device`` with weights
+    drawn from torch's default generator; ``init_weights`` (which
     ``create_train_state`` calls) redraws them from a seeded one."""
 
     def __init__(self, cfg: LlamaConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
-        self.model = LlamaModel(cfg, device)
+        full = cfg.lora_rank == 0
+        self.model = LlamaModel(cfg, device, masters=full)
         self.classifier = nn.Linear(cfg.hidden_size, cfg.num_labels,
                                     device=device, dtype=torch.float32)
         for name, p in self.named_parameters():
-            p.requires_grad_(is_lora_param(name)
+            p.requires_grad_(full or is_lora_param(name)
                              or name.startswith("classifier."))
         # The f32 classifier product stays f32 on the card (flax
         # Dense(dtype=float32) is a full-precision dot).
@@ -586,8 +628,24 @@ class LlamaForSequenceClassification(nn.Module):
         x, _ = self.model(input_ids, attention_mask)
         last = (attention_mask.sum(-1) - 1).clamp_min(0).long()
         pooled = x[torch.arange(x.shape[0], device=x.device), last]
-        return F.linear(pooled.float(), self.classifier.weight,
+        # f32 whatever a precision policy hands the kernel (flax promotes
+        # it back to the Dense's f32).
+        return F.linear(pooled.float(), self.classifier.weight.float(),
                         self.classifier.bias)
+
+    def tpudl_path(self, name: str) -> str:
+        return tpudl_path(name)
+
+
+def tpudl_path(name: str) -> str:
+    """A state_dict name's tpudl tree path, the inverse of
+    ``params_from_tpudl``: ``model.layer_0.attention.q_proj.weight`` ->
+    ``model/layer_0/attention/q_proj/kernel``, the embedding table's
+    ``weight`` -> ``embedding``."""
+    module, leaf = name.rsplit(".", 1)
+    if leaf == "weight":
+        leaf = "embedding" if module.endswith("embed_tokens") else "kernel"
+    return f"{module}.{leaf}".replace(".", "/")
 
 
 _PROJECTIONS = ("attention.q_proj", "attention.k_proj", "attention.v_proj",

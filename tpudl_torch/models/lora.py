@@ -17,7 +17,10 @@ the single-tenant half of tpudl.models.lora.
   with ``set_to_zero`` does.
 - ``is_lora_param``, ``lora_param_labels``, ``trainable_param_count`` and
   ``merge_lora`` work on '.'-joined state_dict names (tpudl's work on
-  '/'-joined tree paths).
+  '/'-joined tree paths). An fp8 site with adapters
+  (tpudl_torch.ops.fp8_dot.Fp8Dense, ``fp8_train`` with ``lora_rank``)
+  has LoRALinear's leaves (``weight``, ``lora_a``, ``lora_b``), so these,
+  ``lora_optimizer`` and ``extract_adapters`` treat it alike.
 
 The multi-tenant half (tpudl_torch.serve.lora's model side):
 ``AdapterView`` threads per-slot page-table rows into an AdapterPool's

@@ -34,6 +34,11 @@ draws, bit for bit, what the forward drew.
 ``policy="dots_saveable"`` is jax's policy of that name: the matrix
 products' outputs are saved and everything else is recomputed (selective
 activation checkpointing); None saves nothing.
+
+An fp8 site (tpudl_torch.ops.fp8_dot.Fp8Dense) recomputed in the
+backward quantizes with the same scales (its rings move only after the
+step's update) and so gives the same bits, and its amax observations
+combine by max, so the recompute records nothing twice.
 """
 
 from __future__ import annotations
@@ -51,9 +56,10 @@ from torch.utils.checkpoint import (
 
 _aten = torch.ops.aten
 #: The matrix products, as the autograd dispatcher sees them (F.linear
-#: and torch.matmul decompose into these).
+#: and torch.matmul decompose into these; the fp8 sites' products are
+#: ``_scaled_mm`` on the card, tpudl's fp8 dot_general).
 DOTS = frozenset((_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
-                  _aten.baddbmm.default))
+                  _aten.baddbmm.default, _aten._scaled_mm.default))
 POLICIES = (None, "dots_saveable")
 
 

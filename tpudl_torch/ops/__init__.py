@@ -6,9 +6,11 @@ with the Philox keep mask of ``keep_mask``), flash attention
 (``flash_attention``), whole-row attention at S <= 512
 (``fused_attention``), softmax cross-entropy forward and backward, and
 the segmented multi-tenant LoRA delta (``segmented_lora``); and the
-plain ops around them (attention, dropout). The forward kernels are
-also ops of the dispatcher, ``torch.ops.tpudl.*`` (``library``), which
-``torch.export`` traces into its artifacts.
+plain ops around them (attention, dropout) and the delayed-scaling fp8
+product (``fp8_dot``, ``Fp8Dense``: ``torch._scaled_mm`` on the card).
+The forward kernels are also ops of the dispatcher,
+``torch.ops.tpudl.*`` (``library``), which ``torch.export`` traces into
+its artifacts.
 
 ``softmax_dropout`` and the attention and LoRA modules are reached as
 modules (``tpudl_torch.ops.softmax_dropout`` ...); their entry points are
@@ -20,6 +22,10 @@ from tpudl_torch.ops.cross_entropy import (  # noqa: F401
     xent_bwd,
     xent_bwd_ref,
 )
+# The function shadows its module's name here (tpudl.ops does the same):
+# reach the module as ``importlib.import_module("tpudl_torch.ops.fp8_dot")``
+# or ``from tpudl_torch.ops.fp8_dot import ...``.
+from tpudl_torch.ops.fp8_dot import Fp8Dense, fp8_dot  # noqa: F401
 from tpudl_torch.ops.mlp_fused import (  # noqa: F401
     bias_gelu,
     bias_gelu_bwd,

@@ -1,7 +1,7 @@
 """Training of the port: the classification train step and loop (with
 checkpointing and resume), its CUDA-graph capture (``compile_step``),
-the optimizer stack and throughput accounting (tpudl.train's
-single-device path)."""
+the mixed-precision policies (``precision``), the optimizer stack and
+throughput accounting (tpudl.train's single-device path)."""
 
 from tpudl_torch.train.loop import (  # noqa: F401
     CompiledStep,
@@ -19,3 +19,9 @@ from tpudl_torch.train.loop import (  # noqa: F401
     resume_latest,
 )
 from tpudl_torch.train.optim import make_optimizer, make_schedule  # noqa: F401
+from tpudl_torch.train.precision import (  # noqa: F401
+    LossScaleConfig,
+    PrecisionPolicy,
+    policy,
+    policy_from_env,
+)

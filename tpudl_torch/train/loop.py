@@ -48,10 +48,31 @@ single-device path of tpudl.train.loop.
   and end-of-fit (emergency) save through a checkpoint manager
   (tpudl_torch.checkpoint, tpudl_torch.ft); ``resume_latest`` and
   ``finalize_zero_step_run`` are tpudl's resume helpers.
+- ``precision=`` (a tpudl_torch.train.precision policy or preset name;
+  None keeps the step exactly as without one) on
+  ``create_train_state``, ``make_classification_train_step`` and
+  ``compile_step``: the rule-matched parameters cast to the compute
+  dtype for the forward (``torch.func.functional_call``; f32 masters,
+  f32 gradients), logits cast to the reduce dtype before the loss, the
+  objective multiplied by the loss scale and the gradients divided by it
+  per microbatch, before clipping. ``ok`` (all gradients finite, on the
+  device) gates the update: a skipped step leaves the parameters, the
+  optimizer state (``count`` included) and the BatchNorm statistics
+  bitwise as they were, backs the scale off, and advances no fp8 ring
+  (tpudl_torch.ops.fp8_dot). The host's counts (``state.step``,
+  ``host_count``, and so the next step's generator seeds) advance only
+  on a step that was not skipped: under a loss-scaling policy the step
+  reads ``ok`` back (one byte) after the update, eager or replayed, so
+  the next step draws the masks the skipped one drew, as tpudl's skip
+  (one select over the whole state, ``step`` included) makes it do. The
+  metrics gain ``loss_scale`` (the scale the step used) and
+  ``grad_skipped``. ``TrainState.precision`` holds the loss-scale state
+  and the model's fp8 rings (a view in tpudl's layout, like
+  ``batch_stats``); checkpoints carry it.
 
 Not ported (each raises NotImplementedError naming its ROADMAP item):
-mixed-precision policies, the MoE auxiliary loss, meshes; and fit's
-profiling, fused K-step dispatch and asynchronous metrics.
+the MoE auxiliary loss, meshes; and fit's profiling, fused K-step
+dispatch and asynchronous metrics.
 """
 
 from __future__ import annotations
@@ -61,6 +82,7 @@ import dataclasses
 import inspect
 import itertools
 import time
+import weakref
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -74,7 +96,15 @@ from tpudl_torch.models.resnet import BatchNorm
 from tpudl_torch.obs import counters as obs_counters
 from tpudl_torch.obs import spans as obs_spans
 from tpudl_torch.ops.cross_entropy import softmax_cross_entropy
+from tpudl_torch.ops.fp8_dot import (
+    advance_rings,
+    fp8_state,
+    reset_fp8_state,
+    zero_observations,
+)
 from tpudl_torch.rng import fold_seed
+from tpudl_torch.rules import path_str
+from tpudl_torch.train import precision as precision_mod
 from tpudl_torch.train.optim import Optimizer
 
 
@@ -102,6 +132,9 @@ class TrainState:
     #: The memory pool the state's captured steps share (compile_step).
     graph_pool: Any = dataclasses.field(default=None, repr=False,
                                         compare=False)
+    #: A precision policy's state (``create_train_state(precision=)``):
+    #: ``{"loss_scale": {...}, "fp8": the model's rings}``, or None.
+    precision: Optional[dict] = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -125,18 +158,31 @@ class TrainState:
         return self
 
 
+def tpudl_path(model: nn.Module) -> Callable[[str], str]:
+    """The model's parameter name -> tpudl tree path map (its inverse
+    weight bridge, ``model.tpudl_path``), for the precision rules."""
+    return getattr(model, "tpudl_path", path_str)
+
+
 def create_train_state(
     rng,
     model: nn.Module,
     tx: Optimizer,
     params: Optional[Dict[str, torch.Tensor]] = None,
     device="cuda",
+    precision=None,
 ) -> TrainState:
     """Put ``model`` on ``device`` and give it its starting weights: drawn
     by ``model.init_weights`` from ``rng`` (an int seed, or a
     ``torch.Generator`` on ``device``), or copied from ``params`` (a
     state_dict, e.g. from ``params_from_tpudl``). The optimizer state
-    starts at zero."""
+    starts at zero, and the fp8 rings of an ``fp8_train`` model at zero.
+
+    ``precision`` (a tpudl_torch.train.precision policy or preset name)
+    stores each first moment in the dtype the policy's moment rules
+    select and seeds ``state.precision`` (the loss-scale state, and the
+    model's fp8 rings when the policy routes products through fp8). None
+    is exactly the state without a policy."""
     device = torch.device(device)
     if any(p.device != device for p in model.parameters()):
         model.to_empty(device=device)
@@ -147,9 +193,16 @@ def create_train_state(
         if not isinstance(rng, torch.Generator):
             gen = torch.Generator(device=device).manual_seed(int(rng))
         model.init_weights(gen)
+    # The rings are not in the state_dict (to_empty leaves them unset).
+    reset_fp8_state(model)
     model.train()
     state = TrainState(model=model, tx=tx, opt_state={})
-    state.opt_state = tx.init(state.params)
+    pol = precision_mod.resolve_policy(precision)
+    mu_dtypes = None if pol is None else pol.moment_dtypes(
+        state.params, tpudl_path(model))
+    state.opt_state = tx.init(state.params, mu_dtypes=mu_dtypes)
+    state.precision = precision_mod.init_precision_state(
+        pol, fp8_state(model), device)
     return state
 
 
@@ -196,36 +249,75 @@ def make_classification_train_step(
     many microbatches, run in order with one optimizer update (see the
     module docstring): equal to the monolithic step, up to summation
     order, for a model whose loss is a mean over examples and which has
-    no BatchNorm. ``step.grads_and_metrics(state, batch, generator)`` is
-    the step without the optimizer update (the gradients of the
-    trainable parameters as a dict of tensors), for checks; under
+    no BatchNorm. ``precision``: the mixed-precision policy (module
+    docstring); under loss scaling the metrics gain ``loss_scale`` and
+    ``grad_skipped``, and ``loss`` stays the unscaled loss.
+    ``step.grads_and_metrics(state, batch, generator)`` is the step
+    without the optimizer update (the gradients of the trainable
+    parameters as a dict of tensors, unscaled), for checks; under
     accumulation ``generator`` is a sequence of one generator per
     microbatch."""
     if isinstance(input_keys, str):
         input_keys = (input_keys,)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    if precision is not None:
-        _refuse("precision", precision, "queue A item 8")
     if moe_aux_weight:
         _refuse("moe_aux_weight", moe_aux_weight, "queue A item 4")
+    policy = precision_mod.resolve_policy(precision)
+    scaling = policy is not None and policy.loss_scale is not None
+    use_fp8 = policy is not None and policy.use_fp8
+    # model -> the names of the parameters the policy casts.
+    cast_names: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
-    def backward(state: TrainState, batch: dict, generator):
+    def forward(model: nn.Module, inputs, generator):
+        if policy is None:
+            return model(*inputs, train=True, generator=generator)
+        params = dict(model.named_parameters())
+        if model not in cast_names:
+            cast = policy.cast_params(params, tpudl_path(model))
+            cast_names[model] = [k for k, v in cast.items()
+                                 if v is not params[k]]
+        cast = {k: params[k].to(policy.compute_dtype)
+                for k in cast_names[model]}
+        if cast:
+            # A remat segment recomputes outside the call, on the masters:
+            # the models cast each projection at use, so it computes the
+            # same values (the rules cast nothing else inside one).
+            logits = torch.func.functional_call(
+                model, cast, inputs, {"train": True, "generator": generator},
+                strict=False)
+        else:
+            logits = model(*inputs, train=True, generator=generator)
+        # The reduce dtype: the loss never runs in the compute dtype.
+        return logits.to(policy.reduce_dtype)
+
+    def backward(state: TrainState, batch: dict, generator, scale):
         """Forward and backward of one (micro)batch already on the
-        device; the backward adds into the parameters' ``.grad``. Returns
-        the metrics as means over its rows."""
+        device; the backward adds into the parameters' ``.grad`` (the
+        gradient of ``loss * scale`` under loss scaling). Returns the
+        metrics as means over its rows."""
         if input_transform is not None:
             batch = input_transform(batch)
-        logits = state.model(*(batch[k] for k in input_keys), train=True,
-                             generator=generator)
+        logits = forward(state.model, tuple(batch[k] for k in input_keys),
+                         generator)
         labels = batch[label_key].long()
         loss = cross_entropy_loss(logits, labels, label_smoothing,
                                   impl=loss_impl)
-        loss.backward()
+        (loss if scale is None else loss * scale).backward()
         return {
             "loss": loss.detach(),
             "accuracy": (logits.detach().argmax(-1) == labels).float().mean(),
         }
+
+    def take_grads(params, scale):
+        """The parameters' gradients (zeros where none), unscaled, and
+        ``.grad`` cleared."""
+        grads = {}
+        for k, p in params.items():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            grads[k] = g if scale is None else g / scale
+            p.grad = None
+        return grads
 
     def grads_and_metrics(
             state: TrainState, batch: dict,
@@ -235,27 +327,33 @@ def make_classification_train_step(
         params = state.params
         for p in params.values():
             p.grad = None
+        scale = state.precision["loss_scale"]["scale"] if scaling else None
+        if use_fp8:
+            zero_observations(state.model)
         if accum_steps == 1:
-            metrics = backward(state, batch, generator)
-        else:
-            if isinstance(generator, torch.Generator) or \
-                    len(generator) != accum_steps:
-                raise ValueError(f"accum_steps={accum_steps} takes one "
-                                 f"generator per microbatch")
-            micro = microbatch(batch, accum_steps)
-            metrics = {}
-            for a, gen in enumerate(generator):
-                m = backward(state, {k: v[a] for k, v in micro.items()}, gen)
-                metrics = {k: metrics[k] + v if metrics else v
-                           for k, v in m.items()}
-            metrics = {k: v / accum_steps for k, v in metrics.items()}
-        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for k, p in params.items()}
-        for p in params.values():
-            p.grad = None
-        if accum_steps > 1:
-            for g in grads.values():
-                g.div_(accum_steps)
+            metrics = backward(state, batch, generator, scale)
+            return take_grads(params, scale), metrics
+        if isinstance(generator, torch.Generator) or \
+                len(generator) != accum_steps:
+            raise ValueError(f"accum_steps={accum_steps} takes one "
+                             f"generator per microbatch")
+        micro = microbatch(batch, accum_steps)
+        metrics, grads = {}, None
+        for a, gen in enumerate(generator):
+            m = backward(state, {k: v[a] for k, v in micro.items()}, gen,
+                         scale)
+            metrics = {k: metrics[k] + v if metrics else v
+                       for k, v in m.items()}
+            if scale is not None:
+                # Unscaled per microbatch (tpudl's order), then summed.
+                part = take_grads(params, scale)
+                grads = part if grads is None else {
+                    k: grads[k].add_(g) for k, g in part.items()}
+        metrics = {k: v / accum_steps for k, v in metrics.items()}
+        if grads is None:
+            grads = take_grads(params, None)
+        for g in grads.values():
+            g.div_(accum_steps)
         return grads, metrics
 
     def seeds(state: TrainState, rng: int) -> List[int]:
@@ -267,6 +365,36 @@ def make_classification_train_step(
             return [seed]
         return [fold_seed(seed, a) for a in range(accum_steps)]
 
+    def policy_update(state: TrainState, grads, metrics, stats) -> None:
+        """The update under a policy: the optimizer gated by ``ok``, the
+        statistics put back on a skip, the loss-scale transition and the
+        rings (all on the device); then the host counts, which advance
+        unless the step was skipped (``ok`` read back, outside a
+        capture)."""
+        tx, opt_state = state.tx, state.opt_state
+        tx.prepare_(opt_state)
+        ok = None
+        if scaling:
+            ok = precision_mod.all_finite(grads.values())
+            ls = state.precision["loss_scale"]
+            metrics["loss_scale"] = ls["scale"].clone()
+            metrics["grad_skipped"] = (~ok).float()
+        tx.update_(state.params, grads, opt_state, ok=ok)
+        if scaling:
+            with torch.no_grad():
+                for k, v in (stats or {}).items():
+                    live = state.batch_stats[k]
+                    live.copy_(torch.where(ok, live, v))
+            precision_mod.update_loss_scale_(ls, policy.loss_scale, ok)
+        if use_fp8:
+            advance_rings(state.model, ok)
+        capturing = torch.cuda.is_available() and \
+            torch.cuda.is_current_stream_capturing()
+        if ok is not None and not capturing and not bool(ok):
+            return
+        tx.advance_(opt_state)
+        state.step += 1
+
     def step(state: TrainState, batch: dict, rng: int,
              generators: Optional[Sequence[torch.Generator]] = None):
         if generators is None:
@@ -274,12 +402,21 @@ def make_classification_train_step(
             generators = [torch.Generator(device=device).manual_seed(s)
                           for s in seeds(state, rng)]
         generator = generators[0] if accum_steps == 1 else generators
+        if policy is None:
+            grads, metrics = grads_and_metrics(state, batch, generator)
+            state.apply_gradients(grads)
+            return state, metrics
+        stats = None
+        if scaling and state.batch_stats is not None:
+            # A skipped step puts the statistics its forward moved back.
+            stats = {k: v.clone() for k, v in state.batch_stats.items()}
         grads, metrics = grads_and_metrics(state, batch, generator)
-        state.apply_gradients(grads)
+        policy_update(state, grads, metrics, stats)
         return state, metrics
 
     step.grads_and_metrics = grads_and_metrics
     step.seeds = seeds
+    step.precision = policy
     return step
 
 
@@ -297,7 +434,11 @@ def make_classification_eval_step(
     ``loss_impl``: see the module docstring. A ``"_valid"`` batch column
     ([B] 0/1 row mask) switches both reductions to masked means over the
     real rows only, so a zero-padded tail batch reports exactly the
-    metrics of its real rows; without it they are plain means."""
+    metrics of its real rows; without it they are plain means. An
+    fp8-trained model's sites quantize with their rings' scales (the
+    numerics the train forward saw) and, without autograd, record
+    nothing: the rings do not move (tpudl's eval step reads
+    ``state.precision["fp8"]`` the same way)."""
     if isinstance(input_keys, str):
         input_keys = (input_keys,)
 
@@ -410,9 +551,14 @@ class CompiledStep:
         # The graph rewrites its outputs on the next replay.
         if not self.has_rng:
             return {k: v.clone() for k, v in self.outputs.items()}
-        state.step += 1
-        state.tx.advance_(state.opt_state)
-        return state, {k: v.clone() for k, v in self.outputs[1].items()}
+        metrics = {k: v.clone() for k, v in self.outputs[1].items()}
+        # A loss-scaling step that skipped its update leaves the host's
+        # counts too (one byte read back, the eager step's rule).
+        skipped = metrics.get("grad_skipped")
+        if skipped is None or not bool(skipped):
+            state.step += 1
+            state.tx.advance_(state.opt_state)
+        return state, metrics
 
     def _capture(self, state, batch, rng, device) -> None:
         self.inputs = StaticInputs(batch, device)
@@ -475,9 +621,18 @@ def compile_step(
     (``state.graph_pool``). ``preprocess`` runs on the batch inside the
     graph, before ``step_fn``.
 
-    Raise NotImplementedError: ``mesh`` / ``rules`` (queue A item 7),
-    ``steps_per_dispatch`` > 1 (item 10: the captured K-step graph) and
-    ``precision`` (item 8). A model with remat is captured too: its
+    ``precision``: the policy (or preset name) the step was built with.
+    compile_step checks that the state carries the policy's state (the
+    loss scale, the fp8 rings) and raises a ``ValueError`` naming what is
+    missing otherwise; the step object exposes it as ``.precision``. The
+    loss scale and the rings are device tensors the graph reads and moves
+    in place; after each replay of a loss-scaling step the host reads
+    ``grad_skipped`` back and advances ``state.step`` and the
+    optimizer's host count only when the step was not skipped.
+
+    Raise NotImplementedError: ``mesh`` / ``rules`` (queue A item 7) and
+    ``steps_per_dispatch`` > 1 (item 10: the captured K-step graph). A
+    model with remat is captured too: its
     recomputes draw from twin generators registered with the capture
     (tpudl_torch.models.remat), which the warm-up call's recorded segment
     offsets position before each replay. tpudl's
@@ -492,8 +647,8 @@ def compile_step(
     if steps_per_dispatch > 1:
         _refuse("steps_per_dispatch", steps_per_dispatch,
                 "queue A item 10 (the captured K-step graph)")
-    if precision is not None:
-        _refuse("precision", precision, "queue A item 8")
+    policy = precision_mod.resolve_policy(precision)
+    precision_mod.validate_state(policy, state)
     if donate_state is not None and bool(donate_state) != has_rng:
         raise ValueError(
             f"donate_state={donate_state!r}: a train step updates its state "
@@ -502,7 +657,9 @@ def compile_step(
         raise TypeError("compile_step captures train steps built by "
                         "make_classification_train_step (it reseeds their "
                         "generators, step_fn.seeds, before each replay)")
-    return CompiledStep(step_fn, state, has_rng, preprocess)
+    compiled = CompiledStep(step_fn, state, has_rng, preprocess)
+    compiled.precision = policy
+    return compiled
 
 
 def pad_batch(batch: dict, to_size: int) -> dict:
@@ -599,9 +756,12 @@ def fit(
     metrics as floats, info)`` with ``info`` = ``{"steps", "seconds",
     "preempted"}``.
     Every ``log_every`` steps the step's metrics are read back (a wait
-    for the card) and handed to ``logger(step, metrics)``, or printed;
-    otherwise nothing is read back until the end, so the host runs ahead
-    of the card.
+    for the card) and handed to ``logger(step, metrics)``, or printed,
+    and a precision policy's state is published to the obs registry
+    (``publish_numerics_telemetry``: the loss scale, the skipped steps,
+    the fp8 rings' drift); otherwise nothing is read back until the end,
+    so the host runs ahead of the card (but for the one-byte ``ok`` of
+    a loss-scaling step).
 
     Checkpointing (tpudl's): with a ``checkpoint_manager``
     (tpudl_torch.checkpoint.CheckpointManager or
@@ -684,6 +844,9 @@ def fit(
                 logger(n, host)
             else:
                 print(f"step {n}: {host}")
+            # The precision state's numerics, at the log cadence only.
+            precision_mod.publish_numerics_telemetry(
+                getattr(state, "precision", None))
     if checkpoint_manager is not None and n:
         step_no = start_step + n
         if last_ckpt_step != step_no:

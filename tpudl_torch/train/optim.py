@@ -11,7 +11,8 @@ The update is optax's chain, in optax's order and dtypes:
 - AdamW (``scale_by_adam`` + ``add_decayed_weights`` +
   ``scale_by_learning_rate``): the new first moment is computed in f32
   from the stored one (as tpudl's compiled step computes it), the update
-  uses it unrounded and only the stored copy is cast to ``mu_dtype``;
+  uses it unrounded and only the stored copy is cast to its dtype
+  (``mu_dtype``, or a precision policy's per-leaf moment dtype);
   ``eps`` is added outside the square root; weight decay applies to
   every parameter; the step is
   ``-lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``;
@@ -118,9 +119,17 @@ class Optimizer:
             raise ValueError(f"optimizer must be 'adamw' or 'sgd', got {cfg.name!r}")
         self.cfg = cfg
         self.schedule = make_schedule(cfg)
+        #: The first moment's dtype where ``init`` is not told otherwise.
         self.mu_dtype = _DTYPES[cfg.mu_dtype]
 
-    def init(self, params: Dict[str, torch.Tensor]) -> dict:
+    def init(self, params: Dict[str, torch.Tensor],
+             mu_dtypes: Optional[Dict[str, torch.dtype]] = None) -> dict:
+        """The state for ``params``: zero moments (or traces), ``count``
+        0. ``mu_dtypes`` (name -> dtype, e.g. a precision policy's
+        ``moment_dtypes``) stores those leaves' first moments in another
+        dtype than ``cfg.mu_dtype``; the update reads each moment's
+        dtype from the moment itself."""
+        mu_dtypes = mu_dtypes or {}
         zeros = lambda p, dtype=None: torch.zeros_like(  # noqa: E731
             p, dtype=dtype, memory_format=torch.contiguous_format)
         device = next(iter(params.values())).device if params else "cpu"
@@ -134,7 +143,8 @@ class Optimizer:
         if self.cfg.name == "sgd":
             state["trace"] = {k: zeros(p) for k, p in params.items()}
         else:
-            state["mu"] = {k: zeros(p, self.mu_dtype) for k, p in params.items()}
+            state["mu"] = {k: zeros(p, mu_dtypes.get(k, self.mu_dtype))
+                           for k, p in params.items()}
             state["nu"] = {k: zeros(p) for k, p in params.items()}
         return state
 
@@ -188,37 +198,64 @@ class Optimizer:
 
     @torch.no_grad()
     def update_(self, params: Dict[str, torch.Tensor],
-                grads: Dict[str, torch.Tensor], state: dict) -> None:
+                grads: Dict[str, torch.Tensor], state: dict,
+                ok: Optional[torch.Tensor] = None) -> None:
         """The device half of one update: reads ``state["scalars"]``,
-        moves the parameters, the moments and ``count`` in place."""
+        moves the parameters, the moments and ``count`` in place. ``ok``
+        (a device bool, a precision policy's finite flag) gates it: where
+        it is False the parameters, the moments and ``count`` keep their
+        values bit for bit (a ``torch.where`` per tensor, no host
+        branch)."""
         cfg = self.cfg
         grads = self.clip(grads)
         wd = cfg.weight_decay
         neg_lr = -state["scalars"][0]
-        state["count"].add_(1)
+
+        def commit(t, new):
+            t.copy_(new if ok is None else torch.where(ok, new, t))
+
+        if ok is None:
+            state["count"].add_(1)
+        else:
+            state["count"].add_(ok.to(state["count"].dtype))
         if cfg.name == "sgd":
             for k, p in params.items():
                 g = grads[k] + wd * p
                 trace = state["trace"][k]
-                trace.mul_(cfg.momentum).add_(g)
-                p.add_((g + cfg.momentum * trace) * neg_lr)
+                if ok is None:
+                    trace.mul_(cfg.momentum).add_(g)
+                    p.add_((g + cfg.momentum * trace) * neg_lr)
+                    continue
+                new_trace = trace * cfg.momentum + g
+                commit(p, p + (g + cfg.momentum * new_trace) * neg_lr)
+                commit(trace, new_trace)
             return
         b1, b2 = cfg.b1, cfg.b2
+        bc1, bc2 = state["scalars"][1], state["scalars"][2]
         # optax multiplies the stored moment by b1 in the moment's dtype:
         # with a bf16 moment b1 itself rounds to bf16 (0.9 -> 0.8984375),
         # and the compiled step keeps the product in f32. The bias
         # correction uses b1 as given.
-        b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
-        bc1, bc2 = state["scalars"][1], state["scalars"][2]
+        b1_mu = {dt: float(torch.tensor(b1, dtype=dt))
+                 for dt in {m.dtype for m in state["mu"].values()}}
         for k, p in params.items():
             g = grads[k]
-            mu = (1 - b1) * g + b1_mu * state["mu"][k].float()
+            stored = state["mu"][k]
+            mu = (1 - b1) * g + b1_mu[stored.dtype] * stored.float()
             nu = state["nu"][k]
-            nu.mul_(b2).add_((1 - b2) * (g * g))
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + 1e-8)
+            if ok is None:
+                nu.mul_(b2).add_((1 - b2) * (g * g))
+                new_nu = nu
+            else:
+                new_nu = nu * b2 + (1 - b2) * (g * g)
+            update = (mu / bc1) / (torch.sqrt(new_nu / bc2) + 1e-8)
             update = (update + wd * p) * neg_lr
-            p.add_(update)
-            state["mu"][k].copy_(mu)
+            if ok is None:
+                p.add_(update)
+            else:
+                commit(p, p + update)
+                commit(nu, new_nu)
+            commit(stored, mu)
 
 
 def make_optimizer(cfg: OptimConfig) -> Optimizer:
