@@ -241,12 +241,16 @@ def test_registry_and_refusals():
     with pytest.raises(ValueError, match="remat_policy must be one of"):
         build_model("bert-tiny", 2, device="meta", remat="layer",
                     remat_policy="everything_saveable")
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        build_model("llama3-8b-lora-moe", 2)
+    # The MoE MLP is ported (tests/test_torch_moe.py).
+    assert build_model("llama-tiny-lora-moe", 2,
+                       device="meta").cfg.moe_experts == 8
     with pytest.raises(ValueError, match="unknown model"):
         build_model("gpt2", 2)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        build_model("bert-tiny", 2, device="meta", weight_dtype="int8")
+    # Quantized weights are ported (tests/test_torch_quant.py).
+    assert build_model("bert-tiny", 2, device="meta",
+                       weight_dtype="int8").cfg.weight_dtype == "int8"
+    with pytest.raises(ValueError, match="weight_dtype must be one of"):
+        build_model("bert-tiny", 2, device="meta", weight_dtype="int4")
     # fp8 training is ported (tests/test_torch_precision.py); it excludes
     # the quantized weight tier, as tpudl's.
     build_model("bert-tiny", 2, device="meta", fp8_train=True)

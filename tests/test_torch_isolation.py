@@ -33,6 +33,12 @@ _PRECISION_MODULES = ("tpudl_torch.rules", "tpudl_torch.ops.fp8_dot",
                       "tpudl_torch.train.precision")
 
 
+#: The quantized tiers and the MoE MLP (ROADMAP queue A item 4).
+_QUANT_MODULES = ("tpudl_torch.quant", "tpudl_torch.quant.quantize",
+                  "tpudl_torch.quant.dense", "tpudl_torch.ops.quant_dot",
+                  "tpudl_torch.ops.moe")
+
+
 def _modules():
     return sorted(
         m.name for m in pkgutil.walk_packages([PACKAGE], prefix="tpudl_torch.")
@@ -50,7 +56,7 @@ def test_every_module_imports_without_jax_flax_or_tpudl():
                  "tpudl_torch.export", "tpudl_torch.export.export",
                  "tpudl_torch.export.parity", "tpudl_torch.export.latency",
                  "tpudl_torch.export.decode", *_FT_MODULES,
-                 *_PRECISION_MODULES):
+                 *_PRECISION_MODULES, *_QUANT_MODULES):
         assert name in names
     code = (
         "import importlib, sys\n"

@@ -1761,8 +1761,9 @@ def _launch_counts():
 def _twin_train_states(dev, kind):
     """Two train states with the same weights, statistics and optimizer,
     the step and its batches: a BERT_TINY with the fused slice and dropout
-    0.1 (AdamW with clipping and warmup), or a ResNetTiny with BatchNorm
-    (Nesterov SGD), each with ``accum_steps`` from ``kind``."""
+    0.1 (AdamW with clipping and warmup), a ResNetTiny with BatchNorm
+    (Nesterov SGD), or a LLAMA_TINY whose MLPs are 4-expert MoEs
+    (``moe_aux_weight`` 0.01), each with ``accum_steps`` from ``kind``."""
     from tpudl_torch.config import OptimConfig
     from tpudl_torch.models import bert
     from tpudl_torch.models.resnet import ResNetTiny
@@ -1790,6 +1791,22 @@ def _twin_train_states(dev, kind):
         batches = [{"input_ids": rng.integers(0, 512, (8, 64)),
                     "attention_mask": mask, "label": rng.integers(0, 2, 8)}
                    for _ in range(4)]
+    elif model_kind == "moe":
+        from tpudl_torch.models import llama
+
+        def make():
+            return llama.LlamaForSequenceClassification(llama.LLAMA_TINY(
+                moe_experts=4, max_seq_len=64), device=dev)
+        ocfg = OptimConfig(learning_rate=1e-3, warmup_steps=2, total_steps=6,
+                           grad_clip_norm=1.0, schedule="cosine")
+        step = make_classification_train_step(
+            input_keys=("input_ids", "attention_mask"), loss_impl="auto",
+            accum_steps=int(accum), moe_aux_weight=0.01)
+        mask = np.ones((8, 32), np.int32)
+        mask[3, 20:] = 0
+        batches = [{"input_ids": rng.integers(0, 512, (8, 32)),
+                    "attention_mask": mask, "label": rng.integers(0, 2, 8)}
+                   for _ in range(4)]
     else:
         def make():
             return ResNetTiny(num_classes=10, dtype=torch.bfloat16,
@@ -1810,7 +1827,7 @@ def _twin_train_states(dev, kind):
     return states, step, batches
 
 
-@pytest.mark.parametrize("kind", ["bert-1", "bert-2", "resnet-2"])
+@pytest.mark.parametrize("kind", ["bert-1", "bert-2", "resnet-2", "moe-2"])
 def test_captured_train_steps_equal_the_eager_steps_bitwise(dev, kind):
     """compile_step's first call runs eagerly, its second captures and
     replays, the rest replay: the losses of four steps, every parameter,
@@ -1835,6 +1852,8 @@ def test_captured_train_steps_equal_the_eager_steps_bitwise(dev, kind):
         assert compiled.captured == (i >= 1)
         assert torch.equal(got["loss"], want["loss"]), i
         assert torch.equal(got["accuracy"], want["accuracy"]), i
+        if "moe_aux" in want:
+            assert torch.equal(got["moe_aux"], want["moe_aux"]), i
     for e, c in per_step:
         assert e == c and sum(e) > 0
     assert captured.step == eager.step == 4
@@ -2323,3 +2342,141 @@ def test_cross_entropy_backward_at_loss_scale(dev):
         grads.append(x.grad)
     assert bool(torch.isfinite(grads[1]).all())
     assert torch.equal(grads[1], grads[0] * 2.0**15)
+
+
+# ---------------------------------------------------------------------------
+# the weight-only quantized product (csrc/quant_dot.cu)
+# ---------------------------------------------------------------------------
+
+# Kernel vs plain twin (rtol, share of the output's largest magnitude):
+# both sum exact f32 products in f32 in another order and round once; f32
+# x through the tensor cores (three bf16 terms, M > 16) keeps ~f32.
+QUANT_TOL = {torch.bfloat16: (2.0**-7, 2.0**-10), torch.float32: (1e-5, 1e-4)}
+
+
+def _quant_case(dev, m, k, n, dtype, wd, seed=0):
+    from tpudl_torch.quant.quantize import quantize_leaf
+
+    rng = np.random.default_rng(seed)
+    w = _t(rng, (n, k), torch.float32, dev) * 0.05
+    leaf = quantize_leaf(w, wd)
+    return _t(rng, (m, k), dtype, dev), leaf["qvalues"], leaf["qscale"]
+
+
+def _assert_quant_close(y, ref, dtype):
+    rtol, share = QUANT_TOL[dtype]
+    atol = share * float(ref.float().abs().max())
+    torch.testing.assert_close(y.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 128])
+@pytest.mark.parametrize("k,n", [(256, 192), (4096, 1024), (100, 70),
+                                 (1000, 200), (520, 64 * 3 + 5)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("wd", ["int8", "fp8_e4m3"])
+def test_quant_dot_kernel_matches_plain(dev, m, k, n, dtype, wd):
+    """The GEMV (M <= 16) and the tiled product (M > 16) against the plain
+    twin: K a multiple of 16 and not (100, 1000 and 520 take the scalar
+    or ragged paths), N not a multiple of the 64-wide tile; two runs
+    bitwise equal."""
+    from tpudl_torch.ops import quant_dot as qd
+
+    x, q, s = _quant_case(dev, m, k, n, dtype, wd, seed=m + k + n)
+    y = qd._quant_dot_cuda(x, q, s)
+    again = qd._quant_dot_cuda(x, q, s)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (m, n)
+    _assert_quant_close(y, qd.quant_matmul_ref(x, q, s), dtype)
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("m", [4, 128])
+def test_quant_dot_replays_in_a_graph_equal_to_eager(dev, m):
+    from tpudl_torch.ops import quant_dot as qd
+
+    x, q, s = _quant_case(dev, m, 4096, 1024, torch.bfloat16, "int8")
+    eager = qd._quant_dot_cuda(x, q, s)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qd._quant_dot_cuda(x, q, s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qd._quant_dot_cuda(x, q, s)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+def test_quant_dot_refuses_what_the_kernel_does_not_take(dev):
+    from tpudl_torch.ops import quant_dot as qd
+    from tpudl_torch.quant.dense import quant_dot
+
+    x, q, s = _quant_case(dev, 4, 64, 32, torch.bfloat16, "int8")
+    with pytest.raises(ValueError, match="K = x's last dimension"):
+        qd._quant_dot_cuda(x[:, :48], q, s)
+    with pytest.raises(ValueError, match="f32 or bf16 x"):
+        qd._quant_dot_cuda(x.half(), q, s)
+    with pytest.raises(ValueError, match="int8 or float8_e4m3fn"):
+        qd._quant_dot_cuda(x, q.to(torch.int16), s)
+    with pytest.raises(ValueError, match="qscale must be"):
+        qd._quant_dot_cuda(x, q, s[:5])
+    with pytest.raises(ValueError, match="contiguous"):
+        qd._quant_dot_cuda(x[:, :32], q[:, ::2], s)
+    with pytest.raises(ValueError, match="expected"):
+        qd._quant_dot_cuda(x, q.cpu(), s)
+    # "fused" and "auto" on the card launch the kernel; nothing falls back.
+    leaf = {"qvalues": q, "qscale": s}
+    with pytest.raises(ValueError, match="K = x's last dimension"):
+        quant_dot(x[:, :48], leaf, impl="fused")
+
+
+def test_quant_dot_counts_launches_and_never_runs_the_plain_twin(
+        dev, monkeypatch):
+    from tpudl_torch.ops import quant_dot as qd
+    from tpudl_torch.quant.dense import quant_dot
+
+    def refuse(*args):
+        raise AssertionError("the plain twin ran on a CUDA tensor")
+
+    monkeypatch.setattr(qd, "quant_matmul_ref", refuse)
+    x, q, s = _quant_case(dev, 4, 256, 64, torch.bfloat16, "fp8_e4m3")
+    before = qd.quant_matmul.launches
+    for impl in ("auto", "fused"):
+        quant_dot(x, {"qvalues": q, "qscale": s}, impl=impl)
+    quant_dot(torch.cat([x] * 8), {"qvalues": q, "qscale": s})
+    torch.cuda.synchronize()
+    assert qd.quant_matmul.launches == before + 3
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8_e4m3", "int8_kv8"])
+def test_captured_quantized_decode_serves_the_eager_tokens(dev, mode):
+    """LLAMA_TINY f32 quantized (and over int8 KV pages): the captured
+    session gives the eager session's tokens and launch counts, 14
+    quant_dot launches a prefill or decode step."""
+    from tpudl_torch.ops.quant_dot import quant_matmul
+    from tpudl_torch.serve import Request, ServeSession
+
+    model, params = _tiny_llama(dev)
+    kw = dict(weight_dtype="fp8_e4m3" if mode == "fp8_e4m3" else "int8")
+    if mode == "int8_kv8":
+        kw.update(paged=True, page_size=4, kv_dtype="int8")
+    rng = np.random.default_rng(8)
+    reqs = [Request(f"r{i}", rng.integers(1, 512, size=int(
+        rng.integers(2, 9))).tolist(), max_new_tokens=int(rng.integers(4, 12)))
+        for i in range(6)]
+    out, counts = {}, {}
+    for capture in (False, True):
+        session = ServeSession.from_model(model, params, prompt_len=8,
+                                          num_slots=4, capture=capture, **kw)
+        quant_matmul.launches = 0
+        out[capture] = session.serve([Request(**r.__dict__) for r in reqs])
+        torch.cuda.synchronize()
+        eng = session.engine
+        counts[capture] = quant_matmul.launches
+        assert counts[capture] == 14 * (eng.num_prefills + eng.num_decode_steps)
+    for r in reqs:
+        assert out[True][r.request_id].tokens == out[False][r.request_id].tokens
+    assert counts[True] == counts[False]

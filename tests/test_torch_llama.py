@@ -179,8 +179,18 @@ def test_unported_tiers_raise(field, value):
             tllama.LlamaForCausalLM(tllama.LLAMA_TINY(
                 fp8_train=True, weight_dtype="int8"), device="meta")
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tllama.LlamaForCausalLM(cfg, device="meta")
+    # Ported since (tests/test_torch_moe.py, tests/test_torch_quant.py):
+    # the tier builds; an unknown setting of it raises.
+    model = tllama.LlamaForCausalLM(cfg, device="meta")
+    if field == "moe_experts":
+        assert hasattr(model.model.layer_0, "moe")
+        assert not hasattr(model.model.layer_0, "gate_proj")
+        bad = {field: -1}
+    else:
+        assert model.model.layer_0.attention.q_proj.qvalues is None
+        bad = {field: "int4"}
+    with pytest.raises(ValueError, match="must be"):
+        tllama.LlamaForCausalLM(tllama.LLAMA_TINY(**bad), device="meta")
 
 
 def test_non_decode_forward_is_not_ported(jax_params):
@@ -353,8 +363,8 @@ def test_build_model_parses_llama_names():
     assert build_model("llama-tiny", 3, device="meta").cfg.lora_rank == 0
     assert build_model("llama3-8b-lora", 2, device="meta",
                        lora_rank=8).cfg.lora_rank == 8
-    with pytest.raises(NotImplementedError, match="item 4"):
-        build_model("llama-tiny-lora-moe", 2, device="meta")
+    moe = build_model("llama-tiny-lora-moe", 2, device="meta")
+    assert moe.cfg.moe_experts == 8 and moe.cfg.lora_rank == 16
     with pytest.raises(ValueError, match="unknown llama size"):
         build_model("llama-huge", 2, device="meta")
     # Base frozen, adapters and the classifier trainable.

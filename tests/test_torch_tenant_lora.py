@@ -415,14 +415,19 @@ def test_tenant_admission_validation_and_refusals(base, adapters,
         ServeSession.from_model(model, params, adapters={}, **kw)
     with pytest.raises(ValueError, match="require paged"):
         ServeSession.from_model(model, params, page_size=4, **kw)
-    for arg, value in (("kv_dtype", "int8"), ("prefix_share", True),
-                       ("spec_k", 2), ("weight_dtype", "int8")):
+    for arg, value in (("prefix_share", True), ("spec_k", 2)):
         with pytest.raises(NotImplementedError, match="item 3"):
             ServeSession.from_model(model, params, paged=True,
                                     **{arg: value}, **kw)
+    # int8 KV pages and quantized weights are ported
+    # (tests/test_torch_quant.py); they compose with adapters.
     monkeypatch.setenv("TPUDL_SERVE_KV_DTYPE", "int8")
-    with pytest.raises(NotImplementedError, match="TPUDL_SERVE_KV_DTYPE"):
-        ServeSession.from_model(model, params, paged=True, **kw)
+    session = ServeSession.from_model(model, params, adapters=one,
+                                      weight_dtype="int8", **kw)
+    assert session.engine.cache.quantized
+    assert session.serve([Request("z", [1, 2, 3], 3, tenant="t0")])["z"].ok
+    with pytest.raises(ValueError, match="require paged"):
+        ServeSession.from_model(model, params, **kw)
     monkeypatch.delenv("TPUDL_SERVE_KV_DTYPE")
     monkeypatch.setenv("TPUDL_SERVE_LORA_DTYPE", "int8")
     monkeypatch.setenv("TPUDL_SERVE_LORA_PAGES", "7")
@@ -451,12 +456,12 @@ def test_paged_primitives_match_tpudl():
                              for a in (table, start, lens)), 4)
     jw, _ = jpaged.paged_write(jnp.asarray(pages), None, jnp.asarray(value),
                                jview)
-    got = paged.paged_write(torch.from_numpy(pages.copy()),
-                            torch.from_numpy(value), view)
+    got, _ = paged.paged_write(torch.from_numpy(pages.copy()), None,
+                               torch.from_numpy(value), view)
     # Page 0 is the trash page: idle slots' writes land there in any order.
     np.testing.assert_array_equal(got[1:].numpy(), np.asarray(jw)[1:])
     np.testing.assert_array_equal(
-        paged.paged_gather(got, view)[:2].numpy(),
+        paged.paged_gather(got, None, view, torch.float32)[:2].numpy(),
         np.asarray(jpaged.paged_gather(jw, None, jview, jnp.float32))[:2])
     np.testing.assert_array_equal(
         paged.paged_attend_mask(view, chunk=2).numpy(),
@@ -506,8 +511,9 @@ def test_paged_cache_bookkeeping_and_refusals(base):
                  cache.import_request, RadixPrefixTree):
         with pytest.raises(NotImplementedError, match="item 3"):
             call()
-    for kw in ({"kv_dtype": "int8"}, {"prefix_share": True}):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            PagedKVCache(template, **kw)
+    with pytest.raises(NotImplementedError, match="item 3"):
+        PagedKVCache(template, prefix_share=True)
+    with pytest.raises(ValueError, match="kv_dtype must be"):
+        PagedKVCache(template, kv_dtype="int4")
     with pytest.raises(ValueError, match="cannot hold even one slot"):
         PagedKVCache(template, page_size=16, num_pages=4)

@@ -285,8 +285,8 @@ def test_fit_and_step_refuse_what_is_not_ported():
             fit(step, state, batches, 0, **kw)
     # Accumulation is ported (tests/test_torch_accumulation.py).
     make_classification_train_step(accum_steps=4)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        make_classification_train_step(moe_aux_weight=0.01)
+    # The MoE aux loss is ported (tests/test_torch_moe.py).
+    make_classification_train_step(moe_aux_weight=0.01)
     # Precision policies are ported (tests/test_torch_precision.py).
     assert make_classification_train_step(precision="bf16").precision.name \
         == "bf16"

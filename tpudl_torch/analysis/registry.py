@@ -39,13 +39,16 @@ KNOBS: Dict[str, str] = {
                               "unset = f32 pages.",
     "TPUDL_PREFETCH_DEPTH": "Pin the prefetch queue depth and disable the "
                             "autotuner; unset = autotune.",
-    # Read only to refuse them: int8 KV pages, the radix cache,
-    # speculation and weight quantization are not ported yet (ROADMAP
-    # queue A item 3).
-    "TPUDL_SERVE_KV_DTYPE": "int8 KV pages (not ported: refused when set).",
+    "TPUDL_SERVE_KV_DTYPE": "Paged KV cache page storage (int8 = quantized "
+                            "pages with per-(page, row, head) f32 scales; "
+                            "requires paged); unset = the model dtype.",
+    "TPUDL_SERVE_WEIGHT_DTYPE": "Serving weight quantization of the "
+                                "attention/MLP projections (int8 | "
+                                "fp8_e4m3); unset = full precision.",
+    # Read only to refuse them: the radix cache and speculation are not
+    # ported yet (ROADMAP queue A item 3).
     "TPUDL_SERVE_PREFIX_SHARE": "Radix prefix sharing (not ported).",
     "TPUDL_SERVE_SPEC_K": "Speculative decoding window (not ported).",
-    "TPUDL_SERVE_WEIGHT_DTYPE": "Serving weight quantization (not ported).",
     # Training precision (tpudl_torch.train.precision,
     # tpudl_torch.ops.fp8_dot); the defaults are tpudl's.
     "TPUDL_TRAIN_PRECISION": "Mixed-precision training policy preset (f32 | "

@@ -13,7 +13,12 @@ definition, so an artifact cannot part from ``generate()``):
   cache written in place, its write index one 0-d device tensor every
   layer shares (the serving engine's SlotCache layout);
 - paged decode: ``(params, cache, token, position, page_table, start,
-  lens) -> (logits, cache)`` over the page pools of a PagedKVCache.
+  lens) -> (logits, cache)`` over the page pools of a PagedKVCache
+  (``kv_dtype="int8"``: int8 pools and their scale pools).
+
+A quantized model (tpudl_torch.quant.quantize_model) exports as it is:
+its ``qvalues`` / ``qscale`` buffers are inputs like any parameter, and
+its products are ``tpudl::quant_dot`` nodes.
 
 Token ids, masks, positions and the paged addressing are int32, as the
 serving engine passes them. ``generate_with_exported`` reproduces
@@ -100,7 +105,8 @@ def export_decoder(model, params, batch_size: int, prompt_len: int,
 def export_serving_decoder(model, params, num_slots: int, prompt_len: int,
                            path_prefix: Optional[str] = None,
                            paged: bool = False, page_size: int = 16,
-                           num_pages: Optional[int] = None
+                           num_pages: Optional[int] = None,
+                           kv_dtype: Optional[str] = None
                            ) -> Tuple[bytes, bytes]:
     """The artifact pair the continuous-batching engine serves: a
     batch-1 prefill and a batch-``num_slots`` decode.
@@ -108,7 +114,10 @@ def export_serving_decoder(model, params, num_slots: int, prompt_len: int,
     them, with no side-channel metadata. ``paged=True`` exports the paged
     decode contract over a PagedKVCache of ``page_size`` / ``num_pages``
     (the page table, start and lens ride as int32 inputs, so seating and
-    freeing never need another program)."""
+    freeing never need another program); ``kv_dtype="int8"`` exports it
+    over int8 pools."""
+    if kv_dtype is not None and not paged:
+        raise ValueError("kv_dtype requires paged=True")
     if not paged:
         return export_decoder(model, params, 1, prompt_len,
                               path_prefix=path_prefix,
@@ -117,14 +126,15 @@ def export_serving_decoder(model, params, num_slots: int, prompt_len: int,
 
     dev = params_device(params)
     cache = PagedKVCache(init_cache(model.cfg, num_slots, device="meta"),
-                         page_size=page_size, num_pages=num_pages, device=dev)
+                         page_size=page_size, num_pages=num_pages,
+                         kv_dtype=kv_dtype, device=dev)
     addressing = tuple(torch.as_tensor(a, device=dev)
                        for a in cache.dispatch_args())
     prefill_blob = export_program(
         prefill_fn(model), (params, *_prompt_args(1, prompt_len, dev)),
         path=f"{path_prefix}.prefill.pt2" if path_prefix else None)
     decode_blob = export_program(
-        paged_decode_fn(model, cache.page_size),
+        paged_decode_fn(model, cache.page_size, cache.quantized),
         (params, cache.cache, *_step_args(num_slots, prompt_len, dev),
          *addressing),
         path=f"{path_prefix}.decode.pt2" if path_prefix else None)

@@ -56,6 +56,9 @@ _DTYPE_NAMES = {
     torch.int64: "int64", torch.int32: "int32", torch.int16: "int16",
     torch.int8: "int8", torch.uint8: "uint8", torch.bool: "bool",
     torch.uint16: "uint16", torch.uint32: "uint32", torch.uint64: "uint64",
+    # Quantized e4m3 weights (tpudl_torch.quant): ml_dtypes' name, raw
+    # 8-bit words on both sides, like bfloat16.
+    torch.float8_e4m3fn: "float8_e4m3fn",
 }
 _DTYPES = {name: dtype for dtype, name in _DTYPE_NAMES.items()}
 

@@ -48,6 +48,7 @@ def launch_counters() -> List[Tuple[Any, str]]:
         fused_attention,
         mlp_fused,
         norms,
+        quant_dot,
         segmented_lora,
         softmax_dropout,
     )
@@ -61,7 +62,7 @@ def launch_counters() -> List[Tuple[Any, str]]:
            cross_entropy.softmax_cross_entropy, cross_entropy.xent_bwd,
            fused_attention.fused_attention_fwd,
            fused_attention.fused_attention_bwd,
-           segmented_lora.segmented_lora)
+           segmented_lora.segmented_lora, quant_dot.quant_matmul)
     return [(fn, "launches") for fn in fns] + [
         (flash_attention.flash_attention, f"launches_{name}")
         for name in ("fwd", "dq", "dkv")] + [
@@ -93,7 +94,11 @@ class Graph:
         for gen in self.generators:
             self.graph.register_generator_state(gen)
         try:
-            with torch.cuda.graph(self.graph, pool=self.pool):
+            # thread_local: the prefetcher's transfer thread pins host
+            # memory and copies to the card while a step captures; in the
+            # default global mode those calls invalidate the capture.
+            with torch.cuda.graph(self.graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
                 out = fn(*args, **kwargs)
         finally:
             after = [getattr(f, a) for f, a in counters]

@@ -41,8 +41,14 @@ in the backward, "attention" each self-attention block, with
 ``remat_policy`` None (save nothing) or "dots_saveable" (keep the matrix
 products, "layer" only); tpudl_torch.models.remat draws the recompute's
 dropout bits from the step generator's recorded state, so the gradients
-are bitwise those without remat. ``weight_dtype`` is not ported and
-raises.
+are bitwise those without remat. ``weight_dtype`` ("int8", "fp8_e4m3")
+makes the sites tpudl's ``BERT_QUANT_PATTERNS`` names (the four attention
+projections, the intermediate and the output) tpudl_torch.quant.dense
+.QuantDense: bound to a state_dict quantize_model quantized, their
+product is the hand-written weight-only kernel, the bias added after it
+(the fused intermediate's bias inside the bias+GeLU kernel, as tpudl's
+``FusedBiasGeluDense``); bound to a full-precision one, ``Dense``'s exact
+math.
 
 ``cfg.fp8_train`` is tpudl's fp8 training tier: the encoder's attention
 and MLP projections that tpudl's ``_dense(quantize=True)`` marks become
@@ -77,6 +83,8 @@ from tpudl_torch.ops.dropout import Dropout
 from tpudl_torch.ops.fp8_dot import Fp8Dense, fp8_train_impl
 from tpudl_torch.ops.mlp_fused import bias_gelu
 from tpudl_torch.ops.norms import fused_ops_impl, layer_norm
+from tpudl_torch.quant.dense import QuantDense
+from tpudl_torch.quant.quantize import quantized_tensor, validate_weight_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,9 +133,6 @@ BERT_LARGE = partial(BertConfig, hidden_size=1024, num_layers=24, num_heads=16,
 
 _REMAT = (False, "none", True, "layer", "attention")
 
-_NOT_PORTED = (
-    ("weight_dtype", (None,), "quantized encoder weights", "queue A item 4"),
-)
 _FP8_IMPLS = (False, True, "auto", "reference", "force", "fused")
 
 
@@ -143,12 +148,8 @@ def _check_ported(cfg: BertConfig) -> None:
             "fp8_train (training-time fp8 matmuls) and weight_dtype "
             "(serving quantization of a frozen tree) are mutually "
             "exclusive — pick one")
-    for field, off, what, item in _NOT_PORTED:
-        if getattr(cfg, field) not in off:
-            raise NotImplementedError(
-                f"{field}={getattr(cfg, field)!r}: {what} is not ported to "
-                f"tpudl_torch yet (ROADMAP {item})"
-            )
+    if cfg.weight_dtype is not None:
+        validate_weight_dtype(cfg.weight_dtype)
 
 
 class Dense(nn.Module):
@@ -174,11 +175,15 @@ class Dense(nn.Module):
 
 def _dense(cfg: BertConfig, d_in: int, d_out: int, device,
            quantize: bool = False) -> nn.Module:
-    """A projection: ``Dense``, or ``Fp8Dense`` at a site tpudl's
-    ``_dense(quantize=True)`` marks when ``cfg.fp8_train`` is set."""
+    """A projection: ``Dense``, or at a site tpudl's
+    ``_dense(quantize=True)`` marks, ``Fp8Dense`` when ``cfg.fp8_train``
+    is set and ``QuantDense`` when ``cfg.weight_dtype`` is."""
     if quantize and cfg.fp8_train:
         return Fp8Dense(d_in, d_out, cfg.dtype,
                         impl=fp8_train_impl(cfg.fp8_train), device=device)
+    if quantize and cfg.weight_dtype is not None:
+        return QuantDense(d_in, d_out, cfg.dtype, device, use_bias=True,
+                          masters=True)
     return Dense(d_in, d_out, cfg.dtype, device)
 
 
@@ -271,9 +276,11 @@ class BertLayer(nn.Module):
         self.attention = BertSelfAttention(cfg, device)
         self.attention_norm = LayerNorm(h, cfg.layer_norm_eps, self.impl, device)
         # The fused tier's intermediate is tpudl's FusedBiasGeluDense: a
-        # plain product whose bias the bias+GeLU epilogue adds.
-        self.intermediate = _dense(cfg, h, f, device,
-                                   quantize=not cfg.fused_ops)
+        # product whose bias the bias+GeLU epilogue adds. It is no fp8
+        # site, but its kernel may be quantized (quant_dot then bias+GeLU).
+        self.intermediate = _dense(
+            cfg, h, f, device,
+            quantize=not cfg.fused_ops or cfg.weight_dtype is not None)
         self.output = _dense(cfg, f, h, device, quantize=True)
         self.dropout = Dropout(cfg.hidden_dropout, exact=cfg.dropout_exact)
         self.output_norm = LayerNorm(h, cfg.layer_norm_eps, self.impl, device)
@@ -427,14 +434,22 @@ def tpudl_path(name: str) -> str:
     module, leaf = name.rsplit(".", 1)
     if leaf == "weight":
         leaf = "embedding" if module.endswith("_embeddings") else "kernel"
+    elif leaf in ("qvalues", "qscale"):
+        leaf = f"kernel.{leaf}"
     return f"{module}.{leaf}".replace(".", "/")
 
 
-def param_names(num_layers: int):
-    """The state_dict keys of a BertForSequenceClassification."""
+def param_names(num_layers: int, quantized=()):
+    """The state_dict keys of a BertForSequenceClassification;
+    ``quantized`` names the modules whose weight is a quantized pair
+    (``X.qvalues``, ``X.qscale`` in place of ``X.weight``)."""
     names = set(_TOP_LEAVES)
     for i in range(num_layers):
         names.update(f"bert.encoder.layer_{i}.{leaf}" for leaf in _LAYER_LEAVES)
+    for site in quantized:
+        if f"{site}.weight" in names:
+            names = (names - {f"{site}.weight"}) | {f"{site}.qvalues",
+                                                   f"{site}.qscale"}
     return names
 
 
@@ -444,9 +459,11 @@ def params_from_tpudl(tree, device="cuda") -> Dict[str, torch.Tensor]:
     to this module's state_dict of f32 tensors on ``device``: Dense
     kernels ``[in, out]`` become Linear weights ``[out, in]``, embedding
     tables become ``.weight``, LayerNorm ``scale``/``bias`` keep their
-    names. Raises on a leaf this module has no place for (a quantized
-    kernel, an fp8 collection) and on a leaf the model needs that the
-    tree lacks."""
+    names; a quantized kernel (``kernel/qvalues``, ``kernel/qscale``)
+    becomes ``X.qvalues`` (transposed, in its own int8 / float8_e4m3fn
+    dtype) and ``X.qscale``. Raises on a leaf this module has no place
+    for (a malformed quantized pair, an fp8 collection) and on a leaf the
+    model needs that the tree lacks."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -455,10 +472,17 @@ def params_from_tpudl(tree, device="cuda") -> Dict[str, torch.Tensor]:
                 walk(value, path + [key])
                 continue
             module = ".".join(path)
+            if key in ("qvalues", "qscale") and path[-1:] == ["kernel"]:
+                site = ".".join(path[:-1])
+                out[f"{site}.{key}"] = (
+                    quantized_tensor(value).t().contiguous().to(device)
+                    if key == "qvalues" else
+                    torch.tensor(np.asarray(value, np.float32), device=device))
+                continue
             if isinstance(value, (tuple, list)):
                 raise ValueError(
-                    f"tpudl leaf {'/'.join(path + [key])} is a quantized "
-                    f"pair; quantized BERT weights are not ported"
+                    f"tpudl leaf {'/'.join(path + [key])} is a sequence: a "
+                    f"quantized kernel is the {{qvalues, qscale}} dict"
                 )
             if key == "kernel":
                 arr, name = np.asarray(value, np.float32).T, f"{module}.weight"
@@ -476,7 +500,9 @@ def params_from_tpudl(tree, device="cuda") -> Dict[str, torch.Tensor]:
     walk(tree, [])
     layers = {int(m.group(1)) for k in out
               if (m := re.match(r"bert\.encoder\.layer_(\d+)\.", k))}
-    want = param_names(max(layers) + 1 if layers else 0)
+    want = param_names(max(layers) + 1 if layers else 0,
+                       [k[: -len(".qvalues")] for k in out
+                        if k.endswith(".qvalues")])
     unmapped = sorted(set(out) - want)
     missing = sorted(want - set(out))
     if unmapped:

@@ -134,14 +134,14 @@ def decode_fn(model):
     return _contract(model, run, (0, 1), cache_arg=1)
 
 
-def _paged_view(dev, page_size, page_table, start, lens):
+def _paged_view(dev, page_size, quantized, page_table, start, lens):
     from tpudl_torch.models.paged import PagedView
 
     def tensor(a):
         return torch.as_tensor(a, device=dev).long()
 
     return PagedView(tensor(page_table), tensor(start), tensor(lens),
-                     page_size)
+                     page_size, quantized)
 
 
 def _check_adapter_table(apools, atable) -> None:
@@ -165,11 +165,13 @@ def _adapter_view(dev, apools, atable, ascale, impl):
     return AdapterView(apools, table, scale, impl, batch)
 
 
-def paged_decode_fn(model, page_size: int):
+def paged_decode_fn(model, page_size: int, quantized: bool = False):
     """THE paged single-token decode contract (tpudl_torch.models.paged):
     ``(params, cache, token, position, page_table, start, lens) ->
     (logits, cache)`` where ``cache`` holds per-layer page pools
-    (``pages_k``/``pages_v``, written in place) and the three small int
+    (``pages_k``/``pages_v``, written in place; with ``quantized``, int8
+    pools and their ``scale_k``/``scale_v`` scale pools) and the three
+    small int
     arrays are the host-owned addressing — the page table [B, P], the
     first attendable logical position [B] and the logical write position
     [B]. Built for the serve engine's paged mode
@@ -180,8 +182,8 @@ def paged_decode_fn(model, page_size: int):
         token, position = _step_inputs(dev, token, position)
         logits, cache = call(
             token, torch.ones_like(token), decode=True, positions=position,
-            cache=cache, paged=_paged_view(dev, page_size, page_table, start,
-                                           lens))
+            cache=cache, paged=_paged_view(dev, page_size, quantized,
+                                           page_table, start, lens))
         return logits[:, -1, :], cache
 
     return _contract(model, run, (0, 1), cache_arg=1)
@@ -212,7 +214,8 @@ def lora_prefill_fn(model, impl: str = "auto"):
     return _contract(model, run, (0, 3), check)
 
 
-def lora_paged_decode_fn(model, page_size: int, impl: str = "auto"):
+def lora_paged_decode_fn(model, page_size: int, quantized: bool = False,
+                         impl: str = "auto"):
     """THE multi-tenant paged decode contract: ``paged_decode_fn``'s seven
     arguments plus ``(adapter_pools, adapter_table [B, r_max],
     adapter_scale [B])``: every slot applies ITS tenant's adapter pages
@@ -226,7 +229,8 @@ def lora_paged_decode_fn(model, page_size: int, impl: str = "auto"):
         logits, cache = call(
             token, torch.ones_like(token), decode=True, positions=position,
             cache=cache,
-            paged=_paged_view(dev, page_size, page_table, start, lens),
+            paged=_paged_view(dev, page_size, quantized, page_table, start,
+                              lens),
             adapters=_adapter_view(dev, apools, atable, ascale, impl))
         return logits[:, -1, :], cache
 

@@ -22,9 +22,15 @@ decode paths never remat, as tpudl's). ``cfg.fp8_train`` makes the seven
 projections of every block tpudl_torch.ops.fp8_dot.Fp8Dense (tpudl's
 ``_proj``): e4m3 forward and e5m2 gradient products with delayed
 scaling, composing with ``lora_rank`` (the adapters run in ``cfg.dtype``
-on top of the fp8 base product); it excludes ``weight_dtype``. MoE and
-quantized weights wait for later slices and raise
-``NotImplementedError`` naming their ROADMAP item.
+on top of the fp8 base product); it excludes ``weight_dtype``.
+``cfg.weight_dtype`` ("int8", "fp8_e4m3") makes the same seven sites
+tpudl_torch.quant.dense.QuantDense (``LoRALinear`` with adapters), which
+serve a state_dict tpudl_torch.quant.quantize_model quantized through the
+hand-written weight-only product and run a full-precision one with the
+plain projection's exact math. ``cfg.moe_experts > 0`` swaps every
+block's SwiGLU MLP for tpudl_torch.ops.moe.MoEMlp (gated, ``moe_k``
+choices, ``moe_capacity_factor``), whose aux loss the train step reads
+(``moe_aux_weight``).
 
 Numerics follow the JAX model: projections and the embedding compute in
 ``cfg.dtype``, RMSNorm statistics in f32, RoPE angles in f32, attention
@@ -86,7 +92,10 @@ from tpudl_torch.models.remat import checkpointed
 from tpudl_torch.ops.attention import MASK_VALUE, attend
 from tpudl_torch.ops.fp8_dot import Fp8Dense, fp8_train_impl
 from tpudl_torch.ops.mlp_fused import swiglu
+from tpudl_torch.ops.moe import MoEMlp
 from tpudl_torch.ops.norms import fused_ops_impl, rms_norm
+from tpudl_torch.quant.dense import QuantDense
+from tpudl_torch.quant.quantize import quantized_tensor, validate_weight_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,10 +122,13 @@ class LlamaConfig:
     fused_ops: Any = True
     #: Recompute each block of the non-decode forward in the backward.
     remat: bool = False
-    # Tiers of the JAX model that are not ported yet; any other value
-    # raises NotImplementedError when the model is built.
+    #: Serving weight storage of the seven projections: None, "int8",
+    #: "fp8_e4m3" (tpudl_torch.quant).
     weight_dtype: Optional[str] = None
+    #: > 0 swaps every block's MLP for a gated MoE of this many experts.
     moe_experts: int = 0
+    moe_k: int = 2
+    moe_capacity_factor: float = 1.25
     #: fp8 training products at the seven projections: False, True /
     #: "auto", "reference", "force" / "fused" (tpudl_torch.ops.fp8_dot
     #: .fp8_train_impl).
@@ -155,12 +167,6 @@ LLAMA_SIZES = {
     "llama3-8b": LLAMA3_8B,
 }
 
-_NOT_PORTED = (
-    ("moe_experts", 0, "the MoE MLP", "queue A item 4"),
-    ("weight_dtype", None, "quantized serving weights", "queue A item 4"),
-)
-
-
 def _check_ported(cfg: LlamaConfig) -> None:
     if cfg.lora_rank < 0:
         raise ValueError(f"lora_rank must be >= 0 (0 = adapters off), got "
@@ -170,12 +176,10 @@ def _check_ported(cfg: LlamaConfig) -> None:
             "fp8_train (training-time fp8 matmuls) does not compose "
             "with weight_dtype (frozen-tree serving quantization) "
             "— pick one")
-    for field, off, what, item in _NOT_PORTED:
-        if getattr(cfg, field) != off:
-            raise NotImplementedError(
-                f"{field}={getattr(cfg, field)!r}: {what} is not ported to "
-                f"tpudl_torch yet (ROADMAP {item})"
-            )
+    if cfg.weight_dtype is not None:
+        validate_weight_dtype(cfg.weight_dtype)
+    if cfg.moe_experts < 0:
+        raise ValueError(f"moe_experts must be >= 0, got {cfg.moe_experts}")
 
 
 class RMSNorm(nn.Module):
@@ -241,9 +245,10 @@ def _gqa_decode_attention(q, k, v, mask):
 
 def _linear(cfg, d_in, d_out, device, masters=False):
     """A projection (tpudl's ``_proj``): Fp8Dense with ``fp8_train``
-    (adapters on it with ``lora_rank``), LoRALinear with adapters on, else
-    a bias-free Linear. ``masters``: the weight is an f32 master cast at
-    use (a trainable base; BERT's ``Dense`` without a bias) rather than a
+    (adapters on it with ``lora_rank``), LoRALinear with adapters on (its
+    base may be bound quantized), QuantDense with ``weight_dtype``, else a
+    bias-free Linear. ``masters``: the weight is an f32 master cast at use
+    (a trainable base; BERT's ``Dense`` without a bias) rather than a
     frozen compute-dtype copy."""
     if cfg.fp8_train:
         return Fp8Dense(d_in, d_out, cfg.dtype, use_bias=False,
@@ -254,6 +259,8 @@ def _linear(cfg, d_in, d_out, device, masters=False):
     if cfg.lora_rank > 0:
         return LoRALinear(d_in, d_out, cfg.lora_rank, cfg.lora_alpha,
                           cfg.dtype, device)
+    if cfg.weight_dtype is not None:
+        return QuantDense(d_in, d_out, cfg.dtype, device, masters=masters)
     if masters:
         return Dense(d_in, d_out, cfg.dtype, device, use_bias=False)
     return nn.Linear(d_in, d_out, bias=False, device=device, dtype=cfg.dtype)
@@ -335,12 +342,20 @@ class LlamaAttention(nn.Module):
         if paged is not None:
             # Prefill stays dense batch-1; PagedKVCache.seat scatters its
             # row cache into pages. Chunks of any length step together.
-            pk = paged_write(cache["pages_k"], k, paged)
-            pv = paged_write(cache["pages_v"], v, paged)
-            ctx = _gqa_decode_attention(q, paged_gather(pk, paged),
-                                        paged_gather(pv, paged),
-                                        paged_attend_mask(paged, chunk=s))
-            return out_proj(ctx), {"pages_k": pk, "pages_v": pv}
+            # An int8 pool quantizes on the write, dequantizes in the
+            # gather; its scale pools are written in place too.
+            pk, sk = paged_write(cache["pages_k"], cache.get("scale_k"), k,
+                                 paged)
+            pv, sv = paged_write(cache["pages_v"], cache.get("scale_v"), v,
+                                 paged)
+            ctx = _gqa_decode_attention(
+                q, paged_gather(pk, sk, paged, k.dtype),
+                paged_gather(pv, sv, paged, v.dtype),
+                paged_attend_mask(paged, chunk=s))
+            new = {"pages_k": pk, "pages_v": pv}
+            if paged.quantized:
+                new.update(scale_k=sk, scale_v=sv)
+            return out_proj(ctx), new
 
         ck, cv, cvalid = cache["k"], cache["v"], cache["valid"]
         start = cache["index"]
@@ -379,11 +394,19 @@ class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, masters=False):
         super().__init__()
         _check_ported(cfg)
+        self.is_moe = cfg.moe_experts > 0
         self.impl = fused_ops_impl(cfg.fused_ops)
         h, f = cfg.hidden_size, cfg.intermediate_size
         self.input_norm = RMSNorm(h, cfg.rms_norm_eps, self.impl, device)
         self.attention = LlamaAttention(cfg, device, masters)
         self.post_attention_norm = RMSNorm(h, cfg.rms_norm_eps, self.impl, device)
+        if self.is_moe:
+            self.moe = MoEMlp(h, cfg.moe_experts, f, k=cfg.moe_k,
+                              capacity_factor=cfg.moe_capacity_factor,
+                              gated=True, dtype=cfg.dtype,
+                              param_dtype=torch.float32 if masters
+                              else cfg.dtype, device=device)
+            return
         self.gate_proj = _linear(cfg, h, f, device, masters)
         self.up_proj = _linear(cfg, h, f, device, masters)
         self.down_proj = _linear(cfg, f, h, device, masters)
@@ -397,6 +420,9 @@ class LlamaBlock(nn.Module):
         # The attention residual add rides inside the post-attention norm
         # kernel; the summed value comes back as the carried residual.
         x, hidden = self.post_attention_norm(attn, residual=hidden)
+        if self.is_moe:
+            out = hidden + self.moe(x)
+            return out, None if cache is None else {"attention": attn_cache}
         gate = _adapted(self.gate_proj(x), adapters, "gate_proj", x)
         up = _adapted(self.up_proj(x), adapters, "up_proj", x)
         act = swiglu(gate, up, impl=self.impl)
@@ -532,6 +558,9 @@ class LlamaForCausalLM(nn.Module):
         logits = F.linear(x.float(), self.lm_head.weight)
         return logits, None if model_cache is None else {"model": model_cache}
 
+    def tpudl_path(self, name: str) -> str:
+        return tpudl_path(name)
+
 
 def bind_params(model: nn.Module, params: Dict[str, torch.Tensor]) -> None:
     """Make the tensors of ``params`` (a state_dict) the module's
@@ -645,50 +674,70 @@ def tpudl_path(name: str) -> str:
     module, leaf = name.rsplit(".", 1)
     if leaf == "weight":
         leaf = "embedding" if module.endswith("embed_tokens") else "kernel"
+    elif leaf in ("qvalues", "qscale"):
+        leaf = f"kernel.{leaf}"
     return f"{module}.{leaf}".replace(".", "/")
 
 
 _PROJECTIONS = ("attention.q_proj", "attention.k_proj", "attention.v_proj",
                 "attention.o_proj", "gate_proj", "up_proj", "down_proj")
+_MOE_LEAVES = ("moe.router.weight", "moe.wi", "moe.wg", "moe.wo")
 
 
-def param_names(num_layers: int, lora: bool, head: str):
+def param_names(num_layers: int, lora: bool, head: str, moe: bool = False,
+                quantized=()):
     """The state_dict keys of a Llama model with ``num_layers`` layers,
     adapters or not, and ``head`` "lm_head" (LlamaForCausalLM) or
-    "classifier" (LlamaForSequenceClassification)."""
+    "classifier" (LlamaForSequenceClassification). ``moe``: every block's
+    MLP is an MoEMlp. ``quantized``: the modules whose weight is a
+    quantized pair (``X.qvalues``, ``X.qscale`` in place of ``X.weight``)."""
     names = {"model.embed_tokens.weight", "model.final_norm.scale"}
     names |= ({"lm_head.weight"} if head == "lm_head"
               else {"classifier.weight", "classifier.bias"})
     leaves = ["weight"] + (["lora_a", "lora_b"] if lora else [])
+    projections = _PROJECTIONS[:4] if moe else _PROJECTIONS
     for i in range(num_layers):
         layer = f"model.layer_{i}"
         names |= {f"{layer}.input_norm.scale",
                   f"{layer}.post_attention_norm.scale"}
-        names |= {f"{layer}.{proj}.{leaf}" for proj in _PROJECTIONS
+        names |= {f"{layer}.{proj}.{leaf}" for proj in projections
                   for leaf in leaves}
+        if moe:
+            names |= {f"{layer}.{leaf}" for leaf in _MOE_LEAVES}
+    for site in quantized:
+        if f"{site}.weight" in names:
+            names = (names - {f"{site}.weight"}) | {f"{site}.qvalues",
+                                                   f"{site}.qscale"}
     return names
 
 
 #: Leaves kept in f32 whatever the compute dtype.
-_F32_LEAVES = ("scale", "lora_a", "lora_b")
+_F32_LEAVES = ("scale", "lora_a", "lora_b", "qscale")
+#: Modules whose weight stays f32 (tpudl's f32 Dense heads and router).
+_F32_MODULES = ("lm_head", "classifier")
 
 
 def params_from_tpudl(tree, dtype: torch.dtype = torch.bfloat16,
                       device="cuda") -> Dict[str, torch.Tensor]:
     """Convert a tpudl ``LlamaForCausalLM`` or
     ``LlamaForSequenceClassification`` params tree (nested dicts of numpy
-    arrays, as ``model.init(...)["params"]`` holds them; LoRA adapters or
-    not) to this module's state_dict.
+    arrays, as ``model.init(...)["params"]`` holds them; LoRA adapters,
+    MoE blocks, quantized projections or not) to this module's
+    state_dict.
 
     Each weight is stored in the dtype the JAX model computes with it:
-    the projections and the embedding in ``dtype`` (the config's — flax
-    ``Dense(dtype=bf16)`` casts its f32 kernel at use, so storing bf16
-    gives the same numbers at half the bytes), the RMSNorm scales, the
-    ``lm_head``, the classifier and the adapters in f32. Dense kernels
-    ``[in, out]`` become Linear weights ``[out, in]``; ``lora_a`` ``[in,
-    r]`` and ``lora_b`` ``[r, out]`` keep tpudl's orientation. Raises on
-    a leaf this module has no place for (MoE, quantized kernels) and on
-    one the model needs that the tree lacks."""
+    the projections, the experts and the embedding in ``dtype`` (the
+    config's — flax ``Dense(dtype=bf16)`` casts its f32 kernel at use, so
+    storing bf16 gives the same numbers at half the bytes), the RMSNorm
+    scales, the ``lm_head``, the classifier, the MoE router and the
+    adapters in f32. Dense kernels ``[in, out]`` become Linear weights
+    ``[out, in]``; ``lora_a`` ``[in, r]``, ``lora_b`` ``[r, out]`` and the
+    expert weights ``moe/wi``, ``moe/wg`` ``[E, M, H]`` and ``moe/wo``
+    ``[E, H, M]`` keep tpudl's orientation. A quantized kernel
+    (``kernel/qvalues``, ``kernel/qscale``) becomes ``X.qvalues``
+    (transposed, in its own int8 / float8_e4m3fn dtype) and ``X.qscale``
+    (f32). Raises on a leaf this module has no place for and on one the
+    model needs that the tree lacks."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -696,22 +745,31 @@ def params_from_tpudl(tree, dtype: torch.dtype = torch.bfloat16,
             if isinstance(value, dict):
                 walk(value, path + [key])
                 continue
-            arr = np.asarray(value, dtype=np.float32)
             module, leaf = ".".join(path), key
+            if leaf in ("qvalues", "qscale") and path and path[-1] == "kernel":
+                module = ".".join(path[:-1])
+                if leaf == "qvalues":
+                    out[f"{module}.qvalues"] = quantized_tensor(
+                        value).t().contiguous().to(device)
+                else:
+                    out[f"{module}.qscale"] = torch.tensor(
+                        np.asarray(value, np.float32), device=device)
+                continue
+            arr = np.asarray(value, dtype=np.float32)
             if leaf == "kernel":
                 arr, name = arr.T, f"{module}.weight"
             elif leaf == "embedding":
                 name = f"{module}.weight"
-            elif leaf in ("scale", "bias", "lora_a", "lora_b"):
+            elif leaf in ("scale", "bias", "lora_a", "lora_b") or (
+                    leaf in ("wi", "wg", "wo") and path[-1:] == ["moe"]):
                 name = f"{module}.{leaf}"
             else:
                 raise ValueError(
                     f"tpudl leaf {'/'.join(path + [key])} has no "
-                    f"counterpart in tpudl_torch (MoE/quantized trees are "
-                    f"not ported yet)"
+                    f"counterpart in tpudl_torch"
                 )
-            keep_f32 = leaf in _F32_LEAVES or module in ("lm_head",
-                                                         "classifier")
+            keep_f32 = (leaf in _F32_LEAVES or module in _F32_MODULES
+                        or module.endswith("moe.router"))
             out[name] = torch.tensor(np.ascontiguousarray(arr)).to(
                 device=device, dtype=torch.float32 if keep_f32 else dtype
             )
@@ -719,10 +777,14 @@ def params_from_tpudl(tree, dtype: torch.dtype = torch.bfloat16,
     walk(tree, [])
     layers = [int(k.split(".")[1].removeprefix("layer_")) for k in out
               if k.startswith("model.layer_")]
-    want = param_names(max(layers) + 1 if layers else 0,
-                       any(is_lora_param(k) for k in out),
-                       "classifier" if any(k.startswith("classifier.")
-                                           for k in out) else "lm_head")
+    want = param_names(
+        max(layers) + 1 if layers else 0,
+        any(is_lora_param(k) for k in out),
+        "classifier" if any(k.startswith("classifier.") for k in out)
+        else "lm_head",
+        moe=any(".moe." in k for k in out),
+        quantized=[k[: -len(".qvalues")] for k in out
+                   if k.endswith(".qvalues")])
     unmapped = sorted(set(out) - want)
     missing = sorted(want - set(out))
     if unmapped:

@@ -46,10 +46,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpudl_torch.quant.dense import QuantWeight
 
-class LoRALinear(nn.Module):
+
+class LoRALinear(QuantWeight, nn.Module):
     """A bias-free projection with a rank-``rank`` adapter; see the module
-    docstring. The base ``weight`` is created frozen."""
+    docstring. The base ``weight`` is created frozen. Bound to a
+    state_dict whose base is a quantized pair (``X.qvalues``, ``X.qscale``;
+    tpudl_torch.quant), the base product runs
+    tpudl_torch.quant.dense.quant_dot and the adapters stay full precision
+    on top (tpudl's ``LoRADense`` over a quantized kernel)."""
 
     def __init__(self, d_in: int, d_out: int, rank: int, alpha: float = 16.0,
                  dtype: torch.dtype = torch.bfloat16, device=None):
@@ -64,13 +70,14 @@ class LoRALinear(nn.Module):
             torch.empty(d_in, rank, dtype=torch.float32, device=device))
         self.lora_b = nn.Parameter(
             torch.empty(rank, d_out, dtype=torch.float32, device=device))
+        self._init_quant_weight()
 
     @property
     def scaling(self) -> float:
         return self.alpha / self.rank
 
     def forward(self, x):
-        y = F.linear(x, self.weight)
+        y = self.base_product(x, self.dtype)
         delta = (x @ self.lora_a.to(self.dtype)) @ self.lora_b.to(self.dtype)
         if self.scaling != 1.0:
             # alpha = r (the configs' 16 / 16) multiplies by exactly 1:

@@ -20,17 +20,26 @@ the host and shipped into each decode call as a small tensor.
 Physical page 0 is the trash page: free slots' rows point at it, so an
 idle slot's ride-along write lands where no live slot reads.
 
-Unlike the JAX package, ``paged_write`` writes the pool IN PLACE (no
-pool-sized copy per step). The int8 page tier (tpudl's ``quantize_kv``
-and quantized pools) waits for ROADMAP queue A item 3; the serving-side
-pool manager is tpudl_torch.serve.cache.PagedKVCache.
+Pools may store int8 with a per-(page, row, head) f32 scale pool
+``[num_pages, page_size, Hkv]`` beside them (``quantize_kv``, tpudl's
+per-head symmetric quantizer over ``head_dim``): ``paged_write``
+quantizes on the way in, ``paged_gather`` dequantizes on the way out,
+into the compute dtype.
+
+Unlike the JAX package, ``paged_write`` writes the pool (and its scale
+pool) IN PLACE (no pool-sized copy per step), so both are graph-stable
+buffers a captured decode step writes. The serving-side pool manager is
+tpudl_torch.serve.cache.PagedKVCache.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
+
+from tpudl_torch.quant.quantize import INT8_MAX, SCALE_EPS
 
 
 @dataclasses.dataclass
@@ -49,6 +58,8 @@ class PagedView:
     start: torch.Tensor
     lens: torch.Tensor
     page_size: int
+    #: The pools store int8 with scale pools (tpudl's static flag).
+    quantized: bool = False
     _memo: dict = dataclasses.field(default_factory=dict, init=False,
                                     repr=False, compare=False)
 
@@ -93,28 +104,54 @@ def flat_page_row_index(page_table: torch.Tensor, page_size: int):
     return idx.reshape(*page_table.shape[:-1], -1)
 
 
-def paged_write(pages: torch.Tensor, value: torch.Tensor,
-                view: PagedView) -> torch.Tensor:
+def quantize_kv(x: torch.Tensor):
+    """Symmetric int8 quantization over the head_dim axis (tpudl's
+    ``quantize_kv``): ``x`` [..., Hkv, D] -> (q int8 [..., Hkv, D], scale
+    f32 [..., Hkv]), ``scale = max(max|x| / 127, SCALE_EPS)``, f32
+    division, round half to even, clip to +-127."""
+    xf = x.float()
+    scale = (xf.abs().amax(-1) / INT8_MAX).clamp_min(SCALE_EPS)
+    q = (xf / scale[..., None]).round().clamp(-INT8_MAX, INT8_MAX)
+    return q.to(torch.int8), scale
+
+
+def paged_write(pages: torch.Tensor, scales: Optional[torch.Tensor],
+                value: torch.Tensor, view: PagedView):
     """Write a token chunk's k or v per slot into its current page rows,
-    in place. ``pages`` [NP, ps, Hkv, D]; ``value`` [B, S, Hkv, D] (or
-    [B, Hkv, D], the S = 1 form). Token j of slot b lands at physical
+    in place. ``pages`` [NP, ps, Hkv, D] (int8 or the compute dtype);
+    ``scales`` [NP, ps, Hkv] f32 for int8 pools, else None; ``value`` [B,
+    S, Hkv, D] (or [B, Hkv, D], the S = 1 form), quantized on the way in
+    for int8 pools. Token j of slot b lands at physical
     ``(page_table[b, (lens[b] + j) // ps], (lens[b] + j) % ps)``; idle
     slots (lens 0 on a trash-mapped row) write into page 0. Positions
     past the table's logical capacity go to the trash page instead of
     clamping onto the slot's last page, whose kept rows a clamped write
-    would corrupt. Returns ``pages``."""
+    would corrupt. Returns ``(pages, scales)``."""
     if value.dim() == 3:
         value = value[:, None]
+    rows = view.write_rows(value.shape[1])
     flat = pages.view(-1, *pages.shape[2:])
-    flat[view.write_rows(value.shape[1])] = value.to(pages.dtype)
-    return pages
+    if view.quantized:
+        q, sc = quantize_kv(value)
+        flat[rows] = q
+        scales.view(-1, scales.shape[2])[rows] = sc
+    else:
+        flat[rows] = value.to(pages.dtype)
+    return pages, scales
 
 
-def paged_gather(pages: torch.Tensor, view: PagedView) -> torch.Tensor:
-    """Every slot's logical KV view from the pool: [B, L, Hkv, D], L =
-    pages_per_slot x page_size. Unmapped logical pages resolve to the
-    trash page: finite values the attention mask excludes."""
-    return pages.view(-1, *pages.shape[2:])[view.gather_rows()]
+def paged_gather(pages: torch.Tensor, scales: Optional[torch.Tensor],
+                 view: PagedView, compute_dtype: torch.dtype) -> torch.Tensor:
+    """Every slot's logical KV view from the pool: [B, L, Hkv, D] in
+    ``compute_dtype``, L = pages_per_slot x page_size; an int8 pool is
+    dequantized (``q * scale`` in f32) in the gather. Unmapped logical
+    pages resolve to the trash page: finite values the attention mask
+    excludes."""
+    rows = view.gather_rows()
+    out = pages.view(-1, *pages.shape[2:])[rows]
+    if view.quantized:
+        out = out.float() * scales.view(-1, scales.shape[2])[rows][..., None]
+    return out.to(compute_dtype)
 
 
 def paged_attend_mask(view: PagedView, chunk: int = 1) -> torch.Tensor:

@@ -27,21 +27,20 @@ def build_llama(name: str, num_classes: int, device="cuda",
                 dtype=torch.bfloat16, **kwargs: Any):
     """tpudl.models.llama.build_llama: 'llama-tiny' / 'llama3-1b' /
     'llama3-8b' with composable suffixes — '-lora' turns on rank-16
-    adapters (override with lora_rank=); '-moe' raises (the MoE MLP is
-    not ported) — as a LlamaForSequenceClassification."""
+    adapters (override with lora_rank=); '-moe' swaps every MLP for an
+    8-expert MoE (override with moe_experts=) — as a
+    LlamaForSequenceClassification."""
     from tpudl_torch.models.llama import (
         LLAMA_SIZES,
         LlamaForSequenceClassification,
     )
 
-    base, lora = name, False
+    base, lora, moe = name, False, False
     while True:
         if base.endswith("-lora"):
             base, lora = base.removesuffix("-lora"), True
         elif base.endswith("-moe"):
-            raise NotImplementedError(
-                f"model {name!r}: the MoE MLP is not ported to tpudl_torch "
-                f"yet (ROADMAP queue A item 4)")
+            base, moe = base.removesuffix("-moe"), True
         else:
             break
     if base not in LLAMA_SIZES:
@@ -50,6 +49,8 @@ def build_llama(name: str, num_classes: int, device="cuda",
         )
     if lora:
         kwargs.setdefault("lora_rank", 16)
+    if moe:
+        kwargs.setdefault("moe_experts", 8)
     cfg = LLAMA_SIZES[base](num_labels=num_classes, dtype=dtype, **kwargs)
     return LlamaForSequenceClassification(cfg, device=device)
 

@@ -5,15 +5,17 @@ softmax + attention dropout forward and backward (``softmax_dropout``,
 with the Philox keep mask of ``keep_mask``), flash attention
 (``flash_attention``), whole-row attention at S <= 512
 (``fused_attention``), softmax cross-entropy forward and backward, and
-the segmented multi-tenant LoRA delta (``segmented_lora``); and the
-plain ops around them (attention, dropout) and the delayed-scaling fp8
-product (``fp8_dot``, ``Fp8Dense``: ``torch._scaled_mm`` on the card).
+the segmented multi-tenant LoRA delta (``segmented_lora``) and the
+weight-only int8 / e4m3 product (``quant_dot``); and the plain ops
+around them (attention, dropout, the MoE MLP ``moe``) and the
+delayed-scaling fp8 product (``fp8_dot``, ``Fp8Dense``:
+``torch._scaled_mm`` on the card).
 The forward kernels are also ops of the dispatcher,
 ``torch.ops.tpudl.*`` (``library``), which ``torch.export`` traces into
 its artifacts.
 
-``softmax_dropout`` and the attention and LoRA modules are reached as
-modules (``tpudl_torch.ops.softmax_dropout`` ...); their entry points are
+``softmax_dropout``, ``quant_dot``, ``moe`` and the attention and LoRA
+modules are reached as modules (``tpudl_torch.ops.softmax_dropout`` ...); their entry points are
 not re-exported here, so the module names stay importable."""
 
 from tpudl_torch.ops.cross_entropy import (  # noqa: F401

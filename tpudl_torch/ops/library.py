@@ -12,7 +12,10 @@ program reaches is therefore also an op of the dispatcher:
 - ``tpudl::softmax_dropout`` (csrc/softmax_dropout.cu, the forward;
   tpudl/ops/softmax_dropout.py:168);
 - ``tpudl::segmented_lora`` (csrc/segmented_lora.cu;
-  tpudl/ops/segmented_lora.py:177).
+  tpudl/ops/segmented_lora.py:177);
+- ``tpudl::quant_dot`` (csrc/quant_dot.cu, the weight-only int8/e4m3
+  product; tpudl's is XLA's mixed-dtype dot in tpudl/quant/dense.py).
+  It also has a gradient with respect to x (``register_autograd``).
 
 Each op has three implementations: a fake one (output shapes, for
 tracing), a CUDA one that is the wrapper's existing launch (its launch
@@ -36,7 +39,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from tpudl_torch.ops import mlp_fused, norms, segmented_lora, softmax_dropout
+from tpudl_torch.ops import (
+    mlp_fused,
+    norms,
+    quant_dot,
+    segmented_lora,
+    softmax_dropout,
+)
 
 Tensor = torch.Tensor
 
@@ -238,10 +247,46 @@ def seg_lora_op(x, pools, table, scale, base):
                     pools.get("b_scale"), table, scale, base)
 
 
+# ---------------------------------------------------------------------------
+# the weight-only quantized product
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("tpudl::quant_dot", mutates_args=())
+def quant_dot_op(x: Tensor, qvalues: Tensor, qscale: Tensor) -> Tensor:
+    """``(x @ qvalues^T) * qscale`` in x's dtype, f32 accumulation."""
+    return quant_dot.quant_matmul_ref(x, qvalues, qscale)
+
+
+@quant_dot_op.register_fake
+def _(x, qvalues, qscale):
+    return x.new_empty(tuple(x.shape[:-1]) + (qvalues.shape[0],))
+
+
+@quant_dot_op.register_kernel("cuda")
+def _(x, qvalues, qscale):
+    return quant_dot._quant_dot_cuda(x, qvalues, qscale)
+
+
+def _quant_dot_setup(ctx, inputs, output):
+    _, qvalues, qscale = inputs
+    ctx.save_for_backward(qvalues, qscale)
+
+
+def _quant_dot_backward(ctx, g):
+    qvalues, qscale = ctx.saved_tensors
+    w = (qvalues.float() * qscale[:, None]).to(g.dtype)
+    return torch.matmul(g, w), None, None
+
+
+quant_dot_op.register_autograd(_quant_dot_backward,
+                               setup_context=_quant_dot_setup)
+
+
 #: The op names an exported graph holds, as ``str(node.target)`` prints
 #: them (``tpudl.rms_norm.default`` ...).
 OPS = ("rms_norm", "layer_norm", "swiglu", "bias_gelu", "softmax_dropout",
-       "segmented_lora")
+       "segmented_lora", "quant_dot")
 
 
 def graph_ops(graph_module) -> dict:

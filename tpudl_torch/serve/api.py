@@ -18,11 +18,12 @@ Knobs: ``TPUDL_SERVE_SLOTS`` (default slot count for ``from_model``),
 ``TPUDL_SERVE_QUEUE_DEPTH`` (admission queue capacity),
 ``TPUDL_SERVE_PAGED`` and ``TPUDL_SERVE_PAGE_SIZE`` (the paged cache),
 ``TPUDL_SERVE_LORA_RANK``, ``TPUDL_SERVE_LORA_PAGES`` and
-``TPUDL_SERVE_LORA_DTYPE`` (the adapter pool). The knobs of the tiers not
-ported yet (``TPUDL_SERVE_KV_DTYPE``, ``TPUDL_SERVE_PREFIX_SHARE``,
-``TPUDL_SERVE_SPEC_K``, ``TPUDL_SERVE_WEIGHT_DTYPE``, and the arguments of
-the same names) are refused when switched on, rather than served without
-them behind the operator's back. Artifact sessions (``from_artifacts``) serve
+``TPUDL_SERVE_LORA_DTYPE`` (the adapter pool), ``TPUDL_SERVE_WEIGHT_DTYPE``
+(quantized projection weights, tpudl_torch.quant) and
+``TPUDL_SERVE_KV_DTYPE`` (int8 KV pages). The knobs of the tiers not
+ported yet (``TPUDL_SERVE_PREFIX_SHARE``, ``TPUDL_SERVE_SPEC_K``, and the
+arguments of the same names) are refused when switched on, rather than
+served without them behind the operator's back. Artifact sessions (``from_artifacts``) serve
 the prefill and decode programs tpudl_torch.export.decode exports, with
 every shape read back from the programs.
 
@@ -48,23 +49,17 @@ from tpudl_torch.serve.cache import SlotCache
 from tpudl_torch.serve.queue import CAT_SERVE_REQUEST, AdmissionQueue
 
 
-def _unported_tiers_requested(kv_dtype=None, prefix_share=None,
-                              spec_k=None, weight_dtype=None) -> List[str]:
+def _unported_tiers_requested(prefix_share=None, spec_k=None) -> List[str]:
     """The serving tiers switched on (by argument, else by knob) that are
     not ported yet."""
     return [
         name for name, on in (
-            ("kv_dtype / TPUDL_SERVE_KV_DTYPE",
-             (kv_dtype or env_str("TPUDL_SERVE_KV_DTYPE")) is not None),
             ("prefix_share / TPUDL_SERVE_PREFIX_SHARE",
              prefix_share if prefix_share is not None
              else env_flag("TPUDL_SERVE_PREFIX_SHARE")),
             ("spec_k / TPUDL_SERVE_SPEC_K",
              bool(spec_k if spec_k is not None
                   else env_int("TPUDL_SERVE_SPEC_K"))),
-            ("weight_dtype / TPUDL_SERVE_WEIGHT_DTYPE",
-             (weight_dtype or env_str("TPUDL_SERVE_WEIGHT_DTYPE"))
-             is not None),
         ) if on
     ]
 
@@ -243,6 +238,18 @@ class ServeSession:
         kernel's dispatch seam. Parity contract:
         ``tpudl_torch.serve.lora.assert_tenant_parity``.
 
+        ``weight_dtype="int8"`` / ``"fp8_e4m3"`` (or
+        ``TPUDL_SERVE_WEIGHT_DTYPE``) serves a quantized weight tree
+        (tpudl_torch.quant.quantize_model: the attention and MLP
+        projections stored low precision, their product the hand-written
+        weight-only kernel with the scale after the contraction; norms,
+        embeddings and the head full precision); already-quantized
+        params pass through. It composes with ``adapters`` (the adapters
+        ride outside the base projections) and with ``kv_dtype``.
+        ``kv_dtype="int8"`` (or ``TPUDL_SERVE_KV_DTYPE=int8``; requires
+        ``paged``) stores the KV pages int8 with per-(page, row, head) f32
+        scales, quantized on the write and dequantized in the gather.
+
         ``capture`` (default: on when the params live on the card) makes
         the prefill and the decode call CUDA graphs
         (tpudl_torch.graphs.CapturedCall, with the greedy selection in
@@ -256,9 +263,9 @@ class ServeSession:
         eager.
 
         ``prefix_share`` and ``spec_k`` with adapters raise ValueError,
-        as tpudl's do; ``kv_dtype``, ``prefix_share``, ``spec_k`` and
-        ``weight_dtype`` (or their knobs) raise NotImplementedError: those
-        tiers are not ported yet (ROADMAP queue A item 3)."""
+        as tpudl's do; otherwise ``prefix_share`` and ``spec_k`` (or their
+        knobs) raise NotImplementedError: the radix prefix cache and
+        speculation are not ported yet (ROADMAP queue A item 3)."""
         from tpudl_torch.models.generate import (
             decode_fn,
             lora_paged_decode_fn,
@@ -268,6 +275,12 @@ class ServeSession:
         )
         from tpudl_torch.models.llama import init_cache, params_device
 
+        if weight_dtype is None:
+            weight_dtype = env_str("TPUDL_SERVE_WEIGHT_DTYPE")
+        if weight_dtype is not None:
+            from tpudl_torch.quant import quantize_model
+
+            model, params = quantize_model(model, params, weight_dtype)
         num_slots = (
             num_slots
             if num_slots is not None
@@ -277,6 +290,8 @@ class ServeSession:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if paged is None:
             paged = env_flag("TPUDL_SERVE_PAGED")
+        if kv_dtype is None:
+            kv_dtype = env_str("TPUDL_SERVE_KV_DTYPE")
         if adapters is not None:
             if not adapters:
                 raise ValueError("adapters={} registers no tenants — pass "
@@ -296,14 +311,13 @@ class ServeSession:
                 raise ValueError("spec_k cannot compose with per-tenant "
                                  "adapters yet (the draft path has no "
                                  "adapter view)")
-        unported = _unported_tiers_requested(kv_dtype, prefix_share, spec_k,
-                                             weight_dtype)
+        unported = _unported_tiers_requested(prefix_share, spec_k)
         if unported:
             raise NotImplementedError(
                 f"{', '.join(unported)} switched on, but tpudl_torch serves "
-                f"the dense and paged caches only (int8 KV, the radix cache, "
-                f"speculation and weight quantization are not ported yet: "
-                f"ROADMAP queue A item 3)")
+                f"the dense and paged caches only (the radix prefix cache "
+                f"and speculation are not ported yet: ROADMAP queue A item "
+                f"3)")
         device = params_device(params)
         if capture is None:
             capture = device.type == "cuda"
@@ -321,8 +335,10 @@ class ServeSession:
         template = init_cache(model.cfg, num_slots, device="meta")
         prefill = captured(prefill_fn(model))
         if not paged:
-            if page_size is not None or num_pages is not None:
-                raise ValueError("page_size/num_pages require paged=True")
+            if page_size is not None or num_pages is not None or \
+                    kv_dtype is not None:
+                raise ValueError(
+                    "page_size/kv_dtype/num_pages require paged=True")
             cache = SlotCache(template, device=device)
             return cls(prefill, captured(decode_fn(model)), params, template,
                        prompt_len, cache=cache, **kwargs)
@@ -332,10 +348,11 @@ class ServeSession:
             template,
             page_size=(page_size if page_size is not None
                        else env_int("TPUDL_SERVE_PAGE_SIZE", 16, min_value=1)),
-            num_pages=num_pages, device=device)
+            num_pages=num_pages, kv_dtype=kv_dtype, device=device)
         if adapters is None:
             return cls(prefill,
-                       captured(paged_decode_fn(model, cache.page_size)),
+                       captured(paged_decode_fn(model, cache.page_size,
+                                                cache.quantized)),
                        params, template, prompt_len, cache=cache, **kwargs)
         from tpudl_torch.models.lora import as_flat_adapters
         from tpudl_torch.serve.lora import AdapterPool
@@ -363,6 +380,7 @@ class ServeSession:
         return cls(
             captured(lora_prefill_fn(model, impl=adapter_impl)),
             captured(lora_paged_decode_fn(model, cache.page_size,
+                                          cache.quantized,
                                           impl=adapter_impl)),
             params, template, prompt_len, cache=cache, adapter_pool=pool,
             **kwargs)
@@ -439,6 +457,8 @@ class ServeSession:
             cache = PagedKVCache(template,
                                  page_size=int(pool["pages_k"].shape[1]),
                                  num_pages=int(pool["pages_k"].shape[0]),
+                                 kv_dtype="int8" if "scale_k" in pool
+                                 else None,
                                  device=device)
             if cache.pages_per_slot != int(table.shape[1]):
                 raise ValueError(

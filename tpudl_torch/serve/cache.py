@@ -1,8 +1,8 @@
 """KV-slot managers: the fixed-shape caches behind the engine.
 
 The port's counterpart of tpudl.serve.cache: the dense ``SlotCache`` and
-the paged ``PagedKVCache`` (below; its int8 pages, the radix prefix tree
-and migration wait for ROADMAP queue A item 3). The
+the paged ``PagedKVCache`` (below, with its int8 pages; the radix prefix
+tree and migration wait for ROADMAP queue A item 3). The
 engine's dense decode call runs on a fixed-slot cache (``[num_slots,
 max_seq_len, ...]`` per layer, the layout
 tpudl_torch.models.llama.init_cache builds). Continuous batching never
@@ -29,6 +29,8 @@ from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from tpudl_torch.models.paged import quantize_kv
 
 
 def _tree_map(fn: Callable, tree: Any) -> Any:
@@ -186,7 +188,7 @@ _ITEM = "ROADMAP queue A item 3"
 def _not_ported(what: str):
     raise NotImplementedError(
         f"{what} is not ported to tpudl_torch yet ({_ITEM}: the radix "
-        f"prefix cache, int8 KV pages and migration)")
+        f"prefix cache and migration)")
 
 
 class RadixPrefixTree:
@@ -195,6 +197,10 @@ class RadixPrefixTree:
 
     def __init__(self, *args, **kwargs):
         _not_ported("RadixPrefixTree (prefix sharing)")
+
+
+#: (values pool, scale pool, dense cache key) of each of k and v.
+_POOLS = (("pages_k", "scale_k", "k"), ("pages_v", "scale_v", "v"))
 
 
 def _attn_caches(tree: Any, path=()):
@@ -215,12 +221,16 @@ def _at(tree: Any, path):
 
 
 class PagedKVCache:
-    """The paged successor to ``SlotCache`` (tpudl's, without the int8,
-    radix and migration tiers).
+    """The paged successor to ``SlotCache`` (tpudl's, without the radix
+    and migration tiers).
 
-    KV lives in per-layer page pools ``[num_pages, page_size, Hkv, D]``;
-    a slot owns the pages its HOST-side page-table row maps. What the
-    engine builds on:
+    KV lives in per-layer page pools ``[num_pages, page_size, Hkv, D]``
+    (int8, with ``[num_pages, page_size, Hkv]`` f32 scale pools
+    ``scale_k``/``scale_v`` beside them, when ``kv_dtype="int8"``: the
+    prompt is quantized as it is seated, decode quantizes on the write
+    and dequantizes in the gather, tpudl_torch.models.paged); a slot owns
+    the pages its HOST-side page-table row maps. What the engine builds
+    on:
 
     - **No shared write index**: each slot carries its own length, so
       the dense cache's horizon rollover does not exist here.
@@ -255,8 +265,6 @@ class PagedKVCache:
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"kv_dtype must be None (store dtype) or 'int8', "
                              f"got {kv_dtype!r}")
-        if kv_dtype == "int8":
-            _not_ported("kv_dtype='int8' (quantized KV pages)")
         if prefix_share:
             _not_ported("prefix_share (the radix prefix cache)")
         valid = [leaf for leaf in _leaves(template) if _is_valid_leaf(leaf)]
@@ -267,7 +275,7 @@ class PagedKVCache:
         self.num_slots = int(valid[0].shape[0])
         self.model_seq_len = int(valid[0].shape[1])
         self.page_size = int(page_size)
-        self.quantized = False
+        self.quantized = kv_dtype == "int8"
         self.pages_per_slot = -(-self.model_seq_len // self.page_size)
         if num_pages is None:
             # Capacity parity with the dense cache (+1 trash page).
@@ -282,12 +290,18 @@ class PagedKVCache:
             node = self.cache
             for key in path[:-1]:
                 node = node.setdefault(key, {})
-            node[path[-1]] = {
-                name: torch.zeros(
-                    (self.num_pages, self.page_size) + tuple(attn[kv].shape[2:]),
-                    dtype=attn[kv].dtype,
-                    device=attn[kv].device if device is None else device)
-                for name, kv in (("pages_k", "k"), ("pages_v", "v"))}
+            pool = {}
+            for name, sname, kv in _POOLS:
+                shape = (self.num_pages, self.page_size) + tuple(
+                    attn[kv].shape[2:])
+                dev = attn[kv].device if device is None else device
+                pool[name] = torch.zeros(
+                    shape, device=dev,
+                    dtype=torch.int8 if self.quantized else attn[kv].dtype)
+                if self.quantized:
+                    pool[sname] = torch.zeros(shape[:-1], device=dev,
+                                              dtype=torch.float32)
+            node[path[-1]] = pool
         # Host-owned addressing: page 0 is never allocated.
         self._free: list = list(range(1, self.num_pages))
         self._reserved: dict = {}
@@ -335,7 +349,8 @@ class PagedKVCache:
              reserve_tokens: int) -> None:
         """Reserve pages for ``reserve_tokens`` logical positions and copy
         a batch-1 dense prefill row cache's prompt region (``[0,
-        prompt_len)``) into the first of them. ``pad`` is the row's
+        prompt_len)``) into the first of them, quantized with
+        ``quantize_kv`` for int8 pools. ``pad`` is the row's
         left-pad count: logical positions below it stay masked, as dense
         validity masks them."""
         if not 0 <= slot < self.num_slots:
@@ -363,7 +378,7 @@ class PagedKVCache:
             row = _at(row_cache, path)
             ids = torch.as_tensor(pages[:prompt_pages],
                                   device=pool["pages_k"].device)
-            for name, kv in (("pages_k", "k"), ("pages_v", "v")):
+            for name, sname, kv in _POOLS:
                 blocks = row[kv][0, :span]
                 if blocks.shape[0] < span:
                     # page_size does not divide the model bound: the last
@@ -371,9 +386,14 @@ class PagedKVCache:
                     # past prompt_len, masked until decode writes it.
                     blocks = torch.cat([blocks, blocks.new_zeros(
                         (span - blocks.shape[0],) + tuple(blocks.shape[1:]))])
-                pool[name][ids] = blocks.reshape(
-                    prompt_pages, self.page_size, *blocks.shape[1:]).to(
-                        pool[name].dtype)
+                blocks = blocks.reshape(prompt_pages, self.page_size,
+                                        *blocks.shape[1:])
+                if self.quantized:
+                    q, sc = quantize_kv(blocks)
+                    pool[name][ids] = q
+                    pool[sname][ids] = sc
+                else:
+                    pool[name][ids] = blocks.to(pool[name].dtype)
 
     def free(self, slot: int) -> None:
         """Return the slot's pages to the pool and point its table row at
@@ -427,8 +447,9 @@ class PagedKVCache:
 
     @property
     def nbytes(self) -> int:
-        """Resident bytes: the page pools plus the host-side page table,
-        start and lens (the number behind ``serve_cache_bytes``)."""
+        """Resident bytes: the page pools (an int8 pool's values and its
+        scale pool) plus the host-side page table, start and lens (the
+        number behind ``serve_cache_bytes``)."""
         device = sum(leaf.numel() * leaf.element_size()
                      for leaf in _leaves(self.cache)
                      if isinstance(leaf, torch.Tensor))

@@ -53,8 +53,8 @@ of computing it again. The dense cache's write index is then a device
 tensor the graph advances; the engine's horizon checks read its host
 mirror (``SlotCache.write_index``).
 
-Not ported yet (ROADMAP queue A item 3): the radix and int8 tiers of
-the paged cache, speculation, migration, the disaggregation inbox, the
+Not ported yet (ROADMAP queue A item 3): the radix tier of the paged
+cache, speculation, migration, the disaggregation inbox, the
 SLO hook, chaos hooks, the request log and the exporter's health source.
 """
 

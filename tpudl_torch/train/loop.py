@@ -70,9 +70,15 @@ single-device path of tpudl.train.loop.
   and the model's fp8 rings (a view in tpudl's layout, like
   ``batch_stats``); checkpoints carry it.
 
+``moe_aux_weight`` > 0 adds ``weight * sum`` of the load-balance losses
+the model's MoE layers recorded in the forward
+(tpudl_torch.ops.moe.take_moe_aux_losses, tpudl's sown ``moe_aux_loss``) to
+the loss, and reports the sum as the ``moe_aux`` metric; ``loss`` then
+includes the term, as tpudl's.
+
 Not ported (each raises NotImplementedError naming its ROADMAP item):
-the MoE auxiliary loss, meshes; and fit's profiling, fused K-step
-dispatch and asynchronous metrics.
+meshes; and fit's profiling, fused K-step dispatch and asynchronous
+metrics.
 """
 
 from __future__ import annotations
@@ -96,6 +102,7 @@ from tpudl_torch.models.resnet import BatchNorm
 from tpudl_torch.obs import counters as obs_counters
 from tpudl_torch.obs import spans as obs_spans
 from tpudl_torch.ops.cross_entropy import softmax_cross_entropy
+from tpudl_torch.ops.moe import take_moe_aux_losses
 from tpudl_torch.ops.fp8_dot import (
     advance_rings,
     fp8_state,
@@ -261,8 +268,6 @@ def make_classification_train_step(
         input_keys = (input_keys,)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    if moe_aux_weight:
-        _refuse("moe_aux_weight", moe_aux_weight, "queue A item 4")
     policy = precision_mod.resolve_policy(precision)
     scaling = policy is not None and policy.loss_scale is not None
     use_fp8 = policy is not None and policy.use_fp8
@@ -303,11 +308,21 @@ def make_classification_train_step(
         labels = batch[label_key].long()
         loss = cross_entropy_loss(logits, labels, label_smoothing,
                                   impl=loss_impl)
+        # The load-balance losses the forward's MoE layers recorded
+        # (tpudl's sown moe_aux_loss entries), taken off the model always.
+        aux_losses = take_moe_aux_losses(state.model)
+        aux = None
+        if moe_aux_weight > 0.0:
+            aux = sum(aux_losses, logits.new_zeros(()))
+            loss = loss + moe_aux_weight * aux
         (loss if scale is None else loss * scale).backward()
-        return {
+        metrics = {
             "loss": loss.detach(),
             "accuracy": (logits.detach().argmax(-1) == labels).float().mean(),
         }
+        if aux is not None:
+            metrics["moe_aux"] = aux.detach()
+        return metrics
 
     def take_grads(params, scale):
         """The parameters' gradients (zeros where none), unscaled, and
