@@ -118,7 +118,7 @@ The Llama LoRA slice (Llama-3-8B fine-tuned with rank-16 adapters on the
              forward and backward, 65 RMSNorm forward and 64 norm backward
              launches (16 times that per step), finite losses, the frozen
              base bit-identical, step time, tokens/s, MFU, peak memory and
-             a profiled window;
+             a profiled window of the captured run;
 14. llama_train_parity — full width, 2 layers, batch 1 x 2048: phase 10's
              gate on the kernel path, the plain path and an f32 oracle;
              the kernel path with remat=True gives its loss and gradients
@@ -202,14 +202,14 @@ The rest of the compiled serving path and the export harness add:
              65 RMSNorm and 32 SwiGLU launches a token each way, tokens/s
              of both, the chunk graphs captured;
 6e. export_llama_serving — export_serving_decoder of the slice (batch-1
-             prefill at 128, 4-slot decode, the weights as inputs), dense
-             and paged (page 16): 65 tpudl::rms_norm and 32 tpudl::swiglu
-             nodes in each program, export and load seconds;
-             ServeSession.from_artifacts (prefill and decode captured)
-             reads back slots, window, bound (and page size and pool
-             pages) and serves the slice's requests with the model
-             session's tokens and launches; TPOT beside the model
-             session's;
+             prefill at 128, 4-slot decode, the weights as inputs) at the
+             8B's width cut to 4 layers, dense and paged (page 16): 9
+             tpudl::rms_norm and 4 tpudl::swiglu nodes in each program,
+             export and load seconds; ServeSession.from_artifacts
+             (prefill and decode captured) reads back slots, window,
+             bound (and page size and pool pages) and serves the slice's
+             requests with the tokens and launches of a model session
+             of the same cut model; TPOT beside that session's;
 11c. export_bert (after phase 11b) — BERT-base seq 128, fused, its eval
              forward exported on the card: 25 tpudl::layer_norm, 12
              bias_gelu and 12 softmax_dropout nodes and no random op, as
@@ -331,6 +331,37 @@ tpudl_torch.ops.quant_dot, tpudl_torch.ops.moe) add:
              load; moe_cut_parity: 1 layer, 4 x 2048, losses within 0.03
              of an f32 oracle.
 
+The data layer (tpudl_torch.data: the converter, tokenizers, dataset
+helpers and ingest) and the run's logs, goodput and profile
+(tpudl_torch.train.logging, tpudl_torch.obs.goodput,
+tpudl_torch.train.profiling), after resnet_parity:
+
+33. data_bert_large — configs[3] (bert_large_v4_32) as train_sst2.py
+             --text-data runs it: 8192 raw sentences as Parquet, a
+             4096-token WordPiece vocab trained on them, the ids at seq
+             128, split_train_eval, the converter shuffled with the
+             config's seed through prefetch_to_device(normalize_sst2_batch,
+             2 assembly workers); BERT-large fused at 256 = 4 x 64 with
+             bf16 first moments, eager then captured bit for bit, exact
+             launches (4 x 49 LayerNorm and norm backward, 4 x 24
+             bias+GeLU and softmax_dropout each way, 4 cross-entropy each
+             way a step), under fit with a MetricLogger (one JSONL line
+             per logged step) and, captured, a span recorder whose
+             goodput categories sum to the wall clock within 1 %; then
+             evaluate on the holdout, eager against captured. The train
+             kernels and fused kernels phases time BERT-large's shapes
+             too ([8192, 1024] norms, [8192, 4096] bias+GeLU, [64, 16,
+             128, 128] softmax_dropout);
+34. data_cifar_resnet18 — configs[0] (cifar10_resnet18) as
+             train_cifar10.py --materialize runs it: 50,000 rows as
+             Parquet, a 10,000-row test_batch tarball through
+             ingest_cifar10, the converter through prefetch_to_device
+             (seeded crop and flip, wire_cifar_batch), device_normalize_cifar
+             in the step; ResNet-18 at 256 x 32², SGD, eager then
+             captured bit for bit, exact launches; fit(profile_dir=) over
+             two captured steps read back by summarize_trace; evaluate
+             over the ingested batch.
+
 Each phase's seconds are printed ("phase ...:" lines).
 
 The compiled step (tpudl_torch.graphs) makes every path run twice, from
@@ -339,8 +370,10 @@ then captured as CUDA graphs (train and eval steps through
 compile_step, whose first call is eager and second the capture; prefill
 and decode calls through ServeSession.from_model's CapturedCall). Phases 5, 6b, 9,
 11, 15, 17 and llama_lora_train print both ways (step ms or TTFT/TPOT,
-device busy share from a profiled window, launches per step, peak
-memory, capture time) and fail unless the captured run's losses,
+launches per step, peak memory, capture time; the captured run's device
+busy share from a profiled window: an eager run launches the same
+kernels, and reading back its profile cost 10-30 s a window) and fail
+unless the captured run's losses,
 parameters, optimizer state, BatchNorm statistics, eval metrics and
 tokens equal the eager run's bit for bit and its launch counts are the
 exact per-step counts. resnet50_train feeds both runs through
@@ -445,6 +478,8 @@ TRAIN_FUSED_LAUNCHES = launches_per_step(12, fused_slice=True)
 #: The fused slice at seq 512: 25, 25, 12, 12, 12 whole-row attention
 #: forward and 12 backward, 1, 1.
 TRAIN_512_LAUNCHES = launches_per_step(12, True, BERT_512_SEQ)
+#: BERT-large's microbatch (bert_large_v4_32: 256 = 4 x 64 at seq 128).
+BERT_LARGE_ROWS = 64 * BERT_SEQ
 #: softmax_dropout and cross-entropy kernels vs plain (rtol, atol): one
 #: bf16 step (2^-7 relative), or 1e-5 in f32. The keep masks are held
 #: bit for bit.
@@ -1079,8 +1114,7 @@ def tenant_slice_phase(torch, model, params, card, dense):
     same_tokens(runs, requests, "tenant_slice")
     metrics = out[True]
     metrics["eager"] = out[False]
-    metrics["eager"]["decode_device_busy_share"] = profile_decode(
-        torch, model, params, Request, kw, sorted(adapters), capture=False)
+    metrics["eager"]["decode_device_busy_share"] = None  # see profile_decode
     metrics["decode_device_busy_share"] = profile_decode(
         torch, model, params, Request, kw, sorted(adapters))
     return adapters, requests, runs[True][1], runs[True][3], metrics
@@ -1378,8 +1412,7 @@ def slice_phase(torch, card):
     session, results, _, launches, _ = runs[True]
     metrics = out[True]
     metrics["eager"] = out[False]
-    metrics["eager"]["decode_device_busy_share"] = profile_decode(
-        torch, model, params, Request, capture=False)
+    metrics["eager"]["decode_device_busy_share"] = None  # see profile_decode
     metrics["decode_device_busy_share"] = profile_decode(
         torch, model, params, Request)
     return model, params, requests, results, launches, metrics
@@ -1419,8 +1452,13 @@ def same_tokens(runs, requests, what):
           f"sampled)")
 
 
+# Only captured runs are profiled. Reading back a profile of an eager
+# run (its host ops beside its kernels) took 10-30 s a window, 106 s of
+# the script's run in all (NVIDIA H100 80GB HBM3, 700.00 W); the eager
+# run launches the captured run's kernels, so its device time is the
+# captured profile's, and its wall time is printed with its metrics.
 def profile_decode(torch, model, params, Request, session_kw=None,
-                   tenants=None, capture=True):
+                   tenants=None):
     """Device busy share and the top kernels and host ops over a steady
     window of decode steps (4 slots busy): the window's wall time is
     taken without the profiler (which slows the host), the device time
@@ -1431,7 +1469,7 @@ def profile_decode(torch, model, params, Request, session_kw=None,
     from tpudl_torch.serve import ServeSession
 
     session = ServeSession.from_model(
-        model, params, capture=capture,
+        model, params,
         **(session_kw or dict(prompt_len=PROMPT_LEN, num_slots=NUM_SLOTS)))
     for i in range(NUM_SLOTS):
         session.submit(Request(f"p{i}", list(range(1 + i, 101 + i)),
@@ -1453,46 +1491,9 @@ def profile_decode(torch, model, params, Request, session_kw=None,
         for _ in range(steps):
             eng.step()
 
-    busy = profile_steps(torch, run, steps,
-                         "decode (captured)" if capture else "decode (eager)",
-                         wall_us)
+    busy = profile_steps(torch, run, steps, "decode (captured)", wall_us)
     session.collect()
     return busy
-
-
-#: Device kernel kinds, by a substring of the kernel's name (first match).
-KERNEL_KINDS = (
-    ("this repo's kernels", ("norm_fwd_", "norm_bwd_kernel",
-                             "column_sum_kernel", "bias_gelu_", "swiglu_",
-                             "softmax_dropout_", "xent_", "flash_fwd_kernel",
-                             "flash_dq_kernel", "flash_dq_tma_kernel",
-                             "flash_dkv_kernel",
-                             "whole_fwd_kernel", "whole_dq_kernel",
-                             "whole_dkv_kernel", "whole_dq_tma_kernel",
-                             "attn_dkv_tma_kernel",
-                             "seg_lora_cluster_kernel", "quant_gemv_kernel",
-                             "quant_gemm_kernel")),
-    # Ahead of the convolutions (cuDNN's own batch norm kernels live in its
-    # namespace) and of the GEMMs (cuDNN's convolutions are implicit GEMMs).
-    ("batch norm", ("batch_norm", "batchnorm", "BatchNorm", "bn_fw", "bn_bw",
-                    "welford", "Welford")),
-    ("convolutions (cuDNN)", ("implicit_gemm", "fprop", "dgrad", "wgrad",
-                              "cudnn", "conv2d", "convolution",
-                              "nchwToNhwc", "nhwcToNchw")),
-    ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "cutlass", "splitKreduce")),
-    ("softmax", ("softmax",)),
-    ("random bits", ("distribution", "philox")),
-    ("reductions", ("reduce_kernel", "Reduce")),
-    ("casts and copies", ("copy_kernel", "direct_copy")),
-    ("other elementwise", ("elementwise", "Functor", "where")),
-)
-
-
-def device_kind(name):
-    for kind, keys in KERNEL_KINDS:
-        if any(key in name for key in keys):
-            return kind
-    return "other"
 
 
 def profile_steps(torch, run, steps, what, wall_us):
@@ -1501,10 +1502,14 @@ def profile_steps(torch, run, steps, what, wall_us):
     same window's wall time taken without the profiler, and the top
     device kernels and host ops. Returns the busy share. Diagnostic: a
     profiler failure prints 'not measured', returns None and does not
-    fail the run."""
+    fail the run. Kernel kinds come from tpudl_torch.train.profiling
+    (``KERNEL_KINDS``), the classifier fit's profile reader uses."""
     try:
         from torch.profiler import ProfilerActivity, profile
 
+        from tpudl_torch.train.profiling import device_kind, kernel_stem
+
+        t_all = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1547,8 +1552,7 @@ def profile_steps(torch, run, steps, what, wall_us):
         ours = {}
         for k in kernels:
             if device_kind(k.key) == "this repo's kernels":
-                stem = re.search(r"(\w+)[<(]", k.key)
-                stem = stem.group(1) if stem else k.key[:40]
+                stem = kernel_stem(k.key)
                 ours[stem] = ours.get(stem, 0.0) + k.self_device_time_total
         if ours:
             print("profile: this repo's kernels, device us/step: " + ", ".join(
@@ -1564,6 +1568,8 @@ def profile_steps(torch, run, steps, what, wall_us):
         for k in sorted(host, key=lambda k: -k.self_cpu_time_total)[:12]:
             print(f"profile:   host {k.self_cpu_time_total / steps:9.1f} "
                   f"us/step {k.count / steps:6.1f}x  {k.key[:90]}")
+        print(f"profile: {what}: the window and its processing took "
+              f"{time.perf_counter() - t_all:.1f} s")
     except Exception as e:  # diagnostic only
         print(f"profile: not measured ({type(e).__name__}: {e})")
         return None
@@ -1754,6 +1760,12 @@ def train_kernel_phase(torch, F):
         ((n, 768), f32, False, "plain, stats (the embeddings' call)"),
         ((n, 768), bf16, False, "plain, stats"),
         ((4099, 766), bf16, True, "residual, stats, unaligned"),
+        ((BERT_LARGE_ROWS, 1024), bf16, True,
+         "residual, stats (BERT-large's microbatch of 64 x 128: 48 calls "
+         "a microbatch)"),
+        ((BERT_LARGE_ROWS, 1024), f32, False,
+         "plain, stats (BERT-large's embeddings' call)"),
+        ((BERT_LARGE_ROWS, 1024), bf16, False, "plain, stats (BERT-large)"),
     ):
         h, e = shape[1], torch.finfo(dtype).bits // 8
         tol = KERNEL_TOL[str(dtype).split(".")[-1]]
@@ -1800,6 +1812,12 @@ def train_kernel_phase(torch, F):
          "RMSNorm, plain (the Llama LoRA microbatch's shape)"),
         ("layer", (4099, 766), bf16, True, False,
          "LayerNorm, residual, unaligned"),
+        ("layer", (BERT_LARGE_ROWS, 1024), bf16, True, False,
+         "LayerNorm, residual (BERT-large's microbatch: 48 calls)"),
+        ("layer", (BERT_LARGE_ROWS, 1024), f32, False, False,
+         "LayerNorm, plain (BERT-large's embeddings' call)"),
+        ("layer", (BERT_LARGE_ROWS, 1024), bf16, False, False,
+         "LayerNorm, plain (BERT-large)"),
     ):
         h, e = shape[1], torch.finfo(dtype).bits // 8
         tol = BWD_TOL[str(dtype).split(".")[-1]]
@@ -1850,6 +1868,8 @@ def train_kernel_phase(torch, F):
         ((n, 3072), bf16, "the encoder's 12 calls"),
         ((n, 3072), f32, "f32"),
         ((4099, 3071), bf16, "unaligned"),
+        ((BERT_LARGE_ROWS, 4096), bf16,
+         "BERT-large's microbatch (24 calls)"),
     ):
         f, e = shape[1], torch.finfo(dtype).bits // 8
         dname = str(dtype).split(".")[-1]
@@ -1981,6 +2001,8 @@ def fused_kernel_phase(torch, F):
         (full, f32, "none", 0.0, "f32, no mask, no dropout"),
         ((64, BERT_HEADS, 127, 127), bf16, "causal", 0.1,
          "Skv 127 (the scalar path), causal, dropout 0.1"),
+        ((64, 16, BERT_SEQ, BERT_SEQ), bf16, "padding", 0.1,
+         "BERT-large's microbatch, padding mask, dropout 0.1 (24 calls)"),
     ):
         b, skv = shape[0], shape[-1]
         x = rand(shape, dtype, 3.0)
@@ -2063,6 +2085,9 @@ def fused_kernel_phase(torch, F):
         ((4096, 30522), bf16, 0.1, "vocab-sized head, label smoothing 0.1"),
         ((4096, 30522), f32, 0.0, "vocab-sized head, f32"),
         ((1000, 1003), bf16, 0.1, "V 1003, label smoothing 0.1"),
+        ((64, 2), f32, 0.0, "BERT-large's microbatch (4 calls each way a "
+                            "step)"),
+        ((256, 10), f32, 0.0, "ResNet-18's loss (cifar10_resnet18)"),
     ):
         z = rand((rows_, v), dtype, 3.0)
         labels = torch.randint(0, v, (rows_,), generator=gen, device="cuda")
@@ -2343,9 +2368,15 @@ def train_phase(torch, card, fused_slice=False, batch_size=BERT_BATCH,
                      for k, v in state.opt_state.items()
                      if isinstance(v, dict)}, state.step)
         rest = batches[w + TRAIN_STEPS:]
-        busy = profile_steps(
-            torch, lambda: fit(run_step, state, rest, 1), PROFILE_STEPS,
-            f"{name} ({way})", step_s * 1e6 * PROFILE_STEPS)
+        if capture:
+            busy = profile_steps(
+                torch, lambda: fit(run_step, state, rest, 1), PROFILE_STEPS,
+                f"{name} ({way})", step_s * 1e6 * PROFILE_STEPS)
+        else:
+            # The eager run takes the same steps unprofiled (see
+            # profile_decode).
+            fit(run_step, state, rest, 1)
+            busy = None
         metrics = {
             "step_ms": step_s * 1e3, "samples_per_s": batch_size / step_s,
             "mfu": util, "peak_memory_gib": peak, "device_busy_share": busy,
@@ -3256,8 +3287,9 @@ def llama_lora_train_phase(torch, card):
     -> fit over synthetic_token_batches(64, 2048, 128256): the config's
     global batch 64 as 16 microbatches of 4. W warm-up steps, then T
     timed steps (counts reset just before; exact launches per step),
-    then a profiled window; losses finite, the frozen base bit-identical
-    after the steps (compared on the host)."""
+    then one more step (profiled in the captured run only); losses
+    finite, the frozen base bit-identical after the steps (compared on
+    the host)."""
     from tpudl_torch.config import get_config
     from tpudl_torch.data.synthetic import synthetic_token_batches
     from tpudl_torch.models.lora import lora_optimizer, trainable_param_count
@@ -3391,13 +3423,17 @@ def llama_lora_train_phase(torch, card):
 
         if capture:  # four steps done
             after = snapshot()
-        busy = profile_steps(
-            torch, lambda: fit(recorded, state, rest[:LLAMA_PROFILE_STEPS],
-                               1),
-            LLAMA_PROFILE_STEPS, f"llama_lora_train ({way})",
-            step_s * 1e6 * LLAMA_PROFILE_STEPS)
-        if not capture:  # four steps done
-            after = snapshot()
+            busy = profile_steps(
+                torch, lambda: fit(recorded, state,
+                                   rest[:LLAMA_PROFILE_STEPS], 1),
+                LLAMA_PROFILE_STEPS, f"llama_lora_train ({way})",
+                step_s * 1e6 * LLAMA_PROFILE_STEPS)
+        else:
+            # The eager run takes its fourth step unprofiled (see
+            # profile_decode).
+            fit(recorded, state, rest[:LLAMA_PROFILE_STEPS], 1)
+            busy = None
+            after = snapshot()  # four steps done
         runs[capture] = (launches, after, {
             "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
             "mfu": util, "model_flops_per_step": flops,
@@ -3793,11 +3829,14 @@ def resnet50_train_phase(torch, card):
                                      state.model.state_dict().items()},
                     {"trace": {n: t.clone() for n, t in
                                state.opt_state["trace"].items()}}, state.step)
-        busy = profile_steps(
-            torch, lambda: fit(run_step, state, feed(w + RESNET_STEPS,
-                                                     RESNET_PROFILE_STEPS), 1),
-            RESNET_PROFILE_STEPS, f"resnet50_train ({way})",
-            step_s * 1e6 * RESNET_PROFILE_STEPS)
+        busy = None  # the eager run is not profiled (see profile_decode)
+        if capture:
+            busy = profile_steps(
+                torch, lambda: fit(run_step, state,
+                                   feed(w + RESNET_STEPS,
+                                        RESNET_PROFILE_STEPS), 1),
+                RESNET_PROFILE_STEPS, f"resnet50_train ({way})",
+                step_s * 1e6 * RESNET_PROFILE_STEPS)
         runs[capture] = (launches, snapshot, {
             "step_ms": step_s * 1e3, "images_per_s": b / step_s, "mfu": util,
             "model_flops_per_step": flops, "peak_memory_gib": peak,
@@ -4223,15 +4262,36 @@ def generate_chunked_phase(torch, model, params, card):
     return out
 
 
-def export_llama_serving_phase(torch, model, params, card, requests,
-                               dense_results, dense_metrics):
+#: export_llama_serving: the 8B's width, its first layers (tracing and
+#: loading the serving programs of all 32 layers took ~63 s of the run).
+EXPORT_SERVING_LAYERS = 4
+
+
+def cut_llama(model, params, num_layers):
+    """The model and weights of ``model``'s first ``num_layers`` layers, at
+    its width (the embedding, final norm and head kept)."""
+    import dataclasses
+
+    from tpudl_torch.models.llama import LlamaForCausalLM
+
+    cut = LlamaForCausalLM(dataclasses.replace(model.cfg,
+                                               num_layers=num_layers),
+                           device="meta")
+    return cut, {k: v for k, v in params.items()
+                 if not k.startswith("model.layer_")
+                 or int(k.split(".")[1].removeprefix("layer_")) < num_layers}
+
+
+def export_llama_serving_phase(torch, model, params, card, requests):
     """The slice's serving artifacts (export_serving_decoder: a batch-1
-    prefill at PROMPT_LEN and a NUM_SLOTS decode, the 8B weights as
-    inputs), dense and paged (page 16): every norm and SwiGLU a tpudl::
-    node, export and load seconds, program bytes; ServeSession.
-    from_artifacts (prefill and decode captured) reads the shapes back
-    and serves the slice's requests with the model session's tokens and
-    its launches; TPOT beside the model session's."""
+    prefill at PROMPT_LEN and a NUM_SLOTS decode, the weights as inputs),
+    dense and paged (page 16), at the 8B's width cut to
+    EXPORT_SERVING_LAYERS layers (its first layers' weights): every norm
+    and SwiGLU a tpudl:: node, export and load seconds, program bytes;
+    ServeSession.from_artifacts (prefill and decode captured) reads the
+    shapes back and serves the slice's requests with the tokens and
+    launches of a model session of the same cut model; TPOT beside that
+    session's."""
     from tpudl_torch.export.decode import export_serving_decoder
     from tpudl_torch.export.export import load_exported_obj
     from tpudl_torch.ops.library import graph_ops
@@ -4239,39 +4299,37 @@ def export_llama_serving_phase(torch, model, params, card, requests,
     from tpudl_torch.ops.norms import rms_norm
     from tpudl_torch.serve import Request, ServeSession
 
+    n = EXPORT_SERVING_LAYERS
+    model, params = cut_llama(model, params, n)
+    per_call = {"rms_norm": 2 * n + 1, "swiglu": n}
     counted = {"rms_norm_fwd": rms_norm, "swiglu_fwd": swiglu}
     out = {}
     for paged in (False, True):
         way = "paged" if paged else "dense"
         kw = dict(paged=True, page_size=16) if paged else {}
+        ref = ServeSession.from_model(model, params, prompt_len=PROMPT_LEN,
+                                      num_slots=NUM_SLOTS, **kw)
+        shape = (ref.num_slots, ref.prompt_len, ref.max_seq_len)
+        if paged:
+            shape += (ref.engine.cache.page_size, ref.engine.cache.num_pages)
+        ref.serve([Request("warm", [1, 2, 3], max_new_tokens=2)])
+        _, ref_results, ref_wall, _, _ = serve_run(torch, ref, requests,
+                                                   counted)
+        ref_tpot = pct([r.tpot_s * 1e3 for r in ref_results.values()
+                        if r.tpot_s is not None], 50)
+        del ref
         t0 = time.perf_counter()
         pre, dec = export_serving_decoder(model, params, NUM_SLOTS,
                                           PROMPT_LEN, **kw)
         export_s = time.perf_counter() - t0
         for what, blob in (("prefill", pre), ("decode", dec)):
             ops = graph_ops(load_exported_obj(blob).graph_module)
-            if ops != {"rms_norm": 65, "swiglu": 32}:
+            if ops != per_call:
                 fail(f"export_llama_serving ({way}): the {what} program "
-                     f"holds tpudl:: nodes {ops}, expected 65 rms_norm and "
-                     f"32 swiglu")
+                     f"holds tpudl:: nodes {ops}, expected {per_call}")
         t0 = time.perf_counter()
         session = ServeSession.from_artifacts(pre, dec, params, paged=paged)
         load_s = time.perf_counter() - t0
-        if paged:
-            ref = ServeSession.from_model(model, params,
-                                          prompt_len=PROMPT_LEN,
-                                          num_slots=NUM_SLOTS, **kw)
-            shape = (ref.num_slots, ref.prompt_len, ref.max_seq_len,
-                     ref.engine.cache.page_size, ref.engine.cache.num_pages)
-            ref.serve([Request("warm", [1, 2, 3], max_new_tokens=2)])
-            _, ref_results, ref_wall, _, _ = serve_run(torch, ref, requests,
-                                                       counted)
-            ref_tpot = pct([r.tpot_s * 1e3 for r in ref_results.values()
-                            if r.tpot_s is not None], 50)
-        else:
-            shape = (NUM_SLOTS, PROMPT_LEN, MAX_SEQ_LEN)
-            ref_results = dense_results
-            ref_tpot = dense_metrics["tpot_p50_ms"]
         got_shape = (session.num_slots, session.prompt_len,
                      session.max_seq_len)
         if paged:
@@ -4286,8 +4344,8 @@ def export_llama_serving_phase(torch, model, params, card, requests,
         eng = session.engine
         calls = eng.num_prefills + eng.num_decode_steps
         # The warm-up request's prefill and decode steps come first.
-        want = {"rms_norm_fwd": 65 * (calls - 2), "swiglu_fwd": 32 * (
-            calls - 2)}
+        want = {"rms_norm_fwd": per_call["rms_norm"] * (calls - 2),
+                "swiglu_fwd": per_call["swiglu"] * (calls - 2)}
         if launches != want:
             fail(f"export_llama_serving ({way}): launches {launches}, "
                  f"expected {want}")
@@ -4300,7 +4358,7 @@ def export_llama_serving_phase(torch, model, params, card, requests,
         tpot = pct([r.tpot_s * 1e3 for r in results.values()
                     if r.tpot_s is not None], 50)
         ttft = pct([r.ttft_s * 1e3 for r in results.values()], 50)
-        print(f"export_llama_serving ({way}, {card}): export "
+        print(f"export_llama_serving ({way}, {n} layers, {card}): export "
               f"{export_s:.2f} s (prefill {len(pre) / 1e6:.3f} MB, decode "
               f"{len(dec) / 1e6:.3f} MB, no weights), load {load_s:.2f} s; "
               f"from_artifacts read back slots, window, bound"
@@ -4311,7 +4369,7 @@ def export_llama_serving_phase(torch, model, params, card, requests,
               f"{eng.prefill_call.capture_s * 1e3:.1f} ms, decode graph in "
               f"{eng.decode_call.capture_s * 1e3:.1f} ms; peak memory "
               f"{peak:.2f} GiB")
-        out[way] = {"export_s": export_s, "load_s": load_s,
+        out[way] = {"layers": n, "export_s": export_s, "load_s": load_s,
                     "prefill_bytes": len(pre), "decode_bytes": len(dec),
                     "tpot_p50_ms": tpot, "ttft_p50_ms": ttft,
                     "model_tpot_p50_ms": ref_tpot, "launches": launches}
@@ -4606,7 +4664,8 @@ def remat_captured_phase(torch, card, no_remat_peak_gib):
 #: the main paths launch: BERT's LayerNorm at H 768 (3 vectors a lane),
 #: Llama's RMSNorm at H 4096 (2 vectors a thread).
 MAIN_PATH_NORM_KERNELS = {
-    ("norm_fwd_rows_kernel", "LayerNorm", v, "3") for v in ("plain", "residual")
+    ("norm_fwd_rows_kernel", "LayerNorm", v, vpl) for v in ("plain", "residual")
+    for vpl in ("3", "4")  # H 768 (BERT-base), 1024 (BERT-large)
 } | {("norm_fwd_wide_kernel", "RMSNorm", v, "2") for v in ("plain", "residual+sum")}
 
 
@@ -6747,22 +6806,15 @@ def export_quant_phase(torch, sessions, card, requests):
     (export_serving_decoder(paged=True, kv_dtype="int8")), each product a tpudl::quant_dot node; served from artifacts
     (captured) with the tokens of model sessions of the same cut model and
     its 7 x EXPORT_QUANT_LAYERS quant_dot launches a step."""
-    import dataclasses
-
     from tpudl_torch.export.decode import export_serving_decoder
     from tpudl_torch.export.export import load_exported_obj
-    from tpudl_torch.models.llama import LlamaForCausalLM
     from tpudl_torch.ops.library import graph_ops
     from tpudl_torch.ops.quant_dot import quant_matmul
     from tpudl_torch.serve import Request, ServeSession
 
     qmodel, qparams, _ = sessions["int8"]
     n = EXPORT_QUANT_LAYERS
-    qmodel = LlamaForCausalLM(dataclasses.replace(qmodel.cfg, num_layers=n),
-                              device="meta")
-    qparams = {k: v for k, v in qparams.items()
-               if not k.startswith("model.layer_")
-               or int(k.split(".")[1].removeprefix("layer_")) < n}
+    qmodel, qparams = cut_llama(qmodel, qparams, n)
     per_step = 7 * n
     out = {}
     for paged in (False, True):
@@ -7065,6 +7117,559 @@ def moe_cut_parity_phase(torch):
             "oracle_losses": losses["oracle"], "max_gap": max(gaps)}
 
 
+# ---------------------------------------------------------------------------
+# The data layer's paths (ROADMAP queue A item 13): text -> WordPiece ->
+# Parquet -> converter -> BERT-large (configs[3]), and CIFAR-10 Parquet ->
+# ResNet-18 (configs[0]), as the notebooks run them, through the port.
+# ---------------------------------------------------------------------------
+
+#: train_sst2.py --text-data: 8192 raw sentences, a 4096-token vocab.
+DATA_TEXT_ROWS = 8192
+DATA_VOCAB = 4096
+DATA_WARMUP_STEPS = 2
+DATA_STEPS = 6
+DATA_PROFILE_STEPS = 2
+#: train_cifar10.py --materialize: CIFAR-10's train split; the ingested
+#: tarball holds one batch of its test split.
+CIFAR_ROWS = 50_000
+CIFAR_TEST_ROWS = 10_000
+CIFAR_WARMUP_STEPS = 2
+CIFAR_STEPS = 8
+CIFAR_PROFILE_STEPS = 2
+
+
+class RecordedStep:
+    """A train step that keeps each call's loss for the bitwise check and
+    the Throughput meter, and passes the compiled step's compile marker
+    on to fit's spans."""
+
+    def __init__(self, step, meter):
+        self.step, self.meter, self.losses = step, meter, []
+
+    @property
+    def compile_pending(self):
+        return getattr(self.step, "compile_pending", False)
+
+    def __call__(self, state, batch, rng):
+        state, metrics = self.step(state, batch, rng)
+        self.losses.append(metrics["loss"])
+        self.meter.step(metrics["loss"])
+        return state, metrics
+
+
+def run_snapshot(torch, losses, state):
+    """(losses, state_dict, optimizer state, step): what check_bitwise
+    holds between an eager and a captured run."""
+    return (torch.stack(losses).clone(),
+            {k: v.detach().clone() for k, v in
+             state.model.state_dict().items()},
+            {k: {n: t.clone() for n, t in v.items()}
+             for k, v in state.opt_state.items() if isinstance(v, dict)},
+            state.step)
+
+
+def goodput_check(name, records):
+    """Classify a run's span records (tpudl_torch.obs.goodput); fail
+    unless the categories sum to the wall clock within 1 %."""
+    from tpudl_torch.obs import goodput
+
+    cls = goodput.classify(records)
+    parts = sum(cls[k] for k in ("productive_s", "eval_s", "compile_s",
+                                 "data_wait_s", "metric_wait_s",
+                                 "checkpoint_s", "recovery_s", "other_s",
+                                 "idle_s"))
+    spans = {}
+    for r in records:
+        if r.get("kind") == "span":
+            spans[r["cat"]] = spans.get(r["cat"], 0) + 1
+    print(f"{name}: {goodput.format_goodput(cls)}; spans {spans}; "
+          f"categories sum to {parts:.4f} s of {cls['wall_s']:.4f} s wall")
+    if not cls["wall_s"] > 0 or abs(parts - cls["wall_s"]) > 0.01 * cls[
+            "wall_s"]:
+        fail(f"{name}: goodput categories sum to {parts} s, the wall clock "
+             f"is {cls['wall_s']} s")
+    for cat in ("step", "compile", "data_wait"):
+        if not spans.get(cat):
+            fail(f"{name}: no {cat!r} span in the run's records {spans}")
+    return cls
+
+
+def print_trace_summary(name, path, steps, step_s):
+    """Read the Chrome trace fit(profile_dir=) wrote back through
+    summarize_trace (tpudl_torch.train.profiling), print it and the
+    "profile: device us/step by kind" line, and return the summary (but
+    its top ops). Fails unless it read ``steps`` steps of device events."""
+    from tpudl_torch.train.profiling import format_summary, summarize_trace
+
+    summary = summarize_trace(path)
+    if summary["steps"] != steps or summary["num_events"] == 0:
+        fail(f"{name}: the profile of {steps} steps read back "
+             f"{summary['steps']} steps, {summary['num_events']} device "
+             f"events")
+    print(f"{name}: fit(profile_dir=) over {steps} captured steps "
+          f"(unprofiled step {step_s * 1e3:.3f} ms), summarize_trace:\n"
+          + format_summary(summary))
+    print("profile: device us/step by kind: " + ", ".join(
+        f"{kind} {r['ms_per_step'] * 1e3:.1f} ({100 * r['share']:.1f}%)"
+        for kind, r in summary["by_category"].items()))
+    return {k: v for k, v in summary.items() if k != "top_ops"}
+
+
+def data_bert_large_phase(torch, card):
+    """configs[3] (bert_large_v4_32) as ``train_sst2.py --config
+    bert_large_v4_32 --text-data`` runs it, through the port's data
+    layer: materialize_sst2_text writes DATA_TEXT_ROWS raw sentences as
+    Parquet; a DATA_VOCAB-token WordPiece vocab is trained on them;
+    tokenize_text_dataset writes the ids at seq 128; split_train_eval
+    holds out the last file; the converter feeds the rest, shuffled with
+    seed=cfg.seed, through prefetch_to_device(transform=
+    normalize_sst2_batch, assembly_workers=2). BERT-large
+    (fused_ops=True, attention_impl="fused", loss_impl="auto") trains at
+    the config's 256 = 4 x 64, bf16 first moments, eagerly and then
+    captured from the same seeded weights over the same batches: W
+    warm-up steps and DATA_STEPS timed ones (counts reset just before:
+    exact launches a step), losses finite, the two runs equal bit for
+    bit. The captured run goes under fit with a MetricLogger (one JSONL
+    line per logged step) and an active span recorder, then evaluate on
+    the holdout (eager against captured within EVAL_PAD_TOL, exact
+    launches); its records' goodput categories sum to the wall clock
+    within 1 %. Then DATA_PROFILE_STEPS more captured steps under
+    fit(profile_dir=), read back by summarize_trace."""
+    import shutil
+    import tempfile
+
+    from tpudl_torch import obs
+    from tpudl_torch.config import get_config
+    from tpudl_torch.data.datasets import (
+        eval_stream,
+        materialize_sst2_text,
+        normalize_sst2_batch,
+        split_train_eval,
+        tokenize_text_dataset,
+    )
+    from tpudl_torch.data.prefetch import prefetch_to_device
+    from tpudl_torch.data.tokenizer import (
+        WordPieceTokenizer,
+        build_wordpiece_vocab,
+    )
+    from tpudl_torch.models.registry import build_model
+    from tpudl_torch.train import (
+        compile_step,
+        create_train_state,
+        evaluate,
+        fit,
+        make_classification_eval_step,
+        make_classification_train_step,
+        make_optimizer,
+    )
+    from tpudl_torch.train.logging import MetricLogger
+    from tpudl_torch.train.metrics import Throughput, transformer_train_flops
+
+    cfg = get_config("bert_large_v4_32")
+    b, seq, accum = cfg.global_batch_size, cfg.seq_len, cfg.accum_steps
+    keys = ("input_ids", "attention_mask")
+    root = tempfile.mkdtemp(prefix="tpudl_data_bert_large_")
+    try:
+        t0 = time.perf_counter()
+        text = materialize_sst2_text(os.path.join(root, "text"),
+                                     num_rows=DATA_TEXT_ROWS, seed=cfg.seed)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        corpus = (str(s) for batch in text.make_batch_iterator(
+            1024, epochs=1, shuffle=False, drop_last=False,
+            columns=("sentence",)) for s in batch["sentence"])
+        tok = WordPieceTokenizer(build_wordpiece_vocab(corpus, DATA_VOCAB))
+        tok.save_vocab(os.path.join(root, "vocab.txt"))
+        vocab_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ids = tokenize_text_dataset(os.path.join(root, "text"),
+                                    os.path.join(root, "ids"), tok,
+                                    seq_len=seq)
+        tokenize_s = time.perf_counter() - t0
+        train_conv, eval_conv = split_train_eval(ids)
+        if (ids.num_rows != DATA_TEXT_ROWS
+                or train_conv.num_rows + eval_conv.num_rows != ids.num_rows):
+            fail(f"data_bert_large: {ids.num_rows} tokenized rows, split "
+                 f"{train_conv.num_rows} + {eval_conv.num_rows}")
+        first = next(eval_conv.make_batch_iterator(8))
+        if not (first["input_ids"].shape == (8, seq)
+                and (first["input_ids"][:, 0] == tok.cls_id).all()
+                and int(first["input_ids"].max()) < len(tok.vocab)):
+            fail(f"data_bert_large: tokenized rows {first['input_ids'][:2]}")
+        print(f"data_bert_large: materialize_sst2_text {DATA_TEXT_ROWS} rows "
+              f"in {write_s:.2f} s (the writer); WordPiece vocab of "
+              f"{len(tok.vocab)} tokens trained in {vocab_s:.2f} s; "
+              f"tokenize_text_dataset at seq {seq} in {tokenize_s:.2f} s "
+              f"({DATA_TEXT_ROWS / tokenize_s:.0f} rows/s, the tokenizer); "
+              f"split_train_eval: {train_conv.num_rows} train rows in "
+              f"{len(train_conv.files)} files, {eval_conv.num_rows} held "
+              f"out")
+
+        step = make_classification_train_step(
+            input_keys=keys, label_key="label", accum_steps=accum,
+            loss_impl="auto")
+        per_step = {k: v * accum for k, v in
+                    launches_per_step(24, True, seq).items()}
+        w, n = DATA_WARMUP_STEPS, DATA_STEPS
+        runs = {}
+        for capture in (False, True):
+            way = "captured" if capture else "eager"
+            t0 = time.perf_counter()
+            model = build_model(cfg.model, cfg.num_classes, fused_ops=True,
+                                attention_impl="fused")
+            state = create_train_state(cfg.seed, model,
+                                       make_optimizer(cfg.optim))
+            n_params = sum(p.numel() for p in model.parameters())
+            run_step = compile_step(step, state) if capture else step
+            recorded = RecordedStep(run_step, Throughput(b, warmup=w))
+            feed = prefetch_to_device(
+                train_conv.make_batch_iterator(b, epochs=None, shuffle=True,
+                                               seed=cfg.seed),
+                transform=normalize_sst2_batch, assembly_workers=2)
+            log_dir = os.path.join(root, f"log-{way}")
+            logger = MetricLogger(log_dir, tensorboard=False, stdlog=False)
+            rec = obs.enable(os.path.join(root, "obs")) if capture else None
+            torch.cuda.synchronize()
+            print(f"data_bert_large ({way}): BERT-large, "
+                  f"{n_params / 1e6:.2f} M parameters, fused_ops and the "
+                  f"fused slice, global batch {b} = {accum} x {b // accum} x "
+                  f"seq {seq}, AdamW with bf16 first moments; set-up "
+                  f"{time.perf_counter() - t0:.1f} s")
+            torch.cuda.reset_peak_memory_stats()
+            t_run = time.perf_counter()
+            state, _, _ = fit(recorded, state, feed, 1, num_steps=w,
+                              log_every=1, logger=logger)
+            torch.cuda.synchronize()
+            reset_counts()
+            state, last, _ = fit(recorded, state, feed, 1, num_steps=n,
+                                 log_every=1, logger=logger)
+            timed = recorded.meter.result(recorded.losses[-1])
+            launches = train_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            waits = [x * 1e3 for x in feed.waits[w:]]
+            feed.close()
+            want = {k: per_step.get(k, 0) * n for k in launches}
+            if launches != want:
+                fail(f"data_bert_large ({way}): kernel launches {launches} "
+                     f"!= expected {want} ({per_step} per step)")
+            loss_t = torch.stack(recorded.losses)
+            if not bool(torch.isfinite(loss_t).all()):
+                fail(f"data_bert_large: non-finite loss in "
+                     f"{loss_t.tolist()}")
+            if timed["steps_measured"] != n:
+                fail(f"data_bert_large: the meter timed "
+                     f"{timed['steps_measured']} steps, not {n}")
+            snapshot = run_snapshot(torch, recorded.losses, state)
+            step_s = timed["step_ms"] / 1e3
+            flops = transformer_train_flops(n_params, b * seq)
+            util = flops / step_s / BF16_OPS_PER_S
+            capture_s = getattr(run_step, "capture_s", None)
+            print(f"data_bert_large metrics, {way} ({card}): step "
+                  f"{step_s * 1e3:.2f} ms, {b / step_s:.1f} samples/s, MFU "
+                  f"{100 * util:.2f}% (6ND = {flops:.3e} FLOP over "
+                  f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s dense bf16), peak "
+                  f"memory {peak:.2f} GiB, data wait a step "
+                  f"{statistics.mean(waits):.3f} ms (max {max(waits):.3f}), "
+                  f"launches {launches}, losses "
+                  f"{', '.join(f'{x:.4f}' for x in loss_t.tolist())}"
+                  + ("" if capture_s is None
+                     else f", step captured in {capture_s:.3f} s"))
+            eval_step = make_classification_eval_step(input_keys=keys,
+                                                      loss_impl="auto")
+            if capture:
+                eval_step = compile_step(eval_step, state, has_rng=False)
+            stream = eval_stream(eval_conv, b, normalize_sst2_batch)
+            n_eval = sum(1 for _ in stream())
+            reset_counts()
+            result = evaluate(eval_step, state, stream())
+            ev_launches = train_counts()
+            want = {k: eval_launches(24, seq).get(k, 0) * n_eval
+                    for k in ev_launches}
+            if ev_launches != want:
+                fail(f"data_bert_large ({way}): evaluate launched "
+                     f"{ev_launches}, expected {want}")
+            run_s = time.perf_counter() - t_run
+            logger.close()
+            with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+                lines = [json.loads(line) for line in f]
+            if [x["step"] for x in lines] != list(range(1, w + 1)) + list(
+                    range(1, n + 1)) or not all("loss" in x for x in lines):
+                fail(f"data_bert_large ({way}): metrics.jsonl holds "
+                     f"{[x.get('step') for x in lines]}, not one line per "
+                     f"logged step")
+            print(f"data_bert_large ({way}): evaluate over "
+                  f"{eval_conv.num_rows} held-out rows ({n_eval} batches): "
+                  f"loss {result['loss']:.6f}, accuracy "
+                  f"{result['accuracy']:.4f}; metrics.jsonl {len(lines)} "
+                  f"lines; the run {run_s:.1f} s")
+            metrics = {
+                "step_ms": step_s * 1e3, "samples_per_s": b / step_s,
+                "mfu": util, "peak_memory_gib": peak, "num_params": n_params,
+                "batch": b, "accum_steps": accum, "seq": seq, "steps": n,
+                "data_wait_ms": waits, "capture_s": capture_s,
+                "losses": loss_t.tolist(), "eval": result,
+                "writer_s": write_s, "vocab_s": vocab_s,
+                "tokenize_s": tokenize_s, "run_s": run_s}
+            if rec is not None:
+                cls = goodput_check("data_bert_large (captured)", rec.records)
+                obs.disable()
+                metrics["goodput"] = cls
+                # After evaluate and the span records: DATA_PROFILE_STEPS
+                # more captured steps under fit(profile_dir=).
+                feed = prefetch_to_device(
+                    train_conv.make_batch_iterator(b, epochs=None,
+                                                   shuffle=True, seed=1),
+                    transform=normalize_sst2_batch, assembly_workers=2)
+                state, _, info = fit(run_step, state, feed, 1,
+                                     num_steps=DATA_PROFILE_STEPS,
+                                     profile_dir=os.path.join(root, "prof"),
+                                     profile_window=(0, DATA_PROFILE_STEPS))
+                feed.close()
+                metrics["profile"] = print_trace_summary(
+                    "data_bert_large", info["profile_trace"],
+                    DATA_PROFILE_STEPS, step_s)
+            runs[capture] = (launches, snapshot, metrics)
+            del state, model, run_step, eval_step
+            gc.collect()
+            torch.cuda.empty_cache()
+        check_bitwise("data_bert_large", runs[False][1], runs[True][1])
+        launches, _, metrics = runs[True]
+        eager = runs[False][2]
+        diff = {k: abs(eager["eval"][k] - metrics["eval"][k])
+                for k in metrics["eval"]}
+        if not all(d <= EVAL_PAD_TOL for d in diff.values()):
+            fail(f"data_bert_large: captured evaluate {metrics['eval']} vs "
+                 f"eager {eager['eval']}")
+        metrics["eager"] = eager
+        metrics["launches_per_step"] = per_step
+        return launches, metrics
+    finally:
+        obs.disable()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def write_cifar_tarball(path, images, labels):
+    """A CIFAR-10 python archive holding one batch (test_batch): rows of
+    3072 uint8 in CHW plane order, as the distribution pickles them."""
+    import io
+    import pickle
+    import tarfile
+
+    blob = pickle.dumps({
+        b"batch_label": b"testing batch 1 of 1",
+        b"labels": [int(x) for x in labels],
+        b"data": images.transpose(0, 3, 1, 2).reshape(len(images), 3072),
+        b"filenames": [f"{i}.png".encode() for i in range(len(images))]})
+    with tarfile.open(path, "w:gz") as tf:
+        info = tarfile.TarInfo("cifar-10-batches-py/test_batch")
+        info.size = len(blob)
+        tf.addfile(info, io.BytesIO(blob))
+
+
+def data_cifar_resnet18_phase(torch, card):
+    """configs[0] (cifar10_resnet18) as ``train_cifar10.py --materialize``
+    runs it, through the port's data layer: materialize_cifar10_like
+    writes CIFAR_ROWS rows (CIFAR-10's train split) as Parquet;
+    ingest_cifar10 reads a CIFAR-format tarball of one CIFAR_TEST_ROWS
+    batch that this phase writes (test_batch); the converter feeds the
+    train rows, shuffled, through prefetch_to_device with a host
+    transform of BatchAugmenter (pad 4, crop 32, flip, uint8, a seed a
+    batch) and wire_cifar_batch, and device_normalize_cifar runs in the
+    step. ResNet-18 (CIFAR stem) trains at 256 x 32², SGD, eagerly and
+    then captured from the same seeded weights: W warm-up steps and
+    CIFAR_STEPS timed ones (exact launches: one cross-entropy each way a
+    step), losses finite, running statistics moved and finite, the runs
+    equal bit for bit. Then evaluate over the ingested batch, eager
+    against captured within EVAL_PAD_TOL; and the captured step runs
+    CIFAR_PROFILE_STEPS more under fit(profile_dir=), whose Chrome trace
+    summarize_trace reads back."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tpudl_torch.config import get_config
+    from tpudl_torch.data.augment import BatchAugmenter
+    from tpudl_torch.data.datasets import (
+        device_normalize_cifar,
+        eval_stream,
+        materialize_cifar10_like,
+        normalize_cifar_batch,
+        wire_cifar_batch,
+    )
+    from tpudl_torch.data.ingest import ingest_cifar10
+    from tpudl_torch.data.prefetch import prefetch_to_device
+    from tpudl_torch.models.registry import build_model
+    from tpudl_torch.train import (
+        compile_step,
+        create_train_state,
+        evaluate,
+        fit,
+        make_classification_eval_step,
+        make_classification_train_step,
+        make_optimizer,
+    )
+    from tpudl_torch.train.metrics import Throughput
+
+    cfg = get_config("cifar10_resnet18")
+    b, size = cfg.global_batch_size, cfg.image_size
+    root = tempfile.mkdtemp(prefix="tpudl_data_cifar_")
+    try:
+        t0 = time.perf_counter()
+        train_conv = materialize_cifar10_like(os.path.join(root, "train"),
+                                              num_rows=CIFAR_ROWS,
+                                              seed=cfg.seed)
+        write_s = time.perf_counter() - t0
+        rng = np.random.default_rng(cfg.seed + 1)
+        test_images = rng.integers(0, 256, (CIFAR_TEST_ROWS, size, size, 3),
+                                   dtype=np.uint8)
+        test_labels = rng.integers(0, cfg.num_classes, CIFAR_TEST_ROWS)
+        tar = os.path.join(root, "cifar-10-python.tar.gz")
+        write_cifar_tarball(tar, test_images, test_labels)
+        t0 = time.perf_counter()
+        test_conv = ingest_cifar10(tar, os.path.join(root, "test"),
+                                   split="test")
+        ingest_s = time.perf_counter() - t0
+        (back,) = test_conv.make_batch_iterator(CIFAR_TEST_ROWS)
+        if not (np.array_equal(back["image"], test_images)
+                and np.array_equal(back["label"], test_labels)):
+            fail("data_cifar_resnet18: the ingested test batch is not the "
+                 "tarball's images and labels")
+        sample = wire_cifar_batch({"image": test_images[:64],
+                                   "label": test_labels[:64]})
+        norm = device_normalize_cifar()
+        on_card = norm({"image": torch.as_tensor(sample["image"],
+                                                 device="cuda")})["image"]
+        host = normalize_cifar_batch(sample)["image"]
+        norm_err = float(np.abs(on_card.cpu().numpy() - host).max())
+        if not norm_err <= AUGMENT_TOL:
+            fail(f"data_cifar_resnet18: device_normalize_cifar vs the host "
+                 f"normalization {norm_err} (tol {AUGMENT_TOL})")
+        print(f"data_cifar_resnet18: materialize_cifar10_like {CIFAR_ROWS} "
+              f"rows in {write_s:.2f} s ({len(train_conv.files)} files); "
+              f"ingest_cifar10 of a {CIFAR_TEST_ROWS}-row test_batch tarball "
+              f"in {ingest_s:.2f} s, read back equal; device_normalize_cifar "
+              f"vs host {norm_err:.1e}")
+
+        def augment(batch):
+            seed = int(batch.pop("seed"))
+            return wire_cifar_batch(BatchAugmenter(
+                crop=(size, size), pad=4, seed=seed, normalize=False,
+                backend="native")(batch))
+
+        def feed():
+            raw = train_conv.make_batch_iterator(b, epochs=None, shuffle=True,
+                                                 seed=cfg.seed)
+            return prefetch_to_device(
+                ({**batch, "seed": cfg.seed + i}
+                 for i, batch in enumerate(raw)),
+                transform=augment, assembly_workers=4)
+
+        step = make_classification_train_step(
+            cfg.label_smoothing, input_transform=norm, loss_impl="auto")
+        per_step = resnet_counts(1)
+        w, n = CIFAR_WARMUP_STEPS, CIFAR_STEPS
+        runs = {}
+        for capture in (False, True):
+            way = "captured" if capture else "eager"
+            model = build_model(cfg.model, cfg.num_classes, small_inputs=True)
+            state = create_train_state(cfg.seed, model,
+                                       make_optimizer(cfg.optim))
+            n_params = sum(p.numel() for p in model.parameters())
+            run_step = compile_step(step, state) if capture else step
+            recorded = RecordedStep(run_step, Throughput(b, warmup=w))
+            batches = feed()
+            torch.cuda.reset_peak_memory_stats()
+            state, _, _ = fit(recorded, state, batches, 1, num_steps=w)
+            torch.cuda.synchronize()
+            stats0 = {k: v.clone() for k, v in state.batch_stats.items()}
+            reset_counts()
+            state, last, _ = fit(recorded, state, batches, 1, num_steps=n)
+            timed = recorded.meter.result(recorded.losses[-1])
+            launches = train_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            waits = [x * 1e3 for x in batches.waits[w:w + n]]
+            want = {k: per_step.get(k, 0) * n for k in launches}
+            if launches != want:
+                fail(f"data_cifar_resnet18 ({way}): kernel launches "
+                     f"{launches} != expected {want}")
+            loss_t = torch.stack(recorded.losses)
+            stats = state.batch_stats
+            still = [k for k in stats if torch.equal(stats[k], stats0[k])]
+            bad = [k for k in stats
+                   if not bool(torch.isfinite(stats[k]).all())]
+            if not bool(torch.isfinite(loss_t).all()) or still or bad:
+                fail(f"data_cifar_resnet18: losses {loss_t.tolist()}, "
+                     f"statistics that did not move {still[:3]} or are not "
+                     f"finite {bad[:3]}")
+            snapshot = run_snapshot(torch, recorded.losses, state)
+            step_s = timed["step_ms"] / 1e3
+            flops = 3.0 * model.forward_flops(size, size) * b
+            util = flops / step_s / BF16_OPS_PER_S
+            capture_s = getattr(run_step, "capture_s", None)
+            print(f"data_cifar_resnet18 metrics, {way} ({card}): ResNet-18 "
+                  f"(CIFAR stem, bf16), {n_params / 1e6:.2f} M parameters, "
+                  f"batch {b} at {size}x{size}: step {step_s * 1e3:.3f} ms, "
+                  f"{b / step_s:.1f} images/s, MFU {100 * util:.2f}% (3 x "
+                  f"the forward's FLOPs x {b} = {flops:.4e}), peak memory "
+                  f"{peak:.2f} GiB, data wait a step "
+                  f"{statistics.mean(waits):.3f} ms (max {max(waits):.3f}), "
+                  f"launches {launches}, losses "
+                  f"{', '.join(f'{x:.4f}' for x in loss_t.tolist())}"
+                  + ("" if capture_s is None
+                     else f", step captured in {capture_s:.3f} s"))
+            metrics = {"step_ms": step_s * 1e3, "images_per_s": b / step_s,
+                       "mfu": util, "peak_memory_gib": peak,
+                       "num_params": n_params, "batch": b, "steps": n,
+                       "data_wait_ms": waits, "capture_s": capture_s,
+                       "losses": loss_t.tolist(), "writer_s": write_s,
+                       "ingest_s": ingest_s}
+            eval_step = make_classification_eval_step(input_transform=norm,
+                                                      loss_impl="auto")
+            if capture:
+                eval_step = compile_step(eval_step, state, has_rng=False)
+            stream = eval_stream(test_conv, b, wire_cifar_batch)
+            n_eval = sum(1 for _ in stream())
+            reset_counts()
+            result = evaluate(eval_step, state, stream())
+            ev_launches = train_counts()
+            want = {k: n_eval if k == "xent_fwd" else 0 for k in ev_launches}
+            if ev_launches != want:
+                fail(f"data_cifar_resnet18 ({way}): evaluate launched "
+                     f"{ev_launches}, expected {want}")
+            print(f"data_cifar_resnet18 ({way}): evaluate over the ingested "
+                  f"batch ({n_eval} batches of {b}): loss "
+                  f"{result['loss']:.6f}, accuracy {result['accuracy']:.4f}")
+            metrics["eval"] = result
+            # After evaluate, so both runs evaluate the same weights.
+            if capture:
+                prof_dir = os.path.join(root, "profile")
+                state, _, info = fit(run_step, state, batches, 1,
+                                     num_steps=CIFAR_PROFILE_STEPS,
+                                     profile_dir=prof_dir,
+                                     profile_window=(0, CIFAR_PROFILE_STEPS))
+                metrics["profile"] = print_trace_summary(
+                    "data_cifar_resnet18", info["profile_trace"],
+                    CIFAR_PROFILE_STEPS, step_s)
+            batches.close()
+            runs[capture] = (launches, snapshot, metrics)
+            del state, model, run_step, eval_step
+            gc.collect()
+            torch.cuda.empty_cache()
+        check_bitwise("data_cifar_resnet18", runs[False][1], runs[True][1])
+        launches, _, metrics = runs[True]
+        eager = runs[False][2]
+        diff = {k: abs(eager["eval"][k] - metrics["eval"][k])
+                for k in metrics["eval"]}
+        if not all(d <= EVAL_PAD_TOL for d in diff.values()):
+            fail(f"data_cifar_resnet18: captured evaluate {metrics['eval']} "
+                 f"vs eager {eager['eval']}")
+        metrics["eager"] = eager
+        return launches, metrics
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def hopper_ptxas(text):
     """ptxas -v's figures for each bf16 attention kernel on TMA and wgmma
     (the forwards ``*_fwd_kernel``, the dQ launches ``flash_dq_tma_kernel``
@@ -7077,8 +7682,10 @@ def hopper_ptxas(text):
     the softmax_dropout kernels at Skv 128 (the BERT step's rows: L lanes
     a row, C runs a lane, R rows a pass), aligned path, one dtype in and
     out. And for the bf16 norm and SwiGLU forwards
-    on the main paths: the rows kernel of LayerNorm at H 768 (3 vectors
-    a lane, with and without the residual), the wide kernel of RMSNorm
+    on the main paths: the rows kernel of LayerNorm at H 768 and 1024 (3
+    and 4 vectors a lane, with and without the residual; in f32 at H
+    1024, 8), the norm backward's LayerNorm instantiations, the wide
+    kernel of RMSNorm
     at H 4096 (2 vectors a thread, plain and residual+sum), and SwiGLU's
     1 and 2 vectors a thread."""
     out, current = [], None
@@ -7107,6 +7714,24 @@ def hopper_ptxas(text):
             key = (m.group(1), kind, variant, m.group(5))
             current = (f"{m.group(1)}<bf16, {kind}, {variant}, {m.group(5)} vectors a "
                        f"thread>" if key in MAIN_PATH_NORM_KERNELS else None)
+            continue
+        # BERT-large's width, H 1024: the LayerNorm rows kernel at 4
+        # vectors a lane in bf16 and 8 in f32, and the norm backward's
+        # LayerNorm instantiations.
+        m = re.search(r"Compiling entry function '[^']*?(norm_fwd_rows_kernel)"
+                      r"IfLi1ELb([01])ELb([01])ELi8E", line)
+        if m:
+            variant = {("0", "0"): "plain", ("1", "0"): "residual",
+                       ("1", "1"): "residual+sum"}[(m.group(2), m.group(3))]
+            current = (f"{m.group(1)}<f32, LayerNorm, {variant}, 8 vectors a "
+                       f"thread>" if variant != "residual+sum" else None)
+            continue
+        m = re.search(r"Compiling entry function '[^']*?(norm_bwd_kernel)"
+                      r"I(13__nv_bfloat16|f)Li1ELi(\d)ELi(\d)E", line)
+        if m:
+            dtype = "f32" if m.group(2) == "f" else "bf16"
+            current = (f"{m.group(1)}<{dtype}, LayerNorm, {m.group(3)} values "
+                       f"a chunk, K {m.group(4)}>")
             continue
         m = re.search(r"Compiling entry function '[^']*?(swiglu_fwd_kernel)"
                       r"I13__nv_bfloat16Li(\d)E", line)
@@ -7188,7 +7813,7 @@ def main() -> int:
     gen_metrics = generate_chunked_phase(torch, model, params, card)
     mark("tenant_slice, tenant_parity")
     export_serving = export_llama_serving_phase(torch, model, params, card,
-                                                requests, results, metrics)
+                                                requests)
     mark("generate_chunked, export_llama_serving")
     quant_sessions, quant_metrics = quant_slice_phase(
         torch, model, params, card, metrics, requests)
@@ -7252,6 +7877,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mark("resnet50_train, resnet_parity, export_resnet50")
+    large_launches, data_large = data_bert_large_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cifar_launches, data_cifar = data_cifar_resnet18_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("data_bert_large, data_cifar_resnet18")
     ft_bert = ft_bert_phase(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7434,6 +8066,16 @@ def main() -> int:
                 "launches_per_step_resnet50_train":
                     resnet_counts(8)[name]}
                if name in ("xent_fwd", "xent_bwd") else {}),
+            # The data layer's BERT-large run (bert_large_v4_32): its
+            # captured run's launches and launches a step.
+            **({"launches_data_bert_large": large_launches[name],
+                "launches_per_step_data_bert_large":
+                    data_large["launches_per_step"][name]}
+               if data_large["launches_per_step"].get(name) else {}),
+            **({"launches_data_cifar_resnet18": cifar_launches[name],
+                "launches_per_step_data_cifar_resnet18":
+                    resnet_counts(1)[name]}
+               if name in ("xent_fwd", "xent_bwd") else {}),
             # softmax_dropout: the plain softmax in f32 beside library_ms
             # (the same in the logits' dtype).
             **({"library_f32_ms": head["library_f32_ms"]}
@@ -7462,6 +8104,8 @@ def main() -> int:
                       "quant_kv8_slice": kv8_metrics,
                       "export_quant": export_quant,
                       "bert_quant_eval": bert_quant, "moe_train": moe,
+                      "data_bert_large": data_large,
+                      "data_cifar_resnet18": data_cifar,
                       "launch_floor": floor, "pdl_chain": chain,
                       "card": card}))
     print(json.dumps({"kernels": kernels}))

@@ -39,6 +39,15 @@ _QUANT_MODULES = ("tpudl_torch.quant", "tpudl_torch.quant.quantize",
                   "tpudl_torch.ops.moe")
 
 
+#: The data layer and the run's logs, goodput and profile (ROADMAP queue
+#: A item 13, and item 10's train-side observability).
+_DATA_MODULES = ("tpudl_torch.data", "tpudl_torch.data.converter",
+                 "tpudl_torch.data.tokenizer", "tpudl_torch.data.bpe",
+                 "tpudl_torch.data.datasets", "tpudl_torch.data.ingest",
+                 "tpudl_torch.train.logging", "tpudl_torch.train.profiling",
+                 "tpudl_torch.obs.goodput")
+
+
 def _modules():
     return sorted(
         m.name for m in pkgutil.walk_packages([PACKAGE], prefix="tpudl_torch.")
@@ -56,7 +65,7 @@ def test_every_module_imports_without_jax_flax_or_tpudl():
                  "tpudl_torch.export", "tpudl_torch.export.export",
                  "tpudl_torch.export.parity", "tpudl_torch.export.latency",
                  "tpudl_torch.export.decode", *_FT_MODULES,
-                 *_PRECISION_MODULES, *_QUANT_MODULES):
+                 *_PRECISION_MODULES, *_QUANT_MODULES, *_DATA_MODULES):
         assert name in names
     code = (
         "import importlib, sys\n"
@@ -91,6 +100,29 @@ def test_checkpoint_and_ft_import_without_ml_dtypes():
         "bad = sorted(m for m, v in sys.modules.items() if v is not None "
         "and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpudl', "
         "'ml_dtypes'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_data_converter_imports_alone_without_jax():
+    """The converter, on its own in a fresh interpreter, loads none of
+    jax, flax or tpudl, and reads back the Parquet it writes."""
+    code = (
+        "import sys, tempfile\n"
+        "import numpy as np\n"
+        "from tpudl_torch.data.converter import make_converter, "
+        "write_parquet\n"
+        "d = tempfile.mkdtemp()\n"
+        "write_parquet(d, {'x': np.arange(12).reshape(4, 3)})\n"
+        "(b,) = make_converter(d).make_batch_iterator(4)\n"
+        "assert b['x'].shape == (4, 3)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'tpudl'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -437,6 +437,90 @@ def test_bias_gelu_kernels_match_plain(dev, dtype, shape):
     torch.testing.assert_close(db, rdb, rtol=1e-4, atol=1e-4)
 
 
+# BERT-large's widths (configs[3], a microbatch of 64 x 128 = 8192
+# rows): H 1024 is the rows kernel's last width in bf16 (128 vectors a
+# row, VPL 4) and takes VPL 8 in f32; the MLP's F is 4096.
+BERT_LARGE_ROWS, BERT_LARGE_H, BERT_LARGE_F = 8192, 1024, 4096
+
+
+@pytest.mark.parametrize("kind", ["layer", "rms"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True])
+def test_norm_kernels_at_bert_large_width(dev, kind, dtype, residual):
+    """The norm forward and backward at [8192, 1024] against their plain
+    twins, each run twice for the bits."""
+    n, h = BERT_LARGE_ROWS, BERT_LARGE_H
+    rng = np.random.default_rng(1024)
+    x, r = _norm_inputs(rng, n, h, dtype, dev,
+                        "residual" if residual else "plain", shift=0.5)
+    scale = _t(rng, (h,), torch.float32, dev)
+    bias = _t(rng, (h,), torch.float32, dev)
+    fn, ref = ((layer_norm, layer_norm_ref) if kind == "layer"
+               else (rms_norm, rms_norm_ref))
+    args = (x, scale, bias) if kind == "layer" else (x, scale)
+    eps = 1e-12 if kind == "layer" else 1e-6
+    before = fn.launches
+    out = fn(*args, r, eps=eps, impl="fused")
+    again = fn(*args, r, eps=eps, impl="fused")
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    want = ref(*args, r, eps=eps)
+    got, want = (out, want) if r is None else (out[0], want[0])
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    if r is not None:
+        torch.testing.assert_close(out[1].float(), ref(*args, r, eps=eps)[1]
+                                   .float(), rtol=TOL[dtype], atol=TOL[dtype])
+        assert torch.equal(out[1], again[1])
+        again = again[0]
+    assert torch.equal(got, again)
+
+    x, r, scale, g, gs, mean, rstd = _bwd_case(dev, kind, dtype, n, h,
+                                               residual, False, seed=h)
+    before = norm_bwd.launches
+    a = norm_bwd(x, scale, r, mean, rstd, g, gs, kind=kind, impl="fused")
+    b = norm_bwd(x, scale, r, mean, rstd, g, gs, kind=kind, impl="fused")
+    torch.cuda.synchronize()
+    assert norm_bwd.launches == before + 2
+    rdx, rdscale, rdbias = norm_bwd_ref(x, scale, r, mean, rstd, g, gs,
+                                        kind=kind)
+    tol = BWD_TOL[dtype]
+    torch.testing.assert_close(a[0].float(), rdx.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(a[1], rdscale, rtol=1e-4, atol=1e-4)
+    if kind == "layer":
+        torch.testing.assert_close(a[2], rdbias, rtol=1e-4, atol=1e-4)
+    for u, v in zip(a, b):
+        if u is not None:
+            assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_gelu_kernels_at_bert_large_width(dev, dtype):
+    """bias + GELU forward and backward at [8192, 4096] against the plain
+    twins, each run twice for the bits."""
+    rng = np.random.default_rng(BERT_LARGE_F)
+    shape = (BERT_LARGE_ROWS, BERT_LARGE_F)
+    x = _t(rng, shape, dtype, dev) * 2
+    b = _t(rng, shape[-1:], torch.float32, dev)
+    g = _t(rng, shape, dtype, dev)
+    before = (bias_gelu.launches, bias_gelu_bwd.launches)
+    y, y2 = (bias_gelu(x, b, impl="fused") for _ in range(2))
+    (dx, db), (dx2, db2) = (bias_gelu_bwd(x, b, g, impl="fused")
+                            for _ in range(2))
+    torch.cuda.synchronize()
+    assert (bias_gelu.launches, bias_gelu_bwd.launches) == (before[0] + 2,
+                                                            before[1] + 2)
+    rtol, atol = BG_TOL[dtype]
+    torch.testing.assert_close(y.float(), bias_gelu_ref(x, b).float(),
+                               rtol=rtol, atol=atol)
+    rdx, rdb = bias_gelu_bwd_ref(x, b, g)
+    tol = BWD_TOL[dtype]
+    torch.testing.assert_close(dx.float(), rdx.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(db, rdb, rtol=1e-4, atol=1e-4)
+    assert torch.equal(y, y2) and torch.equal(dx, dx2)
+    assert torch.equal(db, db2)
+
+
 def test_bias_gelu_kernels_unaligned_pointer_and_refusals(dev):
     rng = np.random.default_rng(7)
     flat = _t(rng, (1 + 40 * 64,), torch.float32, dev)

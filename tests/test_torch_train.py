@@ -277,9 +277,9 @@ def test_fit_and_step_refuse_what_is_not_ported():
     state, _, info = fit(step, state, batches, 0, num_steps=2,
                          steps_per_dispatch=1, async_metrics=False)
     assert info["steps"] == 2
-    # Checkpointing and preemption are ported (tests/test_torch_ft.py).
-    for kw, item in ((dict(profile_dir="/nonexistent"), "item 10"),
-                     (dict(steps_per_dispatch=8), "item 10"),
+    # Checkpointing and preemption are ported (tests/test_torch_ft.py),
+    # and so is the profiler window (tests/test_torch_run_obs.py).
+    for kw, item in ((dict(steps_per_dispatch=8), "item 10"),
                      (dict(async_metrics=True), "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             fit(step, state, batches, 0, **kw)

@@ -23,6 +23,8 @@ _FLAG_TRUTHY = ("1", "true", "yes", "on")
 KNOBS: Dict[str, str] = {
     "TPUDL_OBS_DIR": "Span/counter JSONL output directory; set = recording on.",
     "TPUDL_OBS_HIST_WINDOW": "Histogram rolling-window size.",
+    "TPUDL_PROFILE_DIR": "fit() writes a torch.profiler Chrome trace of its "
+                         "profile_window steps here (same as profile_dir=).",
     "TPUDL_PROCESS_ID": "Process index tag on span records.",
     "TPUDL_SERVE_SLOTS": "Default slot count for ServeSession.from_model.",
     "TPUDL_SERVE_QUEUE_DEPTH": "Admission queue capacity.",

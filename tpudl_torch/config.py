@@ -1,12 +1,14 @@
 """Workload configurations: the port's counterpart of tpudl.config.
 
 A copy of what the ported training paths need: ``OptimConfig``,
-``TrainConfig`` and the entries of BASELINE.json ``configs[0]``
+``TrainConfig`` and the five entries of BASELINE.json: ``configs[0]``
 (``cifar10_resnet18``), ``configs[1]`` (``sst2_bert_base``),
-``configs[2]`` (``imagenet_resnet50_dp``) and ``configs[4]``
-(``llama3_8b_lora``). tpudl's ``mesh`` and ``strategy`` fields wait for
-the launcher and sharding port (ROADMAP queue A item 7), and its
-``bert_large_v4_32`` entry (``configs[3]``, an FSDP mesh) with them.
+``configs[2]`` (``imagenet_resnet50_dp``), ``configs[3]``
+(``bert_large_v4_32``) and ``configs[4]`` (``llama3_8b_lora``). Each
+equals tpudl's field for field but for tpudl's ``mesh`` and
+``strategy``, which wait for the launcher and sharding port (ROADMAP
+queue A item 7): the port runs each on one card, at its declared global
+batch (accumulated where tpudl accumulates).
 """
 
 from __future__ import annotations
@@ -93,6 +95,23 @@ CONFIGS = {
         num_steps=56300,
         label_smoothing=0.1,
         accum_steps=8,
+    ),
+    # configs[3]: BERT-large fine-tune (tpudl's mesh (dp, fsdp 4) and
+    # strategy "fsdp" wait for the launcher port): global batch 256 as 4
+    # microbatches of 64, bf16 first moments. On one card that is ~335 M
+    # parameters: f32 params and grads, bf16 mu and f32 nu, ~4.7 GB.
+    "bert_large_v4_32": TrainConfig(
+        name="bert_large_v4_32",
+        model="bert-large",
+        dataset="sst2",
+        global_batch_size=256,
+        seq_len=128,
+        num_classes=2,
+        optim=OptimConfig(name="adamw", learning_rate=3e-5, warmup_steps=200,
+                          mu_dtype="bfloat16",
+                          total_steps=5000, weight_decay=0.01),
+        num_steps=5000,
+        accum_steps=4,
     ),
     # configs[4]: Llama-3-8B LoRA fine-tune (tpudl's mesh (dp, fsdp 8,
     # tp 2) and strategy "lora" wait for the launcher port).

@@ -1,0 +1,426 @@
+"""Petastorm-style Parquet converter: the port's copy of tpudl.data.converter.
+
+The converter contract over plain Parquet via pyarrow: epoch iteration,
+batch assembly, shard-by-process, shuffle. Its files are tpudl's: both
+packages write fixed-shape arrays as FixedSizeList columns with the
+per-row shape in the field metadata (key b"shape"), so each reads the
+other's datasets.
+
+Semantics mirrored from the Petastorm converter:
+- a converter wraps a materialized dataset (Parquet dir) and yields
+  epoch-bounded batch iterators;
+- every process reads only its shard. The default shard is this
+  process's ``torch.distributed`` rank over the world size when a
+  process group is initialised, and shard 0 of 1 otherwise (tpudl takes
+  ``jax.process_index()`` over ``jax.process_count()``);
+- batches are dicts of stacked numpy arrays. Nothing here touches torch
+  tensors or the card: the reader pool's threads stay off CUDA, so they
+  may run while a step is being captured as a CUDA graph.
+
+The shuffle draws from ``np.random.default_rng(seed + epoch)``, so both
+packages yield the same batches in the same order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import threading
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+
+try:
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    HAVE_PYARROW = True
+except ImportError:  # pragma: no cover
+    HAVE_PYARROW = False
+
+
+def process_topology() -> tuple:
+    """``(rank, world size)`` of this process: ``torch.distributed``'s
+    when a process group is initialised, ``(0, 1)`` otherwise (tpudl's
+    ``jax.process_index()`` / ``jax.process_count()``)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+# ---------------------------------------------------------------------------
+# Writing (test/example fixture generation; the "Delta table" stand-in).
+# ---------------------------------------------------------------------------
+
+
+def write_parquet(
+    directory: str,
+    columns: Dict[str, np.ndarray],
+    rows_per_file: int = 4096,
+    row_group_size: Optional[int] = None,
+    part_offset: int = 0,
+) -> List[str]:
+    """Write a dict of equal-length arrays as a multi-file Parquet dataset.
+
+    Multi-dim arrays become FixedSizeList columns with their per-row shape
+    stored in field metadata, so readers can restore the tensors.
+    ``row_group_size`` bounds rows per Parquet row group (the converter's
+    streaming granularity — smaller groups cap reader memory on wide
+    rows); default is one group per file. ``part_offset`` shifts the
+    part-file numbering so incremental writers (e.g.
+    tpudl_torch.data.datasets.tokenize_text_dataset) can append chunks to one
+    dataset directory across calls without filename collisions.
+    """
+    if not HAVE_PYARROW:
+        raise RuntimeError("pyarrow is required for the Parquet data layer")
+    os.makedirs(directory, exist_ok=True)
+    n = None
+    for name, arr in columns.items():
+        if n is None:
+            n = len(arr)
+        elif len(arr) != n:
+            raise ValueError(f"column {name} length {len(arr)} != {n}")
+    assert n is not None
+
+    fields = []
+    flat_cols = {}
+    for name, arr in columns.items():
+        arr = np.asarray(arr)
+        if arr.ndim == 1:
+            pa_arr = pa.array(arr)
+            fields.append(pa.field(name, pa_arr.type))
+            flat_cols[name] = pa_arr
+        else:
+            row_shape = arr.shape[1:]
+            size = int(np.prod(row_shape))
+            flat = arr.reshape(len(arr), size)
+            pa_arr = pa.FixedSizeListArray.from_arrays(
+                pa.array(flat.ravel()), size
+            )
+            meta = {b"shape": json.dumps(list(row_shape)).encode()}
+            fields.append(pa.field(name, pa_arr.type, metadata=meta))
+            flat_cols[name] = pa_arr
+
+    schema = pa.schema(fields)
+    table = pa.Table.from_arrays([flat_cols[f.name] for f in fields], schema=schema)
+    paths = []
+    for i, start in enumerate(range(0, n, rows_per_file)):
+        chunk = table.slice(start, rows_per_file)
+        path = os.path.join(directory, f"part-{part_offset + i:05d}.parquet")
+        pq.write_table(chunk, path, row_group_size=row_group_size)
+        paths.append(path)
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# Reading.
+# ---------------------------------------------------------------------------
+
+
+def _decode_table(table) -> Dict[str, np.ndarray]:
+    """Arrow table -> dict of numpy arrays, restoring tensor shapes."""
+    out = {}
+    for i, name in enumerate(table.schema.names):
+        field = table.schema.field(i)
+        col = table.column(i)
+        if pa.types.is_fixed_size_list(field.type):
+            size = field.type.list_size
+            values = col.combine_chunks().values.to_numpy(zero_copy_only=False)
+            arr = values.reshape(len(table), size)
+            if field.metadata and b"shape" in field.metadata:
+                row_shape = json.loads(field.metadata[b"shape"].decode())
+                arr = arr.reshape(len(table), *row_shape)
+            out[name] = arr
+        else:
+            out[name] = col.to_numpy(zero_copy_only=False)
+    return out
+
+
+@dataclasses.dataclass
+class Converter:
+    """A Petastorm-`make_spark_converter`-style handle over a Parquet dir."""
+
+    files: List[str]
+    num_rows: int
+    #: Per-file row counts (same order as `files`); drives steps_per_epoch.
+    files_rows: Optional[List[int]] = None
+    #: Optional per-file [start, stop) row windows (same order as `files`).
+    #: None = whole file. Lets two converters over the SAME file expose
+    #: disjoint row subsets (split_train_eval's single-file auto-split).
+    row_ranges: Optional[List[Optional[tuple]]] = None
+
+    def __len__(self) -> int:
+        return self.num_rows
+
+    def _file_range(self, fi: int, file_rows: int) -> tuple:
+        if self.row_ranges is None or self.row_ranges[fi] is None:
+            return (0, file_rows)
+        lo, hi = self.row_ranges[fi]
+        return (max(0, lo), min(hi, file_rows))
+
+    def make_batch_iterator(
+        self,
+        batch_size: int,
+        epochs: Optional[int] = 1,
+        shuffle: bool = False,
+        seed: int = 0,
+        drop_last: bool = True,
+        shard_index: Optional[int] = None,
+        num_shards: Optional[int] = None,
+        columns: Optional[Sequence[str]] = None,
+        shuffle_buffer: int = 8192,
+        transform: Optional[Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]]] = None,
+        num_reader_threads: int = 4,
+    ) -> Iterator[Dict[str, np.ndarray]]:
+        """Yield batches for this process's shard.
+
+        epochs=None iterates forever. Rows are sharded round-robin by
+        index, so shards are disjoint; every shard is truncated to the
+        per-file minimum shard length, guaranteeing identical step counts
+        on every process (at most num_shards-1 rows per file are dropped).
+        Defaults come from the process topology (``process_topology``)
+        exactly like Petastorm's cur_shard/shard_count.
+
+        ``transform`` (e.g. tpudl_torch.data.augment.BatchAugmenter) is applied
+        to each assembled batch on the host, before device transfer.
+
+        ``num_reader_threads`` parallelizes Parquet row-group read+decode
+        (the Petastorm reader-pool analog): pyarrow releases the GIL, so
+        a small pool overlaps IO and decode while chunk ORDER is
+        preserved (a bounded window of in-flight futures) — iteration
+        order and sharding are bit-identical to the single-threaded path
+        at any thread count. 1 disables.
+        """
+        if shard_index is None or num_shards is None:
+            rank, world = process_topology()
+            shard_index = rank if shard_index is None else shard_index
+            num_shards = world if num_shards is None else num_shards
+        if not (0 <= shard_index < num_shards):
+            raise ValueError(f"shard_index {shard_index} not in [0, {num_shards})")
+
+        epoch = 0
+        while epochs is None or epoch < epochs:
+            rng = np.random.default_rng(seed + epoch) if shuffle else None
+            batches = self._epoch_batches(
+                batch_size,
+                rng,
+                shard_index,
+                num_shards,
+                drop_last,
+                columns,
+                shuffle_buffer,
+                num_reader_threads,
+            )
+            if transform is not None:
+                batches = map(transform, batches)
+            yield from batches
+            epoch += 1
+
+    def _decoded_groups(self, path, rgs, cols, workers, pf=None):
+        """Read+decode the given row groups of one file, in order.
+
+        workers > 1 keeps a bounded window of futures in flight; each
+        WORKER holds one thread-local ParquetFile handle (pq handles
+        aren't guaranteed thread-safe, and re-opening per group would
+        re-parse the footer — which scales with row-group count — once
+        per 32-row group on the ImageNet layout this path exists for).
+        Results stream back in submission order, so downstream
+        sharding/shuffle see the exact single-threaded sequence.
+        """
+        if workers <= 1 or len(rgs) <= 1:
+            if pf is None:
+                pf = pq.ParquetFile(path)
+            for rg in rgs:
+                yield _decode_table(pf.read_row_group(rg, columns=cols))
+            return
+
+        import collections
+        import itertools
+        from concurrent.futures import ThreadPoolExecutor
+
+        local = threading.local()
+
+        def task(rg):
+            handle = getattr(local, "pf", None)
+            if handle is None:
+                handle = local.pf = pq.ParquetFile(path)
+            return _decode_table(handle.read_row_group(rg, columns=cols))
+
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            it = iter(rgs)
+            futs: "collections.deque" = collections.deque()
+            for rg in itertools.islice(it, workers + 2):
+                futs.append(ex.submit(task, rg))
+            while futs:
+                chunk = futs.popleft().result()
+                nxt = next(it, None)
+                if nxt is not None:
+                    futs.append(ex.submit(task, nxt))
+                yield chunk
+
+    def _shard_chunks(self, rng, shard_index, num_shards, columns,
+                      num_reader_threads=1):
+        """Stream this shard's rows file-by-file, row group by row group
+        (never a whole file in memory — ImageNet-scale shards stay bounded
+        by the Parquet row-group size).
+
+        Round-robin row sharding within each file keeps shards disjoint;
+        every shard is truncated to the per-file minimum shard length
+        (n // num_shards), so all processes see identical batch counts —
+        a process with one extra row would otherwise hang its peers inside
+        the collectives of the final step.
+        """
+        file_order = list(range(len(self.files)))
+        if rng is not None:
+            rng.shuffle(file_order)
+        cols = list(columns) if columns else None
+        for fi in file_order:
+            pf = pq.ParquetFile(self.files[fi])
+            lo, hi = self._file_range(fi, pf.metadata.num_rows)
+            quota = (hi - lo) // num_shards  # equal across shards
+            taken = 0
+            # Plan the row groups first (metadata only): groups fully
+            # outside the row window never pay a Parquet read (the
+            # holdout of a single-file split would otherwise decode ~the
+            # whole file per epoch); the rest stream through the decode
+            # pool in order.
+            group_sizes = [
+                pf.metadata.row_group(rg).num_rows
+                for rg in range(pf.metadata.num_row_groups)
+            ]
+            offsets = np.concatenate([[0], np.cumsum(group_sizes)])
+            wanted = [
+                (rg, int(offsets[rg]))
+                for rg, m in enumerate(group_sizes)
+                if not (offsets[rg] + m <= lo or offsets[rg] >= hi)
+            ]
+            chunks = self._decoded_groups(
+                self.files[fi], [rg for rg, _ in wanted], cols,
+                num_reader_threads, pf=pf,
+            )
+            for (rg, offset), data in zip(wanted, chunks):
+                m = group_sizes[rg]
+                # Global in-file positions of this group's rows; keep only
+                # the converter's row window, then round-robin WITHIN the
+                # window so two converters over disjoint windows of the
+                # same file stay disjoint per shard.
+                pos = offset + np.arange(m)
+                local = np.arange(m)[(pos >= lo) & (pos < hi)]
+                sel = local[(offset + local - lo) % num_shards == shard_index]
+                if taken + len(sel) > quota:
+                    sel = sel[: quota - taken]
+                taken += len(sel)
+                if len(sel):
+                    yield {k: v[sel] for k, v in data.items()}
+
+    def _epoch_batches(
+        self,
+        batch_size,
+        rng,
+        shard_index,
+        num_shards,
+        drop_last,
+        columns,
+        shuffle_buffer,
+        num_reader_threads=1,
+    ):
+        """Assemble batches from the chunk stream. With shuffle on, rows
+        pool into a `shuffle_buffer`-row buffer that is permuted before
+        batches are cut — randomization spans row groups and files (a
+        sorted/clustered Parquet layout would otherwise yield
+        near-homogeneous batches), with memory bounded by the buffer.
+
+        Chunks accumulate in a LIST and concatenate once per drain:
+        growing one pool array per chunk would be O(n^2) memcpy — at
+        ImageNet scale (1.2 GB pool, 32-row groups) that measured 115 s
+        before the FIRST batch; this path is ~2 s."""
+        chunks: list = []
+        n_pooled = 0
+
+        def drain(chunks, final):
+            pool = {
+                k: np.concatenate([c[k] for c in chunks])
+                if len(chunks) > 1
+                else chunks[0][k]
+                for k in chunks[0]
+            }
+            n_rows = len(next(iter(pool.values())))
+            if rng is not None:
+                perm = rng.permutation(n_rows)
+                pool = {k: v[perm] for k, v in pool.items()}
+            full = (n_rows // batch_size) * batch_size
+            batches = [
+                {k: v[start : start + batch_size] for k, v in pool.items()}
+                for start in range(0, full, batch_size)
+            ]
+            rest = (
+                {k: v[full:] for k, v in pool.items()} if full < n_rows else None
+            )
+            if final and rest is not None and not drop_last:
+                batches.append(rest)
+                rest = None
+            return batches, rest
+
+        for chunk in self._shard_chunks(
+            rng, shard_index, num_shards, columns, num_reader_threads
+        ):
+            chunks.append(chunk)
+            n_pooled += len(next(iter(chunk.values())))
+            if rng is not None and n_pooled < shuffle_buffer:
+                continue  # keep pooling for shuffle quality
+            if n_pooled >= batch_size:
+                batches, rest = drain(chunks, final=False)
+                chunks = [rest] if rest is not None else []
+                n_pooled = (
+                    len(next(iter(rest.values()))) if rest is not None else 0
+                )
+                yield from batches
+        if chunks:
+            batches, _ = drain(chunks, final=True)
+            yield from batches
+
+    def steps_per_epoch(self, batch_size: int, num_shards: Optional[int] = None) -> int:
+        """Exact per-process batch count of one drop_last epoch: the sum of
+        per-file truncated shard lengths, floor-divided by batch size (the
+        carry crosses file boundaries, so no per-file flooring)."""
+        if num_shards is None:
+            num_shards = process_topology()[1]
+        rows = self.files_rows
+        if rows is None:
+            rows = [pq.ParquetFile(f).metadata.num_rows for f in self.files]
+        windowed = [
+            self._file_range(fi, n)[1] - self._file_range(fi, n)[0]
+            for fi, n in enumerate(rows)
+        ]
+        return sum(n // num_shards for n in windowed) // batch_size
+
+
+def make_converter(source: str | Sequence[str]) -> Converter:
+    """Build a Converter from a Parquet directory or explicit file list
+    (the make_spark_converter analog; the "Delta table" is the Parquet dir)."""
+    if not HAVE_PYARROW:
+        raise RuntimeError("pyarrow is required for the Parquet data layer")
+    if isinstance(source, str):
+        if os.path.isdir(source):
+            files = sorted(
+                os.path.join(source, f)
+                for f in os.listdir(source)
+                if f.endswith(".parquet")
+            )
+        elif os.path.isfile(source):
+            files = [source]
+        else:
+            raise FileNotFoundError(
+                f"{source!r} is neither a Parquet directory nor a file"
+            )
+    else:
+        files = list(source)
+    if not files:
+        raise ValueError(f"no parquet files found in {source!r}")
+    files_rows = [pq.ParquetFile(f).metadata.num_rows for f in files]
+    return Converter(
+        files=files, num_rows=sum(files_rows), files_rows=files_rows
+    )

@@ -1,6 +1,7 @@
-"""Observability for the port: spans and counters, copied from
-tpudl.obs (stdlib only). The exporter, SLO monitor, request log and
-metering plane are not ported yet (ROADMAP queue A)."""
+"""Observability for the port: spans, counters and the goodput report,
+copied from tpudl.obs (stdlib only). The exporter, SLO monitor, request
+log, metering plane and the report and fleet views are not ported yet
+(ROADMAP queue A)."""
 
 from tpudl_torch.obs.counters import (  # noqa: F401
     Counter,
@@ -9,6 +10,11 @@ from tpudl_torch.obs.counters import (  # noqa: F401
     Registry,
     percentile,
     registry,
+)
+from tpudl_torch.obs.goodput import (  # noqa: F401
+    classify,
+    classify_by_process,
+    format_goodput,
 )
 from tpudl_torch.obs.spans import (  # noqa: F401
     SpanRecorder,

@@ -1,0 +1,199 @@
+"""Goodput accounting: classify run wall-clock into productive vs. lost.
+
+The port's copy of tpudl.obs.goodput, over the port's span records
+(tpudl_torch.obs.spans, the same schema as tpudl's). "Goodput" is the
+fraction of wall-clock a run spent doing productive training steps.
+Everything else is attributed loss: compile (on the card, a compiled
+step's eager warm-up and its CUDA-graph capture), data stalls, metric
+waits, checkpointing, recovery, and idle (wall-clock no instrumented
+span covers — host-side Python, restarts, anything unaccounted).
+
+Within one process the instrumented categories are sequential by
+construction (fit's loop waits on data, then steps; the synchronous
+part of a checkpoint save happens between steps), so seconds per
+category sum without overlap bookkeeping; ``idle`` is clamped at zero
+to stay robust if a custom instrumentation site violates that.
+
+Multi-process runs classify per (host, process) and aggregate by
+summing: total goodput = all productive seconds / all wall seconds, so
+a straggler host drags the aggregate exactly as it drags the run."""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Optional, Tuple
+
+from tpudl_torch.obs.spans import (
+    CAT_CHECKPOINT,
+    CAT_CKPT_BG,
+    CAT_COMPILE,
+    CAT_DATA_WAIT,
+    CAT_ENCLOSING,
+    CAT_EVAL,
+    CAT_METRIC_WAIT,
+    CAT_RECOVERY,
+    CAT_STEP,
+)
+
+#: Categories with a dedicated column in the classification (anything
+#: else lands in "other_s").
+GOODPUT_CATEGORIES = (
+    CAT_STEP, CAT_EVAL, CAT_COMPILE, CAT_DATA_WAIT, CAT_METRIC_WAIT,
+    CAT_CHECKPOINT, CAT_RECOVERY,
+)
+
+#: Lifetime spans that ENCLOSE categorized spans on the same clock
+#: (a distributor worker_run), plus deliberately-OVERLAPPED work (the
+#: async checkpoint writer runs concurrently with train steps): they
+#: extend the run window but are never accounted time — summing them
+#: would double-count their interior and wipe out idle.
+_WINDOW_ONLY_CATS = (CAT_ENCLOSING, CAT_CKPT_BG)
+
+
+def process_key(record: dict) -> tuple:
+    """Grouping identity of the RECORDING process: (host, process-index,
+    OS pid). The pid matters — a distributor parent and its rank-0
+    worker share host and process index 0 but run unrelated monotonic
+    clocks, so lumping them together would compute wall-clock across
+    incomparable timestamp epochs."""
+    return (record.get("host", "?"), record.get("process", 0),
+            record.get("pid"))
+
+
+def process_labels(keys: Iterable[tuple]) -> Dict[tuple, str]:
+    """Human labels for process keys: "host/pN", with the OS pid
+    appended only when two keys would otherwise collide."""
+    keys = sorted(keys, key=lambda k: (str(k[0]), k[1], str(k[2])))
+    base: Dict[str, int] = {}
+    for h, p, _ in keys:
+        base[f"{h}/p{p}"] = base.get(f"{h}/p{p}", 0) + 1
+    return {
+        (h, p, pid): (
+            f"{h}/p{p}" if base[f"{h}/p{p}"] == 1 else f"{h}/p{p}@{pid}"
+        )
+        for h, p, pid in keys
+    }
+
+
+def classify(
+    records: Iterable[dict],
+    window: Optional[Tuple[float, float]] = None,
+) -> dict:
+    """Classify ONE process's records into per-category seconds.
+
+    ``window`` overrides the run extent (seconds on the recording
+    process's clock); default is [earliest span start, latest span end].
+    Enclosing lifetime spans (cat "worker") and overlapped background
+    writes (cat "ckpt_bg") only widen the window.
+    Returns ``{"wall_s", "steps", "productive_s", "eval_s", "compile_s",
+    "data_wait_s", "checkpoint_s", "recovery_s", "other_s", "idle_s",
+    "goodput"}`` where productive_s counts train steps, eval_s counts
+    eval steps, recovery_s is wall-clock lost to failure recovery, and
+    goodput = (productive_s + eval_s) / wall_s — useful work over
+    wall-clock.
+    """
+    spans = [r for r in records if r.get("kind") == "span"]
+    per_cat: Dict[str, float] = {c: 0.0 for c in GOODPUT_CATEGORIES}
+    other = 0.0
+    steps = 0
+    lo, hi = None, None
+    for s in spans:
+        ts, dur = float(s["ts"]), float(s["dur"])
+        lo = ts if lo is None else min(lo, ts)
+        hi = ts + dur if hi is None else max(hi, ts + dur)
+        cat = s.get("cat")
+        if cat in _WINDOW_ONLY_CATS:
+            continue
+        if cat in per_cat:
+            per_cat[cat] += dur
+            if cat == CAT_STEP:
+                # A fused dispatch_window span covers K train steps in
+                # one record (its "window" attr); count them all so
+                # goodput-per-step stays comparable across dispatch
+                # modes.
+                steps += int(s.get("window", 1) or 1)
+        else:
+            other += dur
+    if window is not None:
+        lo, hi = window
+    wall = (hi - lo) if (lo is not None and hi is not None) else 0.0
+    accounted = sum(per_cat.values()) + other
+    idle = max(0.0, wall - accounted)
+    useful = per_cat[CAT_STEP] + per_cat[CAT_EVAL]
+    return {
+        "wall_s": wall,
+        "steps": steps,
+        "productive_s": per_cat[CAT_STEP],
+        "eval_s": per_cat[CAT_EVAL],
+        "compile_s": per_cat[CAT_COMPILE],
+        "data_wait_s": per_cat[CAT_DATA_WAIT],
+        "metric_wait_s": per_cat[CAT_METRIC_WAIT],
+        "checkpoint_s": per_cat[CAT_CHECKPOINT],
+        "recovery_s": per_cat[CAT_RECOVERY],
+        "other_s": other,
+        "idle_s": idle,
+        "goodput": useful / wall if wall > 0 else 0.0,
+    }
+
+
+def classify_by_process(records: Iterable[dict]) -> dict:
+    """Group records by recording process (see ``process_key``),
+    classify each, and aggregate.
+
+    Returns ``{"per_process": {"host/pN": classification},
+    "overall": classification}`` where overall sums seconds across
+    processes (goodput = total useful / total wall)."""
+    groups: Dict[tuple, list] = {}
+    for r in records:
+        if r.get("kind") != "span":
+            continue
+        groups.setdefault(process_key(r), []).append(r)
+    labels = process_labels(groups)
+    per = {
+        labels[key]: classify(groups[key]) for key in sorted(
+            groups, key=lambda k: labels[k]
+        )
+    }
+    overall = {
+        k: sum(c[k] for c in per.values())
+        for k in (
+            "wall_s", "steps", "productive_s", "eval_s", "compile_s",
+            "data_wait_s", "metric_wait_s", "checkpoint_s", "recovery_s",
+            "other_s", "idle_s",
+        )
+    } if per else classify([])
+    if per:
+        overall["goodput"] = (
+            (overall["productive_s"] + overall["eval_s"])
+            / overall["wall_s"]
+            if overall["wall_s"] > 0 else 0.0
+        )
+    return {"per_process": per, "overall": overall}
+
+
+def format_goodput(cls: dict) -> str:
+    """One-line human rendering of a classification."""
+    wall = cls["wall_s"]
+
+    def pct(x):
+        return 100.0 * x / wall if wall > 0 else 0.0
+
+    useful = cls["productive_s"] + cls.get("eval_s", 0.0)
+    recovery = cls.get("recovery_s", 0.0)
+    recovery_part = (
+        f"recovery {pct(recovery):.1f}%, " if recovery > 0 else ""
+    )
+    metric_wait = cls.get("metric_wait_s", 0.0)
+    metric_part = (
+        f"metric_wait {pct(metric_wait):.1f}%, " if metric_wait > 0 else ""
+    )
+    return (
+        f"goodput {100.0 * cls['goodput']:.1f}% "
+        f"({useful:.2f}s useful of {wall:.2f}s wall; "
+        f"compile {pct(cls['compile_s']):.1f}%, "
+        f"data_wait {pct(cls['data_wait_s']):.1f}%, "
+        f"{metric_part}"
+        f"checkpoint {pct(cls['checkpoint_s']):.1f}%, "
+        f"{recovery_part}"
+        f"other {pct(cls['other_s']):.1f}%, "
+        f"idle {pct(cls['idle_s']):.1f}%)"
+    )

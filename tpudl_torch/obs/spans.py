@@ -6,10 +6,11 @@ go" by recording host-side spans around the runtime's blocking calls.
 Records are plain dicts with a monotonic timestamp, duration, category,
 and host/process tags, streamed as JSONL in the same schema as the JAX
 package's, so ``python -m tpudl.obs.report`` reads either package's
-files. The serving path and the fault-tolerance layer (tpudl_torch.ft:
-checkpoint saves, background writes, recovery) are the instrumented
-layers of the port so far; the Chrome-trace export waits for the layers
-that use it.
+files. The instrumented layers: the train loop (tpudl_torch.train.fit
+and evaluate: data waits, compile, steps, eval), the serving path, the
+fault-tolerance layer (tpudl_torch.ft: checkpoint saves, background
+writes, recovery) and the data layer's ingest (tpudl_torch.data.ingest).
+tpudl_torch.obs.goodput classifies the records.
 
 Design constraints, all load-bearing:
 
@@ -39,10 +40,19 @@ from typing import Callable, Optional
 
 from tpudl_torch.analysis.registry import env_int, env_str
 
-#: Span categories the port records under, with tpudl.obs.spans's names
-#: (tpudl.obs.goodput classifies them; the port's goodput report is
-#: ROADMAP queue A item 10). Instrumentation may invent others.
+#: Span categories the goodput classifier understands
+#: (tpudl_torch.obs.goodput), with tpudl.obs.spans's names.
+#: Instrumentation may invent others; they land in the "other" bucket.
 CAT_STEP = "step"
+CAT_EVAL = "eval"
+#: A compiled step's first calls: on the card its eager warm-up and its
+#: CUDA-graph capture (tpudl's XLA compile).
+CAT_COMPILE = "compile"
+CAT_DATA_WAIT = "data_wait"
+#: Time the train loop blocked on metric readback — separate from
+#: data_wait so a report distinguishes "starved for batches" from
+#: "throttled by telemetry".
+CAT_METRIC_WAIT = "metric_wait"
 #: The step path's checkpoint stall: the host snapshot and the
 #: back-pressure of a save, and restores.
 CAT_CHECKPOINT = "checkpoint"
@@ -52,6 +62,10 @@ CAT_RECOVERY = "recovery"
 #: Background checkpoint writes (tpudl_torch.ft.writer): they overlap
 #: train steps, so they are reported and never charged to the run.
 CAT_CKPT_BG = "ckpt_bg"
+#: Enclosing lifetime spans (a worker's whole run): they overlap the
+#: categorized spans inside them, so the goodput classifier uses them
+#: only to extend the run window, never as accounted time.
+CAT_ENCLOSING = "worker"
 
 
 class _Span:

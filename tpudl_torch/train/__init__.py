@@ -1,7 +1,10 @@
 """Training of the port: the classification train step and loop (with
 checkpointing and resume), its CUDA-graph capture (``compile_step``),
-the mixed-precision policies (``precision``), the optimizer stack and
-throughput accounting (tpudl.train's single-device path)."""
+the mixed-precision policies (``precision``), the optimizer stack,
+throughput accounting, the metrics logger (``logging``) and the
+profile reader (``profiling``) (tpudl.train's single-device path)."""
+
+from tpudl_torch.train.logging import MetricLogger  # noqa: F401
 
 from tpudl_torch.train.loop import (  # noqa: F401
     CompiledStep,
@@ -24,4 +27,8 @@ from tpudl_torch.train.precision import (  # noqa: F401
     PrecisionPolicy,
     policy,
     policy_from_env,
+)
+from tpudl_torch.train.profiling import (  # noqa: F401
+    format_summary,
+    summarize_trace,
 )

@@ -46,7 +46,11 @@ single-device path of tpudl.train.loop.
 - ``fit`` drives a step (eager or compiled) over a batch iterator, one
   step per dispatch, with tpudl's checkpoint cadence, preemption check
   and end-of-fit (emergency) save through a checkpoint manager
-  (tpudl_torch.checkpoint, tpudl_torch.ft); ``resume_latest`` and
+  (tpudl_torch.checkpoint, tpudl_torch.ft), tpudl's spans and
+  histograms when a span recorder is active (tpudl_torch.obs; read by
+  tpudl_torch.obs.goodput), and tpudl's profiler window
+  (``profile_dir``: a torch.profiler Chrome trace that
+  tpudl_torch.train.profiling reads); ``resume_latest`` and
   ``finalize_zero_step_run`` are tpudl's resume helpers.
 - ``precision=`` (a tpudl_torch.train.precision policy or preset name;
   None keeps the step exactly as without one) on
@@ -77,8 +81,7 @@ the loss, and reports the sum as the ``moe_aux`` metric; ``loss`` then
 includes the term, as tpudl's.
 
 Not ported (each raises NotImplementedError naming its ROADMAP item):
-meshes; and fit's profiling, fused K-step dispatch and asynchronous
-metrics.
+meshes; and fit's fused K-step dispatch and asynchronous metrics.
 """
 
 from __future__ import annotations
@@ -86,7 +89,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import inspect
-import itertools
+import os
 import time
 import weakref
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Union
@@ -95,6 +98,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpudl_torch.analysis.registry import env_str
 from tpudl_torch.ft import preemption as ft_preemption
 from tpudl_torch.graphs import Graph, StaticInputs
 from tpudl_torch.models import remat
@@ -113,6 +117,7 @@ from tpudl_torch.rng import fold_seed
 from tpudl_torch.rules import path_str
 from tpudl_torch.train import precision as precision_mod
 from tpudl_torch.train.optim import Optimizer
+from tpudl_torch.train.profiling import STEP_ANNOTATION, trace_path
 
 
 def microbatch(batch: dict, accum_steps: int) -> dict:
@@ -497,6 +502,7 @@ class CompiledStep:
         self.state = state
         self.has_rng = has_rng
         self.preprocess = preprocess
+        self.device_type = next(state.model.parameters()).device.type
         self.calls = 0
         self.graph: Optional[Graph] = None
         self.inputs: Optional[StaticInputs] = None
@@ -518,6 +524,16 @@ class CompiledStep:
     def capture_s(self) -> Optional[float]:
         return None if self.graph is None else self.graph.capture_s
 
+    @property
+    def compile_pending(self) -> bool:
+        """Whether the next call is a compile (tpudl's first-call marker,
+        read before each call by fit and evaluate to record it as
+        ``compile``): on the card the eager warm-up and the capture, on
+        the CPU the first call."""
+        if self.device_type == "cuda":
+            return self.graph is None
+        return self.calls == 0
+
     def _run(self, state, batch, rng=None, generators=None):
         if self.preprocess is not None:
             device = next(state.model.parameters()).device
@@ -535,9 +551,9 @@ class CompiledStep:
                              "compiled for (its graph holds that state's "
                              "tensors)")
         device = next(state.model.parameters()).device
+        self.calls += 1
         if device.type != "cuda":
             return self._run(state, batch, rng)
-        self.calls += 1
         if self.calls == 1:
             if not self.remat:
                 return self._run(state, batch, rng)
@@ -703,6 +719,21 @@ def pad_batch(batch: dict, to_size: int) -> dict:
     return out
 
 
+def _obs_pull(rec, it, attrs):
+    """Timed ``next(it)`` recording a data_wait span (tpudl's): the
+    instrumented arm shared by fit and evaluate, whose uninstrumented
+    paths stay inline. Returns ``(batch, wait_seconds)`` or None on
+    exhaustion."""
+    t0 = rec.clock()
+    try:
+        batch = next(it)
+    except StopIteration:
+        return None
+    dur = rec.clock() - t0
+    rec.record("data_wait", obs_spans.CAT_DATA_WAIT, t0, dur, attrs)
+    return batch, dur
+
+
 def evaluate(
     eval_step: Callable,
     state: TrainState,
@@ -721,15 +752,33 @@ def evaluate(
     (``compile_step``) replays one graph of one batch signature, so there
     every batch of a mask-aware step carries the ``"_valid"`` column
     (all ones on a full batch). The metrics stay on the device until the
-    one read at the end."""
+    one read at the end.
+
+    With a span recorder active (tpudl_torch.obs), each batch pull
+    records a ``data_wait`` span and each call an ``eval_step`` span,
+    in ``compile`` while a compiled step's ``compile_pending`` holds and
+    in ``eval`` after (tpudl's)."""
     if num_steps is not None and num_steps <= 0:
         raise ValueError(f"num_steps must be positive, got {num_steps}")
     may_pad = pad_to is not None or getattr(eval_step, "mask_aware", False)
     pad_all = may_pad and isinstance(eval_step, CompiledStep)
+    rec = obs_spans.active_recorder()
     totals: dict = {}
     n_examples = 0.0
     target = pad_to
-    for batch in itertools.islice(batches, num_steps):
+    it = iter(batches)
+    i = 0
+    while num_steps is None or i < num_steps:
+        if rec is None:
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+        else:
+            pulled = _obs_pull(rec, it, {"step": i, "phase": "eval"})
+            if pulled is None:
+                break
+            batch = pulled[0]
         bs = next(iter(batch.values())).shape[0]
         if "_valid" in batch:
             weight = float(torch.as_tensor(batch["_valid"]).sum())
@@ -739,10 +788,23 @@ def evaluate(
             target = bs
         if (bs < target or pad_all) and may_pad:
             batch = pad_batch(batch, max(bs, target))
-        metrics = eval_step(state, batch)
+        if rec is None:
+            metrics = eval_step(state, batch)
+        else:
+            is_compile = getattr(eval_step, "compile_pending", False)
+            t0 = rec.clock()
+            metrics = eval_step(state, batch)
+            t1 = rec.clock()
+            # CAT_EVAL, not CAT_STEP: eval steps have their own duration
+            # scale.
+            rec.record(
+                "eval_step",
+                obs_spans.CAT_COMPILE if is_compile else obs_spans.CAT_EVAL,
+                t0, t1 - t0, {"step": i, "phase": "eval"})
         n_examples += weight
         for k, v in metrics.items():
             totals[k] = totals.get(k, 0.0) + v * weight
+        i += 1
     if n_examples == 0:
         raise ValueError("evaluate() received no batches")
     return {k: float(v) / n_examples for k, v in totals.items()}
@@ -750,6 +812,34 @@ def evaluate(
 
 def _to_host(metrics: dict) -> dict:
     return {k: float(v) for k, v in metrics.items()}
+
+
+def _start_profile(state: TrainState):
+    """A started torch.profiler session: CPU activity, plus CUDA on the
+    card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if next(state.model.parameters()).device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: str, state: TrainState) -> str:
+    """Wait for the card (tpudl's block_until_ready before stop_trace),
+    stop the session and write its Chrome trace under ``profile_dir``."""
+    import socket
+
+    if next(state.model.parameters()).device.type == "cuda":
+        torch.cuda.synchronize()
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = trace_path(profile_dir, socket.gethostname(), os.getpid(),
+                      int(time.time() * 1e3))
+    prof.export_chrome_trace(path)
+    return path
 
 
 def fit(
@@ -761,6 +851,7 @@ def fit(
     log_every: int = 0,
     logger: Optional[Callable[[int, dict], None]] = None,
     profile_dir: Optional[str] = None,
+    profile_window: tuple = (2, 8),
     checkpoint_manager=None,
     checkpoint_every: int = 0,
     steps_per_dispatch: Optional[int] = None,
@@ -769,10 +860,11 @@ def fit(
     """Drive ``step_fn`` (a step, or ``compile_step``'s) over ``batches``
     (one step per batch, at most ``num_steps``); returns ``(state, last
     metrics as floats, info)`` with ``info`` = ``{"steps", "seconds",
-    "preempted"}``.
+    "preempted", "profile_trace"}``.
     Every ``log_every`` steps the step's metrics are read back (a wait
-    for the card) and handed to ``logger(step, metrics)``, or printed,
-    and a precision policy's state is published to the obs registry
+    for the card) and handed to ``logger(step, metrics)`` (e.g. a
+    tpudl_torch.train.logging.MetricLogger), or printed, and a precision
+    policy's state is published to the obs registry
     (``publish_numerics_telemetry``: the loss scale, the skipped steps,
     the fp8 rings' drift); otherwise nothing is read back until the end,
     so the host runs ahead of the card (but for the one-byte ``ok`` of
@@ -793,10 +885,32 @@ def fit(
     is the emergency checkpoint; ``info["preempted"]`` says so. fit
     waits for the manager's writes before it returns. Restore before
     calling fit (``resume_latest``, or ``tpudl_torch.ft.resume_run`` for
-    the full resume state). tpudl's profiling, fused K-step dispatch and
-    asynchronous metrics raise."""
+    the full resume state).
+
+    Observability (tpudl's): with a span recorder active
+    (TPUDL_OBS_DIR or tpudl_torch.obs.enable), each batch pull records a
+    ``data_wait`` span and each step call a ``train_step`` span
+    (``step``), or ``compile_step`` (``compile``) while a compiled
+    step's ``compile_pending`` holds (on the card its eager warm-up and
+    its capture); the ``step_time_s``, ``data_wait_s`` and
+    ``compile_time_s`` histograms accumulate in the counters registry,
+    snapshotted into the span stream at the end.
+    The spans time what the host waits on: a replayed graph returns once
+    it is queued, so a step span converges to the device's step time
+    only once the host waits on the card (a full queue, a readback).
+    tpudl_torch.obs.goodput classifies the records. With no recorder,
+    fit reads nothing more back and records nothing.
+
+    Profiling (tpudl's): with ``profile_dir`` (or TPUDL_PROFILE_DIR)
+    set, steps [profile_window[0], profile_window[1]) are recorded with
+    torch.profiler (CUDA activity on the card), skipping a compile call,
+    each under a ``tpudl_step#<i>`` annotation; fit waits for the card,
+    stops the profiler and writes a Chrome trace into the directory
+    (``info["profile_trace"]``), which
+    tpudl_torch.train.profiling.summarize_trace reads. One trace a fit.
+
+    tpudl's fused K-step dispatch and asynchronous metrics raise."""
     for name, value, off, item in (
-        ("profile_dir", profile_dir, (None,), "queue A item 10 (profiling)"),
         ("steps_per_dispatch", steps_per_dispatch, (None, 1),
          "queue A item 10 (the captured K-step graph on compile_step)"),
         ("async_metrics", async_metrics, (None, False),
@@ -804,7 +918,18 @@ def fit(
     ):
         if not any(value is v or value == v for v in off):
             _refuse(name, value, item)
+    profile_dir = profile_dir or env_str("TPUDL_PROFILE_DIR")
+    prof_start, prof_stop = profile_window
+    profiler = None
+    prof_done = False  # one trace per fit: no restart after the window
+    trace = None
     rec = obs_spans.active_recorder()
+    if rec is not None:
+        reg = obs_counters.registry()
+        h_step = reg.histogram("step_time_s")
+        h_data = reg.histogram("data_wait_s")
+        h_compile = reg.histogram("compile_time_s")
+        clock = rec.clock
     start_step = int(state.step) if checkpoint_manager is not None else 0
     # Full resume is a capability of the manager's save signature.
     full_resume = False
@@ -831,37 +956,78 @@ def fit(
     start = time.perf_counter()
     n = 0
     it = iter(batches)
-    while num_steps is None or n < num_steps:
-        if ft_preemption.requested():
-            # The grace window is ticking: pull no more work; the
-            # emergency checkpoint is the end-of-fit save below.
-            preempted = True
-            if rec is not None:
-                rec.event("preempted", obs_spans.CAT_RECOVERY, step=n)
-            obs_counters.registry().counter("ft_preemptions").inc()
-            break
-        try:
-            batch = next(it)
-        except StopIteration:
-            break
-        state, metrics = step_fn(state, batch, rng)
-        n += 1
-        if checkpoint_manager is not None and checkpoint_every:
-            step_no = start_step + n
-            if step_no % checkpoint_every == 0:
-                # Safe although the next step updates the state in place:
-                # save() copies it to the host before it returns.
-                save(step_no)
-                last_ckpt_step = step_no
-        if log_every and n % log_every == 0:
-            host = _to_host(metrics)
-            if logger:
-                logger(n, host)
+    try:
+        while num_steps is None or n < num_steps:
+            if ft_preemption.requested():
+                # The grace window is ticking: pull no more work; the
+                # emergency checkpoint is the end-of-fit save below.
+                preempted = True
+                if rec is not None:
+                    rec.event("preempted", obs_spans.CAT_RECOVERY, step=n)
+                obs_counters.registry().counter("ft_preemptions").inc()
+                break
+            if rec is None:
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
             else:
-                print(f"step {n}: {host}")
-            # The precision state's numerics, at the log cadence only.
-            precision_mod.publish_numerics_telemetry(
-                getattr(state, "precision", None))
+                pulled = _obs_pull(rec, it, {"step": n})
+                if pulled is None:
+                    break
+                batch, wait = pulled
+                h_data.observe(wait)
+            if (profile_dir and profiler is None and not prof_done
+                    and prof_start <= n < prof_stop
+                    and not getattr(step_fn, "compile_pending", False)):
+                profiler = _start_profile(state)
+            annotation = (contextlib.nullcontext() if profiler is None else
+                          torch.profiler.record_function(
+                              f"{STEP_ANNOTATION}{n}"))
+            with annotation:
+                if rec is None:
+                    state, metrics = step_fn(state, batch, rng)
+                else:
+                    is_compile = getattr(step_fn, "compile_pending", False)
+                    t0 = clock()
+                    state, metrics = step_fn(state, batch, rng)
+                    t1 = clock()
+                    if is_compile:
+                        rec.record("compile_step", obs_spans.CAT_COMPILE,
+                                   t0, t1 - t0, {"step": n})
+                        h_compile.observe(t1 - t0)
+                    else:
+                        rec.record("train_step", obs_spans.CAT_STEP,
+                                   t0, t1 - t0, {"step": n})
+                        h_step.observe(t1 - t0)
+            if profiler is not None and n + 1 >= prof_stop:
+                trace = _stop_profile(profiler, profile_dir, state)
+                profiler = None
+                prof_done = True
+            n += 1
+            if checkpoint_manager is not None and checkpoint_every:
+                step_no = start_step + n
+                if step_no % checkpoint_every == 0:
+                    # Safe although the next step updates the state in
+                    # place: save() copies it to the host before it
+                    # returns.
+                    save(step_no)
+                    last_ckpt_step = step_no
+            if log_every and n % log_every == 0:
+                host = _to_host(metrics)
+                if logger:
+                    logger(n, host)
+                else:
+                    print(f"step {n}: {host}")
+                # The precision state's numerics, at the log cadence only.
+                precision_mod.publish_numerics_telemetry(
+                    getattr(state, "precision", None))
+    finally:
+        if profiler is not None:
+            # The window outlived the batches: keep what it recorded.
+            trace = _stop_profile(profiler, profile_dir, state)
+        if rec is not None:
+            rec.counters(obs_counters.registry().snapshot())
     if checkpoint_manager is not None and n:
         step_no = start_step + n
         if last_ckpt_step != step_no:
@@ -869,10 +1035,15 @@ def fit(
             # exit this is the last committed state a restart resumes.
             save(step_no)
         checkpoint_manager.wait_until_finished()
+        if rec is not None:
+            # The final save's counters landed after the loop's snapshot
+            # (a report keeps the last snapshot a process).
+            rec.counters(obs_counters.registry().snapshot())
     host_metrics = None if metrics is None else _to_host(metrics)
     return state, host_metrics, {"steps": n,
                                  "seconds": time.perf_counter() - start,
-                                 "preempted": preempted}
+                                 "preempted": preempted,
+                                 "profile_trace": trace}
 
 
 def finalize_zero_step_run(checkpoint_manager, state: TrainState,
