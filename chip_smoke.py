@@ -1729,8 +1729,9 @@ def train_kernel_phase(torch, F):
     """The training kernels against their plain versions at the BERT-base
     step's shapes (N = 256 x 128 rows; hidden 768, MLP 3072), bf16 and f32,
     plus one unaligned shape (the scalar path), and the norm backward's
-    RMS kind at a Llama training shape. Times as phase 3 (CUDA-graph
-    replay), fewer calls per graph at these sizes."""
+    RMS kind at the Llama LoRA step's shapes (frozen scales included).
+    Every norm backward runs twice, bit for bit. Times as phase 3
+    (CUDA-graph replay), fewer calls per graph at these sizes."""
     from tpudl_torch.ops.mlp_fused import (
         bias_gelu,
         bias_gelu_bwd,
@@ -1738,6 +1739,7 @@ def train_kernel_phase(torch, F):
         bias_gelu_ref,
     )
     from tpudl_torch.ops.norms import (
+        _norm_bwd_cuda,
         _norm_fwd_cuda,
         layer_norm_ref,
         norm_bwd,
@@ -1796,7 +1798,7 @@ def train_kernel_phase(torch, F):
             None if residual else f"F.layer_norm, {c['dtype']} weights",
         ))
 
-    # The norm backward (dx, dscale, dbias).
+    # The norm backward (dx, dscale, dbias; dx alone with frozen scales).
     for kind, shape, dtype, residual, with_gs, variant in (
         ("layer", (n, 768), bf16, True, False,
          "LayerNorm, residual (the encoder's 24 calls)"),
@@ -1818,7 +1820,11 @@ def train_kernel_phase(torch, F):
          "LayerNorm, plain (BERT-large's embeddings' call)"),
         ("layer", (BERT_LARGE_ROWS, 1024), bf16, False, False,
          "LayerNorm, plain (BERT-large)"),
+        ("rms", (LLAMA_BATCH * LLAMA_SEQ, 4096), bf16, True, True,
+         "RMSNorm, residual and sum gradient, frozen scales (the Llama LoRA "
+         "step's call: dx alone)"),
     ):
+        params = "frozen" not in variant
         h, e = shape[1], torch.finfo(dtype).bits // 8
         tol = BWD_TOL[str(dtype).split(".")[-1]]
         x = rand(shape, dtype, 2.0, 0.5)
@@ -1828,18 +1834,34 @@ def train_kernel_phase(torch, F):
         gy = rand(shape, dtype)
         gs = rand(shape, dtype) if with_gs else None
         mean, rstd = norm_stats_ref(x, r, kind=kind, eps=eps)
-        dx, dscale, dbias = norm_bwd(x, scale, r, mean, rstd, gy, gs,
-                                     kind=kind, impl="fused")
+
+        def kernel():
+            if params:
+                return norm_bwd(x, scale, r, mean, rstd, gy, gs, kind=kind,
+                                impl="fused")
+            return _norm_bwd_cuda(kind, x, scale, r, mean, rstd, gy, gs,
+                                  params=False)
+
+        dx, dscale, dbias = kernel()
+        again = kernel()
         want = norm_bwd_ref(x, scale, r, mean, rstd, gy, gs, kind=kind)
-        errs = [errors(dx, want[0], tol), sum_errors(dscale, want[1])]
-        if kind == "layer":
+        errs = [errors(dx, want[0], tol)]
+        if params:
+            errs.append(sum_errors(dscale, want[1]))
+        elif dscale is not None or dbias is not None:
+            fail(f"norm_bwd {variant}: frozen scales returned their sums")
+        if kind == "layer" and params:
             errs.append(sum_errors(dbias, want[2]))
+        if not all(a is None or torch.equal(a, b)
+                   for a, b in zip((dx, dscale, dbias), again)):
+            fail(f"norm_bwd {variant} {tuple(shape)}: two runs differ")
         streams = 3 + int(residual) + int(with_gs)
         stats = 2 if kind == "layer" else 1
+        sums = (1 + stats) if params else 1  # the scale in, the sums out
         c = case_row(shape, dtype, variant, merged(*errs), tol,
-                shape[0] * h * e * streams + h * 4 * (1 + stats)
+                shape[0] * h * e * streams + h * 4 * sums
                 + shape[0] * 4 * stats,
-                shape[0] * h * 14)
+                shape[0] * h * (14 if params else 11))
         library = library_name = None
         if kind == "layer" and not residual:
             m2, r2 = mean.view(-1, 1), rstd.view(-1, 1)
@@ -1856,9 +1878,7 @@ def train_kernel_phase(torch, F):
             library_name = (f"aten._fused_rms_norm_backward, "
                             f"{c['dtype']} weights")
         cases["norm_bwd"].append(timed_case(
-            c,
-            lambda: norm_bwd(x, scale, r, mean, rstd, gy, gs, kind=kind,
-                             impl="fused"),
+            c, kernel,
             lambda: norm_bwd_ref(x, scale, r, mean, rstd, gy, gs, kind=kind),
             library, library_name,
         ))
@@ -4667,6 +4687,19 @@ MAIN_PATH_NORM_KERNELS = {
     ("norm_fwd_rows_kernel", "LayerNorm", v, vpl) for v in ("plain", "residual")
     for vpl in ("3", "4")  # H 768 (BERT-base), 1024 (BERT-large)
 } | {("norm_fwd_wide_kernel", "RMSNorm", v, "2") for v in ("plain", "residual+sum")}
+#: The norm backward's instantiations on the main paths (kernel, dtype,
+#: kind, vectors a lane or thread): the rows kernel at H 768 and 1024 in
+#: bf16 and 768 in f32 (BERT-base's f32 policy), the wide kernel at the
+#: f32 embeddings' H 1024 of BERT-large, Llama-3-8B's H 4096 and
+#: Llama-3.2-1B's H 2048.
+MAIN_PATH_NORM_BWD_KERNELS = {
+    ("norm_bwd_rows_kernel", "bf16", "LayerNorm", "3"),
+    ("norm_bwd_rows_kernel", "bf16", "LayerNorm", "4"),
+    ("norm_bwd_rows_kernel", "f32", "LayerNorm", "6"),
+    ("norm_bwd_wide_kernel", "f32", "LayerNorm", "1"),
+    ("norm_bwd_wide_kernel", "bf16", "RMSNorm", "2"),
+    ("norm_bwd_wide_kernel", "bf16", "RMSNorm", "1"),
+}
 
 
 #: Checkpointing and fault tolerance (ft_bert, ft_resnet50, ft_kill):
@@ -6467,8 +6500,9 @@ MOE_CUT_STEPS = 3
 
 def quant_dot_kernel_phase(torch):
     """The quant_dot kernel (csrc/quant_dot.cu: the decode GEMV at M <=
-    16, the tiled mma product above) against its plain twin at the main
-    path's shapes, int8 and e4m3, bf16 x; two runs bitwise equal. Times
+    16, the TMA + wgmma product above, the mma.sync kernel for f32 x and
+    ragged K) against its plain twin at the main path's shapes, int8 and
+    e4m3, bf16 x; two runs bitwise equal. Times
     (graph replay): the kernel, the plain twin, bf16 torch.matmul on the
     full-precision weight, dequantize + torch.matmul, and
     torch._weight_int8pack_mm (the one PyTorch call of the same function,
@@ -6525,6 +6559,24 @@ def quant_dot_kernel_phase(torch):
                   f"us, library {row['library_ms'] and row['library_ms'] * 1e3}"
                   f" us; bound {row['bound'][0] * 1e3:.2f} us "
                   f"({row['bound'][1]}); max abs err {err[0]:.3e}")
+    # The TMA route at ragged M, N and K (split K, then not), once.
+    for m, k, n in ((PROMPT_LEN + 1, 4112, 1000), (4099, 4112, 1000)):
+        w = torch.randn(n, k, generator=g, device="cuda") * 0.02
+        x = torch.randn(m, k, generator=g, device="cuda").bfloat16()
+        for wd in QUANT_WEIGHT_DTYPES:
+            leaf = quantize_leaf(w, wd)
+            q, s = leaf["qvalues"], leaf["qscale"]
+            y = qd._quant_dot_cuda(x, q, s)
+            again = qd._quant_dot_cuda(x, q, s)
+            ref = qd.quant_matmul_ref(x, q, s)
+            rtol, atol = QUANT_TOL["bfloat16"]
+            err = errors(y, ref, rtol, atol * float(ref.float().abs().max()))
+            if not err[2] or not torch.equal(y, again):
+                fail(f"quant_dot ragged [{m}, {k}] -> {n} {wd}: max abs err "
+                     f"{err[0]:.3e}, repeat bitwise {torch.equal(y, again)}")
+            print(f"quant_dot ragged [{m}, {k}] -> {n} {wd} (split "
+                  f"{qd.gemm_plan(m, n, k)['split']}): max abs err "
+                  f"{err[0]:.3e}")
     # The scalar variant (K not whole 16-byte vectors) and f32 x, once.
     for m, k, n in ((NUM_SLOTS, 4100, 1000), (PROMPT_LEN, 4100, 1000)):
         w = torch.randn(n, k, generator=g, device="cuda") * 0.02
@@ -7684,10 +7736,12 @@ def hopper_ptxas(text):
     out. And for the bf16 norm and SwiGLU forwards
     on the main paths: the rows kernel of LayerNorm at H 768 and 1024 (3
     and 4 vectors a lane, with and without the residual; in f32 at H
-    1024, 8), the norm backward's LayerNorm instantiations, the wide
-    kernel of RMSNorm
+    1024, 8), the wide kernel of RMSNorm
     at H 4096 (2 vectors a thread, plain and residual+sum), and SwiGLU's
-    1 and 2 vectors a thread."""
+    1 and 2 vectors a thread. And the norm backward's instantiations on
+    the main paths (MAIN_PATH_NORM_BWD_KERNELS) with its second pass
+    (norm_colsum_kernel), and the quantized product's TMA + wgmma kernel
+    (int8, e4m3) with its split-K sum."""
     out, current = [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '[^']*?((?:flash|whole)_fwd_kernel"
@@ -7716,8 +7770,7 @@ def hopper_ptxas(text):
                        f"thread>" if key in MAIN_PATH_NORM_KERNELS else None)
             continue
         # BERT-large's width, H 1024: the LayerNorm rows kernel at 4
-        # vectors a lane in bf16 and 8 in f32, and the norm backward's
-        # LayerNorm instantiations.
+        # vectors a lane in bf16 and 8 in f32.
         m = re.search(r"Compiling entry function '[^']*?(norm_fwd_rows_kernel)"
                       r"IfLi1ELb([01])ELb([01])ELi8E", line)
         if m:
@@ -7726,12 +7779,25 @@ def hopper_ptxas(text):
             current = (f"{m.group(1)}<f32, LayerNorm, {variant}, 8 vectors a "
                        f"thread>" if variant != "residual+sum" else None)
             continue
-        m = re.search(r"Compiling entry function '[^']*?(norm_bwd_kernel)"
-                      r"I(13__nv_bfloat16|f)Li1ELi(\d)ELi(\d)E", line)
+        m = re.search(r"Compiling entry function '[^']*?(norm_bwd_(?:rows|wide)_kernel)"
+                      r"I(13__nv_bfloat16|f)Li([01])ELi(\d)E", line)
         if m:
-            dtype = "f32" if m.group(2) == "f" else "bf16"
-            current = (f"{m.group(1)}<{dtype}, LayerNorm, {m.group(3)} values "
-                       f"a chunk, K {m.group(4)}>")
+            key = (m.group(1), "f32" if m.group(2) == "f" else "bf16",
+                   "LayerNorm" if m.group(3) == "1" else "RMSNorm", m.group(4))
+            current = (f"{key[0]}<{key[1]}, {key[2]}, {key[3]} vectors a "
+                       f"{'lane' if 'rows' in key[0] else 'thread'}>"
+                       if key in MAIN_PATH_NORM_BWD_KERNELS else None)
+            continue
+        m = re.search(r"Compiling entry function '[^']*?(norm_colsum_kernel"
+                      r"|quant_split_sum_kernel)", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"Compiling entry function '[^']*?(quant_gemm_tma_kernel)"
+                      r"ILi([01])ELi(\d+)E", line)
+        if m:
+            current = (f"{m.group(1)}<{'int8' if m.group(2) == '0' else 'e4m3'}, "
+                       f"{m.group(3)} rows of x>")
             continue
         m = re.search(r"Compiling entry function '[^']*?(swiglu_fwd_kernel)"
                       r"I13__nv_bfloat16Li(\d)E", line)

@@ -388,6 +388,45 @@ def test_norm_bwd_kernel_is_bitwise_repeatable(dev, kind):
             assert torch.equal(u, v)
 
 
+# Every route of the backward (tpudl_torch.ops.norms.bwd_plan): the rows
+# route (a warp a row: H 768 and 1024, and f32 768), the wide route (a
+# block a row: H 4096, f32 1024) and the scalar one (H 766, not whole
+# 16-byte vectors); row counts below (37), at (1056: 264 blocks of 4 warps
+# of one row) and above (3001: ragged stripes) the persistent grid; with
+# and without the scale's sums (frozen scales). Each run twice, bit for
+# bit.
+@pytest.mark.parametrize("kind", ["layer", "rms"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [768, 1024, 4096, 766])
+@pytest.mark.parametrize("n", [37, 1056, 3001])
+@pytest.mark.parametrize("residual,with_gs", [(False, False), (True, False),
+                                              (True, True)])
+@pytest.mark.parametrize("params", [True, False])
+def test_norm_bwd_routes_match_plain_and_repeat(dev, kind, dtype, h, n,
+                                                residual, with_gs, params):
+    from tpudl_torch.ops.norms import _norm_bwd_cuda
+
+    x, r, scale, g, gs, mean, rstd = _bwd_case(dev, kind, dtype, n, h,
+                                               residual, with_gs, seed=n + h)
+    before = norm_bwd.launches
+    got = _norm_bwd_cuda(kind, x, scale, r, mean, rstd, g, gs, params)
+    again = _norm_bwd_cuda(kind, x, scale, r, mean, rstd, g, gs, params)
+    torch.cuda.synchronize()
+    assert norm_bwd.launches == before + 2
+    rdx, rdscale, rdbias = norm_bwd_ref(x, scale, r, mean, rstd, g, gs,
+                                        kind=kind)
+    tol = BWD_TOL[dtype]
+    torch.testing.assert_close(got[0].float(), rdx.float(), rtol=tol, atol=tol)
+    if params:
+        torch.testing.assert_close(got[1], rdscale, rtol=1e-4, atol=1e-4)
+        if kind == "layer":
+            torch.testing.assert_close(got[2], rdbias, rtol=1e-4, atol=1e-4)
+    else:
+        assert got[1] is None and got[2] is None
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
 def test_norm_kernels_refuse_what_they_cannot_take(dev):
     s = torch.ones(64, device=dev)
     x = torch.zeros(4, 64, device=dev, dtype=torch.float16)
@@ -2471,6 +2510,32 @@ def test_quant_dot_kernel_matches_plain(dev, m, k, n, dtype, wd):
     torch.cuda.synchronize()
     assert y.dtype == dtype and y.shape == (m, n)
     _assert_quant_close(y, qd.quant_matmul_ref(x, q, s), dtype)
+    assert torch.equal(y, again)
+
+
+# The TMA + wgmma product (bf16 x in whole 16-byte vectors, M > 16), on
+# the plan of tpudl_torch.ops.quant_dot.gemm_plan: M across one and several
+# 128-row tiles (17, 128, 129, 4099), N and K off the 128-channel and
+# 64-deep tiles (1000, 4112), shapes that split K (M 17 to 129 against
+# K 4112) and that do not (M 4099, and K 256); int8 and e4m3; two runs bit
+# for bit.
+@pytest.mark.parametrize("m", [17, 128, 129, 4099])
+@pytest.mark.parametrize("k,n", [(256, 192), (4112, 1000), (768, 3072)])
+@pytest.mark.parametrize("wd", ["int8", "fp8_e4m3"])
+def test_quant_dot_tma_route_matches_plain_and_repeats(dev, m, k, n, wd):
+    from tpudl_torch.ops import quant_dot as qd
+
+    x, q, s = _quant_case(dev, m, k, n, torch.bfloat16, wd, seed=m * k + n)
+    plan = qd.gemm_plan(m, n, k)
+    if (m, k) == (17, 4112) or (m, k) == (128, 4112):
+        assert plan["split"] > 1
+    if m == 4099 or k == 256:
+        assert plan["split"] == 1
+    y = qd._quant_dot_cuda(x, q, s)
+    again = qd._quant_dot_cuda(x, q, s)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == (m, n)
+    _assert_quant_close(y, qd.quant_matmul_ref(x, q, s), torch.bfloat16)
     assert torch.equal(y, again)
 
 

@@ -198,3 +198,102 @@ def test_norm_backward_dispatch_on_cpu_is_the_plain_version():
         norms.norm_bwd(x, s, None, mean, rstd, g, kind="group")
     with pytest.raises(ValueError, match="CUDA tensors only"):
         norms.layer_norm(x, s, s, impl="fused")
+
+
+# The backward kernel's launch plan (tpudl_torch.ops.norms.bwd_plan): which
+# route, how many blocks, how many rows a warp or block. The kernel sums
+# its dscale / dbias partials in an order fixed by the plan, so the plan
+# must cover every row exactly once and depend on the shape alone.
+BWD_PLAN_SHAPES = [
+    (n, h, itemsize, aligned)
+    for n in (1, 37, 1056, 1057, 3001, 8192, 32768)
+    for h, itemsize in ((768, 2), (1024, 2), (768, 4), (1024, 4), (4096, 2),
+                        (2048, 2), (4096, 4), (766, 2), (100, 4))
+    for aligned in (True, False)
+]
+
+
+def _bwd_row_ranges(plan, n):
+    """The rows each unit of ``plan`` walks, as csrc/norms.cu assigns
+    them: ``(block, unit within the block, first row, end)`` per warp
+    (rows route) or block, in launch order, empty units included."""
+    per_block = plan["rows_per_block"] // plan["rows"]
+    out = []
+    for b in range(plan["parts"]):
+        for w in range(per_block):
+            first = (b * per_block + w) * plan["rows"]
+            out.append((b, w, min(first, n), min(first + plan["rows"], n)))
+    return out
+
+
+@pytest.mark.parametrize("n,h,itemsize,aligned", BWD_PLAN_SHAPES)
+def test_bwd_plan_covers_every_row_once(n, h, itemsize, aligned):
+    plan = norms.bwd_plan(n, h, itemsize, aligned)
+    vector = aligned and (h * itemsize) % 16 == 0
+    if not vector:
+        assert plan["route"] == "scalar"
+    elif (h <= norms.BWD_ROWS_MAX_H
+          and h * itemsize <= 16 * norms.BWD_ROWS_MAX_VECTORS):
+        assert plan["route"] == "rows"
+        assert plan["parts"] <= 2 * 132
+    else:
+        assert plan["route"] == "wide"
+        assert plan["parts"] <= 3 * 132
+    ranges = _bwd_row_ranges(plan, n)
+    covered = [r for _, _, first, end in ranges for r in range(first, end)]
+    assert covered == list(range(n))
+    # Units are contiguous stripes in launch order, and the last block
+    # has rows (the kernel refuses a plan whose last block is empty).
+    last_block = [first < end for b, _, first, end in ranges
+                  if b == plan["parts"] - 1]
+    assert any(last_block)
+    per_block = plan["rows_per_block"] // plan["rows"]
+    assert len(ranges) == plan["parts"] * per_block
+    # The block covers the row: threads (lanes, on the rows route) times
+    # vectors (values, unaligned) a thread reach every column, with one of
+    # the vector counts the kernels are built for.
+    threads, vpl = plan["threads"], plan["vpl"]
+    assert threads % 32 == 0
+    units = h if plan["route"] == "scalar" else h * itemsize // 16
+    if plan["route"] == "rows":
+        assert threads == 32 * norms.BWD_ROW_WARPS
+        assert vpl in ((1, 2, 3, 4, 6) if itemsize == 4 else (1, 2, 3, 4))
+        assert 32 * vpl >= units > 32 * (vpl - 1 - (vpl == 6))
+    else:
+        cap = (norms.BWD_WIDE_THREADS if plan["route"] == "wide"
+               else norms.BWD_SCALAR_THREADS)
+        assert vpl in (1, 2, 4, 8) and threads <= cap
+        assert threads * vpl >= units > (threads - 32) * vpl
+        # The fewest vectors a thread that the block's threads allow.
+        assert vpl == 1 or -(-units // (vpl // 2)) > cap
+
+
+def test_bwd_plan_sizes_match_the_kernel_source():
+    """bwd_plan's sizes are the ones csrc/norms.cu was compiled with."""
+    from tests.csrc_helpers import csrc_constants
+
+    c = csrc_constants("norms")
+    assert norms.BWD_ROW_WARPS == c["kBwdRowWarps"]
+    assert norms.BWD_ROWS_MAX_H == c["kBwdRowsMaxH"]
+    assert norms.BWD_WIDE_THREADS == c["kBwdWideThreads"]
+    assert norms.BWD_SCALAR_THREADS == c["kBwdScalarThreads"]
+
+
+@pytest.mark.parametrize("h,itemsize,aligned", [(16392, 2, True),
+                                                (8200, 4, True),
+                                                (4104, 2, False)])
+def test_bwd_plan_refuses_rows_too_wide(h, itemsize, aligned):
+    with pytest.raises(ValueError, match="norm_bwd kernel takes rows"):
+        norms.bwd_plan(64, h, itemsize, aligned)
+    norms.bwd_plan(64, h - 8 - 8 * (not aligned), itemsize, aligned)
+
+
+@pytest.mark.parametrize("n,h", [(8192, 1024), (32768, 768), (8192, 4096)])
+def test_bwd_plan_depends_on_the_shape_alone(n, h):
+    """The same shape always gets the same plan (so the same partial-sum
+    order and the same bits); BERT's and Llama's calls take the routes
+    their widths were designed for."""
+    plans = [norms.bwd_plan(n, h, 2, True) for _ in range(3)]
+    assert plans[0] == plans[1] == plans[2]
+    assert plans[0]["route"] == ("wide" if h > 1024 else "rows")
+    assert norms.bwd_plan(n, h, 2, False)["route"] == "scalar"

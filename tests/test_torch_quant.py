@@ -560,3 +560,74 @@ def test_int8_paged_cache_seat_and_free(llama):
         pages.astype(np.int64))].numpy(), np.asarray(js))
     cache.free(1)
     assert cache.free_pages == 8 and not cache.page_table[1].any()
+
+
+# The TMA product's launch plan (tpudl_torch.ops.quant_dot.gemm_plan): the
+# K steps of 64 cut into splits whose f32 partials the split sum adds in
+# a fixed order; the plan must cover every K step exactly once and depend
+# on the shape alone.
+GEMM_PLAN_SHAPES = [(m, k, n) for m in (17, 128, 129, 4099, 32768)
+                    for k, n in ((256, 192), (4112, 1000), (4096, 4096),
+                                 (4096, 1024), (4096, 14336), (14336, 4096),
+                                 (768, 768), (768, 3072), (3072, 768))]
+
+
+def _split_ranges(plan):
+    """The K steps ``[first, end)`` of each split of ``plan``, as
+    csrc/quant_dot.cu assigns them, in the order the split sum adds
+    their partials."""
+    return [(s * plan["per"], min((s + 1) * plan["per"], plan["ksteps"]))
+            for s in range(plan["split"])]
+
+
+@pytest.mark.parametrize("m,k,n", GEMM_PLAN_SHAPES)
+def test_gemm_plan_covers_every_k_step_once(m, k, n):
+    from tpudl_torch.ops import quant_dot as qd
+
+    plan = qd.gemm_plan(m, n, k)
+    tm, tn, tk = qd.TMA_TILE
+    assert plan["ksteps"] == -(-k // tk)
+    assert plan["rows"] in (tm, qd.TMA_TALL_ROWS)
+    if plan["rows"] == qd.TMA_TALL_ROWS:
+        assert plan["tiles"] >= 132
+    assert plan["tiles"] == -(-m // plan["rows"]) * -(-n // tn)
+    ranges = _split_ranges(plan)
+    assert len(ranges) == plan["split"]
+    steps = [s for first, end in ranges for s in range(first, end)]
+    assert steps == list(range(plan["ksteps"]))
+    assert all(end > first for first, end in ranges)
+    if plan["split"] > 1:
+        # Split only where the tiles leave multiprocessors idle, within
+        # one wave, each split at least MIN_SPLIT_STEPS long but the last.
+        assert plan["units"] <= 132
+        assert all(end - first >= qd.MIN_SPLIT_STEPS
+                   for first, end in ranges[:-1])
+        assert plan["ws"] == plan["split"] * m * n
+    else:
+        assert plan["ws"] == 0
+    assert plan["units"] == plan["tiles"] * plan["split"]
+    assert 1 <= plan["grid"] <= min(plan["units"], 132)
+
+
+def test_gemm_plan_tile_matches_the_kernel_source():
+    """gemm_plan's tile is the one csrc/quant_dot.cu was compiled with."""
+    from tests.csrc_helpers import csrc_constants
+    from tpudl_torch.ops import quant_dot as qd
+
+    c = csrc_constants("quant_dot")
+    assert qd.TMA_TILE == (c["kTmaRows"], c["kTmaChannels"], c["kTmaK"])
+    assert qd.TMA_TALL_ROWS == c["kTmaTallRows"]
+
+
+def test_gemm_plan_depends_on_the_shape_alone():
+    """The same shape always gets the same plan; a prefill's M = 128
+    splits K, BERT's M = 32768 does not."""
+    from tpudl_torch.ops import quant_dot as qd
+
+    for m, k, n in ((128, 4096, 4096), (128, 4096, 1024), (32768, 768, 3072)):
+        assert qd.gemm_plan(m, n, k) == qd.gemm_plan(m, n, k)
+    assert qd.gemm_plan(128, 4096, 4096)["split"] > 1
+    assert qd.gemm_plan(128, 1024, 4096)["split"] > 1
+    assert qd.gemm_plan(128, 4096, 4096)["rows"] == 128
+    bert = qd.gemm_plan(32768, 3072, 768)
+    assert bert["split"] == 1 and bert["rows"] == qd.TMA_TALL_ROWS

@@ -420,7 +420,16 @@ def test_summarize_trace_gives_known_totals(tmp_path, capsys):
 
 def test_kernel_kinds_classify_names():
     kind = profiling.device_kind
-    assert kind("void norm_bwd_kernel<float>(...)") == "this repo's kernels"
+    for name in ("norm_bwd_rows_kernel", "norm_bwd_wide_kernel",
+                 "norm_bwd_scalar_kernel", "norm_colsum_kernel",
+                 "quant_gemm_kernel", "quant_gemm_tma_kernel",
+                 "quant_split_sum_kernel", "quant_gemv_kernel",
+                 "column_sum_kernel"):
+        assert kind(f"void (anonymous namespace)::{name}<float, 1, 4>(...)") \
+            == "this repo's kernels", name
+    # The hand-written int8/e4m3 product is not a cuBLAS GEMM.
+    assert kind("void quant_gemm_tma_kernel<0, 128>(CUtensorMap)") != \
+        "GEMM (cuBLAS)"
     assert kind("cudnn::bn_fw_tr_1C11_kernel_NCHW") == "batch norm"
     assert kind("sm90_xmma_fprop_implicit_gemm_bf16") == \
         "convolutions (cuDNN)"

@@ -53,8 +53,26 @@ from tpudl_torch.ops import _build
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: csrc/norms.cu ``Kind``.
 _KINDS = {"rms": 0, "layer": 1}
-#: Row runs of the backward's first pass: one wave of 8 blocks per SM.
-_BWD_BLOCKS = 132 * 8
+#: The H100's streaming multiprocessors.
+_SMS = 132
+#: csrc/norms.cu ``BwdRoute``: the backward's three kernels.
+BWD_ROUTES = {"scalar": 0, "rows": 1, "wide": 2}
+#: The backward's launch policy lives here alone (``bwd_plan``);
+#: csrc/norms.cu takes the whole plan and only checks that it fits its
+#: kernels, whose sizes these must match (tests/test_torch_norms.py reads
+#: them from the source): the rows route's block of ``kBwdRowWarps``
+#: warps and rows of at most ``kBwdRowsMaxH`` values, the wide route's
+#: ``kBwdWideThreads`` threads, the scalar route's ``kBwdScalarThreads``.
+BWD_ROW_WARPS = 4
+BWD_ROWS_MAX_H = 1024
+BWD_WIDE_THREADS = 256
+BWD_SCALAR_THREADS = 512
+#: The rows route takes at most 192 16-byte vectors (6 a lane: BERT's
+#: 1024 in bf16, 768 in f32; wider f32 rows spilled registers).
+BWD_ROWS_MAX_VECTORS = 192
+#: Blocks a multiprocessor of each route's grid; the wide route's blocks
+#: take 3 a multiprocessor with one vector a thread ("wide1"), else 2.
+BWD_BLOCKS_PER_SM = {"rows": 2, "wide1": 3, "wide": 2, "scalar": 8}
 
 
 def resolve_impl(impl: str, device: torch.device) -> bool:
@@ -198,6 +216,60 @@ def norm_bwd_ref(x, scale, residual, mean, rstd, g, gs=None, *, kind: str):
 _lib = None
 
 
+def bwd_plan(n: int, h: int, itemsize: int, aligned: bool) -> dict:
+    """The backward kernel's launch plan for ``n`` rows of ``h`` values of
+    ``itemsize`` bytes (``aligned``: every row start, the gradients, dx
+    and the scale on 16-byte boundaries): a pure function of these four,
+    so the partial sums' order, and the result's bits, depend on the
+    shape alone.
+
+    - "rows" (whole 16-byte vectors, ``h`` <= 1024 in at most 192 of
+      them): a warp a row, ``vpl`` vectors a lane; ``rows`` rows a warp,
+      ``BWD_ROW_WARPS`` warps a block, at most 2 x 132 blocks, each
+      walking a contiguous stripe;
+    - "wide" (whole vectors, wider rows): a block a row of ``threads``
+      threads (at most ``BWD_WIDE_THREADS``) with the fewest vectors a
+      thread (``vpl``: 1, 2, 4 or 8); ``rows`` rows a block, 3 x 132
+      blocks at one vector a thread, else 2 x 132;
+    - "scalar" (anything else): a block of ``threads`` threads (at most
+      ``BWD_SCALAR_THREADS``) on ``rows`` rows, ``vpl`` (1, 2, 4 or 8)
+      values a thread, at most 8 x 132 blocks.
+
+    ``parts`` is the grid's blocks, each writing one f32 partial row per
+    array (dscale, and dbias for LayerNorm) to the workspace. Rows wider
+    than the routes take (2048 vectors, or 4096 values unaligned) raise
+    ValueError."""
+    if n <= 0:
+        raise ValueError(f"bwd_plan needs rows, got n={n}")
+    vector = aligned and (h * itemsize) % 16 == 0
+    nvec = h * itemsize // 16
+    if (vector and h <= BWD_ROWS_MAX_H and nvec <= BWD_ROWS_MAX_VECTORS):
+        route, per_block = "rows", BWD_ROW_WARPS
+        threads, vpl = 32 * BWD_ROW_WARPS, -(-nvec // 32)
+        vpl += vpl == 5  # the kernel's lanes hold 1-4 or 6 vectors
+        blocks = BWD_BLOCKS_PER_SM["rows"] * _SMS
+    else:
+        route, per_block = ("wide", 1) if vector else ("scalar", 1)
+        units, cap = ((nvec, BWD_WIDE_THREADS) if vector
+                      else (h, BWD_SCALAR_THREADS))
+        vpl = 1
+        while vpl < 8 and -(-units // vpl) > cap:
+            vpl *= 2
+        per_thread = -(-units // vpl)
+        threads = -(-per_thread // 32) * 32
+        if threads > cap:
+            raise ValueError(f"norm_bwd kernel takes rows of at most "
+                             f"{8 * cap} {'vectors' if vector else 'values'}"
+                             f", got h={h}")
+        key = "scalar" if not vector else "wide1" if vpl == 1 else "wide"
+        blocks = BWD_BLOCKS_PER_SM[key] * _SMS
+    rows = -(-n // (blocks * per_block))
+    parts = -(-n // (rows * per_block))
+    return {"route": route, "parts": parts, "rows": rows,
+            "rows_per_block": rows * per_block, "threads": threads,
+            "vpl": vpl}
+
+
 def _kernel():
     global _lib
     if _lib is None:
@@ -210,7 +282,7 @@ def _kernel():
         lib.tpudl_norm_fwd.restype = i32
         lib.tpudl_norm_bwd.argtypes = [
             i32, p, p, p, p, p, p, p, p, p, p,
-            i64, i32, i64, i64, i32, i32, p,
+            i64, i32, i64, i64, i32, i32, i32, i32, i32, i32, p,
         ]
         lib.tpudl_norm_bwd.restype = i32
         _lib = lib
@@ -309,9 +381,13 @@ def _norm_bwd_cuda(kind, x, scale, residual, mean, rstd, g, gs,
     dparams = (torch.empty(arrays, h, dtype=torch.float32, device=device)
                if params else None)
     if n and h:
-        rows_per_block = -(-n // min(n, _BWD_BLOCKS))
-        blocks = -(-n // rows_per_block)
-        ws = (torch.empty(arrays * blocks * h, dtype=torch.float32,
+        aligned = all(t is None or t.data_ptr() % 16 == 0
+                      for t in (x2, r2, g2, gs2, dx, scale))
+        aligned = aligned and all(
+            (t.stride(0) * t.element_size()) % 16 == 0
+            for t in (x2, r2) if t is not None)
+        plan = bwd_plan(n, h, x.element_size(), aligned)
+        ws = (torch.empty(arrays * plan["parts"] * h, dtype=torch.float32,
                           device=device) if params else None)
         lib = _kernel()
         code = lib.tpudl_norm_bwd(
@@ -319,7 +395,9 @@ def _norm_bwd_cuda(kind, x, scale, residual, mean, rstd, g, gs,
             g2.data_ptr(), _ptr(gs2), _ptr(mean), rstd.data_ptr(),
             dx.data_ptr(), _ptr(dparams), _ptr(ws),
             n, h, x2.stride(0), r2.stride(0) if r2 is not None else 0,
-            rows_per_block, KERNEL_DTYPES[x.dtype],
+            BWD_ROUTES[plan["route"]], plan["parts"], plan["rows"],
+            plan["threads"], plan["vpl"],
+            KERNEL_DTYPES[x.dtype],
             torch.cuda.current_stream(device).cuda_stream,
         )
         _build.check(lib, "norm_bwd", code)

@@ -9,8 +9,12 @@ the result cast to ``x``'s dtype: tpudl's fused quantized product
 
 - the kernel is ``csrc/quant_dot.cu``: ``tpudl_quant_gemv`` for at most
   16 rows of x (decode; a programmatic dependent launch), and
-  ``tpudl_quant_gemm`` past that (prefill, BERT). It replaces no Pallas
-  kernel: tpudl's product is XLA's mixed-dtype ``dot_general``;
+  ``tpudl_quant_gemm`` past that (prefill, BERT): for bf16 x in whole
+  16-byte vectors the TMA + ``wgmma`` kernel on the plan of
+  ``gemm_plan`` (split-K where the output tiles are too few, the
+  partials in an f32 workspace this wrapper allocates), else the
+  ``mma.sync`` kernel. It replaces no Pallas kernel: tpudl's product is
+  XLA's mixed-dtype ``dot_general``;
 - ``quant_matmul_ref`` is the plain twin: ``x`` and the weights widened
   to f32, one f32 product, the scale, the cast. The CPU tests hold it to
   tpudl; ``chip_smoke.py`` holds the kernel to it. Nothing on the card's
@@ -42,6 +46,45 @@ QTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 GEMV_MAX_ROWS = 16
 #: The tiled kernel's grid bound on rows (65535 row tiles of 64).
 GEMM_MAX_ROWS = 65535 * 64
+#: The TMA kernel's tile (csrc/quant_dot.cu ``kTmaRows``, ``kTmaChannels``,
+#: ``kTmaK``, which tests/test_torch_quant.py reads from the source): rows
+#: of x, output channels, K a step; and the taller tile's rows of x
+#: (``kTmaTallRows``), taken where its tiles alone fill the card. The split
+#: policy lives in ``gemm_plan`` alone.
+TMA_TILE = (128, 128, 64)
+TMA_TALL_ROWS = 256
+#: The H100's streaming multiprocessors; K is split while the units
+#: still fit one a multiprocessor, keeping at least ``MIN_SPLIT_STEPS``
+#: K steps a unit.
+_SMS = 132
+MIN_SPLIT_STEPS = 4
+
+
+def gemm_plan(m: int, n: int, k: int) -> dict:
+    """The TMA kernel's launch plan for ``[m, k] x [n, k]^T``: a pure
+    function of the shape, so the split partials' order, and the
+    result's bits, depend on the shape alone.
+
+    The output is cut into ``tiles`` of ``rows`` rows of x (256 where
+    such tiles number at least the multiprocessors, else 128) by 128
+    channels. Where they are fewer than the multiprocessors, the
+    ``ksteps`` steps of 64 along K are cut into ``split`` runs of ``per``
+    (the last may be shorter, none empty, at least ``MIN_SPLIT_STEPS``
+    each), as many as still fit one wave of one block a multiprocessor.
+    A unit is one (split, tile); ``grid`` persistent blocks walk them,
+    and with ``split`` > 1 the partials take ``ws`` f32 values."""
+    tm, tn, tk = TMA_TILE
+    ksteps = -(-k // tk)
+    tall = -(-m // TMA_TALL_ROWS) * -(-n // tn) >= _SMS
+    rows = TMA_TALL_ROWS if tall else tm
+    tiles = -(-m // rows) * -(-n // tn)
+    split = max(1, min(_SMS // tiles, ksteps // MIN_SPLIT_STEPS))
+    per = -(-ksteps // split)
+    split = -(-ksteps // per)
+    return {"rows": rows, "ksteps": ksteps, "tiles": tiles, "split": split,
+            "per": per,
+            "units": tiles * split, "grid": min(tiles * split, _SMS),
+            "ws": split * m * n if split > 1 else 0}
 
 
 def quant_matmul_ref(x: torch.Tensor, qvalues: torch.Tensor,
@@ -60,8 +103,11 @@ def _kernel():
     if _lib is None:
         lib = _build.load("quant_dot")
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.tpudl_quant_gemv.argtypes = [p, p, p, p, i32, i32, i64, i32,
+                                         i32, p]
+        lib.tpudl_quant_gemm.argtypes = [p, p, p, p, p, i32, i32, i64, i32,
+                                         i32, i32, i32, i32, i32, p]
         for fn in (lib.tpudl_quant_gemv, lib.tpudl_quant_gemm):
-            fn.argtypes = [p, p, p, p, i32, i32, i64, i32, i32, p]
             fn.restype = i32
         _lib = lib
     return _lib
@@ -104,13 +150,30 @@ def _quant_dot_cuda(x: torch.Tensor, qvalues: torch.Tensor,
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m:
         lib = _kernel()
-        fn = lib.tpudl_quant_gemv if m <= GEMV_MAX_ROWS else lib.tpudl_quant_gemm
-        code = fn(x2.data_ptr(), qvalues.data_ptr(), qscale.data_ptr(),
-                  y.data_ptr(), m, n, k, KERNEL_DTYPES[x.dtype],
-                  QTYPES[qvalues.dtype],
-                  torch.cuda.current_stream(x.device).cuda_stream)
-        _build.check(lib, "quant_gemv" if m <= GEMV_MAX_ROWS else "quant_gemm",
-                     code)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        common = (KERNEL_DTYPES[x.dtype], QTYPES[qvalues.dtype], stream)
+        if m <= GEMV_MAX_ROWS:
+            code = lib.tpudl_quant_gemv(x2.data_ptr(), qvalues.data_ptr(),
+                                        qscale.data_ptr(), y.data_ptr(), m, n,
+                                        k, *common)
+            _build.check(lib, "quant_gemv", code)
+        else:
+            split = per = grid = rows = 0
+            ws = None
+            if (x.dtype == torch.bfloat16 and k % 16 == 0
+                    and x2.data_ptr() % 16 == 0
+                    and qvalues.data_ptr() % 16 == 0):
+                plan = gemm_plan(m, n, k)
+                split, per, grid = plan["split"], plan["per"], plan["grid"]
+                rows = plan["rows"]
+                if plan["ws"]:
+                    ws = torch.empty(plan["ws"], dtype=torch.float32,
+                                     device=x.device)
+            code = lib.tpudl_quant_gemm(
+                x2.data_ptr(), qvalues.data_ptr(), qscale.data_ptr(),
+                y.data_ptr(), None if ws is None else ws.data_ptr(), m, n, k,
+                split, per, grid, rows, *common)
+            _build.check(lib, "quant_gemm", code)
         quant_matmul.launches += 1
     return y.reshape(*x.shape[:-1], n)
 

@@ -11,7 +11,11 @@ at the Llama-3-8B LoRA step, and flash dQ with dropout at BERT-base's
 heads) and softmax_dropout forward and backward (the BERT-base seq-128
 step's call with its padding mask and dropout 0.1, the same shape causal
 without dropout, Skv 127, the unaligned path, causal with dropout, and
-the step's shape in f32 with and without mask and dropout).
+the step's shape in f32 with and without mask and dropout), the norm
+backward at every shape of PERF.md's row 2 (BERT-base's and BERT-large's
+LayerNorm calls, the Llama LoRA step's RMSNorm calls, frozen scales
+included) and the quantized product at the prefill's and BERT's shapes
+(int8 and e4m3 weights, bf16 x).
 
     python3 -m tpudl_torch.tools.kernel_ab OTHER_CHECKOUT [ROUNDS] [GROUPS]
 
@@ -19,7 +23,7 @@ runs from the root of checkout B (this one) against checkout A (for
 example the parent commit, unpacked with ``git archive`` into a
 gitignored directory). GROUPS, comma-separated, limits the cases to
 some of ``norms`` (the norm forwards and SwiGLU), ``attention``,
-``seg_lora`` and ``softmax`` (default: all). Each turn is a fresh process that builds that
+``seg_lora``, ``softmax``, ``norm_bwd`` and ``quant`` (default: all). Each turn is a fresh process that builds that
 checkout's kernels and times every case by CUDA-graph replay with that
 checkout's ``chip_smoke.graph_ms``. ROUNDS (default 1) repeats the
 A, B, B, A sequence; the report gives each case's median and range over
@@ -66,6 +70,27 @@ SOFTMAX = [([256, 12, 128, 128], "bfloat16", "padding", 0.1),
 #: (x shape, out): the segmented LoRA at the tenant slice's shapes, bf16 x
 #: and base, four slots at rank 16 on f32 pages.
 SEG_LORA = [([4, 4096], 4096), ([4, 14336], 4096), ([1, 128, 4096], 4096)]
+#: (kind, rows, width, dtype, residual, sum gradient, scale sums): the norm
+#: backward's calls (PERF.md row 2): BERT-base's encoder and embeddings,
+#: BERT-large's, the Llama LoRA step's RMSNorm with its residual and the
+#: sum's gradient (frozen scales: the LoRA path), plain, and at a
+#: 2048-row shape.
+NORM_BWD = [("layer", 32768, 768, "bfloat16", True, False, True),
+            ("layer", 32768, 768, "bfloat16", False, False, True),
+            ("layer", 32768, 768, "float32", False, False, True),
+            ("layer", 8192, 1024, "bfloat16", True, False, True),
+            ("layer", 8192, 1024, "bfloat16", False, False, True),
+            ("layer", 8192, 1024, "float32", False, False, True),
+            ("rms", 8192, 4096, "bfloat16", True, True, True),
+            ("rms", 8192, 4096, "bfloat16", True, True, False),
+            ("rms", 8192, 4096, "bfloat16", False, False, True),
+            ("rms", 2048, 4096, "bfloat16", True, True, True)]
+#: ([M, K], N): the quantized product's tiled shapes (PERF.md): a
+#: Llama-3-8B prefill's projections at 128 tokens and BERT-base's at
+#: 256 x 128 rows.
+QUANT = [([128, 4096], 4096), ([128, 4096], 1024), ([128, 4096], 14336),
+         ([128, 14336], 4096), ([32768, 768], 768), ([32768, 768], 3072),
+         ([32768, 3072], 768)]
 
 _TURN = r"""
 import json, sys, torch
@@ -74,7 +99,10 @@ from tpudl_torch.ops import flash_attention as fa
 from tpudl_torch.ops import fused_attention as fu
 from tpudl_torch.ops import keep_mask
 from tpudl_torch.ops.mlp_fused import swiglu
-from tpudl_torch.ops.norms import _norm_fwd_cuda, rms_norm
+from tpudl_torch.ops.norms import (_norm_bwd_cuda, _norm_fwd_cuda,
+                                   norm_stats_ref, rms_norm)
+from tpudl_torch.ops import quant_dot as qd
+from tpudl_torch.quant.quantize import quantize_leaf
 from tpudl_torch.ops import segmented_lora as sl
 from tpudl_torch.ops import softmax_dropout as sd
 g = torch.Generator(device="cuda").manual_seed(0)
@@ -183,13 +211,40 @@ for shape, dt, masking, rate in json.loads(sys.argv[4]):
                                        impl="fused"), calls=20, reps=5)
     del x, gy
     torch.cuda.empty_cache()
+for kind, n, h, dt, res, with_gs, params in json.loads(sys.argv[6]):
+    dtype = getattr(torch, dt)
+    x = torch.randn(n, h, generator=g, device="cuda").to(dtype)
+    r = torch.randn(n, h, generator=g, device="cuda").to(dtype) if res else None
+    s = 1 + 0.1 * torch.randn(h, generator=g, device="cuda")
+    gy = torch.randn(n, h, generator=g, device="cuda").to(dtype)
+    gs = torch.randn(n, h, generator=g, device="cuda").to(dtype) if with_gs else None
+    mean, rstd = norm_stats_ref(x, r, kind=kind, eps=1e-6)
+    key = (f"norm_bwd {kind} [{n}, {h}] {'f32' if dt == 'float32' else 'bf16'}"
+           f"{' residual' if res else ''}{' sum gradient' if with_gs else ''}"
+           f"{'' if params else ' frozen scales'}")
+    out[key] = chip_smoke.graph_ms(
+        lambda: _norm_bwd_cuda(kind, x, s, r, mean, rstd, gy, gs, params),
+        calls=20, reps=5)
+    del x, r, gy, gs
+    torch.cuda.empty_cache()
+for (m, k), n in json.loads(sys.argv[7]):
+    w = torch.randn(n, k, generator=g, device="cuda") * 0.02
+    x = torch.randn(m, k, generator=g, device="cuda").bfloat16()
+    for wd in ("int8", "fp8_e4m3"):
+        leaf = quantize_leaf(w, wd)
+        q, qs = leaf["qvalues"], leaf["qscale"]
+        out[f"quant_dot [{m}, {k}] -> {n} {wd}"] = chip_smoke.graph_ms(
+            lambda: qd._quant_dot_cuda(x, q, qs), calls=20, reps=5)
+    del w, x, q, qs
+    torch.cuda.empty_cache()
 print(json.dumps(out))
 """
 
 
 #: Case lists by group, in the order the turn script reads them.
 GROUPS = {"norms": (CASES, TRAIN_CASES), "attention": (ATTENTION,),
-          "seg_lora": (SEG_LORA,), "softmax": (SOFTMAX,)}
+          "seg_lora": (SEG_LORA,), "softmax": (SOFTMAX,),
+          "norm_bwd": (NORM_BWD,), "quant": (QUANT,)}
 
 
 def turn(tree: str, groups) -> dict:
@@ -199,7 +254,7 @@ def turn(tree: str, groups) -> dict:
 
     proc = subprocess.run([sys.executable, "-c", _TURN, cases(CASES),
                            cases(ATTENTION), cases(SEG_LORA), cases(SOFTMAX),
-                           cases(TRAIN_CASES)],
+                           cases(TRAIN_CASES), cases(NORM_BWD), cases(QUANT)],
                           cwd=tree, capture_output=True, text=True, check=True)
     return json.loads(proc.stdout.strip().splitlines()[-1])
 

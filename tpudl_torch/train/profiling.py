@@ -36,7 +36,8 @@ from typing import Optional
 
 #: Device kernel kinds, by a substring of the kernel's name (first match).
 KERNEL_KINDS = (
-    ("this repo's kernels", ("norm_fwd_", "norm_bwd_kernel",
+    # Ahead of the GEMMs: "quant_gemm_tma_kernel" holds "gemm".
+    ("this repo's kernels", ("norm_fwd_", "norm_bwd_", "norm_colsum_kernel",
                              "column_sum_kernel", "bias_gelu_", "swiglu_",
                              "softmax_dropout_", "xent_", "flash_fwd_kernel",
                              "flash_dq_kernel", "flash_dq_tma_kernel",
@@ -45,7 +46,8 @@ KERNEL_KINDS = (
                              "whole_dkv_kernel", "whole_dq_tma_kernel",
                              "attn_dkv_tma_kernel",
                              "seg_lora_cluster_kernel", "quant_gemv_kernel",
-                             "quant_gemm_kernel")),
+                             "quant_gemm_kernel", "quant_gemm_tma_kernel",
+                             "quant_split_sum_kernel")),
     # Ahead of the convolutions (cuDNN's own batch norm kernels live in its
     # namespace) and of the GEMMs (cuDNN's convolutions are implicit GEMMs).
     ("batch norm", ("batch_norm", "batchnorm", "BatchNorm", "bn_fw", "bn_bw",
