@@ -299,17 +299,21 @@ The quantized tiers and the MoE MLP (tpudl_torch.quant,
 tpudl_torch.ops.quant_dot, tpudl_torch.ops.moe) add:
 
 27. quant_dot (after kernels) — the weight-only product
-             (csrc/quant_dot.cu) against its plain twin at the decode,
-             prefill and BERT-base shapes, int8 and e4m3, bitwise
-             repeatable, with the unaligned scalar path and f32 x once;
-             timed beside bf16 torch.matmul, dequantize + torch.matmul
-             and torch._weight_int8pack_mm;
+             (csrc/quant_dot.cu) against its plain twin at the decode
+             (4, 8 and 16 rows), prefill and BERT-base shapes, int8 and
+             e4m3, bitwise repeatable, with the unaligned scalar path and
+             f32 x once; timed beside bf16 torch.matmul, dequantize +
+             torch.matmul and torch._weight_int8pack_mm, the decode GEMV
+             and bf16 torch.matmul also L2-cold (cold_ms); the
+             dependent-launch chain check ends each round with the GEMV;
 28. quant_slice (after export_llama_serving) — the slice's session with
              weight_dtype="int8", then "fp8_e4m3", eager then captured:
              the slice's requests, 224 quant_dot launches a prefill and
              decode step, weight_bytes_report; the kernel path's
              teacher-forced logit error against an f32 oracle on the
-             dequantized weights no larger than the plain twin's;
+             dequantized weights no larger than the plain twin's; a
+             profiled window of decode steps for each weight dtype
+             ("profile: quant_dot device ms a step");
 29. quant_kv8_slice — int8 weights over int8 KV pages (paged, page 16),
              eager then captured, without tenants (the logit rule through
              the paged int8 path; the pool's bytes 0.5156x a bf16 pool's)
@@ -539,6 +543,24 @@ def graph_ms(fn, calls: int = 50, reps: int = 9) -> float:
     return statistics.median(times)
 
 
+#: Bytes that cold timing rotates over: more than twice the H100's 50 MB
+#: L2, so no call finds its weights there (as a decode step streams them).
+COLD_BYTES = 120 * 2**20
+
+
+def cold_ms(make, nbytes: int, calls: int = 60, reps: int = 5) -> float:
+    """Device time of one call with its operands L2-cold: ``make(i)``
+    returns a call on its own copy i of the operands (``nbytes`` each);
+    enough copies to exceed ``COLD_BYTES`` are made and ``calls`` calls
+    (a whole number of turns over the copies) are captured in turn in one
+    CUDA graph, timed as ``graph_ms`` does."""
+    copies = max(2, -(-COLD_BYTES // nbytes))
+    fns = [make(i) for i in range(copies)]
+    turn = iter(range(10**9))
+    calls = -(-calls // copies) * copies
+    return graph_ms(lambda: fns[next(turn) % copies](), calls=calls, reps=reps)
+
+
 def eager_ms(fn, calls: int = 200, reps: int = 5) -> float:
     """Time per ``fn()`` call issued eagerly from Python (launch and
     wrapper overhead included, as the serving loop pays it), median."""
@@ -700,18 +722,21 @@ def launch_floor_phase(torch):
 
 
 def pdl_chain_check(torch):
-    """norm -> SwiGLU -> residual norm -> norm, each kernel fed the one
-    before's output, 8 rounds (each round's input the last one's output)
-    at the decode step's 4 rows of 4096 in bf16, the SwiGLU on the
-    flattened rows. Run three ways: with a synchronize after every launch
+    """norm -> SwiGLU -> residual norm -> norm -> the int8 GEMV (quant_dot
+    [4, 4096] -> 4096), each kernel fed the one before's output, 8 rounds
+    (each round's input the last one's output) at the decode step's 4 rows
+    of 4096 in bf16, the SwiGLU on the flattened rows. Run three ways: with a synchronize after every launch
     (no launch can overlap another), eagerly back to back (each
     dependent launch may start while the one before runs), and replayed
     from a CUDA graph of the same launches. A kernel that read device
     memory before griddepcontrol.wait would see its input half written:
     the three must agree bit for bit, and each stage of the last round
-    must be within KERNEL_TOL of its plain version on the same inputs."""
+    must be within KERNEL_TOL (the GEMV QUANT_TOL) of its plain version
+    on the same inputs."""
+    from tpudl_torch.ops import quant_dot as qd
     from tpudl_torch.ops.mlp_fused import swiglu, swiglu_ref
     from tpudl_torch.ops.norms import rms_norm, rms_norm_ref
+    from tpudl_torch.quant.quantize import quantize_leaf
 
     g = torch.Generator(device="cuda").manual_seed(97)
     n, h, rounds = NUM_SLOTS, 4096, 8
@@ -719,6 +744,9 @@ def pdl_chain_check(torch):
     up = torch.randn(n * h, generator=g, device="cuda").bfloat16()
     s1, s2, s3 = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")
                   for _ in range(3))
+    leaf = quantize_leaf(torch.randn(h, h, generator=g, device="cuda") * 0.02,
+                         "int8")
+    q, qs = leaf["qvalues"], leaf["qscale"]
 
     def chain(x, sync):
         out = []
@@ -729,8 +757,10 @@ def pdl_chain_check(torch):
             sync()
             y2, summed = rms_norm(a, s2, y1, impl="fused")
             sync()
-            out.append((x, y1, a, y2, summed))
-            x = rms_norm(summed, s3, impl="fused")
+            y3 = rms_norm(summed, s3, impl="fused")
+            sync()
+            out.append((x, y1, a, y2, summed, y3))
+            x = qd._quant_dot_cuda(y3, q, qs)
             sync()
         return out, x
 
@@ -753,14 +783,17 @@ def pdl_chain_check(torch):
     equal = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(
         flat(serial, x_serial), flat(eager, x_eager),
         flat(replayed, x_graph)))
-    x, y1, a, y2, summed = replayed[-1]
+    x, y1, a, y2, summed, y3 = replayed[-1]
     tol = KERNEL_TOL["bfloat16"]
     want = rms_norm_ref(a, s2, y1)
+    ref = qd.quant_matmul_ref(y3, q, qs)
+    rtol, share = QUANT_TOL["bfloat16"]
     err = merged(errors(y1, rms_norm_ref(x, s1), tol),
                  errors(a.view(-1), swiglu_ref(y1.view(-1), up), tol),
                  errors(y2, want[0], tol), errors(summed, want[1], tol),
-                 errors(x_graph, rms_norm_ref(summed, s3), tol))
-    print(f"pdl chain (norm -> SwiGLU -> residual norm -> norm, {rounds} "
+                 errors(y3, rms_norm_ref(summed, s3), tol),
+                 errors(x_graph, ref, rtol, share * float(ref.float().abs().max())))
+    print(f"pdl chain (norm -> SwiGLU -> residual norm -> norm -> int8 GEMV, {rounds} "
           f"rounds at [{n}, {h}] bf16): serialized, eager and graph "
           f"{'equal bit for bit' if equal else 'DIFFER'}; last round "
           f"against the plain versions max_abs_err={err[0]:.3e} "
@@ -1458,19 +1491,21 @@ def same_tokens(runs, requests, what):
 # run launches the captured run's kernels, so its device time is the
 # captured profile's, and its wall time is printed with its metrics.
 def profile_decode(torch, model, params, Request, session_kw=None,
-                   tenants=None):
+                   tenants=None, session=None):
     """Device busy share and the top kernels and host ops over a steady
     window of decode steps (4 slots busy): the window's wall time is
     taken without the profiler (which slows the host), the device time
     from a second, profiled window of as many steps. ``session_kw`` and
     ``tenants`` (one per slot, in turn) make it the multi-tenant
-    session's. Returns the busy share, or None where the profiler saw no
-    device time."""
+    session's; ``session``, an idle captured session built with
+    ``session_kw``, is used in place of a new one. Returns the busy
+    share, or None where the profiler saw no device time."""
     from tpudl_torch.serve import ServeSession
 
-    session = ServeSession.from_model(
-        model, params,
-        **(session_kw or dict(prompt_len=PROMPT_LEN, num_slots=NUM_SLOTS)))
+    if session is None:
+        session = ServeSession.from_model(
+            model, params,
+            **(session_kw or dict(prompt_len=PROMPT_LEN, num_slots=NUM_SLOTS)))
     for i in range(NUM_SLOTS):
         session.submit(Request(f"p{i}", list(range(1 + i, 101 + i)),
                                max_new_tokens=40,
@@ -1491,7 +1526,9 @@ def profile_decode(torch, model, params, Request, session_kw=None,
         for _ in range(steps):
             eng.step()
 
-    busy = profile_steps(torch, run, steps, "decode (captured)", wall_us)
+    wd = (session_kw or {}).get("weight_dtype")
+    busy = profile_steps(torch, run, steps,
+                         f"decode (captured{', ' + wd if wd else ''})", wall_us)
     session.collect()
     return busy
 
@@ -1558,6 +1595,13 @@ def profile_steps(torch, run, steps, what, wall_us):
             print("profile: this repo's kernels, device us/step: " + ", ".join(
                 f"{stem} {t / steps:.1f}"
                 for stem, t in sorted(ours.items(), key=lambda kv: -kv[1])))
+        quant = sum(t for stem, t in ours.items() if stem.startswith("quant_"))
+        if quant:
+            # Self time: a dependent launch's wait for the kernel ahead
+            # counts as its own, so this is indicative; the step's busy
+            # time above is the sound measure.
+            print(f"profile: quant_dot device ms a step ({what}; self time, "
+                  f"dependent waits included): {quant / steps / 1e3:.4f}")
         for k in sorted(kernels, key=lambda k: -k.self_device_time_total)[:12]:
             print(f"profile:   device {k.self_device_time_total / steps:9.1f} "
                   f"us/step {k.count / steps:6.1f}x  {k.key[:90]}")
@@ -6467,10 +6511,12 @@ def llama1b_cut_parity_phase(torch):
 #: three bf16 terms, M > 16) 1e-4 of the largest magnitude.
 QUANT_TOL = {"bfloat16": (2.0**-7, 2.0**-10), "float32": (1e-5, 1e-4)}
 #: quant_dot's main-path shapes: (rows of x, in, out). Decode at the
-#: slice's 4 slots, prefill at its window, BERT-base at 256 x 128.
+#: slice's 4 slots (and at 8 and 16 rows: the GEMV's one and two n8 tiles
+#: of x), prefill at its window, BERT-base at 256 x 128.
 QUANT_SHAPES = (
     (NUM_SLOTS, 4096, 4096), (NUM_SLOTS, 4096, 1024),
     (NUM_SLOTS, 4096, 14336), (NUM_SLOTS, 14336, 4096),
+    (8, 4096, 4096), (16, 4096, 4096),
     (PROMPT_LEN, 4096, 4096), (PROMPT_LEN, 4096, 1024),
     (PROMPT_LEN, 4096, 14336), (PROMPT_LEN, 14336, 4096),
     (BERT_BATCH * BERT_SEQ, 768, 768), (BERT_BATCH * BERT_SEQ, 768, 3072),
@@ -6499,15 +6545,19 @@ MOE_CUT_STEPS = 3
 
 
 def quant_dot_kernel_phase(torch):
-    """The quant_dot kernel (csrc/quant_dot.cu: the decode GEMV at M <=
-    16, the TMA + wgmma product above, the mma.sync kernel for f32 x and
-    ragged K) against its plain twin at the main path's shapes, int8 and
-    e4m3, bf16 x; two runs bitwise equal. Times
+    """The quant_dot kernel (csrc/quant_dot.cu: the tensor-core GEMV at M
+    <= 16, the TMA + wgmma product above, the FMA GEMV and the mma.sync
+    kernel for f32 x and ragged K) against its plain twin at the main
+    path's shapes, int8 and e4m3, bf16 x; two runs bitwise equal. Times
     (graph replay): the kernel, the plain twin, bf16 torch.matmul on the
     full-precision weight, dequantize + torch.matmul, and
     torch._weight_int8pack_mm (the one PyTorch call of the same function,
     int8 only, where this build has it for CUDA); the bound (the weight,
-    x and y bytes at the memory rate, or 2MNK at the bf16 peak)."""
+    x and y bytes at the memory rate, or 2MNK at the bf16 peak). At the
+    GEMV's shapes the kernel and bf16 torch.matmul are also timed L2-cold
+    (``cold_ms``: weights rotated over copies past twice the L2, as a
+    decode step streams them); ``graph_ms`` replays one weight, L2-warm
+    where it fits the 50 MB L2."""
     from tpudl_torch.ops import quant_dot as qd
     from tpudl_torch.quant.quantize import quantize_leaf
 
@@ -6517,6 +6567,12 @@ def quant_dot_kernel_phase(torch):
         w = torch.randn(n, k, generator=g, device="cuda") * 0.02
         x = torch.randn(m, k, generator=g, device="cuda").bfloat16()
         wb = w.bfloat16()
+        if m <= qd.GEMV_MAX_ROWS:
+            wbs = [wb] + [wb.clone() for _ in range(
+                -(-COLD_BYTES // (2 * n * k)) - 1)]
+            bf16_cold = cold_ms(lambda i: (lambda: x @ wbs[i % len(wbs)].t()),
+                                2 * n * k)
+            del wbs
         for wd in QUANT_WEIGHT_DTYPES:
             leaf = quantize_leaf(w, wd)
             q, s = leaf["qvalues"], leaf["qscale"]
@@ -6551,9 +6607,25 @@ def quant_dot_kernel_phase(torch):
             row["dequant_matmul_ms"] = graph_ms(
                 lambda: x @ (q.float() * s[:, None]).bfloat16().t(),
                 calls=10, reps=5)
+            cold = ""
+            if m <= qd.GEMV_MAX_ROWS:
+                copies = [q] + [q.clone() for _ in range(
+                    -(-COLD_BYTES // (n * k)) - 1)]
+                row["cold_ms"] = cold_ms(lambda i: (
+                    lambda: qd._quant_dot_cuda(x, copies[i % len(copies)], s)),
+                    n * k)
+                row["bf16_matmul_cold_ms"] = bf16_cold
+                plan = qd.gemv_plan(m, n, k)
+                row["plan"] = {key: plan[key] for key in qd.GEMV_ARGS}
+                cold = (f"L2-cold {row['cold_ms'] * 1e3:.2f} us "
+                        f"({100 * row['bound'][0] / row['cold_ms']:.1f} % of "
+                        f"the bound; bf16 matmul {bf16_cold * 1e3:.2f} us, "
+                        f"{row['cold_ms'] / bf16_cold:.3f}x), plan "
+                        f"{row['plan']}; ")
+                del copies
             rows.append(row)
             print(f"quant_dot [{m}, {k}] -> {n} {wd} ({row['entry']}): "
-                  f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f}"
+                  f"{cold}{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f}"
                   f" us, bf16 matmul {row['bf16_matmul_ms'] * 1e3:.2f} us, "
                   f"dequantize + matmul {row['dequant_matmul_ms'] * 1e3:.2f} "
                   f"us, library {row['library_ms'] and row['library_ms'] * 1e3}"
@@ -6768,8 +6840,9 @@ def quant_slice_phase(torch, model, params, card, dense, requests):
     """The slice's session (4 slots, dense cache, max_seq_len 512, the
     slice's 8 greedy requests and one sampled) with weight_dtype="int8",
     then "fp8_e4m3", eager then captured; weight_bytes_report; the
-    teacher-forced logit rule (quant_parity); a profiled window of int8
-    decode steps. Returns ({weight dtype: (session, results)}, metrics)."""
+    teacher-forced logit rule (quant_parity); a profiled window of
+    decode steps for each weight dtype, on the captured session that just
+    served. Returns ({weight dtype: (session, results)}, metrics)."""
     from tpudl_torch.quant import quantize_model, weight_bytes_report
     from tpudl_torch.serve import Request
 
@@ -6791,9 +6864,10 @@ def quant_slice_phase(torch, model, params, card, dense, requests):
                                    requests, results)
         del oracle
         torch.cuda.empty_cache()
+        # The captured session just served: no second quantize and capture.
+        m["decode_device_busy_share"] = profile_decode(
+            torch, model, params, Request, dict(kw), session=session)
         if wd == "int8":
-            m["decode_device_busy_share"] = profile_decode(
-                torch, model, params, Request, dict(kw))
             sessions[wd] = (qmodel, qparams, results)
         else:
             sessions[wd] = (qmodel, None, results)
@@ -7798,6 +7872,12 @@ def hopper_ptxas(text):
         if m:
             current = (f"{m.group(1)}<{'int8' if m.group(2) == '0' else 'e4m3'}, "
                        f"{m.group(3)} rows of x>")
+            continue
+        m = re.search(r"Compiling entry function '[^']*?(quant_gemv_mma_kernel)"
+                      r"ILi([01])ELi([12])ELi(\d+)E", line)
+        if m:
+            current = (f"{m.group(1)}<{'int8' if m.group(2) == '0' else 'e4m3'}, "
+                       f"{8 * int(m.group(3))} rows of x, tiles of {m.group(4)}>")
             continue
         m = re.search(r"Compiling entry function '[^']*?(swiglu_fwd_kernel)"
                       r"I13__nv_bfloat16Li(\d)E", line)

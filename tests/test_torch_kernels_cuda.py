@@ -2539,6 +2539,119 @@ def test_quant_dot_tma_route_matches_plain_and_repeats(dev, m, k, n, wd):
     assert torch.equal(y, again)
 
 
+# The tensor-core GEMV (bf16 x in whole 16-byte vectors, M <= 16), on the
+# plan of tpudl_torch.ops.quant_dot.gemv_plan: M across one and two n8
+# tiles of x; tiles of 16 channels (K 1024 -> N 4096) and of 8 (N <= 1056),
+# ragged N and K (1000, 4112), 4 rounds of K a warp (14336 -> 256).
+GEMV_SHAPES = [(1024, 4096), (4096, 1024), (4112, 1000), (256, 192),
+               (14336, 256)]
+
+
+@pytest.mark.parametrize("m", [1, 3, 4, 5, 8, 9, 16])
+@pytest.mark.parametrize("k,n", GEMV_SHAPES)
+@pytest.mark.parametrize("wd", ["int8", "fp8_e4m3"])
+def test_quant_gemv_tensor_core_route_matches_plain_and_replays(dev, m, k, n,
+                                                                wd):
+    """Against the plain twin at QUANT_TOL; two runs bit for bit; a graph
+    replay equal to the eager call."""
+    from tpudl_torch.ops import quant_dot as qd
+
+    x, q, s = _quant_case(dev, m, k, n, torch.bfloat16, wd, seed=m * k + n)
+    assert qd.vector_route(x, q)
+    plan = qd.gemv_plan(m, n, k)
+    if (k, n) == (14336, 256):
+        assert plan["rounds"] > 1
+    y = qd._quant_dot_cuda(x, q, s)
+    again = qd._quant_dot_cuda(x, q, s)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qd._quant_dot_cuda(x, q, s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = qd._quant_dot_cuda(x, q, s)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == (m, n)
+    _assert_quant_close(y, qd.quant_matmul_ref(x, q, s), torch.bfloat16)
+    assert torch.equal(y, again) and torch.equal(y, replayed)
+
+
+def _every_weight(wd, n, k):
+    """[n, k] weights whose every column holds each storable value: int8
+    -128..127 (and so +-127 and -128); e4m3 every bit pattern but the two
+    NaNs (+-448, the smallest subnormal 2^-9, -0)."""
+    codes = (np.arange(n)[:, None] + np.arange(k)[None, :]) % 256
+    if wd == "int8":
+        return torch.from_numpy(codes.astype(np.uint8).view(np.int8))
+    codes[(codes & 0x7F) == 0x7F] = 0x7E  # NaN -> 448 (or -448)
+    return torch.from_numpy(codes.astype(np.uint8)).view(torch.float8_e4m3fn)
+
+
+@pytest.mark.parametrize("wd", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("m", [1, 4, 16])
+def test_quant_gemv_widens_every_weight_exactly(dev, wd, m):
+    """One-hot rows of x pick single weights: each output is a weight
+    widened exactly (every int8 and e4m3 value is a bf16), equal bit for
+    bit to the plain twin."""
+    from tpudl_torch.ops import quant_dot as qd
+
+    n, k = 256, 256
+    q = _every_weight(wd, n, k).to(dev)
+    s = torch.ones(n, device=dev)
+    x = torch.zeros(m, k, device=dev, dtype=torch.bfloat16)
+    cols = [(37 * i + 5) % k for i in range(m)]
+    x[torch.arange(m), cols] = 1.0
+    y = qd._quant_dot_cuda(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(y, q[:, cols].t().float().to(torch.bfloat16))
+    assert torch.equal(y, qd.quant_matmul_ref(x, q, s))
+    if wd == "fp8_e4m3":
+        assert float(y.float().abs().max()) == 448.0
+        assert float(y.float().abs()[y != 0].min()) == 2.0**-9
+
+
+def test_quant_gemv_dependent_launch_reads_what_the_kernel_before_wrote(dev):
+    """RMSNorm writes x and the GEMV reads it straight after, 6 rounds
+    (each round's x the last GEMV's output, [4, 4096] -> 4096 int8):
+    synchronized after every launch, back to back (the GEMV a dependent
+    launch that may start while the norm runs, and asks L2 for its
+    weights before griddepcontrol.wait) and replayed from a CUDA graph,
+    all equal bit for bit."""
+    from tpudl_torch.ops import quant_dot as qd
+
+    x0, q, s = _quant_case(dev, 4, 4096, 4096, torch.bfloat16, "int8", seed=5)
+    scale = 1 + 0.1 * _t(np.random.default_rng(6), (4096,), torch.float32, dev)
+
+    def chain(x, sync):
+        out = []
+        for _ in range(6):
+            h = rms_norm(x, scale, impl="fused")
+            sync()
+            x = qd._quant_dot_cuda(h, q, s)
+            sync()
+            out += [h, x]
+        return out
+
+    serial = chain(x0, torch.cuda.synchronize)
+    eager = chain(x0, lambda: None)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain(x0, lambda: None)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = chain(x0, lambda: None)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, c in zip(serial, eager, replayed):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    _assert_quant_close(serial[-1], qd.quant_matmul_ref(serial[-2], q, s),
+                        torch.bfloat16)
+
+
 @pytest.mark.parametrize("m", [4, 128])
 def test_quant_dot_replays_in_a_graph_equal_to_eager(dev, m):
     from tpudl_torch.ops import quant_dot as qd

@@ -631,3 +631,121 @@ def test_gemm_plan_depends_on_the_shape_alone():
     assert qd.gemm_plan(128, 4096, 4096)["rows"] == 128
     bert = qd.gemm_plan(32768, 3072, 768)
     assert bert["split"] == 1 and bert["rows"] == qd.TMA_TALL_ROWS
+
+
+# The tensor-core GEMV's launch plan (tpudl_torch.ops.quant_dot.gemv_plan):
+# K steps of 64 cut into one slice a warp, the warps of a CTA taking
+# consecutive slices, whose f32 partials are summed in warp order; channel
+# tiles of 16 (or 8) cut into groups, one a CTA. The four decode shapes, M
+# 1 to 16, ragged N and K (1000, 4112) and small shapes that take tiles of
+# 8 or few warps.
+GEMV_PLAN_SHAPES = [(m, k, n) for m in (1, 4, 5, 9, 16)
+                    for k, n in ((4096, 4096), (4096, 1024), (4096, 14336),
+                                 (14336, 4096), (4112, 1000), (4096, 256),
+                                 (256, 192), (64, 70))]
+
+
+def _gemv_slices(plan):
+    """Each slice's K steps ``[first, end)``, in the order the kernel sums
+    their partials (warp w takes slice w)."""
+    ks, sl = plan["ksteps"], plan["warps"]
+    return [(s * ks // sl, (s + 1) * ks // sl) for s in range(sl)]
+
+
+@pytest.mark.parametrize("m,k,n", GEMV_PLAN_SHAPES)
+def test_gemv_plan_covers_every_channel_and_k_step_once(m, k, n):
+    from tpudl_torch.ops import quant_dot as qd
+
+    plan = qd.gemv_plan(m, n, k)
+    assert plan["nb"] == (1 if m <= 8 else 2)
+    assert plan["ksteps"] == -(-k // qd.GEMV_STEP_K)
+    assert 1 <= plan["warps"] <= qd.GEMV_MAX_WARPS // plan["nb"]
+    ranges = _gemv_slices(plan)
+    assert all(end > first for first, end in ranges)  # no empty slice
+    assert [s for first, end in ranges for s in range(first, end)] == \
+        list(range(plan["ksteps"]))
+    longest = max(end - first for first, end in ranges)
+    assert plan["rounds"] == -(-longest // qd.GEMV_STEPS)
+    # Channels: group g takes tiles [g * tiles, (g + 1) * tiles) of
+    # ``height``: 8 where tiles of 16 leave half the card idle.
+    h = plan["height"]
+    assert h == (qd.GEMV_TILE if -(-n // qd.GEMV_TILE) * 2 > 132
+                 else qd.GEMV_HALF_TILE)
+    assert plan["ntiles"] == -(-n // h)
+    assert 1 <= plan["tiles"] <= qd.GEMV_MAX_TILES
+    assert plan["groups"] == -(-plan["ntiles"] // plan["tiles"])
+    chans = [c for gi in range(plan["groups"])
+             for t in range(gi * plan["tiles"],
+                            min((gi + 1) * plan["tiles"], plan["ntiles"]))
+             for c in range(t * h, (t + 1) * h) if c < n]
+    assert chans == list(range(n))
+    assert plan["grid"] == plan["groups"]
+    assert plan["smem"] == (plan["warps"] * 8 * plan["nb"]
+                            * (plan["tiles"] * h + qd.GEMV_PAD) * 4)
+    assert plan["smem"] <= 232448
+
+
+@pytest.mark.parametrize("m,k,n", GEMV_PLAN_SHAPES)
+def test_gemv_plan_splits_k_only_across_the_warps_of_a_cta(m, k, n):
+    """Every CTA sums all of K itself, over as many warps as its registers
+    take (16, 8 for 9-16 rows of x) or K has steps: a cluster of 1, no
+    reduction across CTAs, so the kernel sets no cluster launch attribute
+    and reads no other CTA's shared memory."""
+    from tpudl_torch.ops import _build
+    from tpudl_torch.ops import quant_dot as qd
+
+    plan = qd.gemv_plan(m, n, k)
+    assert plan["warps"] == min(qd.GEMV_MAX_WARPS // plan["nb"],
+                                plan["ksteps"])
+    assert "cluster" not in plan and "cluster" not in qd.GEMV_ARGS
+    assert _gemv_slices(plan)[-1][1] == plan["ksteps"]
+    src = (_build.CSRC / "quant_dot.cu").read_text()
+    assert "cudaLaunchAttributeClusterDimension" not in src
+    assert "map_shared_rank" not in src
+
+
+def test_gemv_plan_sizes_match_the_kernel_source():
+    """gemv_plan's sizes are the ones csrc/quant_dot.cu was compiled with."""
+    from tests.csrc_helpers import csrc_constants
+    from tpudl_torch.ops import quant_dot as qd
+
+    c = csrc_constants("quant_dot")
+    assert (qd.GEMV_TILE, qd.GEMV_HALF_TILE, qd.GEMV_STEP_K, qd.GEMV_STEPS,
+            qd.GEMV_MAX_WARPS, qd.GEMV_MAX_TILES, qd.GEMV_PAD) == (
+        c["kGemvTile"], c["kGemvHalfTile"], c["kGemvStepK"], c["kGemvSteps"],
+        c["kGemvMaxWarps"], c["kGemvMaxTiles"], c["kGemvPad"])
+
+
+def test_gemv_plan_depends_on_the_shape_alone():
+    """The same shape always gets the same plan; the decode shapes take a
+    CTA of 16 warps a multiprocessor, N = 256 tiles of 8 channels, M = 16
+    half the warps."""
+    from tpudl_torch.ops import quant_dot as qd
+
+    for m, k, n in GEMV_PLAN_SHAPES:
+        assert qd.gemv_plan(m, n, k) == qd.gemv_plan(m, n, k)
+    for k, n in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)):
+        plan = qd.gemv_plan(4, n, k)
+        assert plan["warps"] == 16
+        assert plan["grid"] <= 132
+    assert qd.gemv_plan(4, 14336, 4096)["rounds"] == 1
+    assert qd.gemv_plan(4, 4096, 14336)["rounds"] == 4
+    narrow = qd.gemv_plan(4, 256, 4096)
+    assert narrow["height"] == qd.GEMV_HALF_TILE and narrow["grid"] == 32
+    assert qd.gemv_plan(16, 4096, 4096)["warps"] == 8
+
+
+def test_gemv_route_is_chosen_by_operand():
+    """bf16 x in whole 16-byte vectors takes the vector kernels (the
+    tensor-core GEMV at M <= 16); f32 x, a ragged K or a misaligned x
+    keep the FMA kernel."""
+    from tpudl_torch.ops import quant_dot as qd
+
+    q = torch.zeros(8, 64, dtype=torch.int8)
+    x = torch.zeros(4, 64, dtype=torch.bfloat16)
+    assert qd.vector_route(x, q)
+    assert not qd.vector_route(x.float(), q)
+    assert not qd.vector_route(torch.zeros(4, 56, dtype=torch.bfloat16)[:, :50],
+                             q[:, :50])
+    assert not qd.vector_route(torch.zeros(4 * 64 + 1, dtype=torch.bfloat16)[1:]
+                             .view(4, 64), q)

@@ -424,7 +424,7 @@ def test_kernel_kinds_classify_names():
                  "norm_bwd_scalar_kernel", "norm_colsum_kernel",
                  "quant_gemm_kernel", "quant_gemm_tma_kernel",
                  "quant_split_sum_kernel", "quant_gemv_kernel",
-                 "column_sum_kernel"):
+                 "quant_gemv_mma_kernel", "column_sum_kernel"):
         assert kind(f"void (anonymous namespace)::{name}<float, 1, 4>(...)") \
             == "this repo's kernels", name
     # The hand-written int8/e4m3 product is not a cuBLAS GEMM.

@@ -14,19 +14,38 @@
 // Two entry points:
 //
 // (a) tpudl_quant_gemv, M <= 16 (decode). Bound by the weight's bytes:
-//     N * K bytes of int8/e4m3 streamed once. Each warp owns 2 output rows.
-//     Each lane walks 16-byte vectors of its rows' weights (16 weights a
-//     load), widens them to f32 once and reuses them for every row of x,
-//     which it reads through the L1 path (every warp of an SM reads the
-//     same few rows of x; staging them in shared memory was slower on the
-//     H100); it keeps
-//     2 x M f32 partial sums, and the warp reduces them with xor-shuffles
-//     in a fixed order (no float atomics: bitwise repeatable). It is a
-//     programmatic dependent launch: nothing touches device memory before
-//     pdl_wait(), and the next kernel is let in after the last weight
-//     load. A K that is not whole 16-byte vectors (or a misaligned
-//     pointer) takes the scalar variant (one weight a lane a step), not
-//     the plain version.
+//     N * K bytes of int8/e4m3 streamed once (5.03 us at [4, 4096] ->
+//     4096 on the H100's 3.35 TB/s). What held the first design (a CUDA-
+//     core FMA loop, 2 rows a warp) to 20-51 % of that was issue, not the
+//     memory: 16 scalar FMAs per row of x per 16 weights, x re-read through
+//     L1 per weight vector, too few loads in flight at N = 1024, and a
+//     cold start after pdl_wait(). For bf16 x in whole 16-byte vectors
+//     (the main path) quant_gemv_mma_kernel, section (d):
+//     - tensor cores: the weights, widened to bf16 by integer tricks
+//       (widen_quad), are mma.sync m16n8k16's A operand (16 channels, or
+//       8 where the plan wants twice the tiles), x^T its B operand (one
+//       n8 tile for M <= 8, two for M <= 16), held in registers for a
+//       round of K and reused against every channel tile the warp streams;
+//       the mma's free K order lets a lane feed one 16-byte weight load
+//       straight to its fragments;
+//     - K split: one slice a warp, the warps of a CTA summed in shared
+//       memory in warp order: no atomics, no workspace, one launch,
+//       bitwise repeatable; the plan (tpudl_torch/ops/quant_dot.py
+//       gemv_plan) depends on the shape alone;
+//     - weights streamed deep: the next tile's 16-byte loads issue as the
+//       current tile's are consumed (one tile, 4 steps of K, always in
+//       flight), no L1 allocation, L2 asked for 256 bytes a request, one
+//       CTA of 16 warps a multiprocessor (64 KB of loads in flight);
+//     - the launch ramp: a programmatic dependent launch that asks L2
+//       for its first tile's weights before pdl_wait() (weights are
+//       immutable during a decode step, and L2 is where the kernel
+//       ahead's writes land too) and reads nothing else before it; the
+//       next kernel is let in after the last weight load.
+//     f32 x, a ragged K or a misaligned pointer take quant_gemv_kernel:
+//     2 output rows a warp, 16-byte or scalar weight loads widened to
+//     f32, 2 x M f32 sums a lane reduced with xor-shuffles in a fixed
+//     order, the same dependent launch (no prefetch). Each route is chosen
+//     by operand; neither falls back to the other.
 //
 // (b) tpudl_quant_gemm, M > 16 (prefill, BERT), bf16 x in whole 16-byte
 //     vectors (the main path): quant_gemm_tma_kernel. Bound by the
@@ -105,7 +124,7 @@ __device__ __forceinline__ void unpack_q16(const uint4& raw, float (&out)[16]) {
 }
 
 // ---------------------------------------------------------------------------
-// (a) the decode GEMV
+// (a) the FMA GEMV: f32 x, or bf16 x with a ragged K or misaligned pointers
 // ---------------------------------------------------------------------------
 
 constexpr int kGemvWarps = 4;
@@ -916,20 +935,332 @@ int launch_gemm(const void* x, const void* q, const void* scale, void* y, int m,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// (d) the tensor-core GEMV: bf16 x in whole 16-byte vectors, M <= 16
+// ---------------------------------------------------------------------------
+
+// A tile is 16 output channels (mma's M), or 8 where the plan wants twice
+// the tiles (mma rows 8-15 then zero); a step is 64 of K, one 16-byte
+// weight vector a lane for each of its channel rows; a round is up to
+// kGemvSteps steps, whose x fragments a warp holds in registers.
+constexpr int kGemvTile = 16;
+constexpr int kGemvHalfTile = 8;
+constexpr int kGemvStepK = 64;
+constexpr int kGemvSteps = 4;
+// The plan's bounds: warps a CTA (each a K slice; half of it for 9-16
+// rows of x, whose fragments take twice the registers), channel tiles a
+// CTA.
+constexpr int kGemvMaxWarps = 16;
+constexpr int kGemvMaxTiles = 16;
+// Floats of padding a row of the partials: the 4 lanes of a quad store
+// to 4 distinct bank groups.
+constexpr int kGemvPad = 4;
+
+// The launch plan (tpudl_torch/ops/quant_dot.py gemv_plan). K is cut into
+// one run of whole steps a warp, warp w taking steps [w * ksteps / warps,
+// (w + 1) * ksteps / warps) (none empty: warps <= ksteps). The channel
+// tiles are cut into `groups` of `tiles`, one group a CTA.
+struct GemvPlan {
+  int m, n;
+  int64_t k;
+  int ksteps, warps, tiles, ntiles;
+};
+
+// Shared-memory bytes of a CTA's partials: [warps][8 NB rows][tiles x height + pad] f32.
+__host__ __device__ constexpr size_t gemv_smem(int warps, int nb, int tiles, int height) {
+  return static_cast<size_t>(warps) * 8 * nb * (tiles * height + kGemvPad) * sizeof(float);
+}
+
+// The 16 bytes of one channel row at one step, or zeros past K (K is
+// whole 16-byte vectors, so a vector is all in or all out). Read once:
+// no L1 allocation, and L2 asked for the 256 bytes around it (the quad's
+// next steps; measured 10-14 % faster than a plain __ldg on the H100).
+__device__ __forceinline__ uint4 gemv_load(const uint8_t* row, int64_t kk, int64_t k, bool live) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (live && kk < k) {
+    asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                 : "l"(row + kk));
+  }
+  return v;
+}
+
+// Four weights (one word, bytes b0..b3) -> two bf16 pairs, lo = (b0, b2)
+// and hi = (b1, b3), exact, by widen_pair's integer tricks; pairing bytes
+// 0 and 2 (and 1 and 3) keeps each in the low byte of a half (for hi,
+// after one shift) and needs no byte permute: 7 instructions a word
+// against widen_pair's 8 (int8) and 10 (e4m3).
+template <int Q>
+__device__ __forceinline__ void widen_quad(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  if constexpr (Q == kInt8) {
+    const uint32_t s = w >> 8;
+    lo = fma_bf16x2((w & 0x00800080u) | 0x43004300u, 0xBF80BF80u, (w & 0x007F007Fu) | 0x43004300u);
+    hi = fma_bf16x2((s & 0x00800080u) | 0x43004300u, 0xBF80BF80u, (s & 0x007F007Fu) | 0x43004300u);
+  } else {
+    const uint32_t bl = ((w << 8) & 0x80008000u) | ((w << 4) & 0x07F007F0u);
+    const uint32_t bh = (w & 0x80008000u) | ((w >> 4) & 0x07F007F0u);
+    lo = fma_bf16x2(bl, 0x7B807B80u, 0x80008000u);
+    hi = fma_bf16x2(bh, 0x7B807B80u, 0x80008000u);
+  }
+}
+
+// y^T = q . x^T on mma.sync m16n8k16: the widened weight is the A operand
+// (H = 16 channels, or 8 and zeros, x 16 of K), x^T the B operand (NB n8
+// tiles: rows 8b..8b+7 of x), f32 accumulators. The K order inside one mma is free as long as A
+// and B agree, so lane (g, t) of a step takes bytes [16t, 16t + 16) of
+// channel rows g and (H = 16) g + 8, one 16-byte load each, and, for mma j of the
+// step, feeds bytes 4j, 4j + 2 as its k slots 2t, 2t + 1 and bytes 4j + 1,
+// 4j + 3 as 2t + 8, 2t + 9 (widen_quad); its x fragment takes the same 16
+// elements of row g of x (two 16-byte loads, permuted to match), held in
+// registers for the round and reused against every tile the CTA streams.
+// Even and odd mma of a step accumulate apart (two dependent chains,
+// added in that order at the tile's end). A warp streams its tiles
+// with the next tile's loads issued as the current tile's are consumed
+// (one tile of loads, 8 a lane, always in flight), writes each tile's
+// f32 partial to shared memory, and the CTA sums the warps' partials in
+// warp order, applies the scale once and rounds once. Before pdl_wait()
+// the kernel only asks L2 for its first tile's weights (immutable during
+// a decode step; L2 is where the kernel ahead's writes land too).
+template <int Q, int NB, int H>
+__global__ void __launch_bounds__(kGemvMaxWarps * 32 / NB, 1)
+    quant_gemv_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+                          const float* __restrict__ scale, __nv_bfloat16* __restrict__ y,
+                          const GemvPlan p) {
+  extern __shared__ float part[];
+  constexpr int MR = 8 * NB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile0 = static_cast<int>(blockIdx.x) * p.tiles;
+  const int ntiles = min(p.tiles, p.ntiles - tile0);
+  const int chp = p.tiles * H + kGemvPad;
+  const int st0 = static_cast<int>(static_cast<int64_t>(warp) * p.ksteps / p.warps);
+  const int st1 = static_cast<int>(static_cast<int64_t>(warp + 1) * p.ksteps / p.warps);
+  // Channel rows g and g + 8 of tile i (past n: row n - 1, not written).
+  auto rows_of = [&](int i, const uint8_t*(&r)[2]) {
+    const int c = (tile0 + i) * H + g;
+    r[0] = q + static_cast<int64_t>(min(c, p.n - 1)) * p.k;
+    r[1] = q + static_cast<int64_t>(min(c + 8, p.n - 1)) * p.k;
+  };
+
+  // The first tile's weights of the round at step r0 into L2: lane l
+  // takes 128 bytes of channel row l / (32 / H).
+  auto prefetch_round = [&](int r0) {
+    constexpr int kLanes = 32 / H;  // lanes a row
+    const int c = min(tile0 * H + lane / kLanes, p.n - 1);
+    const int64_t kk = static_cast<int64_t>(r0) * kGemvStepK + 128 * (lane % kLanes);
+    const int64_t end = static_cast<int64_t>(min(r0 + kGemvSteps, st1)) * kGemvStepK;
+    if (kk < p.k && kk < end) {
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(q + static_cast<int64_t>(c) * p.k + kk));
+    }
+  };
+  prefetch_round(st0);
+  tpudl::pdl_wait();
+
+  // The outputs this thread writes: o = threadIdx.x + j x blockDim (row
+  // o / ch, channel tile0 x H + o % ch) below outs; the first one's scale
+  // is read now, off the path from the last product to the store.
+  const int ch = ntiles * H;
+  const int outs = p.m * ch;
+  const int o0 = static_cast<int>(threadIdx.x);
+  const float scale0 = o0 < outs ? scale[min(tile0 * H + o0 % ch, p.n - 1)] : 0.0f;
+
+  for (int r0 = st0; r0 < st1; r0 += kGemvSteps) {
+    const int nst = min(kGemvSteps, st1 - r0);
+    const bool first = r0 == st0;
+    if (r0 + kGemvSteps < st1) prefetch_round(r0 + kGemvSteps);
+    // x fragments of the round: xb[b][j][2i], [2i + 1] are mma i's b0, b1
+    // at step j (rows past m and steps past the round are zeros).
+    uint32_t xb[NB][kGemvSteps][8];
+#pragma unroll
+    for (int j = 0; j < kGemvSteps; ++j) {
+      const int64_t kk = static_cast<int64_t>(r0 + j) * kGemvStepK + 16 * t;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
+        const int row = 8 * b + g;
+        if (j < nst && row < p.m && kk < p.k) {
+          const uint4* src =
+              reinterpret_cast<const uint4*>(x + static_cast<int64_t>(row) * p.k + kk);
+          lo = __ldg(src);
+          hi = __ldg(src + 1);
+        }
+        // Elements (4i, 4i + 2) and (4i + 1, 4i + 3), as widen_quad pairs bytes.
+        const uint32_t e[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          xb[b][j][2 * i] = __byte_perm(e[2 * i], e[2 * i + 1], 0x5410);
+          xb[b][j][2 * i + 1] = __byte_perm(e[2 * i], e[2 * i + 1], 0x7632);
+        }
+      }
+    }
+    // The ring: the weights of the round's steps for one tile (row g + 8
+    // only at H = 16).
+    uint4 w[kGemvSteps][2];
+    const uint8_t* rows[2];
+    rows_of(0, rows);
+#pragma unroll
+    for (int j = 0; j < kGemvSteps; ++j) {
+      const int64_t kk = static_cast<int64_t>(r0 + j) * kGemvStepK + 16 * t;
+      w[j][0] = gemv_load(rows[0], kk, p.k, j < nst);
+      w[j][1] = gemv_load(rows[1], kk, p.k, H == 16 && j < nst);
+    }
+    for (int i = 0; i < ntiles; ++i) {
+      const bool more = i + 1 < ntiles;
+      rows_of(i + 1, rows);
+      float acc[NB][2][4];
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[b][e >> 2][e & 3] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kGemvSteps; ++j) {
+        const uint4 lo = w[j][0], hi = w[j][1];
+        const int64_t kk = static_cast<int64_t>(r0 + j) * kGemvStepK + 16 * t;
+        w[j][0] = gemv_load(rows[0], kk, p.k, more && j < nst);
+        w[j][1] = gemv_load(rows[1], kk, p.k, H == 16 && more && j < nst);
+        if (j < nst) {
+          const uint32_t wg[4] = {lo.x, lo.y, lo.z, lo.w}, wh[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi) {
+            uint32_t a[4] = {0u, 0u, 0u, 0u};
+            widen_quad<Q>(wg[mi], a[0], a[2]);
+            if constexpr (H == 16) widen_quad<Q>(wh[mi], a[1], a[3]);
+#pragma unroll
+            for (int b = 0; b < NB; ++b) {
+              const uint32_t bf[2] = {xb[b][j][2 * mi], xb[b][j][2 * mi + 1]};
+              mma_bf16(acc[b][mi & 1], a, bf);
+            }
+          }
+        }
+      }
+      // acc[b]: channels g (0, 1) and g + 8 (2, 3), rows of x 8b + 2t (0, 2)
+      // and 8b + 2t + 1 (1, 3). Later rounds add to the first's.
+      float* dst = part + static_cast<int64_t>(warp) * MR * chp + i * H + g;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = acc[b][0][e] + acc[b][1][e];
+        float* d0 = dst + (8 * b + 2 * t) * chp;
+        float* d1 = d0 + chp;
+        if (first) {
+          d0[0] = v[0], d1[0] = v[1];
+          if constexpr (H == 16) d0[8] = v[2], d1[8] = v[3];
+        } else {
+          d0[0] += v[0], d1[0] += v[1];
+          if constexpr (H == 16) d0[8] += v[2], d1[8] += v[3];
+        }
+      }
+    }
+  }
+  tpudl::pdl_launch_dependents();
+  __syncthreads();
+
+  // The CTA's sum over its warps, in warp order, for the rows of x that
+  // exist and the CTA's channels.
+  for (int o = threadIdx.x; o < outs; o += blockDim.x) {
+    const int row = o / ch, c = o - row * ch;
+    const float* src = part + row * chp + c;
+    // Every load issued before the first add.
+    float v[kGemvMaxWarps / NB];
+#pragma unroll
+    for (int wi = 0; wi < kGemvMaxWarps / NB; ++wi) {
+      v[wi] = wi < p.warps ? src[static_cast<int64_t>(wi) * MR * chp] : 0.0f;
+    }
+    float sum = v[0];
+#pragma unroll
+    for (int wi = 1; wi < kGemvMaxWarps / NB; ++wi) {
+      if (wi < p.warps) sum += v[wi];
+    }
+    const int chan = tile0 * H + c;
+    if (chan < p.n) {
+      const float sc = o == o0 ? scale0 : scale[chan];
+      y[static_cast<int64_t>(row) * p.n + chan] = __float2bfloat16_rn(sum * sc);
+    }
+  }
+}
+
+template <int Q, int NB, int H>
+int launch_gemv_mma(const void* x, const void* q, const void* scale, void* y, const GemvPlan& p,
+                    int groups, cudaStream_t st) {
+  static bool opted = false;
+  const auto kernel = quant_gemv_mma_kernel<Q, NB, H>;
+  if (const int e = hop::opt_in_smem(kernel, gemv_smem(kGemvMaxWarps / NB, NB, kGemvMaxTiles, H),
+                                     opted)) {
+    return e;
+  }
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(groups));
+  cfg.blockDim = dim3(static_cast<unsigned>(p.warps * 32));
+  cfg.dynamicSmemBytes = gemv_smem(p.warps, NB, p.tiles, H);
+  cfg.stream = st;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(x),
+                                             static_cast<const uint8_t*>(q),
+                                             static_cast<const float*>(scale),
+                                             static_cast<__nv_bfloat16*>(y), p);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
 }  // namespace
 
 // y [m, n] = (x [m, k] . q [n, k]^T) * scale [n]; dtype: tpudl::DType of
-// x and y; qtype: QType of q. m <= 16.
+// x and y; qtype: QType of q. m <= 16. warps 0: the FMA kernel (f32 x, or
+// bf16 x whose rows are not whole 16-byte vectors or whose pointers are
+// not 16-byte aligned; bf16 x in whole vectors returns
+// cudaErrorInvalidValue), tiles and height 0. warps >= 1: the
+// tensor-core kernel (bf16 x, k % 16 == 0, x and q 16-byte aligned) on
+// the plan of tpudl_torch/ops/quant_dot.py gemv_plan: `warps` warps a
+// CTA, `tiles` tiles of `height` (16 or 8) channels a CTA. Anything else
+// returns cudaErrorInvalidValue.
 extern "C" int tpudl_quant_gemv(const void* x, const void* q, const void* scale, void* y, int m,
-                                int n, int64_t k, int dtype, int qtype, void* stream) {
+                                int n, int64_t k, int warps, int tiles, int height,
+                                int dtype, int qtype, void* stream) {
   if (m <= 0 || m > 16 || n <= 0 || k <= 0) return cudaErrorInvalidValue;
+  if (qtype != kInt8 && qtype != kE4M3) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == tpudl::kBFloat16) {
-    return qtype == kInt8 ? launch_gemv<__nv_bfloat16, kInt8>(x, q, scale, y, m, n, k, st)
-                          : launch_gemv<__nv_bfloat16, kE4M3>(x, q, scale, y, m, n, k, st);
+  const bool vec = k % 16 == 0 && tpudl::aligned16(x) && tpudl::aligned16(q);
+  if (warps == 0) {
+    if (tiles != 0 || height != 0) return cudaErrorInvalidValue;
+    if (dtype == tpudl::kBFloat16) {
+      if (vec) return cudaErrorInvalidValue;  // takes the tensor-core kernel
+      return qtype == kInt8 ? launch_gemv_v<__nv_bfloat16, kInt8, 1>(x, q, scale, y, m, n, k, st)
+                            : launch_gemv_v<__nv_bfloat16, kE4M3, 1>(x, q, scale, y, m, n, k, st);
+    }
+    return qtype == kInt8 ? launch_gemv<float, kInt8>(x, q, scale, y, m, n, k, st)
+                          : launch_gemv<float, kE4M3>(x, q, scale, y, m, n, k, st);
   }
-  return qtype == kInt8 ? launch_gemv<float, kInt8>(x, q, scale, y, m, n, k, st)
-                        : launch_gemv<float, kE4M3>(x, q, scale, y, m, n, k, st);
+  if (dtype != tpudl::kBFloat16 || !vec) return cudaErrorInvalidValue;
+  const int64_t ksteps = (k + kGemvStepK - 1) / kGemvStepK;
+  const int nb = m <= 8 ? 1 : 2;
+  if (warps < 1 || warps > kGemvMaxWarps / nb || tiles < 1 || tiles > kGemvMaxTiles ||
+      warps > ksteps || ksteps > (1 << 30) ||
+      (height != kGemvTile && height != kGemvHalfTile)) {
+    return cudaErrorInvalidValue;
+  }
+  const int ntiles = (n + height - 1) / height;
+  const int groups = (ntiles + tiles - 1) / tiles;
+  const GemvPlan p{m, n, k, static_cast<int>(ksteps), warps, tiles, ntiles};
+  const bool int8 = qtype == kInt8, full = height == kGemvTile;
+  if (nb == 1) {
+    if (full) {
+      return int8 ? launch_gemv_mma<kInt8, 1, kGemvTile>(x, q, scale, y, p, groups, st)
+                  : launch_gemv_mma<kE4M3, 1, kGemvTile>(x, q, scale, y, p, groups, st);
+    }
+    return int8 ? launch_gemv_mma<kInt8, 1, kGemvHalfTile>(x, q, scale, y, p, groups, st)
+                : launch_gemv_mma<kE4M3, 1, kGemvHalfTile>(x, q, scale, y, p, groups, st);
+  }
+  if (full) {
+    return int8 ? launch_gemv_mma<kInt8, 2, kGemvTile>(x, q, scale, y, p, groups, st)
+                : launch_gemv_mma<kE4M3, 2, kGemvTile>(x, q, scale, y, p, groups, st);
+  }
+  return int8 ? launch_gemv_mma<kInt8, 2, kGemvHalfTile>(x, q, scale, y, p, groups, st)
+              : launch_gemv_mma<kE4M3, 2, kGemvHalfTile>(x, q, scale, y, p, groups, st);
 }
 
 // The same product for any m (the wrapper sends m > 16 here). split 0:

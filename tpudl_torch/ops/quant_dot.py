@@ -8,7 +8,10 @@ the result cast to ``x``'s dtype: tpudl's fused quantized product
 ``[out, in]`` weights. The full-precision weight never exists.
 
 - the kernel is ``csrc/quant_dot.cu``: ``tpudl_quant_gemv`` for at most
-  16 rows of x (decode; a programmatic dependent launch), and
+  16 rows of x (decode; a programmatic dependent launch): for bf16 x in
+  whole 16-byte vectors the tensor-core kernel on the plan of
+  ``gemv_plan`` (K split over the warps of a CTA, summed in warp order),
+  else the FMA kernel; and
   ``tpudl_quant_gemm`` past that (prefill, BERT): for bf16 x in whole
   16-byte vectors the TMA + ``wgmma`` kernel on the plan of
   ``gemm_plan`` (split-K where the output tiles are too few, the
@@ -58,6 +61,67 @@ TMA_TALL_ROWS = 256
 #: K steps a unit.
 _SMS = 132
 MIN_SPLIT_STEPS = 4
+#: The tensor-core GEMV's sizes (csrc/quant_dot.cu ``kGemvTile``,
+#: ``kGemvHalfTile``, ``kGemvStepK``, ``kGemvSteps``, ``kGemvMaxWarps``,
+#: ``kGemvMaxTiles``, ``kGemvPad``, which tests/test_torch_quant.py reads
+#: from the source): output channels a tile (16, the mma's rows, or 8
+#: where the plan wants twice the tiles), K a step, steps a round (the x
+#: fragments a warp holds), and the plan's bounds on warps a CTA and
+#: tiles a CTA; floats of padding a row of the partials.
+GEMV_TILE = 16
+GEMV_HALF_TILE = 8
+GEMV_STEP_K = 64
+GEMV_STEPS = 4
+GEMV_MAX_WARPS = 16
+GEMV_MAX_TILES = 16
+GEMV_PAD = 4
+
+
+def gemv_plan(m: int, n: int, k: int) -> dict:
+    """The tensor-core GEMV's launch plan for ``[m, k] x [n, k]^T``, ``m``
+    <= 16: a pure function of the shape, so the order in which the K
+    slices' f32 partials are summed, and the result's bits, depend on the
+    shape alone.
+
+    K is cut into ``ksteps`` steps of 64 and those into one run a warp
+    (warp w takes steps ``[w * ksteps // warps, (w + 1) * ksteps //
+    warps)``; none empty): the ``warps`` of a CTA (16, or 8 for 9-16 rows
+    of x, whose fragments take twice the registers) take consecutive
+    runs, summed in warp order; a run longer than ``GEMV_STEPS`` steps
+    takes ``rounds``. The ``ntiles`` tiles of 16 channels are cut into
+    ``groups`` of ``tiles`` so that the ``grid`` of one CTA a group is
+    about one a multiprocessor (one CTA fills a multiprocessor's
+    registers); where tiles of 16 would leave half the multiprocessors
+    idle, a tile is ``height`` = 8 channels (twice the CTAs, each half
+    the bytes and half the widening). ``nb`` is the n8 tiles of x and
+    ``smem`` a CTA's bytes of partials."""
+    nb = 1 if m <= 8 else 2
+    ksteps = -(-k // GEMV_STEP_K)
+    height = GEMV_TILE if -(-n // GEMV_TILE) * 2 > _SMS else GEMV_HALF_TILE
+    ntiles = -(-n // height)
+    warps = min(GEMV_MAX_WARPS // nb, ksteps)
+    tiles = min(GEMV_MAX_TILES, -(-ntiles // _SMS))
+    groups = -(-ntiles // tiles)
+    per_warp = -(-ksteps // warps)
+    return {"nb": nb, "ksteps": ksteps, "warps": warps, "height": height,
+            "ntiles": ntiles, "tiles": tiles, "groups": groups,
+            "grid": groups, "rounds": -(-per_warp // GEMV_STEPS),
+            "smem": warps * 8 * nb * (tiles * height + GEMV_PAD) * 4}
+
+
+#: The plan's entries that ``tpudl_quant_gemv`` takes, in its order (all
+#: 0: the FMA kernel).
+GEMV_ARGS = ("warps", "tiles", "height")
+
+
+def vector_route(x: torch.Tensor, qvalues: torch.Tensor) -> bool:
+    """Whether these operands take the vector kernels (the tensor-core
+    GEMV at M <= 16, the TMA + ``wgmma`` product above): bf16 x whose
+    rows are whole 16-byte vectors, x and the weight 16-byte aligned.
+    Otherwise the FMA GEMV or the ``mma.sync`` product; the choice is by
+    operand alone."""
+    return (x.dtype == torch.bfloat16 and x.shape[-1] % 16 == 0
+            and x.data_ptr() % 16 == 0 and qvalues.data_ptr() % 16 == 0)
 
 
 def gemm_plan(m: int, n: int, k: int) -> dict:
@@ -104,7 +168,7 @@ def _kernel():
         lib = _build.load("quant_dot")
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.tpudl_quant_gemv.argtypes = [p, p, p, p, i32, i32, i64, i32,
-                                         i32, p]
+                                         i32, i32, i32, i32, p]
         lib.tpudl_quant_gemm.argtypes = [p, p, p, p, p, i32, i32, i64, i32,
                                          i32, i32, i32, i32, i32, p]
         for fn in (lib.tpudl_quant_gemv, lib.tpudl_quant_gemm):
@@ -153,16 +217,17 @@ def _quant_dot_cuda(x: torch.Tensor, qvalues: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         common = (KERNEL_DTYPES[x.dtype], QTYPES[qvalues.dtype], stream)
         if m <= GEMV_MAX_ROWS:
+            plan = (gemv_plan(m, n, k) if vector_route(x2, qvalues)
+                    else dict.fromkeys(GEMV_ARGS, 0))
             code = lib.tpudl_quant_gemv(x2.data_ptr(), qvalues.data_ptr(),
                                         qscale.data_ptr(), y.data_ptr(), m, n,
-                                        k, *common)
+                                        k, *(plan[a] for a in GEMV_ARGS),
+                                        *common)
             _build.check(lib, "quant_gemv", code)
         else:
             split = per = grid = rows = 0
             ws = None
-            if (x.dtype == torch.bfloat16 and k % 16 == 0
-                    and x2.data_ptr() % 16 == 0
-                    and qvalues.data_ptr() % 16 == 0):
+            if vector_route(x2, qvalues):
                 plan = gemm_plan(m, n, k)
                 split, per, grid = plan["split"], plan["per"], plan["grid"]
                 rows = plan["rows"]

@@ -14,8 +14,10 @@ without dropout, Skv 127, the unaligned path, causal with dropout, and
 the step's shape in f32 with and without mask and dropout), the norm
 backward at every shape of PERF.md's row 2 (BERT-base's and BERT-large's
 LayerNorm calls, the Llama LoRA step's RMSNorm calls, frozen scales
-included) and the quantized product at the prefill's and BERT's shapes
-(int8 and e4m3 weights, bf16 x).
+included), the quantized product at the prefill's and BERT's shapes
+(int8 and e4m3 weights, bf16 x) and its decode GEMV (the four Llama-3-8B
+decode shapes at 4 rows, and 8 and 16 rows at [*, 4096] -> 4096, each
+timed L2-warm and L2-cold).
 
     python3 -m tpudl_torch.tools.kernel_ab OTHER_CHECKOUT [ROUNDS] [GROUPS]
 
@@ -23,9 +25,12 @@ runs from the root of checkout B (this one) against checkout A (for
 example the parent commit, unpacked with ``git archive`` into a
 gitignored directory). GROUPS, comma-separated, limits the cases to
 some of ``norms`` (the norm forwards and SwiGLU), ``attention``,
-``seg_lora``, ``softmax``, ``norm_bwd`` and ``quant`` (default: all). Each turn is a fresh process that builds that
+``seg_lora``, ``softmax``, ``norm_bwd``, ``quant`` and ``quant_gemv``
+(default: all). Each turn is a fresh process that builds that
 checkout's kernels and times every case by CUDA-graph replay with that
-checkout's ``chip_smoke.graph_ms``. ROUNDS (default 1) repeats the
+checkout's ``chip_smoke.graph_ms``; a ``quant_gemv`` case's "cold" time
+replays calls that rotate over copies of the weight totalling more than
+twice the 50 MB L2. ROUNDS (default 1) repeats the
 A, B, B, A sequence; the report gives each case's median and range over
 each checkout's turns and the ratio of the medians, B / A. Comparing
 within one call keeps the card, its power limit and its neighbours the
@@ -91,6 +96,10 @@ NORM_BWD = [("layer", 32768, 768, "bfloat16", True, False, True),
 QUANT = [([128, 4096], 4096), ([128, 4096], 1024), ([128, 4096], 14336),
          ([128, 14336], 4096), ([32768, 768], 768), ([32768, 768], 3072),
          ([32768, 3072], 768)]
+#: ([M, K], N): the decode GEMV (PERF.md's quant_dot table): the
+#: Llama-3-8B decode step's projections at its 4 slots, and 8 and 16 rows.
+QUANT_GEMV = [([4, 4096], 4096), ([4, 4096], 1024), ([4, 4096], 14336),
+              ([4, 14336], 4096), ([8, 4096], 4096), ([16, 4096], 4096)]
 
 _TURN = r"""
 import json, sys, torch
@@ -237,6 +246,23 @@ for (m, k), n in json.loads(sys.argv[7]):
             lambda: qd._quant_dot_cuda(x, q, qs), calls=20, reps=5)
     del w, x, q, qs
     torch.cuda.empty_cache()
+for (m, k), n in json.loads(sys.argv[8]):
+    w = torch.randn(n, k, generator=g, device="cuda") * 0.02
+    x = torch.randn(m, k, generator=g, device="cuda").bfloat16()
+    for wd in ("int8", "fp8_e4m3"):
+        leaf = quantize_leaf(w, wd)
+        q, qs = leaf["qvalues"], leaf["qscale"]
+        key = f"quant_gemv [{m}, {k}] -> {n} {wd}"
+        out[key + " warm"] = chip_smoke.graph_ms(
+            lambda: qd._quant_dot_cuda(x, q, qs), calls=50, reps=5)
+        copies = [q] + [q.clone() for _ in range(-(-(120 << 20) // (n * k)) - 1)]
+        turn = iter(range(10**9))
+        out[key + " cold"] = chip_smoke.graph_ms(
+            lambda: qd._quant_dot_cuda(x, copies[next(turn) % len(copies)], qs),
+            calls=-(-60 // len(copies)) * len(copies), reps=5)
+        del copies
+    del w, x, q, qs
+    torch.cuda.empty_cache()
 print(json.dumps(out))
 """
 
@@ -244,7 +270,8 @@ print(json.dumps(out))
 #: Case lists by group, in the order the turn script reads them.
 GROUPS = {"norms": (CASES, TRAIN_CASES), "attention": (ATTENTION,),
           "seg_lora": (SEG_LORA,), "softmax": (SOFTMAX,),
-          "norm_bwd": (NORM_BWD,), "quant": (QUANT,)}
+          "norm_bwd": (NORM_BWD,), "quant": (QUANT,),
+          "quant_gemv": (QUANT_GEMV,)}
 
 
 def turn(tree: str, groups) -> dict:
@@ -254,7 +281,8 @@ def turn(tree: str, groups) -> dict:
 
     proc = subprocess.run([sys.executable, "-c", _TURN, cases(CASES),
                            cases(ATTENTION), cases(SEG_LORA), cases(SOFTMAX),
-                           cases(TRAIN_CASES), cases(NORM_BWD), cases(QUANT)],
+                           cases(TRAIN_CASES), cases(NORM_BWD), cases(QUANT),
+                           cases(QUANT_GEMV)],
                           cwd=tree, capture_output=True, text=True, check=True)
     return json.loads(proc.stdout.strip().splitlines()[-1])
 

@@ -46,6 +46,7 @@ KERNEL_KINDS = (
                              "whole_dkv_kernel", "whole_dq_tma_kernel",
                              "attn_dkv_tma_kernel",
                              "seg_lora_cluster_kernel", "quant_gemv_kernel",
+                             "quant_gemv_mma_kernel",
                              "quant_gemm_kernel", "quant_gemm_tma_kernel",
                              "quant_split_sum_kernel")),
     # Ahead of the convolutions (cuDNN's own batch norm kernels live in its
