@@ -6924,6 +6924,546 @@ def quant_kv8_slice_phase(torch, model, params, card, dense, requests,
     return results, m
 
 
+#: prefix_slice and spec_slice: the radix prefix cache and speculative
+#: decoding on the slice's 8B model (paged, page 16, 4 slots, window 128).
+PAGE = 16
+#: The "system prompt" 12 requests share (6 full pages), their unique
+#: suffixes (8-32 tokens), 2 requests that share nothing; 64 new tokens.
+PREFIX_SYSTEM = 96
+PREFIX_SHARED = 12
+PREFIX_OWN = 2
+PREFIX_NEW = 64
+#: The eviction run: the same requests on a pool of one slot's span and
+#: the trash page.
+PREFIX_EVICT_PAGES = 33
+#: The window, new tokens of spec_slice, and the composed run's requests.
+SPEC_K = 4
+SPEC_NEW = 64
+COMPOSED_REQUESTS = 6
+COMPOSED_NEW = 16
+#: The eager runs' subsets (the sharing ones' unshared requests, the
+#: speculating one's sampled request, included) and their new tokens.
+PREFIX_EAGER = 6
+SPEC_EAGER = 4
+EAGER_NEW = 16
+#: The suffix of the suffix-prefill timing (after the 96-token hit).
+SUFFIX_TIMED = 16
+
+
+def prefix_requests(Request, vocab):
+    """PREFIX_SHARED greedy requests behind one PREFIX_SYSTEM-token system
+    prompt (unique suffixes of 8 to PROMPT_LEN - PREFIX_SYSTEM tokens),
+    then PREFIX_OWN that share nothing; seeded token ids."""
+    import numpy as np
+
+    rng = np.random.default_rng(20)
+    system = rng.integers(1, vocab, size=PREFIX_SYSTEM).tolist()
+    shared = [Request(f"p{i}", system + rng.integers(1, vocab, size=int(
+        rng.integers(8, PROMPT_LEN - PREFIX_SYSTEM + 1))).tolist(),
+        max_new_tokens=PREFIX_NEW) for i in range(PREFIX_SHARED)]
+    own = [Request(f"o{i}", rng.integers(1, vocab, size=int(
+        rng.integers(PREFIX_SYSTEM, PROMPT_LEN + 1))).tolist(),
+        max_new_tokens=PREFIX_NEW) for i in range(PREFIX_OWN)]
+    return shared + own
+
+
+class Oracle:
+    """The f32 plain Llama-3-8B on the slice's weights widened (cuBLAS
+    without TF32, PyTorch's default), built at its first use: 32 GB beside
+    the bf16 weights. ``free`` drops it and its hold on the bf16 weights,
+    which main frees before the training phases."""
+
+    def __init__(self, torch, params):
+        self.torch, self.params = torch, params
+        self.model = self.params32 = None
+
+    def logits(self, ids):
+        if self.model is None:
+            from tpudl_torch.models.llama import LLAMA3_8B, LlamaForCausalLM
+
+            gc.collect()
+            self.torch.cuda.empty_cache()
+            self.model = LlamaForCausalLM(LLAMA3_8B(
+                dtype=self.torch.float32, max_seq_len=MAX_SEQ_LEN,
+                fused_ops=False), device="meta")
+            self.params32 = {k: v.float() for k, v in self.params.items()}
+        return all_logits(self.torch, self.model, self.params32, ids)
+
+    def free(self):
+        self.model = self.params32 = self.params = None
+        gc.collect()
+        self.torch.cuda.empty_cache()
+
+
+def margin_gate(torch, what, model, params, oracle, requests, got, want):
+    """assert_tokens_match's teacher-forced margin mode at the slice's
+    band: where a greedy request's tokens ``got`` part from the reference
+    session's ``want``, the prompt and ``want`` up to that step go through
+    the f32 oracle, which may prefer the reference token by at most
+    ATOL_BANDS x the bf16 kernel path's own max logit error against the
+    oracle over that prefix (a near-tie inside bf16 noise). Returns the
+    identical count and each parting's (step, margin, band)."""
+    import numpy as np
+
+    same, parted = 0, {}
+    greedy = [r for r in requests if r.temperature == 0.0]
+    for req in greedy:
+        g = np.asarray(got[req.request_id].tokens)
+        w = np.asarray(want[req.request_id].tokens)
+        n = min(len(g), len(w))
+        diff = np.nonzero(g[:n] != w[:n])[0]
+        if diff.size == 0 and len(g) == len(w):
+            same += 1
+            continue
+        if diff.size == 0:
+            fail(f"{what}: {req.request_id} stopped after {len(g)} tokens, "
+                 f"the reference after {len(w)}")
+        t = int(diff[0])
+        n0 = len(req.input_ids)
+        ids = np.concatenate([np.asarray(req.input_ids), w[:t]])
+        ref = oracle.logits(ids)[n0 - 1:]
+        err = (all_logits(torch, model, params, ids)[n0 - 1:] - ref).abs()
+        band = ATOL_BANDS * float(err.max())
+        margin = float(ref[-1, int(w[t])] - ref[-1, int(g[t])])
+        print(f"{what}: {req.request_id} parts from the reference at step "
+              f"{t}/{len(w)}: oracle margin of the reference token {w[t]} "
+              f"over {g[t]} = {margin:.4f}, band {band:.4f}")
+        if margin > band:
+            fail(f"{what}: {req.request_id}: the oracle prefers the "
+                 f"reference token by {margin:.4f} > {band:.4f}")
+        parted[req.request_id] = (t, margin, band)
+    print(f"{what}: {same}/{len(greedy)} greedy requests token-identical to "
+          f"the reference session; the rest part at a near-tie")
+    return {"identical": same, "greedy": len(greedy), "parted": parted}
+
+
+def serve_watch(torch, session, requests, counted, spans=None):
+    """serve_run's (session, results, wall s, launches, peak GiB) with the
+    most pool pages in use at once (after each engine step) added; with
+    ``spans`` (a .jsonl path) the engine's prefill and decode-step spans
+    are recorded there while it serves (tpudl_torch.obs), and ``spans``
+    holds their records after."""
+    from tpudl_torch import obs
+    from tpudl_torch.serve import Request
+
+    cache = session.engine.cache
+    if spans is not None:
+        obs.enable(spans)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted.values():
+        fn.launches = 0
+    used = 0
+    t0 = time.perf_counter()
+    for r in requests:
+        session.submit(Request(**r.__dict__))
+    while session.engine.step():
+        used = max(used, cache.num_pages - 1 - cache.free_pages)
+    results = session.collect()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if spans is not None:
+        obs.disable()
+    return (session, results, wall,
+            {name: fn.launches for name, fn in counted.items()},
+            torch.cuda.max_memory_allocated() / 2**30, used)
+
+
+def span_ms(path):
+    """From the spans serve_watch recorded at ``path``: the mean prefill
+    span ms of requests that hit the prefix cache and of those that did
+    not (a prefill span runs from the seat's start to its first token,
+    read back), and the median decode-step span ms."""
+    from tpudl_torch.obs.spans import read_jsonl
+
+    recs = [r for r in read_jsonl(path) if r.get("kind") == "span"]
+    os.remove(path)
+    hit = [1e3 * r["dur"] for r in recs if r["name"] == "prefill"
+           and r.get("prefix_hit_tokens", 0) > 0]
+    cold = [1e3 * r["dur"] for r in recs if r["name"] == "prefill"
+            and not r.get("prefix_hit_tokens", 0)]
+    steps = [1e3 * r["dur"] for r in recs if r["name"] == "decode_step"]
+    return {"prefill_hit_ms": statistics.fmean(hit) if hit else None,
+            "prefill_cold_ms": statistics.fmean(cold) if cold else None,
+            "decode_step_p50_ms": pct(steps, 50)}
+
+
+def check_results(what, requests, results, vocab):
+    bad = [rid for rid, r in results.items() if not r.ok]
+    if bad:
+        fail(f"{what}: requests not ok: {bad}")
+    for req in requests:
+        toks = results[req.request_id].tokens
+        if len(toks) != req.max_new_tokens or not all(
+                0 <= t < vocab for t in toks):
+            fail(f"{what}: request {req.request_id}: {len(toks)} tokens, "
+                 f"expected {req.max_new_tokens} in [0, {vocab})")
+
+
+def suffix_prefill_ms(torch, session, prefix, suffix, reps=20):
+    """Wall ms of a suffix prefill against a cached prefix: the prefix-row
+    gather of the cached ``prefix`` (token ids, whole pages) and the
+    chunked prefill of ``suffix`` more tokens, the first token read back
+    (what TTFT pays a request that hits), after two calls."""
+    import numpy as np
+
+    from tpudl_torch.serve.engine import _select_greedy
+
+    eng = session.engine
+    cache = eng.cache
+    hit = len(prefix)
+    pages, lease = cache.match_and_lease(prefix)
+    cache.release_lease(lease)
+    if len(pages) * PAGE != hit:
+        fail(f"suffix timing: the tree holds {len(pages)} pages of the "
+             f"prefix, {hit // PAGE} needed")
+    tokens = np.arange(1, suffix + 1, dtype=np.int32)[None, :]
+    positions = np.arange(hit, hit + suffix, dtype=np.int32)[None, :]
+
+    def call():
+        rows = cache.gather_prefix_rows(pages, hit)
+        logits, _ = eng.chunk_prefill_call(eng.params, rows, tokens, positions)
+        return int(_select_greedy(logits, getattr(
+            eng.chunk_prefill_call, "greedy", None))[0])
+
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def window_ms(torch, session, reps=10):
+    """(draft ms, verify ms) of one speculative window on an idle session
+    (rows on the trash page): SPEC_K draft calls with each argmax read
+    back, then the verify call with its [num_slots, k] argmax read back,
+    after two of each."""
+    import numpy as np
+
+    from tpudl_torch.serve.engine import _select_greedy
+
+    eng = session.engine
+    spec = eng.speculator
+    b, k = eng.num_slots, spec.k
+    tok = np.ones(b, np.int32)
+    pos = np.full(b, 100, np.int32)
+    chunk = np.ones((b, k), np.int32)
+    pos_chunk = pos[:, None] + np.arange(k, dtype=np.int32)[None, :]
+
+    def draft():
+        for _ in range(k):
+            logits, _ = spec.decode_call(spec.params, spec.cache.cache, tok,
+                                         pos, *spec.cache.dispatch_args())
+            _select_greedy(logits, getattr(spec.decode_call, "greedy", None))
+
+    def verify():
+        logits, _ = eng.verify_call(eng.params, eng.cache.cache, chunk,
+                                    pos_chunk, *eng.cache.dispatch_args())
+        _select_greedy(logits, getattr(eng.verify_call, "greedy", None))
+
+    out = []
+    for fn in (draft, verify):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out.append((time.perf_counter() - t0) / reps * 1e3)
+    return tuple(out)
+
+
+def _ms(value):
+    return "-" if value is None else f"{value:.3f}"
+
+
+def latency(results):
+    ttft = [r.ttft_s * 1e3 for r in results.values()]
+    tpot = [r.tpot_s * 1e3 for r in results.values() if r.tpot_s is not None]
+    return {"ttft_p50_ms": pct(ttft, 50), "ttft_p90_ms": pct(ttft, 90),
+            "tpot_p50_ms": pct(tpot, 50), "tpot_p90_ms": pct(tpot, 90)}
+
+
+def subset(Request, requests, first, last, new):
+    """Copies of ``requests[:first] + requests[len - last:]`` at ``new`` new
+    tokens: what the eager runs serve (an eager 8B step is host-bound,
+    ~5x a replay)."""
+    picked = requests[:first] + (requests[-last:] if last else [])
+    return [Request(**{**r.__dict__, "max_new_tokens": new}) for r in picked]
+
+
+def eager_captured(torch, what, make, requests, counted, want, vocab):
+    """``requests`` through ``make(capture)`` eager, then captured (a
+    fresh session each): results ok, launches ``want(engine)`` exactly,
+    tokens equal bit for bit. Returns the captured session (its graphs
+    warm) and both runs' launches."""
+    runs, launches = {}, {}
+    for capture in (False, True):
+        way = "captured" if capture else "eager"
+        run = serve_run(torch, make(capture), requests, counted)
+        runs[capture] = run
+        session, results, wall, got, _ = run
+        check_results(f"{what} ({way})", requests, results, vocab)
+        if got != want(session.engine):
+            fail(f"{what} ({way}): launches {got} != {want(session.engine)}")
+        launches[capture] = got
+        print(f"{what}, {way}: {len(requests)} requests in {wall:.3f} s, "
+              f"launches {got}")
+    same_tokens(runs, requests, what)
+    return runs[True][0], launches
+
+
+def prefix_slice_phase(torch, model, params, card, oracle):
+    """The radix prefix cache on the 8B: prefix_requests through
+    ServeSession.from_model(paged=True, prefix_share=True) and through the
+    same session without sharing. Each session serves a subset eager and
+    captured (tokens equal bit for bit; exactly 65 RMSNorm and 32 SwiGLU
+    launches a prefill, suffix prefills included, and a decode step);
+    then its captured session, every graph warm and the prefix tree
+    dropped, serves all of them, counted and timed: the sharing session's
+    greedy tokens held to the plain one's by margin_gate; TTFT, the
+    prefill ms a request with and without sharing, the hit tokens, the
+    tree's stats, the suffix graphs and the pool pages in use; then a
+    pool of PREFIX_EVICT_PAGES pages that must evict."""
+    from tpudl_torch.obs import registry
+    from tpudl_torch.ops.mlp_fused import swiglu
+    from tpudl_torch.ops.norms import rms_norm
+    from tpudl_torch.serve import Request, ServeSession
+
+    vocab = model.cfg.vocab_size
+    requests = prefix_requests(Request, vocab)
+    eager_requests = subset(Request, requests, PREFIX_EAGER - PREFIX_OWN,
+                            PREFIX_OWN, EAGER_NEW)
+    counted = {"rms_norm_fwd": rms_norm, "swiglu_fwd": swiglu}
+    kw = dict(prompt_len=PROMPT_LEN, num_slots=NUM_SLOTS, paged=True,
+              page_size=PAGE)
+    hits = registry().counter("serve_prefix_hit_tokens")
+
+    def want(eng):
+        calls = eng.num_prefills + eng.num_decode_steps
+        return {"rms_norm_fwd": 65 * calls, "swiglu_fwd": 32 * calls}
+
+    results, out = {}, {}
+    for share in (False, True):
+        what = f"prefix_slice ({'shared' if share else 'no sharing'})"
+        session, eager = eager_captured(
+            torch, what, lambda capture: ServeSession.from_model(
+                model, params, capture=capture, prefix_share=share, **kw),
+            eager_requests, counted, want, vocab)
+        eng = session.engine
+        # Every suffix length captured first (a length not seen is
+        # captured at its first use, inline); then a cold prefix tree.
+        serve_watch(torch, session, requests, {})
+        ev0 = 0
+        if share:
+            eng.cache.drop_prefix_cache()
+            ev0 = eng.cache.radix.num_evictions
+        h0 = hits.value
+        p0, d0 = eng.num_prefills, eng.num_decode_steps
+        path = os.path.join(export_dir(), f"spans-prefix-{int(share)}.jsonl")
+        _, res, wall, launches, peak, used = serve_watch(
+            torch, session, requests, counted, spans=path)
+        check_results(what, requests, res, vocab)
+        prefills, steps = eng.num_prefills - p0, eng.num_decode_steps - d0
+        if launches != {"rms_norm_fwd": 65 * (prefills + steps),
+                        "swiglu_fwd": 32 * (prefills + steps)}:
+            fail(f"{what}: launches {launches}")
+        m = latency(res) | {
+            "wall_s": wall, "prefills": prefills, "decode_steps": steps,
+            "launches": launches, "eager_launches": eager[False],
+            "peak_memory_gib": peak, "pool_pages_in_use_max": used,
+            "hit_tokens": hits.value - h0} | span_ms(path)
+        if share:
+            m["radix"] = eng.cache.radix.stats()
+            m["radix"]["evictions"] -= ev0  # the warm-up's drop
+            m["pool_pages_cached_after"] = (eng.cache.num_pages - 1
+                                            - eng.cache.free_pages)
+            if m["hit_tokens"] <= 0:
+                fail(f"{what}: no prefix hit ({m['radix']})")
+            m["suffix_graphs"] = eng.chunk_prefill_call.graphs
+            m["suffix_capture_s"] = eng.chunk_prefill_call.capture_s
+            m["gather_capture_s"] = eng.cache.gather_capture_s
+            m["suffix_prefill_ms"] = suffix_prefill_ms(
+                torch, session, requests[0].input_ids[:PREFIX_SYSTEM],
+                SUFFIX_TIMED)
+        else:
+            m["prefill_ms"] = prefill_ms(torch, session)
+        print(f"{what}, captured ({card}): TTFT p50 {m['ttft_p50_ms']:.2f} "
+              f"ms, p90 {m['ttft_p90_ms']:.2f}; TPOT p50 "
+              f"{m['tpot_p50_ms']:.3f} ms; {prefills} prefills, {steps} "
+              f"decode steps in {wall:.3f} s; in situ (spans): prefill "
+              f"{_ms(m['prefill_hit_ms'])} ms hit / "
+              f"{_ms(m['prefill_cold_ms'])} cold, decode step p50 "
+              f"{m['decode_step_p50_ms']:.3f} ms; serve_prefix_hit_tokens "
+              f"+{m['hit_tokens']}; pool pages in use at most {used} of "
+              f"{eng.cache.num_pages - 1}"
+              + (f"; radix {m['radix']}, {m['pool_pages_cached_after']} "
+                 f"pages cached after; {m['suffix_graphs']} suffix graphs "
+                 f"captured in {m['suffix_capture_s']:.3f} s, the gather in "
+                 f"{m['gather_capture_s'] * 1e3:.1f} ms; suffix prefill "
+                 f"({PREFIX_SYSTEM} cached + {SUFFIX_TIMED}) "
+                 f"{m['suffix_prefill_ms']:.3f} ms a request" if share else
+                 f"; full prefill [1, {PROMPT_LEN}] {m['prefill_ms']:.3f} ms "
+                 f"a request"))
+        results[share] = res
+        out[share] = m
+        del session, eng
+    gate = margin_gate(torch, "prefix_slice", model, params, oracle, requests,
+                       results[True], results[False])
+    # A pool of one slot's span: cached prefixes must be evicted to seat.
+    what = "prefix_slice (eviction)"
+    session = ServeSession.from_model(model, params, prefix_share=True,
+                                      num_pages=PREFIX_EVICT_PAGES, **kw)
+    _, res, wall, launches, _, used = serve_watch(torch, session, requests,
+                                                  counted)
+    check_results(what, requests, res, vocab)
+    if launches != want(session.engine):
+        fail(f"{what}: launches {launches}")
+    ev = session.engine.cache.radix.stats()
+    print(f"{what} ({card}): {len(requests)} requests on a "
+          f"{PREFIX_EVICT_PAGES}-page pool in {wall:.3f} s; radix {ev}; pool "
+          f"pages in use at most {used}")
+    if ev["evictions"] < 1:
+        fail(f"{what}: no eviction ({ev})")
+    del session
+    shared, plain = out[True], out[False]
+    print(f"prefix_slice metrics, captured ({card}): TTFT p50 "
+          f"{shared['ttft_p50_ms']:.2f} / p90 {shared['ttft_p90_ms']:.2f} ms "
+          f"shared against {plain['ttft_p50_ms']:.2f} / "
+          f"{plain['ttft_p90_ms']:.2f} without; prefill a request "
+          f"{shared['suffix_prefill_ms']:.3f} ms (suffix of {SUFFIX_TIMED} "
+          f"after {PREFIX_SYSTEM} cached) against {plain['prefill_ms']:.3f} "
+          f"(window {PROMPT_LEN}); wall {shared['wall_s']:.3f} against "
+          f"{plain['wall_s']:.3f} s")
+    return {"shared": shared, "plain": plain, "parity": gate,
+            "eviction": {"radix": ev, "wall_s": wall, "launches": launches}}
+
+
+def spec_launches(eng, k):
+    """RMSNorm, SwiGLU and quant_dot launches of a speculating session's
+    run: a target prefill (full or suffix) and a draft prefill a seat, k
+    draft steps and one verify call a window."""
+    calls = 2 * eng.num_prefills + (k + 1) * eng.num_decode_steps
+    return {"rms_norm_fwd": 65 * calls, "swiglu_fwd": 32 * calls,
+            "quant_dot": QUANT_PER_STEP * (eng.num_prefills
+                                           + k * eng.num_decode_steps)}
+
+
+def spec_slice_phase(torch, model, params, card, qmodel, qparams, requests,
+                     oracle):
+    """Speculative decoding on the 8B: the slice's 8 greedy requests and
+    its sampled one at SPEC_NEW new tokens, through
+    ServeSession.from_model(paged=True, spec_k=SPEC_K) with quant_slice's
+    int8 tree as the draft. A subset (its sampled request included) runs
+    eager then captured (tokens equal bit for bit: the sampled request's
+    two runs; exact launches); then the captured session, its graphs
+    warm, serves all of them, counted and timed, held to the
+    non-speculative captured session (warmed by the same subset) by
+    margin_gate; TPOT beside that session's, tokens a window, draft and
+    verify ms. Then the composed session (prefix_share and spec_k over
+    int8 KV pages) on COMPOSED_REQUESTS of prefix_requests, eager then
+    captured."""
+    from tpudl_torch.obs import registry
+    from tpudl_torch.ops.mlp_fused import swiglu
+    from tpudl_torch.ops.norms import rms_norm
+    from tpudl_torch.ops.quant_dot import quant_matmul
+    from tpudl_torch.serve import Request, ServeSession
+
+    vocab = model.cfg.vocab_size
+    requests = [Request(**{**r.__dict__, "max_new_tokens": SPEC_NEW})
+                for r in requests]
+    eager_requests = subset(Request, requests, SPEC_EAGER - 1, 1, EAGER_NEW)
+    counted = {"rms_norm_fwd": rms_norm, "swiglu_fwd": swiglu,
+               "quant_dot": quant_matmul}
+    kw = dict(prompt_len=PROMPT_LEN, num_slots=NUM_SLOTS, paged=True,
+              page_size=PAGE)
+    reg = registry()
+    names = ("spec_proposed_tokens", "spec_accepted_tokens",
+             "spec_emitted_tokens", "spec_slot_steps")
+
+    def make(capture, **extra):
+        return ServeSession.from_model(
+            model, params, capture=capture, spec_k=SPEC_K,
+            draft_model=qmodel, draft_params=qparams, **kw, **extra)
+
+    def timed(what, session, reqs):
+        eng = session.engine
+        c0 = {n: reg.counter(n).value for n in names}
+        p0, d0 = eng.num_prefills, eng.num_decode_steps
+        ev0 = eng.cache.radix.num_evictions if eng.prefix_share else 0
+        session, results, wall, launches, peak = serve_run(
+            torch, session, reqs, counted)
+        check_results(what, reqs, results, vocab)
+        seats, windows = eng.num_prefills - p0, eng.num_decode_steps - d0
+        calls = 2 * seats + (SPEC_K + 1) * windows
+        if launches != {"rms_norm_fwd": 65 * calls, "swiglu_fwd": 32 * calls,
+                        "quant_dot": QUANT_PER_STEP * (seats
+                                                       + SPEC_K * windows)}:
+            fail(f"{what}: launches {launches}")
+        c = {n: reg.counter(n).value - c0[n] for n in names}
+        m = latency(results) | {
+            "wall_s": wall, "seats": seats, "windows": windows,
+            "launches": launches, "peak_memory_gib": peak, "counters": c,
+            "accepted_per_window": c["spec_accepted_tokens"]
+            / c["spec_slot_steps"],
+            "emitted_per_window": c["spec_emitted_tokens"]
+            / c["spec_slot_steps"]}
+        m["draft_ms"], m["verify_ms"] = window_ms(torch, session)
+        if eng.prefix_share:
+            m["radix"] = eng.cache.radix.stats()
+            m["radix"]["evictions"] -= ev0  # the warm-up's drop
+            if m["radix"]["nodes"] == 0:
+                fail(f"{what}: nothing cached")
+        print(f"{what}, captured ({card}): TPOT p50 {m['tpot_p50_ms']:.3f} "
+              f"ms, p90 {m['tpot_p90_ms']:.3f}; TTFT p50 "
+              f"{m['ttft_p50_ms']:.2f}; {seats} seats, {windows} windows in "
+              f"{wall:.3f} s; accepted {c['spec_accepted_tokens']} / "
+              f"{c['spec_slot_steps']} slot windows = "
+              f"{m['accepted_per_window']:.3f} tokens a window (emitted "
+              f"{m['emitted_per_window']:.3f}); launches {launches}; peak "
+              f"{peak:.2f} GiB; a window: draft {m['draft_ms']:.3f} ms "
+              f"({SPEC_K} steps), verify {m['verify_ms']:.3f} ms"
+              + (f"; radix {m['radix']}" if eng.prefix_share else ""))
+        return results, m
+
+    # The non-speculative captured session, warmed by the same subset.
+    base_session = ServeSession.from_model(model, params, **kw)
+    serve_run(torch, base_session, eager_requests, {})
+    _, base, base_wall, _, _ = serve_run(torch, base_session, requests, {})
+    check_results("spec_slice (no speculation)", requests, base, vocab)
+    base_m = latency(base) | {"wall_s": base_wall}
+    del base_session
+    session, eager = eager_captured(torch, "spec_slice", make, eager_requests,
+                                    counted, lambda e: spec_launches(e, SPEC_K),
+                                    vocab)
+    results, spec = timed("spec_slice", session, requests)
+    spec["eager_launches"] = eager[False]
+    del session
+    gate = margin_gate(torch, "spec_slice", model, params, oracle, requests,
+                       results, base)
+    print(f"spec_slice metrics, captured ({card}): TPOT p50 "
+          f"{spec['tpot_p50_ms']:.3f} / p90 {spec['tpot_p90_ms']:.3f} ms "
+          f"against {base_m['tpot_p50_ms']:.3f} / {base_m['tpot_p90_ms']:.3f} "
+          f"without speculation; {spec['accepted_per_window']:.3f} accepted "
+          f"tokens a window of {SPEC_K}; a window's draft "
+          f"{spec['draft_ms']:.3f} ms + verify {spec['verify_ms']:.3f} ms")
+    what = "spec_slice (composed: prefix_share, int8 KV pages)"
+    prefix = prefix_requests(Request, vocab)
+    composed = subset(Request, prefix, COMPOSED_REQUESTS - PREFIX_OWN,
+                      PREFIX_OWN, COMPOSED_NEW)
+    session, eager = eager_captured(
+        torch, what, lambda capture: make(capture, prefix_share=True,
+                                          kv_dtype="int8"),
+        composed, counted, lambda e: spec_launches(e, SPEC_K), vocab)
+    session.engine.cache.drop_prefix_cache()
+    _, comp = timed(what, session, composed)
+    comp["eager_launches"] = eager[False]
+    return {"spec": spec, "plain": base_m, "parity": gate,
+            "composed": comp}
+
+
 def export_quant_phase(torch, sessions, card, requests):
     """The quantized serving programs as torch.export artifacts, at the
     8B's full width cut to EXPORT_QUANT_LAYERS layers (its first layers'
@@ -7973,6 +8513,15 @@ def main() -> int:
     mark("quant_kv8_slice")
     export_quant = export_quant_phase(torch, quant_sessions, card, requests)
     mark("export_quant")
+    oracle = Oracle(torch, params)
+    prefix_metrics = prefix_slice_phase(torch, model, params, card, oracle)
+    mark("prefix_slice")
+    qmodel, qparams, _ = quant_sessions["int8"]
+    spec_metrics = spec_slice_phase(torch, model, params, card, qmodel,
+                                    qparams, requests, oracle)
+    oracle.free()
+    del oracle, qmodel, qparams
+    mark("spec_slice")
     # Free the 8B model before the training phases.
     del model, params, requests, results, adapters, t_results
     del quant_sessions
@@ -8230,7 +8779,17 @@ def main() -> int:
                       | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
                       for c in rows],
         })
+    # The radix prefix cache's and speculation's runs (captured): their
+    # own launches beside each kernel's row.
+    for row in kernels:
+        for phase, m in (("prefix_slice", prefix_metrics["shared"]),
+                         ("spec_slice", spec_metrics["spec"]),
+                         ("spec_slice_composed", spec_metrics["composed"])):
+            if row["name"] in m["launches"]:
+                row[f"launches_{phase}"] = m["launches"][row["name"]]
     print(json.dumps({"slice": metrics, "tenant_slice": tenant_metrics,
+                      "prefix_slice": prefix_metrics,
+                      "spec_slice": spec_metrics,
                       "train": train_metrics,
                       "train_fused": fused_metrics, "train_512": metrics_512,
                       "resnet50_train": resnet_metrics,

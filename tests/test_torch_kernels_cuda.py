@@ -2742,3 +2742,104 @@ def test_captured_quantized_decode_serves_the_eager_tokens(dev, mode):
     for r in reqs:
         assert out[True][r.request_id].tokens == out[False][r.request_id].tokens
     assert counts[True] == counts[False]
+
+
+# ---------------------------------------------------------------------------
+# the radix prefix cache and speculative decoding (the kernels they launch)
+# ---------------------------------------------------------------------------
+
+
+def test_verify_window_and_draft_step_kernels_match_plain(dev):
+    """The shapes a speculative window gives the kernels at 4 slots and
+    k = 4: the verify chunk's RMSNorm (plain and residual + sum) at [16,
+    4096] and SwiGLU at [16, 14336] in bf16; the int8 self-draft's GEMV at
+    M = 4 (its four projection shapes). Each against its plain version,
+    twice with equal bits."""
+    from tpudl_torch.ops import quant_dot as qd
+
+    rng = np.random.default_rng(20)
+    x = _t(rng, (16, 4096), torch.bfloat16, dev)
+    r = _t(rng, (16, 4096), torch.bfloat16, dev)
+    scale = _t(rng, (4096,), torch.float32, dev)
+    for res in (None, r):
+        out = rms_norm(x, scale, res, eps=1e-5, impl="fused")
+        again = rms_norm(x, scale, res, eps=1e-5, impl="fused")
+        ref = rms_norm_ref(x, scale, res, eps=1e-5)
+        y, yr, y2 = (out, ref, again) if res is None else (
+            out[0], ref[0], again[0])
+        torch.testing.assert_close(y.float(), yr.float(),
+                                   rtol=TOL[torch.bfloat16],
+                                   atol=TOL[torch.bfloat16])
+        assert torch.equal(y, y2)
+    g = _t(rng, (16, 14336), torch.bfloat16, dev) * 4
+    u = _t(rng, (16, 14336), torch.bfloat16, dev)
+    y = swiglu(g, u, impl="fused")
+    torch.testing.assert_close(y.float(), swiglu_ref(g, u).float(),
+                               rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])
+    assert torch.equal(y, swiglu(g, u, impl="fused"))
+    for k, n in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)):
+        xq, q, s = _quant_case(dev, 4, k, n, torch.bfloat16, "int8",
+                               seed=k + n)
+        assert qd.vector_route(xq, q)
+        y = qd._quant_dot_cuda(xq, q, s)
+        again = qd._quant_dot_cuda(xq, q, s)
+        torch.cuda.synchronize()
+        _assert_quant_close(y, qd.quant_matmul_ref(xq, q, s), torch.bfloat16)
+        assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("mode", ["prefix", "spec", "both"])
+def test_captured_prefix_and_spec_sessions_serve_the_eager_tokens(dev, mode):
+    """LLAMA_TINY f32 with the radix prefix cache (shared prompt pages,
+    suffix prefills captured a graph a suffix length, the prefix-row
+    gather one graph), speculation (int8 self-draft, k = 3, the verify
+    window one graph), or both over int8 KV pages: the captured session
+    gives the eager session's tokens (a sampled request included) and
+    launch counts; the suffix prefills, verify windows and draft steps
+    launch 5 RMSNorm, 2 SwiGLU and 14 quant_dot each."""
+    from tpudl_torch.ops.quant_dot import quant_matmul
+    from tpudl_torch.serve import Request, ServeSession
+
+    model, params = _tiny_llama(dev)
+    kw = dict(paged=True, page_size=4)
+    if mode in ("prefix", "both"):
+        kw["prefix_share"] = True
+    if mode in ("spec", "both"):
+        kw["spec_k"] = 3
+    if mode == "both":
+        kw["kv_dtype"] = "int8"
+    rng = np.random.default_rng(21)
+    shared = rng.integers(1, 512, size=8).tolist()
+    reqs = [Request(f"r{i}", shared + rng.integers(1, 512, size=int(
+        rng.integers(1, 9))).tolist(), max_new_tokens=int(rng.integers(4, 12)))
+        for i in range(6)]
+    reqs.append(Request("s", shared + [3, 4], max_new_tokens=9,
+                        temperature=0.8, seed=5))
+    out, counts = {}, {}
+    for capture in (False, True):
+        session = ServeSession.from_model(model, params, prompt_len=16,
+                                          num_slots=4, capture=capture, **kw)
+        for fn in (rms_norm, swiglu, quant_matmul):
+            fn.launches = 0
+        out[capture] = session.serve([Request(**r.__dict__) for r in reqs])
+        torch.cuda.synchronize()
+        eng = session.engine
+        counts[capture] = (rms_norm.launches, swiglu.launches,
+                           quant_matmul.launches)
+        calls = eng.num_prefills + eng.num_decode_steps
+        draft = 0
+        if eng.speculator is not None:
+            # A draft prefill a seat, k draft steps and one verify a window.
+            draft = eng.num_prefills + 3 * eng.num_decode_steps
+        assert counts[capture] == (5 * (calls + draft), 2 * (calls + draft),
+                                   14 * draft)
+        if eng.prefix_share:
+            assert eng.cache.radix.stats()["nodes"] > 0
+            if capture:
+                assert eng.chunk_prefill_call.graphs > 0
+                assert eng.cache.gather_capture_s is not None
+        assert all(r.ok for r in out[capture].values())
+    for r in reqs:
+        assert out[True][r.request_id].tokens == out[False][r.request_id].tokens
+    assert counts[True] == counts[False]

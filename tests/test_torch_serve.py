@@ -211,9 +211,12 @@ def test_sampling_is_batch_composition_independent(pair):
 
 
 def test_unported_serving_tiers_are_refused(pair, monkeypatch):
+    # The radix prefix cache and speculation are ported
+    # (tests/test_torch_prefix_spec.py): their knobs switch them on, and
+    # without the paged cache they are refused as tpudl refuses them.
     _, _, tmodel, tparams = pair
     monkeypatch.setenv("TPUDL_SERVE_PREFIX_SHARE", "1")
-    with pytest.raises(NotImplementedError, match="TPUDL_SERVE_PREFIX_SHARE"):
+    with pytest.raises(ValueError, match="require paged"):
         ServeSession.from_model(tmodel, tparams, prompt_len=PROMPT_LEN)
     monkeypatch.setenv("TPUDL_SERVE_PREFIX_SHARE", "0")  # off, as tpudl reads it
     assert not ServeSession.from_model(tmodel, tparams,
@@ -222,6 +225,14 @@ def test_unported_serving_tiers_are_refused(pair, monkeypatch):
     monkeypatch.setenv("TPUDL_SERVE_PAGED", "1")
     assert ServeSession.from_model(tmodel, tparams,
                                    prompt_len=PROMPT_LEN).engine.paged
+    monkeypatch.setenv("TPUDL_SERVE_PREFIX_SHARE", "1")
+    monkeypatch.setenv("TPUDL_SERVE_SPEC_K", "2")
+    engine = ServeSession.from_model(tmodel, tparams,
+                                     prompt_len=PROMPT_LEN).engine
+    assert engine.prefix_share and engine.speculator.k == 2
+    monkeypatch.setenv("TPUDL_SERVE_SPEC_K", "0")  # 0 = off, as tpudl reads it
+    assert ServeSession.from_model(tmodel, tparams, prompt_len=PROMPT_LEN
+                                   ).engine.speculator is None
 
 
 def test_slot_cache_bookkeeping():

@@ -415,10 +415,14 @@ def test_tenant_admission_validation_and_refusals(base, adapters,
         ServeSession.from_model(model, params, adapters={}, **kw)
     with pytest.raises(ValueError, match="require paged"):
         ServeSession.from_model(model, params, page_size=4, **kw)
+    # The radix prefix cache and speculation are ported
+    # (tests/test_torch_prefix_spec.py): without adapters they serve.
     for arg, value in (("prefix_share", True), ("spec_k", 2)):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            ServeSession.from_model(model, params, paged=True,
-                                    **{arg: value}, **kw)
+        served = ServeSession.from_model(model, params, paged=True,
+                                         **{arg: value}, **kw)
+        assert served.engine.prefix_share == (arg == "prefix_share")
+        assert (served.engine.speculator is not None) == (arg == "spec_k")
+        assert served.serve([Request("p", [1, 2, 3], 3)])["p"].ok
     # int8 KV pages and quantized weights are ported
     # (tests/test_torch_quant.py); they compose with adapters.
     monkeypatch.setenv("TPUDL_SERVE_KV_DTYPE", "int8")
@@ -506,13 +510,31 @@ def test_paged_cache_bookkeeping_and_refusals(base):
     want = sum(t.numel() * 4 for layer in cache.cache["model"].values()
                for t in layer["attention"].values())
     assert cache.nbytes == want + 3 * 4 * 4 + 3 * 4 + 3 * 4
-    for call in (cache.seat_shared, cache.gather_prefix_rows,
-                 cache.match_and_lease, cache.export_request,
-                 cache.import_request, RadixPrefixTree):
+    # Migration still waits for queue A item 3 (the cache's and the
+    # draft's halves); the radix tier is ported.
+    from tpudl_torch.serve import Speculator
+
+    spec = Speculator(None, None, None, cache, k=2)
+    for call in (cache.export_request, cache.import_request,
+                 spec.export_slot, spec.import_slot):
         with pytest.raises(NotImplementedError, match="item 3"):
             call()
-    with pytest.raises(NotImplementedError, match="item 3"):
-        PagedKVCache(template, prefix_share=True)
+    with pytest.raises(ValueError, match="prefix_share=True"):
+        cache.match_and_lease([1, 2, 3])
+    with pytest.raises(ValueError, match="prefix_share=True"):
+        cache.gather_prefix_rows([1], 16)
+    shared = PagedKVCache(template, page_size=16, prefix_share=True,
+                          device="cpu")
+    assert isinstance(shared.radix, RadixPrefixTree)
+    ids = list(range(1, 21))  # one full page and a tail
+    shared.seat_shared(row, 0, ids, 24, lease=shared.match_and_lease(ids),
+                       row_offset=3)
+    assert shared.radix.stats()["cached_pages"] == 1
+    assert shared.match_and_lease(ids)[0] == [shared.page_table[0, 0]]
+    rows = shared.gather_prefix_rows([shared.page_table[0, 0]], 16)
+    torch.testing.assert_close(
+        rows["model"]["layer_0"]["attention"]["k"][0, :16],
+        row["model"]["layer_0"]["attention"]["k"][0, 3:19])
     with pytest.raises(ValueError, match="kv_dtype must be"):
         PagedKVCache(template, kv_dtype="int4")
     with pytest.raises(ValueError, match="cannot hold even one slot"):

@@ -47,10 +47,11 @@ KNOBS: Dict[str, str] = {
     "TPUDL_SERVE_WEIGHT_DTYPE": "Serving weight quantization of the "
                                 "attention/MLP projections (int8 | "
                                 "fp8_e4m3); unset = full precision.",
-    # Read only to refuse them: the radix cache and speculation are not
-    # ported yet (ROADMAP queue A item 3).
-    "TPUDL_SERVE_PREFIX_SHARE": "Radix prefix sharing (not ported).",
-    "TPUDL_SERVE_SPEC_K": "Speculative decoding window (not ported).",
+    "TPUDL_SERVE_PREFIX_SHARE": "Radix prefix-sharing KV: COW page sharing "
+                                "+ chunked suffix prefill (requires "
+                                "paged).",
+    "TPUDL_SERVE_SPEC_K": "Speculative-decoding window (draft proposes k "
+                          "tokens per verify call); 0/unset = off.",
     # Training precision (tpudl_torch.train.precision,
     # tpudl_torch.ops.fp8_dot); the defaults are tpudl's.
     "TPUDL_TRAIN_PRECISION": "Mixed-precision training policy preset (f32 | "

@@ -1,7 +1,8 @@
 """CUDA-graph capture: the port's counterpart of ``jax.jit`` for its hot
 loops (tpudl_torch.train.loop.compile_step for the train and eval
-steps, ``CapturedCall`` for the serving engine's prefill and decode
-calls, ``KeyedGraphs`` for ``generate()``'s decode chunks).
+steps, ``CapturedCall`` for the serving engine's prefill, decode and
+verify calls, ``KeyedCapturedCall`` for its suffix prefills,
+``KeyedGraphs`` for ``generate()``'s decode chunks).
 
 A captured call replays every kernel of one step from one graph launch,
 so the host pays one launch a step instead of one per kernel. What that
@@ -201,10 +202,13 @@ class CapturedCall:
     are left in ``greedy`` (None after an eager call). The logits,
     ``greedy`` and a prefill's cache are the graph's buffers: the next
     call rewrites them, so the caller reads or copies them out first. A
-    static argument whose tensors moved raises."""
+    static argument whose tensors moved raises. ``warm=False`` captures at
+    the first call (kernels built and libraries warmed by another call
+    already: ``KeyedCapturedCall``)."""
 
-    def __init__(self, fn: Callable):
+    def __init__(self, fn: Callable, warm: bool = True):
         self.fn = fn
+        self.warm = warm
         self.calls = 0
         self.graph: Optional[Graph] = None
         self.inputs: Optional[StaticInputs] = None
@@ -234,7 +238,7 @@ class CapturedCall:
 
     def __call__(self, *args):
         self.calls += 1
-        if self.calls == 1:
+        if self.calls == 1 and self.warm:
             self.greedy = None
             return self.fn(*args)
         self.fn.check(*args)
@@ -263,6 +267,41 @@ class CapturedCall:
 
         self.graph = Graph()
         self.outputs, self._greedy = self.graph.capture(run)
+
+
+class KeyedCapturedCall:
+    """A contract captured once per key of its arguments (the suffix
+    prefill of prefix-sharing serving, keyed by the suffix length, as
+    ``KeyedGraphs`` keys ``generate()``'s chunks by their length): a
+    CapturedCall a key. The first key's runs its first call eagerly (the
+    warm-up); a later key is captured at its first call (``warm=False``)
+    and replayed at every later one. ``greedy`` is the last call's (None
+    after the eager one); ``graphs`` counts the captures and
+    ``capture_s`` sums their wall times."""
+
+    def __init__(self, fn: Callable, key: Callable[..., Any]):
+        self.fn = fn
+        self.key = key
+        self.calls: Dict[Any, CapturedCall] = {}
+        self.greedy: Optional[torch.Tensor] = None
+
+    @property
+    def graphs(self) -> int:
+        return sum(c.graph is not None for c in self.calls.values())
+
+    @property
+    def capture_s(self) -> float:
+        return sum(c.capture_s or 0.0 for c in self.calls.values())
+
+    def __call__(self, *args):
+        key = self.key(*args)
+        call = self.calls.get(key)
+        if call is None:
+            call = self.calls[key] = CapturedCall(self.fn,
+                                                  warm=not self.calls)
+        out = call(*args)
+        self.greedy = call.greedy
+        return out
 
 
 class KeyedGraphs:

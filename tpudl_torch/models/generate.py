@@ -189,6 +189,56 @@ def paged_decode_fn(model, page_size: int, quantized: bool = False):
     return _contract(model, run, (0, 1), cache_arg=1)
 
 
+def _chunk_inputs(dev, tokens, positions):
+    return (torch.as_tensor(tokens, device=dev),
+            torch.as_tensor(positions, device=dev))
+
+
+def chunk_prefill_fn(model):
+    """THE suffix-prefill contract of prefix-sharing serving
+    (tpudl_torch.serve.cache radix mode): ``(params, cache, tokens [B, C],
+    positions [B, C]) -> (last_logits, cache)``. ``cache`` already holds
+    the SHARED prefix KV (gathered out of radix-tree pages into dense
+    rows, its device write index at the prefix length,
+    ``PagedKVCache.gather_prefix_rows``); this runs only the C unshared
+    suffix tokens through the dense decode branch, which writes the chunk
+    at ``index .. index + C`` in place and attends slot-order-causally
+    over prefix + chunk, so a prefill costs O(suffix). Positions are
+    ABSOLUTE (token index in the unpadded prompt), keeping RoPE phases
+    those of a cold full prefill. A captured call reads the cache in
+    place and copies the tokens and positions in."""
+
+    def run(call, dev, cache, tokens, positions):
+        tokens, positions = _chunk_inputs(dev, tokens, positions)
+        logits, cache = call(tokens, torch.ones_like(tokens), decode=True,
+                             positions=positions, cache=cache)
+        return logits[:, -1, :], cache
+
+    return _contract(model, run, (0, 1), cache_arg=1)
+
+
+def paged_chunk_decode_fn(model, page_size: int, quantized: bool = False):
+    """THE speculative-verify contract: ``(params, cache, tokens [B, C],
+    positions [B, C], page_table, start, lens) -> (logits [B, C, V],
+    cache)``. One slot-batched call writes each slot's C-token window
+    into its pages (token j at logical position ``lens + j``; past the
+    table's capacity, into the trash page) and returns the logits of
+    EVERY window position: the target model's verdict on all k draft
+    proposals at once (tpudl_torch.serve.speculate). Causality within the
+    window rides the chunked paged mask; a rejected tail rolls back on the
+    host by not advancing ``lens`` past the emitted count."""
+
+    def run(call, dev, cache, tokens, positions, page_table, start, lens):
+        tokens, positions = _chunk_inputs(dev, tokens, positions)
+        logits, cache = call(
+            tokens, torch.ones_like(tokens), decode=True, positions=positions,
+            cache=cache, paged=_paged_view(dev, page_size, quantized,
+                                           page_table, start, lens))
+        return logits, cache
+
+    return _contract(model, run, (0, 1), cache_arg=1)
+
+
 def lora_prefill_fn(model, impl: str = "auto"):
     """THE multi-tenant prefill contract: ``(params, input_ids,
     attention_mask, adapter_pools, adapter_table [1, r_max],

@@ -19,11 +19,10 @@ Knobs: ``TPUDL_SERVE_SLOTS`` (default slot count for ``from_model``),
 ``TPUDL_SERVE_PAGED`` and ``TPUDL_SERVE_PAGE_SIZE`` (the paged cache),
 ``TPUDL_SERVE_LORA_RANK``, ``TPUDL_SERVE_LORA_PAGES`` and
 ``TPUDL_SERVE_LORA_DTYPE`` (the adapter pool), ``TPUDL_SERVE_WEIGHT_DTYPE``
-(quantized projection weights, tpudl_torch.quant) and
-``TPUDL_SERVE_KV_DTYPE`` (int8 KV pages). The knobs of the tiers not
-ported yet (``TPUDL_SERVE_PREFIX_SHARE``, ``TPUDL_SERVE_SPEC_K``, and the
-arguments of the same names) are refused when switched on, rather than
-served without them behind the operator's back. Artifact sessions (``from_artifacts``) serve
+(quantized projection weights, tpudl_torch.quant), ``TPUDL_SERVE_KV_DTYPE``
+(int8 KV pages), ``TPUDL_SERVE_PREFIX_SHARE`` (the radix prefix cache)
+and ``TPUDL_SERVE_SPEC_K`` (speculative decoding). Artifact sessions
+(``from_artifacts``) serve
 the prefill and decode programs tpudl_torch.export.decode exports, with
 every shape read back from the programs.
 
@@ -47,21 +46,6 @@ from tpudl_torch.obs import registry
 from tpudl_torch.obs.spans import active_recorder
 from tpudl_torch.serve.cache import SlotCache
 from tpudl_torch.serve.queue import CAT_SERVE_REQUEST, AdmissionQueue
-
-
-def _unported_tiers_requested(prefix_share=None, spec_k=None) -> List[str]:
-    """The serving tiers switched on (by argument, else by knob) that are
-    not ported yet."""
-    return [
-        name for name, on in (
-            ("prefix_share / TPUDL_SERVE_PREFIX_SHARE",
-             prefix_share if prefix_share is not None
-             else env_flag("TPUDL_SERVE_PREFIX_SHARE")),
-            ("spec_k / TPUDL_SERVE_SPEC_K",
-             bool(spec_k if spec_k is not None
-                  else env_int("TPUDL_SERVE_SPEC_K"))),
-        ) if on
-    ]
 
 
 @dataclasses.dataclass
@@ -164,6 +148,9 @@ class ServeSession:
         clock: Callable[[], float] = time.monotonic,
         continuous: bool = True,
         cache: Optional[SlotCache] = None,
+        chunk_prefill_call: Optional[Callable] = None,
+        speculator=None,
+        verify_call: Optional[Callable] = None,
         adapter_pool=None,
     ):
         # Deferred import: engine imports Request/Result from this module.
@@ -180,7 +167,8 @@ class ServeSession:
         self.engine = Engine(
             prefill_call, decode_call, params, cache, self.queue,
             prompt_len, clock=clock, continuous=continuous,
-            adapter_pool=adapter_pool,
+            chunk_prefill_call=chunk_prefill_call, speculator=speculator,
+            verify_call=verify_call, adapter_pool=adapter_pool,
         )
         self._pending_ids: set = set()
         #: Weakref to the live stream() generator (see stream()).
@@ -202,6 +190,9 @@ class ServeSession:
         weight_dtype: Optional[str] = None,
         prefix_share: Optional[bool] = None,
         spec_k: Optional[int] = None,
+        draft_weight_dtype: str = "int8",
+        draft_model=None,
+        draft_params=None,
         adapters: Optional[Dict[Any, Any]] = None,
         adapter_rank_max: Optional[int] = None,
         adapter_pages: Optional[int] = None,
@@ -262,14 +253,35 @@ class ServeSession:
         before the next prefill replays. ``capture=False`` keeps both
         eager.
 
-        ``prefix_share`` and ``spec_k`` with adapters raise ValueError,
-        as tpudl's do; otherwise ``prefix_share`` and ``spec_k`` (or their
-        knobs) raise NotImplementedError: the radix prefix cache and
-        speculation are not ported yet (ROADMAP queue A item 3)."""
+        ``prefix_share=True`` (or ``TPUDL_SERVE_PREFIX_SHARE=1``; requires
+        ``paged``) turns on the radix prefix cache: seating walks a tree of
+        page-granular token-block hashes, maps every matched full page
+        into the new slot's table copy-on-write for free, and prefills
+        only the unshared suffix through the chunked prefill
+        (``chunk_prefill_fn``; on the card a graph a suffix length,
+        tpudl_torch.graphs.KeyedCapturedCall, over the gathered prefix
+        rows, one graph for every match length): a shared system prompt
+        is prefilled once, then TTFT is O(unshared suffix).
+
+        ``spec_k=K`` (or ``TPUDL_SERVE_SPEC_K``; requires ``paged``) turns
+        on speculative decoding (tpudl_torch.serve.speculate): a DRAFT
+        path proposes K tokens a slot (default: the self-draft
+        ``quantize_model`` builds at ``draft_weight_dtype``; pass
+        ``draft_model`` / ``draft_params`` for a companion model, its own
+        cache template) with its own paged cache, and the target verifies
+        the window in one slot-batched chunk call
+        (``paged_chunk_decode_fn``; captured at [num_slots, K] on the
+        card). Greedy requests are held by ``assert_serving_parity``'s
+        teacher-forced margin mode. The two compose.
+
+        ``prefix_share`` and ``spec_k`` with adapters, or without
+        ``paged``, raise ValueError, as tpudl's do."""
         from tpudl_torch.models.generate import (
+            chunk_prefill_fn,
             decode_fn,
             lora_paged_decode_fn,
             lora_prefill_fn,
+            paged_chunk_decode_fn,
             paged_decode_fn,
             prefill_fn,
         )
@@ -292,6 +304,12 @@ class ServeSession:
             paged = env_flag("TPUDL_SERVE_PAGED")
         if kv_dtype is None:
             kv_dtype = env_str("TPUDL_SERVE_KV_DTYPE")
+        if prefix_share is None:
+            prefix_share = env_flag("TPUDL_SERVE_PREFIX_SHARE")
+        if spec_k is None:
+            spec_k = env_int("TPUDL_SERVE_SPEC_K")
+            if spec_k == 0:
+                spec_k = None
         if adapters is not None:
             if not adapters:
                 raise ValueError("adapters={} registers no tenants — pass "
@@ -299,25 +317,16 @@ class ServeSession:
             # Adapter serving rides the paged substrate; a dense request
             # for it is a configuration error, not a silent downgrade.
             paged = True
-            if prefix_share if prefix_share is not None else env_flag(
-                    "TPUDL_SERVE_PREFIX_SHARE"):
+            if prefix_share:
                 raise ValueError(
                     "prefix_share cannot compose with per-tenant adapters: "
                     "k/v projections are tenant-adapted, so identical "
                     "prompt tokens produce DIFFERENT KV per tenant — a "
                     "shared page would be wrong for one of them")
-            if spec_k if spec_k is not None else env_int(
-                    "TPUDL_SERVE_SPEC_K"):
+            if spec_k:
                 raise ValueError("spec_k cannot compose with per-tenant "
                                  "adapters yet (the draft path has no "
                                  "adapter view)")
-        unported = _unported_tiers_requested(prefix_share, spec_k)
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)} switched on, but tpudl_torch serves "
-                f"the dense and paged caches only (the radix prefix cache "
-                f"and speculation are not ported yet: ROADMAP queue A item "
-                f"3)")
         device = params_device(params)
         if capture is None:
             capture = device.type == "cuda"
@@ -339,6 +348,11 @@ class ServeSession:
                     kv_dtype is not None:
                 raise ValueError(
                     "page_size/kv_dtype/num_pages require paged=True")
+            if prefix_share or spec_k:
+                raise ValueError(
+                    "prefix_share/spec_k require paged=True (per-slot page "
+                    "tables are what make copy-on-write sharing and window "
+                    "rollback possible)")
             cache = SlotCache(template, device=device)
             return cls(prefill, captured(decode_fn(model)), params, template,
                        prompt_len, cache=cache, **kwargs)
@@ -348,8 +362,27 @@ class ServeSession:
             template,
             page_size=(page_size if page_size is not None
                        else env_int("TPUDL_SERVE_PAGE_SIZE", 16, min_value=1)),
-            num_pages=num_pages, kv_dtype=kv_dtype, device=device)
+            num_pages=num_pages, kv_dtype=kv_dtype,
+            prefix_share=bool(prefix_share), device=device, capture=capture)
         if adapters is None:
+            if prefix_share:
+                chunk = chunk_prefill_fn(model)
+                if capture:
+                    from tpudl_torch.graphs import KeyedCapturedCall
+
+                    # One graph a suffix length (no padding: it would
+                    # move the positions).
+                    chunk = KeyedCapturedCall(
+                        chunk, lambda params, rows, tokens, positions:
+                        tuple(np.shape(tokens)))
+                kwargs["chunk_prefill_call"] = chunk
+            if spec_k:
+                kwargs["speculator"] = _speculator(
+                    model, params, spec_k, draft_weight_dtype, draft_model,
+                    draft_params, num_slots, cache, num_pages, device,
+                    captured)
+                kwargs["verify_call"] = captured(paged_chunk_decode_fn(
+                    model, cache.page_size, cache.quantized))
             return cls(prefill,
                        captured(paged_decode_fn(model, cache.page_size,
                                                 cache.quantized)),
@@ -639,6 +672,38 @@ class ServeSession:
         rec = active_recorder()
         if rec is not None:
             rec.counters(registry().snapshot())
+
+
+def _speculator(model, params, spec_k, draft_weight_dtype, draft_model,
+                draft_params, num_slots, cache, num_pages, device, captured):
+    """``from_model``'s draft half: the int8 (``draft_weight_dtype``)
+    self-draft by default, else ``draft_model`` / ``draft_params``; its
+    own paged cache (page size and pool size of the target's, its own
+    template: a companion's KV geometry need not match the target's,
+    only the tokenizer must) and its prefill and paged decode contracts,
+    wrapped by ``captured``."""
+    from tpudl_torch.models.generate import paged_decode_fn, prefill_fn
+    from tpudl_torch.models.llama import init_cache
+    from tpudl_torch.quant import quantize_model, weight_bytes_report
+    from tpudl_torch.serve.cache import PagedKVCache
+    from tpudl_torch.serve.speculate import Speculator
+
+    if draft_model is None:
+        # Quantized SELF-draft: same architecture, low-precision weights;
+        # agrees with the target on most greedy tokens at a fraction of
+        # the bytes a call.
+        draft_model, draft_params = quantize_model(model, params,
+                                                   draft_weight_dtype)
+    elif draft_params is None:
+        raise ValueError("draft_model needs draft_params")
+    draft_cache = PagedKVCache(
+        init_cache(draft_model.cfg, num_slots, device="meta"),
+        page_size=cache.page_size, num_pages=num_pages, device=device)
+    return Speculator(
+        captured(prefill_fn(draft_model)),
+        captured(paged_decode_fn(draft_model, draft_cache.page_size, False)),
+        draft_params, draft_cache, k=spec_k,
+        weight_bytes=weight_bytes_report(draft_params)["total_bytes"])
 
 
 def _params_in_order(params, spec, which: str):

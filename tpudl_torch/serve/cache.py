@@ -1,10 +1,10 @@
 """KV-slot managers: the fixed-shape caches behind the engine.
 
 The port's counterpart of tpudl.serve.cache: the dense ``SlotCache`` and
-the paged ``PagedKVCache`` (below, with its int8 pages; the radix prefix
-tree and migration wait for ROADMAP queue A item 3). The
-engine's dense decode call runs on a fixed-slot cache (``[num_slots,
-max_seq_len, ...]`` per layer, the layout
+the paged ``PagedKVCache`` (below, with its int8 pages and the radix
+prefix tree's copy-on-write page sharing; migration waits for ROADMAP
+queue A item 3). The engine's dense decode call runs on a fixed-slot
+cache (``[num_slots, max_seq_len, ...]`` per layer, the layout
 tpudl_torch.models.llama.init_cache builds). Continuous batching never
 reshapes it — requests come and go by mutating WHICH rows mean
 something:
@@ -25,12 +25,13 @@ batch-independent.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, Optional
+import threading
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from tpudl_torch.models.paged import quantize_kv
+from tpudl_torch.models.paged import flat_page_row_index, quantize_kv
 
 
 def _tree_map(fn: Callable, tree: Any) -> Any:
@@ -181,22 +182,322 @@ class SlotCache:
 # The paged cache
 # ---------------------------------------------------------------------------
 
-#: The ROADMAP item that ports the paged cache's other tiers.
+#: The ROADMAP item that ports the paged cache's last tier (migration).
 _ITEM = "ROADMAP queue A item 3"
 
 
 def _not_ported(what: str):
     raise NotImplementedError(
-        f"{what} is not ported to tpudl_torch yet ({_ITEM}: the radix "
-        f"prefix cache and migration)")
+        f"{what} is not ported to tpudl_torch yet ({_ITEM}: migration)")
+
+
+def _is_attn_cache(node) -> bool:
+    """A per-layer dense decode cache dict: the four leaves
+    LlamaAttention's decode branch keeps (init_cache's layout)."""
+    return isinstance(node, dict) and set(node) >= {"k", "v", "valid",
+                                                    "index"}
+
+
+def _map_attn_caches(tree, fn):
+    """The cache tree with every per-layer attention cache dict replaced
+    by ``fn(dict)`` (the dense template -> the dense row template)."""
+    if _is_attn_cache(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_attn_caches(v, fn) for k, v in tree.items()}
+    return tree
+
+
+def _zip_attn_caches(a, b, fn):
+    """Walk two structurally parallel cache trees; replace each per-layer
+    pair with ``fn(a_dict, b_dict)`` (a page pool and the matching layer
+    of a dense row cache, or of the dense row template)."""
+    if isinstance(a, dict) and ("pages_k" in a or _is_attn_cache(a)):
+        return fn(a, b)
+    if isinstance(a, dict):
+        return {k: _zip_attn_caches(v, b[k], fn) for k, v in a.items()}
+    return a
+
+
+# ---------------------------------------------------------------------------
+# Radix prefix tree (copy-on-write page sharing)
+# ---------------------------------------------------------------------------
+
+
+def block_hash(block: Tuple[int, ...]) -> int:
+    """Child-index key for one page-sized token block. Module-level so
+    tests can monkeypatch it into collisions: the tree NEVER trusts the
+    hash alone, every lookup compares the full token tuple."""
+    return hash(block)
+
+
+class _RadixNode:
+    """One compressed radix-tree edge: a run of page-sized token blocks
+    and the physical pages holding their KV, parallel lists. A lease (one
+    seated slot mapping through this node) increments ``refcount`` on the
+    node AND every ancestor, so ``refcount == 0`` implies the whole
+    subtree is lease-free (the eviction-safety invariant)."""
+
+    __slots__ = ("blocks", "pages", "children", "parent", "refcount",
+                 "stamp")
+
+    def __init__(self, blocks, pages, parent):
+        self.blocks: List[Tuple[int, ...]] = blocks
+        self.pages: List[int] = pages
+        #: hash(first block) -> [nodes]. A list per hash: collisions
+        #: resolve by comparing the stored block tuples.
+        self.children: Dict[int, List["_RadixNode"]] = {}
+        self.parent: Optional["_RadixNode"] = parent
+        self.refcount = 0
+        self.stamp = 0  # LRU recency (tree._clock at last touch)
 
 
 class RadixPrefixTree:
-    """tpudl's radix prefix tree (copy-on-write sharing of prompt pages):
-    not ported yet."""
+    """Prefix index over page-granular token blocks -> physical KV pages
+    (tpudl's, semantics unchanged). ``match_and_lease`` walks a prompt's
+    full token blocks down the tree, SPLITTING a partially matched
+    compressed edge at the divergence (the copy-on-write split: the
+    shared half keeps the shared pages, both continuations hang under
+    it), pins every matched node with a refcount lease and returns the
+    matched pages, which the seat maps into the new slot's page table
+    for free. ``insert_suffix`` registers freshly prefilled full blocks
+    so later requests hit them. Releasing a lease does NOT free the
+    pages: refcount-0 nodes stay cached as the EVICTABLE pool, reclaimed
+    leaf-first in LRU order under page pressure (``evict``). Every public
+    method takes the internal lock (tpudl's router probes ``match_len``
+    from its own thread). Scans are O(tree)."""
 
-    def __init__(self, *args, **kwargs):
-        _not_ported("RadixPrefixTree (prefix sharing)")
+    def __init__(self, page_size: int):
+        self.page_size = int(page_size)
+        self.root = _RadixNode([], [], None)
+        self._lock = threading.RLock()
+        self._clock = 0
+        #: Pages in refcount-0 nodes: reclaimable without touching any
+        #: live slot (kept up to date by lease and release).
+        self.evictable_pages = 0
+        #: Pages the tree holds in all (leased + evictable).
+        self.cached_pages = 0
+        self.num_splits = 0
+        self.num_evictions = 0
+
+    # -- block helpers --------------------------------------------------
+
+    def blocks_of(self, tokens) -> List[Tuple[int, ...]]:
+        """The FULL page-sized token blocks of a prompt (the sharable
+        granularity; a trailing partial block is always private)."""
+        ps = self.page_size
+        n = len(tokens) // ps
+        return [tuple(int(t) for t in tokens[i * ps:(i + 1) * ps])
+                for i in range(n)]
+
+    def _child(self, node: _RadixNode, block) -> Optional[_RadixNode]:
+        for cand in node.children.get(block_hash(block), ()):
+            # Full token-block compare: a hash collision must select by
+            # VALUE or two different prompts would share wrong KV.
+            if cand.blocks[0] == block:
+                return cand
+        return None
+
+    def _attach(self, parent: _RadixNode, node: _RadixNode) -> None:
+        node.parent = parent
+        parent.children.setdefault(block_hash(node.blocks[0]), []).append(
+            node)
+
+    def _detach(self, node: _RadixNode) -> None:
+        key = block_hash(node.blocks[0])
+        siblings = node.parent.children.get(key, [])
+        siblings.remove(node)
+        if not siblings:
+            del node.parent.children[key]
+
+    # -- queries --------------------------------------------------------
+
+    def match_len(self, tokens) -> int:
+        """Longest cached prefix of ``tokens`` in TOKENS (page-granular,
+        read-only)."""
+        return self.match_info(tokens)[0]
+
+    def match_info(self, tokens) -> Tuple[int, int]:
+        """``(matched_tokens, matched_evictable_pages)``: the second
+        counts matched pages now in the EVICTABLE pool (refcount 0).
+        Admission needs it: seating pins those pages, so they cannot also
+        satisfy the request's remaining allocation."""
+        with self._lock:
+            blocks = self.blocks_of(tokens)
+            node, i = self.root, 0
+            evictable = 0
+            while i < len(blocks):
+                child = self._child(node, blocks[i])
+                if child is None:
+                    break
+                j = 0
+                while (j < len(child.blocks) and i + j < len(blocks)
+                       and child.blocks[j] == blocks[i + j]):
+                    j += 1
+                if j and child.refcount == 0:
+                    # A partial match splits at lease time; the matched
+                    # half inherits this refcount, so counting its j
+                    # pages is exact.
+                    evictable += j
+                i += j
+                if j < len(child.blocks):
+                    break
+                node = child
+            return i * self.page_size, evictable
+
+    # -- lease lifecycle ------------------------------------------------
+    #
+    # A lease is represented by its DEEPEST node; acquire and release walk
+    # the ancestor path. A copy-on-write split copies the node's refcount
+    # onto the new upper half (every lease through the node also covers
+    # its prefix), and a later release's walk decrements both halves once.
+
+    def _acquire_path(self, node: _RadixNode) -> None:
+        self._clock += 1
+        while node is not None and node is not self.root:
+            if node.refcount == 0:
+                self.evictable_pages -= len(node.pages)
+            node.refcount += 1
+            node.stamp = self._clock
+            node = node.parent
+
+    def release(self, lease: Optional[_RadixNode]) -> None:
+        """Drop one seat's pin (``lease`` = the deepest node
+        ``match_and_lease`` / ``insert_suffix`` handed out). Refcount-0
+        nodes stay CACHED: their pages join the evictable pool, freed only
+        by LRU eviction under pressure."""
+        if lease is None:
+            return
+        with self._lock:
+            node = lease
+            while node is not None and node is not self.root:
+                node.refcount -= 1
+                assert node.refcount >= 0, "radix lease released twice"
+                if node.refcount == 0:
+                    self.evictable_pages += len(node.pages)
+                node = node.parent
+
+    def match_and_lease(self, tokens):
+        """Walk ``tokens``'s full blocks, splitting a partially matched
+        edge at the divergence, and LEASE the matched path. Returns
+        ``(matched_pages, deepest_node_or_None)``; the caller owns the
+        lease and must ``release`` it exactly once
+        (``PagedKVCache.free`` does, per seated slot)."""
+        with self._lock:
+            blocks = self.blocks_of(tokens)
+            node, i = self.root, 0
+            pages: List[int] = []
+            while i < len(blocks):
+                child = self._child(node, blocks[i])
+                if child is None:
+                    break
+                j = 0
+                while (j < len(child.blocks) and i + j < len(blocks)
+                       and child.blocks[j] == blocks[i + j]):
+                    j += 1
+                if j == 0:
+                    break
+                if j < len(child.blocks):
+                    # Divergence (or prompt end) inside the compressed
+                    # edge: split so the matched half is its own node;
+                    # leases and eviction then stay whole-node.
+                    child = self._split_at(child, j)
+                pages.extend(child.pages)
+                i += j
+                node = child
+            if node is self.root:
+                return pages, None
+            self._acquire_path(node)
+            return pages, node
+
+    def _split_at(self, node: _RadixNode, j: int) -> _RadixNode:
+        """Split a compressed edge at block ``j``: blocks[:j] become a new
+        (shared) parent keeping those pages, blocks[j:] stay on ``node``,
+        hung underneath. Refcount and stamp copy to the new parent, so the
+        path invariant (ancestor refcount >= descendant) holds."""
+        upper = _RadixNode(node.blocks[:j], node.pages[:j], None)
+        upper.refcount = node.refcount
+        upper.stamp = node.stamp
+        parent = node.parent
+        self._detach(node)
+        self._attach(parent, upper)
+        node.blocks = node.blocks[j:]
+        node.pages = node.pages[j:]
+        self._attach(upper, node)
+        self.num_splits += 1
+        return upper
+
+    def insert_suffix(self, parent, blocks, pages):
+        """Register freshly prefilled full blocks under ``parent`` (the
+        deepest matched node, or None for the root): the tree takes
+        OWNERSHIP of those pages (they return to the pool only by
+        eviction). The new node is born refcount 1: it extends the
+        seating slot's lease, whose ancestors ``match_and_lease`` already
+        pinned, and becomes the lease's deepest node. Returns None when
+        there is nothing to insert (the caller keeps the match lease)."""
+        if not blocks:
+            return None
+        assert len(blocks) == len(pages)
+        with self._lock:
+            node = _RadixNode(list(blocks), list(pages), None)
+            self._attach(parent if parent is not None else self.root, node)
+            self.cached_pages += len(pages)
+            node.refcount = 1  # pinned by the seating slot from birth
+            self._clock += 1
+            node.stamp = self._clock
+            return node
+
+    # -- eviction -------------------------------------------------------
+
+    def _evictable_leaves(self) -> List[_RadixNode]:
+        out: List[_RadixNode] = []
+
+        def walk(node: _RadixNode) -> None:
+            for cands in node.children.values():
+                for child in cands:
+                    walk(child)
+            if (node is not self.root and node.refcount == 0
+                    and not node.children):
+                out.append(node)
+
+        walk(self.root)
+        return out
+
+    def evict(self, need_pages: int) -> List[int]:
+        """Reclaim up to ``need_pages`` pages by evicting refcount-0 LEAF
+        nodes oldest stamp first (an interior node becomes a leaf only
+        once its subtree is gone, and refcount 0 means no lease anywhere
+        below). Returns the freed page ids."""
+        freed: List[int] = []
+        with self._lock:
+            while len(freed) < need_pages:
+                leaves = self._evictable_leaves()
+                if not leaves:
+                    break
+                victim = min(leaves, key=lambda n: n.stamp)
+                self._detach(victim)
+                freed.extend(victim.pages)
+                self.cached_pages -= len(victim.pages)
+                self.evictable_pages -= len(victim.pages)
+                self.num_evictions += 1
+        return freed
+
+    def stats(self) -> dict:
+        with self._lock:
+            n_nodes = 0
+            stack = [self.root]
+            while stack:
+                node = stack.pop()
+                n_nodes += 1
+                for cands in node.children.values():
+                    stack.extend(cands)
+            return {
+                "nodes": n_nodes - 1,  # excluding the root
+                "cached_pages": self.cached_pages,
+                "evictable_pages": self.evictable_pages,
+                "splits": self.num_splits,
+                "evictions": self.num_evictions,
+            }
 
 
 #: (values pool, scale pool, dense cache key) of each of k and v.
@@ -214,15 +515,8 @@ def _attn_caches(tree: Any, path=()):
             yield from _attn_caches(value, path + (key,))
 
 
-def _at(tree: Any, path):
-    for key in path:
-        tree = tree[key]
-    return tree
-
-
 class PagedKVCache:
-    """The paged successor to ``SlotCache`` (tpudl's, without the radix
-    and migration tiers).
+    """The paged successor to ``SlotCache`` (tpudl's, without migration).
 
     KV lives in per-layer page pools ``[num_pages, page_size, Hkv, D]``
     (int8, with ``[num_pages, page_size, Hkv]`` f32 scale pools
@@ -246,7 +540,18 @@ class PagedKVCache:
     num_slots, device="meta")``); the pools take its layers, k/v dtypes
     and head shapes and are made zeroed on ``device``. The addressing
     (page table, per-slot start and length) is host numpy, shipped into
-    each decode call (``dispatch_args``). Pool writes are in place."""
+    each decode call (``dispatch_args``). Pool writes are in place.
+
+    ``prefix_share=True`` adds the RADIX tier (``RadixPrefixTree``):
+    seating goes LEFT-ALIGNED through ``seat_shared`` (token ``i`` at
+    logical position ``i``, so identical token prefixes are
+    page-identical), matched full pages map copy-on-write for free, freed
+    prompts stay CACHED (evictable at refcount 0, reclaimed LRU leaf
+    first under pressure), and ``gather_prefix_rows`` turns a cached
+    prefix back into dense rows for the chunked suffix prefill.
+    ``capture`` (the port's; on the card) makes that gather one CUDA
+    graph for every match length: its first call runs eagerly, its
+    second captures, every later call replays."""
 
     #: Marks the paged engine path (Engine branches on this).
     paged = True
@@ -259,14 +564,13 @@ class PagedKVCache:
         kv_dtype: Optional[str] = None,
         prefix_share: bool = False,
         device: Optional[torch.device] = None,
+        capture: bool = False,
     ):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"kv_dtype must be None (store dtype) or 'int8', "
                              f"got {kv_dtype!r}")
-        if prefix_share:
-            _not_ported("prefix_share (the radix prefix cache)")
         valid = [leaf for leaf in _leaves(template) if _is_valid_leaf(leaf)]
         if not valid:
             raise ValueError(
@@ -309,6 +613,26 @@ class PagedKVCache:
                                    np.int32)
         self.start = np.zeros((self.num_slots,), np.int32)
         self.lens = np.zeros((self.num_slots,), np.int32)
+        # Prefix sharing (radix mode): seating is LEFT-ALIGNED (token i of
+        # every prompt at logical position i, start 0), so identical token
+        # prefixes land on identical page-aligned content. The dense row
+        # template (batch 1, meta) shapes gather_prefix_rows' output.
+        self.prefix_share = bool(prefix_share)
+        self.radix: Optional[RadixPrefixTree] = None
+        self._leases: dict = {}
+        self._row_template = None
+        self.capture = bool(capture)
+        self._gather_calls = 0
+        self._gather_graph = None
+        self._gather_inputs = None
+        self._gather_out = None
+        if self.prefix_share:
+            self.radix = RadixPrefixTree(self.page_size)
+            self._row_template = _map_attn_caches(template, lambda attn: {
+                key: (torch.empty((1,) + tuple(leaf.shape[1:]),
+                                  dtype=leaf.dtype, device="meta")
+                      if isinstance(leaf, torch.Tensor) else leaf)
+                for key, leaf in attn.items()})
 
     # -- capacity ------------------------------------------------------
 
@@ -329,9 +653,11 @@ class PagedKVCache:
 
     @property
     def available_pages(self) -> int:
-        """Pages seatable right now: the free pool (radix mode, not ported,
-        would add its evictable pages)."""
-        return len(self._free)
+        """Pages seatable right now: the free pool plus (radix mode) the
+        refcount-0 tree pages, which eviction reclaims without touching
+        any live slot."""
+        extra = self.radix.evictable_pages if self.radix is not None else 0
+        return len(self._free) + extra
 
     def fits_tokens(self, tokens: int) -> bool:
         """Admission predicate: can a request that may write ``tokens``
@@ -340,8 +666,26 @@ class PagedKVCache:
         return self.pages_needed(tokens) <= self.available_pages
 
     def fits_request(self, input_ids, tokens: int) -> bool:
-        """Radix-mode admission; without the radix tree, ``fits_tokens``."""
-        return self.fits_tokens(tokens)
+        """Radix-mode admission: matched prefix pages map for free, so only
+        the unshared remainder counts against the pool. Matched pages that
+        are now refcount 0 get PINNED by the seat, so they are excluded
+        from the reclaimable side (counting them both as free to map and
+        as evictable would admit a request ``seat_shared`` cannot place).
+        Without the radix tree, ``fits_tokens``."""
+        if self.radix is None:
+            return self.fits_tokens(tokens)
+        matched, matched_evictable = self.radix.match_info(input_ids)
+        need = self.pages_needed(tokens) - matched // self.page_size
+        avail = len(self._free) + (self.radix.evictable_pages
+                                   - matched_evictable)
+        return need <= avail
+
+    def prefix_match_len(self, input_ids) -> int:
+        """Cached-prefix length (tokens) of a prompt, 0 when prefix
+        sharing is off. Read-only."""
+        if self.radix is None:
+            return 0
+        return self.radix.match_len(input_ids)
 
     # -- seating / freeing ---------------------------------------------
 
@@ -353,6 +697,11 @@ class PagedKVCache:
         ``quantize_kv`` for int8 pools. ``pad`` is the row's
         left-pad count: logical positions below it stay masked, as dense
         validity masks them."""
+        if self.prefix_share:
+            raise ValueError(
+                "prefix-share caches seat left-aligned via seat_shared "
+                "(pad-aligned seat would break the radix tree's canonical "
+                "token -> logical position mapping)")
         if not 0 <= slot < self.num_slots:
             raise IndexError(f"slot {slot} out of range [0, {self.num_slots})")
         if slot in self._reserved:
@@ -372,52 +721,218 @@ class PagedKVCache:
         self.page_table[slot, :n] = pages
         self.start[slot] = pad
         self.lens[slot] = prompt_len
-        prompt_pages = self.pages_needed(prompt_len)
-        span = prompt_pages * self.page_size
-        for path, pool in _attn_caches(self.cache):
-            row = _at(row_cache, path)
-            ids = torch.as_tensor(pages[:prompt_pages],
-                                  device=pool["pages_k"].device)
+        self._scatter_rows(row_cache, pages[:self.pages_needed(prompt_len)],
+                           0)
+
+    # -- prefix-sharing (radix) seating ---------------------------------
+
+    def match_and_lease(self, input_ids):
+        """Radix walk + lease for one prompt (the engine's seat path): the
+        matched pages map into the slot's table for free; the lease pins
+        them until ``free`` / ``release_lease``. See
+        ``RadixPrefixTree.match_and_lease``."""
+        if self.radix is None:
+            raise ValueError("match_and_lease requires prefix_share=True")
+        return self.radix.match_and_lease(input_ids)
+
+    def release_lease(self, lease) -> None:
+        """Failure-path unpin (a lease whose seat never completed)."""
+        if lease is not None:
+            self.radix.release(lease)
+
+    def _alloc_pages(self, n: int) -> list:
+        """Pop ``n`` pages from the free pool, evicting LRU refcount-0
+        radix nodes when the pool alone is short (the path
+        ``available_pages`` promised)."""
+        if n > len(self._free) and self.radix is not None:
+            self._free.extend(self.radix.evict(n - len(self._free)))
+        if n > len(self._free):
+            raise RuntimeError(
+                f"page pool exhausted: need {n} pages, {len(self._free)} free "
+                f"(admission should have checked fits_tokens)")
+        return [self._free.pop() for _ in range(n)]
+
+    def seat_shared(self, row_cache: Any, slot: int, input_ids,
+                    reserve_tokens: int, lease=None,
+                    row_offset: int = 0) -> None:
+        """LEFT-ALIGNED radix seating: token ``i`` of the prompt lives at
+        logical position ``i`` (start 0), so identical prefixes are
+        page-identical across requests. ``lease`` is the
+        ``match_and_lease`` result whose pages map into the table for
+        free; only the UNSHARED remainder allocates (evicting LRU cached
+        pages under pressure), and only the unshared pages of
+        ``row_cache`` are scattered: shared pages are never rewritten
+        (copy-on-write: decode writes land at ``lens >= ids_len``, in
+        private pages). ``row_offset`` is where the prompt's first token
+        sits in the dense row (its left-pad count for a full-prefill row;
+        0 for a chunk-prefill row). The prompt's freshly written FULL
+        pages go into the tree so later requests hit them."""
+        ids = np.asarray(input_ids, np.int32)
+        ids_len = int(ids.shape[0])
+        if not 0 <= slot < self.num_slots:
+            raise IndexError(f"slot {slot} out of range [0, {self.num_slots})")
+        if slot in self._reserved or slot in self._leases:
+            raise ValueError(f"slot {slot} is already seated")
+        matched_pages, deepest = lease if lease is not None else ([], None)
+        m = len(matched_pages)
+        try:
+            if reserve_tokens > self.max_seq_len:
+                raise ValueError(
+                    f"reserve_tokens {reserve_tokens} exceeds the logical "
+                    f"per-slot bound {self.max_seq_len}")
+            assert m * self.page_size <= ids_len, (
+                "lease longer than the prompt: matched against the wrong "
+                "request")
+            new_pages = self._alloc_pages(self.pages_needed(reserve_tokens)
+                                          - m)
+        except BaseException:
+            self.release_lease(deepest)
+            raise
+        prompt_pages = self.pages_needed(ids_len)
+        full = ids_len // self.page_size
+        self.page_table[slot, :] = 0
+        self.page_table[slot, :m] = matched_pages
+        self.page_table[slot, m:m + len(new_pages)] = new_pages
+        self.start[slot] = 0
+        self.lens[slot] = ids_len
+        # Scatter ONLY the unshared prompt pages [m, prompt_pages); the
+        # matched pages keep their (identical) bytes untouched.
+        if prompt_pages > m:
+            self._scatter_rows(row_cache, new_pages[:prompt_pages - m],
+                               row_offset + m * self.page_size)
+        # The prompt's full pages enter the tree (tree-owned: back to the
+        # pool only by eviction); the partial tail and the decode reserve
+        # stay private to the slot.
+        node = self.radix.insert_suffix(
+            deepest, self.radix.blocks_of(ids)[m:full],
+            new_pages[:full - m])
+        final = node if node is not None else deepest
+        if final is not None:
+            self._leases[slot] = final
+        self._reserved[slot] = new_pages[full - m:]
+
+    def _scatter_rows(self, row_cache: Any, pages: list, first_row: int):
+        """Write dense rows ``[first_row, first_row + len(pages) x
+        page_size)`` of a batch-1 row cache into ``pages`` of every layer's
+        pools, quantized with ``quantize_kv`` for int8 pools. Rows past the
+        dense row (a page_size that does not divide the model bound) are
+        zeros: they sit past the prompt, masked until decode writes them."""
+        n, ps = len(pages), self.page_size
+
+        def one(pool: dict, row: dict) -> dict:
+            ids = torch.as_tensor(pages, device=pool["pages_k"].device)
             for name, sname, kv in _POOLS:
-                blocks = row[kv][0, :span]
-                if blocks.shape[0] < span:
-                    # page_size does not divide the model bound: the last
-                    # prompt page runs past the dense row. Its tail sits
-                    # past prompt_len, masked until decode writes it.
-                    blocks = torch.cat([blocks, blocks.new_zeros(
-                        (span - blocks.shape[0],) + tuple(blocks.shape[1:]))])
-                blocks = blocks.reshape(prompt_pages, self.page_size,
-                                        *blocks.shape[1:])
+                rows = row[kv][0, first_row:first_row + n * ps]
+                if rows.shape[0] < n * ps:
+                    rows = torch.cat([rows, rows.new_zeros(
+                        (n * ps - rows.shape[0],) + tuple(rows.shape[1:]))])
+                blocks = rows.reshape(n, ps, *rows.shape[1:])
                 if self.quantized:
                     q, sc = quantize_kv(blocks)
                     pool[name][ids] = q
                     pool[sname][ids] = sc
                 else:
                     pool[name][ids] = blocks.to(pool[name].dtype)
+            return pool
+
+        _zip_attn_caches(self.cache, row_cache, one)
+
+    def gather_prefix_rows(self, matched_pages, matched_tokens: int):
+        """Materialize a leased prefix into a batch-1 DENSE row cache (k/v
+        rows of every logical position of the slot's span, validity set
+        below ``matched_tokens``, one device write index at
+        ``matched_tokens`` shared by every layer): the input the chunked
+        suffix prefill resumes from, and writes in place. One program for
+        every match length (the page ids ride in padded with the trash
+        page); with ``capture`` one CUDA graph, whose output buffers the
+        next call rewrites."""
+        if self._row_template is None:
+            raise ValueError(
+                "gather_prefix_rows requires prefix_share=True (needs the "
+                "dense row template)")
+        page_ids = np.zeros((self.pages_per_slot,), np.int64)
+        page_ids[:len(matched_pages)] = matched_pages
+        values = {"page_ids": page_ids, "m_tok": np.int64(matched_tokens)}
+        device = next(_leaves(self.cache)).device
+        self._gather_calls += 1
+        if not self.capture or self._gather_calls == 1:
+            return self._gather_body({k: torch.as_tensor(v, device=device)
+                                      for k, v in values.items()})
+        from tpudl_torch.graphs import Graph, StaticInputs
+
+        if self._gather_graph is None:
+            self._gather_inputs = StaticInputs(values, device)
+            self._gather_graph = Graph()
+            self._gather_out = self._gather_graph.capture(
+                self._gather_body, self._gather_inputs.bufs)
+        else:
+            self._gather_inputs.fill(values)
+        self._gather_graph.replay()
+        return self._gather_out
+
+    @property
+    def gather_capture_s(self) -> Optional[float]:
+        """Wall seconds of the gather's capture (None before it)."""
+        return None if self._gather_graph is None else \
+            self._gather_graph.capture_s
+
+    def _gather_body(self, inputs: dict):
+        """The gather's device work (no host reads): tpudl's
+        ``_make_gather_rows_fn``."""
+        ps = self.page_size
+        span = self.pages_per_slot * ps
+        flat_idx = flat_page_row_index(inputs["page_ids"], ps)
+        m_tok = inputs["m_tok"]
+        index = m_tok.clone()
+
+        def one(pool: dict, tmpl: dict) -> dict:
+            seq = int(tmpl["k"].shape[1])
+            out = {}
+            for name, sname, kv in _POOLS:
+                rows = pool[name].view(-1, *pool[name].shape[2:])[flat_idx]
+                if self.quantized:
+                    sc = pool[sname].view(-1, pool[sname].shape[2])
+                    rows = rows.float() * sc[flat_idx][..., None]
+                if span >= seq:
+                    rows = rows[:seq]
+                else:
+                    rows = torch.cat([rows, rows.new_zeros(
+                        (seq - span,) + tuple(rows.shape[1:]))])
+                out[kv] = rows[None].to(tmpl[kv].dtype)
+            out["valid"] = (torch.arange(seq, device=m_tok.device)
+                            < m_tok)[None, :]
+            out["index"] = index
+            return out
+
+        return _zip_attn_caches(self.cache, self._row_template, one)
 
     def free(self, slot: int) -> None:
-        """Return the slot's pages to the pool and point its table row at
-        the trash page (idle ride-along writes land there)."""
+        """Return the slot's PRIVATE pages to the pool, release its radix
+        lease (shared pages stay cached in the tree, evictable once their
+        refcount drops to 0), and point its table row at the trash page
+        (idle ride-along writes land there)."""
         if not 0 <= slot < self.num_slots:
             raise IndexError(f"slot {slot} out of range [0, {self.num_slots})")
+        lease = self._leases.pop(slot, None)
+        if lease is not None and self.radix is not None:
+            self.radix.release(lease)
         self._free.extend(self._reserved.pop(slot, ()))
         self.page_table[slot, :] = 0
         self.start[slot] = 0
         self.lens[slot] = 0
 
     def reset(self) -> None:
-        """Free every slot (the pools keep their bytes, masked)."""
-        for slot in list(self._reserved):
+        """Free every slot (the pools keep their bytes, masked). Radix
+        mode: the prefix cache SURVIVES a reset; ``drop_prefix_cache``
+        clears it too."""
+        for slot in list(set(self._reserved) | set(self._leases)):
             self.free(slot)
 
-    def seat_shared(self, *args, **kwargs):
-        _not_ported("seat_shared (radix seating)")
-
-    def gather_prefix_rows(self, *args, **kwargs):
-        _not_ported("gather_prefix_rows (radix prefix rows)")
-
-    def match_and_lease(self, *args, **kwargs):
-        _not_ported("match_and_lease (radix prefix matching)")
+    def drop_prefix_cache(self) -> None:
+        """Evict every lease-free radix page back to the pool (after
+        ``reset``, the whole tree)."""
+        if self.radix is not None:
+            self._free.extend(self.radix.evict(self.radix.evictable_pages))
 
     def export_request(self, *args, **kwargs):
         _not_ported("export_request (page-granular migration)")
