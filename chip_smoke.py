@@ -27,7 +27,9 @@ Phases, in order (any failure exits non-zero and prints no result):
 5. slice   — Llama-3-8B at full width and depth (random weights from a
              seeded torch.Generator, max_seq_len 512) served through
              ServeSession.from_model with 4 slots: 8 ragged greedy
-             requests and 1 sampled one. Every result must be ok, and the
+             requests and 1 sampled one (the eager run, and the quantized
+             slices' eager runs: 3 of them and the sampled one at 16 new
+             tokens, eager_and_captured). Every result must be ok, and the
              kernels' launch counters must show exactly 65 RMSNorm and 32
              SwiGLU launches per prefill and per decode step;
 6. parity  — the same requests served with fused_ops=False (the plain
@@ -365,6 +367,19 @@ tpudl_torch.train.profiling), after resnet_parity:
              captured bit for bit, exact launches; fit(profile_dir=) over
              two captured steps read back by summarize_trace; evaluate
              over the ingested batch.
+
+The radix prefix cache, speculative decoding and migration, on the 8B
+after export_quant (their functions' docstrings give the details):
+
+35. prefix_slice — shared system-prompt pages and suffix prefills;
+36. spec_slice — the int8 self-draft speculating 4 tokens a window;
+37. migrate_slice — requests exported mid-stream and installed in a
+             warmed second session (bf16 pages, int8 pages, with the
+             draft's rows, a prefix by reference), prefilled on one
+             session and seated from another's prefill_inbox, a
+             corrupted payload shed as failed, /healthz and /metrics
+             scraped on loopback: zero prefills at each target, tokens
+             the unmigrated run's, exact launches, eager then captured.
 
 Each phase's seconds are printed ("phase ...:" lines).
 
@@ -1129,16 +1144,21 @@ def tenant_slice_phase(torch, model, params, card, dense):
              "decode_steps": eng.num_decode_steps, "pool": stats,
              "pool_bytes": eng.adapter_pool.nbytes, "peak_memory_gib": peak,
              "launches": launches, "capture_s": capture_s}
-        d = dense if capture else dense["eager"]
+        # The dense slice's eager run served another load (eager_and_captured):
+        # the dense figures stand beside the captured line only.
+        dense_of = (lambda key, fmt: f" (dense {format(dense[key], fmt)})"
+                    if capture else "")
         print(f"tenant_slice metrics, {way} ({card}): TTFT p50 "
-              f"{m['ttft_p50_ms']:.2f} ms, p90 {m['ttft_p90_ms']:.2f} ms "
-              f"(dense slice {d['ttft_p50_ms']:.2f} / {d['ttft_p90_ms']:.2f});"
-              f" TPOT p50 {m['tpot_p50_ms']:.3f} ms, p90 "
-              f"{m['tpot_p90_ms']:.3f} ms (dense {d['tpot_p50_ms']:.3f} / "
-              f"{d['tpot_p90_ms']:.3f}); {tokens} tokens in {wall:.3f} s = "
-              f"{tokens / wall:.1f} tokens/s (dense {d['tokens_per_s']:.1f});"
-              f" prefill {prefill:.3f} ms a request [1, {PROMPT_LEN}] (dense "
-              f"{d['prefill_ms']:.3f}); peak memory {peak:.2f} GiB"
+              f"{m['ttft_p50_ms']:.2f} ms{dense_of('ttft_p50_ms', '.2f')}, "
+              f"p90 {m['ttft_p90_ms']:.2f} ms"
+              f"{dense_of('ttft_p90_ms', '.2f')}; TPOT p50 "
+              f"{m['tpot_p50_ms']:.3f} ms{dense_of('tpot_p50_ms', '.3f')}, "
+              f"p90 {m['tpot_p90_ms']:.3f} ms"
+              f"{dense_of('tpot_p90_ms', '.3f')}; {tokens} tokens in "
+              f"{wall:.3f} s = {tokens / wall:.1f} tokens/s"
+              f"{dense_of('tokens_per_s', '.1f')}; prefill {prefill:.3f} ms "
+              f"a request [1, {PROMPT_LEN}]{dense_of('prefill_ms', '.3f')}; "
+              f"peak memory {peak:.2f} GiB"
               + ("" if capture_s is None
                  else f"; decode graph captured in {capture_s * 1e3:.1f} ms, "
                       f"prefill graph (with the adapter view) in "
@@ -1362,6 +1382,7 @@ def slice_phase(torch, card):
     )
     greedy, sampled = requests_for(Request, cfg.vocab_size)
     requests = greedy + [sampled]
+    served = eager_and_captured(Request, requests)
     runs = {}
     for capture in (False, True):
         runs[capture] = serve_run(
@@ -1369,7 +1390,7 @@ def slice_phase(torch, card):
                                           prompt_len=PROMPT_LEN,
                                           num_slots=NUM_SLOTS,
                                           capture=capture),
-            requests, {"rms_norm_fwd": rms_norm, "swiglu_fwd": swiglu})
+            served[capture], {"rms_norm_fwd": rms_norm, "swiglu_fwd": swiglu})
     out = {}
     for capture, run in runs.items():
         way = "captured" if capture else "eager"
@@ -1382,13 +1403,15 @@ def slice_phase(torch, card):
         bad = [rid for rid, r in results.items() if not r.ok]
         if bad:
             fail(f"requests not ok: {[(rid, results[rid].finish_reason) for rid in bad]}")
-        for req in requests:
+        for req in served[capture]:
             toks = results[req.request_id].tokens
             if len(toks) != req.max_new_tokens or not all(
                 0 <= t < cfg.vocab_size for t in toks
             ):
                 fail(f"request {req.request_id}: {len(toks)} tokens, expected "
                      f"{req.max_new_tokens} in [0, {cfg.vocab_size})")
+        if not capture:
+            check_refilled(f"slice ({way})", eng, served[capture])
         want = {"rms_norm_fwd": 65 * calls, "swiglu_fwd": 32 * calls}
         if launches != want:
             fail(f"slice ({way}): kernel launches {launches} != expected "
@@ -1426,9 +1449,9 @@ def slice_phase(torch, card):
         # The same requests again on the same session: its graphs exist,
         # so no capture lands inside this window (the first serve's
         # captures do).
-        _, again, _, _, _ = serve_run(torch, session, requests, {})
+        _, again, _, _, _ = serve_run(torch, session, served[capture], {})
         if any(again[r.request_id].tokens != results[r.request_id].tokens
-               for r in requests):
+               for r in served[capture]):
             fail(f"slice ({way}): a second serve on the session gave other "
                  f"tokens")
         s_ttft = [r.ttft_s * 1e3 for r in again.values()]
@@ -1441,7 +1464,7 @@ def slice_phase(torch, card):
         out[capture]["again"] = {
             "ttft_p50_ms": pct(s_ttft, 50), "ttft_p90_ms": pct(s_ttft, 90),
             "tpot_p50_ms": pct(s_tpot, 50), "tpot_p90_ms": pct(s_tpot, 90)}
-    same_tokens(runs, requests, "slice")
+    same_subset(torch, runs, served, "slice")
     session, results, _, launches, _ = runs[True]
     metrics = out[True]
     metrics["eager"] = out[False]
@@ -1483,6 +1506,52 @@ def same_tokens(runs, requests, what):
           f"session's for all "
           f"{len(requests)} requests ({sum(r.temperature > 0 for r in requests)} "
           f"sampled)")
+
+
+#: The eager serving runs' new tokens a request: the slice's first 5
+#: greedy requests and its sampled one on NUM_SLOTS slots, of unequal
+#: lengths, so that two of them (the sampled one among them) are seated
+#: into freed slots while the others decode.
+EAGER_SCHEDULE = (16, 8, 12, 16, 8, 16)
+
+
+def eager_and_captured(Request, requests):
+    """{capture: requests} of a serving phase: the captured run serves all
+    of them; the eager run (an eager 8B step is host-bound, ~5x a
+    replay) the first len(EAGER_SCHEDULE) - 1 and the last (the sampled
+    one) at EAGER_SCHEDULE's new tokens. same_subset holds the two to
+    each other; check_refilled holds the eager schedule to its refills."""
+    picked = requests[:len(EAGER_SCHEDULE) - 1] + requests[-1:]
+    return {False: [Request(**{**r.__dict__, "max_new_tokens": n})
+                    for r, n in zip(picked, EAGER_SCHEDULE)],
+            True: requests}
+
+
+def check_refilled(what, engine, requests):
+    """A continuous engine seats a request into a freed slot while the
+    other slots decode: it takes fewer decode steps than serving
+    ``requests`` in waves of NUM_SLOTS (each wave as long as its longest
+    request) would."""
+    waves = sum(max(r.max_new_tokens for r in requests[i:i + NUM_SLOTS]) - 1
+                for i in range(0, len(requests), NUM_SLOTS))
+    if len(requests) <= NUM_SLOTS or engine.num_decode_steps >= waves:
+        fail(f"{what}: {len(requests)} requests on {NUM_SLOTS} slots took "
+             f"{engine.num_decode_steps} decode steps, not fewer than the "
+             f"{waves} of waves: no slot was refilled mid-run")
+    print(f"{what}: {len(requests)} requests on {NUM_SLOTS} slots in "
+          f"{engine.num_decode_steps} decode steps ({waves} in waves): "
+          f"freed slots refilled while the others decoded")
+
+
+def same_subset(torch, runs, served, what):
+    """same_tokens for eager_and_captured's runs: the captured session,
+    its full run done, serves the eager run's subset again (the same
+    schedule from a drained session: a sampled request's draws are
+    bit-sensitive to where its slot sits), and the tokens must be the
+    eager run's."""
+    session = runs[True][0]
+    again = serve_run(torch, session, served[False], {})
+    same_tokens({False: runs[False], True: again}, served[False], what)
 
 
 # Only captured runs are profiled. Reading back a profile of an eager
@@ -6765,11 +6834,12 @@ def oracle_params_of(torch, qparams):
 
 def quant_serve_runs(torch, what, model, params, requests, kw, card, dense,
                      adapters=False):
-    """Serve ``requests`` through ServeSession.from_model(**kw) eager then
-    captured: every result ok, exactly QUANT_PER_STEP quant_dot, 65
-    RMSNorm and 32 SwiGLU launches (224 segmented-LoRA with adapters) per
-    prefill and decode step, tokens equal; TTFT, TPOT, tokens/s beside
-    the dense bf16 slice's. Returns (the captured run's session and
+    """Serve ``requests`` through ServeSession.from_model(**kw) eager (on
+    eager_and_captured's subset) then captured: every result ok, exactly
+    QUANT_PER_STEP quant_dot, 65 RMSNorm and 32 SwiGLU launches (224
+    segmented-LoRA with adapters) per prefill and decode step, tokens
+    equal; TTFT, TPOT, tokens/s beside the dense bf16 slice's (its eager
+    run on the same subset of the slice's requests). Returns (the captured run's session and
     results, metrics)."""
     from tpudl_torch.ops import segmented_lora as sl
     from tpudl_torch.ops.mlp_fused import swiglu
@@ -6784,9 +6854,10 @@ def quant_serve_runs(torch, what, model, params, requests, kw, card, dense,
     warm = ServeSession.from_model(model, params, capture=False, **kw)
     warm.serve([Request("warm", [1, 2, 3], max_new_tokens=2)])
     del warm
+    served = eager_and_captured(Request, requests)
     runs = {capture: serve_run(
         torch, ServeSession.from_model(model, params, capture=capture, **kw),
-        requests, counted) for capture in (False, True)}
+        served[capture], counted) for capture in (False, True)}
     out = {}
     for capture, (session, results, wall, launches, peak) in runs.items():
         way = "captured" if capture else "eager"
@@ -6795,11 +6866,13 @@ def quant_serve_runs(torch, what, model, params, requests, kw, card, dense,
         bad = [rid for rid, r in results.items() if not r.ok]
         if bad:
             fail(f"{what}: requests not ok: {bad}")
-        for req in requests:
+        for req in served[capture]:
             toks = results[req.request_id].tokens
             if len(toks) != req.max_new_tokens or not all(
                     0 <= t < model.cfg.vocab_size for t in toks):
                 fail(f"{what}: request {req.request_id}: {len(toks)} tokens")
+        if not capture:
+            check_refilled(f"{what} ({way})", eng, served[capture])
         want = {"quant_dot": QUANT_PER_STEP * calls, "rms_norm_fwd": 65 * calls,
                 "swiglu_fwd": 32 * calls}
         if adapters:
@@ -6830,7 +6903,7 @@ def quant_serve_runs(torch, what, model, params, requests, kw, card, dense,
               f" MiB; peak memory {peak:.2f} GiB"
               + (f"; pool {m['pool']}" if adapters else ""))
         out[capture] = m
-    same_tokens(runs, requests, what)
+    same_subset(torch, runs, served, what)
     metrics = out[True]
     metrics["eager"] = out[False]
     return runs[True][0], runs[True][1], metrics
@@ -7462,6 +7535,412 @@ def spec_slice_phase(torch, model, params, card, qmodel, qparams, requests,
     comp["eager_launches"] = eager[False]
     return {"spec": spec, "plain": base_m, "parity": gate,
             "composed": comp}
+
+
+#: migrate_slice: page-granular migration and the disaggregation inbox on
+#: the 8B (paged, page 16, 4 slots, window 128): 4 of the slice's requests
+#: (its first 3 greedy ones and its sampled one) at MIGRATE_NEW new tokens
+#: (EAGER_NEW eager), 2 of them (a greedy one and the sampled one)
+#: exported once every request holds MIGRATE_AFTER tokens.
+MIGRATE_NEW = 32
+MIGRATE_AFTER = 8
+
+
+def kv_row_bytes(torch, cfg, quantized):
+    """Bytes of one token row of a request's KV in the payload, from the
+    config: layers x (k, v) x KV heads x (head_dim values in the model's
+    dtype, 2 B at bf16; or of 1 B int8 and one f32 scale)."""
+    size = torch.empty((), dtype=cfg.dtype).element_size()
+    per_head = cfg.head_dim + 4 if quantized else size * cfg.head_dim
+    return cfg.num_layers * 2 * cfg.num_kv_heads * per_head
+
+
+def payload_row_bytes(torch, payload):
+    """(KV array bytes, rows, draft rider bytes) of a migration payload."""
+    from tpudl_torch.serve.cache import parse_migration
+
+    meta = parse_migration(payload)
+    kv = sum(d["nbytes"] for d in meta["arrays"]
+             if d["path"] != "draft:payload")
+    rider = sum(d["nbytes"] for d in meta["arrays"]
+                if d["path"] == "draft:payload")
+    return kv, meta["lens"] - meta["skip_tokens"], rider, meta
+
+
+def migrate_slice_phase(torch, model, params, card, qmodel, qparams,
+                        requests):
+    """Migration and disaggregation on the 8B, each case eager then
+    captured (eager at EAGER_NEW new tokens, captured at MIGRATE_NEW; the
+    captured tokens' first EAGER_NEW equal the eager ones):
+
+    (a) bf16 pages: the 4 requests served unmigrated on a session, then
+        again on it with 2 exported after MIGRATE_AFTER tokens and
+        installed in a second session: zero prefills there, exact
+        launches on both, every token the unmigrated run's;
+    (b) the same over int8 KV pages (the payload's pages int8);
+    (c) the same with spec_k=SPEC_K (quant_slice's int8 draft; the
+        draft's rows ride along): tokens the unmigrated speculating run's;
+    (d) a prefix_requests request exported by reference against a target
+        holding the PREFIX_SYSTEM-token system prompt: the payload's KV
+        bytes are the full export's less exactly those rows';
+    (e) the 4 requests prefilled back to back on (a)'s source and seated
+        from (a)'s target's prefill_inbox: zero prefills there, tokens
+        (a)'s unmigrated ones;
+    (f) a payload through chaos.corrupt_payload into the migrate inbox:
+        a ``failed`` Result, every target page free after;
+    (g) TPUDL_OBS_PORT=0: /metrics and /healthz scraped (loopback) with
+        the migrated requests seated: the serve_engine source ready with
+        its slot and inbox counts.
+
+    Prints each payload's bytes beside the predicted bytes a row, export
+    and install ms, the failover gap (the source's last token to the
+    target's first) and the target's prefills."""
+    import urllib.request
+
+    from tpudl_torch.obs import exporter as obs_exporter
+    from tpudl_torch.ops.mlp_fused import swiglu
+    from tpudl_torch.ops.norms import rms_norm
+    from tpudl_torch.ops.quant_dot import quant_matmul
+    from tpudl_torch.serve import Request, ServeSession, chaos
+    from tpudl_torch.serve.engine import _Migrated, prefill_handoff
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    vocab = cfg.vocab_size
+    from tpudl_torch.ft.store import dtype_name
+
+    rows = {q: kv_row_bytes(torch, cfg, q) for q in (False, True)}
+    page_kind = {False: dtype_name(cfg.dtype), True: "int8"}
+    print(f"migrate_slice: a token row of KV is {rows[False]} B at "
+          f"{page_kind[False]} and "
+          f"{rows[True]} B at int8 with its scales ({cfg.num_layers} layers "
+          f"x 2 x {cfg.num_kv_heads} KV heads x {cfg.head_dim}; predicted "
+          f"from the config before the run)")
+    picked = requests[:3] + [requests[-1]]
+    moved = (picked[0].request_id, picked[-1].request_id)
+    counted = {"rms_norm_fwd": rms_norm, "swiglu_fwd": swiglu,
+               "quant_dot": quant_matmul}
+    kw = dict(prompt_len=PROMPT_LEN, num_slots=NUM_SLOTS, paged=True,
+              page_size=PAGE)
+    os.environ["TPUDL_OBS_PORT"] = "0"
+
+    def expect(eng, p, d):
+        """Launches of p prefills (seats) and d decode steps (windows)."""
+        if eng.speculator is not None:
+            calls, quant = 2 * p + (SPEC_K + 1) * d, QUANT_PER_STEP * (
+                p + SPEC_K * d)
+        else:
+            calls, quant = p + d, 0
+        return {"rms_norm_fwd": 65 * calls, "swiglu_fwd": 32 * calls,
+                "quant_dot": quant}
+
+    def add(*counts):
+        return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+    def reset():
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.launches = 0
+
+    def launches():
+        torch.cuda.synchronize()
+        return {name: fn.launches for name, fn in counted.items()}
+
+    def marks(*engines):
+        return [(e.num_prefills, e.num_decode_steps) for e in engines]
+
+    def since(eng, mark):
+        return eng.num_prefills - mark[0], eng.num_decode_steps - mark[1]
+
+    def push(session, reqs):
+        for r in reqs:
+            session.engine.queue.push(Request(**r.__dict__),
+                                      priority=r.priority)
+
+    def drain(*engines):
+        while any([e.step() for e in engines]):
+            pass
+
+    def results_of(reqs, *engines):
+        out = {}
+        for r in reqs:
+            for e in engines:
+                if r.request_id in e.results:
+                    out[r.request_id] = e.results.pop(r.request_id)
+        return out
+
+    def seated(eng, rid):
+        return next(i for i, s in enumerate(eng._slots)
+                    if s is not None and s.request.request_id == rid)
+
+    def same(what, got, want, reqs):
+        bad = [r.request_id for r in reqs
+               if got[r.request_id].tokens != want[r.request_id].tokens]
+        if bad:
+            fail(f"{what}: tokens differ from the unmigrated run for {bad}")
+
+    def scrape(port):
+        base = f"http://127.0.0.1:{port}"
+        with urllib.request.urlopen(f"{base}/healthz", timeout=10) as r:
+            status, health = r.status, json.loads(r.read())
+        with urllib.request.urlopen(f"{base}/metrics", timeout=10) as r:
+            text = r.read().decode()
+        return status, health, text
+
+    def move(what, src, dst, rids, quantized, skip=0, lease=None,
+             probe=None):
+        """Step src (its requests pushed) until each of ``rids`` holds
+        MIGRATE_AFTER tokens, then export it (timed), install it in dst
+        (timed) and step dst once (its first token there: the failover
+        gap); a speculating request can outrun the others by a window
+        of tokens a step, so each moves on its own step. ``probe(rid)``
+        runs just before an export. Returns the metrics."""
+        gap = "serve_failover_token_gap_ms"
+        g0 = hist_counts(gap)[gap]
+        out = {"payload_bytes": [], "export_ms": [], "install_ms": [],
+               "kv_bytes": [], "rows": [], "draft_bytes": []}
+        pending = list(rids)
+        while pending:
+            src.engine.step()
+            for rid in list(pending):
+                s = src.engine._slots[seated(src.engine, rid)]
+                if len(s.tokens) < MIGRATE_AFTER:
+                    continue
+                pending.remove(rid)
+                if probe is not None:
+                    probe(rid)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                payload = src.engine.export_request(rid,
+                                                    skip_prefix_tokens=skip)
+                out["export_ms"].append((time.perf_counter() - t0) * 1e3)
+                if payload is None:
+                    fail(f"{what}: {rid} did not export")
+                kv, n, rider, meta = payload_row_bytes(torch, payload)
+                if kv != n * rows[quantized]:
+                    fail(f"{what}: {rid}: {kv} B of KV for {n} rows, "
+                         f"predicted {n * rows[quantized]}")
+                kinds = {d["dtype"] for d in meta["arrays"]
+                         if "pages_" in d["path"]}
+                if kinds != {page_kind[quantized]}:
+                    fail(f"{what}: page leaves {kinds}")
+                out["payload_bytes"].append(len(payload))
+                out["kv_bytes"].append(kv)
+                out["rows"].append(n)
+                out["draft_bytes"].append(rider)
+                t0 = time.perf_counter()
+                dst.engine.install_migrated(payload, lease=lease)
+                torch.cuda.synchronize()
+                out["install_ms"].append((time.perf_counter() - t0) * 1e3)
+                dst.engine.step()
+        out["failover_gap_ms"] = histogram_since(gap, g0)
+        if len(out["failover_gap_ms"]) != len(rids):
+            fail(f"{what}: {len(out['failover_gap_ms'])} failover gaps for "
+                 f"{len(rids)} moves")
+        return out
+
+    def report(what, m):
+        print(f"{what} ({card}): payload bytes {m['payload_bytes']} (KV "
+              f"{m['kv_bytes']} for {m['rows']} rows"
+              + (f", draft rider {m['draft_bytes']}"
+                 if any(m["draft_bytes"]) else "")
+              + f"); export ms {[round(x, 3) for x in m['export_ms']]}, "
+              f"install ms {[round(x, 3) for x in m['install_ms']]}, "
+              f"failover gap ms {[round(x, 3) for x in m['failover_gap_ms']]}"
+              f"; target prefills {m['target_prefills']}; launches "
+              f"{m['launches']}")
+
+    out = {}
+    eager_tokens = {}
+    for capture in (False, True):
+        way = "captured" if capture else "eager"
+        new = MIGRATE_NEW if capture else EAGER_NEW
+        reqs = [Request(**{**r.__dict__, "max_new_tokens": new})
+                for r in picked]
+        res = {}
+        for case, extra in (("bf16", {}), ("int8_kv", {"kv_dtype": "int8"}),
+                            ("spec", dict(spec_k=SPEC_K, draft_model=qmodel,
+                                          draft_params=qparams))):
+            what = f"migrate_slice ({case}, {way})"
+            quantized = case == "int8_kv"
+
+            def make():
+                return ServeSession.from_model(model, params, capture=capture,
+                                               **kw, **extra)
+
+            src = make()
+            want = src.serve([Request(**r.__dict__) for r in reqs])
+            check_results(f"{what}, unmigrated", reqs, want, vocab)
+            dst = make()
+            if capture:
+                # A standby target: its graphs warm, as a replica that has
+                # served is (the failover gap then holds no capture).
+                dst.serve([Request("warm", reqs[0].input_ids[:8],
+                                   max_new_tokens=12)])
+            ex = obs_exporter.active_exporter()
+            if ex is None:
+                fail(f"{what}: TPUDL_OBS_PORT=0 started no exporter")
+            # (a)-(c): the counted run.
+            reset()
+            m0 = marks(src.engine, dst.engine)
+            push(src, reqs)
+            m = move(what, src, dst, moved, quantized)
+            if case == "bf16":
+                # (g): the exporter, the migrated requests seated.
+                status, health, text = scrape(ex.port)
+                eng_h = health["sources"]["serve_engine"]
+                if not (status == 200 and health["healthy"]
+                        and eng_h["healthy"] and eng_h["slots_busy"] == 2
+                        and eng_h["queue_depth"] == 0
+                        and eng_h["num_slots"] == NUM_SLOTS):
+                    fail(f"{what}: /healthz {status} {health}")
+                if "serve_migrations_installed" not in text:
+                    fail(f"{what}: /metrics has no migration counters")
+                m["healthz"] = eng_h
+                print(f"{what}: /healthz 200 on 127.0.0.1:{ex.port}: "
+                      f"serve_engine {eng_h}; /metrics {len(text)} B")
+            drain(src.engine, dst.engine)
+            got = results_of(reqs, src.engine, dst.engine)
+            check_results(what, reqs, got, vocab)
+            same(what, got, want, reqs)
+            (sp, sd), (dp, dd) = since(src.engine, m0[0]), since(
+                dst.engine, m0[1])
+            m["target_prefills"] = dp
+            if dp != 0:
+                fail(f"{what}: {dp} prefills on the target")
+            m["launches"] = launches()
+            if m["launches"] != add(expect(src.engine, sp, sd),
+                                    expect(dst.engine, dp, dd)):
+                fail(f"{what}: launches {m['launches']}, source {sp} "
+                     f"prefills {sd} steps, target {dd} steps")
+            report(what, m)
+            if case == "bf16":
+                # (f): a corrupted payload into the target's migrate inbox.
+                push(src, reqs[1:2])
+                src.engine.step()
+                flipped = chaos.corrupt_payload(
+                    src.engine.export_request(reqs[1].request_id))
+                dst.engine.migrate_inbox.append(
+                    _Migrated(reqs[1].request_id, flipped))
+                drain(dst.engine)
+                r = dst.engine.results.pop(reqs[1].request_id)
+                cache = dst.engine.cache
+                if not r.finish_reason.startswith(
+                        "failed: MigrationCorruptError") or r.tokens:
+                    fail(f"{what}: a corrupted payload ended {r}")
+                if cache.free_pages != cache.num_pages - 1:
+                    fail(f"{what}: {cache.num_pages - 1 - cache.free_pages} "
+                         f"target pages held after a corrupt payload")
+                m["corrupt"] = r.finish_reason
+                print(f"{what}: a corrupted payload ended "
+                      f"'{r.finish_reason[:60]}...'; all "
+                      f"{cache.num_pages - 1} target pages free")
+                # (e): prefilled back to back on the source, seated from
+                # the target's prefill_inbox.
+                reset()
+                p0 = src.engine.num_prefills
+                items = [prefill_handoff(src.engine, Request(**r.__dict__))
+                         for r in reqs]
+                im = marks(dst.engine)[0]
+                dst.engine.prefill_inbox.extend(items)
+                drain(dst.engine)
+                got = results_of(reqs, dst.engine)
+                same(f"{what} disaggregated", got, want, reqs)
+                ip, idd = since(dst.engine, im)
+                lau = launches()
+                if ip != 0 or lau != add(
+                        expect(src.engine, src.engine.num_prefills - p0, 0),
+                        expect(dst.engine, 0, idd)):
+                    fail(f"{what} disaggregated: {ip} target prefills, "
+                         f"launches {lau}")
+                m["disaggregated"] = {"target_prefills": ip, "launches": lau,
+                                      "decode_steps": idd}
+                print(f"{what}, disaggregated: {len(reqs)} requests prefilled "
+                      f"back to back on one session, seated from another's "
+                      f"prefill_inbox: {ip} prefills there, tokens the "
+                      f"unmigrated run's, launches {lau}")
+            res[case] = m
+            eager_tokens.setdefault(case, {})[capture] = {
+                r.request_id: want[r.request_id].tokens for r in reqs}
+            del src, dst
+        # (d): the prefix by reference.
+        what = f"migrate_slice (prefix by reference, {way})"
+        preqs = [Request(**{**r.__dict__, "max_new_tokens": new})
+                 for r in prefix_requests(Request, vocab)[:2]]
+
+        def make_share():
+            return ServeSession.from_model(model, params, capture=capture,
+                                           prefix_share=True, **kw)
+
+        # Both trees hold the same system-prompt pages (the same prefill of
+        # the same warm request), and the source serves the requests twice
+        # from that same tree: unmigrated, then with one moved.
+        warm = Request("warm", preqs[1].input_ids[:PREFIX_SYSTEM] + [7, 8],
+                       max_new_tokens=2)
+        src, dst = make_share(), make_share()
+        src.serve([Request(**warm.__dict__)])
+        want = src.serve([Request(**r.__dict__) for r in preqs])
+        src.engine.cache.drop_prefix_cache()
+        src.serve([Request(**warm.__dict__)])
+        dst.serve([Request(**warm.__dict__)])
+        rid, ids = preqs[0].request_id, preqs[0].input_ids
+        reset()
+        m0 = marks(src.engine, dst.engine)
+        push(src, preqs)
+        skip = dst.engine.cache.prefix_match_len(ids)
+        if skip != PREFIX_SYSTEM:
+            fail(f"{what}: the target holds {skip} prefix tokens")
+        full = []
+
+        def probe(rid):
+            # The whole request's rows, exported without freeing the slot.
+            full.append(src.engine.cache.export_request(
+                seated(src.engine, rid),
+                {"request": {"input_ids": list(ids)}, "reserve_tokens": 0}))
+
+        lease = dst.engine.cache.match_and_lease(ids)
+        m = move(what, src, dst, (rid,), False, skip=skip, lease=lease,
+                 probe=probe)
+        full = full[0]
+        full_kv = payload_row_bytes(torch, full)[0]
+        drain(src.engine, dst.engine)
+        got = results_of(preqs, src.engine, dst.engine)
+        check_results(what, preqs, got, vocab)
+        same(what, got, want, preqs)
+        (sp, sd), (dp, dd) = since(src.engine, m0[0]), since(dst.engine,
+                                                              m0[1])
+        m["target_prefills"] = dp
+        m["launches"] = launches()
+        m["full_payload_bytes"], m["full_kv_bytes"] = len(full), full_kv
+        if dp != 0 or m["launches"] != add(expect(src.engine, sp, sd),
+                                           expect(dst.engine, dp, dd)):
+            fail(f"{what}: {dp} target prefills, launches {m['launches']}")
+        if full_kv - m["kv_bytes"][0] != PREFIX_SYSTEM * rows[False]:
+            fail(f"{what}: the reference payload's KV is {m['kv_bytes'][0]} "
+                 f"B against the full {full_kv}: not {PREFIX_SYSTEM} rows "
+                 f"less")
+        report(what, m)
+        print(f"{what}: {len(full)} B in full, {m['payload_bytes'][0]} B by "
+              f"reference: the KV {full_kv - m['kv_bytes'][0]} B = "
+              f"{PREFIX_SYSTEM} rows x {rows[False]} B less")
+        res["prefix"] = m
+        eager_tokens.setdefault("prefix", {})[capture] = {
+            r.request_id: want[r.request_id].tokens for r in preqs}
+        del src, dst
+        out[way] = res
+    obs_exporter.stop_exporter()
+    del os.environ["TPUDL_OBS_PORT"]
+    for case, runs in eager_tokens.items():
+        for rid, toks in runs[False].items():
+            if runs[True][rid][:len(toks)] != toks:
+                fail(f"migrate_slice ({case}): the captured run's first "
+                     f"{len(toks)} tokens of {rid} differ from eager")
+    out["row_bytes"] = {"bf16": rows[False], "int8": rows[True]}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"migrate_slice: every case eager then captured, the captured "
+          f"tokens' first {EAGER_NEW} the eager ones; "
+          f"{out['seconds']:.1f} s ({card})")
+    return out
 
 
 def export_quant_phase(torch, sessions, card, requests):
@@ -8520,8 +8999,11 @@ def main() -> int:
     spec_metrics = spec_slice_phase(torch, model, params, card, qmodel,
                                     qparams, requests, oracle)
     oracle.free()
-    del oracle, qmodel, qparams
     mark("spec_slice")
+    migrate_metrics = migrate_slice_phase(torch, model, params, card, qmodel,
+                                          qparams, requests)
+    del oracle, qmodel, qparams
+    mark("migrate_slice")
     # Free the 8B model before the training phases.
     del model, params, requests, results, adapters, t_results
     del quant_sessions
@@ -8779,17 +9261,20 @@ def main() -> int:
                       | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
                       for c in rows],
         })
-    # The radix prefix cache's and speculation's runs (captured): their
-    # own launches beside each kernel's row.
+    # The radix prefix cache's, speculation's and migration's runs
+    # (captured; migrate_slice's speculating case): their own launches
+    # beside each kernel's row.
     for row in kernels:
         for phase, m in (("prefix_slice", prefix_metrics["shared"]),
                          ("spec_slice", spec_metrics["spec"]),
-                         ("spec_slice_composed", spec_metrics["composed"])):
+                         ("spec_slice_composed", spec_metrics["composed"]),
+                         ("migrate_slice", migrate_metrics["captured"]["spec"])):
             if row["name"] in m["launches"]:
                 row[f"launches_{phase}"] = m["launches"][row["name"]]
     print(json.dumps({"slice": metrics, "tenant_slice": tenant_metrics,
                       "prefix_slice": prefix_metrics,
                       "spec_slice": spec_metrics,
+                      "migrate_slice": migrate_metrics,
                       "train": train_metrics,
                       "train_fused": fused_metrics, "train_512": metrics_512,
                       "resnet50_train": resnet_metrics,

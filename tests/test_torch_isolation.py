@@ -48,6 +48,13 @@ _DATA_MODULES = ("tpudl_torch.data", "tpudl_torch.data.converter",
                  "tpudl_torch.obs.goodput")
 
 
+#: Migration, the serving chaos hooks, the live exporter and the SLO
+#: monitor (ROADMAP queue A item 3's last part, item 16(a)).
+_SERVE_OBS_MODULES = ("tpudl_torch.serve.cache", "tpudl_torch.serve.chaos",
+                      "tpudl_torch.serve.speculate",
+                      "tpudl_torch.obs.exporter", "tpudl_torch.obs.slo")
+
+
 def _modules():
     return sorted(
         m.name for m in pkgutil.walk_packages([PACKAGE], prefix="tpudl_torch.")
@@ -65,7 +72,8 @@ def test_every_module_imports_without_jax_flax_or_tpudl():
                  "tpudl_torch.export", "tpudl_torch.export.export",
                  "tpudl_torch.export.parity", "tpudl_torch.export.latency",
                  "tpudl_torch.export.decode", *_FT_MODULES,
-                 *_PRECISION_MODULES, *_QUANT_MODULES, *_DATA_MODULES):
+                 *_PRECISION_MODULES, *_QUANT_MODULES, *_DATA_MODULES,
+                 *_SERVE_OBS_MODULES):
         assert name in names
     code = (
         "import importlib, sys\n"
@@ -97,6 +105,34 @@ def test_checkpoint_and_ft_import_without_ml_dtypes():
         "leaf = torch.tensor([1.5, -3.0], dtype=torch.bfloat16)\n"
         "store.write(1, [('a', leaf)])\n"
         "assert torch.equal(store.read(1)[1]['a'], leaf)\n"
+        "bad = sorted(m for m, v in sys.modules.items() if v is not None "
+        "and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpudl', "
+        "'ml_dtypes'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_migration_payload_bf16_without_ml_dtypes():
+    """A migration payload's bf16 leaf packs and parses without ml_dtypes
+    (which comes with jax), with the exporter and SLO monitor loaded."""
+    code = (
+        "import sys\n"
+        "sys.modules['ml_dtypes'] = None\n"
+        "import importlib, torch\n"
+        f"for name in {_SERVE_OBS_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from tpudl_torch.serve.cache import pack_migration, "
+        "parse_migration\n"
+        "leaf = torch.tensor([[1.5, -3.0]], dtype=torch.bfloat16)\n"
+        "meta = parse_migration(pack_migration({'kind': 'x'}, "
+        "[('a', leaf)]))\n"
+        "assert meta['arrays'][0]['dtype'] == 'bfloat16'\n"
+        "assert torch.equal(meta['_arrays']['a'], leaf)\n"
         "bad = sorted(m for m, v in sys.modules.items() if v is not None "
         "and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpudl', "
         "'ml_dtypes'))\n"

@@ -2843,3 +2843,129 @@ def test_captured_prefix_and_spec_sessions_serve_the_eager_tokens(dev, mode):
     for r in reqs:
         assert out[True][r.request_id].tokens == out[False][r.request_id].tokens
     assert counts[True] == counts[False]
+
+
+# ---------------------------------------------------------------------------
+# page-granular migration and the disaggregation inbox on the card
+# ---------------------------------------------------------------------------
+
+
+def _paged_cache(device, kv_dtype, dtype=torch.bfloat16, layers=3):
+    from tpudl_torch.serve.cache import PagedKVCache
+
+    template = {"model": {f"layer_{i}": {"attention": {
+        "k": torch.empty((2, 40, 2, 8), dtype=dtype, device="meta"),
+        "v": torch.empty((2, 40, 2, 8), dtype=dtype, device="meta"),
+        "valid": torch.empty((2, 40), dtype=torch.bool, device="meta"),
+        "index": 0}} for i in range(layers)}}
+    return PagedKVCache(template, page_size=4, kv_dtype=kv_dtype,
+                        device=device), template
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_paged_export_on_the_card_equals_the_cpu_export(dev, kv_dtype):
+    """A paged cache's request exported on the card (the pools' gather,
+    bf16 or int8 pages with their scale rows) is byte-equal to the CPU
+    export of the same pools and addressing; importing it into a fresh
+    card cache restores the slot's pages bit for bit."""
+    rng = np.random.default_rng(30)
+    src, template = _paged_cache(dev, kv_dtype)
+    rows = {"model": {name: {"attention": {
+        "k": _t(rng, (1, 40, 2, 8), torch.bfloat16, dev),
+        "v": _t(rng, (1, 40, 2, 8), torch.bfloat16, dev)}}
+        for name in template["model"]}}
+    src.seat(rows, 1, 3, 17, 30)
+    src.advance([1], 5)
+    meta = {"request": {"input_ids": [1, 2]}, "reserve_tokens": 30}
+    payload = src.export_request(1, meta)
+    host, _ = _paged_cache("cpu", kv_dtype)
+    for (name, pool), (_, hpool) in zip(src.cache["model"].items(),
+                                        host.cache["model"].items()):
+        for key, leaf in pool["attention"].items():
+            hpool["attention"][key].copy_(leaf.cpu())
+    host.page_table[:] = src.page_table
+    host.start[:] = src.start
+    host.lens[:] = src.lens
+    host._reserved = dict(src._reserved)
+    assert host.export_request(1, meta) == payload
+    dst, _ = _paged_cache(dev, kv_dtype)
+    dst.import_request(payload, 0)
+    n = src.pages_needed(22)
+    for name, pool in src.cache["model"].items():
+        for key, leaf in pool["attention"].items():
+            a = leaf[torch.as_tensor(src.page_table[1, :n], device=dev,
+                                     dtype=torch.long)]
+            b = dst.cache["model"][name]["attention"][key][torch.as_tensor(
+                dst.page_table[0, :n], device=dev, dtype=torch.long)]
+            a, b = a.reshape(n * 4, -1)[:22], b.reshape(n * 4, -1)[:22]
+            assert a.dtype == b.dtype
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8_kv", "spec"])
+def test_captured_sessions_migrate_mid_stream(dev, mode):
+    """LLAMA_TINY on the card, both sessions captured: requests exported
+    mid-stream install in a second session (no prefill there, its decode
+    graph reading the imported pages in place) and finish with the
+    unmigrated run's tokens, a sampled request included; with ``spec`` the
+    draft's rows ride along."""
+    from tpudl_torch.serve import Request, ServeSession
+
+    model, params = _tiny_llama(dev)
+    kw = dict(paged=True, page_size=4, prompt_len=8, num_slots=4)
+    if mode == "int8_kv":
+        kw["kv_dtype"] = "int8"
+    if mode == "spec":
+        kw["spec_k"] = 3
+    rng = np.random.default_rng(31)
+    reqs = [Request(f"r{i}", rng.integers(1, 512, size=int(
+        rng.integers(2, 9))).tolist(), max_new_tokens=16) for i in range(3)]
+    reqs.append(Request("s", [5, 6, 7], max_new_tokens=16, temperature=0.8,
+                        seed=9))
+    want = ServeSession.from_model(model, params, **kw).serve(
+        [Request(**r.__dict__) for r in reqs])
+    src = ServeSession.from_model(model, params, **kw)
+    dst = ServeSession.from_model(model, params, **kw)
+    dst.serve([Request("warm", [1, 2, 3], max_new_tokens=6)])
+    p0 = dst.engine.num_prefills
+    # Straight onto the source's queue: a session's collect() would wait
+    # for the requests it exported.
+    for r in reqs:
+        src.engine.queue.push(Request(**r.__dict__))
+    for _ in range(3):
+        src.engine.step()
+    for r in reqs[:2] + reqs[3:]:
+        dst.engine.install_migrated(src.engine.export_request(r.request_id))
+    src.engine.run_until_drained()
+    dst.engine.run_until_drained()
+    got = {**src.engine.results, **dst.engine.results}
+    assert dst.engine.num_prefills == p0
+    for r in reqs:
+        assert got[r.request_id].tokens == want[r.request_id].tokens, r
+
+
+def test_captured_prefill_handoffs_keep_their_rows(dev):
+    """Two requests prefilled back to back on a captured prefill (whose
+    row cache the next replay overwrites) before either is seated in
+    another session: each continues as the local run does."""
+    from tpudl_torch.serve import Request, ServeSession
+    from tpudl_torch.serve.engine import prefill_handoff
+
+    model, params = _tiny_llama(dev)
+    kw = dict(paged=True, page_size=4, prompt_len=8, num_slots=4)
+    reqs = [Request("a", [3, 1, 4, 1, 5], max_new_tokens=10),
+            Request("b", [9, 2, 6], max_new_tokens=10),
+            Request("c", [5, 3, 5, 8, 9, 7], max_new_tokens=10)]
+    want = ServeSession.from_model(model, params, **kw).serve(
+        [Request(**r.__dict__) for r in reqs])
+    pre = ServeSession.from_model(model, params, **kw)
+    dec = ServeSession.from_model(model, params, **kw)
+    items = [prefill_handoff(pre.engine, r) for r in reqs]
+    assert pre.engine.prefill_call.graph is not None
+    dec.engine.prefill_inbox.extend(items)
+    while dec.engine.step():
+        pass
+    assert dec.engine.num_prefills == 0
+    for r in reqs:
+        assert dec.engine.results[r.request_id].tokens == \
+            want[r.request_id].tokens

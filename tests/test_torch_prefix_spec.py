@@ -697,9 +697,16 @@ def test_spec_companion_draft_and_refusals(models):
     with pytest.raises(ValueError, match="draft_params"):
         ServeSession.from_model(model, params, paged=True, spec_k=2,
                                 draft_model=model, **kw)
+    # Migration of the draft's and the target's rows: an unseated slot
+    # does not export, a payload that fails its crc does not import.
+    from tpudl_torch.serve.cache import MigrationCorruptError
+
     spec = session.engine.speculator
-    for call in (spec.export_slot, spec.import_slot,
-                 session.engine.cache.export_request,
-                 session.engine.cache.import_request):
-        with pytest.raises(NotImplementedError, match="item 3"):
+    for call in (lambda: spec.export_slot(0, [1], 8),
+                 lambda: session.engine.cache.export_request(0, {})):
+        with pytest.raises(ValueError, match="not seated"):
+            call()
+    for call in (lambda: spec.import_slot(0, b"junk"),
+                 lambda: session.engine.cache.import_request(b"junk", 0)):
+        with pytest.raises(MigrationCorruptError):
             call()

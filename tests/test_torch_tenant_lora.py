@@ -510,14 +510,19 @@ def test_paged_cache_bookkeeping_and_refusals(base):
     want = sum(t.numel() * 4 for layer in cache.cache["model"].values()
                for t in layer["attention"].values())
     assert cache.nbytes == want + 3 * 4 * 4 + 3 * 4 + 3 * 4
-    # Migration still waits for queue A item 3 (the cache's and the
-    # draft's halves); the radix tier is ported.
+    # Migration (the cache's and the draft's halves): an unseated slot
+    # does not export, a payload that fails its crc does not import.
     from tpudl_torch.serve import Speculator
+    from tpudl_torch.serve.cache import MigrationCorruptError
 
     spec = Speculator(None, None, None, cache, k=2)
-    for call in (cache.export_request, cache.import_request,
-                 spec.export_slot, spec.import_slot):
-        with pytest.raises(NotImplementedError, match="item 3"):
+    for call in (lambda: cache.export_request(1, {}),
+                 lambda: spec.export_slot(1, [1], 8)):
+        with pytest.raises(ValueError, match="not seated"):
+            call()
+    for call in (lambda: cache.import_request(b"junk", 0),
+                 lambda: spec.import_slot(0, b"junk")):
+        with pytest.raises(MigrationCorruptError):
             call()
     with pytest.raises(ValueError, match="prefix_share=True"):
         cache.match_and_lease([1, 2, 3])

@@ -23,6 +23,14 @@ _FLAG_TRUTHY = ("1", "true", "yes", "on")
 KNOBS: Dict[str, str] = {
     "TPUDL_OBS_DIR": "Span/counter JSONL output directory; set = recording on.",
     "TPUDL_OBS_HIST_WINDOW": "Histogram rolling-window size.",
+    # The live telemetry exporter (tpudl_torch.obs.exporter).
+    "TPUDL_OBS_PORT": "Live telemetry exporter port (/metrics, /healthz, "
+                      "/snapshot); fit() and ServeSession start it when set; "
+                      "0 = an ephemeral port.",
+    "TPUDL_OBS_HOST": "Live telemetry exporter bind host; default loopback "
+                      "127.0.0.1.",
+    "TPUDL_OBS_HEARTBEAT_STALE_S": "Seconds before a running heartbeat reads "
+                                   "stale on /healthz; default 60.",
     "TPUDL_PROFILE_DIR": "fit() writes a torch.profiler Chrome trace of its "
                          "profile_window steps here (same as profile_dir=).",
     "TPUDL_PROCESS_ID": "Process index tag on span records.",
@@ -79,6 +87,23 @@ KNOBS: Dict[str, str] = {
                             "restarts.",
     "TPUDL_CHAOS_IO_DELAY_S": "Fault injection: added delay per checkpoint "
                               "write (slow-disk simulation); default 0.",
+    # Serving fault injection (tpudl_torch.serve.chaos).
+    "TPUDL_SERVE_CHAOS_KILL_STEP": "Serving chaos: raise ChaosKill in "
+                                   "Engine.step at decode step N.",
+    "TPUDL_SERVE_CHAOS_PREEMPT_STEP": "Serving chaos: raise ChaosPreempt in "
+                                      "Engine.step at decode step N (its "
+                                      "caller exports the seated requests).",
+    "TPUDL_SERVE_CHAOS_FREEZE_STEP": "Serving chaos: freeze Engine.step at "
+                                     "decode step N for "
+                                     "TPUDL_SERVE_CHAOS_FREEZE_S seconds.",
+    "TPUDL_SERVE_CHAOS_FREEZE_S": "Serving chaos: freeze duration; default "
+                                  "1.0.",
+    "TPUDL_SERVE_CHAOS_ONCE_DIR": "Serving chaos: marker directory making "
+                                  "each injected fault fire once across "
+                                  "every engine of the process.",
+    "TPUDL_SERVE_CHAOS_FLIP_MIGRATION": "Serving chaos: flip one bit of "
+                                        "every migration payload an engine "
+                                        "receives (the crc must catch it).",
 }
 
 

@@ -19,8 +19,8 @@ epoch factory whose iterable can skip cheaply. For a device feed
 prefetcher, and a seek drains batches through it.
 
 tpudl's ``resumable_request_log`` needs the request log
-(``tpudl/obs/requestlog.py``), which is not ported (ROADMAP queue A
-item 3).
+(``tpudl/obs/requestlog.py``), which is not ported yet (ROADMAP queue A
+item 16(b)).
 """
 
 from __future__ import annotations

@@ -12,9 +12,9 @@ when a span recorder is active; the ``checkpoint_write_s`` histogram
 and the ``checkpoint_saves`` counter of tpudl_torch.obs.counters are
 kept either way. A write failure is NOT swallowed: it is re-raised on
 the next ``submit``/``wait``/``close``, so the training loop finds
-out before it relies on a checkpoint that never landed. tpudl also
-registers ``health`` with its metrics exporter, which the port does not
-have yet (ROADMAP queue A item 3); ``health()`` is here to call.
+out before it relies on a checkpoint that never landed. ``health``
+(sticky: a failed write stays visible after it was re-raised) is the
+``checkpoint_writer`` source of /healthz (tpudl_torch.obs.exporter).
 """
 
 from __future__ import annotations
@@ -46,6 +46,9 @@ class AsyncCheckpointWriter:
         self._thread = threading.Thread(
             target=self._run, name="tpudl-ckpt-writer", daemon=True)
         self._thread.start()
+        from tpudl_torch.obs import exporter as obs_exporter
+
+        obs_exporter.register_health_source("checkpoint_writer", self.health)
 
     def health(self) -> dict:
         with self._lock:

@@ -57,8 +57,9 @@ class Request:
     ``generate()``. ``deadline_s`` is relative seconds from submit — a
     request not SEATED by then is shed (running requests are never
     aborted). ``tenant`` picks the LoRA adapter a multi-tenant session
-    applies (None = the plain base model). tpudl's ``session_key`` waits
-    for the router that reads it."""
+    applies (None = the plain base model). ``session_key`` is tpudl's
+    sticky-placement key: it rides migration payloads (either package's),
+    and the router that reads it is ROADMAP queue A item 16(c)."""
 
     request_id: Any
     input_ids: Sequence[int]
@@ -68,6 +69,7 @@ class Request:
     seed: int = 0
     priority: int = 0
     deadline_s: Optional[float] = None
+    session_key: Optional[Any] = None
     tenant: Optional[Any] = None
 
 
@@ -75,7 +77,9 @@ class Request:
 class Result:
     """Outcome of one request. ``tokens`` are the generated ids,
     INCLUDING the eos that ended generation. finish_reason: ``eos`` |
-    ``length`` | ``shed_timeout`` | ``shed_capacity``."""
+    ``length`` | ``shed_timeout`` | ``shed_capacity`` | ``shed_slo`` (an
+    attached SLO objective was burning) | ``failed: ...`` (a migration
+    payload that could not be resumed: never resumed silently)."""
 
     request_id: Any
     tokens: List[int]
@@ -147,6 +151,7 @@ class ServeSession:
         queue_capacity: Optional[int] = None,
         clock: Callable[[], float] = time.monotonic,
         continuous: bool = True,
+        slo=None,
         cache: Optional[SlotCache] = None,
         chunk_prefill_call: Optional[Callable] = None,
         speculator=None,
@@ -154,8 +159,13 @@ class ServeSession:
         adapter_pool=None,
     ):
         # Deferred import: engine imports Request/Result from this module.
+        from tpudl_torch.obs import exporter as obs_exporter
         from tpudl_torch.serve.engine import Engine
 
+        # Live telemetry: with TPUDL_OBS_PORT set the process serves
+        # /metrics, /healthz (the engine's slots and queue, SLO burn
+        # state) and /snapshot while it runs.
+        obs_exporter.maybe_start_from_env()
         if cache is None:
             cache = SlotCache(cache_template)
         self.queue = AdmissionQueue(
@@ -170,6 +180,12 @@ class ServeSession:
             chunk_prefill_call=chunk_prefill_call, speculator=speculator,
             verify_call=verify_call, adapter_pool=adapter_pool,
         )
+        if slo is not None:
+            # A tpudl_torch.obs.slo.SloMonitor: the engine feeds it TTFT,
+            # TPOT and queue wait and sheds while objectives burn;
+            # /healthz flips 503 with the burning objective named.
+            self.engine.attach_slo(slo)
+            slo.register_as_health_source()
         self._pending_ids: set = set()
         #: Weakref to the live stream() generator (see stream()).
         self._stream_gen = None

@@ -1,9 +1,10 @@
 """KV-slot managers: the fixed-shape caches behind the engine.
 
 The port's counterpart of tpudl.serve.cache: the dense ``SlotCache`` and
-the paged ``PagedKVCache`` (below, with its int8 pages and the radix
-prefix tree's copy-on-write page sharing; migration waits for ROADMAP
-queue A item 3). The engine's dense decode call runs on a fixed-slot
+the paged ``PagedKVCache`` (below, with its int8 pages, the radix
+prefix tree's copy-on-write page sharing and page-granular migration:
+``export_request`` / ``import_request`` over the ``pack_migration`` wire
+format, byte for byte tpudl's). The engine's dense decode call runs on a fixed-slot
 cache (``[num_slots, max_seq_len, ...]`` per layer, the layout
 tpudl_torch.models.llama.init_cache builds). Continuous batching never
 reshapes it — requests come and go by mutating WHICH rows mean
@@ -25,12 +26,16 @@ batch-independent.
 
 from __future__ import annotations
 
+import json
+import struct
 import threading
+import zlib
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from tpudl_torch.ft.store import dtype_name, torch_dtype
 from tpudl_torch.models.paged import flat_page_row_index, quantize_kv
 
 
@@ -181,15 +186,6 @@ class SlotCache:
 # ---------------------------------------------------------------------------
 # The paged cache
 # ---------------------------------------------------------------------------
-
-#: The ROADMAP item that ports the paged cache's last tier (migration).
-_ITEM = "ROADMAP queue A item 3"
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to tpudl_torch yet ({_ITEM}: migration)")
-
 
 def _is_attn_cache(node) -> bool:
     """A per-layer dense decode cache dict: the four leaves
@@ -516,7 +512,7 @@ def _attn_caches(tree: Any, path=()):
 
 
 class PagedKVCache:
-    """The paged successor to ``SlotCache`` (tpudl's, without migration).
+    """The paged successor to ``SlotCache`` (tpudl's).
 
     KV lives in per-layer page pools ``[num_pages, page_size, Hkv, D]``
     (int8, with ``[num_pages, page_size, Hkv]`` f32 scale pools
@@ -551,7 +547,13 @@ class PagedKVCache:
     prefix back into dense rows for the chunked suffix prefill.
     ``capture`` (the port's; on the card) makes that gather one CUDA
     graph for every match length: its first call runs eagerly, its
-    second captures, every later call replays."""
+    second captures, every later call replays.
+
+    ``export_request`` / ``import_request`` move one seated request's
+    rows between caches as a crc32-guarded payload (``pack_migration``):
+    the rows in stored dtype (int8 pages as int8, with their scale rows),
+    gathered out of the pools and scattered into fresh pages of the
+    target, in place."""
 
     #: Marks the paged engine path (Engine branches on this).
     paged = True
@@ -934,11 +936,194 @@ class PagedKVCache:
         if self.radix is not None:
             self._free.extend(self.radix.evict(self.radix.evictable_pages))
 
-    def export_request(self, *args, **kwargs):
-        _not_ported("export_request (page-granular migration)")
+    # -- page-granular migration ---------------------------------------
 
-    def import_request(self, *args, **kwargs):
-        _not_ported("import_request (page-granular migration)")
+    def export_request(self, slot: int, meta: dict, skip_tokens: int = 0,
+                       extra_leaves=()) -> bytes:
+        """Serialize one seated request's KV state into one crc32-guarded
+        payload (tpudl's): its logical rows ``[skip_tokens, lens)``
+        gathered out of the page pools in STORED dtype (int8 pages ship
+        as int8 with their scale rows, so a quantized request resumes bit
+        for bit), plus the addressing (``lens`` / ``start`` / alignment)
+        the target rebuilds its page-table row from. ``meta`` is the
+        engine's request and sampling state riding along.
+
+        ``skip_tokens`` is the reference-first prefix: the caller probed
+        (and LEASED) that many tokens in the TARGET's radix tree, so they
+        ship as the prompt ids already in ``meta`` instead of rows; a
+        target whose tree no longer holds them refuses the import
+        (``MigrationCompatError``). ``extra_leaves`` ride along under
+        their own paths (the draft's nested payload), crc-covered.
+
+        Non-destructive: the caller frees the slot once the payload
+        exists."""
+        if slot not in self._reserved and slot not in self._leases:
+            raise ValueError(f"slot {slot} is not seated")
+        lens = int(self.lens[slot])
+        start = int(self.start[slot])
+        left_aligned = start == 0
+        skip = int(skip_tokens)
+        if not 0 <= skip <= lens:
+            raise ValueError(f"skip_tokens {skip} outside [0, {lens}]")
+        if skip and not left_aligned:
+            raise ValueError(
+                "reference-prefix export requires a left-aligned slot "
+                "(pad-aligned rows cannot match the radix tree's canonical "
+                "token->position mapping)")
+        ps = self.page_size
+        pos = np.arange(skip, lens, dtype=np.int64)
+        flat = self.page_table[slot, pos // ps].astype(np.int64) * ps + pos % ps
+        leaves = _pool_leaves(self.cache)
+        idx = torch.as_tensor(flat, device=leaves[0][1].device)
+        # Every gather is queued before the first readback waits.
+        rows = [(path, pool.view(-1, *pool.shape[2:])[idx])
+                for path, pool in leaves]
+        rows = [(path, r.cpu()) for path, r in rows]
+        rows.extend(extra_leaves)
+        payload_meta = dict(meta)
+        payload_meta.update(
+            kind="tpudl-kv-migration",
+            lens=lens,
+            start=start,
+            skip_tokens=skip,
+            left_aligned=left_aligned,
+            page_size=self.page_size,
+            quantized=self.quantized,
+        )
+        return pack_migration(payload_meta, rows)
+
+    def import_request(self, payload, slot: int, lease=None) -> dict:
+        """Seat a migrated request's KV into ``slot`` from an
+        ``export_request`` payload (bytes, or its parsed meta): verify the
+        crc, allocate the full reservation, scatter the shipped rows into
+        fresh pages IN PLACE and rebuild the page-table row — no prefill.
+        ``lease`` is a pre-pinned ``match_and_lease`` result (the prefix
+        the export skipped); without one, a prefix-share cache matches
+        here. The lease is CONSUMED: released on every failure path,
+        installed into the slot's bookkeeping on success.
+
+        Raises ``MigrationCorruptError`` on a payload that fails
+        validation and ``MigrationCompatError`` on a valid payload this
+        cache cannot seat (quantization or geometry mismatch, a
+        reservation past the per-slot bound, a reference prefix the tree
+        no longer holds). Returns the payload's meta dict."""
+        meta = payload if isinstance(payload, dict) else parse_migration(
+            payload)
+        matched_pages: list = []
+        deepest = None
+        if lease is not None:
+            matched_pages, deepest = lease
+        try:
+            if meta.get("kind") != "tpudl-kv-migration":
+                raise MigrationCorruptError(
+                    "payload is not a tpudl KV migration")
+            if bool(meta["quantized"]) != self.quantized:
+                raise MigrationCompatError(
+                    f"payload kv quantization ({meta['quantized']}) does not "
+                    f"match this cache ({self.quantized})")
+            if not 0 <= slot < self.num_slots:
+                raise IndexError(
+                    f"slot {slot} out of range [0, {self.num_slots})")
+            if slot in self._reserved or slot in self._leases:
+                raise ValueError(f"slot {slot} is already seated")
+            if lease is not None and self.radix is None:
+                raise ValueError("import lease given but prefix_share is off")
+        except BaseException:
+            self.release_lease(deepest)
+            raise
+        lens = int(meta["lens"])
+        start = int(meta["start"])
+        skip = int(meta["skip_tokens"])
+        reserve = max(int(meta["reserve_tokens"]), lens)
+        ids = np.asarray(meta["request"]["input_ids"], np.int32)
+        if lease is not None and not meta["left_aligned"]:
+            # A pad-aligned payload's rows do not follow the radix tree's
+            # token->position mapping: splicing leased pages in would
+            # resume over WRONG KV. Drop the pin, import fully private.
+            self.release_lease(deepest)
+            matched_pages, deepest = [], None
+        if lease is None and self.prefix_share and meta["left_aligned"]:
+            matched_pages, deepest = self.radix.match_and_lease(ids)
+        m = len(matched_pages)
+        try:
+            if reserve > self.max_seq_len:
+                raise MigrationCompatError(
+                    f"reserve_tokens {reserve} exceeds this cache's per-slot "
+                    f"bound {self.max_seq_len}")
+            if m * self.page_size < skip:
+                raise MigrationCompatError(
+                    f"payload ships rows only past token {skip} (prefix by "
+                    f"reference) but this cache's radix tree holds "
+                    f"{m * self.page_size} — re-export with the full page "
+                    f"payload")
+            rows = self._migration_rows(meta, lens, skip)
+            new_pages = self._alloc_pages(self.pages_needed(reserve) - m)
+        except BaseException:
+            self.release_lease(deepest)
+            raise
+        used = self.pages_needed(lens)
+        self.page_table[slot, :] = 0
+        self.page_table[slot, :m] = matched_pages
+        self.page_table[slot, m:m + len(new_pages)] = new_pages
+        self.start[slot] = start
+        self.lens[slot] = lens
+        # Only pages [m, used) are written: matched pages already hold the
+        # same bytes and the reserve tail is garbage until decode writes it
+        # (tpudl points both at the trash page in its scatter).
+        self._migration_scatter(rows, self.page_table[slot, m:used],
+                                m * self.page_size - skip)
+        tree_pages = 0
+        node = None
+        if self.radix is not None and meta["left_aligned"]:
+            # The prompt's full pages enter the tree: a migrated-in system
+            # prompt is as cacheable as a locally prefilled one.
+            full = int(ids.shape[0]) // self.page_size
+            if full > m:
+                node = self.radix.insert_suffix(
+                    deepest, self.radix.blocks_of(ids)[m:full],
+                    [int(p) for p in self.page_table[slot, m:full]])
+                tree_pages = full - m
+        final = node if node is not None else deepest
+        if final is not None:
+            self._leases[slot] = final
+        self._reserved[slot] = new_pages[tree_pages:]
+        return meta
+
+    def _migration_rows(self, meta: dict, lens: int, skip: int) -> dict:
+        """The payload's rows by pool path, each validated against THIS
+        cache's pool geometry (tail dims and stored dtype)."""
+        arrays = meta["_arrays"]
+        rows = {}
+        for path, pool in _pool_leaves(self.cache):
+            src = arrays.get(path)
+            if src is None:
+                raise MigrationCompatError(
+                    f"payload has no rows for {path} — exported from a "
+                    f"different model geometry")
+            want = (lens - skip,) + tuple(pool.shape[2:])
+            if tuple(src.shape) != want or src.dtype != pool.dtype:
+                raise MigrationCompatError(
+                    f"{path}: payload rows {tuple(src.shape)}/"
+                    f"{dtype_name(src.dtype)} do not fit this cache's "
+                    f"{want}/{dtype_name(pool.dtype)}")
+            rows[path] = src
+        return rows
+
+    def _migration_scatter(self, rows: dict, pages, first: int) -> None:
+        """Write the payload rows into ``pages`` of every pool, in place:
+        page ``i`` takes rows ``[first + i * page_size, ...)`` (``first``
+        is the first page's logical start minus the payload's first row);
+        rows past the payload's end are zeros."""
+        n, ps = len(pages), self.page_size
+        if n == 0:
+            return
+        for path, pool in _pool_leaves(self.cache):
+            src = rows[path][first:first + n * ps]
+            block = pool.new_zeros((n * ps,) + tuple(pool.shape[2:]))
+            block[:src.shape[0]] = src.to(pool.device)
+            ids = torch.as_tensor(np.asarray(pages, np.int64),
+                                  device=pool.device)
+            pool[ids] = block.view(n, ps, *pool.shape[2:])
 
     # -- the decode call's addressing ----------------------------------
 
@@ -970,3 +1155,145 @@ class PagedKVCache:
                      if isinstance(leaf, torch.Tensor))
         return device + (self.page_table.nbytes + self.start.nbytes
                          + self.lens.nbytes)
+
+
+# ---------------------------------------------------------------------------
+# Page-granular KV migration: the transfer format
+# ---------------------------------------------------------------------------
+
+MIGRATION_MAGIC = b"TPUDLMIG"
+MIGRATION_VERSION = 1
+_MIGRATION_HEADER = struct.Struct("<II")  # (version, meta length)
+
+
+class MigrationCorruptError(RuntimeError):
+    """A migration payload failed validation (bad magic or version, crc32
+    mismatch, truncated array region): the request must NOT be resumed
+    from it. The engine sheds it as ``failed``."""
+
+
+class MigrationCompatError(ValueError):
+    """A valid payload that cannot seat in THIS cache: quantization or
+    model-geometry mismatch, a reservation past the per-slot bound, or a
+    reference-only prefix the target's radix tree no longer holds. The
+    caller's fallback is a from-scratch resubmission."""
+
+
+def _pool_leaves(cache: dict, path=()) -> List[Tuple[str, torch.Tensor]]:
+    """(path, pool tensor) of a paged cache in tpudl's payload order: keys
+    sorted at every level (as jax flattens a dict), each path spelled as
+    ``jax.tree_util.keystr`` spells it (``['model']['layer_0']...``)."""
+    out = []
+    for key in sorted(cache):
+        value = cache[key]
+        if isinstance(value, dict):
+            out.extend(_pool_leaves(value, path + (key,)))
+        else:
+            out.append(("".join(f"[{k!r}]" for k in path + (key,)), value))
+    return out
+
+
+def _leaf_buffer(arr) -> Tuple[list, str, np.ndarray]:
+    """(shape, numpy dtype name, C-order bytes as a uint8 array) of a
+    payload leaf: a torch tensor (its raw words; bfloat16 under numpy's
+    name) or a numpy array. Like tpudl's ``np.ascontiguousarray``, a 0-d
+    leaf ships as shape [1]."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach().cpu().contiguous()
+        if t.dim() == 0:
+            t = t.reshape(1)
+        flat = t.reshape(-1)
+        raw = (flat.view(torch.uint8) if flat.numel()
+               else torch.empty(0, dtype=torch.uint8))
+        return list(t.shape), dtype_name(t.dtype), raw.numpy()
+    arr = np.ascontiguousarray(arr)
+    return list(arr.shape), arr.dtype.name, arr.reshape(-1).view(np.uint8)
+
+
+def pack_migration(meta: dict, leaves) -> bytes:
+    """One request's migration payload, byte for byte tpudl's: ``MAGIC |
+    version | meta length | meta json | raw leaf buffers | crc32``.
+    ``leaves`` is an ordered list of ``(path, tensor or ndarray)``; their
+    descriptors (path, shape, dtype, offset, nbytes) land in the meta.
+    The crc32 covers everything before it, so a truncation or bit flip
+    anywhere is caught before a row is resumed."""
+    descs = []
+    bufs = []
+    offset = 0
+    for path, arr in leaves:
+        shape, dtype, raw = _leaf_buffer(arr)
+        descs.append({
+            "path": path,
+            "shape": shape,
+            "dtype": dtype,
+            "offset": offset,
+            "nbytes": int(raw.nbytes),
+        })
+        bufs.append(raw)
+        offset += raw.nbytes
+    meta = dict(meta)
+    meta["arrays"] = descs
+    blob = json.dumps(meta).encode()
+    body = b"".join([MIGRATION_MAGIC,
+                     _MIGRATION_HEADER.pack(MIGRATION_VERSION, len(blob)),
+                     blob, *bufs])
+    return body + struct.pack("<I", zlib.crc32(body))
+
+
+def parse_migration(payload) -> dict:
+    """Decode and VERIFY a migration payload (the port's or tpudl's).
+    Raises ``MigrationCorruptError`` on anything that fails the magic,
+    version, crc32 or array-bounds checks. Returns the meta dict with
+    ``"_arrays"`` holding the ``{path: CPU tensor}`` leaves (bfloat16
+    leaves as ``torch.bfloat16``)."""
+    head = len(MIGRATION_MAGIC) + _MIGRATION_HEADER.size
+    if not isinstance(payload, (bytes, bytearray, memoryview)):
+        raise TypeError(
+            f"migration payload must be bytes, got {type(payload).__name__}")
+    payload = bytes(payload)
+    if len(payload) < head + 4 or payload[:len(MIGRATION_MAGIC)] != (
+            MIGRATION_MAGIC):
+        raise MigrationCorruptError(
+            "not a tpudl migration payload (bad magic or truncated)")
+    (crc,) = struct.unpack("<I", payload[-4:])
+    if zlib.crc32(payload[:-4]) != crc:
+        raise MigrationCorruptError(
+            "crc32 mismatch — truncated or corrupted migration payload; "
+            "refusing to resume from it")
+    version, blob_len = _MIGRATION_HEADER.unpack(
+        payload[len(MIGRATION_MAGIC):head])
+    if version != MIGRATION_VERSION:
+        raise MigrationCorruptError(
+            f"migration payload version {version} != {MIGRATION_VERSION}")
+    try:
+        meta = json.loads(payload[head:head + blob_len].decode())
+    except Exception as e:
+        raise MigrationCorruptError(
+            f"unreadable migration meta: {type(e).__name__}: {e}") from None
+    # One writable copy of the array region: the tensors view into it.
+    data = bytearray(payload[head + blob_len:-4])
+    arrays = {}
+    for desc in meta.get("arrays", []):
+        offset, nbytes = desc["offset"], desc["nbytes"]
+        if offset + nbytes > len(data):
+            raise MigrationCorruptError(
+                f"array region truncated: {desc['path']} ends at byte "
+                f"{offset + nbytes}, payload holds {len(data)}")
+        try:
+            dtype = torch_dtype(desc["dtype"])
+        except Exception:
+            raise MigrationCorruptError(
+                f"unknown leaf dtype {desc['dtype']!r} in migration "
+                f"meta") from None
+        if nbytes == 0:
+            t = torch.empty(desc["shape"], dtype=dtype)
+        else:
+            aligned = offset % dtype.itemsize == 0
+            raw = data if aligned else bytearray(data[offset:offset + nbytes])
+            t = torch.frombuffer(raw, dtype=dtype,
+                                 count=nbytes // dtype.itemsize,
+                                 offset=offset if aligned else 0)
+            t = t.reshape(desc["shape"])
+        arrays[desc["path"]] = t
+    meta["_arrays"] = arrays
+    return meta

@@ -63,14 +63,29 @@ draft calls propose, ONE slot-batched verify call
 (``verify_call``, the paged chunk decode) scores the window, and
 acceptance emits 1..k tokens a slot.
 
-Not ported yet: migration and the disaggregation inbox (ROADMAP queue A
-item 3), the SLO hook, chaos hooks, the request log and the exporter's
-health source.
+Two hooks for work that paid its prefill elsewhere, drained by
+``_fill_slots`` ahead of the local queue: ``migrate_inbox`` (``_Migrated``
+payloads of ``export_request``: a request's pages, tokens and sampling
+position, resumed by ``install_migrated`` with no prefill) and
+``prefill_inbox`` (``_Prefilled`` row caches of another engine's
+prefill: prefill/decode disaggregation over the same seat). tpudl's
+router feeds both (ROADMAP queue A item 16(c)); here any caller can.
+
+Failure paths and live state: ``chaos_hooks`` (tpudl_torch.serve.chaos,
+env-gated) run at the top of every ``step``; ``health()`` is the
+``serve_engine`` source of /healthz (tpudl_torch.obs.exporter) through a
+weak reference; ``attach_slo`` subscribes admission to a
+tpudl_torch.obs.slo.SloMonitor, which sheds the queue while an objective
+burns. Still to come: the request log and metering (ROADMAP queue A item
+16(b)).
 """
 
 from __future__ import annotations
 
+import collections
+import json
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -80,8 +95,14 @@ from tpudl_torch.models.generate import gumbel_argmax
 from tpudl_torch.obs import registry
 from tpudl_torch.obs.spans import active_recorder
 from tpudl_torch.rng import fold_in
+from tpudl_torch.serve import chaos as serve_chaos
 from tpudl_torch.serve.api import Request, Result
-from tpudl_torch.serve.cache import SlotCache
+from tpudl_torch.serve.cache import (
+    MigrationCompatError,
+    MigrationCorruptError,
+    SlotCache,
+    parse_migration,
+)
 from tpudl_torch.serve.queue import CAT_SERVE_REQUEST, AdmissionQueue, _Entry
 
 #: Span categories (their own rows in the obs report breakdown table).
@@ -131,13 +152,65 @@ def first_token(logits, request, greedy=None) -> int:
     return int(sel[0])
 
 
+def _clone_tree(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+class _Prefilled:
+    """One request another engine prefilled, awaiting a decode slot: the
+    handoff unit of prefill/decode disaggregation (drained by
+    ``Engine._fill_slots``). It holds its OWN copy of the row cache: a
+    captured prefill's row cache is its graph's output buffer, which the
+    next replay overwrites."""
+
+    __slots__ = (
+        "entry", "row_cache", "first_token", "prompt_ids_len",
+        "t_popped", "t_first",
+    )
+
+    def __init__(self, entry: _Entry, row_cache: Any, first_token: int,
+                 prompt_ids_len: int, t_popped: float, t_first: float):
+        self.entry = entry
+        self.row_cache = _clone_tree(row_cache)
+        self.first_token = first_token
+        self.prompt_ids_len = prompt_ids_len
+        self.t_popped = t_popped  # queue wait ended here (prefill start)
+        self.t_first = t_first  # first token selected here (TTFT end)
+
+
+def prefill_handoff(engine: "Engine", request: Request,
+                    submitted_at: Optional[float] = None) -> _Prefilled:
+    """Prefill ``request`` on ``engine``'s batch-1 prefill (left-padded to
+    its prompt window) and select its first token, as a dedicated prefill
+    worker does (tpudl's router ``PrefillWorker``, ROADMAP queue A item
+    16(c)): the ``_Prefilled`` another engine's ``prefill_inbox`` seats.
+    Counts as a prefill of ``engine``. Tenants stay off this path, as
+    tpudl's router keeps them (an adapter engine's prefill takes the
+    tenant's pages)."""
+    if engine.adapter_pool is not None:
+        raise ValueError("prefill_handoff runs the plain batch-1 prefill; "
+                         "an adapter-serving engine does not hand off")
+    t0 = engine.clock()
+    ids = np.asarray(request.input_ids, np.int32)
+    row_cache, first = engine._full_prefill(ids, request)
+    now = engine.clock()
+    engine._count_prefill()
+    registry().counter("serve_disaggregated_prefills").inc()
+    entry = _Entry(priority=request.priority, seq=0, request=request,
+                   deadline=None,
+                   submitted_at=t0 if submitted_at is None else submitted_at)
+    return _Prefilled(entry, row_cache, first, int(ids.shape[0]), t0, now)
+
+
 class _Slot:
     """Host-side state of one occupied decode slot."""
 
     __slots__ = (
         "entry", "request", "tokens", "position", "steps",
-        "t_seated", "t_first", "t_last", "adapter_reloads",
-        "prefix_hit", "spec_proposed", "spec_accepted",
+        "t_seated", "t_first", "t_last", "gap_origin", "adapter_reloads",
+        "prefix_hit", "spec_proposed", "spec_accepted", "migrations",
     )
 
     def __init__(self, entry: _Entry, first_token: int, prompt_len: int,
@@ -150,6 +223,9 @@ class _Slot:
         self.t_seated = seated  # pop time: queue wait ends HERE
         self.t_first = now  # first token out: TTFT ends here (incl. prefill)
         self.t_last = now
+        # Migrated slots: the SOURCE's last-token time, consumed when the
+        # first token after the move lands (the failover token gap).
+        self.gap_origin: Optional[float] = None
         # Adapter reloads this request's seating paid for.
         self.adapter_reloads = 0
         # Prompt tokens the radix cache served; draft tokens proposed
@@ -157,6 +233,39 @@ class _Slot:
         self.prefix_hit = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
+        # Moves survived (rides the payload, so it counts cumulatively).
+        self.migrations = 0
+
+
+def _received(payload):
+    """A migration payload as this engine receives it: the transfer
+    point, where ``TPUDL_SERVE_CHAOS_FLIP_MIGRATION`` flips a bit of the
+    wire bytes (tpudl_torch.serve.chaos) for the crc to catch. A parsed
+    payload (a dict) did not cross a wire."""
+    if isinstance(payload, dict):
+        return payload
+    return serve_chaos.maybe_corrupt_migration(payload)
+
+
+class _Migrated:
+    """One migrated-in request awaiting a free slot: the payload as
+    transferred (its crc checked lazily, on the engine's thread, so a
+    corrupt transfer becomes a ``failed`` Result) and the radix lease the
+    caller pinned on this cache for the prefix the export skipped."""
+
+    __slots__ = ("rid", "payload", "lease", "meta")
+
+    def __init__(self, rid: Any, payload, lease=None):
+        self.rid = rid
+        self.payload = _received(payload)
+        self.lease = lease
+        self.meta: Optional[dict] = None
+
+    def ensure_parsed(self) -> dict:
+        if self.meta is None:
+            self.meta = (self.payload if isinstance(self.payload, dict)
+                         else parse_migration(self.payload))
+        return self.meta
 
 
 class Engine:
@@ -241,12 +350,103 @@ class Engine:
         # token is selected (prefill's first token included) — BEFORE
         # the finish check. ServeSession.stream() installs it.
         self.on_token: Optional[Callable[[Any, int], None]] = None
+        # Disaggregation inbox: _Prefilled items seated by _fill_slots
+        # ahead of local queue pops (deque appends are thread-safe).
+        self.prefill_inbox = collections.deque()
+        # Migration inbox: _Migrated items, drained AHEAD of everything
+        # else (this work already paid its prefill somewhere).
+        self.migrate_inbox = collections.deque()
+        # Chaos injection (tpudl_torch.serve.chaos, env-gated, default
+        # none): hooks called with the decode-step count at the top of
+        # step().
+        self.chaos_hooks: List[Callable[[int], None]] = (
+            serve_chaos.engine_step_hooks())
         # Decode steps are the deterministic cost unit the
         # static-vs-continuous comparison uses.
         self.num_decode_steps = 0
         self.num_prefills = 0
         self.num_rollovers = 0
+        # SLO hook (attach_slo): while any subscribed objective burns,
+        # admission sheds the queue instead of seating doomed work.
+        self._slo = None
+        self._slo_burning: frozenset = frozenset()
         registry().gauge("serve_cache_bytes").set(cache.nbytes)
+        # Live health: slots and queue on /healthz while this engine is
+        # the process's serving engine (the latest one wins). The source
+        # holds a WEAK reference: a bound method would pin the engine and
+        # its whole cache for the process lifetime.
+        from tpudl_torch.obs import exporter as obs_exporter
+
+        self_ref = weakref.ref(self)
+
+        def _engine_health() -> dict:
+            eng = self_ref()
+            if eng is None:
+                return {"healthy": True, "engine": "collected"}
+            return eng.health()
+
+        obs_exporter.register_health_source("serve_engine", _engine_health)
+
+    # -- live telemetry ------------------------------------------------
+
+    def health(self) -> dict:
+        """/healthz payload: slot occupancy and admission state (both
+        inboxes count as queued). Burning SLO objectives surface through
+        the monitor's own source; here they only annotate."""
+        out = {
+            "healthy": True,
+            "slots_busy": sum(s is not None for s in self._slots),
+            "num_slots": self.num_slots,
+            "queue_depth": (len(self.queue) + len(self.prefill_inbox)
+                            + len(self.migrate_inbox)),
+            "queue_capacity": self.queue.capacity,
+            "results_pending": len(self.results),
+            "decode_steps": self.num_decode_steps,
+            "prefills": self.num_prefills,
+            "max_seq_len": self.max_seq_len,
+            "slo_burning": sorted(self._slo_burning),
+            "paged": self.paged,
+        }
+        if self.paged:
+            out["free_pages"] = self.cache.free_pages
+            out["page_size"] = self.cache.page_size
+            out["kv_quantized"] = self.cache.quantized
+            if self.prefix_share:
+                out["prefix_cache"] = self.cache.radix.stats()
+            if self.speculator is not None:
+                out["spec_k"] = self.speculator.k
+            if self.adapter_pool is not None:
+                out["adapters"] = self.adapter_pool.stats()
+        else:
+            out["write_index"] = self.cache.write_index
+        return out
+
+    def attach_slo(self, monitor) -> None:
+        """Subscribe admission to a tpudl_torch.obs.slo.SloMonitor: the
+        engine feeds it TTFT, queue-wait and TPOT observations, and while
+        any objective burns, queued-but-unseated requests are shed
+        (``finish_reason="shed_slo"``). The subscription holds a WEAK
+        engine reference, so a monitor outliving the engine does not pin
+        its cache."""
+        self_ref = weakref.ref(self)
+
+        def _on_transition(objective, state):
+            eng = self_ref()
+            if eng is None:
+                return
+            if state["burning"]:
+                eng._slo_burning = eng._slo_burning | {objective.name}
+            else:
+                eng._slo_burning = eng._slo_burning - {objective.name}
+            registry().gauge("slo_burning").set(len(eng._slo_burning))
+
+        self._slo = monitor
+        monitor.subscribe(_on_transition)
+        monitor.evaluate()
+
+    def _slo_observe(self, metric: str, value: float) -> None:
+        if self._slo is not None:
+            self._slo.observe(metric, value)
 
     # -- admission / seating -------------------------------------------
 
@@ -287,7 +487,6 @@ class Engine:
         lease = None
         hit = 0
         row_offset = self.prompt_len - int(ids.shape[0])
-        greedy = None
         pool = self.adapter_pool
         reloads0 = pool.num_reloads if pool is not None else 0
         tenant_pinned = False
@@ -309,27 +508,16 @@ class Engine:
                                       dtype=np.int32)[None, :]
                 logits, row_cache = self.chunk_prefill_call(
                     self.params, rows, suffix, positions)
-                greedy = getattr(self.chunk_prefill_call, "greedy", None)
                 row_offset = 0  # chunk rows are already left-aligned
+                # A captured call's logits and argmax are its graph's
+                # buffers: the token is read before the next call replays.
+                first = first_token(
+                    logits, req,
+                    getattr(self.chunk_prefill_call, "greedy", None))
             else:
                 hit = 0  # no chunk call: a full prefill, pages dedup only
-                pad = self.prompt_len - ids.shape[0]
-                padded = np.concatenate([np.zeros(pad, np.int32), ids])[None, :]
-                mask = np.concatenate(
-                    [np.zeros(pad, np.int32), np.ones(ids.shape[0], np.int32)]
-                )[None, :]
-                if pool is not None:
-                    logits, row_cache = self.prefill_call(
-                        self.params, padded, mask, pool.pools, arow[None, :],
-                        np.float32([ascale]))
-                else:
-                    logits, row_cache = self.prefill_call(self.params, padded,
-                                                          mask)
-                greedy = getattr(self.prefill_call, "greedy", None)
-            # A captured prefill's logits, argmax and row cache are its
-            # graph's buffers: the token is read here and _install copies
-            # the row into the slot, both before the next prefill replays.
-            first = first_token(logits, req, greedy)
+                row_cache, first = self._full_prefill(
+                    ids, req, (arow, ascale) if pool is not None else None)
         except BaseException:
             if lease is not None:
                 self.cache.release_lease(lease[1])
@@ -346,28 +534,73 @@ class Engine:
                         "prefix_hit_tokens": hit})
         if hit:
             registry().counter("serve_prefix_hit_tokens").inc(hit)
-        self.num_prefills += 1
-        registry().counter("serve_prefills").inc()
+        self._count_prefill()
         self._install(entry, slot, row_cache, first, ids.shape[0], t0, now,
                       pool.num_reloads - reloads0 if pool is not None else 0,
-                      lease=lease, row_offset=row_offset, prefix_hit=hit)
+                      lease=lease, row_offset=row_offset, prefix_hit=hit,
+                      tenant_pinned=pool is not None)
+
+    def _full_prefill(self, ids: np.ndarray, req: Request,
+                      adapter=None):
+        """The batch-1 prefill of ``ids``, left-padded to the prompt
+        window, and its first token: ``(row_cache, first)``. ``adapter``
+        is the tenant's pinned ``(row, scale)`` on an adapter engine. A
+        captured prefill's logits, argmax and row cache are its graph's
+        buffers: the token is read here, and the caller copies the row
+        (``_install``, ``_Prefilled``) before the next prefill replays."""
+        pad = self.prompt_len - ids.shape[0]
+        padded = np.concatenate([np.zeros(pad, np.int32), ids])[None, :]
+        mask = np.concatenate(
+            [np.zeros(pad, np.int32), np.ones(ids.shape[0], np.int32)]
+        )[None, :]
+        if adapter is not None:
+            arow, ascale = adapter
+            logits, row_cache = self.prefill_call(
+                self.params, padded, mask, self.adapter_pool.pools,
+                arow[None, :], np.float32([ascale]))
+        else:
+            logits, row_cache = self.prefill_call(self.params, padded, mask)
+        return row_cache, first_token(
+            logits, req, getattr(self.prefill_call, "greedy", None))
+
+    def _count_prefill(self) -> None:
+        self.num_prefills += 1
+        registry().counter("serve_prefills").inc()
+
+    def _seat_prefilled(self, item: _Prefilled, slot: int) -> None:
+        """Seat a request another engine already prefilled (prefill/decode
+        disaggregation): the same seat, no local prefill."""
+        self._install(item.entry, slot, item.row_cache, item.first_token,
+                      item.prompt_ids_len, item.t_popped, item.t_first)
 
     def _install(self, entry: _Entry, slot: int, row_cache: Any,
                  first: int, ids_len: int, t_popped: float,
                  t_first: float, adapter_reloads: int = 0, lease=None,
-                 row_offset: int = 0, prefix_hit: int = 0) -> None:
+                 row_offset: Optional[int] = None, prefix_hit: int = 0,
+                 tenant_pinned: bool = False) -> None:
         """Seat tail: cache insertion (dense copy, paged reservation and
         scatter, or radix-shared left-aligned seat), the draft cache's
         seat, adapter binding (the seat's pin moves to the slot), latency
-        accounting, slot activation."""
+        accounting, slot activation. ``row_offset`` None: a full
+        prefill's left-padded row."""
         req = entry.request
         tenant = req.tenant
+        if self.adapter_pool is not None and not tenant_pinned:
+            # Externally prefilled path (no _seat ran): pin here, so that
+            # a bound slot always holds a pin.
+            self.adapter_pool.acquire(tenant)
         try:
             if self.prefix_share:
+                if lease is None:
+                    # A handed-off full-prefill row: matched pages still
+                    # dedup (their values are identical).
+                    lease = self.cache.match_and_lease(
+                        np.asarray(req.input_ids, np.int32))
                 self.cache.seat_shared(
                     row_cache, slot, req.input_ids,
                     ids_len + req.max_new_tokens, lease=lease,
-                    row_offset=row_offset)
+                    row_offset=(self.prompt_len - ids_len
+                                if row_offset is None else row_offset))
             elif self.paged:
                 self.cache.seat(
                     row_cache, slot, self.prompt_len - ids_len,
@@ -391,6 +624,8 @@ class Engine:
         reg = registry()
         reg.histogram("serve_queue_wait_ms").observe(queue_wait_ms)
         reg.histogram("serve_ttft_ms").observe(ttft_ms)
+        self._slo_observe("serve_queue_wait_ms", queue_wait_ms)
+        self._slo_observe("serve_ttft_ms", ttft_ms)
         s = _Slot(entry, first, ids_len, t_popped, t_first)
         s.adapter_reloads = adapter_reloads
         s.prefix_hit = prefix_hit
@@ -403,23 +638,82 @@ class Engine:
     def _active(self) -> bool:
         return any(s is not None for s in self._slots)
 
+    def _free_slot(self) -> Optional[int]:
+        return next((i for i, s in enumerate(self._slots) if s is None), None)
+
     def _fill_slots(self) -> None:
-        """Seat queued work into empty slots. Static mode only refills
-        once the WHOLE batch drained; continuous mode refills the moment
-        a slot frees."""
+        """Seat work into empty slots: migrated-in requests first, then
+        prefilled ones, then the queue. Static mode only refills once the
+        WHOLE batch drained; continuous mode refills the moment a slot
+        frees."""
+        if self._slo is not None:
+            # Drive burn transitions from the engine's own thread (the
+            # subscriber flips _slo_burning synchronously), then shed:
+            # queued work would only be served into a blown objective.
+            self._slo.evaluate()
+            if self._slo_burning and len(self.queue):
+                self._record_shed(self.queue.drain_all(), "shed_slo")
         if not self.continuous and self._active():
             return
-        if not self.paged and not self._active() and len(self.queue):
+        if (not self.paged and not self._active()
+                and (len(self.queue) or self.prefill_inbox)):
             # Batch drained with work queued: recover the full write
             # horizon before seating the next wave.
             if self.cache.write_index > self.prompt_len:
                 self.cache.reset()
                 self.num_rollovers += 1
                 registry().counter("serve_rollovers").inc()
+        # Migrated-in requests seat FIRST: their prefill and some decode
+        # are paid, and every step of delay widens the client's stall.
+        while self.migrate_inbox:
+            slot = self._free_slot()
+            if slot is None:
+                break
+            item = self.migrate_inbox[0]
+            try:
+                meta = item.ensure_parsed()
+            except Exception as e:
+                # Corrupt transfer: caught by the crc at the door, shed
+                # as failed — never resumed.
+                self.migrate_inbox.popleft()
+                self._fail_migrated(item.rid, e, lease=item.lease)
+                continue
+            if not self._fits_migrated(meta):
+                if self._fits_migrated(meta, empty=True):
+                    break  # fits once seated work frees pages
+                self.migrate_inbox.popleft()
+                self._fail_migrated(
+                    item.rid, RuntimeError(
+                        "migrated reservation cannot fit this cache even "
+                        "empty"), lease=item.lease, meta=meta)
+                continue
+            self.migrate_inbox.popleft()
+            try:
+                self.install_migrated(meta, slot=slot, lease=item.lease)
+            except (MigrationCorruptError, MigrationCompatError,
+                    ValueError, RuntimeError) as e:
+                # install/import released the lease on their own failure
+                # paths: report only.
+                self._fail_migrated(item.rid, e, meta=meta)
+        # Prefilled requests next: their prefill is paid, a queue pop
+        # would pay one here.
+        while self.prefill_inbox:
+            slot = self._free_slot()
+            if slot is None:
+                break
+            head = self.prefill_inbox[0].entry.request
+            if not self._fits(head):
+                if self._fits(head, empty=True):
+                    break  # fits once seated work frees capacity
+                # A never-fitting head would block every prefilled request
+                # behind it forever (the inbox has no fit-filtered pop):
+                # shed it.
+                self._record_shed([self.prefill_inbox.popleft().entry],
+                                  "shed_capacity")
+                continue
+            self._seat_prefilled(self.prefill_inbox.popleft(), slot)
         while True:
-            slot = next(
-                (i for i, s in enumerate(self._slots) if s is None), None
-            )
+            slot = self._free_slot()
             if slot is None:
                 break
             entry, shed = self.queue.pop(fit=self._fits)
@@ -437,34 +731,290 @@ class Engine:
             sum(s is not None for s in self._slots)
         )
 
-    def _fits(self, request) -> bool:
-        """Can this request be seated RIGHT NOW? Dense: its worst case
-        fits the remaining shared write horizon. Paged: its worst case
-        fits the per-slot bound and enough pool pages are free to reserve
-        it up front (so it never strands mid-decode). Radix mode counts
-        only the UNSHARED pages (matched prefix pages seat for free), and
-        left-aligned seating reserves from the real prompt length, not the
-        padded window. A speculating engine also needs room in the draft
-        cache. With adapters, the tenant's pages must be securable too
-        (resident, or loadable by evicting lease-free adapters)."""
-        if self.adapter_pool is not None and request.tenant is not None:
-            if not self.adapter_pool.can_seat(request.tenant):
+    def _fits(self, request, empty: bool = False) -> bool:
+        """Can this request be seated RIGHT NOW (``empty``: in an EMPTY
+        cache, where False means waiting can never help)? Radix mode
+        reserves from the real prompt length (left-aligned seating; its
+        matched prefix pages seat for free), the others from the padded
+        window; pad-aligned draft seating reserves the full window."""
+        spec = self.speculator is not None
+        return self._can_reserve(
+            (len(request.input_ids) if self.prefix_share else self.prompt_len)
+            + request.max_new_tokens,
+            self.prompt_len + request.max_new_tokens if spec else None,
+            request.input_ids,
+            request.tenant if self.adapter_pool is not None else None,
+            self.prefix_share, empty)
+
+    def _fits_migrated(self, meta: dict, empty: bool = False) -> bool:
+        """``_fits`` for a migrated payload's reservation: rows written so
+        far plus one a token still to generate, the draft's the same
+        (lens-lockstep); the radix path credits the matched prefix of a
+        left-aligned payload, and a tenant's adapter must be securable."""
+        reserve = int(meta["reserve_tokens"])
+        req = meta["request"]
+        return self._can_reserve(
+            reserve,
+            reserve if self.speculator is not None and "draft" in meta
+            else None,
+            req["input_ids"], req.get("tenant"),
+            self.prefix_share and bool(meta.get("left_aligned")), empty)
+
+    def _can_reserve(self, need: int, draft_need: Optional[int], ids,
+                     tenant: Any, shared: bool, empty: bool) -> bool:
+        """The admission policy, in one place: can ``need`` target rows
+        (and ``draft_need`` draft rows; None without a draft) be reserved
+        up front, so a seated request never strands mid-decode, now or
+        (``empty``) in an empty cache? Dense: the worst case fits the
+        remaining shared write horizon. Paged: it fits the per-slot
+        bound and enough pool pages are free (page 0 is the trash page;
+        radix mode counts only the pages the tree does not hold for
+        ``ids`` when ``shared``, and evicts cached pages on demand).
+        ``tenant``: the adapter the seat pins (resident, or loadable by
+        evicting lease-free adapters); an engine without an adapter pool
+        cannot pin one."""
+        if need > self.max_seq_len:
+            return False
+        if tenant is not None:
+            pool = self.adapter_pool
+            if pool is None or not (pool.can_ever_seat(tenant) if empty
+                                    else pool.can_seat(tenant)):
                 return False
+        if draft_need is not None:
+            dc = self.speculator.cache
+            if draft_need > dc.max_seq_len or not (
+                    dc.pages_needed(draft_need) <= dc.num_pages - 1 if empty
+                    else dc.fits_tokens(draft_need)):
+                return False
+        if not self.paged:
+            return empty or (max(self.cache.write_index, self.prompt_len)
+                             - self.prompt_len + need <= self.max_seq_len)
+        if empty:
+            return self.cache.pages_needed(need) <= self.cache.num_pages - 1
+        if shared:
+            return self.cache.fits_request(ids, need)
+        return self.cache.fits_tokens(need)
+
+    # -- page-granular migration ---------------------------------------
+
+    def export_request(self, rid: Any, skip_prefix_tokens: int = 0):
+        """Ship one SEATED request's decode state — its KV pages (int8 as
+        int8), generated tokens, sampling position (the ``fold_in`` token
+        index) and absolute deadline — as a crc32-guarded payload that
+        another engine's ``install_migrated`` resumes with no prefill. A
+        speculating engine also ships the draft's rows, as a nested
+        payload under the ``draft:payload`` leaf, so draft and target
+        cross in lens-lockstep. Returns ``None`` when the request is not
+        seated here, the cache is dense (dense rows are not
+        position-independent), or an id does not survive JSON: the
+        caller's cue to resubmit from scratch.
+
+        ``skip_prefix_tokens`` leaves that many leading rows out (the
+        caller probed and LEASED them in the target's radix tree).
+        The slot is freed only once the payload exists in full."""
+        if not self.paged:
+            return None
+        slot = next((i for i, s in enumerate(self._slots)
+                     if s is not None and s.request.request_id == rid), None)
+        if slot is None:
+            return None
+        s = self._slots[slot]
+        req = s.request
+        # The meta is JSON: an id (or tenant key) that does not round-trip
+        # would resume under a MUTATED identity, or an unhashable one.
+        for value in (req.request_id, req.session_key, req.tenant):
+            try:
+                if json.loads(json.dumps(value)) != value:
+                    return None
+            except (TypeError, ValueError):
+                return None
+        skip = int(skip_prefix_tokens)
+        if skip and int(self.cache.start[slot]) != 0:
+            skip = 0  # pad-aligned rows cannot ship by tree reference
+        t0 = self.clock()
+        meta = {
+            "request": {
+                "request_id": req.request_id,
+                "input_ids": [int(t) for t in req.input_ids],
+                "max_new_tokens": req.max_new_tokens,
+                "eos_id": req.eos_id,
+                "temperature": req.temperature,
+                "seed": req.seed,
+                "priority": req.priority,
+                "deadline_s": req.deadline_s,
+                "session_key": req.session_key,
+                # Failover re-pins the tenant's adapter on the target.
+                "tenant": req.tenant,
+            },
+            "tokens": [int(t) for t in s.tokens],
+            "position": s.position,
+            "steps": s.steps,
+            "prompt_ids_len": len(req.input_ids),
+            "submitted_at": s.entry.submitted_at,
+            "deadline_at": s.entry.deadline,
+            "t_seated": s.t_seated,
+            "t_first": s.t_first,
+            "t_last": s.t_last,
+            # Moves survived so far: the target counts cumulatively.
+            "migrations": s.migrations,
+            # What the target must reserve: rows written so far plus one
+            # row per token still to generate.
+            "reserve_tokens": int(self.cache.lens[slot])
+            + max(0, req.max_new_tokens - len(s.tokens)),
+        }
+        extra_leaves = []
         if self.speculator is not None:
-            # Pad-aligned draft seating reserves the full prompt window.
-            draft_need = self.prompt_len + request.max_new_tokens
-            if draft_need > self.speculator.cache.max_seq_len or not (
-                    self.speculator.cache.fits_tokens(draft_need)):
-                return False
-        if self.prefix_share:
-            need = len(request.input_ids) + request.max_new_tokens
-            return need <= self.max_seq_len and self.cache.fits_request(
-                request.input_ids, need)
-        if self.paged:
-            need = self.prompt_len + request.max_new_tokens
-            return need <= self.max_seq_len and self.cache.fits_tokens(need)
-        base = max(self.cache.write_index, self.prompt_len)
-        return base + request.max_new_tokens <= self.max_seq_len
+            # Draft lens equals target lens between windows, so the
+            # reserve formula is the target's.
+            draft_reserve = int(self.speculator.cache.lens[slot]) + max(
+                0, req.max_new_tokens - len(s.tokens))
+            draft_bytes = self.speculator.export_slot(
+                slot, req.input_ids, draft_reserve)
+            meta["draft"] = {"k": self.speculator.k,
+                             "nbytes": len(draft_bytes)}
+            extra_leaves.append(
+                ("draft:payload", np.frombuffer(draft_bytes, np.uint8)))
+        payload = self.cache.export_request(
+            slot, meta, skip_tokens=skip, extra_leaves=extra_leaves)
+        # Commit point: the payload exists in full — the local copy of
+        # this request ends here (no double decode, no late Result).
+        self.cache.free(slot)
+        if self.speculator is not None:
+            self.speculator.free(slot)
+        if self.adapter_pool is not None:
+            self.adapter_pool.free_slot(slot)
+        self._slots[slot] = None
+        reg = registry()
+        reg.counter("serve_migrations_exported").inc()
+        reg.counter("serve_migration_payload_bytes").inc(len(payload))
+        rec = active_recorder()
+        if rec is not None:
+            rec.event("migration_export", CAT_SERVE_REQUEST,
+                      request_id=rid, payload_bytes=len(payload),
+                      skip_tokens=skip, tokens_done=len(s.tokens),
+                      export_s=self.clock() - t0)
+        return payload
+
+    def install_migrated(self, payload, slot: Optional[int] = None,
+                         lease=None) -> Any:
+        """Seat an ``export_request`` payload into a free slot and resume
+        decode where it stopped: the rows scatter into fresh pages, the
+        sampling stream continues at the recorded token index, and no
+        prefill runs here. The payload's absolute deadline holds: a
+        transfer that used up the client's budget is recorded as
+        ``shed_timeout``, never resumed. A tenant's adapter is pinned
+        before any row lands. Raises ``MigrationCorruptError`` on a
+        payload that fails the crc and ``MigrationCompatError`` on one
+        this engine cannot seat. Returns the request_id."""
+        try:
+            if not self.paged:
+                raise ValueError(
+                    "migration requires a paged cache (dense rows are not "
+                    "position-independent)")
+            meta = (payload if isinstance(payload, dict)
+                    and "_arrays" in payload
+                    else parse_migration(_received(payload)))
+            if self.speculator is not None and "draft" not in meta:
+                # The draft cache would start empty while the target is
+                # mid-stream: lens-lockstep broken.
+                raise MigrationCompatError(
+                    "this engine speculates but the payload carries no "
+                    "draft remainder")
+            req = Request(**meta["request"])
+            entry = _Entry(priority=req.priority, seq=0, request=req,
+                           deadline=meta.get("deadline_at"),
+                           submitted_at=meta["submitted_at"])
+        except BaseException:
+            if self.paged:
+                self.cache.release_lease(lease[1] if lease else None)
+            raise
+        if entry.deadline is not None and self.clock() > entry.deadline:
+            # The transfer ate the remaining budget: shed at the door.
+            self.cache.release_lease(lease[1] if lease else None)
+            self._record_shed([entry], "shed_timeout")
+            return req.request_id
+        if slot is None:
+            slot = self._free_slot()
+        if slot is None:
+            self.cache.release_lease(lease[1] if lease else None)
+            raise RuntimeError("no free slot for the migrated request "
+                               "(callers check for one before installing)")
+        tenant_pinned = False
+        if req.tenant is not None:
+            if self.adapter_pool is None or not (
+                    self.adapter_pool.knows(req.tenant)):
+                self.cache.release_lease(lease[1] if lease else None)
+                raise MigrationCompatError(
+                    f"migrated request is tenant {req.tenant!r} but this "
+                    f"engine's adapter pool does not serve it")
+            # Resuming a tenant's decode on the bare base would silently
+            # change its tokens.
+            self.adapter_pool.acquire(req.tenant)
+            tenant_pinned = True
+        try:
+            # Consumes the lease: released on every import failure path.
+            self.cache.import_request(meta, slot, lease=lease)
+            if self.adapter_pool is not None:
+                self.adapter_pool.bind_slot(slot, req.tenant)
+            if self.speculator is not None:
+                try:
+                    self.speculator.import_slot(
+                        slot,
+                        meta["_arrays"]["draft:payload"].numpy().tobytes())
+                except BaseException:
+                    # Target rows already landed: unwind them (both caches
+                    # seat, or neither).
+                    self.cache.free(slot)
+                    if self.adapter_pool is not None:
+                        self.adapter_pool.free_slot(slot)
+                    raise
+        except BaseException:
+            if tenant_pinned:
+                self.adapter_pool.release(req.tenant)
+            raise
+        s = _Slot(entry, int(meta["tokens"][0]), int(meta["prompt_ids_len"]),
+                  float(meta["t_seated"]), float(meta["t_first"]))
+        s.tokens = [int(t) for t in meta["tokens"]]
+        s.position = int(meta["position"])
+        s.steps = int(meta["steps"])
+        s.t_last = float(meta["t_last"])
+        s.gap_origin = float(meta["t_last"])
+        # This install is one more move than the payload survived.
+        s.migrations = int(meta.get("migrations", 0)) + 1
+        self._slots[slot] = s
+        registry().counter("serve_migrations_installed").inc()
+        registry().gauge("serve_slots_busy").set(
+            sum(x is not None for x in self._slots))
+        rec = active_recorder()
+        if rec is not None:
+            rec.event("migration_install", CAT_SERVE_REQUEST,
+                      request_id=req.request_id, slot=slot,
+                      resumed_at_token=len(s.tokens))
+        return req.request_id
+
+    def _fail_migrated(self, rid: Any, exc: BaseException, lease=None,
+                       meta: Optional[dict] = None) -> None:
+        """A migrated payload that cannot be resumed (corrupt transfer,
+        incompatible cache, unseatable reservation) becomes a ``failed``
+        Result: the generation state is gone and resuming garbage is not
+        allowed. ``meta`` is the parsed payload when the transfer passed
+        the crc. tpudl also writes the terminal request-log record here,
+        billing the payload's tenant (ROADMAP queue A item 16(b))."""
+        if lease is not None and self.paged:
+            self.cache.release_lease(lease[1])
+        self.results[rid] = Result(
+            request_id=rid, tokens=[],
+            finish_reason=f"failed: {type(exc).__name__}: {exc}")
+        reg = registry()
+        reg.counter("serve_requests_failed").inc()
+        reg.counter("serve_migrations_failed").inc()
+        rec = active_recorder()
+        if rec is not None:
+            mreq = (meta or {}).get("request") or {}
+            rec.event("request_complete", CAT_SERVE_REQUEST, request_id=rid,
+                      finish_reason="failed",
+                      error=f"{type(exc).__name__}: {exc}", num_tokens=0,
+                      shed_by="migration", tenant=mreq.get("tenant"))
 
     # -- stepping ------------------------------------------------------
 
@@ -498,6 +1048,7 @@ class Engine:
         reg.counter("serve_tokens_generated").inc(n)
         if tpot is not None:
             reg.histogram("serve_tpot_ms").observe(1e3 * tpot)
+            self._slo_observe("serve_tpot_ms", 1e3 * tpot)
         rec = active_recorder()
         if rec is not None:
             rec.event(
@@ -507,8 +1058,8 @@ class Engine:
                 generation_s=s.t_last - s.t_first, num_tokens=n,
                 # The tenant and the reloads its seating paid, the prompt
                 # tokens the radix cache served, the draft tokens proposed
-                # and accepted (tpudl writes these into its request log,
-                # not ported yet).
+                # and accepted, the moves survived (tpudl writes these into
+                # its request log: ROADMAP queue A item 16(b)).
                 **({"tenant": req.tenant, "adapter_reloads":
                     s.adapter_reloads} if self.adapter_pool is not None
                    else {}),
@@ -517,6 +1068,7 @@ class Engine:
                 **({"spec_proposed": s.spec_proposed,
                     "spec_accepted": s.spec_accepted}
                    if self.speculator is not None else {}),
+                **({"migrations": s.migrations} if s.migrations else {}),
             )
         self.cache.free(slot)
         if self.speculator is not None:
@@ -584,6 +1136,7 @@ class Engine:
                 continue
             s.position += 1
             s.steps += 1
+            self._observe_gap(s, now)
             s.t_last = now
             tok = int(sel[i])
             s.tokens.append(tok)
@@ -671,6 +1224,7 @@ class Engine:
             spec.sync_len(i, n)
             s.position += n
             s.steps += n
+            self._observe_gap(s, now)
             s.t_last = now
             s.spec_proposed += k
             s.spec_accepted += min(accepted, n)
@@ -707,10 +1261,25 @@ class Engine:
         # is the per-STREAM acceptance rate.
         reg.counter("spec_slot_steps").inc(len(active))
 
+    @staticmethod
+    def _observe_gap(s: _Slot, now: float) -> None:
+        if s.gap_origin is not None:
+            # The first token after a migration: the client's stream
+            # stalled from the SOURCE's last token until now (the
+            # failover token gap; tpudl observes it on the plain decode
+            # step, the port on the speculative window too).
+            registry().histogram("serve_failover_token_gap_ms").observe(
+                1e3 * (now - s.gap_origin))
+            s.gap_origin = None
+
     def step(self) -> bool:
         """Seat what fits, run one decode step (a speculative window when
         a speculator is attached). False when fully drained (no active
         slots and nothing seatable queued)."""
+        for hook in self.chaos_hooks:
+            # Fault injection (tpudl_torch.serve.chaos): a kill hook
+            # raises, a freeze hook sleeps here holding the whole loop.
+            hook(self.num_decode_steps)
         self._fill_slots()
         if not self._active():
             # Nothing seated: the queue is empty or held only expired

@@ -37,8 +37,9 @@ never saw ``p_k``).
 
 The engine drives this through ``Engine._spec_step``; ``Speculator``
 owns the draft calls and the draft's KV cache; the acceptance rules are
-host functions. Migration of a draft slot (``export_slot`` /
-``import_slot``) is not ported yet (ROADMAP queue A item 3).
+host functions. A migrated request takes its draft rows along
+(``export_slot`` / ``import_slot``: a nested payload in the target's
+format), so draft and target resume in lockstep.
 """
 
 from __future__ import annotations
@@ -46,10 +47,6 @@ from __future__ import annotations
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
-
-#: The ROADMAP item that ports migration (the cache's _ITEM says the same).
-_ITEM = "ROADMAP queue A item 3"
-
 
 def _philox(seed: int, token_index: int, salt: int) -> np.random.Generator:
     """Counter-keyed per-(request, position) randomness: deterministic
@@ -180,15 +177,29 @@ class Speculator:
 
     # -- migration ------------------------------------------------------
 
-    def export_slot(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"Speculator.export_slot (draft migration) is not ported to "
-            f"tpudl_torch yet ({_ITEM}: migration)")
+    def export_slot(self, slot: int, input_ids, reserve_tokens: int) -> bytes:
+        """This slot's draft KV as its own nested migration payload (the
+        draft cache is a PagedKVCache: same pack and crc). The draft's
+        rows differ from the target's (another model), so they ship as
+        bytes. Non-destructive, like the cache's export."""
+        meta = {
+            "request": {"input_ids": [int(t) for t in input_ids]},
+            "reserve_tokens": int(reserve_tokens),
+        }
+        return self.cache.export_request(slot, meta)
 
-    def import_slot(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"Speculator.import_slot (draft migration) is not ported to "
-            f"tpudl_torch yet ({_ITEM}: migration)")
+    def import_slot(self, slot: int, draft_payload) -> None:
+        """Seat a nested draft payload into the draft cache at ``slot``:
+        the draft is then back in lens-lockstep with the target's imported
+        rows, and the next ``propose`` window runs as if the request never
+        moved. Raises the cache's MigrationCorruptError /
+        MigrationCompatError on a payload this draft cannot seat."""
+        from tpudl_torch.serve.cache import parse_migration
+
+        meta = (draft_payload if isinstance(draft_payload, dict)
+                and "_arrays" in draft_payload
+                else parse_migration(draft_payload))
+        self.cache.import_request(meta, slot)
 
     # -- the propose loop ----------------------------------------------
 

@@ -104,6 +104,7 @@ from tpudl_torch.graphs import Graph, StaticInputs
 from tpudl_torch.models import remat
 from tpudl_torch.models.resnet import BatchNorm
 from tpudl_torch.obs import counters as obs_counters
+from tpudl_torch.obs import exporter as obs_exporter
 from tpudl_torch.obs import spans as obs_spans
 from tpudl_torch.ops.cross_entropy import softmax_cross_entropy
 from tpudl_torch.ops.moe import take_moe_aux_losses
@@ -899,7 +900,10 @@ def fit(
     it is queued, so a step span converges to the device's step time
     only once the host waits on the card (a full queue, a readback).
     tpudl_torch.obs.goodput classifies the records. With no recorder,
-    fit reads nothing more back and records nothing.
+    fit reads nothing more back and records nothing. With TPUDL_OBS_PORT
+    set fit starts the live exporter (tpudl_torch.obs.exporter); either
+    way the ``train_loop`` heartbeat beats once per step call and the
+    ``train_last_step`` gauge follows it.
 
     Profiling (tpudl's): with ``profile_dir`` (or TPUDL_PROFILE_DIR)
     set, steps [profile_window[0], profile_window[1]) are recorded with
@@ -940,6 +944,13 @@ def fit(
         except (TypeError, ValueError):
             pass
     data_position = getattr(batches, "state", None)
+    # Live telemetry (tpudl_torch.obs.exporter): with TPUDL_OBS_PORT set
+    # the process serves /metrics, /healthz and /snapshot while fit runs;
+    # the train_loop heartbeat beats once per dispatch, so a hung loop
+    # reads as a growing heartbeat age on /healthz.
+    obs_exporter.maybe_start_from_env()
+    heartbeat = obs_exporter.Heartbeat("train_loop")
+    g_last_step = obs_counters.registry().gauge("train_last_step")
 
     def save(step_no):
         if full_resume:
@@ -1000,6 +1011,8 @@ def fit(
                         rec.record("train_step", obs_spans.CAT_STEP,
                                    t0, t1 - t0, {"step": n})
                         h_step.observe(t1 - t0)
+            heartbeat.beat(step=n + 1)
+            g_last_step.set(start_step + n + 1)
             if profiler is not None and n + 1 >= prof_stop:
                 trace = _stop_profile(profiler, profile_dir, state)
                 profiler = None
@@ -1023,6 +1036,9 @@ def fit(
                 precision_mod.publish_numerics_telemetry(
                     getattr(state, "precision", None))
     finally:
+        # An orderly exit (or unwind) is "finished", not "hung": a stopped
+        # heartbeat is never stale on /healthz.
+        heartbeat.stop()
         if profiler is not None:
             # The window outlived the batches: keep what it recorded.
             trace = _stop_profile(profiler, profile_dir, state)
